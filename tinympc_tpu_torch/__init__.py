@@ -1,0 +1,28 @@
+"""tinympc_tpu_torch: the PyTorch/CUDA port of tinympc_tpu for NVIDIA Hopper.
+
+It imports ``torch`` and ``numpy`` only, never JAX or the JAX package.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
+
+    import tinympc_tpu_torch as tt
+    s = tt.systems.quadrotor_20hz()
+    prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                    N=20, dtype=torch.float32)
+    prob = tt.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5, u_max=0.5)
+    prob = tt.with_settings(prob, max_iter=100, check_termination=25)
+    sol, res = tt.kernels.solve_fused(prob, Xref, None, x0s)   # CUDA kernel
+    sol, state, cache = tt.solve(prob, tt.init_state(prob, (B,)), Xref,
+                                 None, x0s)                    # plain PyTorch
+"""
+from . import admm, convert, kernels, systems
+from .admm import solve
+from .api import init_state, setup, with_bounds, with_settings
+from .riccati import precompute_cache
+from .types import (Cache, ConstraintData, ProblemSpec, Settings, Solution,
+                    SolverState, TinyProblem)
+
+__all__ = [
+    "admm", "convert", "kernels", "systems", "solve", "init_state", "setup",
+    "with_bounds", "with_settings", "precompute_cache", "Cache",
+    "ConstraintData", "ProblemSpec", "Settings", "Solution", "SolverState",
+    "TinyProblem",
+]

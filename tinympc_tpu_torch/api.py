@@ -1,0 +1,136 @@
+"""User-facing functional API (counterpart of ``tinympc_tpu.api``).
+
+    prob = setup(A, B, Q, R, rho=5.0, N=10)          # tiny_setup, on cuda
+    prob = with_bounds(prob, x_min=-5, x_max=5, u_min=-0.5, u_max=0.5)
+    prob = with_settings(prob, max_iter=100, check_termination=25)
+    sol, res = kernels.solve_fused(prob, Xref, None, x0s)
+
+Problems live on one device, given explicitly. With no ``device`` argument
+:func:`setup` places the problem on ``cuda`` and raises when there is no
+GPU; it never falls back to the CPU. Pass ``device="cpu"`` to run the plain
+PyTorch path on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from .riccati import precompute_cache
+from .types import ConstraintData, ProblemSpec, Settings, SolverState, \
+    TinyProblem
+from .types import init_state as _init_state_spec
+
+
+def _resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means ``cuda``, which must
+    exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the host")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _default_dtype(A) -> torch.dtype:
+    """The dtype of ``A`` when it is float32 or float64, else float32."""
+    dt = A.dtype if isinstance(A, torch.Tensor) else \
+        torch.from_numpy(np.asarray(A)).dtype
+    return dt if dt in (torch.float32, torch.float64) else torch.float32
+
+
+def _as_tensor(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a) if not isinstance(a, torch.Tensor)
+                           else a, dtype=dtype, device=device)
+
+
+def _as_diag(M, dtype, device) -> torch.Tensor:
+    """Accept a diagonal vector or a full matrix; full matrices contribute
+    only their diagonal, exactly like tiny_setup (tiny_api.cpp:117-118)."""
+    M = _as_tensor(M, dtype, device)
+    return torch.diagonal(M).clone() if M.ndim == 2 else M
+
+
+def setup(A, B, Q, R, rho, N, f=None, *, settings: Settings = Settings(),
+          dtype=None, device=None) -> TinyProblem:
+    """Build a problem and its Riccati cache (reference tiny_setup,
+    tiny_api.cpp:21-147) on ``device`` (default ``cuda``)."""
+    device = _resolve_device(device)
+    if dtype is None:
+        dtype = _default_dtype(A)
+    A = _as_tensor(A, dtype, device)
+    B = _as_tensor(B, dtype, device)
+    nx, nu = B.shape
+    f = torch.zeros(nx, dtype=dtype, device=device) if f is None \
+        else _as_tensor(f, dtype, device).reshape(nx)
+    Qdiag = _as_diag(Q, dtype, device)
+    Rdiag = _as_diag(R, dtype, device)
+    rho = torch.as_tensor(rho, dtype=dtype, device=device)
+
+    # work->Q = (Q + rho*I).diagonal() (tiny_api.cpp:117-118)
+    Qdiag_aug = Qdiag + rho
+    Rdiag_aug = Rdiag + rho
+    cache = precompute_cache(A, B, f, Qdiag_aug, Rdiag_aug, rho)
+
+    spec = ProblemSpec(nx=nx, nu=nu, N=N)
+    # Bounds default to +-inf (identity projection) rather than the
+    # reference's uninitialised empty matrices.
+    inf = float("inf")
+    kw = dict(dtype=dtype, device=device)
+    cons = ConstraintData(
+        x_min=torch.full((N, nx), -inf, **kw),
+        x_max=torch.full((N, nx), inf, **kw),
+        u_min=torch.full((N - 1, nu), -inf, **kw),
+        u_max=torch.full((N - 1, nu), inf, **kw),
+    )
+    return TinyProblem(A=A, B=B, f=f, Qdiag=Qdiag_aug, Rdiag=Rdiag_aug,
+                       cache=cache, cons=cons, spec=spec, settings=settings)
+
+
+def _bcast(v, shape, prob: TinyProblem) -> torch.Tensor:
+    v = _as_tensor(v, prob.dtype, prob.device)
+    return torch.broadcast_to(v, shape).contiguous()
+
+
+def with_bounds(prob: TinyProblem, x_min=None, x_max=None, u_min=None,
+                u_max=None, enable: bool = True) -> TinyProblem:
+    """Box constraints (tiny_set_bound_constraints, tiny_api.cpp:149-174).
+    Scalars and (nx,) rows broadcast over the horizon."""
+    spec = prob.spec
+    xs, us = (spec.N, spec.nx), (spec.N - 1, spec.nu)
+    c = prob.cons
+    cons = dataclasses.replace(
+        c,
+        x_min=_bcast(x_min, xs, prob) if x_min is not None else c.x_min,
+        x_max=_bcast(x_max, xs, prob) if x_max is not None else c.x_max,
+        u_min=_bcast(u_min, us, prob) if u_min is not None else c.u_min,
+        u_max=_bcast(u_max, us, prob) if u_max is not None else c.u_max,
+    )
+    spec = dataclasses.replace(spec, en_state_bound=enable,
+                               en_input_bound=enable)
+    return prob.replace(cons=cons, spec=spec)
+
+
+def with_settings(prob: TinyProblem, **kw) -> TinyProblem:
+    """Override settings fields (tiny_update_settings, tiny_api.cpp:388-411).
+    Settings the solvers do not implement are accepted here and rejected by
+    the solver that is asked to run them."""
+    settings = dataclasses.replace(prob.settings, **kw)
+    if settings.adaptive_rho_tolerance < 1.0:
+        raise ValueError(
+            "adaptive_rho_tolerance must be >= 1 (1.0 = the reference's "
+            "unconditional adaptation)")
+    if settings.coarse_iters < 0:
+        raise ValueError("coarse_iters must be >= 0")
+    return prob.replace(settings=settings)
+
+
+def init_state(prob: TinyProblem, batch_shape: Tuple[int, ...] = ()
+               ) -> SolverState:
+    """Zero workspace for this problem (tiny_setup's zero-init,
+    tiny_api.cpp:68-133), on the problem's device."""
+    return _init_state_spec(prob.spec, batch_shape, prob.dtype, prob.device)
