@@ -84,3 +84,90 @@ def test_port_problem_round_trips():
     assert torch.equal(q.cons.u_max, p.cons.u_max)
     q32 = problem_from_numpy(d, "cpu")
     assert q32.dtype == torch.float32 and q32.cache.Kinf.dtype == torch.float32
+
+
+def _quad_f32(max_iter, ct):
+    s = systems.quadrotor_20hz()
+    prob = tm.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                    N=10, dtype=jnp.float32)
+    prob = tm.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5,
+                          u_max=0.5)
+    return tm.with_settings(prob, max_iter=max_iter, check_termination=ct)
+
+
+def test_jax_carry_carried_across_continues_the_warm_sequence():
+    """Two warm solves in the JAX kernel (interpret mode), then its carry
+    read into the port: the next two solves from it agree with the JAX
+    package's next two. The f32 bar of tests/test_torch_warm.py (atol 1e-4,
+    counts within 1, equal solved flags); the port's carry written back to
+    numpy rebuilds the JAX carry exactly."""
+    from tinympc_tpu.kernels import FusedCarry as JaxCarry
+    from tinympc_tpu.kernels import init_carry, solve_fused_warm
+    from tinympc_tpu_torch.convert import carry_from_numpy, carry_to_numpy
+    pj = _quad_f32(25, 5)
+    pt = problem_from_numpy(problem_to_numpy(pj), "cpu", torch.float32)
+    B = 8
+    x0 = jnp.asarray(np.random.default_rng(2).uniform(-0.2, 0.2, (B, 12)),
+                     jnp.float32)
+    Xref = jnp.tile(jnp.asarray([0, 0, 0.5] + [0.0] * 9, jnp.float32),
+                    (10, 1))
+    cj = init_carry(pj, B)
+    for _ in range(2):
+        _, _, cj = solve_fused_warm(pj, Xref, None, x0, cj, tile=B,
+                                    interpret=True)
+    ct_ = carry_from_numpy(carry_to_numpy(cj), "cpu")
+    back = JaxCarry(**{k: jnp.asarray(v)
+                       for k, v in carry_to_numpy(ct_).items()})
+    for k in ("vnew", "znew", "g", "y", "v", "z"):
+        np.testing.assert_array_equal(np.asarray(getattr(back, k)),
+                                      np.asarray(getattr(cj, k)))
+    for _ in range(2):
+        sol_j, _, cj = solve_fused_warm(pj, Xref, None, x0, cj, tile=B,
+                                        interpret=True)
+        sol_t, _, ct_ = tt.kernels.solve_fused_warm(
+            pt, torch.as_tensor(np.array(Xref)), None,
+            torch.as_tensor(np.array(x0)), ct_)
+        np.testing.assert_allclose(sol_t.u.numpy(), np.asarray(sol_j.u),
+                                   rtol=0, atol=1e-4)
+        np.testing.assert_allclose(ct_.g.numpy(), np.asarray(cj.g), rtol=0,
+                                   atol=1e-4)
+        assert np.all(np.abs(sol_t.iter.numpy() - np.asarray(sol_j.iter))
+                      <= 1)
+        np.testing.assert_array_equal(sol_t.solved.numpy(),
+                                      np.asarray(sol_j.solved))
+
+
+def test_jax_state_carried_across_continues_the_closed_loop():
+    """Three closed-loop steps in the JAX package (float64), then its final
+    state read into the port: four more steps from it agree with the JAX
+    package's own four more. float64 both sides: exact counts, 1e-6."""
+    from tinympc_tpu.closed_loop import closed_loop
+    from tinympc_tpu_torch.convert import state_from_numpy, state_to_numpy
+    s = systems.quadrotor_20hz()
+    pj = tm.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                  N=10, dtype=jnp.float64)
+    pj = tm.with_settings(tm.with_bounds(pj, x_min=-5.0, x_max=5.0,
+                                         u_min=-0.5, u_max=0.5),
+                          max_iter=40)
+    pt = problem_from_numpy(problem_to_numpy(pj), "cpu", torch.float64)
+    B = 4
+    line = np.asarray(systems.trajectory("quadrotor_20hz_y_axis_line"))
+    x0 = line[0] + np.random.default_rng(4).uniform(-0.1, 0.1, (B, 12))
+    xs, us, _, _, st = closed_loop(pj, tm.init_state(pj, (B,)),
+                                   jnp.asarray(x0), jnp.asarray(line), 3)
+    x3 = np.asarray(pj.A) @ np.asarray(xs[-1]).T \
+        + np.asarray(pj.B) @ np.asarray(us[-1]).T
+    x3 = jnp.asarray(x3.T)
+    xs_j, us_j, it_j, sv_j, _ = closed_loop(pj, st, x3, jnp.asarray(line[3:]),
+                                            4)
+    st_t = state_from_numpy(state_to_numpy(st), "cpu", torch.float64)
+    assert st_t.iter.dtype == torch.int32 and st_t.solved.dtype == torch.bool
+    xs_t, us_t, it_t, sv_t, _ = tt.closed_loop(
+        pt, st_t, torch.as_tensor(np.array(x3)),
+        torch.as_tensor(line[3:]), 4)
+    np.testing.assert_array_equal(it_t.numpy(), np.asarray(it_j))
+    np.testing.assert_array_equal(sv_t.numpy(), np.asarray(sv_j))
+    np.testing.assert_allclose(xs_t.numpy(), np.asarray(xs_j), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(us_t.numpy(), np.asarray(us_j), rtol=0,
+                               atol=1e-6)

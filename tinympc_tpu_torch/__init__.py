@@ -12,16 +12,26 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``::
     sol, res = tt.kernels.solve_fused(prob, Xref, None, x0s)   # CUDA kernel
     sol, state, cache = tt.solve(prob, tt.init_state(prob, (B,)), Xref,
                                  None, x0s)                    # plain PyTorch
+
+The serving loop: ``kernels.solve_fused_warm`` with a ``FusedCarry``
+(``init_carry``, ``shift_carry``) for an external plant, and
+``kernels.closed_loop_fused`` for whole closed loops on the card, with
+``closed_loop`` / ``shift_state`` as their plain PyTorch counterpart.
 """
 from . import admm, convert, kernels, systems
 from .admm import solve
+from .closed_loop import closed_loop, shift_state
+from .kernels import (FusedCarry, closed_loop_fused, init_carry,
+                      shift_carry, solve_fused_warm)
 from .api import init_state, setup, with_bounds, with_settings
 from .riccati import precompute_cache
 from .types import (Cache, ConstraintData, ProblemSpec, Settings, Solution,
                     SolverState, TinyProblem)
 
 __all__ = [
-    "admm", "convert", "kernels", "systems", "solve", "init_state", "setup",
+    "admm", "convert", "kernels", "systems", "solve", "closed_loop",
+    "shift_state", "FusedCarry", "init_carry", "shift_carry",
+    "solve_fused_warm", "closed_loop_fused", "init_state", "setup",
     "with_bounds", "with_settings", "precompute_cache", "Cache",
     "ConstraintData", "ProblemSpec", "Settings", "Solution", "SolverState",
     "TinyProblem",

@@ -7,6 +7,13 @@ dict of numpy arrays and plain values. :func:`problem_from_numpy` builds this
 port's problem from such a dict on a given device and dtype, without
 recomputing the Riccati cache, so both packages then solve the very same
 problem.
+
+:func:`carry_to_numpy` / :func:`carry_from_numpy` do the same for a warm
+carry (the port's :class:`~tinympc_tpu_torch.kernels.FusedCarry` or the JAX
+package's, whose box fields have the same names and lane-last layout), and
+:func:`state_to_numpy` / :func:`state_from_numpy` for a warm solver state
+(the same (N, *b, nx) layout in both packages), so a warm sequence or a
+closed loop can start from the other package's workspace.
 """
 from __future__ import annotations
 
@@ -15,11 +22,16 @@ import dataclasses
 import numpy as np
 import torch
 
-from .types import Cache, ConstraintData, ProblemSpec, Settings, TinyProblem
+from .kernels.admm_fused import CARRY_FIELDS, FusedCarry
+from .types import (Cache, ConstraintData, ProblemSpec, Settings,
+                    SolverState, TinyProblem)
 
 PROBLEM_KEYS = ("A", "B", "f", "Qdiag", "Rdiag")
 CACHE_KEYS = ("rho", "Kinf", "Pinf", "Quu_inv", "AmBKt", "APf", "BPf")
 BOX_KEYS = ("x_min", "x_max", "u_min", "u_max")
+STATE_KEYS = tuple(f.name for f in dataclasses.fields(SolverState))
+_STATE_INT = {"iter": torch.int32, "status": torch.int32,
+              "solved": torch.bool}
 
 
 def _np(a) -> np.ndarray:
@@ -61,3 +73,35 @@ def problem_from_numpy(d: dict, device, dtype=torch.float32) -> TinyProblem:
         spec=ProblemSpec(**spec),
         settings=Settings(**d["settings"]),
     )
+
+
+def carry_to_numpy(carry) -> dict:
+    """The box fields of a warm carry (vnew, znew, g, y, v, z; lane-last)
+    as numpy arrays."""
+    return {k: _np(getattr(carry, k)) for k in CARRY_FIELDS}
+
+
+def carry_from_numpy(d: dict, device) -> FusedCarry:
+    """This port's float32 carry from :func:`carry_to_numpy`'s dict, on
+    ``device``."""
+    return FusedCarry(**{
+        k: torch.as_tensor(np.array(d[k]), dtype=torch.float32,
+                           device=torch.device(device))
+        for k in CARRY_FIELDS})
+
+
+def state_to_numpy(state) -> dict:
+    """Every field of this port's :class:`SolverState`, read from
+    ``state`` (this port's, or the JAX package's box fields), as numpy."""
+    return {k: _np(getattr(state, k)) for k in STATE_KEYS}
+
+
+def state_from_numpy(d: dict, device, dtype=torch.float32) -> SolverState:
+    """This port's solver state from :func:`state_to_numpy`'s dict, on
+    ``device``: iterates and residuals in ``dtype``, iteration counts and
+    status as int32, solved flags as bool."""
+    device = torch.device(device)
+    return SolverState(**{
+        k: torch.as_tensor(np.array(d[k]), dtype=_STATE_INT.get(k, dtype),
+                           device=device)
+        for k in STATE_KEYS})

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is compiled
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``tinympc_tpu_torch/_build/`` and loaded with ``ctypes``. The library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and a stale library is never loaded. Only the package's own sources are
+name carries a hash of its source, the shared headers ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt and a stale library is never
+loaded. Only the package's own sources are
 built. Nothing here runs at import time.
 """
 from __future__ import annotations
@@ -41,8 +42,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """The library of ``csrc/<name>.cu``: its name hashes the source, every
+    shared header ``csrc/*.cuh`` and the flags, so that an edit to any of
+    them builds a new library."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
