@@ -19,7 +19,7 @@ calls, and holds every kernel against its plain PyTorch version:
   (csrc/closed_loop_fused.cu); then bench_all.py:601-610's max_iter=500
   regime with shift_warm off and on;
 * the external-plant loop of examples/serving_fleet.py:62-77 at B=16384
-  (x0 = hover + U[-0.3, 0.3]^12, max_iter=100, check_termination=5):
+  (x0 = hover + U[-0.3, 0.3]^12, max_iter=100, check_termination=1):
   5 warm solves through kernels.solve_fused_warm (csrc/admm_fused.cu,
   warm), the plant stepped with the applied input plus 0.01 N(0,1)
   actuator noise from the seeded generator.
@@ -35,27 +35,32 @@ Phases, each of which raises on failure:
 5. warm kernel against its plain version, small: B=1000, an external-plant
    sequence of 6 solves at check_termination 1 and 5;
 6. closed-loop kernel against its plain version, small: B=1000, T=20, at
-   ct 5; ct 1 with reset_duals; ct 5 with shift_warm; ct 5 with
-   reset_duals on a moving reference;
+   ct 5; ct 1 with reset_duals; ct 5 with shift_warm; ct 5 and ct 1 with
+   reset_duals on a moving reference, the last with rounding witnesses;
 7. serving path at full width (B=16384, T=50, ct 5): launch count, kernel
    against plain version, kernel time, MPC steps/s and its bound; then the
    max_iter=500 regimes;
-8. the external-plant loop at B=16384;
+8. the external-plant loop at B=16384, ct 1;
 9. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
-Bar of kernel against plain version (float32; the kernels sum with FMA in a
-fixed order, the plain versions through cuBLAS): max|dx|, max|du| <= 1e-4,
-identical solved fraction, >= 99% identical iteration counts. Where a lane
-that crosses the tolerance one check earlier on one side ends on another
+Bar of kernel against plain version (float32; the kernels sum each matrix
+product as an FMA chain in column order, the plain versions through cuBLAS,
+whose order depends on the shape): max|dx|, max|du| <= 1e-4, identical
+solved fraction, >= 99% identical iteration counts. Where a lane that
+crosses the tolerance one check earlier on one side ends on another
 iterate, the values are held on the lanes whose counts agree (at every
-step so far, in the warm sequences and closed loops). On the full-width
-serving paths (phases 7 and 8) the solved fractions are held within 0.001
-(over (step, lane) in a closed loop): at B=16384 a single lane that
-converges on its last allowed check on one side only moves the fraction
-by 6e-5. Over max_iter 500
-the held lanes are held to 1e-3 (float32 rounding differences grow with the
-iterations). Exits non-zero, printing no result, without a CUDA device or
+step so far, in the warm sequences and closed loops). Closed loops hold
+the solved fraction over (step, lane) within 0.001; the full-width
+external-plant loop holds it within 2 lanes of 16384. Cold max_iter 500
+holds its agreed lanes to 1e-3 (PR 1's bar). A closed loop at
+check_termination 1 on a moving reference puts many (step, lane) counts
+on a float32 tie, so two summation orders disagree on more than 1% of
+them whichever two they are: there the count bar is the plain version's
+own agreement between the GPU and the CPU (another order for every
+product) less 0.005, where that is below 99%, and the kernel must be as
+close as the plain version to the port's closed_loop in float64, to
+0.005. Exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
 """
 import json
@@ -72,6 +77,7 @@ HOVER = [0, 0, 1.0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
 BAR_ATOL = 1e-4
 BAR_ITER_SHARE = 0.99
 BAR_LOOP_SOLVED = 1e-3
+WITNESS_SLACK = 0.005
 REPS = 7
 DEVICE = "cuda"
 # Comparisons that missed their bar; the run fails at its end if any did,
@@ -105,10 +111,11 @@ def peaks(name):
     raise RuntimeError(f"no published peak rates for {name!r}")
 
 
-def problem(tt, torch, max_iter, ct, N=N_HORIZON):
+def problem(tt, torch, max_iter, ct, N=N_HORIZON, device=None, dtype=None):
     s = tt.systems.quadrotor_20hz()
     prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
-                    N=N, dtype=torch.float32, device=DEVICE)
+                    N=N, dtype=dtype or torch.float32,
+                    device=device or DEVICE)
     prob = tt.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5,
                           u_max=0.5)
     return tt.with_settings(prob, max_iter=max_iter, check_termination=ct)
@@ -184,11 +191,11 @@ def compare_carry(torch, label, c_k, c_p, held, atol=BAR_ATOL):
     return max(errs.values())
 
 
-def compare_loop(torch, label, out_k, out_p, atol=BAR_ATOL):
-    """Closed loop, kernel against plain version: >= 99% identical (step,
-    lane) iteration counts, solved fractions within 0.001, and xs/us to
-    ``atol`` on the lanes whose counts agree at every step. Returns the
-    max abs difference of the lanes held."""
+def compare_loop(torch, label, out_k, out_p, share=BAR_ITER_SHARE):
+    """Closed loop, kernel against plain version: at least ``share`` (99%)
+    identical (step, lane) iteration counts, solved fractions within 0.001,
+    and xs/us to 1e-4 on the lanes whose counts agree at every step.
+    Returns the max abs difference of the lanes held."""
     xs_k, us_k, it_k, sv_k = out_k
     xs_p, us_p, it_p, sv_p = out_p
     same = it_k == it_p
@@ -208,14 +215,50 @@ def compare_loop(torch, label, out_k, out_p, atol=BAR_ATOL):
         f"solved_frac kernel={sf_k:.5f} plain={sf_p:.5f} mean iters/step "
         f"kernel={it_k.float().mean().item():.4f} "
         f"plain={it_p.float().mean().item():.4f}")
+    deltas, counts = torch.unique((it_k - it_p)[~same], return_counts=True)
+    log(f"    lanes with other counts, by step: "
+        f"{(~same).sum(dim=1).tolist()}; count differences "
+        f"{dict(zip(deltas.tolist(), counts.tolist()))}")
     fail(label, finite, "kernel output is not finite")
-    fail(label, dx <= atol and du <= atol, f"kernel differs from plain "
-         f"version by {max(dx, du):.3e} > {atol}")
+    fail(label, dx <= BAR_ATOL and du <= BAR_ATOL, f"kernel differs from "
+         f"plain version by {max(dx, du):.3e} > {BAR_ATOL}")
     fail(label, abs(sf_k - sf_p) <= BAR_LOOP_SOLVED,
          f"solved fraction {sf_k} vs {sf_p}")
-    fail(label, same_iter >= BAR_ITER_SHARE, f"only {same_iter:.4f} of "
-         "(step, lane) pairs have identical iteration counts")
+    fail(label, same_iter >= share, f"only {same_iter:.4f} of (step, lane) "
+         f"pairs have identical iteration counts (bar {share:.4f})")
     return max(dx, du)
+
+
+def rounding_floor(torch, tt, label, max_iter, ct, xref, x0, T, opts, out_k,
+                   out_p):
+    """Witnesses for a closed loop whose iteration counts sit on float32
+    ties: the same plain version on the CPU (every matrix product summed in
+    another order) and the port's closed_loop (admm.solve) in float64 on
+    the card. Records a failure unless the kernel agrees with the float64
+    loop on as many (step, lane) counts as the plain version does, less
+    WITNESS_SLACK. Returns the count bar of the kernel against the plain
+    version: 99%, or the plain version's agreement with itself across the
+    two orders less WITNESS_SLACK where that is lower."""
+    prob_c = problem(tt, torch, max_iter, ct, N=SERVE_N, device="cpu")
+    out_c = tt.kernels.closed_loop_fused_reference(
+        prob_c, xref.cpu(), x0.cpu(), T, **opts)
+    prob64 = problem(tt, torch, max_iter, ct, N=SERVE_N,
+                     dtype=torch.float64)
+    out_64 = tt.closed_loop(prob64, tt.init_state(prob64, (x0.shape[0],)),
+                            x0.double(), xref.double(), T, **opts)
+    it_k, it_p, it_c, it_64 = (o[2].cpu() for o in (out_k, out_p, out_c,
+                                                     out_64))
+    same = lambda a, b: (a == b).float().mean().item()
+    s_cp, s_k64, s_p64 = same(it_c, it_p), same(it_k, it_64), same(it_p, it_64)
+    log(f"  {label} witnesses: identical (step, lane) counts plain(cpu) vs "
+        f"plain(gpu) {s_cp:.5f}, kernel vs closed_loop float64 {s_k64:.5f}, "
+        f"plain(gpu) vs float64 {s_p64:.5f}, plain(cpu) vs float64 "
+        f"{same(it_c, it_64):.5f}, kernel vs plain(cpu) "
+        f"{same(it_k, it_c):.5f}")
+    fail(label, s_k64 >= s_p64 - WITNESS_SLACK, f"kernel agrees with the "
+         f"float64 loop on {s_k64:.4f} of counts, the plain version on "
+         f"{s_p64:.4f}")
+    return min(BAR_ITER_SHARE, s_cp - WITNESS_SLACK)
 
 
 def cuda_ms(torch, fn, reps):
@@ -425,7 +468,7 @@ def main():
     # 6. closed-loop kernel against plain version, small
     log("phase 6: closed-loop kernel vs plain version, B=1000, T=20")
     T6 = 20
-    # The fourth loop slides the window along a reference that climbs
+    # The last two loops slide the window along a reference that climbs
     # 0.01 m a step in y (0.2 m/s at 20 Hz).
     moving = torch.as_tensor(
         [[0, 0.01 * k, 1.0] + [0.0] * 9 for k in range(T6 + SERVE_N - 1)],
@@ -434,7 +477,8 @@ def main():
             (5, False, False, False, "ct=5"),
             (1, True, False, False, "ct=1 reset_duals"),
             (5, False, True, False, "ct=5 shift_warm"),
-            (5, True, False, True, "ct=5 reset_duals, moving reference")):
+            (5, True, False, True, "ct=5 reset_duals, moving reference"),
+            (1, True, False, True, "ct=1 reset_duals, moving reference")):
         prob = problem(tt, torch, 100, ct, N=SERVE_N)
         x0, Xref = inputs(torch, 1000, N=SERVE_N, spread=0.3)
         xref = moving if move else Xref
@@ -443,16 +487,19 @@ def main():
         out_p = tt.kernels.closed_loop_fused_reference(prob, xref, x0, T6,
                                                        **opts)
         torch.cuda.synchronize()
-        compare_loop(torch, label, out_k, out_p)
+        share = BAR_ITER_SHARE
+        if ct == 1 and move:
+            share = rounding_floor(torch, tt, label, 100, ct, xref, x0, T6,
+                                   opts, out_k, out_p)
+        compare_loop(torch, label, out_k, out_p, share)
 
     # 7. serving path at full width, then the max_iter 500 regimes
     log(f"phase 7: serving closed loop, B={SERVE_B}, T={SERVE_T}, "
         f"N={SERVE_N}")
     x0, Xref = inputs(torch, SERVE_B, N=SERVE_N, spread=0.3)
     loops = {}
-    for mi, shift, atol, reps in ((100, False, BAR_ATOL, REPS),
-                                  (500, False, 1e-3, 3),
-                                  (500, True, 1e-3, 3)):
+    for mi, shift, reps in ((100, False, REPS), (500, False, 3),
+                            (500, True, 3)):
         prob = problem(tt, torch, mi, 5, N=SERVE_N)
         label = f"max_iter={mi} ct=5 shift_warm={shift}"
         zero_counts(counters)
@@ -470,7 +517,7 @@ def main():
         plain_ms, out_p = host_ms(
             torch, lambda: tt.kernels.closed_loop_fused_reference(
                 prob, Xref, x0, SERVE_T, shift_warm=shift))
-        err = compare_loop(torch, label, out_k, out_p, atol)
+        err = compare_loop(torch, label, out_k, out_p)
         args = closed_loop_kernel._prepare_loop(prob, Xref, x0, SERVE_T,
                                                 None)
         tables, xtot, x0c, T, params = args
@@ -502,9 +549,8 @@ def main():
 
     # 8. the external-plant loop of examples/serving_fleet.py:62-77
     log(f"phase 8: external-plant loop, B={SERVE_B}, 5 warm solves")
-    # check_termination 5, the serving workload's stride (serving_fleet.py
-    # leaves it at 1).
-    prob = problem(tt, torch, 100, 5, N=SERVE_N)
+    # check_termination 1, as serving_fleet.py leaves it.
+    prob = problem(tt, torch, 100, 1, N=SERVE_N)
     rng = np.random.default_rng(0)
     hover = torch.as_tensor(HOVER, dtype=torch.float32, device=DEVICE)
     Xref = hover.expand(SERVE_N, 12).contiguous()
@@ -537,7 +583,7 @@ def main():
         agreed &= sol_k.iter == sol_p.iter
         err_warm = max(err_warm, compare(torch, f"step {step}", sol_k,
                                          sol_p, lanes=agreed,
-                                         solved_tol=BAR_LOOP_SOLVED))
+                                         solved_tol=2 / SERVE_B))
         log(f"  step {step}: mean iters {sol_k.iter.float().mean().item():.4f}"
             f", mean pos err "
             f"{(x_s[:, :3] - hover[:3]).norm(dim=-1).mean().item():.6f}")

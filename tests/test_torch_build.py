@@ -30,3 +30,17 @@ def test_package_ships_its_kernel_sources():
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert '#include "admm_sweep.cuh"' in src
     assert (_build.CSRC_DIR / "admm_sweep.cuh").exists()
+
+
+def test_kernels_build_without_fma_contraction(tmp_path, monkeypatch):
+    """The kernels are built with -fmad=false, so only their explicit fmaf
+    chains fuse and every elementwise term rounds as the plain versions'
+    PyTorch operations round it; the flags are part of the library name,
+    so a build with other flags is never loaded in its place."""
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    (tmp_path / "a.cu").write_text("// a\n")
+    name = _build.library_path("a")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", tuple(
+        f for f in _build.NVCC_FLAGS if f != "-fmad=false"))
+    assert _build.library_path("a") != name

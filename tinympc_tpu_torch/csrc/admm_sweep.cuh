@@ -11,7 +11,9 @@
 // address b of every row, so a warp's access is one coalesced line), and
 // the small shared matrices are read from shared memory as broadcasts.
 // Float32 FMA on the CUDA cores only, each matvec summed in a fixed column
-// order.
+// order. Built with -fmad=false (kernels/_build.py): only the explicit
+// fmaf calls fuse, so an elementwise term such as q - rho * (v - g) rounds
+// twice, as the plain versions' separate PyTorch operations round it.
 #pragma once
 
 #include <cuda_runtime.h>

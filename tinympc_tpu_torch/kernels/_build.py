@@ -5,8 +5,14 @@ with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``tinympc_tpu_torch/_build/`` and loaded with ``ctypes``. The library's file
 name carries a hash of its source, the shared headers ``csrc/*.cuh`` and the
 flags, so an edited source or header is rebuilt and a stale library is never
-loaded. Only the package's own sources are
-built. Nothing here runs at import time.
+loaded. Only the package's own sources are built. Nothing here runs at
+import time.
+
+``-fmad=false`` keeps the compiler from contracting a product and a sum
+into one fused multiply-add: the kernels' elementwise terms such as
+``q - rho * (v - g)`` then round twice, as PyTorch's separate operations
+round them in the plain versions. The matrix-vector sums call ``fmaf``
+explicitly and stay fused.
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 # Loaded libraries of this process, by source name.
 _LOADED: Dict[str, ctypes.CDLL] = {}

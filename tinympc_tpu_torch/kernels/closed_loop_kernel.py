@@ -23,7 +23,7 @@ from ..types import TinyProblem
 from . import _build
 from .admm_fused import (_check, _check_arg, _prepare, _solve_plain,
                          _table_slice, _unpack_tables, _zero_carry,
-                         shift_carry)
+                         fused_supported, shift_carry)
 
 KERNEL = "closed_loop_fused"
 BLOCK = 32                           # threads (= plants) per block
@@ -33,15 +33,10 @@ BLOCK = 32                           # threads (= plants) per block
 launch_count = 0
 
 
-def closed_loop_fused_supported(prob: TinyProblem) -> bool:
-    """True if :func:`closed_loop_fused` handles this problem: box
-    constraints, fixed rho, ``matmul_precision="highest"``, and an (nx, nu)
-    pair the kernel is instantiated for."""
-    try:
-        _check(prob)
-    except ValueError:
-        return False
-    return True
+# The closed loop covers the problems the fused solve covers: box
+# constraints, fixed rho, matmul_precision="highest", and an (nx, nu) pair
+# the kernel is instantiated for.
+closed_loop_fused_supported = fused_supported
 
 
 def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
