@@ -22,7 +22,21 @@ calls, and holds every kernel against its plain PyTorch version:
   (x0 = hover + U[-0.3, 0.3]^12, max_iter=100, check_termination=1):
   5 warm solves through kernels.solve_fused_warm (csrc/admm_fused.cu,
   warm), the plant stepped with the applied input plus 0.01 N(0,1)
-  actuator noise from the seeded generator.
+  actuator noise from the seeded generator;
+* the constraint families on the families kernel (csrc/admm_fused.cu with
+  csrc/admm_families.cuh): bench_all.py:199-222's "rocket SOC cold solve
+  (fused)" -- rocket_landing_20hz (nx=6, nu=3), N=10, box x in
+  [-5,-5,-0.5,-10,-10,-20]..[5,5,100,10,10,20] and u in [-10, 105], state
+  cone (0, 3, mu 0.25) and input cone (0, 3, mu 0.5), max_iter 100, ct 1,
+  abs_pri_tol 2e-3, B=16384 with x0 = xinit U[0.9, 1.2] (default_rng(0)),
+  Xref = linspace(xinit, 0, 10), Uref[:, 2] = 10 -- through setup ->
+  with_bounds -> with_cones -> with_settings -> kernels.solve_fused; the
+  same problem as an external-plant sequence of 5 warm solves
+  (x+ = A x + B u0 + f); and the hyperplane demos of
+  examples/scenarios.py:121-170 as a cold batch: quadrotor_50hz, N=10, box
+  off, z <= 3 and sum(u) <= 6 (tv: z below the demo's first window of
+  z_lim_total), max_iter 100, ct 1, B=16384, x0 = [-2, -2, 1, 0...] +
+  0.1 U[-1, 1]^12 (default_rng(0)), Xref the demo's step-0 window.
 
 Phases, each of which raises on failure:
 
@@ -41,7 +55,14 @@ Phases, each of which raises on failure:
    against plain version, kernel time, MPC steps/s and its bound; then the
    max_iter=500 regimes;
 8. the external-plant loop at B=16384, ct 1;
-9. the kernels line, then the device line last.
+9. families kernels against their plain versions, small: cold and warm,
+   (nx, nu) = (6, 3) (the rocket's cones) and (12, 4) (the quadrotor's
+   hyperplanes, with z ceilings low enough that the state planes bite),
+   B=1000 and 1024, ct 1 and 5; warm as sequences of 4 solves;
+10. the rocket SOC cold batch at B=16384;
+11. the rocket SOC external-plant sequence at B=16384, 5 warm solves;
+12. the hyperplane demos as cold batches at B=16384, static and tv;
+13. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -63,7 +84,9 @@ close as the plain version to the port's closed_loop in float64, to
 0.005. Exits non-zero, printing no result, without a CUDA device or
 outside a checkout of the repository.
 """
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +108,13 @@ DEVICE = "cuda"
 FAILURES = []
 # The serving loop of bench_all.py:569-596.
 SERVE_N, SERVE_B, SERVE_T = 10, 16384, 50
+# The constraint-family paths: batch of the full-width runs, and of the
+# small comparisons.
+FAM_N, FAM_B = 10, 16384
+FAM_SMALL_B = (1000, 1024)
+ROCKET_XINIT = [4.0, 2.0, 20.0, -3.0, 2.0, -4.5]
+QUAD_START = [-2.0, -2.0, 1.0] + [0.0] * 9
+QUAD_GOAL = [2.0, 2.0, 4.0] + [0.0] * 9
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -128,6 +158,75 @@ def inputs(torch, B, N=N_HORIZON, spread=0.5):
     return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
 
 
+def rocket_problem(tt, torch, max_iter, ct, dtype=None):
+    """bench_all.py:199-222's rocket landing with its cones, through the
+    user's entry points."""
+    s = tt.systems.rocket_landing_20hz()
+    prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                    N=FAM_N, f=s["f"], dtype=dtype or torch.float32,
+                    device=DEVICE)
+    prob = tt.with_bounds(
+        prob, x_min=np.tile([-5.0, -5.0, -0.5, -10.0, -10.0, -20.0],
+                            (FAM_N, 1)),
+        x_max=np.tile([5.0, 5.0, 100.0, 10.0, 10.0, 20.0], (FAM_N, 1)),
+        u_min=-10.0, u_max=105.0)
+    prob = tt.with_cones(prob, state_cones=[(0, 3, 0.25)],
+                         input_cones=[(0, 3, 0.5)])
+    return tt.with_settings(prob, max_iter=max_iter, check_termination=ct,
+                            abs_pri_tol=2e-3)
+
+
+def rocket_inputs(torch, B):
+    """x0 = xinit U[0.9, 1.2] per lane (default_rng(0)), Xref =
+    linspace(xinit, 0, N), Uref[:, 2] = 10."""
+    xinit = np.asarray(ROCKET_XINIT)
+    x0 = xinit * np.random.default_rng(0).uniform(0.9, 1.2, (B, 1))
+    Xref = np.linspace(xinit, np.zeros(6), FAM_N)
+    Uref = np.zeros((FAM_N - 1, 3))
+    Uref[:, 2] = 10.0
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return tuple(torch.as_tensor(a, **kw) for a in (x0, Xref, Uref))
+
+
+def quad_plane_problem(tt, torch, tv, max_iter, ct, zmax=None, dtype=None):
+    """The hyperplane demos of examples/scenarios.py:121-170: quadrotor at
+    50 Hz, box off, z <= 3 (tv: z under the demo's first window of
+    z_lim_total) and sum(u) <= 6. ``zmax`` (an (N,) ceiling) replaces the
+    demo's z ceiling."""
+    s = tt.systems.quadrotor_50hz()
+    N = FAM_N
+    prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                    N=N, dtype=dtype or torch.float32, device=DEVICE)
+    if zmax is None:
+        z_lim_total = 1.1 + (3.0 - 1.1) * np.arange(50) / (50 - N - 1)
+        zmax = z_lim_total[:N] if tv else np.full(N, 3.0)
+    if tv:
+        Ax = np.zeros((N, 1, 12))
+        Ax[:, 0, 2] = 1.0
+        prob = tt.with_tv_linear_constraints(
+            prob, Ax, np.asarray(zmax).reshape(N, 1), np.ones((N - 1, 1, 4)),
+            np.full((N - 1, 1), 6.0))
+    else:
+        Ax = np.zeros((1, 12))
+        Ax[0, 2] = 1.0
+        prob = tt.with_linear_constraints(prob, Ax, [float(zmax[0])],
+                                          np.ones((1, 4)), [6.0])
+    prob = tt.with_bounds(prob, enable=False)
+    return tt.with_settings(prob, max_iter=max_iter, check_termination=ct,
+                            abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+
+
+def quad_plane_inputs(torch, B):
+    """x0 = [-2, -2, 1, 0...] + 0.1 U[-1, 1]^12 (default_rng(0)), Xref the
+    demo's step-0 window from the start toward the goal."""
+    start, goal = np.asarray(QUAD_START), np.asarray(QUAD_GOAL)
+    x0 = start + 0.1 * np.random.default_rng(0).uniform(-1, 1, (B, 12))
+    alpha = np.arange(FAM_N)[:, None] / 49.0
+    Xref = (1 - alpha) * start + alpha * goal
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw), None
+
+
 def fail(label, ok, msg):
     """Record a missed bar (printed now, failing the run at its end)."""
     if not ok:
@@ -136,14 +235,16 @@ def fail(label, ok, msg):
 
 
 def compare(torch, label, sol_k, sol_p, res_k=None, res_p=None,
-            atol=BAR_ATOL, lanes="all", solved_tol=0.0):
+            atol=BAR_ATOL, lanes="all", solved_tol=0.0,
+            share=BAR_ITER_SHARE, among=None):
     """Kernel against plain version. ``lanes="all"`` holds every lane to
     ``atol`` (the bar); ``lanes="same_iters"`` holds only the lanes whose
     iteration counts agree, for the long regimes where a lane that crosses
     the tolerance one check earlier on one side ends on another iterate; a
     bool tensor names the lanes held. Solved fractions must be identical,
     or within ``solved_tol``. Returns the max abs difference over x and u
-    of the lanes held."""
+    of the lanes held. ``among`` (bool lanes) counts identical iteration
+    counts among those lanes only, default all."""
     B = sol_k.iter.shape[0]
     same = sol_k.iter == sol_p.iter
     if isinstance(lanes, str):
@@ -154,13 +255,16 @@ def compare(torch, label, sol_k, sol_p, res_k=None, res_p=None,
     du_all = (sol_k.u - sol_p.u).abs().amax(dim=(0, 2))
     dx = dx_all[held].max().item()
     du = du_all[held].max().item()
-    same_iter = same.float().mean().item()
+    same_iter = (same if among is None else same[among]).float().mean() \
+        .item()
     sf_k = sol_k.solved.float().mean().item()
     sf_p = sol_p.solved.float().mean().item()
     finite = bool(torch.isfinite(sol_k.x).all() and torch.isfinite(sol_k.u)
                   .all())
     dres = None if res_k is None else (res_k - res_p).abs().max().item()
-    log(f"  {label}: B={B} lanes held={lanes} "
+    bitwise = bool(torch.equal(sol_k.x, sol_p.x) and torch.equal(
+        sol_k.u, sol_p.u) and torch.equal(sol_k.iter, sol_p.iter))
+    log(f"  {label}: B={B} bitwise={bitwise} lanes held={lanes} "
         f"({held.float().mean().item():.5f}) max|dx|={dx:.3e} "
         f"max|du|={du:.3e} (all lanes {dx_all.max().item():.3e} "
         f"{du_all.max().item():.3e}) max|dres|={dres} "
@@ -171,15 +275,19 @@ def compare(torch, label, sol_k, sol_p, res_k=None, res_p=None,
          f"version by {max(dx, du):.3e} > {atol}")
     fail(label, abs(sf_k - sf_p) <= solved_tol,
          f"solved fraction {sf_k} vs {sf_p}")
-    fail(label, same_iter >= BAR_ITER_SHARE, f"only {same_iter:.4f} of "
-         "lanes have identical iteration counts")
+    fail(label, same_iter >= share, f"only {same_iter:.4f} of lanes have "
+         f"identical iteration counts (bar {share:.4f})")
     return max(dx, du)
 
 
 def compare_carry(torch, label, c_k, c_p, held, atol=BAR_ATOL):
-    """The warm carries' vnew, v, g and y (lane-last) on the held lanes."""
+    """The warm carries' vnew, v, g and y (lane-last) on the held lanes, and
+    the family duals and x/u where the carry has them."""
     errs = {}
-    for name in ("vnew", "v", "g", "y"):
+    names = ("vnew", "v", "g", "y") + tuple(
+        k for k in ("gc", "yc", "gl", "yl", "gtv", "ytv", "x", "u")
+        if getattr(c_k, k) is not None)
+    for name in names:
         d = (getattr(c_k, name) - getattr(c_p, name)).abs().amax(dim=(0, 1))
         errs[name] = d[held].max().item()
         fail(label, bool(torch.isfinite(getattr(c_k, name)).all()),
@@ -261,6 +369,48 @@ def rounding_floor(torch, tt, label, max_iter, ct, xref, x0, T, opts, out_k,
     return min(BAR_ITER_SHARE, s_cp - WITNESS_SLACK)
 
 
+def plain_spread(torch, sol_p, sol_c, among, c_p=None, c_c=None):
+    """How far the plain version is from itself when every product is
+    summed in another order: its run on the card (``sol_p``, carry
+    ``c_p``) against its run on the CPU (``sol_c``, ``c_c``). Returns the
+    share of identical counts among the ``among`` lanes, the difference of
+    the solved fractions, the largest difference of x, u and the carry's
+    fields on the lanes whose counts agree, and those lanes."""
+    it_p, it_c = sol_p.iter.cpu(), sol_c.iter.cpu()
+    same = it_p == it_c
+    held = same & among
+    share = same[among].float().mean().item()
+    dsf = abs(sol_p.solved.float().mean().item()
+              - sol_c.solved.float().mean().item())
+    pairs = [(sol_p.x.cpu(), sol_c.x, 1), (sol_p.u.cpu(), sol_c.u, 1)]
+    if c_p is not None:
+        pairs += [(getattr(c_p, f.name).cpu(), getattr(c_c, f.name), 2)
+                  for f in dataclasses.fields(c_p)
+                  if getattr(c_p, f.name) is not None]
+    dval = 0.0
+    for a, b, lane_axis in pairs:
+        d = (a - b).abs().amax(dim=tuple(k for k in range(3)
+                                         if k != lane_axis))
+        if held.any():
+            dval = max(dval, d[held].max().item())
+    return share, dsf, dval, held
+
+
+def spread_bars(label, share_c, dsf_c, dval_c, B):
+    """Bars of a kernel-vs-plain comparison from the plain version's own
+    spread: identical counts at least min(99%, its share less
+    WITNESS_SLACK); solved fractions within its difference plus one lane;
+    values within max(1e-4, twice its value difference)."""
+    share = min(BAR_ITER_SHARE, share_c - WITNESS_SLACK)
+    solved_tol = dsf_c + 1 / B
+    atol = max(BAR_ATOL, 2 * dval_c)
+    log(f"  {label} plain(gpu) vs plain(cpu): identical counts "
+        f"{share_c:.5f}, solved fractions {dsf_c:.5f} apart, max value "
+        f"difference {dval_c:.3e} on agreeing lanes -> bars: counts "
+        f"{share:.4f}, solved {solved_tol:.5f}, values {atol:.3e}")
+    return share, solved_tol, atol
+
+
 def cuda_ms(torch, fn, reps):
     """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
     times = []
@@ -285,6 +435,27 @@ def host_ms(torch, fn):
     return 1e3 * (time.perf_counter() - t0), out
 
 
+def family_ops(spec):
+    """Operations of the constraint families beyond the box in one ADMM
+    iteration of one lane (1 each for an add, multiply, divide, square
+    root, compare or select): per row and family the candidate x + dual,
+    the dual update and the linear-cost term (6 a feature); per cone and
+    row the norm, the case select and the scale (3 (dim - 1) + 10); per
+    hyperplane and row the dot, the norm of a, the test and the axpy
+    (6 F + 3)."""
+    ops = 0
+    for rows, F, cones, nlin, ntv in (
+            (spec.N, spec.nx, spec.enabled_state_cones, spec.n_state_lin,
+             spec.n_tv_state_lin),
+            (spec.N - 1, spec.nu, spec.enabled_input_cones, spec.n_input_lin,
+             spec.n_tv_input_lin)):
+        families = bool(cones) + bool(nlin) + bool(ntv)
+        ops += rows * (6 * F * families
+                       + sum(3 * (dim - 1) + 10 for _, dim in cones)
+                       + (nlin + ntv) * (6 * F + 3))
+    return ops
+
+
 def iteration_ops(N, nx, nu):
     """Operations of one ADMM iteration of one lane: the backward sweep's
     [B';AmBKt]p, Quu w and Kinf'r products and the forward sweep's
@@ -298,16 +469,25 @@ def iteration_ops(N, nx, nu):
     return 2 * fma + elementwise
 
 
-def fused_work(N, nx, nu, B, iter_sum, carry=False):
+def fused_work(N, nx, nu, B, iter_sum, carry_floats=0, spec=None):
     """Operations and bytes a fused solve needs for this run: the run's
-    summed iteration count times :func:`iteration_ops`; bytes are x0 read
-    once and x, u, iterations, solved flags and residuals written once,
-    plus the warm carry read and written once."""
-    ops = float(iter_sum) * iteration_ops(N, nx, nu)
+    summed iteration count times :func:`iteration_ops` (plus
+    :func:`family_ops` of ``spec``); bytes are x0 read once and x, u,
+    iterations, solved flags and residuals written once, plus a warm
+    carry of ``carry_floats`` floats a lane read and written once."""
+    per_iter = iteration_ops(N, nx, nu) + (0 if spec is None
+                                           else family_ops(spec))
+    ops = float(iter_sum) * per_iter
     nbytes = 4 * B * nx + 4 * B * (N * nx + (N - 1) * nu) + B * (4 + 1 + 16)
-    if carry:
-        nbytes += 2 * 4 * B * 3 * (N * nx + (N - 1) * nu)
+    nbytes += 2 * 4 * B * carry_floats
     return ops, nbytes
+
+
+def lane_carry_floats(carry):
+    """Floats a lane of a warm carry holds."""
+    return sum(getattr(carry, f.name)[..., 0].numel()
+               for f in dataclasses.fields(carry)
+               if getattr(carry, f.name) is not None)
 
 
 def loop_work(N, nx, nu, B, T, iter_sum):
@@ -330,6 +510,77 @@ def bound(ops, nbytes, peak_flops, peak_bw):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def ptxas_entries(text):
+    """Registers, stack frame and spill bytes of each entry function in
+    ``nvcc -Xptxas -v`` output, by mangled name."""
+    out, cur, props = {}, None, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = {}
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None and props == cur:
+            out[cur].update(stack=int(m[1]), spill_st=int(m[2]),
+                            spill_ld=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            out[cur]["regs"] = int(m[1])
+    return out
+
+
+def kernel_label(fn):
+    """A readable name for a mangled kernel name of csrc/."""
+    m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])EN7tinympc\d+(NoFamilies|"
+                  r"Families)", fn)
+    if m:
+        kind = "families" if m[4] == "Families" else "box"
+        mode = "warm" if m[3] == "1" else "cold"
+        return f"admm_fused {kind} {mode} ({m[1]}, {m[2]})"
+    return "closed_loop_fused" if "closed_loop" in fn else fn
+
+
+def check_rounding(torch, lib, n=1 << 24):
+    """The families kernel's division and square root (div_rn, sqrt_rn in
+    csrc/admm_families.cuh) against IEEE's, bitwise, on n random float
+    pairs of every exponent plus zeros, infinities, NaN and subnormals.
+    Returns the number of results that differ."""
+    import ctypes
+    g = torch.Generator(device="cpu").manual_seed(0)
+    bits = torch.randint(-2 ** 31, 2 ** 31, (2, n), generator=g,
+                         dtype=torch.int64).to(torch.int32)
+    a, b = bits.view(torch.float32).to(DEVICE)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"),
+                            float("nan"), 1e-45, -1e-45, 1.1754942e-38,
+                            3.4028235e38, 1.0, 3.0, 0.25],
+                           device=DEVICE)
+    k = special.numel()
+    a[:k * k] = special.repeat_interleave(k)
+    b[:k * k] = special.repeat(k)
+    q, r = torch.empty_like(a), torch.empty_like(a)
+    fn = lib.tinympc_admm_fused_check_rounding
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5
+    fn.restype = ctypes.c_int
+    err = fn(n, a.data_ptr(), b.data_ptr(), q.data_ptr(), r.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rounding check launch failed: CUDA error {err}")
+    torch.cuda.synchronize()
+
+    def differ(x, y):
+        both_nan = torch.isnan(x) & torch.isnan(y)
+        return int(((x.view(torch.int32) != y.view(torch.int32))
+                    & ~both_nan).sum().item())
+
+    return differ(q, a / b) + differ(r, torch.sqrt(a.abs()))
+
+
 def zero_counts(kernels):
     for mod, attr in kernels:
         setattr(mod, attr, 0)
@@ -341,10 +592,13 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch import convert
     from tinympc_tpu_torch.kernels import _build, admm_fused, \
         closed_loop_kernel
     counters = ((admm_fused, "launch_count"),
                 (admm_fused, "warm_launch_count"),
+                (admm_fused, "families_launch_count"),
+                (admm_fused, "families_warm_launch_count"),
                 (closed_loop_kernel, "launch_count"))
 
     # 1. card
@@ -369,6 +623,22 @@ def main():
             if "registers" in line or "entry function" in line \
                     or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
+        for fn, e in sorted(ptxas_entries(text).items(),
+                            key=lambda kv: kernel_label(kv[0])):
+            label = kernel_label(fn)
+            log(f"  ptxas summary: {label}: {e.get('regs')} registers, "
+                f"{e.get('stack')} bytes stack frame (local memory), "
+                f"{e.get('spill_st')} / {e.get('spill_ld')} bytes spill "
+                f"stores / loads")
+            if "families" in label:
+                fail(f"ptxas {label}", e.get("stack") == 0
+                     and e.get("spill_st") == 0 and e.get("spill_ld") == 0,
+                     "the families kernel spills or uses local memory")
+
+    bad = check_rounding(torch, _build.load(admm_fused.KERNEL))
+    log(f"rounding: div_rn and sqrt_rn against IEEE division and square "
+        f"root on {1 << 24} random float pairs: {bad} results differ")
+    fail("rounding", bad == 0, f"{bad} results differ from IEEE's")
 
     # 3. cold kernel against plain version, small; and against admm.solve
     log("phase 3: cold kernel vs plain version, small batches")
@@ -599,7 +869,8 @@ def main():
                                                            x, c_k))[0]
         for _ in range(REPS))
     iter_sum = int(sol_w.iter.sum().item())
-    ops, nbytes = fused_work(SERVE_N, 12, 4, SERVE_B, iter_sum, carry=True)
+    ops, nbytes = fused_work(SERVE_N, 12, 4, SERVE_B, iter_sum,
+                             lane_carry_floats(c_k))
     warm_bound_ms, warm_bound_by = bound(ops, nbytes, peak_flops, peak_bw)
     log(f"  solve_fused_warm: kernel {warm_ms:.4f} ms (reps "
         f"{[round(t, 4) for t in times]}), whole call {call_ms:.4f} ms on "
@@ -609,13 +880,222 @@ def main():
         f"{SERVE_B / (warm_ms / 1e3):.1f} solves/s, launches "
         f"{warm_launches}; card {card}")
 
+    # 9. families kernels against their plain versions, small
+    log(f"phase 9: families kernels vs plain versions, B={FAM_SMALL_B}")
+    # The quadrotor's ceilings sit low enough here that the state planes
+    # bite on part of the lanes while most still converge.
+    low = dict(linear=np.full(FAM_N, 1.24),
+               tv=1.07 + 0.02 * np.arange(FAM_N))
+    small = []
+    for B in FAM_SMALL_B:
+        for ct in (1, 5):
+            small += [("rocket SOC", B, ct,
+                       lambda mi, ct, dt=None: rocket_problem(
+                           tt, torch, mi, ct, dtype=dt), rocket_inputs)]
+            kind = "linear" if ct == 1 else "tv"
+            small += [(f"quadrotor {kind}", B, ct,
+                       lambda mi, ct, dt=None, k=kind: quad_plane_problem(
+                           tt, torch, k == "tv", mi, ct, low[k], dtype=dt),
+                       quad_plane_inputs)]
+    cpu = lambda a: None if a is None else a.cpu()
+    for label, B, ct, make, make_inputs in small:
+        prob = make(100, ct)
+        # The same problem arrays on the CPU, for the plain version's spread.
+        prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                            "cpu")
+        x0, Xref, Uref = make_inputs(torch, B)
+        sol_k, res_k = tt.kernels.solve_fused(prob, Xref, Uref, x0)
+        sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, Uref, x0)
+        sol_c, _ = tt.kernels.solve_fused_reference(prob_c, cpu(Xref),
+                                                    cpu(Uref), cpu(x0))
+        torch.cuda.synchronize()
+        name = f"{label} cold B={B} ct={ct}"
+        everyone = torch.ones(B, dtype=torch.bool)
+        share, solved_tol, atol = spread_bars(
+            name, *plain_spread(torch, sol_p, sol_c, everyone)[:3], B)
+        compare(torch, name, sol_k, sol_p, res_k, res_p, atol=atol,
+                lanes="same_iters", solved_tol=solved_tol, share=share)
+        # Float64 witness: the kernel agrees with admm.solve in float64 on
+        # as many counts as the plain version does, less WITNESS_SLACK.
+        prob64 = make(100, ct, torch.float64)
+        f64 = lambda a: None if a is None else a.double()
+        it_64 = tt.solve(prob64, tt.init_state(prob64, (B,)), f64(Xref),
+                         f64(Uref), f64(x0))[0].iter
+        s_k64 = (sol_k.iter == it_64).float().mean().item()
+        s_p64 = (sol_p.iter == it_64).float().mean().item()
+        log(f"  {name}: identical counts with admm.solve float64: kernel "
+            f"{s_k64:.5f}, plain {s_p64:.5f}")
+        fail(name, s_k64 >= s_p64 - WITNESS_SLACK, f"kernel agrees with "
+             f"the float64 solve on {s_k64:.4f} of counts, the plain "
+             f"version on {s_p64:.4f}")
+        # Warm: an external-plant sequence of 4 solves, the plant stepped
+        # with the kernel's u0; each step held on the lanes that agree at
+        # every step so far, against the plain version's own spread over
+        # the same steps.
+        c_k, c_p = tt.init_carry(prob, B), tt.init_carry(prob, B)
+        c_c = tt.init_carry(prob_c, B)
+        agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        agreed_c = everyone
+        x = x0
+        for step in range(4):
+            sol_k, _, c_k = tt.kernels.solve_fused_warm(prob, Xref, Uref, x,
+                                                        c_k)
+            sol_p, _, c_p = tt.kernels.solve_fused_warm_reference(
+                prob, Xref, Uref, x, c_p)
+            sol_c, _, c_c = tt.kernels.solve_fused_warm_reference(
+                prob_c, cpu(Xref), cpu(Uref), cpu(x), c_c)
+            torch.cuda.synchronize()
+            name = f"{label} warm B={B} ct={ct} step {step}"
+            share_c, dsf_c, dval_c, held_c = plain_spread(
+                torch, sol_p, sol_c, agreed_c, c_p, c_c)
+            share, solved_tol, atol = spread_bars(name, share_c, dsf_c,
+                                                  dval_c, B)
+            before = agreed.clone()
+            agreed &= sol_k.iter == sol_p.iter
+            agreed_c = held_c
+            compare(torch, name, sol_k, sol_p, atol=atol, lanes=agreed,
+                    solved_tol=solved_tol, share=share, among=before)
+            compare_carry(torch, name, c_k, c_p, agreed, atol=atol)
+            x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+
+    def time_cold(prob, Xref, Uref, x0, sol_k):
+        """Kernel ms (CUDA events, median of REPS), the solve_fused call on
+        the host clock, and the bound of this run's work."""
+        tables, x0c, params = admm_fused._prepare(prob, Xref, Uref, x0)
+        spec = prob.spec
+        run = lambda: admm_fused._solve_kernel(tables, x0c, spec.N, spec.nx,
+                                               spec.nu, **params)
+        run()                                           # warm-up
+        ms, times = cuda_ms(torch, run, REPS)
+        call_ms = statistics.median(
+            host_ms(torch, lambda: tt.kernels.solve_fused(prob, Xref, Uref,
+                                                          x0))[0]
+            for _ in range(REPS))
+        iter_sum = int(sol_k.iter.sum().item())
+        ops, nbytes = fused_work(spec.N, spec.nx, spec.nu, x0.shape[0],
+                                 iter_sum, spec=spec)
+        bound_ms, bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+        return ms, times, call_ms, bound_ms, bound_by, ops, nbytes
+
+    def full_width_cold(label, prob, Xref, Uref, x0):
+        """Drive a families cold batch through kernels.solve_fused with the
+        counts at 0, check it, hold it against the plain version and time
+        it. Returns the kernels-line numbers."""
+        spec = prob.spec
+        zero_counts(counters)
+        sol_k, res_k = tt.kernels.solve_fused(prob, Xref, Uref, x0)
+        torch.cuda.synchronize()
+        launches = admm_fused.families_launch_count
+        if launches < 1:
+            raise AssertionError(f"{label} did not launch the families "
+                                 "kernel")
+        B = x0.shape[0]
+        if sol_k.x.shape != (spec.N, B, spec.nx) or \
+                sol_k.u.shape != (spec.N - 1, B, spec.nu):
+            raise AssertionError(f"bad output shapes {sol_k.x.shape} "
+                                 f"{sol_k.u.shape}")
+        plain_ms, (sol_p, res_p) = host_ms(
+            torch, lambda: tt.kernels.solve_fused_reference(prob, Xref, Uref,
+                                                            x0))
+        err = compare(torch, label, sol_k, sol_p, res_k, res_p)
+        ms, times, call_ms, bound_ms, bound_by, ops, nbytes = time_cold(
+            prob, Xref, Uref, x0, sol_k)
+        iters = sol_k.iter.float()
+        log(f"  {label}: families launches {launches}, kernel {ms:.4f} ms "
+            f"(reps {[round(t, 4) for t in times]}), solve_fused call "
+            f"{call_ms:.4f} ms on the host clock (kernel share "
+            f"{ms / call_ms:.4f}), {B / (ms / 1e3):.1f} solves/s, mean "
+            f"iters {iters.mean().item():.4f}, solved frac "
+            f"{sol_k.solved.float().mean().item():.5f}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.1f} ms; card {card}")
+        return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+    # 10. rocket SOC cold batch at full width
+    log(f"phase 10: rocket SOC cold batch, B={FAM_B}, N={FAM_N}")
+    t0 = time.perf_counter()
+    prob = rocket_problem(tt, torch, 100, 1)
+    setup_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"  setup -> with_bounds -> with_cones -> with_settings "
+        f"{setup_ms:.1f} ms (set-up)")
+    x0, Xref, Uref = rocket_inputs(torch, FAM_B)
+    fam_rows = {"soc": full_width_cold("rocket SOC cold ct=1", prob, Xref,
+                                       Uref, x0)}
+
+    # 11. rocket SOC external-plant sequence, 5 warm solves
+    log(f"phase 11: rocket SOC external-plant sequence, B={FAM_B}, 5 warm "
+        f"solves")
+    c_k = tt.init_carry(prob, FAM_B)
+    zero_counts(counters)
+    states, sols = [], []
+    x = x0
+    for step in range(5):
+        sol_k, _, c_k = tt.kernels.solve_fused_warm(prob, Xref, Uref, x, c_k)
+        states.append(x)
+        sols.append(sol_k)
+        x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+    torch.cuda.synchronize()
+    fam_warm_launches = admm_fused.families_warm_launch_count
+    if fam_warm_launches < 5:
+        raise AssertionError("the rocket SOC sequence did not launch the "
+                             "warm families kernel")
+    c_p = tt.init_carry(prob, FAM_B)
+    agreed = torch.ones(FAM_B, dtype=torch.bool, device=DEVICE)
+    err_fw = 0.0
+    for step, (x_s, sol_k) in enumerate(zip(states, sols)):
+        plain_fw_ms, (sol_p, _, c_p) = host_ms(
+            torch, lambda: tt.kernels.solve_fused_warm_reference(
+                prob, Xref, Uref, x_s, c_p))
+        agreed &= sol_k.iter == sol_p.iter
+        err_fw = max(err_fw, compare(torch, f"rocket SOC warm step {step}",
+                                     sol_k, sol_p, lanes=agreed))
+        log(f"  step {step}: mean iters "
+            f"{sol_k.iter.float().mean().item():.4f}, solved frac "
+            f"{sol_k.solved.float().mean().item():.5f}, mean altitude "
+            f"{x_s[:, 2].mean().item():.4f}")
+    compare_carry(torch, "rocket SOC after 5 steps", c_k, c_p, agreed)
+    tables, xc, params = admm_fused._prepare(prob, Xref, Uref, x)
+    carry = admm_fused._carry_tensors(prob, c_k, FAM_B)
+    run = lambda: admm_fused._solve_kernel_warm(tables, xc, carry, FAM_N, 6,
+                                                3, **params)
+    sol_w = run()[0]                                    # warm-up
+    fw_ms, times = cuda_ms(torch, run, REPS)
+    call_ms = statistics.median(
+        host_ms(torch, lambda: tt.kernels.solve_fused_warm(
+            prob, Xref, Uref, x, c_k))[0] for _ in range(REPS))
+    iter_sum = int(sol_w.iter.sum().item())
+    ops, nbytes = fused_work(FAM_N, 6, 3, FAM_B, iter_sum,
+                             lane_carry_floats(c_k), prob.spec)
+    fw_bound_ms, fw_bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    log(f"  rocket SOC solve_fused_warm (the sixth solve): kernel "
+        f"{fw_ms:.4f} ms (reps {[round(t, 4) for t in times]}), whole call "
+        f"{call_ms:.4f} ms on the host clock (kernel share "
+        f"{fw_ms / call_ms:.4f}), plain {plain_fw_ms:.1f} ms, bound "
+        f"{fw_bound_ms:.4f} ms ({fw_bound_by}; {nbytes / 1e6:.2f} MB), mean "
+        f"iters {iter_sum / FAM_B:.4f}, solved frac "
+        f"{sol_w.solved.float().mean().item():.5f}, "
+        f"{FAM_B / (fw_ms / 1e3):.1f} solves/s, families warm launches "
+        f"{fam_warm_launches}; card {card}")
+    fam_rows["soc_warm"] = dict(launches=fam_warm_launches, err=err_fw,
+                                ms=fw_ms, plain_ms=plain_fw_ms,
+                                bound_ms=fw_bound_ms, bound_by=fw_bound_by)
+
+    # 12. the hyperplane demos as cold batches at full width
+    log(f"phase 12: hyperplane demos, cold, B={FAM_B}, N={FAM_N}")
+    x0, Xref, _ = quad_plane_inputs(torch, FAM_B)
+    for kind in ("linear", "tv"):
+        prob = quad_plane_problem(tt, torch, kind == "tv", 100, 1)
+        fam_rows[kind] = full_width_cold(f"quadrotor {kind} cold ct=1", prob,
+                                         Xref, None, x0)
+
     if FAILURES:
         log(f"{len(FAILURES)} comparison(s) missed their bar:")
         for f in FAILURES:
             log(f"  {f}")
         return 1
 
-    # 9. kernels line, then the device line last
+    # 13. kernels line, then the device line last
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -627,6 +1107,10 @@ def main():
             ("closed_loop_fused",
              "tinympc_tpu_torch/csrc/closed_loop_fused.cu",
              "tinympc_tpu/kernels/closed_loop_pallas.py:63", serve)]
+    rows += [(f"admm_fused_families_{key}",
+              "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", fam_rows[key])
+             for key in ("soc", "soc_warm", "linear", "tv")]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

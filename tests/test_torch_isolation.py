@@ -94,12 +94,11 @@ def test_solve_fused_rejects_settings_outside_the_slice(settings):
 def test_solve_fused_rejects_specs_outside_the_slice():
     p = _quad()
     assert fused_supported(p)
-    soc = p.replace(spec=dataclasses.replace(
-        p.spec, en_state_soc=True, state_cones=((0, 3),)))
+    consensus = p.replace(spec=dataclasses.replace(p.spec, en_consensus=True))
     s = tt.systems.cartpole()
     odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
                    N=5, device="cpu")      # (nx, nu) = (4, 1): not built
-    for bad in (soc, odd):
+    for bad in (consensus, odd):
         assert not fused_supported(bad)
         with pytest.raises(ValueError):
             solve_fused(bad, None, None, torch.zeros((2, bad.spec.nx)))

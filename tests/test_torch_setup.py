@@ -23,7 +23,8 @@ def _t(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.float64)
 
 
-@pytest.mark.parametrize("name", ["cartpole", "quadrotor_20hz"])
+@pytest.mark.parametrize("name", ["cartpole", "quadrotor_20hz",
+                                  "quadrotor_50hz", "rocket_landing_20hz"])
 def test_port_fixtures_equal_jax_fixtures(name):
     mine, ref = getattr(tt.systems, name)(), getattr(systems, name)()
     assert mine.keys() == ref.keys()

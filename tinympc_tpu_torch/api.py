@@ -2,6 +2,7 @@
 
     prob = setup(A, B, Q, R, rho=5.0, N=10)          # tiny_setup, on cuda
     prob = with_bounds(prob, x_min=-5, x_max=5, u_min=-0.5, u_max=0.5)
+    prob = with_cones(prob, state_cones=[(0, 3, 0.25)])   # optional families
     prob = with_settings(prob, max_iter=100, check_termination=25)
     sol, res = kernels.solve_fused(prob, Xref, None, x0s)
 
@@ -13,7 +14,7 @@ PyTorch path on the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +114,96 @@ def with_bounds(prob: TinyProblem, x_min=None, x_max=None, u_min=None,
     spec = dataclasses.replace(spec, en_state_bound=enable,
                                en_input_bound=enable)
     return prob.replace(cons=cons, spec=spec)
+
+
+def with_cones(prob: TinyProblem,
+               state_cones: Sequence[Tuple[int, int, float]] = (),
+               input_cones: Sequence[Tuple[int, int, float]] = (),
+               enable: bool = True) -> TinyProblem:
+    """Second-order cones as (start, dim, mu) triples
+    (tiny_set_cone_constraints, tiny_api.cpp:176-208; layout
+    types.hpp:124-131). Any cone dimension is taken. ``enable=False``
+    configures the cones but leaves them off, as the reference's rocket
+    example does."""
+    kw = dict(dtype=prob.dtype, device=prob.device)
+    sc = tuple((int(s), int(d)) for s, d, _ in state_cones)
+    ic = tuple((int(s), int(d)) for s, d, _ in input_cones)
+    cons = dataclasses.replace(
+        prob.cons,
+        cx=torch.tensor([float(m) for _, _, m in state_cones], **kw)
+        if state_cones else None,
+        cu=torch.tensor([float(m) for _, _, m in input_cones], **kw)
+        if input_cones else None,
+    )
+    spec = dataclasses.replace(
+        prob.spec, state_cones=sc, input_cones=ic,
+        en_state_soc=enable and bool(sc), en_input_soc=enable and bool(ic))
+    return prob.replace(cons=cons, spec=spec)
+
+
+def with_linear_constraints(prob: TinyProblem, Alin_x=None, blin_x=None,
+                            Alin_u=None, blin_u=None,
+                            enable: bool = True) -> TinyProblem:
+    """Static hyperplane constraints a.x <= b
+    (tiny_set_linear_constraints, tiny_api.cpp:210-252). A family left out
+    is switched off."""
+    dt, dev = prob.dtype, prob.device
+    upd = {}
+    nsl = nil = 0
+    if Alin_x is not None:
+        Alin_x = torch.atleast_2d(_as_tensor(Alin_x, dt, dev))
+        nsl = Alin_x.shape[0]
+        upd.update(Alin_x=Alin_x,
+                   blin_x=_as_tensor(blin_x, dt, dev).reshape(nsl))
+    if Alin_u is not None:
+        Alin_u = torch.atleast_2d(_as_tensor(Alin_u, dt, dev))
+        nil = Alin_u.shape[0]
+        upd.update(Alin_u=Alin_u,
+                   blin_u=_as_tensor(blin_u, dt, dev).reshape(nil))
+    spec = dataclasses.replace(
+        prob.spec, num_state_linear=nsl, num_input_linear=nil,
+        en_state_linear=enable and nsl > 0,
+        en_input_linear=enable and nil > 0)
+    return prob.replace(cons=dataclasses.replace(prob.cons, **upd), spec=spec)
+
+
+def with_tv_linear_constraints(prob: TinyProblem, tv_Alin_x=None,
+                               tv_blin_x=None, tv_Alin_u=None, tv_blin_u=None,
+                               enable: bool = True) -> TinyProblem:
+    """Time-varying hyperplanes (tiny_set_tv_linear_constraints,
+    tiny_api.cpp:254-304). Natural layout: ``tv_Alin_x`` is (N, S, nx) and
+    ``tv_blin_x`` is (N, S); :func:`tv_from_stacked` converts the
+    reference's stacked ((S*N) x nx) / (S x N) arrays."""
+    dt, dev = prob.dtype, prob.device
+    N = prob.spec.N
+    upd = {}
+    ns = ni = 0
+    if tv_Alin_x is not None:
+        tv_Alin_x = _as_tensor(tv_Alin_x, dt, dev)
+        ns = tv_Alin_x.shape[1]
+        upd.update(tv_Alin_x=tv_Alin_x,
+                   tv_blin_x=_as_tensor(tv_blin_x, dt, dev).reshape(N, ns))
+    if tv_Alin_u is not None:
+        tv_Alin_u = _as_tensor(tv_Alin_u, dt, dev)
+        ni = tv_Alin_u.shape[1]
+        upd.update(tv_Alin_u=tv_Alin_u,
+                   tv_blin_u=_as_tensor(tv_blin_u, dt, dev).reshape(N - 1,
+                                                                   ni))
+    spec = dataclasses.replace(
+        prob.spec, num_tv_state_linear=ns, num_tv_input_linear=ni,
+        en_tv_state_linear=enable and ns > 0,
+        en_tv_input_linear=enable and ni > 0)
+    return prob.replace(cons=dataclasses.replace(prob.cons, **upd), spec=spec)
+
+
+def tv_from_stacked(A_stacked, b_stacked):
+    """Convert the reference's stacked tv layout (types.hpp:170-173): A
+    ((S*T) x n) with row (S*t + k) and b (S x T) -> (T, S, n), (T, S), as
+    numpy arrays."""
+    A_stacked = np.asarray(A_stacked)
+    b_stacked = np.asarray(b_stacked)
+    S, T = b_stacked.shape
+    return A_stacked.reshape(T, S, -1), b_stacked.T.copy()
 
 
 def with_settings(prob: TinyProblem, **kw) -> TinyProblem:

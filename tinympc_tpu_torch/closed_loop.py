@@ -14,8 +14,10 @@ import torch
 from . import admm
 from .types import SolverState, TinyProblem
 
-# Time-indexed iterates of the box solve's workspace.
-_TIME_FIELDS = ("x", "u", "v", "vnew", "z", "znew", "g", "y")
+# Time-indexed iterates of the workspace, the families' included.
+_TIME_FIELDS = ("x", "u", "v", "vnew", "z", "znew", "g", "y",
+                "vcnew", "gc", "zcnew", "yc", "vlnew", "gl", "zlnew", "yl",
+                "vlnew_tv", "gl_tv", "zlnew_tv", "yl_tv")
 
 
 def shift_state(state: SolverState) -> SolverState:
@@ -24,10 +26,11 @@ def shift_state(state: SolverState) -> SolverState:
     :func:`~tinympc_tpu_torch.kernels.shift_carry`): every time-indexed
     iterate drops its first row and repeats the last, so the previous
     solve's tail seeds the overlapping window of the next horizon.
-    Per-problem scalars pass through."""
+    Per-problem scalars and the fields of families that are off (None)
+    pass through."""
     return state.replace(**{
         f: torch.cat([getattr(state, f)[1:], getattr(state, f)[-1:]], dim=0)
-        for f in _TIME_FIELDS})
+        for f in _TIME_FIELDS if getattr(state, f) is not None})
 
 
 def closed_loop(prob: TinyProblem, state: SolverState, x0, Xref_total,

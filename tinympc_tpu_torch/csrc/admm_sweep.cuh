@@ -97,6 +97,29 @@ struct Residuals {
   float pri_s, pri_i, dua_s, dua_i;   // dual rows not yet scaled by rho
 };
 
+// The constraint families beyond the box, as hooks into the iteration
+// (admm_families.cuh implements them). The box-only solve and the closed
+// loop take this empty set, whose hooks compile to nothing.
+struct NoFamilies {
+  struct Args {};
+  static constexpr int kMinBlocks = 0;   // no minimum: __launch_bounds__(B)
+  NoFamilies() = default;
+  __device__ NoFamilies(const Args&, const float*, int, size_t, int, float) {}
+  static __host__ __device__ int table_floats(const Args&, int, int, int) {
+    return 0;
+  }
+  template <bool WARM>
+  __device__ __forceinline__ void seed(const float*) const {}
+  __device__ __forceinline__ void p_terminal(float*) const {}
+  __device__ __forceinline__ void q_terms(int, float*) const {}
+  __device__ __forceinline__ void r_terms(int, float*) const {}
+  __device__ __forceinline__ void state_row(int, const float*) const {}
+  __device__ __forceinline__ void input_row(int, const float*) const {}
+  template <bool WARM>
+  __device__ __forceinline__ void finish(const Tables&, const float*,
+                                         const float*, int) const {}
+};
+
 // One ADMM iteration of lane b.
 //   pnref      -Pinf^T Xref[N-1], (NX,)
 //   x0r        the lane's initial state, (NX,) in registers
@@ -107,19 +130,23 @@ struct Residuals {
 //              except at iteration 0 of a warm solve: the carried v/z)
 //   g, y       duals, updated in place; d the feedforward scratch
 //   u0         out: the raw forward-pass u[0] of this iteration
+//   fam        the other constraint families: their terms join the linear
+//              cost after the box's, and each projects row i once the
+//              forward sweep has formed it
 // Residuals are accumulated only when `checking`.
-template <int NX, int NU, class NegXQ>
+template <int NX, int NU, class NegXQ, class Fam = NoFamilies>
 __device__ __forceinline__ Residuals admm_iteration(
     const Tables& t, NegXQ negxq, const float* pnref, const float* x0r,
     float* dvgN, float* vcur, float* zcur, const float* vprev,
     const float* zprev, const float* vdprev, const float* zdprev, float* g,
     float* y, float* d, int N, size_t sB, int b, float rho, bool checking,
-    float* u0) {
+    float* u0, const Fam& fam = Fam()) {
   // 1+2. Linear cost fused into the backward sweep
   // (admm_pallas.py:894-968): q/r rows from the previous iterate.
   float p[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) p[k] = pnref[k] - rho * dvgN[k];
+  fam.p_terminal(p);
   for (int i = N - 2; i >= 0; --i) {
     float r[NU], q[NX];
 #pragma unroll
@@ -127,11 +154,13 @@ __device__ __forceinline__ Residuals admm_iteration(
       const size_t a = (static_cast<size_t>(i) * NU + k) * sB + b;
       r[k] = t.negur[i * NU + k] - rho * (zprev[a] - y[a]);
     }
+    fam.r_terms(i, r);
 #pragma unroll
     for (int k = 0; k < NX; ++k) {
       const size_t a = (static_cast<size_t>(i) * NX + k) * sB + b;
       q[k] = negxq(i, k) - rho * (vprev[a] - g[a]);
     }
+    fam.q_terms(i, q);
     // [B^T; AmBKt] p
     float bp[NU], ap[NX];
 #pragma unroll
@@ -193,6 +222,7 @@ __device__ __forceinline__ Residuals admm_iteration(
       }
       if (i == N - 1) dvgN[k] = vn - gn;
     }
+    fam.state_row(i, x);
     if (i == N - 1) break;
     // [Kinf; A] x, then u = -Kinf x - d as an exact subtract
     float kx[NU], ax[NX];
@@ -227,6 +257,7 @@ __device__ __forceinline__ Residuals admm_iteration(
         res.dua_i = max_nan(res.dua_i, fabsf(zdprev[a] - zn));
       }
     }
+    fam.input_row(i, u);
     // x+ = A x + B u + f
 #pragma unroll
     for (int row = 0; row < NX; ++row) {

@@ -23,20 +23,44 @@ from ..types import TinyProblem
 from . import _build
 from .admm_fused import (_check, _check_arg, _prepare, _solve_plain,
                          _table_slice, _unpack_tables, _zero_carry,
-                         fused_supported, shift_carry)
+                         shift_carry)
 
 KERNEL = "closed_loop_fused"
 BLOCK = 32                           # threads (= plants) per block
+KERNEL_DIMS = ((12, 4),)             # (nx, nu) csrc/closed_loop_fused.cu
+#                                      instantiates
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets and
 # reads it to show that the serving path went through the kernel.
 launch_count = 0
 
 
-# The closed loop covers the problems the fused solve covers: box
-# constraints, fixed rho, matmul_precision="highest", and an (nx, nu) pair
-# the kernel is instantiated for.
-closed_loop_fused_supported = fused_supported
+def _check_loop(prob: TinyProblem) -> None:
+    """Raise ``ValueError`` for a problem the closed loop does not cover.
+    It takes box constraints only, as the JAX closed loop does
+    (closed_loop_pallas.py:326): the other families would otherwise be
+    ignored in silence."""
+    if prob.spec.any_extra_family:
+        raise ValueError("closed_loop_fused supports box-constraint specs "
+                         "with fixed rho; use tinympc_tpu_torch.closed_loop "
+                         "(or solve_fused_warm in a host loop)")
+    _check(prob)
+    spec = prob.spec
+    if (spec.nx, spec.nu) not in KERNEL_DIMS:
+        raise ValueError(f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of "
+                         f"the closed-loop kernel's instantiations "
+                         f"{KERNEL_DIMS}")
+
+
+def closed_loop_fused_supported(prob: TinyProblem) -> bool:
+    """True if :func:`closed_loop_fused` handles this problem: box
+    constraints only, fixed rho, ``matmul_precision="highest"``, no coarse
+    schedule, and an (nx, nu) pair the kernel is instantiated for."""
+    try:
+        _check_loop(prob)
+    except ValueError:
+        return False
+    return True
 
 
 def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
@@ -44,7 +68,7 @@ def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
     float32 reference trajectory, x0 and the solver parameters."""
     spec = prob.spec
     N, nx = spec.N, spec.nx
-    _check(prob)
+    _check_loop(prob)
     if prob.settings.max_iter < 1:
         raise ValueError("closed_loop_fused needs max_iter >= 1: the "
                          "applied input is an iterate's u[0]")
@@ -64,6 +88,7 @@ def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
                          f"{n_steps + N - 1} rows, got {xtot.shape[0]}")
     xtot = xtot[:n_steps + N - 1].contiguous()
     tables, x0, params = _prepare(prob, xtot[:N], Uref, x0s)
+    params.pop("fam")           # box only: _check_loop refused the others
     return tables, xtot, x0, n_steps, params
 
 

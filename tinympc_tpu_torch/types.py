@@ -59,16 +59,40 @@ class ProblemSpec:
     num_tv_state_linear: int = 0
     num_tv_input_linear: int = 0
 
+    # The families that are on, resolved from the enable flags (the JAX
+    # spec's views, used by the fused kernel and its checks).
+    @property
+    def enabled_state_cones(self) -> Tuple[Tuple[int, int], ...]:
+        return self.state_cones if (self.en_state_soc and self.state_cones) \
+            else ()
+
+    @property
+    def enabled_input_cones(self) -> Tuple[Tuple[int, int], ...]:
+        return self.input_cones if (self.en_input_soc and self.input_cones) \
+            else ()
+
+    @property
+    def n_state_lin(self) -> int:
+        return self.num_state_linear if self.en_state_linear else 0
+
+    @property
+    def n_input_lin(self) -> int:
+        return self.num_input_linear if self.en_input_linear else 0
+
+    @property
+    def n_tv_state_lin(self) -> int:
+        return self.num_tv_state_linear if self.en_tv_state_linear else 0
+
+    @property
+    def n_tv_input_lin(self) -> int:
+        return self.num_tv_input_linear if self.en_tv_input_linear else 0
+
     @property
     def any_extra_family(self) -> bool:
         """Any constraint family beyond the box bounds is enabled."""
-        return bool(
-            (self.en_state_soc and self.state_cones)
-            or (self.en_input_soc and self.input_cones)
-            or (self.en_state_linear and self.num_state_linear)
-            or (self.en_input_linear and self.num_input_linear)
-            or (self.en_tv_state_linear and self.num_tv_state_linear)
-            or (self.en_tv_input_linear and self.num_tv_input_linear))
+        return bool(self.enabled_state_cones or self.enabled_input_cones
+                    or self.n_state_lin or self.n_input_lin
+                    or self.n_tv_state_lin or self.n_tv_input_lin)
 
 
 @dataclass(frozen=True)
@@ -113,10 +137,10 @@ def check_supported_settings(settings: Settings) -> None:
 
 def check_supported_spec(spec: ProblemSpec) -> None:
     """Raise ``ValueError`` for constraint families the port does not
-    implement (only box bounds are ported)."""
-    if spec.any_extra_family or spec.en_consensus:
-        raise ValueError("only box constraints are ported; SOC, hyperplane "
-                         "and consensus families are not")
+    implement: box, SOC, hyperplane and time-varying hyperplane families
+    are ported; consensus is not."""
+    if spec.en_consensus:
+        raise ValueError("the consensus family is not ported yet")
 
 
 @dataclass(frozen=True)
@@ -137,12 +161,25 @@ class Cache:
 
 @dataclass(frozen=True)
 class ConstraintData:
-    """Box bounds, per timestep like the reference (types.hpp:117-120)."""
+    """Numeric constraint data: box bounds per timestep like the reference
+    (types.hpp:117-120), cone coefficients, and hyperplanes a.x <= b.
+    ``tv_Alin_x`` uses the natural (N, S, nx) layout rather than the
+    reference's stacked ((S*N) x nx) rows (types.hpp:170-173)."""
 
     x_min: Optional[torch.Tensor] = None   # (N, nx)
     x_max: Optional[torch.Tensor] = None
     u_min: Optional[torch.Tensor] = None   # (N-1, nu)
     u_max: Optional[torch.Tensor] = None
+    cx: Optional[torch.Tensor] = None      # (num_state_cones,) cone mu
+    cu: Optional[torch.Tensor] = None
+    Alin_x: Optional[torch.Tensor] = None  # (Sx, nx)
+    blin_x: Optional[torch.Tensor] = None  # (Sx,)
+    Alin_u: Optional[torch.Tensor] = None  # (Su, nu)
+    blin_u: Optional[torch.Tensor] = None
+    tv_Alin_x: Optional[torch.Tensor] = None  # (N, Sx, nx)
+    tv_blin_x: Optional[torch.Tensor] = None  # (N, Sx)
+    tv_Alin_u: Optional[torch.Tensor] = None  # (N-1, Su, nu)
+    tv_blin_u: Optional[torch.Tensor] = None  # (N-1, Su)
 
 
 @dataclass(frozen=True)
@@ -173,8 +210,9 @@ class TinyProblem:
 
 @dataclass(frozen=True)
 class SolverState:
-    """Per-problem iterates and status of the box-constrained solve (the
-    reference ``TinyWorkspace`` iterate fields, types.hpp:94-114)."""
+    """Per-problem iterates and status (the reference ``TinyWorkspace``
+    iterate fields, types.hpp:94-114, and the per-family slack/dual pairs).
+    A family's fields are ``None`` when the family is off."""
 
     x: torch.Tensor        # (N,   *b, nx)
     u: torch.Tensor        # (N-1, *b, nu)
@@ -195,6 +233,21 @@ class SolverState:
     pri_res_input: torch.Tensor
     dua_res_state: torch.Tensor
     dua_res_input: torch.Tensor
+    # SOC family (new slack and dual)
+    vcnew: Optional[torch.Tensor] = None
+    gc: Optional[torch.Tensor] = None
+    zcnew: Optional[torch.Tensor] = None
+    yc: Optional[torch.Tensor] = None
+    # Hyperplane family
+    vlnew: Optional[torch.Tensor] = None
+    gl: Optional[torch.Tensor] = None
+    zlnew: Optional[torch.Tensor] = None
+    yl: Optional[torch.Tensor] = None
+    # Time-varying hyperplane family
+    vlnew_tv: Optional[torch.Tensor] = None
+    gl_tv: Optional[torch.Tensor] = None
+    zlnew_tv: Optional[torch.Tensor] = None
+    yl_tv: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "SolverState":
         return dataclasses.replace(self, **kw)
@@ -231,9 +284,24 @@ def init_state(spec: ProblemSpec, batch_shape: Tuple[int, ...] = (),
     def zb(dt=None):
         return torch.zeros(b, dtype=dt or dtype, device=device)
 
+    fam = {}
+    if spec.en_state_soc and len(spec.state_cones) > 0:
+        fam.update(vcnew=zx(), gc=zx())
+    if spec.en_input_soc and len(spec.input_cones) > 0:
+        fam.update(zcnew=zu(), yc=zu())
+    if spec.en_state_linear:
+        fam.update(vlnew=zx(), gl=zx())
+    if spec.en_input_linear:
+        fam.update(zlnew=zu(), yl=zu())
+    if spec.en_tv_state_linear:
+        fam.update(vlnew_tv=zx(), gl_tv=zx())
+    if spec.en_tv_input_linear:
+        fam.update(zlnew_tv=zu(), yl_tv=zu())
+
     return SolverState(
         x=zx(), u=zu(), q=zx(), r=zu(), p=zx(), d=zu(),
         v=zx(), vnew=zx(), z=zu(), znew=zu(), g=zx(), y=zu(),
+        **fam,
         iter=zb(torch.int32),
         solved=zb(torch.bool),
         status=torch.full(b, TINY_UNSOLVED, dtype=torch.int32, device=device),
