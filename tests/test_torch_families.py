@@ -363,22 +363,35 @@ def _run_quadrotor_linear(steps, tv):
     return rec
 
 
+# Steps of each golden replayed: past the first unsolved (max_iter) steps,
+# and for the tv demo past its first solved step after them
+# (quadrotor_linear turns unsolved at step 16, rocket_soc at 13, the tv
+# demo at 7 and solves again at 16).
+GOLDEN_PREFIX = {"rocket": 20, "rocket_soc": 16, "quadrotor_linear": 18,
+                 "quadrotor_tv_linear": 17}
+
+
 @pytest.mark.parametrize("name", ["rocket", "rocket_soc", "quadrotor_linear",
                                   "quadrotor_tv_linear"])
 def test_golden_prefix_replays_through_the_port(name):
     """The reference demos that use the families, replayed through the
     port's admm.solve as examples/scenarios.py replays them, unbatched
-    float64, first 40 steps, at tests/test_parity.py's bars (rocket_soc at
-    its own: 5e-4, counts within 1, residuals 1e-5)."""
+    float64, over the first GOLDEN_PREFIX steps, at tests/test_parity.py's
+    bars (rocket_soc at its own: 5e-4, counts within 1, residuals 1e-5)."""
+    steps = GOLDEN_PREFIX[name]
     if name.startswith("rocket"):
         soc = name == "rocket_soc"
-        rec = _run_rocket(40, enable_soc=soc)
+        rec = _run_rocket(steps, enable_soc=soc)
         if soc:
             _check_golden(rec, name, x_atol=5e-4, u_atol=5e-4, iter_slack=1,
                           res_atol=1e-5)
+            assert 0 in rec["solved"]
             return
     else:
-        rec = _run_quadrotor_linear(40, tv=name == "quadrotor_tv_linear")
+        rec = _run_quadrotor_linear(steps, tv=name == "quadrotor_tv_linear")
+        assert 0 in rec["solved"]
+        if name == "quadrotor_tv_linear":
+            assert rec["solved"][-1] == 1
     _check_golden(rec, name)
 
 

@@ -7,7 +7,9 @@ and against the port's own ``admm.solve``.
 
 The CUDA kernel itself cannot run here; chip_smoke.py holds it against the
 plain version on the GPU."""
+import contextlib
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,8 +30,11 @@ from tinympc_tpu_torch.kernels import (fused_supported, init_carry,
                                        solve_fused_reference,
                                        solve_fused_warm,
                                        solve_fused_warm_reference)
+from tinympc_tpu_torch.kernels import admm_fused
 from tinympc_tpu_torch.kernels.admm_fused import (_pack_tables,
-                                                  _table_slice)
+                                                  _table_slice,
+                                                  _unpack_tables)
+from tinympc_tpu_torch.projections import project_hyperplane_if_violated
 
 torch.set_num_threads(1)
 
@@ -310,6 +315,86 @@ def test_family_tables_follow_the_box_tables():
     assert plain.numel() == stop
     assert torch.equal(full[:stop], plain)
     assert full[stop:].tolist() == [0.0, 3.0, 0.25, 0.0, 3.0, 0.5]
+
+
+def test_hyperplane_norms_are_packed_once():
+    """Each hyperplane's ||a||^2 sits in the packed table (asq_x, tv_asq_x,
+    ...), summed in feature order from zero, and projecting with it gives
+    the bits of projecting with the norm summed on the spot."""
+    pt = _port(_jax_problem("linear", 5))
+    lin = tt.with_tv_linear_constraints(
+        pt, np.random.default_rng(8).normal(size=(N, 2, 12)),
+        np.ones((N, 2)), np.random.default_rng(9).normal(size=(N - 1, 1, 4)),
+        np.ones((N - 1, 1)))
+    fam = admm_fused._families(lin.spec)
+    assert fam[2:] == (1, 1, 2, 1)
+    t = _unpack_tables(_pack_tables(lin, None, None), 12, 4, N, fam)
+    for A, asq in (("Alin_x", "asq_x"), ("Alin_u", "asq_u"),
+                   ("tv_Alin_x", "tv_asq_x"), ("tv_Alin_u", "tv_asq_u")):
+        a = t[A]
+        want = torch.zeros(a.shape[:-1])
+        for j in range(a.shape[-1]):
+            want = want + a[..., j] * a[..., j]
+        assert torch.equal(t[asq], want), asq
+    z = torch.as_tensor(np.random.default_rng(10).normal(size=(N, 7, 12)),
+                        dtype=torch.float32)
+    a, b = t["tv_Alin_x"][:, 1, None], t["tv_blin_x"][:, 1, None]
+    assert torch.equal(
+        project_hyperplane_if_violated(z, a, b, t["tv_asq_x"][:, 1, None]),
+        project_hyperplane_if_violated(z, a, b))
+
+
+@pytest.mark.parametrize("case", ["box", "soc", "tv"])
+def test_launch_passes_each_family_its_arrays(case, monkeypatch):
+    """The launch glue, against a stand-in for the C entry point of
+    csrc/admm_fused.cu: one entry for every solve, the family counts, a
+    slack and a dual for each family that is on and null for the others,
+    the carry on a warm solve only, and the new carry with exactly the
+    problem's fields. All zero counts select the box-only kernel."""
+    if case == "box":
+        s = tt.systems.quadrotor_20hz()
+        pt = tt.with_bounds(tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"],
+                                     rho=s["rho"], N=N, device="cpu"),
+                            u_min=-0.5, u_max=0.5)
+    else:
+        pt = _port(_jax_problem(case, 5))
+    seen = []
+
+    def entry(*args):
+        assert len(args) == 26
+        warm, nx, nu, n, B = args[:5]
+        counts = [args[7][k] for k in range(6)]
+        carry = [args[23][k] for k in range(10)]
+        fam = [args[24][k] for k in range(22)]
+        for f, c in enumerate(counts):
+            on = c > 0
+            assert (fam[2 * f] is not None) == on
+            assert (fam[2 * f + 1] is not None) == on
+            assert (fam[12 + f] is not None) == (on and bool(warm))
+        xu = bool(warm) and any(counts)
+        assert all((p is not None) == xu for p in fam[18:22])
+        assert all((p is not None) == bool(warm) for p in carry)
+        seen.append((warm, counts))
+        return 0
+
+    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
+                        types.SimpleNamespace(cuda_stream=0))
+    spec = pt.spec
+    tables, x0, params = admm_fused._prepare(
+        pt, None, None, torch.zeros((3, spec.nx)))
+    admm_fused._solve_kernel(tables, x0, spec.N, spec.nx, spec.nu, **params)
+    carry = admm_fused._carry_tensors(pt, init_carry(pt, 3), 3)
+    _, _, out = admm_fused._solve_kernel_warm(tables, x0, carry, spec.N,
+                                              spec.nx, spec.nu, **params)
+    for f in dataclasses.fields(carry):
+        assert (getattr(out, f.name) is None) == \
+            (getattr(carry, f.name) is None), f.name
+    counts = list(admm_fused._families(spec))
+    assert seen == [(0, counts), (1, counts)]
+    assert any(counts) == (case != "box")
 
 
 def test_fused_supported_and_checks_for_the_families():

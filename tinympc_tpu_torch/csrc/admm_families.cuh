@@ -42,9 +42,12 @@ struct FamilyArgs {
 
 // Float offsets of the family tables, which follow the box tables of
 // Layout in the packed table (kernels/admm_fused.py:_table_layout). Cones
-// are rows (start, dim, mu); hyperplanes rows of A then the b column.
+// are rows (start, dim, mu); hyperplanes rows of A, then the b column, then
+// the column of ||a||^2 (summed in feature order from zero when the table
+// is packed: it is the same for every lane and iteration).
 struct FamilyLayout {
-  int xcones, ucones, alx, blx, alu, blu, tvax, tvbx, tvau, tvbu, total;
+  int xcones, ucones, alx, blx, aqx, alu, blu, aqu, tvax, tvbx, tvqx, tvau,
+      tvbu, tvqu, total;
   __host__ __device__ FamilyLayout(const FamilyArgs& a, int nx, int nu,
                                    int N) {
     int o = 0;
@@ -52,12 +55,16 @@ struct FamilyLayout {
     ucones = o; o += 3 * a.ncu;
     alx = o;    o += a.nlx * nx;
     blx = o;    o += a.nlx;
+    aqx = o;    o += a.nlx;
     alu = o;    o += a.nlu * nu;
     blu = o;    o += a.nlu;
+    aqu = o;    o += a.nlu;
     tvax = o;   o += N * a.ntx * nx;
     tvbx = o;   o += N * a.ntx;
+    tvqx = o;   o += N * a.ntx;
     tvau = o;   o += (N - 1) * a.ntu * nu;
     tvbu = o;   o += (N - 1) * a.ntu;
+    tvqu = o;   o += (N - 1) * a.ntu;
     total = o;
   }
 };
@@ -149,17 +156,15 @@ __device__ __forceinline__ void project_cones(float* c, const float* cones,
 }
 
 // One violated-only hyperplane projection of c onto {c : a.c = b}
-// (admm.cpp:70-73, :148-211).
+// (admm.cpp:70-73, :148-211); asq = ||a||^2, from the table.
 template <int F>
 __device__ __forceinline__ void project_hyperplane(float* c, const float* a,
-                                                   float b) {
-  float val = 0.f, nrm = 0.f;
+                                                   float b, float asq) {
+  float val = 0.f;
 #pragma unroll
   for (int j = 0; j < F; ++j) val = val + c[j] * a[j];
-#pragma unroll
-  for (int j = 0; j < F; ++j) nrm = nrm + a[j] * a[j];
   if (val > b) {
-    const float dist = div_rn(val - b, nrm);
+    const float dist = div_rn(val - b, asq);
 #pragma unroll
     for (int j = 0; j < F; ++j) c[j] = c[j] - dist * a[j];
   }
@@ -288,7 +293,8 @@ struct Families {
 #pragma unroll
       for (int k = 0; k < NX; ++k) c[k] = x[k] + a.gl[xa(i, k)];
       for (int s = 0; s < a.nlx; ++s)
-        project_hyperplane<NX>(c, t + L.alx + s * NX, t[L.blx + s]);
+        project_hyperplane<NX>(c, t + L.alx + s * NX, t[L.blx + s],
+                               t[L.aqx + s]);
       store(a.vl, a.gl, c, x, i);
     }
     if (a.ntx) {
@@ -297,7 +303,8 @@ struct Families {
       for (int k = 0; k < NX; ++k) c[k] = x[k] + a.gtv[xa(i, k)];
       for (int s = 0; s < a.ntx; ++s)
         project_hyperplane<NX>(c, t + L.tvax + (i * a.ntx + s) * NX,
-                               t[L.tvbx + i * a.ntx + s]);
+                               t[L.tvbx + i * a.ntx + s],
+                               t[L.tvqx + i * a.ntx + s]);
       store(a.vtv, a.gtv, c, x, i);
     }
   }
@@ -315,7 +322,8 @@ struct Families {
 #pragma unroll
       for (int k = 0; k < NU; ++k) c[k] = u[k] + a.yl[ua(i, k)];
       for (int s = 0; s < a.nlu; ++s)
-        project_hyperplane<NU>(c, t + L.alu + s * NU, t[L.blu + s]);
+        project_hyperplane<NU>(c, t + L.alu + s * NU, t[L.blu + s],
+                               t[L.aqu + s]);
       store_u(a.zl, a.yl, c, u, i);
     }
     if (a.ntu) {
@@ -324,7 +332,8 @@ struct Families {
       for (int k = 0; k < NU; ++k) c[k] = u[k] + a.ytv[ua(i, k)];
       for (int s = 0; s < a.ntu; ++s)
         project_hyperplane<NU>(c, t + L.tvau + (i * a.ntu + s) * NU,
-                               t[L.tvbu + i * a.ntu + s]);
+                               t[L.tvbu + i * a.ntu + s],
+                               t[L.tvqu + i * a.ntu + s]);
       store_u(a.ztv, a.ytv, c, u, i);
     }
   }

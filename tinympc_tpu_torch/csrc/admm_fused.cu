@@ -57,10 +57,10 @@
 // too few to hide the serial 38-step chain of each iteration. Keeping the
 // state on chip and spreading a problem over several threads is later work.
 //
-// C interface (loaded with ctypes): tinympc_admm_fused_box_cold,
-// tinympc_admm_fused_box_warm and tinympc_admm_fused_families return the
-// cudaError_t of the launch; they launch on the given stream and never
-// synchronise.
+// C interface (loaded with ctypes): tinympc_admm_fused, one entry for the
+// cold and the warm solve, box-only or with the families, returns the
+// cudaError_t of the launch; it launches on the given stream and never
+// synchronises.
 #include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
@@ -306,27 +306,19 @@ bool bad_size(const Buffers& p) {
   return p.N < 2 || p.B < 1 || p.max_iter < 0 || p.check_termination < 1;
 }
 
+// The box-only kernel when no family beyond the box is on, else the
+// families kernel; cudaErrorInvalidValue for an (nx, nu) pair that is not
+// instantiated.
 template <bool WARM>
-int dispatch_box(int nx, int nu, const Buffers& p, const Carry& carry,
-                 void* stream) {
-  if (bad_size(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const NoFamilies::Args none{};
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (nx == 12 && nu == 4)   // the quadrotor of the main path
-    return static_cast<int>(launch<12, 4, WARM, NoFamilies>(p, carry, none,
-                                                             s));
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-template <bool WARM>
-int dispatch_families(int nx, int nu, const Buffers& p, const Carry& carry,
-                      const FamilyArgs& fa, void* stream) {
-  if (bad_size(p)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (nx == 12 && nu == 4)   // the quadrotor hyperplane demos
+int dispatch(int nx, int nu, bool families, const Buffers& p,
+             const Carry& carry, const FamilyArgs& fa, cudaStream_t s) {
+  if (!families && nx == 12 && nu == 4)   // the quadrotor of the main path
+    return static_cast<int>(
+        launch<12, 4, WARM, NoFamilies>(p, carry, NoFamilies::Args{}, s));
+  if (families && nx == 12 && nu == 4)    // the quadrotor hyperplane demos
     return static_cast<int>(
         launch<12, 4, WARM, tinympc::Families<12, 4>>(p, carry, fa, s));
-  if (nx == 6 && nu == 3)    // the rocket
+  if (families && nx == 6 && nu == 3)     // the rocket
     return static_cast<int>(
         launch<6, 3, WARM, tinympc::Families<6, 3>>(p, carry, fa, s));
   return static_cast<int>(cudaErrorInvalidValue);
@@ -370,57 +362,19 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Returns 0 on success, a cudaError_t otherwise; cudaErrorInvalidValue for
-// an (nx, nu) pair this file does not instantiate or a bad size.
-extern "C" int tinympc_admm_fused_box_cold(
-    int nx, int nu, int N, int B, int max_iter, int check_termination,
-    float rho, float tol_pri, float tol_dua, const void* tables,
-    const void* x0, void* vnew, void* znew, void* g, void* y, void* d,
-    void* out_x, void* out_u, void* out_iters, void* out_solved,
-    void* out_res, void* stream) {
-  const Carry none = {nullptr, nullptr, nullptr, nullptr, nullptr,
-                      nullptr, nullptr, nullptr, nullptr, nullptr};
-  return dispatch_box<false>(
-      nx, nu,
-      buffers(N, B, max_iter, check_termination, rho, tol_pri, tol_dua,
-              tables, x0, vnew, znew, g, y, d, out_x, out_u, out_iters,
-              out_solved, out_res),
-      none, stream);
-}
-
-// The warm solve: as tinympc_admm_fused_box_cold, plus the carry in
-// (vnew_in, znew_in, g_in, y_in, v_in, z_in) and out (vnew_out, znew_out,
-// v_out, z_out; g and y are the carry's g/y out). Carry arrays are
-// lane-last, (N, nx, B) and (N-1, nu, B).
-extern "C" int tinympc_admm_fused_box_warm(
-    int nx, int nu, int N, int B, int max_iter, int check_termination,
-    float rho, float tol_pri, float tol_dua, const void* tables,
-    const void* x0, void* vnew, void* znew, void* g, void* y, void* d,
-    void* out_x, void* out_u, void* out_iters, void* out_solved,
-    void* out_res, const void* vnew_in, const void* znew_in,
-    const void* g_in, const void* y_in, const void* v_in, const void* z_in,
-    void* vnew_out, void* znew_out, void* v_out, void* z_out, void* stream) {
-  const void* const c[10] = {vnew_in, znew_in, g_in,     y_in,  v_in,
-                             z_in,    vnew_out, znew_out, v_out, z_out};
-  for (const void* ptr : c)
-    if (!ptr) return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_box<true>(
-      nx, nu,
-      buffers(N, B, max_iter, check_termination, rho, tol_pri, tol_dua,
-              tables, x0, vnew, znew, g, y, d, out_x, out_u, out_iters,
-              out_solved, out_res),
-      carry_from(c), stream);
-}
-
-// The solve with the other constraint families, cold (warm = 0) or warm.
-// counts: the six family sizes (state cones, input cones, state and input
-// hyperplanes, state and input time-varying hyperplanes). carry: the ten
-// box carry arrays of tinympc_admm_fused_box_warm in its order, all null
-// on a cold solve. fam: 22 arrays -- the working slack and dual of each
-// family (vc gc zc yc vl gl zl yl vtv gtv ztv ytv; null for a family that
-// is off), then the warm carry in (gc yc gl yl gtv ytv x u) and the
-// carried x/u out (all null on a cold solve).
-extern "C" int tinympc_admm_fused_families(
+// The fused solve, cold (warm = 0) or warm. Returns 0 on success, a
+// cudaError_t otherwise; cudaErrorInvalidValue for an (nx, nu) pair this
+// file does not instantiate, a bad size or a missing array.
+// counts: the six family sizes beyond the box (state cones, input cones,
+// state and input hyperplanes, state and input time-varying hyperplanes);
+// all zero runs the box-only kernel. carry: the warm carry in (vnew_in,
+// znew_in, g_in, y_in, v_in, z_in) and out (vnew_out, znew_out, v_out,
+// z_out; g and y are the carry's g/y out), lane-last (N, nx, B) and
+// (N-1, nu, B); all null on a cold solve. fam: 22 arrays -- the working
+// slack and dual of each family (vc gc zc yc vl gl zl yl vtv gtv ztv ytv;
+// null for a family that is off), then the warm carry in (gc yc gl yl gtv
+// ytv x u) and the carried x/u out (null on a cold or box-only solve).
+extern "C" int tinympc_admm_fused(
     int warm, int nx, int nu, int N, int B, int max_iter,
     int check_termination, const int* counts, float rho, float tol_pri,
     float tol_dua, const void* tables, const void* x0, void* vnew,
@@ -443,25 +397,28 @@ extern "C" int tinympc_admm_fused_families(
   fa.x_out = static_cast<float*>(fam[20]);
   fa.u_out = static_cast<float*>(fam[21]);
   // Each family that is on needs its arrays, and a warm solve its carry.
-  const bool on[6] = {fa.ncx > 0, fa.ncu > 0, fa.nlx > 0,
-                      fa.nlu > 0, fa.ntx > 0, fa.ntu > 0};
+  bool families = false;
   for (int f = 0; f < 6; ++f) {
     if (counts[f] < 0) return static_cast<int>(cudaErrorInvalidValue);
-    if (on[f] && (!fam[2 * f] || !fam[2 * f + 1] || (warm && !fam[12 + f])))
+    const bool on = counts[f] > 0;
+    families = families || on;
+    if (on && (!fam[2 * f] || !fam[2 * f + 1] || (warm && !fam[12 + f])))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   const Buffers p = buffers(N, B, max_iter, check_termination, rho, tol_pri,
                             tol_dua, tables, x0, vnew, znew, g, y, d, out_x,
                             out_u, out_iters, out_solved, out_res);
+  if (bad_size(p)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
   if (!warm) {
     if (fa.x_out || fa.u_out) return static_cast<int>(cudaErrorInvalidValue);
     const Carry none = {nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, nullptr};
-    return dispatch_families<false>(nx, nu, p, none, fa, stream);
+    return dispatch<false>(nx, nu, families, p, none, fa, s);
   }
   for (int k = 0; k < 10; ++k)
     if (!carry[k]) return static_cast<int>(cudaErrorInvalidValue);
-  if (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out)
+  if (families && (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch_families<true>(nx, nu, p, carry_from(carry), fa, stream);
+  return dispatch<true>(nx, nu, families, p, carry_from(carry), fa, s);
 }

@@ -21,7 +21,7 @@ def project_box(s, smin, smax):
     return torch.minimum(smax, torch.maximum(smin, s))
 
 
-def _sum_last(t):
+def sum_last(t):
     """Sum over the last axis in index order, starting from zero."""
     acc = t.new_zeros(t.shape[:-1])
     for j in range(t.shape[-1]):
@@ -38,7 +38,7 @@ def project_soc(s, mu):
     0, so the apex gives no NaN."""
     u0 = s[..., -1] * mu
     v = s[..., :-1]
-    a = torch.sqrt(_sum_last(v * v))
+    a = torch.sqrt(sum_last(v * v))
     below = a <= -u0
     inside = a <= u0
     safe_a = torch.where(a > 0, a, torch.ones_like(a))
@@ -48,11 +48,12 @@ def project_soc(s, mu):
                        torch.where(inside[..., None], s, outside))
 
 
-def project_hyperplane_if_violated(z, a, b):
+def project_hyperplane_if_violated(z, a, b, asq=None):
     """Project z onto {z : a.z = b} only where a.z > b (admm.cpp:70-73 with
     the violation gate of admm.cpp:154). ``a`` broadcasts against
-    ``z[..., :]``; ``b`` against ``z[..., 0]``."""
-    val = _sum_last(z * a)
-    dist = (val - b) / _sum_last(a * a)
+    ``z[..., :]``; ``b`` and ``asq`` (||a||^2, summed here when None)
+    against ``z[..., 0]``."""
+    val = sum_last(z * a)
+    dist = (val - b) / (sum_last(a * a) if asq is None else asq)
     proj = z - dist[..., None] * a
     return torch.where((val > b)[..., None], proj, z)
