@@ -36,7 +36,18 @@ calls, and holds every kernel against its plain PyTorch version:
   examples/scenarios.py:121-170 as a cold batch: quadrotor_50hz, N=10, box
   off, z <= 3 and sum(u) <= 6 (tv: z below the demo's first window of
   z_lim_total), max_iter 100, ct 1, B=16384, x0 = [-2, -2, 1, 0...] +
-  0.1 U[-1, 1]^12 (default_rng(0)), Xref the demo's step-0 window.
+  0.1 U[-1, 1]^12 (default_rng(0)), Xref the demo's step-0 window;
+* adaptive rho on the adaptive instantiation of csrc/admm_fused.cu (with
+  csrc/admm_adaptive.cuh): bench_all.py:401-446's "to-convergence 500it
+  hard batch (adaptive rho)" -- the quadrotor at N=20, rho0=5, box +-5 /
+  +-0.5, z reference 1, B=32768 with x0 ~ U[-0.5, 0.5]^12
+  (default_rng(0)), max_iter 500, check_termination 1, the sensitivities
+  from compute_sensitivities -- through setup -> with_bounds ->
+  with_settings(adaptive_rho=True) -> kernels.solve_fused, with fixed rho
+  on the same inputs beside it; bench_all.py:458-487's mis-tuned rho0=85
+  (fixed / adaptive / guarded tol 3), and rho0=1000, where float32 at
+  "highest" finds fixed rho mis-tuned; and phase 8's external-plant
+  sequence with adaptive rho (5 warm solves, rho riding the carry).
 
 Phases, each of which raises on failure:
 
@@ -63,7 +74,14 @@ Phases, each of which raises on failure:
 11. the rocket SOC external-plant sequence at B=16384, 5 warm solves;
 12. the hyperplane demos as cold batches at B=16384, static and tv; then
    the same under phase 9's low ceilings;
-13. the kernels line, then the device line last.
+13. adaptive kernel against its plain versions, small: B=1000, N=20, ct 1,
+   cold at rho_tol 1, at rho_tol 3 from rho0=85 (max_iter 500), with
+   apply_c; warm, 6 solves of an external plant (N=10);
+14. the adaptive hard batch at B=32768, and fixed rho on the same inputs;
+15. the mis-tuned rho0=85 and rho0=1000 batches at B=32768: fixed,
+   adaptive, guarded;
+16. the adaptive external-plant sequence at B=16384, 5 warm solves;
+17. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -75,7 +93,11 @@ iterate, the values are held on the lanes whose counts agree (at every
 step so far, in the warm sequences and closed loops). Closed loops hold
 the solved fraction over (step, lane) within 0.001; the full-width
 external-plant loop holds it within 2 lanes of 16384. Cold max_iter 500
-holds its agreed lanes to 1e-3 (PR 1's bar). A closed loop at
+holds its agreed lanes to 1e-3, as do the adaptive batches
+of max_iter 500; adaptive solves also hold each lane's final rho to
+within 1e-3 (relative) on the lanes whose counts agree, and the small
+adaptive batches are held, against the plain version on the card and on
+the CPU, to the plain version's own spread between the two. A closed loop at
 check_termination 1 on a moving reference puts many (step, lane) counts
 on a float32 tie, so two summation orders disagree on more than 1% of
 them whichever two they are: there the count bar is the plain version's
@@ -124,6 +146,19 @@ LOW_CEILING = dict(linear=np.full(FAM_N, 1.24),
 ROCKET_XINIT = [4.0, 2.0, 20.0, -3.0, 2.0, -4.5]
 QUAD_START = [-2.0, -2.0, 1.0] + [0.0] * 9
 QUAD_GOAL = [2.0, 2.0, 4.0] + [0.0] * 9
+# Adaptive rho: the hard batch of bench_all.py:401-405 (N=20, B=32768,
+# max_iter 500, check_termination 1, z reference 1), its mis-tuned rho0
+# (:458-487), and the small comparisons; the adaptive external-plant
+# sequence runs at SERVE_B, N=SERVE_N.
+ADAPT_B, ADAPT_ITER, ADAPT_SMALL_B = 32768, 500, 1000
+MISTUNED_RHO = 85.0
+# A rho0 that float32 at matmul_precision "highest" finds mis-tuned on the
+# hard batch. At 85 fixed rho solves most lanes in float32: so does the JAX
+# package's XLA path on the CPU (tests/test_torch_mistuned.py, run as a
+# script, sweeps rho0 there), and bench_all.py's direction for 85, taken on
+# a TPU at "high", shows in float32 only from rho0 ~500 up.
+DETUNED_RHO = 1000.0
+RHO_RTOL = 1e-3
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -407,13 +442,14 @@ def plain_spread(torch, sol_p, sol_c, among, c_p=None, c_c=None):
     dsf = abs(sol_p.solved.float().mean().item()
               - sol_c.solved.float().mean().item())
     pairs = [(sol_p.x.cpu(), sol_c.x, 1), (sol_p.u.cpu(), sol_c.u, 1)]
-    if c_p is not None:
-        pairs += [(getattr(c_p, f.name).cpu(), getattr(c_c, f.name), 2)
+    if c_p is not None:     # carry fields are lane-last
+        pairs += [(getattr(c_p, f.name).cpu(), getattr(c_c, f.name),
+                   getattr(c_p, f.name).ndim - 1)
                   for f in dataclasses.fields(c_p)
                   if getattr(c_p, f.name) is not None]
     dval = 0.0
     for a, b, lane_axis in pairs:
-        d = (a - b).abs().amax(dim=tuple(k for k in range(3)
+        d = (a - b).abs().amax(dim=tuple(k for k in range(a.ndim)
                                          if k != lane_axis))
         if held.any():
             dval = max(dval, d[held].max().item())
@@ -508,6 +544,68 @@ def fused_work(N, nx, nu, B, iter_sum, carry_floats=0, spec=None):
     return ops, nbytes
 
 
+def adaptive_ops(N, nx, nu, apply_c):
+    """Operations adaptive rho adds to one ADMM iteration of one lane: the
+    sensitivity products dKinf x and dKinf^T r of every row (and dC1 w,
+    dC2 p under apply_c), each scaled by drho and added (2 operations an
+    output), and the terminal term's drho * (-dPinf^T Xref) (2 a
+    feature)."""
+    fma = (N - 1) * (nu * nx + nx * nu)
+    scale = (N - 1) * (nu + nx) + nx
+    if apply_c:
+        fma += (N - 1) * (nu * nu + nx * nx)
+        scale += (N - 1) * (nu + nx)
+    return 2 * fma + 2 * scale
+
+
+def adaptation_ops(N, nx, nu):
+    """Operations of one rho adaptation of one lane (every 5th iteration):
+    A^T g and B^T g of every dynamics row, Pinf x and dPinf x of the last
+    state, the dynamics rows (A x + B u) - x+ (1 a feature; the products
+    are the rollout's), the elementwise P x + q + A^T y terms and the
+    max-abs updates of the residuals and norms (10 a feature), and the
+    prediction (10)."""
+    fma = (N - 1) * (nx * nx + nu * nx) + 2 * nx * nx
+    elementwise = (N - 1) * nx + 10 * (N * nx + (N - 1) * nu) + 10
+    return 2 * fma + elementwise
+
+
+def adaptations(iters):
+    """Adaptations a lane that ran ``iters`` iterations made: iterations
+    5, 10, ... below ``iters``, summed over the lanes."""
+    return int(((iters.long() - 1).clamp(min=0) // 5).sum().item())
+
+
+def adaptive_work(N, nx, nu, B, iters, apply_c, carry_floats=0):
+    """Operations and bytes of an adaptive fused solve for this run: the
+    fixed-rho work of :func:`fused_work` plus :func:`adaptive_ops` on every
+    iteration and :func:`adaptation_ops` on every adaptation the run made;
+    bytes add the final rho row (and a warm carry, rho included)."""
+    iter_sum = int(iters.sum().item())
+    ops, nbytes = fused_work(N, nx, nu, B, iter_sum, carry_floats)
+    ops += float(iter_sum) * adaptive_ops(N, nx, nu, apply_c) \
+        + float(adaptations(iters)) * adaptation_ops(N, nx, nu)
+    return ops, nbytes + 4 * B
+
+
+def compare_rho(label, rho_k, rho_p, held, rtol=RHO_RTOL):
+    """Final rho rows of kernel and plain version on the held lanes,
+    within ``rtol``; returns the largest relative difference."""
+    rel = ((rho_k - rho_p).abs() / rho_p.abs())[held]
+    worst = rel.max().item() if held.any() else 0.0
+    moved = (rho_k != rho_k.flatten()[0]).float().mean().item()
+    log(f"  {label}: final rho max rel diff {worst:.3e} on held lanes; "
+        f"quartiles {[round(q, 4) for q in quartiles(rho_k)]}")
+    fail(label, worst <= rtol and bool((rho_k > 0).all()),
+         f"final rho differs by {worst:.3e} > {rtol} (or is not positive)")
+    return worst
+
+
+def quartiles(t):
+    t = t.flatten().float().cpu()
+    return [t.quantile(q).item() for q in (0.0, 0.25, 0.5, 0.75, 1.0)]
+
+
 def lane_carry_floats(carry):
     """Floats a lane of a warm carry holds."""
     return sum(getattr(carry, f.name)[..., 0].numel()
@@ -566,6 +664,9 @@ def kernel_label(fn):
                   r"Families)", fn)
     if m:
         kind = "families" if m[4] == "Families" else "box"
+        a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
+        if a:
+            kind = "adaptive apply_c" if a[1] == "1" else "adaptive"
         mode = "warm" if m[3] == "1" else "cold"
         return f"admm_fused {kind} {mode} ({m[1]}, {m[2]})"
     return "closed_loop_fused" if "closed_loop" in fn else fn
@@ -606,6 +707,318 @@ def check_rounding(torch, lib, n=1 << 24):
     return differ(q, a / b) + differ(r, torch.sqrt(a.abs()))
 
 
+def adaptive_problem(tt, torch, rho, N, max_iter, ct, tol=1.0, apply_c=False,
+                     tables=None):
+    """The quadrotor of bench_all.py:401-403 with adaptive rho, through the
+    user's entry points: with_settings computes the rho sensitivities
+    (compute_sensitivities) unless ``tables`` (dKinf, dPinf, dC1, dC2) are
+    given."""
+    s = tt.systems.quadrotor_20hz()
+    prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=rho, N=N,
+                    dtype=torch.float32, device=DEVICE)
+    prob = tt.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5,
+                          u_max=0.5)
+    if tables is not None:
+        prob = tt.with_sensitivities(prob, tables)
+    return tt.with_settings(prob, max_iter=max_iter, check_termination=ct,
+                            adaptive_rho=True, adaptive_rho_tolerance=tol,
+                            adaptive_rho_apply_c=apply_c)
+
+
+def sensitivity_tables(prob):
+    c = prob.cache
+    return c.dKinf_drho, c.dPinf_drho, c.dC1_drho, c.dC2_drho
+
+
+def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B):
+    """An adaptive cold batch, kernel against its plain version on the CPU
+    at the default bar, and against its plain version on the card at the
+    bar of the plain version's own spread between the two (its counts,
+    solved fraction and values; never looser than the default bar); final
+    rho within RHO_RTOL on the lanes whose counts agree."""
+    prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                        "cpu")
+    sol_k, res_k = tt.kernels.solve_fused(prob, Xref, None, x0)
+    sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, None, x0)
+    sol_c, res_c = tt.kernels.solve_fused_reference(prob_c, Xref.cpu(), None,
+                                                    x0.cpu())
+    torch.cuda.synchronize()
+    everyone = torch.ones(B, dtype=torch.bool)
+    share, solved_tol, atol = spread_bars(
+        label, *plain_spread(torch, sol_p, sol_c, everyone)[:3], B)
+    sol_kc = on_cpu(sol_k)
+    for other, sol_o, res_o, bars in (
+            ("plain(cpu)", sol_c, res_c, {}),
+            ("plain(gpu)", on_cpu(sol_p), res_p.cpu(),
+             dict(atol=atol, solved_tol=solved_tol, share=share))):
+        name = f"{label} vs {other}"
+        compare(torch, name, sol_kc, sol_o, lanes="same_iters", **bars)
+        compare_rho(name, res_k[4].cpu(), res_o[4],
+                    sol_kc.iter == sol_o.iter)
+    log(f"  {label}: lanes whose rho moved "
+        f"{(res_k[4] != float(prob.cache.rho)).float().mean().item():.5f}, "
+        f"mean iters {sol_k.iter.float().mean().item():.4f}, solved frac "
+        f"{sol_k.solved.float().mean().item():.5f}")
+
+
+def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
+                    peak_flops, peak_bw):
+    """Phases 13-16: adaptive rho on the adaptive instantiation of
+    csrc/admm_fused.cu. Returns the kernels-line numbers of the cold hard
+    batch and of the warm external-plant sequence."""
+    # 13. small batches against the plain version, on the card and the CPU
+    phase(f"phase 13: adaptive kernel vs plain versions, B={ADAPT_SMALL_B}")
+    t0 = time.perf_counter()
+    prob5 = adaptive_problem(tt, torch, 5.0, N_HORIZON, ADAPT_ITER, 1)
+    torch.cuda.synchronize()
+    sens5_ms = 1e3 * (time.perf_counter() - t0)
+    t5 = sensitivity_tables(prob5)
+    t0 = time.perf_counter()
+    prob85 = adaptive_problem(tt, torch, MISTUNED_RHO, N_HORIZON, ADAPT_ITER,
+                              1)
+    torch.cuda.synchronize()
+    sens85_ms = 1e3 * (time.perf_counter() - t0)
+    t85 = sensitivity_tables(prob85)
+    # The same tables on the host, for the set-up cost of the round trip
+    # a fixed-point step that the card pays.
+    c = prob5.cache
+    args = [a.cpu() for a in (prob5.A, prob5.B, prob5.f,
+                                prob5.Qdiag - c.rho, prob5.Rdiag - c.rho,
+                                c.rho)]
+    t0 = time.perf_counter()
+    t5_host = tt.riccati.compute_sensitivities(*args)
+    host5_ms = 1e3 * (time.perf_counter() - t0)
+    drift = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(t5, t5_host))
+    log(f"  setup with compute_sensitivities on the card (set-up): rho 5 "
+        f"{sens5_ms:.1f} ms, rho {MISTUNED_RHO} {sens85_ms:.1f} ms; "
+        f"compute_sensitivities alone on the host, rho 5: {host5_ms:.1f} "
+        f"ms, tables within {drift:.3e} (relative to each table's max) of "
+        f"the card's")
+    B = ADAPT_SMALL_B
+    x0, Xref = inputs(torch, B)
+    for label, rho, mi, tol, apply_c, tables in (
+            ("adaptive rho_tol 1", 5.0, 100, 1.0, False, t5),
+            ("adaptive rho_tol 3 rho0 85", MISTUNED_RHO, ADAPT_ITER, 3.0,
+             False, t85),
+            ("adaptive apply_c", 5.0, 100, 1.0, True, t5)):
+        prob = adaptive_problem(tt, torch, rho, N_HORIZON, mi, 1, tol,
+                                apply_c, tables)
+        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
+                       Xref, B)
+    # Warm: six solves of an external plant, rho riding the carry; each
+    # step held on the lanes whose counts agree at every step so far:
+    # against the plain version on the CPU at the default bar, on the card
+    # at the plain version's own spread.
+    prob = adaptive_problem(tt, torch, 5.0, SERVE_N, 100, 1, tables=t5)
+    prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                        "cpu")
+    x, Xref = inputs(torch, B, N=SERVE_N, spread=0.3)
+    c_k, c_p, c_c = (tt.init_carry(prob, B), tt.init_carry(prob, B),
+                     tt.init_carry(prob_c, B))
+    agreed = {o: torch.ones(B, dtype=torch.bool)
+              for o in ("plain(cpu)", "plain(gpu)")}
+    for step in range(6):
+        sol_k, res_k, c_k = tt.kernels.solve_fused_warm(prob, Xref, None, x,
+                                                        c_k)
+        sol_p, res_p, c_p = tt.kernels.solve_fused_warm_reference(
+            prob, Xref, None, x, c_p)
+        sol_c, res_c, c_c = tt.kernels.solve_fused_warm_reference(
+            prob_c, Xref.cpu(), None, x.cpu(), c_c)
+        torch.cuda.synchronize()
+        name = f"adaptive warm B={B} step {step}"
+        share_c, dsf_c, dval_c, _ = plain_spread(
+            torch, sol_p, sol_c, agreed["plain(gpu)"], c_p, c_c)
+        share, solved_tol, atol = spread_bars(name, share_c, dsf_c, dval_c,
+                                              B)
+        sol_kc, c_kc = on_cpu(sol_k), on_cpu(c_k)
+        for other, sol_o, c_o, bars in (
+                ("plain(cpu)", sol_c, c_c, {}),
+                ("plain(gpu)", on_cpu(sol_p), on_cpu(c_p),
+                 dict(atol=atol, solved_tol=solved_tol, share=share))):
+            before = agreed[other].clone()
+            agreed[other] &= sol_kc.iter == sol_o.iter
+            compare(torch, f"{name} vs {other}", sol_kc, sol_o,
+                    lanes=agreed[other], among=before, **bars)
+            compare_carry(torch, f"{name} vs {other}", c_kc, c_o,
+                          agreed[other], atol=bars.get("atol", BAR_ATOL))
+            compare_rho(f"{name} vs {other}", c_kc.rho[0], c_o.rho[0],
+                        agreed[other])
+        x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+
+    # 14. the adaptive hard batch at full width, and fixed rho beside it
+    phase(f"phase 14: adaptive hard batch, B={ADAPT_B}, N={N_HORIZON}, "
+          f"max_iter {ADAPT_ITER}, ct 1")
+    x0, Xref = inputs(torch, ADAPT_B)
+    zero_counts(counters)
+    sol_k, res_k = tt.kernels.solve_fused(prob5, Xref, None, x0)
+    torch.cuda.synchronize()
+    launches = admm_fused.adaptive_launch_count
+    if launches < 1:
+        raise AssertionError("the adaptive hard batch did not launch the "
+                             "adaptive kernel")
+    if sol_k.x.shape != (N_HORIZON, ADAPT_B, 12) or \
+            res_k.shape != (5, ADAPT_B):
+        raise AssertionError(f"bad output shapes {sol_k.x.shape} "
+                             f"{res_k.shape}")
+    plain_ms, (sol_p, res_p) = host_ms(
+        torch, lambda: tt.kernels.solve_fused_reference(prob5, Xref, None,
+                                                        x0))
+    # Over 500 iterations the agreed lanes are held to 1e-3, the bar of
+    # the cold max_iter 500 regime.
+    err = compare(torch, "adaptive hard batch", sol_k, sol_p, res_k[:4],
+                  res_p[:4], atol=1e-3, lanes="same_iters")
+    compare_rho("adaptive hard batch", res_k[4], res_p[4],
+                sol_k.iter == sol_p.iter)
+
+    def time_cold(prob):
+        tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
+        run = lambda: admm_fused._solve_kernel(tables, x0c, N_HORIZON, 12, 4,
+                                               **params)
+        sol = run()[0]                                  # warm-up
+        ms, times = cuda_ms(torch, run, 5)
+        call_ms = statistics.median(
+            host_ms(torch, lambda: tt.kernels.solve_fused(prob, Xref, None,
+                                                          x0))[0]
+            for _ in range(3))
+        return sol, ms, times, call_ms
+
+    sol_t, ms, times, call_ms = time_cold(prob5)
+    ops, nbytes = adaptive_work(N_HORIZON, 12, 4, ADAPT_B, sol_t.iter, False)
+    bound_ms, bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    mean_it = sol_k.iter.float().mean().item()
+    log(f"  adaptive hard batch: kernel {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}), solve_fused call {call_ms:.4f} ms "
+        f"on the host clock (kernel share {ms / call_ms:.4f}), "
+        f"{ADAPT_B / (ms / 1e3):.1f} solves/s, solved frac "
+        f"{sol_k.solved.float().mean().item():.5f}, mean iters "
+        f"{mean_it:.4f} ({ms / mean_it:.5f} ms per mean iteration), "
+        f"adaptations {adaptations(sol_k.iter)}, final rho quartiles "
+        f"{[round(q, 4) for q in quartiles(res_k[4])]}, bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.1f} ms, launches "
+        f"{launches}; card {card}")
+    fixed = tt.with_settings(prob5, adaptive_rho=False)
+    sol_f, ms_f, times_f, call_f = time_cold(fixed)
+    mean_f = sol_f.iter.float().mean().item()
+    log(f"  fixed rho, same inputs: kernel {ms_f:.4f} ms (reps "
+        f"{[round(t, 4) for t in times_f]}), call {call_f:.4f} ms, solved "
+        f"frac {sol_f.solved.float().mean().item():.5f}, mean iters "
+        f"{mean_f:.4f} ({ms_f / mean_f:.5f} ms per mean iteration); "
+        f"adaptive / fixed time {ms / ms_f:.4f}, per mean iteration "
+        f"{(ms / mean_it) / (ms_f / mean_f):.4f}")
+    rows = {"adaptive": dict(launches=launches, err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)}
+
+    # 15. mis-tuned rho0: fixed, adaptive, guarded, at bench_all.py's 85
+    # and at DETUNED_RHO, where the adaptation must solve more lanes than
+    # fixed rho does
+    phase(f"phase 15: mis-tuned rho0 {MISTUNED_RHO} and {DETUNED_RHO}, "
+          f"B={ADAPT_B}: fixed / adaptive / guarded tol 3")
+    t0 = time.perf_counter()
+    prob_d = adaptive_problem(tt, torch, DETUNED_RHO, N_HORIZON, ADAPT_ITER, 1)
+    torch.cuda.synchronize()
+    log(f"  setup with compute_sensitivities at rho {DETUNED_RHO} "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms (set-up)")
+    for rho0, base in ((MISTUNED_RHO, prob85), (DETUNED_RHO, prob_d)):
+        fractions = {}
+        for label, ad, tol in (("fixed rho", False, 1.0),
+                               ("adaptive rho", True, 1.0),
+                               ("adaptive guarded tol=3", True, 3.0)):
+            name = f"rho0 {rho0:g} {label}"
+            prob = tt.with_settings(base, adaptive_rho=ad,
+                                    adaptive_rho_tolerance=tol)
+            sol, res = tt.kernels.solve_fused(prob, Xref, None, x0)
+            if ad:
+                sol_p, res_p = tt.kernels.solve_fused_reference(
+                    prob, Xref, None, x0)
+                compare(torch, name, sol, sol_p, res[:4], res_p[:4],
+                        atol=1e-3, lanes="same_iters")
+                compare_rho(name, res[4], res_p[4], sol.iter == sol_p.iter)
+            _, ms_m, _, _ = time_cold(prob)
+            fractions[label] = sol.solved.float().mean().item()
+            log(f"  {name}: solved frac {fractions[label]:.5f}, mean iters "
+                f"{sol.iter.float().mean().item():.4f}, kernel {ms_m:.4f} "
+                f"ms, {ADAPT_B / (ms_m / 1e3):.1f} solves/s"
+                + (f", final rho quartiles "
+                   f"{[round(q, 4) for q in quartiles(res[4])]}" if ad
+                   else "") + f"; card {card}")
+        if rho0 == DETUNED_RHO:
+            for label in ("adaptive rho", "adaptive guarded tol=3"):
+                fail(f"rho0 {rho0:g} {label}",
+                     fractions[label] > fractions["fixed rho"],
+                     f"solves {fractions[label]:.5f} of lanes, fixed rho "
+                     f"{fractions['fixed rho']:.5f}: the adaptation does "
+                     "not help")
+
+    # 16. adaptive external-plant sequence (phase 8's set-up)
+    phase(f"phase 16: adaptive external-plant sequence, B={SERVE_B}, 5 warm "
+          f"solves")
+    prob = adaptive_problem(tt, torch, 5.0, SERVE_N, 100, 1, tables=t5)
+    rng = np.random.default_rng(0)
+    hover = torch.as_tensor(HOVER, dtype=torch.float32, device=DEVICE)
+    Xref = hover.expand(SERVE_N, 12).contiguous()
+    x = hover + torch.as_tensor(rng.uniform(-0.3, 0.3, (SERVE_B, 12)),
+                                dtype=torch.float32, device=DEVICE)
+    c_k = tt.init_carry(prob, SERVE_B)
+    zero_counts(counters)
+    states, sols, carries = [], [], []
+    for step in range(5):
+        sol_k, _, c_k = tt.kernels.solve_fused_warm(prob, Xref, None, x, c_k)
+        states.append(x)
+        sols.append(sol_k)
+        carries.append(c_k)
+        x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+    torch.cuda.synchronize()
+    warm_launches = admm_fused.adaptive_warm_launch_count
+    if warm_launches < 5:
+        raise AssertionError("the adaptive sequence did not launch the warm "
+                             "adaptive kernel")
+    c_p = tt.init_carry(prob, SERVE_B)
+    agreed = torch.ones(SERVE_B, dtype=torch.bool, device=DEVICE)
+    err_w = 0.0
+    for step, (x_s, sol_k, c_ks) in enumerate(zip(states, sols, carries)):
+        plain_w_ms, (sol_p, _, c_p) = host_ms(
+            torch, lambda: tt.kernels.solve_fused_warm_reference(
+                prob, Xref, None, x_s, c_p))
+        agreed &= sol_k.iter == sol_p.iter
+        err_w = max(err_w, compare(torch, f"adaptive warm step {step}",
+                                   sol_k, sol_p, lanes=agreed,
+                                   solved_tol=2 / SERVE_B))
+        compare_rho(f"adaptive warm step {step}", c_ks.rho[0], c_p.rho[0],
+                    agreed)
+        log(f"  step {step}: mean iters "
+            f"{sol_k.iter.float().mean().item():.4f}, solved frac "
+            f"{sol_k.solved.float().mean().item():.5f}")
+    compare_carry(torch, "adaptive after 5 steps", c_k, c_p, agreed)
+    tables, xc, params = admm_fused._prepare(prob, Xref, None, x)
+    carry = admm_fused._carry_tensors(prob, c_k, SERVE_B)
+    run = lambda: admm_fused._solve_kernel_warm(tables, xc, carry, SERVE_N,
+                                                12, 4, **params)
+    sol_w = run()[0]                                    # warm-up
+    w_ms, times = cuda_ms(torch, run, REPS)
+    call_ms = statistics.median(
+        host_ms(torch, lambda: tt.kernels.solve_fused_warm(prob, Xref, None,
+                                                           x, c_k))[0]
+        for _ in range(REPS))
+    ops, nbytes = adaptive_work(SERVE_N, 12, 4, SERVE_B, sol_w.iter, False,
+                                lane_carry_floats(c_k))
+    w_bound_ms, w_bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    log(f"  adaptive solve_fused_warm (the sixth solve): kernel {w_ms:.4f} "
+        f"ms (reps {[round(t, 4) for t in times]}), whole call "
+        f"{call_ms:.4f} ms on the host clock (kernel share "
+        f"{w_ms / call_ms:.4f}), plain {plain_w_ms:.1f} ms, bound "
+        f"{w_bound_ms:.4f} ms ({w_bound_by}), mean iters "
+        f"{sol_w.iter.float().mean().item():.4f}, "
+        f"{SERVE_B / (w_ms / 1e3):.1f} solves/s, adaptive warm launches "
+        f"{warm_launches}; card {card}")
+    rows["adaptive_warm"] = dict(launches=warm_launches, err=err_w, ms=w_ms,
+                                 plain_ms=plain_w_ms, bound_ms=w_bound_ms,
+                                 bound_by=w_bound_by)
+    return rows
+
+
 def zero_counts(kernels):
     for mod, attr in kernels:
         setattr(mod, attr, 0)
@@ -624,7 +1037,9 @@ def main():
                 (admm_fused, "warm_launch_count"),
                 (admm_fused, "families_launch_count"),
                 (admm_fused, "families_warm_launch_count"),
-                (closed_loop_kernel, "launch_count"))
+                (closed_loop_kernel, "launch_count"),
+                (admm_fused, "adaptive_launch_count"),
+                (admm_fused, "adaptive_warm_launch_count"))
 
     # 1. card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1140,14 +1555,17 @@ def main():
             f"{(dual[:, 2].abs().amax(dim=0) > 0).float().mean().item():.5f}"
             f" of lanes")
 
+    adapt_rows = adaptive_phases(torch, tt, convert, admm_fused, counters,
+                                 card, peak_flops, peak_bw)
+
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
         for f in FAILURES:
             log(f"  {f}")
         return 1
 
-    # 13. kernels line, then the device line last
-    phase("phase 13: kernels line")
+    # 17. kernels line, then the device line last
+    phase("phase 17: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -1163,6 +1581,9 @@ def main():
               "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fam_rows[key])
              for key in ("soc", "soc_warm", "linear", "tv")]
+    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", adapt_rows[key])
+             for key in ("adaptive", "adaptive_warm")]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

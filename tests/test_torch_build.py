@@ -24,12 +24,31 @@ def test_library_name_follows_source_and_every_shared_header(tmp_path,
 
 def test_package_ships_its_kernel_sources():
     """Every kernel the wrappers load has its source and the shared header
-    in the package."""
+    in the package; the fused solve also includes the families' and the
+    adaptive-rho headers."""
     from tinympc_tpu_torch.kernels import admm_fused, closed_loop_kernel
     for name in (admm_fused.KERNEL, closed_loop_kernel.KERNEL):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert '#include "admm_sweep.cuh"' in src
-    assert (_build.CSRC_DIR / "admm_sweep.cuh").exists()
+    src = (_build.CSRC_DIR / f"{admm_fused.KERNEL}.cu").read_text()
+    for header in ("admm_sweep.cuh", "admm_families.cuh",
+                   "admm_adaptive.cuh"):
+        assert f'#include "{header}"' in src
+        assert (_build.CSRC_DIR / header).exists()
+
+
+def test_library_name_follows_the_adaptive_header(tmp_path, monkeypatch):
+    """An edit to csrc/admm_adaptive.cuh alone gives the fused solve's
+    library a new name, so a build without it is never loaded."""
+    from tinympc_tpu_torch.kernels import admm_fused
+    real = _build.CSRC_DIR
+    for src in real.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build.library_path(admm_fused.KERNEL)
+    header = tmp_path / "admm_adaptive.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path(admm_fused.KERNEL) != before
 
 
 def test_kernels_build_without_fma_contraction(tmp_path, monkeypatch):

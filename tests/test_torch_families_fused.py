@@ -361,7 +361,8 @@ def test_launch_passes_each_family_its_arrays(case, monkeypatch):
     seen = []
 
     def entry(*args):
-        assert len(args) == 26
+        assert len(args) == 27
+        assert args[25] is None            # fixed rho: no adaptive arguments
         warm, nx, nu, n, B = args[:5]
         counts = [args[7][k] for k in range(6)]
         carry = [args[23][k] for k in range(10)]

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, runs
-on cuda unless told otherwise, and rejects what this slice does not cover."""
+"""The port stands alone: it imports neither JAX nor the JAX package (its
+adaptive-rho modules included), runs on cuda unless told otherwise, and
+rejects what this slice does not cover."""
 import ast
 import dataclasses
 import os
@@ -30,6 +31,11 @@ x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5, (3, 12)),
 sol, res = tt.kernels.solve_fused(p, None, None, x0)
 sol2, _, _ = tt.solve(p, tt.init_state(p, (3,)), x0=x0)
 assert torch.isfinite(sol.x).all() and torch.isfinite(sol2.x).all()
+p = tt.with_settings(p, adaptive_rho=True)     # computes the sensitivities
+sol3, res3 = tt.kernels.solve_fused(p, None, None, x0)
+sol4, _, cache = tt.solve(p, tt.init_state(p, (3,)), x0=x0)
+assert torch.isfinite(res3).all() and torch.isfinite(cache.Kinf).all()
+assert "tinympc_tpu_torch.rho_adapt" in sys.modules
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "tinympc_tpu"
        or m.startswith("tinympc_tpu.")]
@@ -82,7 +88,7 @@ def _quad(**settings):
 
 @pytest.mark.parametrize("settings", [
     dict(matmul_precision="high"), dict(matmul_precision="default"),
-    dict(coarse_iters=50), dict(adaptive_rho=True),
+    dict(coarse_iters=50), dict(adaptive_rho=True, horizon_parallel=True),
 ], ids=["high", "default", "coarse_iters", "adaptive_rho"])
 def test_solve_fused_rejects_settings_outside_the_slice(settings):
     p = _quad(**settings)

@@ -24,26 +24,35 @@ Constraint families: box bounds (``with_bounds``), second-order cones
 hyperplanes (``with_tv_linear_constraints``, ``tv_from_stacked``), in the
 plain solve and in the cold and warm fused kernel; the fused closed loop
 takes box bounds only, as the JAX one does.
+
+Adaptive rho: ``with_settings(prob, adaptive_rho=True)`` attaches the rho
+sensitivities (``with_sensitivities``; ``systems.crazyflie_sensitivity_
+tables`` gives the reference's), and ``solve`` returns each problem's
+final cache; the fused kernel runs it for box problems at (12, 4), cold
+and warm, the final rho a 5th residual row (``kernels.adapted_cache``)
+and, warm, a ``FusedCarry`` field.
 """
-from . import admm, convert, kernels, systems
+from . import admm, convert, kernels, rho_adapt, systems
 from .admm import solve
 from .closed_loop import closed_loop, shift_state
 from .kernels import (FusedCarry, closed_loop_fused, init_carry,
                       shift_carry, solve_fused_warm)
 from .api import (init_state, setup, tv_from_stacked, with_bounds,
-                  with_cones, with_linear_constraints, with_settings,
-                  with_tv_linear_constraints)
-from .riccati import precompute_cache
+                  with_cones, with_linear_constraints, with_sensitivities,
+                  with_settings, with_tv_linear_constraints)
+from .riccati import compute_sensitivities, precompute_cache
 from .types import (Cache, ConstraintData, ProblemSpec, Settings, Solution,
                     SolverState, TinyProblem)
 
 __all__ = [
-    "admm", "convert", "kernels", "systems", "solve", "closed_loop",
+    "admm", "convert", "kernels", "rho_adapt", "systems", "solve",
+    "closed_loop",
     "shift_state", "FusedCarry", "init_carry", "shift_carry",
     "solve_fused_warm", "closed_loop_fused", "init_state", "setup",
     "with_bounds", "with_cones", "with_linear_constraints",
     "with_tv_linear_constraints", "tv_from_stacked", "with_settings",
-    "precompute_cache", "Cache",
+    "with_sensitivities", "precompute_cache", "compute_sensitivities",
+    "Cache",
     "ConstraintData", "ProblemSpec", "Settings", "Solution", "SolverState",
     "TinyProblem",
 ]

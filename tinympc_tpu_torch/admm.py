@@ -20,34 +20,63 @@ only, like the reference, and the solution is the box slack.
 
 Convergence is tracked per problem and converged problems freeze, so
 per-problem iteration counts match a single-problem solve. The loop ends
-when every problem converged or ``max_iter`` is reached. The adaptive-rho,
-consensus and horizon-parallel branches of the JAX package are not ported
-yet; :func:`solve` rejects them.
+when every problem converged or ``max_iter`` is reached.
+
+Adaptive rho (``Settings.adaptive_rho``) carries one rho per problem and
+never builds per-problem cache copies: every matrix the Taylor update moves
+is applied as the base product plus a ``drho``-scaled sensitivity product
+(:class:`Telescope`). The consensus and horizon-parallel branches of the
+JAX package are not ported yet; :func:`solve` rejects them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .projections import (project_box, project_hyperplane_if_violated,
                           project_soc)
-from .types import (Cache, ConstraintData, ProblemSpec, Solution,
-                    SolverState, TinyProblem, TINY_SOLVED, TINY_UNSOLVED,
-                    check_supported_settings, check_supported_spec)
+from .rho_adapt import (predict_rho, taylor_update,
+                         telescoped_osqp_residuals)
+from .types import (ADAPTIVE_RHO_PERIOD, Cache, ConstraintData, ProblemSpec,
+                    Solution, SolverState, TinyProblem, TINY_SOLVED,
+                    TINY_UNSOLVED, check_supported_settings,
+                    check_supported_spec)
+
+
+class Telescope(NamedTuple):
+    """The per-problem cache of adaptive rho, never built. The Taylor
+    update is linear in rho, so after any number of adaptations
+    ``M_b = M_base + drho_b * dM/drho`` exactly (the deltas telescope), and
+    each per-problem product is the base product plus a ``drho``-scaled
+    sensitivity product. ``dC1``/``dC2`` are None unless
+    ``Settings.adaptive_rho_apply_c`` retargets the matrices the sweeps
+    read."""
+
+    drho: torch.Tensor                  # (*b,) rho_b - rho_base
+    dK: torch.Tensor                    # dKinf/drho
+    dP: torch.Tensor                    # dPinf/drho
+    dC1: Optional[torch.Tensor] = None  # dQuu_inv/drho under apply_c
+    dC2: Optional[torch.Tensor] = None  # dAmBKt/drho under apply_c
 
 
 # ---------------------------------------------------------------- helpers
 
 def mv(M, v):
-    """M @ v on the trailing axis: M (i, j), v (..., j) -> (..., i)."""
-    return v @ M.transpose(-1, -2)
+    """M @ v on the trailing axis: M (i, j), v (..., j) -> (..., i). A
+    per-problem M (*b, i, j), the final cache of an adaptive solve,
+    broadcasts against v (..., *b, j)."""
+    if M.ndim == 2:
+        return v @ M.transpose(-1, -2)
+    return (M @ v[..., None])[..., 0]
 
 
 def mtv(M, v):
     """M.T @ v on the trailing axis."""
-    return v @ M
+    if M.ndim == 2:
+        return v @ M
+    return mv(M.transpose(-1, -2), v)
 
 
 def _emid(a, nb: int):
@@ -95,12 +124,16 @@ def _input_pairs(spec: ProblemSpec, state: SolverState):
     return pairs
 
 
-def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref
-                       ) -> SolverState:
+def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref,
+                       tel: Optional[Telescope] = None) -> SolverState:
     """q/r/p[N-1] from references, slacks and duals (admm.cpp:262-304),
     each family's term subtracted in turn: box, SOC, hyperplane,
-    time-varying hyperplane."""
+    time-varying hyperplane. With adaptive rho, ``prob.cache.rho`` is the
+    (*b,) row and ``tel`` moves the terminal Pinf by ``drho * dPinf``,
+    subtracted after the box term, as the JAX package does."""
     rho = prob.cache.rho
+    if rho.ndim > 0:
+        rho = rho[..., None]           # (*b, 1) against (T, *b, F)
     spec = prob.spec
     q = -(Xref * prob.Qdiag)
     for v, g in _state_pairs(spec, state):
@@ -112,8 +145,10 @@ def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref
     # (admm.cpp:292-303: the reference's row-vector product is x^T Pinf,
     # i.e. Pinf^T x; Pinf is symmetric only up to round-off).
     pN = -mtv(prob.cache.Pinf, Xref[-1])
-    for v, g in _state_pairs(spec, state):
+    for k, (v, g) in enumerate(_state_pairs(spec, state)):
         pN = pN - rho * (v[-1] - g[-1])
+        if k == 0 and tel is not None:
+            pN = pN - tel.drho[..., None] * mtv(tel.dP, Xref[-1])
     p = torch.cat([state.p[:-1], torch.broadcast_to(
         pN, state.p.shape[1:])[None]], dim=0)
     return state.replace(q=q, r=r, p=p)
@@ -121,14 +156,19 @@ def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref
 
 # --------------------------------------------------------- Riccati sweeps
 
-def backward_pass(cache: Cache, B, state: SolverState) -> SolverState:
+def backward_pass(cache: Cache, B, state: SolverState,
+                  tel: Optional[Telescope] = None) -> SolverState:
     """Linear (gradient) Riccati backward recursion (admm.cpp:13-20)::
 
         d[i] = Quu_inv (B' p[i+1] + r[i] + BPf)
         p[i] = q[i] + AmBKt p[i+1] - Kinf' r[i] + APf      i = N-2 .. 0
 
     ``B'`` and ``AmBKt`` multiply the same costate, so they are stacked
-    into one product per step, as in the JAX package."""
+    into one product per step, as in the JAX package. With ``tel``
+    (adaptive rho) each product of a matrix the Taylor update moves gains
+    its ``drho``-scaled sensitivity product, in the JAX package's order."""
+    if tel is not None:
+        return _backward_pass_telescoped(cache, B, state, tel)
     nu = B.shape[-1]
     Mback = torch.cat([B.T, cache.AmBKt], dim=0)
     KinfT = cache.Kinf.T
@@ -146,20 +186,49 @@ def backward_pass(cache: Cache, B, state: SolverState) -> SolverState:
     return state.replace(p=p, d=torch.stack(ds))
 
 
-def forward_pass(A, B, f, cache: Cache, state: SolverState) -> SolverState:
+def _backward_pass_telescoped(cache: Cache, B, state: SolverState,
+                              tel: Telescope) -> SolverState:
+    dr = tel.drho[..., None]
+    KinfT = cache.Kinf.transpose(-1, -2)
+    N = state.p.shape[0]
+    p_next = state.p[-1]
+    ps, ds = [None] * (N - 1), [None] * (N - 1)
+    for i in range(N - 2, -1, -1):
+        bp, ap = mtv(B, p_next), mv(cache.AmBKt, p_next)
+        r_i = state.r[i]
+        w = bp + r_i + cache.BPf
+        d_i = mv(cache.Quu_inv, w)
+        p_i = state.q[i] + ap - mv(KinfT, r_i) + cache.APf
+        p_i = p_i - dr * mtv(tel.dK, r_i)
+        if tel.dC1 is not None:
+            d_i = d_i + dr * mv(tel.dC1, w)
+        if tel.dC2 is not None:
+            p_i = p_i + dr * mv(tel.dC2, p_next)
+        ps[i], ds[i], p_next = p_i, d_i, p_i
+    p = torch.stack(ps + [state.p[-1]])
+    return state.replace(p=p, d=torch.stack(ds))
+
+
+def forward_pass(A, B, f, cache: Cache, state: SolverState,
+                 tel: Optional[Telescope] = None) -> SolverState:
     """LQR rollout (admm.cpp:25-32)::
 
         u[i] = -Kinf x[i] - d[i];  x[i+1] = A x[i] + B u[i] + f
 
     ``u`` is formed as an exact subtract before ``B u`` rounds; folding it
-    into ``(A - B Kinf) x`` changes convergence (admm_pallas.py:442-455)."""
+    into ``(A - B Kinf) x`` changes convergence (admm_pallas.py:442-455).
+    With ``tel`` (adaptive rho), ``Kinf x`` gains ``drho * dKinf x``."""
     nu = B.shape[-1]
-    Mfwd = torch.cat([cache.Kinf, A], dim=0)
+    Mfwd = None if tel is not None else torch.cat([cache.Kinf, A], dim=0)
     x_i = state.x[0]
     xs, us = [x_i], []
     for i in range(state.d.shape[0]):
-        out = mv(Mfwd, x_i)
-        kx, ax = out[..., :nu], out[..., nu:]
+        if tel is None:
+            out = mv(Mfwd, x_i)
+            kx, ax = out[..., :nu], out[..., nu:]
+        else:
+            kx = mv(cache.Kinf, x_i) + tel.drho[..., None] * mv(tel.dK, x_i)
+            ax = mv(A, x_i)
         u_i = -kx - state.d[i]
         x_i = ax + mv(B, u_i) + f
         us.append(u_i)
@@ -271,11 +340,11 @@ def compute_residuals(state: SolverState, rho):
 # ------------------------------------------------------------- iteration
 
 def admm_iteration(prob: TinyProblem, state: SolverState, Xref, Uref,
-                   nb: int) -> SolverState:
+                   nb: int, tel: Optional[Telescope] = None) -> SolverState:
     """One full ADMM iteration (the body of admm.cpp:378-394)."""
-    state = update_linear_cost(prob, state, Xref, Uref)
-    state = backward_pass(prob.cache, prob.B, state)
-    state = forward_pass(prob.A, prob.B, prob.f, prob.cache, state)
+    state = update_linear_cost(prob, state, Xref, Uref, tel)
+    state = backward_pass(prob.cache, prob.B, state, tel)
+    state = forward_pass(prob.A, prob.B, prob.f, prob.cache, state, tel)
     state = update_slack(prob.spec, prob.cons, state, nb)
     return update_dual(prob.spec, state)
 
@@ -313,10 +382,16 @@ def solve(prob: TinyProblem, state: SolverState, Xref=None, Uref=None,
         (N, *b, nx). Default zeros.
       x0: initial state, (nx,) or (*b, nx), written into x[0].
 
-    Returns (solution, final_state, cache).
+    Returns (solution, final_state, final_cache). ``final_cache`` is
+    ``prob.cache`` unless adaptive rho is on; then it is the per-problem
+    cache of each problem's final rho (leaves (*b, ...) for a batch), which
+    a later solve takes back as its problem's cache.
     """
     check_supported_settings(prob.settings)
-    check_supported_spec(prob.spec)
+    check_supported_spec(prob.spec, prob.settings)
+    if prob.settings.adaptive_rho and prob.cache.dKinf_drho is None:
+        raise ValueError("adaptive rho needs the rho sensitivities; attach "
+                         "them with api.with_sensitivities(prob)")
     return _solve_impl(prob, state, Xref, Uref, x0)
 
 
@@ -345,13 +420,31 @@ def _solve_impl(prob, state, Xref, Uref, x0):
         status=torch.full(b, TINY_UNSOLVED, dtype=torch.int32, device=dev),
     )
     state = seed_extra_slacks(spec, state)
-    rho = prob.cache.rho
+    cache = prob.cache
+    adaptive = settings.adaptive_rho
+    rho0 = cache.rho
+    # Adaptive rho carries one rho per problem (and the guard's virtual
+    # rho), starting from the cache's rho, itself per problem when a solve
+    # is entered again with an earlier adaptive solve's final cache.
+    rho = rho0.expand(b).clone() if adaptive and rho0.ndim == 0 else rho0
+    rho_v = rho
     tol_p, tol_d = settings.abs_pri_tol, settings.abs_dua_tol
     converged = torch.zeros(b, dtype=torch.bool, device=dev)
 
     for it in range(settings.max_iter):
         active = ~converged
-        new = admm_iteration(prob, state, Xref, Uref, nb)
+        if adaptive:
+            tel = _telescope(cache, settings, rho - rho0)
+            new = admm_iteration(prob.replace(cache=dataclasses.replace(
+                cache, rho=rho)), state, Xref, Uref, nb, tel)
+            # Every ADAPTIVE_RHO_PERIOD iterations, on the problems still
+            # active (admm.cpp:397-422): only the rho row moves; the next
+            # iteration's drho carries the Taylor update into every product.
+            if it > 0 and it % ADAPTIVE_RHO_PERIOD == 0:
+                rho, rho_v = _adapt(prob, cache, tel, new, rho, rho_v,
+                                    active, settings)
+        else:
+            new = admm_iteration(prob, state, Xref, Uref, nb)
         it1 = it + 1
 
         # Termination check every check_termination iterations
@@ -386,9 +479,34 @@ def _solve_impl(prob, state, Xref, Uref, x0):
         if it1 % settings.check_termination == 0 and bool(converged.all()):
             break
 
+    if adaptive:    # the per-problem cache of the final rho
+        cache = taylor_update(cache, rho, settings)
     solution = Solution(iter=state.iter, solved=state.solved,
                         x=state.vnew, u=state.znew)
-    return solution, state, prob.cache
+    return solution, state, cache
+
+
+def _telescope(cache: Cache, settings, drho) -> Telescope:
+    apply_c = settings.adaptive_rho_apply_c
+    return Telescope(drho=drho, dK=cache.dKinf_drho, dP=cache.dPinf_drho,
+                     dC1=cache.dC1_drho if apply_c else None,
+                     dC2=cache.dC2_drho if apply_c else None)
+
+
+def _adapt(prob, cache, tel, new, rho, rho_v, active, settings):
+    """The new (rho, virtual rho) of the active problems from the OSQP
+    residuals of this iterate. With ``adaptive_rho_tolerance > 1`` every
+    prediction moves the virtual rho, which commits into rho only once it
+    has drifted tolerance-fold from it (the OSQP guard); else each
+    prediction commits."""
+    res = telescoped_osqp_residuals(prob, cache, tel.drho, new)
+    tol = settings.adaptive_rho_tolerance
+    if tol > 1.0:
+        new_v = predict_rho(*res, rho_v, settings)
+        commit = (new_v >= tol * rho) | (new_v * tol <= rho)
+        return (torch.where(active & commit, new_v, rho),
+                torch.where(active, new_v, rho_v))
+    return torch.where(active, predict_rho(*res, rho, settings), rho), rho_v
 
 
 def _commit(new: SolverState, old: SolverState, active) -> SolverState:

@@ -5,6 +5,7 @@
     prob = with_cones(prob, state_cones=[(0, 3, 0.25)])   # optional families
     prob = with_settings(prob, max_iter=100, check_termination=25)
     sol, res = kernels.solve_fused(prob, Xref, None, x0s)
+    prob = with_settings(prob, adaptive_rho=True)     # attaches d*/drho
 
 Problems live on one device, given explicitly. With no ``device`` argument
 :func:`setup` places the problem on ``cuda`` and raises when there is no
@@ -19,7 +20,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from .riccati import precompute_cache
+from .riccati import compute_sensitivities, precompute_cache
 from .types import ConstraintData, ProblemSpec, Settings, SolverState, \
     TinyProblem
 from .types import init_state as _init_state_spec
@@ -88,8 +89,11 @@ def setup(A, B, Q, R, rho, N, f=None, *, settings: Settings = Settings(),
         u_min=torch.full((N - 1, nu), -inf, **kw),
         u_max=torch.full((N - 1, nu), inf, **kw),
     )
-    return TinyProblem(A=A, B=B, f=f, Qdiag=Qdiag_aug, Rdiag=Rdiag_aug,
+    prob = TinyProblem(A=A, B=B, f=f, Qdiag=Qdiag_aug, Rdiag=Rdiag_aug,
                        cache=cache, cons=cons, spec=spec, settings=settings)
+    if settings.adaptive_rho and cache.dKinf_drho is None:
+        prob = with_sensitivities(prob)
+    return prob
 
 
 def _bcast(v, shape, prob: TinyProblem) -> torch.Tensor:
@@ -209,7 +213,9 @@ def tv_from_stacked(A_stacked, b_stacked):
 def with_settings(prob: TinyProblem, **kw) -> TinyProblem:
     """Override settings fields (tiny_update_settings, tiny_api.cpp:388-411).
     Settings the solvers do not implement are accepted here and rejected by
-    the solver that is asked to run them."""
+    the solver that is asked to run them. Turning adaptive rho on attaches
+    the rho sensitivities when the cache has none
+    (:func:`with_sensitivities`)."""
     settings = dataclasses.replace(prob.settings, **kw)
     if settings.adaptive_rho_tolerance < 1.0:
         raise ValueError(
@@ -217,7 +223,32 @@ def with_settings(prob: TinyProblem, **kw) -> TinyProblem:
             "unconditional adaptation)")
     if settings.coarse_iters < 0:
         raise ValueError("coarse_iters must be >= 0")
-    return prob.replace(settings=settings)
+    prob = prob.replace(settings=settings)
+    if settings.adaptive_rho and prob.cache.dKinf_drho is None:
+        prob = with_sensitivities(prob)
+    return prob
+
+
+def with_sensitivities(prob: TinyProblem, tables=None) -> TinyProblem:
+    """Attach d{Kinf, Pinf, C1, C2}/drho for adaptive rho
+    (tiny_initialize_sensitivity_matrices, tiny_api.cpp:479-540).
+
+    By default they are computed for this system by
+    :func:`~tinympc_tpu_torch.riccati.compute_sensitivities`, in the
+    problem's dtype on its device (on the card, one host round trip a
+    fixed-point step). ``tables=(dKinf, dPinf, dC1, dC2)``
+    gives them explicitly, e.g.
+    :func:`~tinympc_tpu_torch.systems.crazyflie_sensitivity_tables` for
+    parity with the reference's adaptive-rho runs."""
+    c = prob.cache
+    if tables is None:
+        tables = compute_sensitivities(
+            prob.A, prob.B, prob.f, prob.Qdiag - c.rho, prob.Rdiag - c.rho,
+            c.rho)        # the raw diagonals: undo setup's augmentation
+    dK, dP, dC1, dC2 = (_as_tensor(t, prob.dtype, prob.device)
+                        for t in tables)
+    return prob.replace(cache=dataclasses.replace(
+        c, dKinf_drho=dK, dPinf_drho=dP, dC1_drho=dC1, dC2_drho=dC2))
 
 
 def init_state(prob: TinyProblem, batch_shape: Tuple[int, ...] = ()

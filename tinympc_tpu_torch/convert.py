@@ -6,7 +6,9 @@ same attribute names, such as the JAX package's ``TinyProblem`` -- into a
 dict of numpy arrays and plain values. :func:`problem_from_numpy` builds this
 port's problem from such a dict on a given device and dtype, without
 recomputing the Riccati cache, so both packages then solve the very same
-problem.
+problem. The cache may be per problem (the final cache of an adaptive
+solve, leaves with a leading batch axis), and it carries the rho
+sensitivities and the C1/C2 matrices when present.
 
 :func:`carry_to_numpy` / :func:`carry_from_numpy` do the same for a warm
 carry (the port's :class:`~tinympc_tpu_torch.kernels.FusedCarry` or the JAX
@@ -30,6 +32,10 @@ from .types import (Cache, ConstraintData, ProblemSpec, Settings,
 
 PROBLEM_KEYS = ("A", "B", "f", "Qdiag", "Rdiag")
 CACHE_KEYS = ("rho", "Kinf", "Pinf", "Quu_inv", "AmBKt", "APf", "BPf")
+# Cache fields carried when present: C1/C2 (which the adaptive-rho Taylor
+# update moves apart from Quu_inv/AmBKt) and the rho sensitivities.
+CACHE_EXTRA_KEYS = ("C1", "C2", "dKinf_drho", "dPinf_drho", "dC1_drho",
+                    "dC2_drho")
 BOX_KEYS = ("x_min", "x_max", "u_min", "u_max")
 # Constraint tables of the other families, carried when present.
 FAMILY_KEYS = ("cx", "cu", "Alin_x", "blin_x", "Alin_u", "blin_u",
@@ -62,6 +68,7 @@ def problem_to_numpy(prob) -> dict:
     settings fields as dicts."""
     d = {k: _np(getattr(prob, k)) for k in PROBLEM_KEYS}
     d.update({k: _np(getattr(prob.cache, k)) for k in CACHE_KEYS})
+    d.update(_present(prob.cache, CACHE_EXTRA_KEYS))
     d.update({k: _np(getattr(prob.cons, k)) for k in BOX_KEYS})
     d.update(_present(prob.cons, FAMILY_KEYS))
     d["spec"] = {f.name: getattr(prob.spec, f.name)
@@ -79,8 +86,11 @@ def problem_from_numpy(d: dict, device, dtype=torch.float32) -> TinyProblem:
     def t(k):
         return torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
 
-    cache = Cache(**{k: t(k) for k in CACHE_KEYS})
-    cache = dataclasses.replace(cache, C1=cache.Quu_inv, C2=cache.AmBKt)
+    cache = Cache(**{k: t(k) for k in CACHE_KEYS + CACHE_EXTRA_KEYS
+                     if k in d or k in CACHE_KEYS})
+    cache = dataclasses.replace(
+        cache, C1=cache.Quu_inv if cache.C1 is None else cache.C1,
+        C2=cache.AmBKt if cache.C2 is None else cache.C2)
     spec = dict(d["spec"])
     for k in ("state_cones", "input_cones"):
         spec[k] = tuple(tuple(int(v) for v in c) for c in spec.get(k, ()))
@@ -96,8 +106,8 @@ def problem_from_numpy(d: dict, device, dtype=torch.float32) -> TinyProblem:
 
 def carry_to_numpy(carry) -> dict:
     """The fields of a warm carry (lane-last) as numpy arrays: the box
-    fields (vnew, znew, g, y, v, z), and the family duals and x/u where
-    present."""
+    fields (vnew, znew, g, y, v, z), and the family duals, x/u and the
+    per-lane rho where present."""
     d = {k: _np(getattr(carry, k)) for k in BOX_CARRY_FIELDS}
     d.update(_present(carry, CARRY_FIELDS[len(BOX_CARRY_FIELDS):]))
     return d

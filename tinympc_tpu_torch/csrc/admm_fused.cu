@@ -1,8 +1,9 @@
-// Fused batched ADMM solve at fixed rho, cold or warm start: box
-// constraints alone, or with the other constraint families (second-order
-// cones, hyperplanes, time-varying hyperplanes; admm_families.cuh).
+// Fused batched ADMM solve, cold or warm start: box constraints alone, or
+// with the other constraint families (second-order cones, hyperplanes,
+// time-varying hyperplanes; admm_families.cuh), at fixed rho; or box
+// constraints with adaptive rho (admm_adaptive.cuh).
 //
-// Replaces the fixed-rho variants of the TPU kernel
+// Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
 // the cold solve (solve_fused) and the warm solve with its carry
 // (solve_fused_warm, FusedCarry). One launch runs the whole ADMM loop for
@@ -12,7 +13,13 @@
 //
 // Instantiations: the box-only kernel for (nx, nu) = (12, 4), the
 // quadrotor of the main path; the families kernel for (12, 4) and (6, 3),
-// the rocket. The families kernel is the box kernel with the family hooks
+// the rocket; the adaptive-rho kernel for (12, 4), with and without
+// apply_c. The adaptive kernel is the box kernel with the rho hooks filled
+// in: each lane's rho and the guard's virtual rho in registers, the
+// sensitivity tables after the box tables in shared memory, the adaptation
+// every 5th iteration as a second pass over the rows of that iteration
+// (admm_adaptive.cuh), the final rho out, and on a warm solve the carried
+// rho in. The families kernel is the box kernel with the family hooks
 // filled in: each family's slack and dual arrays sit beside the box's in
 // device memory, its tables follow the box tables in shared memory, and
 // termination still reads the box family's residuals only, as the
@@ -61,12 +68,16 @@
 // cold and the warm solve, box-only or with the families, returns the
 // cudaError_t of the launch; it launches on the given stream and never
 // synchronises.
+#include "admm_adaptive.cuh"
 #include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
 namespace {
 
+using tinympc::AdaptArgs;
+using tinympc::AdaptiveRho;
 using tinympc::FamilyArgs;
+using tinympc::FixedRho;
 using tinympc::Layout;
 using tinympc::NegXQTable;
 using tinympc::NoFamilies;
@@ -81,24 +92,32 @@ struct Carry {
   float *vnew_out, *znew_out, *v_out, *z_out;
 };
 
-// Fam is NoFamilies (box only) or tinympc::Families<NX, NU>.
-template <int NX, int NU, bool WARM, class Fam>
-__global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
-    const float* __restrict__ tables, const float* __restrict__ x0,
-    float* __restrict__ vnew, float* __restrict__ znew,
-    float* __restrict__ g, float* __restrict__ y, float* __restrict__ d,
-    float* __restrict__ out_x, float* __restrict__ out_u,
-    int* __restrict__ out_iters, unsigned char* __restrict__ out_solved,
-    float* __restrict__ out_res, Carry carry, typename Fam::Args fa, int N,
-    int B, int max_iter, int check_termination, float rho, float tol_pri,
-    float tol_dua) {
+template <class Fam, class Rho>
+constexpr int kMinBlocksOf =
+    Fam::kMinBlocks > Rho::kMinBlocks ? Fam::kMinBlocks : Rho::kMinBlocks;
+
+// Fam is NoFamilies (box only) or tinympc::Families<NX, NU>; Rho is
+// FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C> (box only).
+template <int NX, int NU, bool WARM, class Fam, class Rho>
+__global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
+    admm_fused_kernel(
+        const float* __restrict__ tables, const float* __restrict__ x0,
+        float* __restrict__ vnew, float* __restrict__ znew,
+        float* __restrict__ g, float* __restrict__ y, float* __restrict__ d,
+        float* __restrict__ out_x, float* __restrict__ out_u,
+        int* __restrict__ out_iters, unsigned char* __restrict__ out_solved,
+        float* __restrict__ out_res, Carry carry, typename Fam::Args fa,
+        typename Rho::Args ra, int N, int B, int max_iter,
+        int check_termination, float rho, float tol_pri, float tol_dua) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
-  const int total = L.total + Fam::table_floats(fa, NX, NU, N);
+  const int fam_total = L.total + Fam::table_floats(fa, NX, NU, N);
+  const int total = fam_total + Rho::table_floats(ra, NX, NU);
   for (int k = threadIdx.x; k < total; k += blockDim.x) sm[k] = tables[k];
   __syncthreads();
 
-  // Terminal reference term -Pinf^T Xref[N-1] (admm_pallas.py:823), then
+  // Terminal reference term -Pinf^T Xref[N-1] (admm_pallas.py:823) and,
+  // under adaptive rho, its sensitivity -dPinf^T Xref[N-1] after it; then
   // the -(Xref .* Q) and -(Uref .* R) tables in place (:817-818).
   float* pnref = sm + total;
   if (threadIdx.x < NX) {
@@ -107,6 +126,8 @@ __global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
     for (int j = 0; j < NX; ++j)
       acc = fmaf(sm[L.pinft + k * NX + j], sm[L.xref + (N - 1) * NX + j], acc);
     pnref[k] = -acc;
+    Rho::prologue(ra, sm + fam_total, sm + L.xref + (N - 1) * NX, pnref + NX,
+                  k);
   }
   __syncthreads();
   for (int k = threadIdx.x; k < N * NX; k += blockDim.x)
@@ -124,6 +145,7 @@ __global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
   const size_t half_x = static_cast<size_t>(N) * NX * sB;
   const size_t half_u = static_cast<size_t>(N - 1) * NU * sB;
   const Fam fam(fa, sm + L.total, N, sB, b, rho);
+  Rho rh(ra, sm + fam_total, pnref + NX, rho, sB, b);
 
   bool done = !lane;
   int iters = 0;
@@ -179,6 +201,7 @@ __global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
       }
     }
     fam.template seed<WARM>(x0r);
+    rh.template init<WARM>();
   }
 
   for (int it = 0; it < max_iter; ++it) {
@@ -191,19 +214,27 @@ __global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
       // (admm_pallas.py:1159-1164).
       const bool stale = WARM && it == 0;
       float u0[NU];
+      rh.begin(it);
       const Residuals r = tinympc::admm_iteration<NX, NU>(
           t, negxq, pnref, x0r, dvgN, vnew + cur * half_x,
           znew + cur * half_u, vprev, zprev, stale ? carry.v_in : vprev,
-          stale ? carry.z_in : zprev, g, y, d, N, sB, b, rho, checking, u0,
-          fam);
+          stale ? carry.z_in : zprev, g, y, d, N, sB, b, rh.rho(), checking,
+          u0, fam, rh);
+      // Adaptive rho every 5th iteration (admm_pallas.py:1079-1142); the
+      // dual residuals below scale with the rho after it.
+      if constexpr (Rho::kAdaptive) {
+        if (rh.adapting())
+          rh.adapt(t, sm + L.qd, sm + L.rd, vnew + cur * half_x,
+                   znew + cur * half_u, g, y, N);
+      }
       // Bookkeeping (admm_pallas.py:1144-1182): iters on every iteration,
       // residuals and convergence on check iterations only.
       iters = it + 1;
       if (checking) {
         res0 = r.pri_s;
         res1 = r.pri_i;
-        res2 = r.dua_s * rho;
-        res3 = r.dua_i * rho;
+        res2 = r.dua_s * rh.rho();
+        res3 = r.dua_i * rh.rho();
         done = (res0 < tol_pri) && (res1 < tol_pri) && (res2 < tol_dua) &&
                (res3 < tol_dua);
       }
@@ -252,6 +283,7 @@ __global__ void __launch_bounds__(kBlock, Fam::kMinBlocks) admm_fused_kernel(
     tinympc::copy_lane(carry.z_out, zo, (N - 1) * NU, sB, b);
   }
   fam.template finish<WARM>(t, x0r, d, iters);
+  rh.finish();
 }
 
 // Pointers and sizes of one launch.
@@ -265,14 +297,16 @@ struct Buffers {
   float rho, tol_pri, tol_dua;
 };
 
-template <int NX, int NU, bool WARM, class Fam>
+template <int NX, int NU, bool WARM, class Fam, class Rho = FixedRho>
 cudaError_t launch(const Buffers& p, const Carry& carry,
-                   const typename Fam::Args& fa, cudaStream_t stream) {
+                   const typename Fam::Args& fa, cudaStream_t stream,
+                   const typename Rho::Args& ra = {}) {
   const int N = p.N;
   const size_t smem =
-      (Layout(NX, NU, N).total + Fam::table_floats(fa, NX, NU, N) + NX) *
+      (Layout(NX, NU, N).total + Fam::table_floats(fa, NX, NU, N) +
+       Rho::table_floats(ra, NX, NU) + NX * (1 + Rho::kTerminalRows)) *
       sizeof(float);
-  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam>;
+  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam, Rho>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -282,8 +316,8 @@ cudaError_t launch(const Buffers& p, const Carry& carry,
   const dim3 grid((p.B + kBlock - 1) / kBlock);
   kernel<<<grid, kBlock, smem, stream>>>(
       p.tables, p.x0, p.vnew, p.znew, p.g, p.y, p.d, p.out_x, p.out_u,
-      p.out_iters, p.out_solved, p.out_res, carry, fa, N, p.B, p.max_iter,
-      p.check_termination, p.rho, p.tol_pri, p.tol_dua);
+      p.out_iters, p.out_solved, p.out_res, carry, fa, ra, N, p.B,
+      p.max_iter, p.check_termination, p.rho, p.tol_pri, p.tol_dua);
   return cudaGetLastError();
 }
 
@@ -307,11 +341,24 @@ bool bad_size(const Buffers& p) {
 }
 
 // The box-only kernel when no family beyond the box is on, else the
-// families kernel; cudaErrorInvalidValue for an (nx, nu) pair that is not
-// instantiated.
+// families kernel, at fixed rho; the adaptive-rho kernel when `adapt` is
+// given (box only); cudaErrorInvalidValue for an (nx, nu) pair or a
+// combination that is not instantiated.
 template <bool WARM>
-int dispatch(int nx, int nu, bool families, const Buffers& p,
-             const Carry& carry, const FamilyArgs& fa, cudaStream_t s) {
+int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
+             const Buffers& p, const Carry& carry, const FamilyArgs& fa,
+             cudaStream_t s) {
+  if (adapt) {
+    if (families || nx != 12 || nu != 4)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const NoFamilies::Args none{};
+    return static_cast<int>(
+        adapt->apply_c
+            ? launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, true>>(
+                  p, carry, none, s, *adapt)
+            : launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, false>>(
+                  p, carry, none, s, *adapt));
+  }
   if (!families && nx == 12 && nu == 4)   // the quadrotor of the main path
     return static_cast<int>(
         launch<12, 4, WARM, NoFamilies>(p, carry, NoFamilies::Args{}, s));
@@ -374,13 +421,18 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // slack and dual of each family (vc gc zc yc vl gl zl yl vtv gtv ztv ytv;
 // null for a family that is off), then the warm carry in (gc yc gl yl gtv
 // ytv x u) and the carried x/u out (null on a cold or box-only solve).
+// adapt: null at fixed rho; else the adaptive-rho arguments
+// (admm_adaptive.cuh: settings, rho_in -- the carried rho, required on a
+// warm solve --, rho_out, the scratch xs, us, axd), box only, rho the
+// problem's rho.
 extern "C" int tinympc_admm_fused(
     int warm, int nx, int nu, int N, int B, int max_iter,
     int check_termination, const int* counts, float rho, float tol_pri,
     float tol_dua, const void* tables, const void* x0, void* vnew,
     void* znew, void* g, void* y, void* d, void* out_x, void* out_u,
     void* out_iters, void* out_solved, void* out_res,
-    const void* const* carry, void* const* fam, void* stream) {
+    const void* const* carry, void* const* fam, const AdaptArgs* adapt,
+    void* stream) {
   FamilyArgs fa;
   fa.ncx = counts[0];
   fa.ncu = counts[1];
@@ -409,16 +461,20 @@ extern "C" int tinympc_admm_fused(
                             tol_dua, tables, x0, vnew, znew, g, y, d, out_x,
                             out_u, out_iters, out_solved, out_res);
   if (bad_size(p)) return static_cast<int>(cudaErrorInvalidValue);
+  if (adapt && (!adapt->rho_out || !adapt->xs || !adapt->us || !adapt->axd ||
+                (warm && !adapt->rho_in)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   if (!warm) {
     if (fa.x_out || fa.u_out) return static_cast<int>(cudaErrorInvalidValue);
     const Carry none = {nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, nullptr};
-    return dispatch<false>(nx, nu, families, p, none, fa, s);
+    return dispatch<false>(nx, nu, families, adapt, p, none, fa, s);
   }
   for (int k = 0; k < 10; ++k)
     if (!carry[k]) return static_cast<int>(cudaErrorInvalidValue);
   if (families && (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch<true>(nx, nu, families, p, carry_from(carry), fa, s);
+  return dispatch<true>(nx, nu, families, adapt, p, carry_from(carry), fa,
+                        s);
 }

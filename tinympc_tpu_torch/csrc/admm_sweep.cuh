@@ -120,6 +120,52 @@ struct NoFamilies {
                                          const float*, int) const {}
 };
 
+// Fixed rho: one rho for every lane. Adaptive rho (admm_adaptive.cuh)
+// carries one a lane and fills these hooks in: each product of a matrix the
+// Taylor update moves gains its drho-scaled sensitivity product, and an
+// adaptation iteration keeps the rows its residual pass reads. Here every
+// hook returns its base value or does nothing, and compiles to nothing.
+struct FixedRho {
+  struct Args {};
+  static constexpr bool kAdaptive = false;
+  static constexpr int kMinBlocks = 0;
+  static constexpr int kTerminalRows = 0;   // shared rows after -Pinf^T Xref
+  float rho0 = 0.f;
+  FixedRho() = default;
+  __device__ FixedRho(const Args&, const float*, const float*, float rho,
+                      size_t, int)
+      : rho0(rho) {}
+  static __host__ __device__ int table_floats(const Args&, int, int) {
+    return 0;
+  }
+  static __device__ void prologue(const Args&, const float*, const float*,
+                                  float*, int) {}
+  template <bool WARM>
+  __device__ __forceinline__ void init() {}
+  __device__ __forceinline__ float rho() const { return rho0; }
+  __device__ __forceinline__ void begin(int) {}
+  __device__ __forceinline__ bool adapting() const { return false; }
+  __device__ __forceinline__ float pterm(int, float base) const {
+    return base;
+  }
+  __device__ __forceinline__ float ap(int, float acc, const float*) const {
+    return acc;
+  }
+  __device__ __forceinline__ float quu(int, float acc, const float*) const {
+    return acc;
+  }
+  __device__ __forceinline__ float kr(int, float acc, const float*) const {
+    return acc;
+  }
+  __device__ __forceinline__ float kx(int, float acc, const float*) const {
+    return acc;
+  }
+  __device__ __forceinline__ void state_row(int, const float*) const {}
+  __device__ __forceinline__ void input_row(int, const float*) const {}
+  __device__ __forceinline__ void dyn(int, int, float) const {}
+  __device__ __forceinline__ void finish() const {}
+};
+
 // One ADMM iteration of lane b.
 //   pnref      -Pinf^T Xref[N-1], (NX,)
 //   x0r        the lane's initial state, (NX,) in registers
@@ -133,19 +179,22 @@ struct NoFamilies {
 //   fam        the other constraint families: their terms join the linear
 //              cost after the box's, and each projects row i once the
 //              forward sweep has formed it
+//   rh         fixed or adaptive rho (its hooks move the products of the
+//              matrices the Taylor update moves); rho is the lane's rho
 // Residuals are accumulated only when `checking`.
-template <int NX, int NU, class NegXQ, class Fam = NoFamilies>
+template <int NX, int NU, class NegXQ, class Fam = NoFamilies,
+          class Rho = FixedRho>
 __device__ __forceinline__ Residuals admm_iteration(
     const Tables& t, NegXQ negxq, const float* pnref, const float* x0r,
     float* dvgN, float* vcur, float* zcur, const float* vprev,
     const float* zprev, const float* vdprev, const float* zdprev, float* g,
     float* y, float* d, int N, size_t sB, int b, float rho, bool checking,
-    float* u0, const Fam& fam = Fam()) {
+    float* u0, const Fam& fam = Fam(), const Rho& rh = Rho()) {
   // 1+2. Linear cost fused into the backward sweep
   // (admm_pallas.py:894-968): q/r rows from the previous iterate.
   float p[NX];
 #pragma unroll
-  for (int k = 0; k < NX; ++k) p[k] = pnref[k] - rho * dvgN[k];
+  for (int k = 0; k < NX; ++k) p[k] = rh.pterm(k, pnref[k]) - rho * dvgN[k];
   fam.p_terminal(p);
   for (int i = N - 2; i >= 0; --i) {
     float r[NU], q[NX];
@@ -176,7 +225,7 @@ __device__ __forceinline__ Residuals admm_iteration(
 #pragma unroll
       for (int c = 0; c < NX; ++c)
         acc = fmaf(t.Mback[(NU + row) * NX + c], p[c], acc);
-      ap[row] = acc;
+      ap[row] = rh.ap(row, acc, p);
     }
     // d[i] = Quu_inv (B^T p + r + BPf)
     float w[NU];
@@ -187,7 +236,7 @@ __device__ __forceinline__ Residuals admm_iteration(
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < NU; ++c) acc = fmaf(t.Quu[row * NU + c], w[c], acc);
-      d[(static_cast<size_t>(i) * NU + row) * sB + b] = acc;
+      d[(static_cast<size_t>(i) * NU + row) * sB + b] = rh.quu(row, acc, w);
     }
     // p[i] = q + AmBKt p - Kinf^T r + APf
 #pragma unroll
@@ -195,7 +244,7 @@ __device__ __forceinline__ Residuals admm_iteration(
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < NU; ++c) acc = fmaf(t.KinfT[row * NU + c], r[c], acc);
-      p[row] = q[row] + ap[row] - acc + t.APf[row];
+      p[row] = q[row] + ap[row] - rh.kr(row, acc, r) + t.APf[row];
     }
   }
 
@@ -223,6 +272,7 @@ __device__ __forceinline__ Residuals admm_iteration(
       if (i == N - 1) dvgN[k] = vn - gn;
     }
     fam.state_row(i, x);
+    rh.state_row(i, x);
     if (i == N - 1) break;
     // [Kinf; A] x, then u = -Kinf x - d as an exact subtract
     float kx[NU], ax[NX];
@@ -231,7 +281,7 @@ __device__ __forceinline__ Residuals admm_iteration(
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < NX; ++c) acc = fmaf(t.Mfwd[row * NX + c], x[c], acc);
-      kx[row] = acc;
+      kx[row] = rh.kx(row, acc, x);
     }
 #pragma unroll
     for (int row = 0; row < NX; ++row) {
@@ -258,13 +308,17 @@ __device__ __forceinline__ Residuals admm_iteration(
       }
     }
     fam.input_row(i, u);
-    // x+ = A x + B u + f
+    rh.input_row(i, u);
+    // x+ = A x + B u + f; (A x + B u) - x+ is the dynamics row of the
+    // OSQP residuals of adaptive rho (exactly 0 when f = 0)
 #pragma unroll
     for (int row = 0; row < NX; ++row) {
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < NU; ++c) acc = fmaf(t.Bm[row * NU + c], u[c], acc);
-      x[row] = ax[row] + acc + t.fv[row];
+      const float s = ax[row] + acc;
+      x[row] = s + t.fv[row];
+      rh.dyn(i, row, s - x[row]);
     }
   }
   return res;

@@ -37,10 +37,10 @@ launch_count = 0
 
 def _check_loop(prob: TinyProblem) -> None:
     """Raise ``ValueError`` for a problem the closed loop does not cover.
-    It takes box constraints only, as the JAX closed loop does
-    (closed_loop_pallas.py:326): the other families would otherwise be
-    ignored in silence."""
-    if prob.spec.any_extra_family:
+    It takes box constraints at fixed rho only, as the JAX closed loop does
+    (closed_loop_pallas.py:326): the other families and adaptive rho would
+    otherwise be ignored in silence."""
+    if prob.spec.any_extra_family or prob.settings.adaptive_rho:
         raise ValueError("closed_loop_fused supports box-constraint specs "
                          "with fixed rho; use tinympc_tpu_torch.closed_loop "
                          "(or solve_fused_warm in a host loop)")
@@ -88,7 +88,8 @@ def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
                          f"{n_steps + N - 1} rows, got {xtot.shape[0]}")
     xtot = xtot[:n_steps + N - 1].contiguous()
     tables, x0, params = _prepare(prob, xtot[:N], Uref, x0s)
-    params.pop("fam")           # box only: _check_loop refused the others
+    params.pop("fam")           # box at fixed rho: _check_loop refused
+    params.pop("adapt")         # the rest
     return tables, xtot, x0, n_steps, params
 
 

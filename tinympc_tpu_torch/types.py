@@ -21,6 +21,10 @@ fused multiply-add on the CUDA cores with TF32 off. ``"high"`` and
 ``coarse_iters > 0`` (a bf16 iteration schedule) have no meaning in this
 port yet; the solvers reject them with ``ValueError`` (see
 :func:`check_supported_settings`).
+
+Adaptive rho keeps the cache's base matrices and their rho sensitivities
+(``Cache.d*_drho``); a solve returns the per-problem cache of its final
+rho, whose leaves carry the batch axes in front.
 """
 from __future__ import annotations
 
@@ -33,6 +37,9 @@ import torch
 # Status codes (reference types.hpp has no enum; values from admm.cpp:336,431)
 TINY_UNSOLVED = 11
 TINY_SOLVED = 1
+
+# Iterations between two rho adaptations (admm.cpp:405).
+ADAPTIVE_RHO_PERIOD = 5
 
 
 @dataclass(frozen=True)
@@ -127,29 +134,42 @@ def check_supported_settings(settings: Settings) -> None:
         raise ValueError(
             "coarse_iters (a bf16 iteration schedule) is not supported on "
             "the GPU port; set coarse_iters=0")
-    if settings.adaptive_rho:
-        raise ValueError("adaptive rho is not ported yet")
     if settings.horizon_parallel:
+        if settings.adaptive_rho:
+            raise ValueError(
+                "horizon_parallel requires an unbatched cache and is not "
+                "compatible with adaptive_rho (which makes the cache "
+                "per-problem); pick one")
         raise ValueError("horizon-parallel sweeps are not ported yet")
     if settings.check_termination < 1:
         raise ValueError("check_termination must be >= 1")
 
 
-def check_supported_spec(spec: ProblemSpec) -> None:
+def check_supported_spec(spec: ProblemSpec,
+                         settings: Optional[Settings] = None) -> None:
     """Raise ``ValueError`` for constraint families the port does not
     implement: box, SOC, hyperplane and time-varying hyperplane families
-    are ported; consensus is not."""
+    are ported; consensus is not, and never goes with adaptive rho (the
+    Taylor update does not track the consensus step-0 gains)."""
     if spec.en_consensus:
+        if settings is not None and settings.adaptive_rho:
+            raise ValueError("consensus is not compatible with adaptive_rho "
+                             "(the Taylor cache update does not track the "
+                             "consensus step-0 gains); pick one")
         raise ValueError("the consensus family is not ported yet")
 
 
 @dataclass(frozen=True)
 class Cache:
     """Infinite-horizon Riccati cache (reference types.hpp:43-59).
-    ``C1``/``C2`` are the reference's aliases of ``Quu_inv``/``AmBKt``."""
+    ``C1``/``C2`` are the reference's aliases of ``Quu_inv``/``AmBKt``,
+    which the adaptive-rho Taylor update writes. The sensitivities
+    d{Kinf, Pinf, C1, C2}/drho are None unless adaptive rho is set up. The
+    final cache of an adaptive solve is per problem: ``rho`` (*b,) and the
+    matrices (*b, rows, cols)."""
 
-    rho: torch.Tensor        # ()
-    Kinf: torch.Tensor       # (nu, nx)
+    rho: torch.Tensor        # () or (*b,)
+    Kinf: torch.Tensor       # (nu, nx) or (*b, nu, nx)
     Pinf: torch.Tensor       # (nx, nx)
     Quu_inv: torch.Tensor    # (nu, nu)
     AmBKt: torch.Tensor      # (nx, nx)
@@ -157,6 +177,10 @@ class Cache:
     BPf: torch.Tensor        # (nu,)
     C1: Optional[torch.Tensor] = None
     C2: Optional[torch.Tensor] = None
+    dKinf_drho: Optional[torch.Tensor] = None   # (nu, nx)
+    dPinf_drho: Optional[torch.Tensor] = None   # (nx, nx)
+    dC1_drho: Optional[torch.Tensor] = None     # (nu, nu)
+    dC2_drho: Optional[torch.Tensor] = None     # (nx, nx)
 
 
 @dataclass(frozen=True)
