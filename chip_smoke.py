@@ -47,7 +47,20 @@ calls, and holds every kernel against its plain PyTorch version:
   on the same inputs beside it; bench_all.py:458-487's mis-tuned rho0=85
   (fixed / adaptive / guarded tol 3), and rho0=1000, where float32 at
   "highest" finds fixed rho mis-tuned; and phase 8's external-plant
-  sequence with adaptive rho (5 warm solves, rho riding the carry).
+  sequence with adaptive rho (5 warm solves, rho riding the carry);
+* the streamed long-horizon solve on csrc/admm_stream.cu (its backward
+  kernel, its forward kernel and the forward's stale variant):
+  examples/long_horizon.py -- the quadrotor at 20 Hz, N=512, box +-5 /
+  +-0.5, the figure-eight reference, x0 ~ U[-0.3, 0.3]^12
+  (default_rng(0)), max_iter 20, ct 1 -- cold at B=1024 and at B=16384,
+  then its :78-97 receding horizon, 5 warm solves at max_iter 100 with
+  x+ = A x + B u0 (B=1024); bench_all.py:343-367's full-descent rocket
+  SOC (N=256, B=1024, max_iter 20, abs_pri_tol 2e-3, x0 = xinit
+  U[0.9, 1.1]); :503-518's N=256 batch to convergence (B=4096, max_iter
+  500, x0 = U[-1, 1]^12 times scales 0.05 .. 0.5, permuted); phase 12's
+  low-ceiling hyperplane batches; and the long-horizon set-up at N=2048,
+  past the resident kernel's shared-memory wall -- through
+  kernels.solve_fused_streamed(_warm).
 
 Phases, each of which raises on failure:
 
@@ -81,7 +94,13 @@ Phases, each of which raises on failure:
 15. the mis-tuned rho0=85 and rho0=1000 batches at B=32768: fixed,
    adaptive, guarded;
 16. the adaptive external-plant sequence at B=16384, 5 warm solves;
-17. the kernels line, then the device line last.
+17. the streamed solve, long horizon cold: N=512 at B=1024 and 16384;
+18. the streamed solve, long horizon warm: 5 solves at B=1024;
+19. the streamed solve, rocket SOC full descent, N=256;
+20. the streamed solve to convergence, N=256, B=4096, max_iter 500;
+21. the streamed solve on phase 12's low-ceiling batches;
+22. the streamed solve at N=2048, which the resident solve refuses;
+23. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -107,7 +126,12 @@ close as the plain version to the port's closed_loop in float64, to
 0.005. The small families batches sit on such ties too: there the kernel
 is held to the bar against the plain version on the CPU (on the lanes
 whose counts agree), and against the plain version on the card to that
-version's own spread from the CPU. Each phase's start prints the seconds
+version's own spread from the CPU. The streamed solve is held bitwise
+against the resident kernel on the same inputs (the same device functions;
+phases 17-21), and against its plain version at the bar, each single launch
+too; a plain run of fewer than 16384 lanes takes the batch repeated to
+16384, where cuBLAS sums each product in the kernels' column order. Each
+phase's start prints the seconds
 since the script began. Exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
 """
@@ -159,6 +183,17 @@ MISTUNED_RHO = 85.0
 # a TPU at "high", shows in float32 only from rho0 ~500 up.
 DETUNED_RHO = 1000.0
 RHO_RTOL = 1e-3
+# The long-horizon path: examples/long_horizon.py (N=512, B=1024, max_iter
+# 20, then warm solves at max_iter 100), a fleet that fills the card
+# (B=16384), bench_all.py:343-367's full-descent rocket (N=256) and
+# :503-518's to-convergence batch (N=256, B=4096, max_iter 500), and a
+# horizon past the resident kernel's shared-memory wall (N=2048).
+LH_N, LH_B, LH_FLEET_B, LH_ITER, LH_WARM_ITER = 512, 1024, 16384, 20, 100
+LH_SOC_N, LH_CONV_N, LH_CONV_B, LH_CONV_ITER = 256, 256, 4096, 500
+LH_WALL_N = 2048
+# The batch at which the streamed plain version runs a smaller one,
+# repeated: cuBLAS then sums each product in the kernels' column order.
+WIDE_B = 16384
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -217,17 +252,17 @@ def inputs(torch, B, N=N_HORIZON, spread=0.5):
     return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
 
 
-def rocket_problem(tt, torch, max_iter, ct, dtype=None):
+def rocket_problem(tt, torch, max_iter, ct, dtype=None, N=FAM_N):
     """bench_all.py:199-222's rocket landing with its cones, through the
-    user's entry points."""
+    user's entry points (at horizon N: :343-367's full descent)."""
     s = tt.systems.rocket_landing_20hz()
     prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
-                    N=FAM_N, f=s["f"], dtype=dtype or torch.float32,
+                    N=N, f=s["f"], dtype=dtype or torch.float32,
                     device=DEVICE)
     prob = tt.with_bounds(
         prob, x_min=np.tile([-5.0, -5.0, -0.5, -10.0, -10.0, -20.0],
-                            (FAM_N, 1)),
-        x_max=np.tile([5.0, 5.0, 100.0, 10.0, 10.0, 20.0], (FAM_N, 1)),
+                            (N, 1)),
+        x_max=np.tile([5.0, 5.0, 100.0, 10.0, 10.0, 20.0], (N, 1)),
         u_min=-10.0, u_max=105.0)
     prob = tt.with_cones(prob, state_cones=[(0, 3, 0.25)],
                          input_cones=[(0, 3, 0.5)])
@@ -245,6 +280,31 @@ def rocket_inputs(torch, B):
     Uref[:, 2] = 10.0
     kw = dict(dtype=torch.float32, device=DEVICE)
     return tuple(torch.as_tensor(a, **kw) for a in (x0, Xref, Uref))
+
+
+def rocket_descent_inputs(torch, B, N):
+    """bench_all.py:359-362: x0 = xinit U[0.9, 1.1] per lane
+    (default_rng(0)), Xref = linspace(xinit, 0, N), Uref[:, 2] = 10."""
+    xinit = np.asarray(ROCKET_XINIT)
+    x0 = xinit * np.random.default_rng(0).uniform(0.9, 1.1, (B, 1))
+    Uref = np.zeros((N - 1, 3))
+    Uref[:, 2] = 10.0
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return tuple(torch.as_tensor(a, **kw) for a in (
+        x0, np.linspace(xinit, np.zeros(6), N), Uref))
+
+
+def long_horizon_inputs(torch, B, N):
+    """examples/long_horizon.py: x0 ~ U[-0.3, 0.3]^12 (default_rng(0)) and
+    the figure-eight reference over the horizon."""
+    t = np.linspace(0, 4 * np.pi, N)
+    Xref = np.zeros((N, 12), np.float32)
+    Xref[:, 0] = np.sin(t)
+    Xref[:, 1] = np.sin(2 * t) / 2
+    Xref[:, 2] = 1.0
+    x0 = np.random.default_rng(0).uniform(-0.3, 0.3, (B, 12))
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
 
 
 def quad_plane_problem(tt, torch, tv, max_iter, ct, zmax=None, dtype=None):
@@ -660,6 +720,11 @@ def ptxas_entries(text):
 
 def kernel_label(fn):
     """A readable name for a mangled kernel name of csrc/."""
+    m = re.search(r"stream_(backward|forward)_kernelILi(\d+)ELi(\d+)E"
+                  r"(?:Lb([01])E)?", fn)
+    if m:
+        stale = " stale" if m[4] == "1" else ""
+        return f"admm_stream {m[1]}{stale} ({m[2]}, {m[3]})"
     m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])EN7tinympc\d+(NoFamilies|"
                   r"Families)", fn)
     if m:
@@ -1019,6 +1084,383 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     return rows
 
 
+def stream_floats(spec, track=False):
+    """Floats one lane's backward and forward launch read and write in one
+    iteration, each array once: the backward reads vnew, g, znew, y and
+    each family's slack and dual and writes d; the forward reads x0, g, y,
+    d, the previous slacks and each family's dual and writes the slacks,
+    the duals and each family's slack and dual (and, tracked, x and u).
+    Returns (backward, forward)."""
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
+                        spec.n_tv_state_lin)))
+    fu = sum(map(bool, (spec.enabled_input_cones, spec.n_input_lin,
+                        spec.n_tv_input_lin)))
+    sx, su = N * nx, (N - 1) * nu
+    bwd = 2 * sx + 3 * su + 2 * fx * sx + 2 * fu * su
+    fwd = nx + 4 * sx + 5 * su + 3 * fx * sx + 3 * fu * su
+    return bwd, fwd + (sx + su if track else 0)
+
+
+def stream_ops(spec):
+    """Operations of one lane's backward and forward launch, as
+    iteration_ops and family_ops count them: the backward sweep's
+    products and linear cost (with each family's term, 3 a feature), the
+    forward sweep's products, projections and dual updates."""
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
+                        spec.n_tv_state_lin)))
+    fu = sum(map(bool, (spec.enabled_input_cones, spec.n_input_lin,
+                        spec.n_tv_input_lin)))
+    cost = 3 * (N * nx * fx + (N - 1) * nu * fu)
+    bwd = 2 * (N - 1) * ((nu + nx) * nx + nu * nu + nx * nu) \
+        + (N - 1) * (6 * nx + 5 * nu) + cost
+    fwd = 2 * (N - 1) * ((nu + nx) * nx + nx * nu) + N * nx * 5 \
+        + (N - 1) * (nu * 6 + 2 * nx) + family_ops(spec) - cost
+    return bwd, fwd
+
+
+def cut(obj, B):
+    """A Solution, or a carry (lane-last), cut to its first B lanes."""
+    if hasattr(obj, "solved"):
+        return dataclasses.replace(obj, iter=obj.iter[:B],
+                                   solved=obj.solved[:B], x=obj.x[:, :B],
+                                   u=obj.u[:, :B])
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name)[..., :B] for f in dataclasses.fields(obj)
+        if getattr(obj, f.name) is not None})
+
+
+def plain_wide(torch, fn, prob, Xref, Uref, x0, carry=None):
+    """The streamed plain version ``fn`` on the card for the B lanes of x0,
+    run on the batch repeated to WIDE_B lanes and cut back: at that width
+    cuBLAS sums each product in the kernels' column order (at smaller ones
+    it does not), and no lane's result depends on the others."""
+    B = x0.shape[0]
+    k = max(1, WIDE_B // B)
+    if carry is None:
+        sol, res = fn(prob, Xref, Uref, x0.repeat(k, 1))
+        return cut(sol, B), res[:, :B]
+    wide = dataclasses.replace(carry, **{
+        f.name: torch.cat([getattr(carry, f.name)] * k, dim=-1)
+        for f in dataclasses.fields(carry)
+        if getattr(carry, f.name) is not None})
+    sol, res, c = fn(prob, Xref, Uref, x0.repeat(k, 1), wide)
+    return cut(sol, B), res[:, :B], cut(c, B)
+
+
+def same_bits(torch, label, a, b, what):
+    """Two solves that must agree bitwise: x, u, counts, flags, residuals
+    and, warm, every carry field. Returns whether they do."""
+    same = all(torch.equal(getattr(a[0], k), getattr(b[0], k))
+               for k in ("x", "u", "iter", "solved")) and torch.equal(a[1],
+                                                                      b[1])
+    if len(a) > 2:
+        same = same and all(
+            torch.equal(getattr(a[2], f.name), getattr(b[2], f.name))
+            for f in dataclasses.fields(a[2])
+            if getattr(a[2], f.name) is not None)
+    log(f"  {label}: bitwise against {what}: {same}")
+    fail(label, same, f"not bitwise equal to {what}")
+    return same
+
+
+def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
+    """The two kernels of iteration 0 on a fresh state, where every lane
+    runs (the forward stale on a warm state): per-launch ms of each (CUDA
+    events, median of REPS), one launch of each against its plain version
+    on the same inputs (largest difference over every array it writes),
+    and the plain version's ms for one launch on the card."""
+    warm = carry is not None
+    tables, x0c, carry_t, params = ast._prepare(prob, Xref, Uref, x0, carry,
+                                                warm)
+    spec = prob.spec
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    kw = {k: v for k, v in params.items() if k != "max_iter"}
+
+    def fresh(launcher):
+        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"])
+        return s, launcher(tables, x0c, s, carry_t, N, nx, nu, **kw)
+
+    bwd, fwd = [], []
+    for _ in range(REPS):
+        s, run = fresh(ast._KERNELS)
+        bwd.append(cuda_ms(torch, lambda: run.backward(1), 1)[0])
+        fwd.append(cuda_ms(torch, lambda: run.forward(0, warm), 1)[0])
+    s, run = fresh(ast._KERNELS)
+    sp, plain = fresh(ast._PLAIN)
+    run.backward(1)
+    plain_bwd_ms = host_ms(torch, lambda: plain.backward(1))[0]
+    err_b = (s["d"] - sp["d"]).abs().max().item()
+    sp["d"] = s["d"].clone()
+    run.forward(0, warm)
+    plain_fwd_ms = host_ms(torch, lambda: plain.forward(0, warm))[0]
+    pairs = [(s[k], sp[k]) for k in ("vnew", "znew", "g", "y", "res", "x",
+                                     "u") if s[k] is not None]
+    pairs += [(a, b) for a, b in zip(s["fams"], sp["fams"]) if a is not None]
+    err_f = max((a - b).abs().max().item() for a, b in pairs)
+    same = torch.equal(s["iters"], sp["iters"]) and torch.equal(s["done"],
+                                                                sp["done"])
+    return dict(bwd_ms=statistics.median(bwd), fwd_ms=statistics.median(fwd),
+                bwd_reps=bwd, fwd_reps=fwd, err_b=err_b,
+                err_f=err_f if same else float("inf"),
+                plain_bwd_ms=plain_bwd_ms, plain_fwd_ms=plain_fwd_ms)
+
+
+def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
+                    peak_bw):
+    """Phases 17-22: the streamed long-horizon solve on csrc/admm_stream.cu.
+    Returns the kernels-line numbers of its backward kernel, its forward
+    kernel and the forward's stale variant."""
+    kern = tt.kernels
+    ref, ref_warm = (kern.solve_fused_streamed_reference,
+                     kern.solve_fused_streamed_warm_reference)
+    rows = {}
+
+    def drive(label, prob, Xref, Uref, x0, carry=None):
+        """One solve through the entry point with the counts at 0: its
+        result and the launches (backward, forward, stale forward)."""
+        zero_counts(counters)
+        out = (kern.solve_fused_streamed(prob, Xref, Uref, x0)
+               if carry is None else
+               kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, carry))
+        torch.cuda.synchronize()
+        launches = (ast.stream_backward_launch_count,
+                    ast.stream_forward_launch_count,
+                    ast.stream_forward_stale_launch_count)
+        if launches[0] < 1 or launches[1] + launches[2] < 1:
+            raise AssertionError(f"{label} did not launch the streamed "
+                                 "kernels")
+        spec, B = prob.spec, x0.shape[0]
+        if out[0].x.shape != (spec.N, B, spec.nx) or \
+                out[0].u.shape != (spec.N - 1, B, spec.nu):
+            raise AssertionError(f"{label}: bad output shapes "
+                                 f"{out[0].x.shape} {out[0].u.shape}")
+        fail(label, bool(torch.isfinite(out[0].x).all()
+                         and torch.isfinite(out[0].u).all()),
+             "output is not finite")
+        return out, launches
+
+    def report(label, prob, Xref, Uref, x0, sol, launches, carry=None,
+               resident=None):
+        """Per-launch and per-solve times beside their bounds; the
+        kernels-line numbers of the backward and forward kernel."""
+        spec, B = prob.spec, x0.shape[0]
+        warm = carry is not None
+        lt = stream_launches(torch, ast, prob, Xref, Uref, x0, carry)
+        fail(label, lt["err_b"] <= BAR_ATOL and lt["err_f"] <= BAR_ATOL,
+             f"one launch differs from its plain version by "
+             f"{max(lt['err_b'], lt['err_f']):.3e}")
+        solve = ((lambda: kern.solve_fused_streamed(prob, Xref, Uref, x0))
+                 if not warm else
+                 (lambda: kern.solve_fused_streamed_warm(prob, Xref, Uref, x0,
+                                                         carry)))
+        solve_ms, times = cuda_ms(torch, solve, 3)
+        host = statistics.median(host_ms(torch, solve)[0] for _ in range(3))
+        track = warm and spec.any_extra_family
+        fb, ff = stream_floats(spec, track)
+        ob, of = stream_ops(spec)
+        b_bwd = bound(B * ob, 4 * B * fb, peak_flops, peak_bw)
+        b_fwd = bound(B * of, 4 * B * ff, peak_flops, peak_bw)
+        iter_sum = int(sol.iter.sum().item())
+        b_solve = bound(iter_sum * (ob + of), 4 * iter_sum * (fb + ff),
+                        peak_flops, peak_bw)
+        its = launches[0]
+        kernel_ms = its * (lt["bwd_ms"] + lt["fwd_ms"])
+        res_txt = ""
+        if resident is not None:
+            res_ms = cuda_ms(torch, resident, 3)[0]
+            res_txt = (f", resident solve_fused{'_warm' if warm else ''} "
+                       f"{res_ms:.4f} ms (streamed / resident "
+                       f"{solve_ms / res_ms:.4f})")
+        log(f"  {label}: backward {lt['bwd_ms']:.4f} ms a launch (reps "
+            f"{[round(t, 4) for t in lt['bwd_reps']]}; bound "
+            f"{b_bwd[0]:.4f} ms, {b_bwd[1]}; plain {lt['plain_bwd_ms']:.1f} "
+            f"ms), forward{' (stale)' if warm else ''} {lt['fwd_ms']:.4f} ms "
+            f"(reps {[round(t, 4) for t in lt['fwd_reps']]}; bound "
+            f"{b_fwd[0]:.4f} ms, {b_fwd[1]}; plain {lt['plain_fwd_ms']:.1f} "
+            f"ms); one launch vs plain: max|d| {lt['err_b']:.3e}, forward "
+            f"{lt['err_f']:.3e}")
+        log(f"  {label}: solve {solve_ms:.4f} ms on the card's clock (reps "
+            f"{[round(t, 4) for t in times]}), {host:.4f} ms on the host "
+            f"clock, kernels ~{kernel_ms:.4f} ms ({its} iterations x the "
+            f"per-launch times; share {kernel_ms / host:.4f}), launches per "
+            f"solve {launches}, bound {b_solve[0]:.4f} ms ({b_solve[1]}), "
+            f"{4 * (fb + ff)} B a lane and iteration "
+            f"({4 * (fb + ff) / spec.N:.1f} B a horizon row), mean iters "
+            f"{iter_sum / B:.4f}, solved frac "
+            f"{sol.solved.float().mean().item():.5f}, "
+            f"{B / (solve_ms / 1e3):.1f} solves/s{res_txt}; {B} lanes fill "
+            f"{-(-B // admm_fused.BLOCK)} blocks on 132 SMs; card {card}")
+        return lt, b_bwd, b_fwd
+
+    def resident_cold(prob, Xref, Uref, x0):
+        tables, x0c, params = admm_fused._prepare(prob, Xref, Uref, x0)
+        spec = prob.spec
+        return lambda: admm_fused._solve_kernel(tables, x0c, spec.N, spec.nx,
+                                                spec.nu, **params)
+
+    # 17. examples/long_horizon.py, cold, at the source's batch and a fleet
+    phase(f"phase 17: long horizon cold, N={LH_N}, B={LH_B} and "
+          f"{LH_FLEET_B}, max_iter {LH_ITER}")
+    prob = problem(tt, torch, LH_ITER, 1, N=LH_N)
+    for B in (LH_B, LH_FLEET_B):
+        label = f"long horizon cold N={LH_N} B={B}"
+        x0, Xref = long_horizon_inputs(torch, B, LH_N)
+        (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+        same_bits(torch, label, (sol_k, res_k),
+                  kern.solve_fused(prob, Xref, None, x0), "solve_fused")
+        plain_ms, (sol_p, res_p) = host_ms(
+            torch, lambda: plain_wide(torch, ref, prob, Xref, None, x0))
+        err = compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
+        lt, b_bwd, b_fwd = report(label, prob, Xref, None, x0, sol_k,
+                                  launches,
+                                  resident=resident_cold(prob, Xref, None,
+                                                         x0))
+        log(f"  {label}: plain solve {plain_ms:.1f} ms")
+        if B == LH_B:
+            rows["backward"] = dict(launches=launches[0], err=lt["err_b"],
+                                    ms=lt["bwd_ms"],
+                                    plain_ms=lt["plain_bwd_ms"],
+                                    bound_ms=b_bwd[0], bound_by=b_bwd[1])
+            rows["forward"] = dict(launches=launches[1], err=lt["err_f"],
+                                   ms=lt["fwd_ms"],
+                                   plain_ms=lt["plain_fwd_ms"],
+                                   bound_ms=b_fwd[0], bound_by=b_fwd[1])
+
+    # 18. examples/long_horizon.py:78-97, warm: 5 solves of a plant
+    phase(f"phase 18: long horizon warm, N={LH_N}, B={LH_B}, 5 warm solves "
+          f"at max_iter {LH_WARM_ITER}")
+    prob = problem(tt, torch, LH_WARM_ITER, 1, N=LH_N)
+    x, Xref = long_horizon_inputs(torch, LH_B, LH_N)
+    c_k, c_r = tt.init_carry(prob, LH_B), tt.init_carry(prob, LH_B)
+    zero_counts(counters)
+    states, sols, carries = [], [], [c_k]
+    for step in range(5):
+        sol_k, res_k, c_k = kern.solve_fused_streamed_warm(prob, Xref, None, x,
+                                                            c_k)
+        sol_r, res_r, c_r = kern.solve_fused_warm(prob, Xref, None, x, c_r)
+        same_bits(torch, f"long horizon warm step {step}",
+                  (sol_k, res_k, c_k), (sol_r, res_r, c_r),
+                  "solve_fused_warm")
+        states.append(x)
+        sols.append(sol_k)
+        carries.append(c_k)
+        x = x @ prob.A.T + sol_k.u[0] @ prob.B.T
+    torch.cuda.synchronize()
+    warm_launches = (ast.stream_backward_launch_count,
+                     ast.stream_forward_launch_count,
+                     ast.stream_forward_stale_launch_count)
+    if warm_launches[2] < 5:
+        raise AssertionError("the warm long-horizon sequence did not launch "
+                             "the stale forward kernel")
+    # The plain version on the first and the fifth solve, each from the
+    # kernel's carry in (a plain warm solve at N=512 takes ~10 s).
+    err_w = 0.0
+    for step in (0, 4):
+        sol_p, _, c_p = plain_wide(torch, ref_warm, prob, Xref, None,
+                                   states[step], carries[step])
+        label = f"long horizon warm step {step} vs plain"
+        err_w = max(err_w, compare(torch, label, sols[step], sol_p),
+                    compare_carry(torch, label, carries[step + 1], c_p,
+                                  torch.ones(LH_B, dtype=torch.bool,
+                                             device=DEVICE)))
+    for step, sol_k in enumerate(sols):
+        log(f"  step {step}: mean iters {sol_k.iter.float().mean().item():.4f}"
+            f", solved frac {sol_k.solved.float().mean().item():.5f}")
+    # The fifth solve again, for its launches and times.
+    launches5 = drive("long horizon warm", prob, Xref, None, states[-1],
+                      carries[-2])[1]
+    lt, _, b_stale = report("long horizon warm (the fifth solve)", prob,
+                            Xref, None, states[-1], sols[-1], launches5,
+                            carry=carries[-2])
+    rows["forward_stale"] = dict(launches=warm_launches[2],
+                                 err=max(err_w, lt["err_f"]), ms=lt["fwd_ms"],
+                                 plain_ms=lt["plain_fwd_ms"],
+                                 bound_ms=b_stale[0], bound_by=b_stale[1])
+
+    # 19. bench_all.py:343-367, rocket SOC full descent
+    phase(f"phase 19: rocket SOC full descent, N={LH_SOC_N}, B={LH_B}, "
+          f"max_iter {LH_ITER}")
+    prob = rocket_problem(tt, torch, LH_ITER, 1, N=LH_SOC_N)
+    x0, Xref, Uref = rocket_descent_inputs(torch, LH_B, LH_SOC_N)
+    label = f"rocket SOC N={LH_SOC_N}"
+    (sol_k, res_k), launches = drive(label, prob, Xref, Uref, x0)
+    same_bits(torch, label, (sol_k, res_k),
+              kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
+    sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
+    compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
+    report(label, prob, Xref, Uref, x0, sol_k, launches,
+           resident=resident_cold(prob, Xref, Uref, x0))
+
+    # 20. bench_all.py:503-518, N=256 to convergence, mixed x0 scales
+    phase(f"phase 20: long horizon to convergence, N={LH_CONV_N}, "
+          f"B={LH_CONV_B}, max_iter {LH_CONV_ITER}")
+    prob = problem(tt, torch, LH_CONV_ITER, 1, N=LH_CONV_N)
+    rng = np.random.default_rng(0)
+    scales = np.linspace(0.05, 0.5, LH_CONV_B)[:, None]
+    x0 = torch.as_tensor((rng.uniform(-1, 1, (LH_CONV_B, 12)) * scales)[
+        rng.permutation(LH_CONV_B)], dtype=torch.float32, device=DEVICE)
+    label = f"to convergence N={LH_CONV_N}"
+    (sol_k, res_k), launches = drive(label, prob, None, None, x0)
+    same_bits(torch, label, (sol_k, res_k),
+              kern.solve_fused(prob, None, None, x0), "solve_fused")
+    its = launches[0]
+    # Iterations in which a lane, a warp (32 lanes) or a block had a lane
+    # running: a converged lane returns at once, a warp runs while one of
+    # its lanes does, a block returns at once when all of its lanes have.
+    busy = {n: int(sol_k.iter.reshape(-1, n).amax(dim=1).sum().item())
+            for n in (1, 32, admm_fused.BLOCK)}
+    share = {n: busy[n] * n / (its * LH_CONV_B) for n in busy}
+    log(f"  {label}: solved frac {sol_k.solved.float().mean().item():.5f}, "
+        f"mean iters {sol_k.iter.float().mean().item():.4f}, loop ran {its} "
+        f"of {LH_CONV_ITER} iterations ({2 * its} launches, "
+        f"{2 * (LH_CONV_ITER - its)} saved by the stop once every lane is "
+        f"done); share of the launches' lane-iterations run by a running "
+        f"lane {share[1]:.4f}, by a warp with a running lane "
+        f"{share[32]:.4f}, by a block with one {share[admm_fused.BLOCK]:.4f} "
+        f"(the rest returned at once)")
+    report(label, prob, None, None, x0, sol_k, launches,
+           resident=resident_cold(prob, None, None, x0))
+
+    # 21. phase 12's binding ceilings through the streamed kernels
+    phase(f"phase 21: hyperplanes under low ceilings, streamed, B={FAM_B}, "
+          f"N={FAM_N}")
+    x0, Xref, _ = quad_plane_inputs(torch, FAM_B)
+    for kind in ("linear", "tv"):
+        prob = quad_plane_problem(tt, torch, kind == "tv", 100, 1,
+                                  LOW_CEILING[kind])
+        label = f"quadrotor {kind} low ceilings streamed"
+        (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+        same_bits(torch, label, (sol_k, res_k),
+                  kern.solve_fused(prob, Xref, None, x0), "solve_fused")
+        report(label, prob, Xref, None, x0, sol_k, launches,
+               resident=resident_cold(prob, Xref, None, x0))
+
+    # 22. past the resident kernel's shared-memory wall
+    phase(f"phase 22: long horizon N={LH_WALL_N}, B={LH_B}, max_iter "
+          f"{LH_ITER}")
+    prob = problem(tt, torch, LH_ITER, 1, N=LH_WALL_N)
+    x0, Xref = long_horizon_inputs(torch, LH_B, LH_WALL_N)
+    smem = admm_fused.smem_bytes(12, 4, LH_WALL_N)
+    try:
+        kern.solve_fused(prob, Xref, None, x0)
+        refused = False
+    except ValueError as e:
+        refused = "solve_fused_streamed" in str(e)
+    log(f"  N={LH_WALL_N}: the resident tables take {smem} B of shared "
+        f"memory (limit {admm_fused.SMEM_LIMIT}); fused_supported "
+        f"{kern.fused_supported(prob)}, solve_fused refused: {refused}")
+    fail(f"N={LH_WALL_N}", refused and not kern.fused_supported(prob),
+         "the resident solve did not refuse a table past shared memory")
+    label = f"long horizon cold N={LH_WALL_N}"
+    (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+    sol_p, res_p = plain_wide(torch, ref, prob, Xref, None, x0)
+    compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
+    report(label, prob, Xref, None, x0, sol_k, launches)
+    return rows
+
+
 def zero_counts(kernels):
     for mod, attr in kernels:
         setattr(mod, attr, 0)
@@ -1031,9 +1473,12 @@ def main():
         return 2
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch import convert
-    from tinympc_tpu_torch.kernels import _build, admm_fused, \
+    from tinympc_tpu_torch.kernels import _build, admm_fused, admm_stream, \
         closed_loop_kernel
-    counters = ((admm_fused, "launch_count"),
+    counters = ((admm_stream, "stream_backward_launch_count"),
+                (admm_stream, "stream_forward_launch_count"),
+                (admm_stream, "stream_forward_stale_launch_count"),
+                (admm_fused, "launch_count"),
                 (admm_fused, "warm_launch_count"),
                 (admm_fused, "families_launch_count"),
                 (admm_fused, "families_warm_launch_count"),
@@ -1051,11 +1496,12 @@ def main():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
 
-    # 2. build: both sources, one nvcc each, started together
+    # 2. build: every source, one nvcc each, started together
     t0 = time.perf_counter()
-    logs = _build.build([admm_fused.KERNEL, closed_loop_kernel.KERNEL])
+    logs = _build.build(_build.SOURCES)
     admm_fused._kernel_fn()
     closed_loop_kernel._kernel_fn()
+    admm_stream._kernel_fns()
     log(f"build: {time.perf_counter() - t0:.1f} s (set-up), "
         f"{len(logs)} sources compiled")
     for src, text in logs.items():
@@ -1070,10 +1516,10 @@ def main():
                 f"{e.get('stack')} bytes stack frame (local memory), "
                 f"{e.get('spill_st')} / {e.get('spill_ld')} bytes spill "
                 f"stores / loads")
-            if "families" in label:
+            if "families" in label or "admm_stream" in label:
                 fail(f"ptxas {label}", e.get("stack") == 0
                      and e.get("spill_st") == 0 and e.get("spill_ld") == 0,
-                     "the families kernel spills or uses local memory")
+                     "the kernel spills or uses local memory")
 
     bad = check_rounding(torch, _build.load(admm_fused.KERNEL))
     log(f"rounding: div_rn and sqrt_rn against IEEE division and square "
@@ -1557,6 +2003,8 @@ def main():
 
     adapt_rows = adaptive_phases(torch, tt, convert, admm_fused, counters,
                                  card, peak_flops, peak_bw)
+    stream_rows = streamed_phases(torch, tt, admm_fused, admm_stream,
+                                  counters, card, peak_flops, peak_bw)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -1564,8 +2012,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 17. kernels line, then the device line last
-    phase("phase 17: kernels line")
+    # 23. kernels line, then the device line last
+    phase("phase 23: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -1584,6 +2032,12 @@ def main():
     rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_rows[key])
              for key in ("adaptive", "adaptive_warm")]
+    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
+              rep, stream_rows[key])
+             for key, rep in (
+                 ("backward", "tinympc_tpu/kernels/admm_stream.py:121"),
+                 ("forward", "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_stale", "tinympc_tpu/kernels/admm_stream.py:258"))]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

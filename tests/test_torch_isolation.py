@@ -31,6 +31,9 @@ x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5, (3, 12)),
 sol, res = tt.kernels.solve_fused(p, None, None, x0)
 sol2, _, _ = tt.solve(p, tt.init_state(p, (3,)), x0=x0)
 assert torch.isfinite(sol.x).all() and torch.isfinite(sol2.x).all()
+sol5, _ = tt.kernels.solve_fused_streamed(p, None, None, x0)
+assert torch.equal(sol5.x, sol.x)
+assert "tinympc_tpu_torch.kernels.admm_stream" in sys.modules
 p = tt.with_settings(p, adaptive_rho=True)     # computes the sensitivities
 sol3, res3 = tt.kernels.solve_fused(p, None, None, x0)
 sol4, _, cache = tt.solve(p, tt.init_state(p, (3,)), x0=x0)

@@ -25,6 +25,13 @@ hyperplanes (``with_tv_linear_constraints``, ``tv_from_stacked``), in the
 plain solve and in the cold and warm fused kernel; the fused closed loop
 takes box bounds only, as the JAX one does.
 
+Long horizons: ``kernels.solve_fused_streamed`` and
+``solve_fused_streamed_warm`` (the same carry) run each iteration as a
+backward and a forward kernel over the horizon, with only the tables that do
+not grow with N in shared memory, so N may pass the resident kernel's
+shared-memory wall (~1190 at (12, 4)); fixed rho, every family but
+consensus.
+
 Adaptive rho: ``with_settings(prob, adaptive_rho=True)`` attaches the rho
 sensitivities (``with_sensitivities``; ``systems.crazyflie_sensitivity_
 tables`` gives the reference's), and ``solve`` returns each problem's
@@ -36,7 +43,8 @@ from . import admm, convert, kernels, rho_adapt, systems
 from .admm import solve
 from .closed_loop import closed_loop, shift_state
 from .kernels import (FusedCarry, closed_loop_fused, init_carry,
-                      shift_carry, solve_fused_warm)
+                      shift_carry, solve_fused_streamed,
+                      solve_fused_streamed_warm, solve_fused_warm)
 from .api import (init_state, setup, tv_from_stacked, with_bounds,
                   with_cones, with_linear_constraints, with_sensitivities,
                   with_settings, with_tv_linear_constraints)
@@ -48,7 +56,8 @@ __all__ = [
     "admm", "convert", "kernels", "rho_adapt", "systems", "solve",
     "closed_loop",
     "shift_state", "FusedCarry", "init_carry", "shift_carry",
-    "solve_fused_warm", "closed_loop_fused", "init_state", "setup",
+    "solve_fused_warm", "solve_fused_streamed", "solve_fused_streamed_warm",
+    "closed_loop_fused", "init_state", "setup",
     "with_bounds", "with_cones", "with_linear_constraints",
     "with_tv_linear_constraints", "tv_from_stacked", "with_settings",
     "with_sensitivities", "precompute_cache", "compute_sensitivities",

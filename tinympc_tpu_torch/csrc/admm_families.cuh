@@ -180,22 +180,33 @@ struct Families {
   // rather than spill it.
   static constexpr int kMinBlocks = 1;
   FamilyArgs a;
-  const float* t;        // the family tables in shared memory
-  FamilyLayout L;        // their offsets, from t
+  const float* t;        // the family tables, from the cones on
+  const float* tv;       // the same, for the time-varying hyperplanes
+  FamilyLayout L;        // their offsets, from t (or tv)
   int N;
   size_t sB;
   int b;
   float rho;
 
-  // fsm: the family tables in shared memory, right after the box tables.
-  __device__ Families(const FamilyArgs& args, const float* fsm, int N_,
-                      size_t sB_, int b_, float rho_)
-      : a(args), t(fsm), L(args, NX, NU, N_), N(N_), sB(sB_), b(b_),
-        rho(rho_) {}
+  // fsm: the family tables in shared memory, right after the box tables;
+  // frows: where the time-varying hyperplane tables are read, the same
+  // copy (the fused solve) or the packed table in device memory (the
+  // streamed solve, whose shared memory holds only the tables that do not
+  // grow with N: the first static_floats of them).
+  __device__ Families(const FamilyArgs& args, const float* fsm,
+                      const float* frows, int N_, size_t sB_, int b_,
+                      float rho_)
+      : a(args), t(fsm), tv(frows), L(args, NX, NU, N_), N(N_), sB(sB_),
+        b(b_), rho(rho_) {}
 
   static __host__ __device__ int table_floats(const FamilyArgs& args, int nx,
                                               int nu, int N) {
     return FamilyLayout(args, nx, nu, N).total;
+  }
+  // The cone and static hyperplane tables, which come first.
+  static __host__ __device__ int static_floats(const FamilyArgs& args,
+                                               int nx, int nu) {
+    return FamilyLayout(args, nx, nu, 1).tvax;
   }
 
   __device__ __forceinline__ size_t xa(int i, int k) const {
@@ -302,9 +313,9 @@ struct Families {
 #pragma unroll
       for (int k = 0; k < NX; ++k) c[k] = x[k] + a.gtv[xa(i, k)];
       for (int s = 0; s < a.ntx; ++s)
-        project_hyperplane<NX>(c, t + L.tvax + (i * a.ntx + s) * NX,
-                               t[L.tvbx + i * a.ntx + s],
-                               t[L.tvqx + i * a.ntx + s]);
+        project_hyperplane<NX>(c, tv + L.tvax + (i * a.ntx + s) * NX,
+                               tv[L.tvbx + i * a.ntx + s],
+                               tv[L.tvqx + i * a.ntx + s]);
       store(a.vtv, a.gtv, c, x, i);
     }
   }
@@ -331,9 +342,9 @@ struct Families {
 #pragma unroll
       for (int k = 0; k < NU; ++k) c[k] = u[k] + a.ytv[ua(i, k)];
       for (int s = 0; s < a.ntu; ++s)
-        project_hyperplane<NU>(c, t + L.tvau + (i * a.ntu + s) * NU,
-                               t[L.tvbu + i * a.ntu + s],
-                               t[L.tvqu + i * a.ntu + s]);
+        project_hyperplane<NU>(c, tv + L.tvau + (i * a.ntu + s) * NU,
+                               tv[L.tvbu + i * a.ntu + s],
+                               tv[L.tvqu + i * a.ntu + s]);
       store_u(a.ztv, a.ytv, c, u, i);
     }
   }

@@ -79,7 +79,7 @@ using tinympc::AdaptiveRho;
 using tinympc::FamilyArgs;
 using tinympc::FixedRho;
 using tinympc::Layout;
-using tinympc::NegXQTable;
+using tinympc::NegRefTable;
 using tinympc::NoFamilies;
 using tinympc::Residuals;
 using tinympc::Tables;
@@ -137,14 +137,14 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
   __syncthreads();
 
   const Tables t(sm, L);
-  const NegXQTable<NX> negxq{sm + L.xref};
+  const NegRefTable<NX> negxq{sm + L.xref};
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   const bool lane = b < B;
   const size_t sB = static_cast<size_t>(B);
   const size_t half_x = static_cast<size_t>(N) * NX * sB;
   const size_t half_u = static_cast<size_t>(N - 1) * NU * sB;
-  const Fam fam(fa, sm + L.total, N, sB, b, rho);
+  const Fam fam(fa, sm + L.total, sm + L.total, N, sB, b, rho);
   Rho rh(ra, sm + fam_total, pnref + NX, rho, sB, b);
 
   bool done = !lane;

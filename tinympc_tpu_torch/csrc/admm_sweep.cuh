@@ -66,30 +66,40 @@ __device__ __forceinline__ float max_nan(float m, float a) {
 struct Tables {
   const float *Mback, *Mfwd, *Quu, *KinfT, *Bm, *APf, *BPf, *fv, *negur,
       *xmin, *xmax, *umin, *umax;
-  __device__ Tables(const float* sm, const Layout& L)
+  __device__ Tables(const float* sm, const Layout& L) : Tables(sm, sm, L) {
+    negur = sm + L.uref;
+  }
+  // The small matrices and vectors (Layout's prefix, up to xref) from
+  // `sm`, and the per-step bound tables from `rows`, the packed table in
+  // device memory: the streamed solve (admm_stream.cu) keeps nothing whose
+  // size grows with N in shared memory. It forms -(Uref .* R) on the fly,
+  // so `negur` is null here.
+  __device__ Tables(const float* sm, const float* rows, const Layout& L)
       : Mback(sm + L.mback), Mfwd(sm + L.mfwd), Quu(sm + L.quu),
         KinfT(sm + L.kinft), Bm(sm + L.bm), APf(sm + L.apf),
-        BPf(sm + L.bpf), fv(sm + L.f), negur(sm + L.uref),
-        xmin(sm + L.xmin), xmax(sm + L.xmax), umin(sm + L.umin),
-        umax(sm + L.umax) {}
+        BPf(sm + L.bpf), fv(sm + L.f), negur(nullptr),
+        xmin(rows + L.xmin), xmax(rows + L.xmax), umin(rows + L.umin),
+        umax(rows + L.umax) {}
 };
 
-// -(Xref .* Q) row i, feature k, read from a table formed before the loop
-// (the fused solve: one reference for the whole launch).
-template <int NX>
-struct NegXQTable {
+// -(Xref .* Q) or -(Uref .* R), row i, feature k (F features a row), read
+// from a table formed before the loop (the fused solve: one reference for
+// the whole launch).
+template <int F>
+struct NegRefTable {
   const float* t;
-  __device__ float operator()(int i, int k) const { return t[i * NX + k]; }
+  __device__ float operator()(int i, int k) const { return t[i * F + k]; }
 };
 
-// -(Xref .* Q) formed on the fly from a window of the reference
-// trajectory (the closed loop: each thread is at its own step).
-template <int NX>
-struct NegXQWindow {
-  const float* xref;
-  const float* qd;
+// The same formed on the fly from a reference trajectory and its weights
+// (the closed loop: each thread is at its own step; the streamed solve:
+// the reference stays in device memory).
+template <int F>
+struct NegRefWindow {
+  const float* ref;
+  const float* w;
   __device__ float operator()(int i, int k) const {
-    return -(xref[i * NX + k] * qd[k]);
+    return -(ref[i * F + k] * w[k]);
   }
 };
 
@@ -104,8 +114,12 @@ struct NoFamilies {
   struct Args {};
   static constexpr int kMinBlocks = 0;   // no minimum: __launch_bounds__(B)
   NoFamilies() = default;
-  __device__ NoFamilies(const Args&, const float*, int, size_t, int, float) {}
+  __device__ NoFamilies(const Args&, const float*, const float*, int, size_t,
+                        int, float) {}
   static __host__ __device__ int table_floats(const Args&, int, int, int) {
+    return 0;
+  }
+  static __host__ __device__ int static_floats(const Args&, int, int) {
     return 0;
   }
   template <bool WARM>
@@ -166,32 +180,24 @@ struct FixedRho {
   __device__ __forceinline__ void finish() const {}
 };
 
-// One ADMM iteration of lane b.
+// 1+2. The backward sweep of lane b: the linear cost fused into the
+// backward Riccati recursion (admm_pallas.py:894-968), q/r rows from the
+// previous iterate, the feedforward d written row by row.
 //   pnref      -Pinf^T Xref[N-1], (NX,)
-//   x0r        the lane's initial state, (NX,) in registers
-//   dvgN       in: vnew[N-1] - g[N-1] of the previous iterate; out: of this one
-//   vcur/zcur  ping-pong half written by this iteration
-//   vprev/zprev the previous slacks the linear cost reads
-//   vdprev/zdprev the previous slacks of the dual residual (vprev/zprev,
-//              except at iteration 0 of a warm solve: the carried v/z)
-//   g, y       duals, updated in place; d the feedforward scratch
-//   u0         out: the raw forward-pass u[0] of this iteration
+//   dvgN       vnew[N-1] - g[N-1] of the previous iterate, (NX,)
+//   vprev/zprev the previous slacks; g, y the duals; d out, (N-1, NU, B)
+//   negxq/negur -(Xref .* Q) and -(Uref .* R), row i, feature k
 //   fam        the other constraint families: their terms join the linear
-//              cost after the box's, and each projects row i once the
-//              forward sweep has formed it
+//              cost after the box's
 //   rh         fixed or adaptive rho (its hooks move the products of the
 //              matrices the Taylor update moves); rho is the lane's rho
-// Residuals are accumulated only when `checking`.
-template <int NX, int NU, class NegXQ, class Fam = NoFamilies,
+template <int NX, int NU, class NegXQ, class NegUR, class Fam = NoFamilies,
           class Rho = FixedRho>
-__device__ __forceinline__ Residuals admm_iteration(
-    const Tables& t, NegXQ negxq, const float* pnref, const float* x0r,
-    float* dvgN, float* vcur, float* zcur, const float* vprev,
-    const float* zprev, const float* vdprev, const float* zdprev, float* g,
-    float* y, float* d, int N, size_t sB, int b, float rho, bool checking,
-    float* u0, const Fam& fam = Fam(), const Rho& rh = Rho()) {
-  // 1+2. Linear cost fused into the backward sweep
-  // (admm_pallas.py:894-968): q/r rows from the previous iterate.
+__device__ __forceinline__ void backward_sweep(
+    const Tables& t, NegXQ negxq, NegUR negur, const float* pnref,
+    const float* dvgN, const float* vprev, const float* zprev,
+    const float* g, const float* y, float* d, int N, size_t sB, int b,
+    float rho, const Fam& fam = Fam(), const Rho& rh = Rho()) {
   float p[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) p[k] = rh.pterm(k, pnref[k]) - rho * dvgN[k];
@@ -201,7 +207,7 @@ __device__ __forceinline__ Residuals admm_iteration(
 #pragma unroll
     for (int k = 0; k < NU; ++k) {
       const size_t a = (static_cast<size_t>(i) * NU + k) * sB + b;
-      r[k] = t.negur[i * NU + k] - rho * (zprev[a] - y[a]);
+      r[k] = negur(i, k) - rho * (zprev[a] - y[a]);
     }
     fam.r_terms(i, r);
 #pragma unroll
@@ -247,10 +253,26 @@ __device__ __forceinline__ Residuals admm_iteration(
       p[row] = q[row] + ap[row] - rh.kr(row, acc, r) + t.APf[row];
     }
   }
+}
 
-  // 3-6. Forward rollout (admm_pallas.py:971-988) fused row by row with the
-  // box projection, the dual update (both from the pre-update duals,
-  // :1004-1046) and the residual maxima (:1165-1168).
+// 3-6. The forward sweep of lane b: the rollout (admm_pallas.py:971-988)
+// fused row by row with the box projection, the dual update (both from the
+// pre-update duals, :1004-1046) and the residual maxima (:1165-1168).
+//   x0r        the lane's initial state, (NX,) in registers
+//   dvgN       out: vnew[N-1] - g[N-1] of this iterate
+//   vcur/zcur  the slacks this iteration writes
+//   vdprev/zdprev the previous slacks of the dual residual
+//   g, y       duals, updated in place; d the feedforward of this iteration
+//   u0         out: the raw forward-pass u[0] of this iteration
+//   fam        the other constraint families: each projects row i once the
+//              sweep has formed it
+// Residuals are accumulated only when `checking`.
+template <int NX, int NU, class Fam = NoFamilies, class Rho = FixedRho>
+__device__ __forceinline__ Residuals forward_sweep(
+    const Tables& t, const float* x0r, float* dvgN, float* vcur, float* zcur,
+    const float* vdprev, const float* zdprev, float* g, float* y,
+    const float* d, int N, size_t sB, int b, bool checking, float* u0,
+    const Fam& fam = Fam(), const Rho& rh = Rho()) {
   float x[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) x[k] = x0r[k];
@@ -322,6 +344,28 @@ __device__ __forceinline__ Residuals admm_iteration(
     }
   }
   return res;
+}
+
+// One ADMM iteration of lane b: the backward sweep, then the forward sweep,
+// as the resident kernels run it.
+//   dvgN       in: vnew[N-1] - g[N-1] of the previous iterate; out: of this one
+//   vprev/zprev the previous slacks the linear cost reads
+//   vdprev/zdprev the previous slacks of the dual residual (vprev/zprev,
+//              except at iteration 0 of a warm solve: the carried v/z)
+// and the other arguments as the sweeps take them; the reference's
+// -(Uref .* R) is t.negur.
+template <int NX, int NU, class NegXQ, class Fam = NoFamilies,
+          class Rho = FixedRho>
+__device__ __forceinline__ Residuals admm_iteration(
+    const Tables& t, NegXQ negxq, const float* pnref, const float* x0r,
+    float* dvgN, float* vcur, float* zcur, const float* vprev,
+    const float* zprev, const float* vdprev, const float* zdprev, float* g,
+    float* y, float* d, int N, size_t sB, int b, float rho, bool checking,
+    float* u0, const Fam& fam = Fam(), const Rho& rh = Rho()) {
+  backward_sweep<NX, NU>(t, negxq, NegRefTable<NU>{t.negur}, pnref, dvgN,
+                         vprev, zprev, g, y, d, N, sB, b, rho, fam, rh);
+  return forward_sweep<NX, NU>(t, x0r, dvgN, vcur, zcur, vdprev, zdprev, g,
+                               y, d, N, sB, b, checking, u0, fam, rh);
 }
 
 // Copy (rows, F, B) lane b of src into dst.

@@ -49,7 +49,7 @@
 namespace {
 
 using tinympc::Layout;
-using tinympc::NegXQWindow;
+using tinympc::NegRefWindow;
 using tinympc::Residuals;
 using tinympc::Tables;
 
@@ -145,7 +145,7 @@ __global__ void __launch_bounds__(kBlock) closed_loop_fused_box_kernel(
       const size_t a = (static_cast<size_t>(N - 1) * NX + k) * sB + b;
       dvgN[k] = vnew[c * half_x + a] - g[a];
     }
-    const NegXQWindow<NX> negxq{xwin, qd};
+    const NegRefWindow<NX> negxq{xwin, qd};
     bool done = false;
     int iters = 0;
     float u0[NU];

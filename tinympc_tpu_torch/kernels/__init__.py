@@ -5,6 +5,11 @@ from .admm_fused import (FusedCarry, adapted_cache, fused_supported,
                          init_carry, shift_carry, solve_fused,
                          solve_fused_reference, solve_fused_warm,
                          solve_fused_warm_reference)
+from .admm_stream import (solve_fused_streamed,
+                          solve_fused_streamed_reference,
+                          solve_fused_streamed_warm,
+                          solve_fused_streamed_warm_reference,
+                          stream_supported)
 from .closed_loop_kernel import (closed_loop_fused,
                                 closed_loop_fused_reference,
                                 closed_loop_fused_supported)
@@ -12,5 +17,7 @@ from .closed_loop_kernel import (closed_loop_fused,
 __all__ = ["FusedCarry", "adapted_cache", "fused_supported", "init_carry",
            "shift_carry", "solve_fused", "solve_fused_reference",
            "solve_fused_warm", "solve_fused_warm_reference",
-           "closed_loop_fused", "closed_loop_fused_reference",
-           "closed_loop_fused_supported"]
+           "solve_fused_streamed", "solve_fused_streamed_reference",
+           "solve_fused_streamed_warm", "solve_fused_streamed_warm_reference",
+           "stream_supported", "closed_loop_fused",
+           "closed_loop_fused_reference", "closed_loop_fused_supported"]

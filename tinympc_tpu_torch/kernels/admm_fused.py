@@ -48,6 +48,9 @@ KERNEL_DIMS = ((12, 4),)             # (nx, nu) of the box-only kernel
 FAMILY_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of the families kernel
 ADAPTIVE_KERNEL_DIMS = ((12, 4),)    # (nx, nu) of the adaptive-rho kernel
 F32_MAX = float(np.finfo(np.float32).max)
+# Shared memory a block may have on Hopper (cudaFuncSetAttribute refuses
+# more); the kernel keeps its whole packed table there.
+SMEM_LIMIT = 232448
 
 # Launches of the CUDA kernel in this process: box-only cold and warm, with
 # the other families cold and warm, and with adaptive rho cold and warm.
@@ -98,6 +101,9 @@ class Families(NamedTuple):
 
 
 NO_FAMILIES = Families()
+# The carry field of each family's dual, in the order of Families and of
+# the kernels' family arrays.
+_FAMILY_DUALS = ("gc", "yc", "gl", "yl", "gtv", "ytv")
 
 
 def _families(spec) -> Families:
@@ -132,8 +138,33 @@ def _family_data(prob: TinyProblem):
 
 
 def _check(prob: TinyProblem) -> None:
-    """Raise ``ValueError`` for a problem the fused kernel does not
-    cover."""
+    """Raise ``ValueError`` for a problem the fused kernel does not cover,
+    a horizon whose tables do not fit in a block's shared memory among
+    them."""
+    _check_problem(prob)
+    spec = prob.spec
+    smem = smem_bytes(spec.nx, spec.nu, spec.N, _families(spec),
+                      _adaptive(prob.settings))
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"at N={spec.N} the fused kernel's tables take {smem} B of shared "
+            f"memory, more than the {SMEM_LIMIT} B a block may have; "
+            "solve_fused_streamed solves long horizons")
+
+
+def smem_bytes(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
+               adapt: Optional[Adaptive] = None) -> int:
+    """Shared memory of one block of csrc/admm_fused.cu: the packed table
+    (:func:`_table_layout`) and the terminal reference term, with its
+    sensitivity under adaptive rho (admm_fused.cu:launch)."""
+    floats = sum(int(np.prod(shape)) for _, shape in _table_layout(
+        nx, nu, N, fam, adapt))
+    return 4 * (floats + nx * (1 if adapt is None else 2))
+
+
+def _check_problem(prob: TinyProblem) -> None:
+    """The checks of :func:`_check` but the shared-memory one: settings,
+    families, instantiated (nx, nu), horizon, rho and family tables."""
     check_supported_settings(prob.settings)
     check_supported_spec(prob.spec, prob.settings)
     spec = prob.spec
@@ -173,8 +204,10 @@ def fused_supported(prob: TinyProblem) -> bool:
     """True if :func:`solve_fused` handles this problem: box, SOC,
     hyperplane and time-varying hyperplane constraints at fixed rho, or
     box constraints with adaptive rho and its sensitivities attached;
-    ``matmul_precision="highest"``, no coarse schedule, and an (nx, nu)
-    pair the kernel is instantiated for."""
+    ``matmul_precision="highest"``, no coarse schedule, an (nx, nu) pair
+    the kernel is instantiated for, and tables that fit in a block's shared
+    memory (:data:`SMEM_LIMIT`; past N ~ 1190 at (12, 4), where
+    ``solve_fused_streamed`` takes over)."""
     try:
         _check(prob)
     except ValueError:
@@ -432,6 +465,11 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s):
     """Check the problem and x0s; return the packed tables, x0 and the
     solver parameters, the problem's family sizes ``fam`` among them."""
     _check(prob)
+    return _prepare_inputs(prob, Xref, Uref, x0s)
+
+
+def _prepare_inputs(prob: TinyProblem, Xref, Uref, x0s):
+    """:func:`_prepare` for a problem that is already checked."""
     if x0s is None:
         raise ValueError("solve_fused needs x0s, shape (B, nx)")
     if isinstance(x0s, torch.Tensor) and x0s.device != prob.device:
@@ -546,14 +584,12 @@ def _lanes(fn, *args):
     return lambda c: fn(c.transpose(1, 2), *args).transpose(1, 2)
 
 
-def _plain_families(t, fam: Families, x_seed, u_seed, carry):
-    """The state-side and input-side families of the plain version, in the
-    kernel's order (SOC, hyperplane, time-varying hyperplane), with their
-    seeded slacks and their duals (zero, or from the carry)."""
-    def dual(name, like):
-        return torch.zeros_like(like) if carry is None \
-            else getattr(carry, name).clone()
-
+def _family_projectors(t, fam: Families):
+    """The projection of each family of ``fam`` from the unpacked tables
+    ``t``, in the order of :data:`_FAMILY_DUALS` (SOC, hyperplane,
+    time-varying hyperplane; the state side before the input side of
+    each), None for a family that is off. Each maps a lane-last
+    (rows, F, B) candidate to its projection."""
     def cones(table):
         geometry = [(int(s), int(d)) for s, d in table[:, :2].tolist()]
         return _lanes(apply_cones, geometry, table[:, 2])
@@ -566,25 +602,30 @@ def _plain_families(t, fam: Families, x_seed, u_seed, carry):
         return _lanes(apply_hyperplanes, [(a, bk, asq[:, k, None])
                                           for k, (a, bk) in enumerate(rows)])
 
+    make = (lambda: cones(t["xcones"]), lambda: cones(t["ucones"]),
+            lambda: planes(t["Alin_x"], t["blin_x"], t["asq_x"]),
+            lambda: planes(t["Alin_u"], t["blin_u"], t["asq_u"]),
+            lambda: tv_planes(t["tv_Alin_x"], t["tv_blin_x"], t["tv_asq_x"],
+                              fam.ntx),
+            lambda: tv_planes(t["tv_Alin_u"], t["tv_blin_u"], t["tv_asq_u"],
+                              fam.ntu))
+    return [m() if n else None for m, n in zip(make, fam)]
+
+
+def _plain_families(t, fam: Families, x_seed, u_seed, carry):
+    """The state-side and input-side families of the plain version, in the
+    kernel's order (SOC, hyperplane, time-varying hyperplane), with their
+    seeded slacks and their duals (zero, or from the carry)."""
     xs, us = [], []
-    for on, proj, name in ((fam.ncx, lambda: cones(t["xcones"]), "gc"),
-                           (fam.nlx, lambda: planes(
-                               t["Alin_x"], t["blin_x"], t["asq_x"]), "gl"),
-                           (fam.ntx, lambda: tv_planes(
-                               t["tv_Alin_x"], t["tv_blin_x"], t["tv_asq_x"],
-                               fam.ntx), "gtv")):
-        if on:
-            xs.append(_Family(proj(), x_seed.clone(), dual(name, x_seed),
-                              name))
-    for on, proj, name in ((fam.ncu, lambda: cones(t["ucones"]), "yc"),
-                           (fam.nlu, lambda: planes(
-                               t["Alin_u"], t["blin_u"], t["asq_u"]), "yl"),
-                           (fam.ntu, lambda: tv_planes(
-                               t["tv_Alin_u"], t["tv_blin_u"], t["tv_asq_u"],
-                               fam.ntu), "ytv")):
-        if on:
-            us.append(_Family(proj(), u_seed.clone(), dual(name, u_seed),
-                              name))
+    for k, (proj, name) in enumerate(zip(_family_projectors(t, fam),
+                                         _FAMILY_DUALS)):
+        if proj is None:
+            continue
+        seed = x_seed if k % 2 == 0 else u_seed
+        dual = torch.zeros_like(seed) if carry is None \
+            else getattr(carry, name).clone()
+        (xs if k % 2 == 0 else us).append(
+            _Family(proj, seed.clone(), dual, name))
     return xs, us
 
 
@@ -758,37 +799,43 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
             if bool(done.all()):
                 break
 
-    # Each lane reports the half its last iteration wrote (half 1 -- zero,
-    # or the carried slack -- when max_iter is 0).
+    if adapt is not None:
+        # Converged lanes froze their rho: this is each problem's final
+        # rho, as in the final cache of admm.solve.
+        res = torch.cat([res, lane_rho[None]])
+    extra = {}
+    if carry is not None:
+        extra = {f.name: f.dual for f in xfams + ufams}
+        if any(fam):
+            extra.update(x=xcar, u=ucar)
+        if adapt is not None:
+            extra.update(rho=lane_rho[None].clone())
+    return _outputs(vnew, znew, g, y, iters, done, res, carry, extra) + (u0,)
+
+
+def _outputs(vnew, znew, g, y, iters, done, res, carry, extra):
+    """``(Solution, residuals, carry' or None)`` from the ping-pong halves
+    of a solve whose converged lanes froze: each lane reports the half its
+    last iteration wrote (half 1 -- zero, or the carried slack -- when it
+    ran none). A warm solve hands over that half, the duals ``g``/``y``,
+    the fields of ``extra``, and as v/z the "previous" the converging
+    iteration compared against (the carried v/z if that was iteration 0,
+    else the other half), or the last half for a lane that ran out of
+    iterations."""
     first = ((iters - 1) % 2) == 0
     vlast = torch.where(first, vnew[0], vnew[1])
     zlast = torch.where(first, znew[0], znew[1])
     sol = Solution(iter=iters, solved=done.clone(),
                    x=vlast.permute(0, 2, 1).contiguous(),
                    u=zlast.permute(0, 2, 1).contiguous())
-    if adapt is not None:
-        # Converged lanes froze their rho: this is each problem's final
-        # rho, as in the final cache of admm.solve.
-        res = torch.cat([res, lane_rho[None]])
-    carry_out = None
-    if carry is not None:
-        # v/z out: the "previous" the converging iteration compared against
-        # (the carried v/z if that was iteration 0, else the other half);
-        # the last half for a lane that ran out of iterations.
-        stale = done & (iters == 1)
-        vprev = torch.where(stale, carry.v, torch.where(first, vnew[1],
-                                                        vnew[0]))
-        zprev = torch.where(stale, carry.z, torch.where(first, znew[1],
-                                                        znew[0]))
-        extra = {f.name: f.dual for f in xfams + ufams}
-        if any(fam):
-            extra.update(x=xcar, u=ucar)
-        if adapt is not None:
-            extra.update(rho=lane_rho[None].clone())
-        carry_out = FusedCarry(vnew=vlast, znew=zlast, g=g, y=y,
-                               v=torch.where(done, vprev, vlast),
-                               z=torch.where(done, zprev, zlast), **extra)
-    return sol, res, carry_out, u0
+    if carry is None:
+        return sol, res, None
+    stale = done & (iters == 1)
+    vprev = torch.where(stale, carry.v, torch.where(first, vnew[1], vnew[0]))
+    zprev = torch.where(stale, carry.z, torch.where(first, znew[1], znew[0]))
+    return sol, res, FusedCarry(vnew=vlast, znew=zlast, g=g, y=y,
+                                v=torch.where(done, vprev, vlast),
+                                z=torch.where(done, zprev, zlast), **extra)
 
 
 def _adapt_plain(t, adapt: Adaptive, xs, us, axd, vn, zn, gn, yn, dr,
@@ -919,9 +966,6 @@ def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None):
 
 _BUFFER_ORDER = ("vnew", "znew", "g", "y", "d", "out_x", "out_u", "iters",
                  "solved", "res")
-# The carry field of each family's dual, in the order of Families and of
-# the kernel's family array.
-_FAMILY_DUALS = ("gc", "yc", "gl", "yl", "gtv", "ytv")
 
 
 def _ptr_array(tensors):

@@ -1,0 +1,444 @@
+"""Streamed fused solve for long horizons on the GPU (counterpart of
+``tinympc_tpu.kernels.admm_stream``).
+
+The resident kernel (:mod:`.admm_fused`) keeps its packed tables -- the
+reference, the box bounds and the time-varying hyperplanes, all growing with
+the horizon N -- in a block's shared memory, which caps N near 1190 at
+(nx, nu) = (12, 4). :func:`solve_fused_streamed` and
+:func:`solve_fused_streamed_warm` keep only the tables that do not grow with
+N on chip and run each ADMM iteration as two launches of the hand-written
+CUDA kernels in ``csrc/admm_stream.cu``: a backward sweep (the TPU kernel
+``admm_stream._backward_kernel``) that writes the feedforward d, and a
+forward sweep (``admm_stream._forward_kernel``, and its ``stale`` variant
+for the first iteration of a warm solve) that rolls out, projects, updates
+the duals, accumulates the residuals and keeps each lane's bookkeeping. The
+loop around the launches runs here, on the host; it reads one flag from the
+card after each check iteration and stops once every lane has converged.
+
+Scope: fixed rho; box, second-order cone, hyperplane and time-varying
+hyperplane constraints in any mix, at the (nx, nu) the resident kernels are
+instantiated for; cold and warm (the :class:`~.admm_fused.FusedCarry` of the
+resident solve, which either solve may hand to the other). Adaptive rho and
+consensus raise ``ValueError``.
+
+On CPU tensors the wrappers run the kernels' plain PyTorch versions,
+:func:`stream_backward_reference` and :func:`stream_forward_reference`,
+through the same host loop; on CUDA tensors they launch the kernels or
+raise. The public layout and results are those of
+:func:`~.admm_fused.solve_fused`: converged lanes freeze, so each lane's
+result does not depend on the others, and the two solves agree bitwise.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ..types import TinyProblem
+from . import _build, admm_fused
+from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, FusedCarry,
+                         Families, _check_arg, _family_projectors, _outputs,
+                         _prepare_inputs, _ptr_array, _table_layout,
+                         _unpack_tables)
+
+KERNEL = "admm_stream"
+
+# Launches of the backward kernel, the forward kernel and its stale variant
+# in this process; chip_smoke.py resets and reads them to show that the
+# streamed path went through its kernels.
+stream_backward_launch_count = 0
+stream_forward_launch_count = 0
+stream_forward_stale_launch_count = 0
+
+
+def _check(prob: TinyProblem) -> None:
+    """Raise ``ValueError`` for a problem the streamed kernels do not
+    cover: those of the resident kernel, whatever its horizon, less
+    adaptive rho and consensus."""
+    if prob.settings.adaptive_rho:
+        raise ValueError("adaptive rho on the streamed path is not ported yet "
+                         "(ROADMAP.md, Queue 2); use solve_fused or "
+                         "tinympc_tpu_torch.solve")
+    if prob.spec.en_consensus:
+        raise ValueError("consensus on the streamed path is not ported yet "
+                         "(ROADMAP.md, Queue 2)")
+    admm_fused._check_problem(prob)
+
+
+def stream_supported(prob: TinyProblem) -> bool:
+    """True if :func:`solve_fused_streamed` handles this problem: box, SOC,
+    hyperplane and time-varying hyperplane constraints at fixed rho, at any
+    horizon N >= 2, ``matmul_precision="highest"``, no coarse schedule, and
+    an (nx, nu) pair the kernels are instantiated for."""
+    try:
+        _check(prob)
+    except ValueError:
+        return False
+    return True
+
+
+def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
+    """Check the problem, x0s and (warm) the carry; return the packed tables,
+    x0, the carry and the solver parameters."""
+    _check(prob)
+    tables, x0, params = _prepare_inputs(prob, Xref, Uref, x0s)
+    params.pop("adapt")
+    if warm:
+        if carry is None:
+            raise ValueError("solve_fused_streamed_warm needs a carry; start "
+                             "from init_carry(prob, B)")
+        carry = admm_fused._carry_tensors(prob, carry, x0.shape[0])
+    return tables, x0, carry, params
+
+
+# ------------------------------------------------------------ entry points
+
+def solve_fused_streamed(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
+    """Long-horizon batched cold solve, two kernel launches an iteration.
+    Returns ``(Solution, residuals (4, B))`` as :func:`solve_fused` does.
+
+    Raises ``ValueError`` for a problem outside :func:`stream_supported`.
+    On CPU tensors it runs :func:`solve_fused_streamed_reference`."""
+    tables, x0, _, params = _prepare(prob, Xref, Uref, x0s)
+    return _solve(prob, tables, x0, None, params)[:2]
+
+
+def solve_fused_streamed_warm(prob: TinyProblem, Xref=None, Uref=None,
+                              x0s=None, carry: Optional[FusedCarry] = None):
+    """Warm-started long-horizon solve: ``(Solution, residuals (4, B),
+    carry')``, with the carry contract of :func:`solve_fused_warm` (start
+    from :func:`init_carry`; a carry of either solve serves the other). The
+    first iteration's dual residual reads the carried one-behind v/z (the
+    stale forward kernel); converged lanes hand over their first-convergence
+    iterate. On CPU tensors it runs
+    :func:`solve_fused_streamed_warm_reference`."""
+    tables, x0, carry, params = _prepare(prob, Xref, Uref, x0s, carry, True)
+    return _solve(prob, tables, x0, carry, params)
+
+
+def solve_fused_streamed_reference(prob: TinyProblem, Xref=None, Uref=None,
+                                   x0s=None):
+    """The streamed solve on the kernels' plain PyTorch versions, on the
+    problem's device: the same host loop, arrays, freeze and exit rules as
+    the kernels, so that a mismatch points into a kernel. Returns what
+    :func:`solve_fused_streamed` returns."""
+    tables, x0, _, params = _prepare(prob, Xref, Uref, x0s)
+    return _loop(tables, x0, None, prob.spec, _PLAIN, **params)[:2]
+
+
+def solve_fused_streamed_warm_reference(prob: TinyProblem, Xref=None,
+                                        Uref=None, x0s=None,
+                                        carry: Optional[FusedCarry] = None):
+    """The warm streamed solve on the plain versions, on the problem's
+    device. Returns what :func:`solve_fused_streamed_warm` returns."""
+    tables, x0, carry, params = _prepare(prob, Xref, Uref, x0s, carry, True)
+    return _loop(tables, x0, carry, prob.spec, _PLAIN, **params)
+
+
+def _solve(prob, tables, x0, carry, params):
+    if x0.device.type == "cpu":
+        return _loop(tables, x0, carry, prob.spec, _PLAIN, **params)
+    if x0.device.type == "cuda":
+        return _loop(tables, x0, carry, prob.spec, _KERNELS, **params)
+    raise ValueError(f"the streamed solve runs on cuda or cpu, not "
+                     f"{x0.device}")
+
+
+# ------------------------------------------------------------ the host loop
+
+def _init(x0, N, nx, nu, carry, fam: Families):
+    """The working arrays of a solve, lane-last, on x0's device: vnew/znew
+    as ping-pong halves (iteration it writes half it % 2; a warm solve's
+    carried slack goes into half 1, which iteration 0 reads as previous),
+    the duals, the feedforward d, the slack and dual of each family in the
+    order of the kernels' family array (None for a family that is off),
+    the carried x/u of a warm family solve, and the bookkeeping: iters,
+    done, res and the one-int flag ``active``.
+
+    Family slacks are seeded as the resident kernel seeds them
+    (admm_stream.py:1196-1214): the state side from x0 in row 0 and zeros
+    (cold) or the carried x after it, the input side from zeros or the
+    carried u; duals start at zero or from the carry."""
+    B = x0.shape[0]
+    kw = dict(dtype=torch.float32, device=x0.device)
+    vnew = torch.zeros((2, N, nx, B), **kw)
+    znew = torch.zeros((2, N - 1, nu, B), **kw)
+    if carry is None:
+        g, y = torch.zeros((N, nx, B), **kw), torch.zeros((N - 1, nu, B), **kw)
+    else:
+        vnew[1], znew[1] = carry.vnew, carry.znew
+        g, y = carry.g.clone(), carry.y.clone()
+    track = carry is not None and any(fam)
+    x_seed = torch.cat([x0.T[None], carry.x[1:] if track
+                        else torch.zeros((N - 1, nx, B), **kw)])
+    u_seed = carry.u if track else torch.zeros((N - 1, nu, B), **kw)
+    fams = []
+    for k, (name, n) in enumerate(zip(_FAMILY_DUALS, fam)):
+        seed = x_seed if k % 2 == 0 else u_seed
+        if not n:
+            fams += [None, None]
+        elif carry is None:
+            fams += [seed.clone(), torch.zeros_like(seed)]
+        else:
+            fams += [seed.clone(), getattr(carry, name).clone()]
+    return dict(vnew=vnew, znew=znew, g=g, y=y,
+                d=torch.zeros((N - 1, nu, B), **kw), fams=fams,
+                x=x_seed.clone() if track else None,
+                u=u_seed.clone() if track else None,
+                iters=torch.zeros(B, dtype=torch.int32, device=x0.device),
+                done=torch.zeros(B, dtype=torch.bool, device=x0.device),
+                res=torch.zeros((4, B), **kw),
+                active=torch.zeros(1, dtype=torch.int32, device=x0.device))
+
+
+def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
+          tol_dua, fam: Families):
+    """The ADMM loop around the two launches of each iteration, on the
+    kernels (``_KERNELS``) or their plain versions (``_PLAIN``): iteration
+    ``it`` runs the backward launch on half 1 - it % 2, then the forward
+    launch into half it % 2 -- stale on iteration 0 of a warm solve. After
+    each check iteration the host reads the flag and stops once no lane is
+    still running, so the iteration count never passes max_iter. Returns
+    ``(Solution, residuals, carry' or None)``."""
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    s = _init(x0, N, nx, nu, carry, fam)
+    run = launcher(tables, x0, s, carry, N, nx, nu, rho=rho, ct=ct,
+                   tol_pri=tol_pri, tol_dua=tol_dua, fam=fam)
+    for it in range(max_iter):
+        run.backward(1 - it % 2)
+        run.forward(it, stale=carry is not None and it == 0)
+        if (it + 1) % ct == 0 and int(s["active"].item()) == 0:
+            break
+    extra = {}
+    if carry is not None:
+        extra = {name: s["fams"][2 * k + 1]
+                 for k, name in enumerate(_FAMILY_DUALS) if fam[k]}
+        if s["x"] is not None:
+            extra.update(x=s["x"], u=s["u"])
+    return _outputs(s["vnew"], s["znew"], s["g"], s["y"], s["iters"],
+                    s["done"], s["res"], carry, extra)
+
+
+# ------------------------------------------------------------ plain versions
+
+def _sides(fams):
+    """The (slack, dual) pairs of the state-side and of the input-side
+    families that are on, each in the kernels' order (SOC, hyperplane,
+    time-varying hyperplane)."""
+    pairs = [(fams[2 * k], fams[2 * k + 1]) for k in range(6)]
+    on = lambda side: [p for p in pairs[side::2] if p[0] is not None]
+    return on(0), on(1)
+
+
+def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams, *,
+                              N, nx, nu, rho, fam: Families = NO_FAMILIES):
+    """The backward kernel's plain version: the feedforward d (N-1, nu, B)
+    of every lane not ``done`` from its previous slacks ``vprev``
+    (N, nx, B) / ``zprev`` (N-1, nu, B), duals ``g``/``y`` and the family
+    slacks and duals ``fams`` (the kernel's 12-entry family array); ``d``
+    stands for the lanes that are done. The linear cost is formed row by
+    row inside the recursion (admm_stream.py:196-253), the family terms
+    after the box's, in the arithmetic of
+    :func:`~.admm_fused.solve_fused_reference`. Returns the new d."""
+    t = _unpack_tables(tables, nx, nu, N, fam)
+    col = lambda v: v[:, None]
+    xf, uf = _sides(fams)
+    negxq = -(t["Xref"] * t["Qd"])
+    negur = -(t["Uref"] * t["Rd"])
+    # -Pinf^T Xref[N-1], summed as admm.update_linear_cost sums it.
+    p = col(-(t["Xref"][N - 1] @ t["PinfT"].T.contiguous()))
+    p = p - rho * (vprev[N - 1] - g[N - 1])
+    for slack, dual in xf:
+        p = p - rho * (slack[N - 1] - dual[N - 1])
+    dn = torch.empty_like(d)
+    for i in range(N - 2, -1, -1):
+        r = col(negur[i]) - rho * (zprev[i] - y[i])
+        for slack, dual in uf:
+            r = r - rho * (slack[i] - dual[i])
+        q = col(negxq[i]) - rho * (vprev[i] - g[i])
+        for slack, dual in xf:
+            q = q - rho * (slack[i] - dual[i])
+        out = t["Mback"] @ p
+        bp, ap = out[:nu], out[nu:]
+        dn[i] = t["Quu"] @ (bp + r + col(t["BPf"]))
+        p = q + ap - t["KinfT"] @ r + col(t["APf"])
+    return torch.where(done, d, dn)
+
+
+def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
+                             iters, done, res, fams, x_out=None, u_out=None,
+                             vstale=None, zstale=None, *, it, N, nx, nu, ct,
+                             rho, tol_pri, tol_dua,
+                             fam: Families = NO_FAMILIES):
+    """The forward kernel's plain version for iteration ``it``, on the lanes
+    not ``done``: the rollout from x0 (B, nx) with the feedforward ``d``,
+    the box projection and dual update from the pre-update duals, each
+    family's projection and dual update, and on check iterations the four
+    residuals (the dual rows against ``vprev``/``zprev``, or the carried
+    ``vstale``/``zstale`` in the stale variant; scaled by rho) and
+    convergence (admm_stream.py:474-641). ``x_out``/``u_out``, when given,
+    receive the lanes' x/u trajectories. Returns what the kernel writes, as
+    a dict: vcur, zcur, g, y, fams, x_out, u_out, iters, done, res and
+    ``active`` (1 where a lane still runs after a check iteration, else
+    0)."""
+    t = _unpack_tables(tables, nx, nu, N, fam)
+    col = lambda v: v[:, None]
+    active = ~done
+    keep = lambda new, old: torch.where(active, new, old)
+    x = x0.T
+    xs, us = [x], []
+    for i in range(N - 1):
+        out = t["Mfwd"] @ x
+        u = -out[:nu] - d[i]
+        x = out[nu:] + t["Bm"] @ u + col(t["f"])
+        xs.append(x)
+        us.append(u)
+    xs, us = torch.stack(xs), torch.stack(us)
+    vn = torch.minimum(t["xmax"][:, :, None],
+                       torch.maximum(t["xmin"][:, :, None], xs + g))
+    zn = torch.minimum(t["umax"][:, :, None],
+                       torch.maximum(t["umin"][:, :, None], us + y))
+    new_fams = list(fams)
+    for k, proj in enumerate(_family_projectors(t, fam)):
+        if proj is not None:
+            prim, slack, dual = (xs, us)[k % 2], fams[2 * k], fams[2 * k + 1]
+            sn = proj(prim + dual)
+            new_fams[2 * k] = keep(sn, slack)
+            new_fams[2 * k + 1] = keep(dual + prim - sn, dual)
+    out = dict(vcur=keep(vn, vcur), zcur=keep(zn, zcur), g=keep(g + xs - vn, g),
+               y=keep(y + us - zn, y), fams=new_fams,
+               x_out=None if x_out is None else keep(xs, x_out),
+               u_out=None if u_out is None else keep(us, u_out),
+               iters=keep(torch.full_like(iters, it + 1), iters), done=done,
+               res=res, active=torch.zeros(1, dtype=torch.int32,
+                                           device=x0.device))
+    if (it + 1) % ct == 0:
+        vd, zd = (vprev, zprev) if vstale is None else (vstale, zstale)
+        rows = torch.stack([
+            torch.amax(torch.abs(xs - vn), dim=(0, 1)),
+            torch.amax(torch.abs(us - zn), dim=(0, 1)),
+            torch.amax(torch.abs(vd - vn), dim=(0, 1)) * rho,
+            torch.amax(torch.abs(zd - zn), dim=(0, 1)) * rho])
+        ok = ((rows[0] < tol_pri) & (rows[1] < tol_pri)
+              & (rows[2] < tol_dua) & (rows[3] < tol_dua))
+        out.update(res=keep(rows, res), done=done | (ok & active),
+                   active=(active & ~ok).any().to(torch.int32).reshape(1))
+    return out
+
+
+class _PLAIN:
+    """Launches of the plain versions on the working arrays ``s`` of
+    :func:`_init`, which they update as the kernels do."""
+
+    def __init__(self, tables, x0, s, carry, N, nx, nu, **params):
+        self.tables, self.x0, self.s, self.carry = tables, x0, s, carry
+        self.dims = dict(N=N, nx=nx, nu=nu)
+        self.params = params
+
+    def backward(self, prev):
+        s, p = self.s, self.params
+        s["d"] = stream_backward_reference(
+            self.tables, s["vnew"][prev], s["znew"][prev], s["g"], s["y"],
+            s["d"], s["done"], s["fams"], rho=p["rho"], fam=p["fam"],
+            **self.dims)
+
+    def forward(self, it, stale):
+        s, cur = self.s, it % 2
+        stale_vz = (self.carry.v, self.carry.z) if stale else (None, None)
+        out = stream_forward_reference(
+            self.tables, self.x0, s["vnew"][1 - cur], s["znew"][1 - cur],
+            s["vnew"][cur], s["znew"][cur], s["g"], s["y"], s["d"],
+            s["iters"], s["done"], s["res"], s["fams"], s["x"], s["u"],
+            *stale_vz, it=it, **self.dims, **self.params)
+        s["vnew"][cur], s["znew"][cur] = out["vcur"], out["zcur"]
+        for k in ("g", "y", "fams", "iters", "done", "res", "active"):
+            s[k] = out[k]
+        s["x"], s["u"] = out["x_out"], out["u_out"]
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+def _kernel_fns():
+    """The C entry points of csrc/admm_stream.cu, built and loaded on first
+    use: (backward, forward)."""
+    lib = _build.load(KERNEL)
+    if lib.tinympc_stream_block() != admm_fused.BLOCK:
+        raise RuntimeError("csrc/admm_stream.cu and admm_fused.BLOCK disagree "
+                           "on the block size")
+    bwd, fwd = lib.tinympc_stream_backward, lib.tinympc_stream_forward
+    # nx nu N B | counts | rho | tables vprev zprev g y d done active |
+    # family array | the stream
+    bwd.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                          ctypes.c_float]
+                    + [_PTR] * 8 + [_PTRS, _PTR])
+    # stale nx nu N B it ct | counts | rho tol_pri tol_dua | tables x0 |
+    # prev array | vcur zcur g y d iters done res active | family array |
+    # x_out u_out, the stream
+    fwd.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+                    + [ctypes.c_float] * 3 + [_PTR] * 2 + [_PTRS]
+                    + [_PTR] * 9 + [_PTRS] + [_PTR] * 3)
+    bwd.restype = fwd.restype = ctypes.c_int
+    return bwd, fwd
+
+
+class _KERNELS:
+    """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
+    :func:`_init`, on the current stream of x0's device; each adds one to
+    its launch count."""
+
+    def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
+                 tol_dua, fam):
+        dev, B = x0.device, x0.shape[0]
+        _check_arg(x0, (B, nx), torch.float32, dev)
+        ntab = sum(math.prod(shape)
+                   for _, shape in _table_layout(nx, nu, N, fam))
+        _check_arg(tables, (ntab,), torch.float32, dev)
+        self.tables, self.x0, self.s, self.carry = tables, x0, s, carry
+        self.N, self.nx, self.nu, self.B = N, nx, nu, B
+        self.rho, self.ct, self.tol_pri, self.tol_dua = rho, ct, tol_pri, \
+            tol_dua
+        self.counts = (ctypes.c_int * 6)(*fam)
+        self.bwd, self.fwd = _kernel_fns()
+        with torch.cuda.device(dev):
+            self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def backward(self, prev):
+        global stream_backward_launch_count
+        s = self.s
+        err = self.bwd(self.nx, self.nu, self.N, self.B, self.counts,
+                       self.rho, self.tables.data_ptr(),
+                       s["vnew"][prev].data_ptr(), s["znew"][prev].data_ptr(),
+                       s["g"].data_ptr(), s["y"].data_ptr(),
+                       s["d"].data_ptr(), s["done"].data_ptr(),
+                       s["active"].data_ptr(), _ptr_array(s["fams"]),
+                       self.stream)
+        if err != 0:
+            raise RuntimeError(f"admm_stream backward launch failed: CUDA "
+                               f"error {err}")
+        stream_backward_launch_count += 1
+
+    def forward(self, it, stale):
+        global stream_forward_launch_count, stream_forward_stale_launch_count
+        s, cur = self.s, it % 2
+        prev = [s["vnew"][1 - cur], s["znew"][1 - cur]]
+        prev += [self.carry.v, self.carry.z] if stale else [None, None]
+        err = self.fwd(int(stale), self.nx, self.nu, self.N, self.B, it,
+                       self.ct, self.counts, self.rho, self.tol_pri,
+                       self.tol_dua, self.tables.data_ptr(),
+                       self.x0.data_ptr(), _ptr_array(prev),
+                       s["vnew"][cur].data_ptr(), s["znew"][cur].data_ptr(),
+                       *(s[k].data_ptr() for k in ("g", "y", "d", "iters",
+                                                   "done", "res", "active")),
+                       _ptr_array(s["fams"]),
+                       None if s["x"] is None else s["x"].data_ptr(),
+                       None if s["u"] is None else s["u"].data_ptr(),
+                       self.stream)
+        if err != 0:
+            raise RuntimeError(f"admm_stream forward launch failed: CUDA "
+                               f"error {err}")
+        if stale:
+            stream_forward_stale_launch_count += 1
+        else:
+            stream_forward_launch_count += 1
