@@ -60,7 +60,20 @@ calls, and holds every kernel against its plain PyTorch version:
   500, x0 = U[-1, 1]^12 times scales 0.05 .. 0.5, permuted); phase 12's
   low-ceiling hyperplane batches; and the long-horizon set-up at N=2048,
   past the resident kernel's shared-memory wall -- through
-  kernels.solve_fused_streamed(_warm).
+  kernels.solve_fused_streamed(_warm);
+* scenario-tree consensus on u[0] on the families instantiation of
+  csrc/admm_fused.cu (with csrc/admm_consensus.cuh): bench_all.py:224-250's
+  "consensus G=16 cold solve (fused)" -- the quadrotor at 20 Hz, N=10, box
+  +-5 / +-0.5, z reference 0.5, max_iter 500, ct 1, rho_c 100, 2048 groups
+  of 16 (B=32768) with x0 = a nominal U[-0.3, 0.3]^12 a group plus 0.05
+  U[-1, 1]^12 a lane (default_rng(0)) -- through setup -> with_bounds ->
+  with_settings -> with_consensus -> kernels.solve_fused, beside the same
+  batch without consensus; and examples/scenario_tree_mpc.py:37-80's warm
+  loop -- 256 trees of 8, z 1, the same settings, T=20 steps of
+  kernels.solve_fused_warm, the nominal plant stepped with the group-mean
+  u[0] and re-branched by 0.05 U[-1, 1]^12 from a seeded generator. Both
+  sources set matmul_precision "high", a TPU mode the port refuses; these
+  run at "highest".
 
 Phases, each of which raises on failure:
 
@@ -100,7 +113,14 @@ Phases, each of which raises on failure:
 20. the streamed solve to convergence, N=256, B=4096, max_iter 500;
 21. the streamed solve on phase 12's low-ceiling batches;
 22. the streamed solve at N=2048, which the resident solve refuses;
-23. the kernels line, then the device line last.
+23. consensus kernel against its plain versions, small: the quadrotor (z
+   0.5) at rho_c 100 and the default as 128 x 8, 512 x 2 and 8 x 128 groups,
+   and the rocket's cones with consensus at (6, 3), 128 x 8; cold, then 4
+   warm solves, at ct 1 and 5;
+24. the G=16 scenario batch at B=32768, and the same batch without
+   consensus on the families kernel;
+25. the scenario-tree warm loop, 256 x 8, T=20;
+26. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -130,7 +150,10 @@ version's own spread from the CPU. The streamed solve is held bitwise
 against the resident kernel on the same inputs (the same device functions;
 phases 17-21), and against its plain version at the bar, each single launch
 too; a plain run of fewer than 16384 lanes takes the batch repeated to
-16384, where cuBLAS sums each product in the kernels' column order. Each
+16384, where cuBLAS sums each product in the kernels' column order. A
+consensus lane is held only where every lane of its group agrees on the
+count (at every step so far), and each group whose lanes all converged
+has its u[0] spread below 2 abs_pri_tol + 1e-5. Each
 phase's start prints the seconds
 since the script began. Exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
@@ -194,6 +217,14 @@ LH_WALL_N = 2048
 # The batch at which the streamed plain version runs a smaller one,
 # repeated: cuBLAS then sums each product in the kernels' column order.
 WIDE_B = 16384
+# Scenario-tree consensus: bench_all.py:224-250's G=16 cold batch (2048
+# trees x 16 branches, max_iter 500, ct 1, rho_c 100, N=10, z 0.5),
+# examples/scenario_tree_mpc.py's warm loop (256 trees x 8, z 1, T=20), and
+# the small comparisons at B=1024.
+CONS_N, CONS_RHO, CONS_ITER = 10, 100.0, 500
+CONS_NG, CONS_G = 2048, 16
+TREE_NG, TREE_G, TREE_T = 256, 8, 20
+CONS_SMALL_B = 1024
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -401,13 +432,16 @@ def compare(torch, label, sol_k, sol_p, res_k=None, res_p=None,
 
 def compare_carry(torch, label, c_k, c_p, held, atol=BAR_ATOL):
     """The warm carries' vnew, v, g and y (lane-last) on the held lanes, and
-    the family duals and x/u where the carry has them."""
+    the family duals, the consensus pair and x/u where the carry has
+    them."""
     errs = {}
     names = ("vnew", "v", "g", "y") + tuple(
-        k for k in ("gc", "yc", "gl", "yl", "gtv", "ytv", "x", "u")
+        k for k in ("gc", "yc", "gl", "yl", "gtv", "ytv", "zc0", "yc0", "x",
+                    "u")
         if getattr(c_k, k) is not None)
     for name in names:
-        d = (getattr(c_k, name) - getattr(c_p, name)).abs().amax(dim=(0, 1))
+        d = (getattr(c_k, name) - getattr(c_p, name)).abs()
+        d = d.amax(dim=tuple(range(d.ndim - 1)))
         errs[name] = d[held].max().item()
         fail(label, bool(torch.isfinite(getattr(c_k, name)).all()),
              f"carry.{name} is not finite")
@@ -604,6 +638,14 @@ def fused_work(N, nx, nu, B, iter_sum, carry_floats=0, spec=None):
     return ops, nbytes
 
 
+def consensus_ops(G, nu):
+    """Operations consensus adds to one ADMM iteration of one lane: the
+    group sum of the offers (G), and per feature the offer, the dual
+    update and the residual (3 nu). The step-0 gains replace Kinf and
+    Quu_inv in products counted already."""
+    return G + 3 * nu
+
+
 def adaptive_ops(N, nx, nu, apply_c):
     """Operations adaptive rho adds to one ADMM iteration of one lane: the
     sensitivity products dKinf x and dKinf^T r of every row (and dC1 w,
@@ -732,6 +774,8 @@ def kernel_label(fn):
         a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
         if a:
             kind = "adaptive apply_c" if a[1] == "1" else "adaptive"
+        if "ConsensusILi" in fn:
+            kind = "families consensus"
         mode = "warm" if m[3] == "1" else "cold"
         return f"admm_fused {kind} {mode} ({m[1]}, {m[2]})"
     return "closed_loop_fused" if "closed_loop" in fn else fn
@@ -1461,6 +1505,407 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
     return rows
 
 
+def consensus_problem(tt, torch, max_iter, ct, rho_c=CONS_RHO, device=None,
+                      dtype=None):
+    """The quadrotor at 20 Hz, N=10, box +-5 / +-0.5, with consensus at
+    rho_c (None: the problem's rho), through the user's entry points."""
+    prob = problem(tt, torch, max_iter, ct, N=CONS_N, device=device,
+                   dtype=dtype)
+    return tt.with_consensus(prob, rho_c=rho_c)
+
+
+def tree_inputs(torch, ng, G, z):
+    """x0 = a nominal U[-0.3, 0.3]^(ng, 1, 12) plus 0.05 U[-1, 1]^(ng, G,
+    12) branches (default_rng(0)), as bench_all.py:236-237 and
+    examples/scenario_tree_mpc.py:54-56 make them; Xref hover at z."""
+    rng = np.random.default_rng(0)
+    nominal = rng.uniform(-0.3, 0.3, (ng, 1, 12))
+    x0 = nominal + 0.05 * rng.uniform(-1, 1, (ng, G, 12))
+    Xref = np.zeros((CONS_N, 12))
+    Xref[:, 2] = z
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
+
+
+def lanes(sol):
+    """A consensus Solution, (N, n_groups, G, F), as lanes, (N, B, F)."""
+    N = sol.x.shape[0]
+    return dataclasses.replace(
+        sol, iter=sol.iter.reshape(-1), solved=sol.solved.reshape(-1),
+        x=sol.x.reshape(N, -1, sol.x.shape[-1]),
+        u=sol.u.reshape(N - 1, -1, sol.u.shape[-1]))
+
+
+def group_agree(it_a, it_b, G):
+    """The lanes of the groups whose every lane has the same count in both
+    solves: a lane's result depends on its group's."""
+    same = (it_a.reshape(-1, G) == it_b.reshape(-1, G)).all(dim=1)
+    return same.repeat_interleave(G)
+
+
+def spread_stats(sol, tol_pri):
+    """The u[0] spread of a consensus solve's groups (max - min over the
+    group, largest over the features): the groups whose lanes all
+    converged, how many of those pass 2 abs_pri_tol + 1e-5, the largest
+    spread among them and among all groups."""
+    u0 = sol.u[0]
+    spread = (u0.amax(dim=1) - u0.amin(dim=1)).amax(dim=-1)
+    done = sol.solved.all(dim=1)
+    n = int(done.sum().item())
+    return dict(groups=done.numel(), solved=n,
+                over=int((done & (spread > 2 * tol_pri + 1e-5)).sum().item()),
+                worst=spread[done].max().item() if n else 0.0,
+                all=spread.max().item())
+
+
+def hold_spread(label, stats, tol_pri, witness):
+    """tests/test_fused_kernel.py:262-268's bar: each group whose lanes all
+    converged has its u[0] spread below 2 abs_pri_tol + 1e-5. A lane
+    converges on its own |u[0] - zc0| < abs_pri_tol against the group
+    mean of its converging iteration, so two lanes of a group that
+    converge at different iterations may pass the bar between them, under
+    any rule for a converged lane's offer. Where the kernel's solve misses
+    it, ``witness()`` -- the port's admm.solve on the same inputs in
+    float32 on the card, the JAX package's XLA path's rule -- gives the
+    share of solved groups that miss it there, and the kernel's share may
+    pass that by WITNESS_SLACK at most."""
+    bar = 2 * tol_pri + 1e-5
+    msg = (f"  {label}: solved groups {stats['solved']} of "
+           f"{stats['groups']}, their largest u[0] spread "
+           f"{stats['worst']:.3e} (bar {bar:.3e}), {stats['over']} pass "
+           f"the bar; all groups' largest {stats['all']:.3e}")
+    if stats["over"] == 0:
+        log(msg)
+        return
+    w = spread_stats(witness(), tol_pri)
+    share = stats["over"] / stats["solved"]
+    share_w = w["over"] / max(w["solved"], 1)
+    log(f"{msg}; admm.solve (float32, the XLA path's rule) on the same "
+        f"inputs: solved groups {w['solved']}, largest spread "
+        f"{w['worst']:.3e}, {w['over']} pass the bar (share of solved "
+        f"groups: kernel {share:.5f}, admm.solve {share_w:.5f})")
+    fail(label, share <= share_w + WITNESS_SLACK, f"{share:.4f} of solved "
+         f"groups pass the spread bar, admm.solve's {share_w:.4f}")
+
+
+def block_iters(torch, iters, block):
+    """The mean over the launch's blocks of each block's largest count: a
+    block runs until its slowest lane stops."""
+    it = iters.reshape(-1)
+    it = torch.cat([it, it.new_zeros(-it.numel() % block)])
+    return it.reshape(-1, block).amax(dim=1).float().mean().item()
+
+
+def plain_groups(torch, fn, prob, Xref, Uref, x0, carry=None):
+    """A consensus plain version ``fn`` on the card for the groups of x0
+    (n_groups, G, nx), run on the groups repeated to WIDE_B lanes and cut
+    back (see plain_wide): groups are independent of each other."""
+    ng, G = x0.shape[:2]
+    k = max(1, WIDE_B // (ng * G))
+    xw = x0.repeat(k, 1, 1)
+    if carry is None:
+        sol, res = fn(prob, Xref, Uref, xw)
+        extra = ()
+    else:
+        wide = dataclasses.replace(carry, **{
+            f.name: torch.cat([getattr(carry, f.name)] * k, dim=-1)
+            for f in dataclasses.fields(carry)
+            if getattr(carry, f.name) is not None})
+        sol, res, c = fn(prob, Xref, Uref, xw, wide)
+        extra = (cut(c, ng * G),)
+    sol = dataclasses.replace(sol, iter=sol.iter[:ng], solved=sol.solved[:ng],
+                              x=sol.x[:, :ng], u=sol.u[:, :ng])
+    return (sol, res[:, :ng]) + extra
+
+
+def consensus_phases(torch, tt, convert, admm_fused, counters, card,
+                     peak_flops, peak_bw):
+    """Phases 23-25: consensus on the families instantiation of
+    csrc/admm_fused.cu (with csrc/admm_consensus.cuh). Returns the
+    kernels-line numbers of its cold and warm launches."""
+    kern = tt.kernels
+    cpu = lambda a: None if a is None else a.cpu()
+    rows = {}
+
+    phase(f"phase 23: consensus kernel vs plain versions, B={CONS_SMALL_B}")
+    # The quadrotor (hover z 0.5) at rho_c 100 and the default, as
+    # 128 x 8, 512 x 2 and 8 x 128 groups; the rocket's cones (phase 9)
+    # with consensus at (6, 3), 128 x 8. Cold, then 4 warm solves of an
+    # external plant stepped with the kernel's u0, at ct 1 and 5. Each
+    # solve is held to the bar against the plain version on the CPU and on
+    # the card (on the groups whose counts agree, at every step so far),
+    # with the bars of the plain version's own spread between the two
+    # where they sit on float32 ties, as phase 9 does.
+    small = []
+    for ct in (1, 5):
+        for rho_c in (CONS_RHO, None):
+            for ng, G in ((CONS_SMALL_B // 8, 8), (CONS_SMALL_B // 2, 2),
+                          (8, CONS_SMALL_B // 8)):
+                small.append((f"quadrotor rho_c={rho_c} {ng}x{G}", ct,
+                              lambda mi, ct, rc=rho_c: consensus_problem(
+                                  tt, torch, mi, ct, rc), (ng, G), "quad"))
+        small.append((f"rocket SOC rho_c={CONS_RHO} "
+                      f"{CONS_SMALL_B // 8}x8", ct,
+                      lambda mi, ct: tt.with_consensus(
+                          rocket_problem(tt, torch, mi, ct),
+                          rho_c=CONS_RHO), (CONS_SMALL_B // 8, 8), "rocket"))
+    for label, ct, make, (ng, G), kind in small:
+        B = ng * G
+        prob = make(100, ct)
+        prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                            "cpu")
+        if kind == "quad":
+            x0, Xref = inputs(torch, B, N=CONS_N, spread=0.3)
+            Xref = Xref.clone()
+            Xref[:, 2] = 0.5
+            Uref = None
+        else:
+            x0, Xref, Uref = rocket_inputs(torch, B)
+        x0 = x0.reshape(ng, G, -1)
+        everyone = torch.ones(B, dtype=torch.bool)
+        agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+        agreed_c = everyone.clone()
+        c_k = c_p = c_c = None
+        x = x0
+        states, spreads = [], []
+        for step in range(5):
+            warm = step > 0
+            name = (f"{label} {'warm' if warm else 'cold'} ct={ct}"
+                    + (f" step {step}" if warm else ""))
+            if warm and c_k is None:
+                # A fresh sequence: the warm solves start from zero carries.
+                c_k, c_p = tt.init_carry(prob, B), tt.init_carry(prob, B)
+                c_c = tt.init_carry(prob_c, B)
+                agreed.fill_(True)
+                agreed_c.fill_(True)
+            if not warm:
+                sol_k, res_k = kern.solve_fused(prob, Xref, Uref, x)
+                sol_p, res_p = plain_groups(torch, kern.solve_fused_reference,
+                                            prob, Xref, Uref, x)
+                sol_c, _ = kern.solve_fused_reference(prob_c, cpu(Xref),
+                                                      cpu(Uref), cpu(x))
+            else:
+                sol_k, res_k, c_k = kern.solve_fused_warm(prob, Xref, Uref, x,
+                                                          c_k)
+                sol_p, res_p, c_p = plain_groups(
+                    torch, kern.solve_fused_warm_reference, prob, Xref, Uref,
+                    x, c_p)
+                sol_c, _, c_c = kern.solve_fused_warm_reference(
+                    prob_c, cpu(Xref), cpu(Uref), cpu(x), c_c)
+            torch.cuda.synchronize()
+            states.append(x)
+            spreads.append((name, spread_stats(sol_k,
+                                               prob.settings.abs_pri_tol)))
+            fk, fp, fc = lanes(sol_k), lanes(sol_p), lanes(sol_c)
+            fkc = on_cpu(fk)
+            before_c = agreed_c.clone()
+            agreed_c &= group_agree(fkc.iter, fc.iter, G)
+            compare(torch, f"{name} vs plain(cpu)", fkc, fc, lanes=agreed_c,
+                    among=before_c)
+            share_c, dsf_c, dval_c, _ = plain_spread(
+                torch, fp, fc, before_c,
+                *((c_p, c_c) if warm else ()))
+            share, solved_tol, atol = spread_bars(name, share_c, dsf_c,
+                                                  dval_c, B)
+            before = agreed.clone()
+            agreed &= group_agree(fk.iter, fp.iter, G)
+            compare(torch, name, fk, fp, res_k.reshape(4, -1),
+                    res_p.reshape(4, -1), atol=atol, lanes=agreed,
+                    solved_tol=solved_tol, share=share, among=before)
+            if warm:
+                # The CPU's float32 torch.sqrt is not always correctly
+                # rounded (ROADMAP.md, Queue 3), which the rocket's duals
+                # carry from solve to solve: the carry is held to the plain
+                # version's own spread there.
+                compare_carry(torch, f"{name} vs plain(cpu)", on_cpu(c_k),
+                              c_c, agreed_c, atol=atol)
+                compare_carry(torch, name, c_k, c_p, agreed, atol=atol)
+            xf = x.reshape(B, -1)
+            x = (xf @ prob.A.T + fk.u[0] @ prob.B.T + prob.f).reshape(
+                ng, G, -1)
+        # The spread bar, with admm.solve's witness where it is missed: a
+        # cold solve, then a warm sequence of its own on the same states.
+        witness = {}
+
+        def admm_solves():
+            if not witness:
+                witness[0] = tt.solve(prob, tt.init_state(prob, (ng, G)),
+                                      Xref, Uref, states[0])[0]
+                st = tt.init_state(prob, (ng, G))
+                for k in range(1, 5):
+                    witness[k], st, _ = tt.solve(prob, st, Xref, Uref,
+                                                 states[k])
+            return witness
+
+        for k, (name, stats) in enumerate(spreads):
+            hold_spread(name, stats, prob.settings.abs_pri_tol,
+                        lambda k=k: admm_solves()[k])
+
+    phase(f"phase 24: consensus G={CONS_G} scenario batch, "
+          f"B={CONS_NG * CONS_G}, max_iter {CONS_ITER}, ct 1")
+    # bench_all.py:224-250: 2048 scenario trees x 16 branches.
+    ng, G, B = CONS_NG, CONS_G, CONS_NG * CONS_G
+    t0 = time.perf_counter()
+    prob = consensus_problem(tt, torch, CONS_ITER, 1)
+    setup_ms = 1e3 * (time.perf_counter() - t0)
+    x0, Xref = tree_inputs(torch, ng, G, 0.5)
+    zero_counts(counters)
+    sol_k, res_k = kern.solve_fused(prob, Xref, None, x0)
+    torch.cuda.synchronize()
+    launches = admm_fused.consensus_launch_count
+    if launches < 1:
+        raise AssertionError("the scenario batch did not launch the "
+                             "consensus kernel")
+    if sol_k.x.shape != (CONS_N, ng, G, 12) or \
+            sol_k.u.shape != (CONS_N - 1, ng, G, 4) or \
+            res_k.shape != (4, ng, G):
+        raise AssertionError(f"bad output shapes {sol_k.x.shape} "
+                             f"{sol_k.u.shape} {res_k.shape}")
+    plain_ms, (sol_p, res_p) = host_ms(
+        torch, lambda: kern.solve_fused_reference(prob, Xref, None, x0))
+    fk, fp = lanes(sol_k), lanes(sol_p)
+    err = compare(torch, f"G={G} scenario batch", fk, fp,
+                  res_k.reshape(4, -1), res_p.reshape(4, -1),
+                  lanes=group_agree(fk.iter, fp.iter, G))
+    hold_spread(f"G={G} scenario batch",
+                spread_stats(sol_k, prob.settings.abs_pri_tol),
+                prob.settings.abs_pri_tol,
+                lambda: tt.solve(prob, tt.init_state(prob, (ng, G)), Xref,
+                                 None, x0)[0])
+    tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
+    run = lambda: admm_fused._solve_kernel(tables, x0c, CONS_N, 12, 4,
+                                           **params)
+    run()                                               # warm-up
+    ms, times = cuda_ms(torch, run, REPS)
+    call_ms = statistics.median(
+        host_ms(torch, lambda: kern.solve_fused(prob, Xref, None, x0))[0]
+        for _ in range(REPS))
+    iter_sum = int(sol_k.iter.sum().item())
+    ops, nbytes = fused_work(CONS_N, 12, 4, B, iter_sum)
+    ops += float(iter_sum) * consensus_ops(G, 4)
+    bound_ms, bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    avg = iter_sum / B
+    # The same batch on the families kernel with consensus off (group 0):
+    # each lane its own problem, no exchange, no step-0 gains.
+    off = dict(params, cons=admm_fused.Consensus(0, 0.0))
+    run_off = lambda: admm_fused._launch(
+        tables, x0c, CONS_N, 12, 4, off["fam"], None, off["cons"], None,
+        CONS_ITER, 1, off["rho"], off["tol_pri"], off["tol_dua"])
+    sol_off = run_off()[0]
+    ms_off, times_off = cuda_ms(torch, run_off, REPS)
+    avg_off = sol_off.iter.float().mean().item()
+    blk = block_iters(torch, sol_k.iter, admm_fused.BLOCK)
+    blk_off = block_iters(torch, sol_off.iter, admm_fused.BLOCK)
+    log(f"  G={G} scenario batch: kernel {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}), solve_fused call {call_ms:.4f} ms "
+        f"on the host clock (kernel share {ms / call_ms:.4f}), "
+        f"{B / (ms / 1e3):.1f} solves/s, solved frac "
+        f"{fk.solved.float().mean().item():.5f}, mean iters {avg:.4f}, "
+        f"{ms / avg:.6f} ms a mean iteration, mean block iterations (the "
+        f"slowest lane of each block) {blk:.4f}, {ms / blk:.6f} ms a block "
+        f"iteration, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB; "
+        f"kernel / bound {ms / bound_ms:.2f}), plain {plain_ms:.1f} ms, "
+        f"launches {launches}; setup + with_consensus {setup_ms:.1f} ms; "
+        f"card {card}")
+    log(f"  the same batch without consensus on the families kernel "
+        f"(group 0): {ms_off:.4f} ms (reps "
+        f"{[round(t, 4) for t in times_off]}), mean iters {avg_off:.4f}, "
+        f"mean block iterations {blk_off:.4f}, {ms_off / blk_off:.6f} ms a "
+        f"block iteration, solved frac "
+        f"{sol_off.solved.float().mean().item():.5f}; the exchange and "
+        f"step-0 gains cost {ms / blk - ms_off / blk_off:.6f} ms a block "
+        f"iteration ({(ms / blk) / (ms_off / blk_off):.4f}x)")
+    rows["consensus"] = dict(launches=launches, err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by)
+
+    phase(f"phase 25: scenario-tree warm loop, {TREE_NG} x {TREE_G}, "
+          f"T={TREE_T}, max_iter {CONS_ITER}")
+    # examples/scenario_tree_mpc.py:37-80: every step a warm solve, the
+    # nominal plant stepped with the group-mean u[0], fresh branches
+    # 0.05 U[-1, 1] around it from a seeded generator; the carry rides.
+    ng, G, B = TREE_NG, TREE_G, TREE_NG * TREE_G
+    prob = consensus_problem(tt, torch, CONS_ITER, 1)
+    x, Xref = tree_inputs(torch, ng, G, 1.0)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    c_k = tt.init_carry(prob, B)
+    states, sols = [], []
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    for _ in range(TREE_T):
+        sol_k, _, c_k = kern.solve_fused_warm(prob, Xref, None, x, c_k)
+        states.append(x)
+        sols.append(sol_k)
+        u0 = sol_k.u[0].mean(dim=1, keepdim=True)
+        x_nom = x.mean(dim=1, keepdim=True)
+        branch = 0.05 * (2 * torch.rand((ng, G, 12), generator=gen,
+                                        device=DEVICE) - 1)
+        x = x_nom @ prob.A.T + u0 @ prob.B.T + branch
+    torch.cuda.synchronize()
+    loop_ms = 1e3 * (time.perf_counter() - t0)
+    warm_launches = admm_fused.consensus_warm_launch_count
+    if warm_launches < TREE_T:
+        raise AssertionError("the scenario-tree loop did not launch the warm "
+                             "consensus kernel")
+    c_p = tt.init_carry(prob, B)
+    agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    err_w = 0.0
+    for step, (x_s, sol_k) in enumerate(zip(states, sols)):
+        plain_w_ms, (sol_p, _, c_p) = host_ms(
+            torch, lambda: plain_groups(torch, kern.solve_fused_warm_reference,
+                                        prob, Xref, None, x_s, c_p))
+        fk, fp = lanes(sol_k), lanes(sol_p)
+        before = agreed.clone()
+        agreed &= group_agree(fk.iter, fp.iter, G)
+        err_w = max(err_w, compare(torch, f"tree step {step}", fk, fp,
+                                   lanes=agreed, among=before))
+    compare_carry(torch, f"tree after {TREE_T} steps", c_k, c_p, agreed)
+
+    def tree_admm():
+        st = tt.init_state(prob, (ng, G))
+        for x_s in states:
+            sol_w, st, _ = tt.solve(prob, st, Xref, None, x_s)
+        return sol_w
+
+    last = spread_stats(sols[-1], prob.settings.abs_pri_tol)
+    hold_spread(f"tree step {TREE_T - 1}", last, prob.settings.abs_pri_tol,
+                tree_admm)
+    tables, xc, params = admm_fused._prepare(prob, Xref, None, x)
+    carry = admm_fused._carry_tensors(prob, c_k, B)
+    run = lambda: admm_fused._solve_kernel_warm(tables, xc, carry, CONS_N,
+                                                12, 4, **params)
+    sol_w = run()[0]                                    # warm-up
+    w_ms, times = cuda_ms(torch, run, REPS)
+    call_ms = statistics.median(
+        host_ms(torch, lambda: kern.solve_fused_warm(prob, Xref, None, x,
+                                                     c_k))[0]
+        for _ in range(REPS))
+    iter_sum = int(sol_w.iter.sum().item())
+    ops, nbytes = fused_work(CONS_N, 12, 4, B, iter_sum,
+                             lane_carry_floats(c_k))
+    ops += float(iter_sum) * consensus_ops(G, 4)
+    w_bound_ms, w_bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    iters = torch.stack([s.iter for s in sols]).float()
+    log(f"  tree loop: {TREE_T} steps in {loop_ms:.1f} ms on the host clock "
+        f"({B * TREE_T / (loop_ms / 1e3):.1f} scenario-solves/s with the "
+        f"plant step), mean iters a step {iters.mean().item():.4f} (first "
+        f"{iters[0].mean().item():.4f}, last {iters[-1].mean().item():.4f}),"
+        f" solved groups at the last step {last['solved']} of "
+        f"{last['groups']}, their largest u[0] spread {last['worst']:.3e}; "
+        f"one warm solve (the {TREE_T + 1}th): "
+        f"kernel {w_ms:.4f} ms (reps {[round(t, 4) for t in times]}), call "
+        f"{call_ms:.4f} ms on the host clock (kernel share "
+        f"{w_ms / call_ms:.4f}), {B / (w_ms / 1e3):.1f} scenario-solves/s, "
+        f"mean iters {iter_sum / B:.4f}, bound {w_bound_ms:.4f} ms "
+        f"({w_bound_by}), plain {plain_w_ms:.1f} ms, warm launches "
+        f"{warm_launches}; card {card}")
+    rows["consensus_warm"] = dict(launches=warm_launches, err=err_w,
+                                  ms=w_ms, plain_ms=plain_w_ms,
+                                  bound_ms=w_bound_ms, bound_by=w_bound_by)
+    return rows
+
+
 def zero_counts(kernels):
     for mod, attr in kernels:
         setattr(mod, attr, 0)
@@ -1484,7 +1929,9 @@ def main():
                 (admm_fused, "families_warm_launch_count"),
                 (closed_loop_kernel, "launch_count"),
                 (admm_fused, "adaptive_launch_count"),
-                (admm_fused, "adaptive_warm_launch_count"))
+                (admm_fused, "adaptive_warm_launch_count"),
+                (admm_fused, "consensus_launch_count"),
+                (admm_fused, "consensus_warm_launch_count"))
 
     # 1. card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2005,6 +2452,8 @@ def main():
                                  card, peak_flops, peak_bw)
     stream_rows = streamed_phases(torch, tt, admm_fused, admm_stream,
                                   counters, card, peak_flops, peak_bw)
+    cons_rows = consensus_phases(torch, tt, convert, admm_fused, counters,
+                                 card, peak_flops, peak_bw)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -2012,8 +2461,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 23. kernels line, then the device line last
-    phase("phase 23: kernels line")
+    # 26. kernels line, then the device line last
+    phase("phase 26: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -2032,6 +2481,9 @@ def main():
     rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_rows[key])
              for key in ("adaptive", "adaptive_warm")]
+    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", cons_rows[key])
+             for key in ("consensus", "consensus_warm")]
     rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
               rep, stream_rows[key])
              for key, rep in (

@@ -210,7 +210,8 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
     seen = []
 
     def entry(*args):
-        assert len(args) == 27
+        assert len(args) == 28
+        assert args[26] is None            # no consensus arguments
         a = args[25]
         if a is None:
             seen.append(None)

@@ -25,6 +25,12 @@ hyperplanes (``with_tv_linear_constraints``, ``tv_from_stacked``), in the
 plain solve and in the cold and warm fused kernel; the fused closed loop
 takes box bounds only, as the JAX one does.
 
+Scenario-tree consensus: ``with_consensus(prob, rho_c=...)`` drives the
+first input of every problem in a group (the last batch axis) to a common
+value, in the plain solve (batch shape ``(n_groups, G)``) and in the cold
+and warm fused kernel (x0s ``(n_groups, G, nx)``, G a power of two up to
+128).
+
 Long horizons: ``kernels.solve_fused_streamed`` and
 ``solve_fused_streamed_warm`` (the same carry) run each iteration as a
 backward and a forward kernel over the horizon, with only the tables that do
@@ -46,8 +52,9 @@ from .kernels import (FusedCarry, closed_loop_fused, init_carry,
                       shift_carry, solve_fused_streamed,
                       solve_fused_streamed_warm, solve_fused_warm)
 from .api import (init_state, setup, tv_from_stacked, with_bounds,
-                  with_cones, with_linear_constraints, with_sensitivities,
-                  with_settings, with_tv_linear_constraints)
+                  with_cones, with_consensus, with_linear_constraints,
+                  with_sensitivities, with_settings,
+                  with_tv_linear_constraints)
 from .riccati import compute_sensitivities, precompute_cache
 from .types import (Cache, ConstraintData, ProblemSpec, Settings, Solution,
                     SolverState, TinyProblem)
@@ -58,7 +65,7 @@ __all__ = [
     "shift_state", "FusedCarry", "init_carry", "shift_carry",
     "solve_fused_warm", "solve_fused_streamed", "solve_fused_streamed_warm",
     "closed_loop_fused", "init_state", "setup",
-    "with_bounds", "with_cones", "with_linear_constraints",
+    "with_bounds", "with_cones", "with_consensus", "with_linear_constraints",
     "with_tv_linear_constraints", "tv_from_stacked", "with_settings",
     "with_sensitivities", "precompute_cache", "compute_sensitivities",
     "Cache",

@@ -25,8 +25,19 @@ when every problem converged or ``max_iter`` is reached.
 Adaptive rho (``Settings.adaptive_rho``) carries one rho per problem and
 never builds per-problem cache copies: every matrix the Taylor update moves
 is applied as the base product plus a ``drho``-scaled sensitivity product
-(:class:`Telescope`). The consensus and horizon-parallel branches of the
-JAX package are not ported yet; :func:`solve` rejects them.
+(:class:`Telescope`).
+
+Consensus (``ProblemSpec.en_consensus``, :func:`~.api.with_consensus`)
+couples the problems of a scenario group, the last batch axis: the slack
+``zc0new`` is the group mean of ``u[0] + yc0``, the consensus term
+``-rho_c (zc0new - yc0)`` joins r[0], step 0 of both sweeps takes the
+exact-prox gains ``Cache.Quu0_inv`` / ``Kinf0``, and a problem converges
+only once ``max|u[0] - zc0new|`` is below ``abs_pri_tol`` too. Every
+problem of a batch computes every iteration and converged ones commit
+nothing, so a converged problem keeps feeding its group the ``u[0] +
+yc0`` of one iteration past its frozen iterate, as the JAX package's XLA
+path does. The horizon-parallel branch of the JAX package is not ported
+yet; :func:`solve` rejects it.
 """
 from __future__ import annotations
 
@@ -124,6 +135,12 @@ def _input_pairs(spec: ProblemSpec, state: SolverState):
     return pairs
 
 
+def consensus_rho(prob: TinyProblem):
+    """The consensus weight rho_c: ``Settings.consensus_rho``, else rho."""
+    rho_c = prob.settings.consensus_rho
+    return prob.cache.rho if rho_c is None else rho_c
+
+
 def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref,
                        tel: Optional[Telescope] = None) -> SolverState:
     """q/r/p[N-1] from references, slacks and duals (admm.cpp:262-304),
@@ -144,6 +161,11 @@ def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref,
     # Terminal cost p[N-1] = -Pinf^T Xref[N-1] - rho sum(v[N-1] - g[N-1])
     # (admm.cpp:292-303: the reference's row-vector product is x^T Pinf,
     # i.e. Pinf^T x; Pinf is symmetric only up to round-off).
+    if spec.en_consensus:
+        # The u[0]-only consensus prox, weighted by rho_c rather than rho.
+        r = torch.cat([r[:1] - consensus_rho(prob) * (state.zc0new
+                                                      - state.yc0)[None],
+                       r[1:]])
     pN = -mtv(prob.cache.Pinf, Xref[-1])
     for k, (v, g) in enumerate(_state_pairs(spec, state)):
         pN = pN - rho * (v[-1] - g[-1])
@@ -157,7 +179,8 @@ def update_linear_cost(prob: TinyProblem, state: SolverState, Xref, Uref,
 # --------------------------------------------------------- Riccati sweeps
 
 def backward_pass(cache: Cache, B, state: SolverState,
-                  tel: Optional[Telescope] = None) -> SolverState:
+                  tel: Optional[Telescope] = None,
+                  consensus: bool = False) -> SolverState:
     """Linear (gradient) Riccati backward recursion (admm.cpp:13-20)::
 
         d[i] = Quu_inv (B' p[i+1] + r[i] + BPf)
@@ -166,7 +189,10 @@ def backward_pass(cache: Cache, B, state: SolverState,
     ``B'`` and ``AmBKt`` multiply the same costate, so they are stacked
     into one product per step, as in the JAX package. With ``tel``
     (adaptive rho) each product of a matrix the Taylor update moves gains
-    its ``drho``-scaled sensitivity product, in the JAX package's order."""
+    its ``drho``-scaled sensitivity product, in the JAX package's order.
+    With ``consensus``, d[0] takes the step-0 gain ``Quu0_inv`` from its
+    own ``B' p[1]`` product, as the JAX package forms it; p[0] is never
+    read."""
     if tel is not None:
         return _backward_pass_telescoped(cache, B, state, tel)
     nu = B.shape[-1]
@@ -182,6 +208,9 @@ def backward_pass(cache: Cache, B, state: SolverState,
         ds[i] = mv(cache.Quu_inv, bp + r_i + cache.BPf)
         p_next = state.q[i] + ap - mv(KinfT, r_i) + cache.APf
         ps[i] = p_next
+    if consensus:
+        p1 = ps[1] if N > 2 else state.p[-1]
+        ds[0] = mv(cache.Quu0_inv, mtv(B, p1) + state.r[0] + cache.BPf)
     p = torch.stack(ps + [state.p[-1]])
     return state.replace(p=p, d=torch.stack(ds))
 
@@ -210,20 +239,25 @@ def _backward_pass_telescoped(cache: Cache, B, state: SolverState,
 
 
 def forward_pass(A, B, f, cache: Cache, state: SolverState,
-                 tel: Optional[Telescope] = None) -> SolverState:
+                 tel: Optional[Telescope] = None,
+                 consensus: bool = False) -> SolverState:
     """LQR rollout (admm.cpp:25-32)::
 
         u[i] = -Kinf x[i] - d[i];  x[i+1] = A x[i] + B u[i] + f
 
     ``u`` is formed as an exact subtract before ``B u`` rounds; folding it
     into ``(A - B Kinf) x`` changes convergence (admm_pallas.py:442-455).
-    With ``tel`` (adaptive rho), ``Kinf x`` gains ``drho * dKinf x``."""
+    With ``tel`` (adaptive rho), ``Kinf x`` gains ``drho * dKinf x``. With
+    ``consensus``, u[0] takes the step-0 gain ``Kinf0``, and step 0 its two
+    products apart, as the JAX package forms them."""
     nu = B.shape[-1]
     Mfwd = None if tel is not None else torch.cat([cache.Kinf, A], dim=0)
     x_i = state.x[0]
     xs, us = [x_i], []
     for i in range(state.d.shape[0]):
-        if tel is None:
+        if consensus and i == 0:
+            kx, ax = mv(cache.Kinf0, x_i), mv(A, x_i)
+        elif tel is None:
             out = mv(Mfwd, x_i)
             kx, ax = out[..., :nu], out[..., nu:]
         else:
@@ -304,6 +338,12 @@ def update_slack(spec: ProblemSpec, cons: ConstraintData, state: SolverState,
             state.u + state.yl_tv,
             tv_rows(cons.tv_Alin_u, cons.tv_blin_u,
                     spec.num_tv_input_linear, nb))
+    if spec.en_consensus:
+        # Projection onto the all-equal subspace of a scenario group (the
+        # last batch axis): the group mean.
+        cand = state.u[0] + state.yc0                      # (*b, nu)
+        m = cand.mean(dim=-2, keepdim=True) if nb >= 1 else cand
+        upd["zc0new"] = m.expand(cand.shape)
     return state.replace(**upd)
 
 
@@ -323,6 +363,8 @@ def update_dual(spec: ProblemSpec, state: SolverState) -> SolverState:
         upd["gl_tv"] = state.gl_tv + state.x - state.vlnew_tv
     if spec.en_tv_input_linear:
         upd["yl_tv"] = state.yl_tv + state.u - state.zlnew_tv
+    if spec.en_consensus:
+        upd["yc0"] = state.yc0 + state.u[0] - state.zc0new
     return state.replace(**upd)
 
 
@@ -342,9 +384,11 @@ def compute_residuals(state: SolverState, rho):
 def admm_iteration(prob: TinyProblem, state: SolverState, Xref, Uref,
                    nb: int, tel: Optional[Telescope] = None) -> SolverState:
     """One full ADMM iteration (the body of admm.cpp:378-394)."""
+    consensus = prob.spec.en_consensus
     state = update_linear_cost(prob, state, Xref, Uref, tel)
-    state = backward_pass(prob.cache, prob.B, state, tel)
-    state = forward_pass(prob.A, prob.B, prob.f, prob.cache, state, tel)
+    state = backward_pass(prob.cache, prob.B, state, tel, consensus)
+    state = forward_pass(prob.A, prob.B, prob.f, prob.cache, state, tel,
+                         consensus)
     state = update_slack(prob.spec, prob.cons, state, nb)
     return update_dual(prob.spec, state)
 
@@ -365,6 +409,8 @@ def seed_extra_slacks(spec: ProblemSpec, state: SolverState) -> SolverState:
         upd["vlnew_tv"] = state.x
     if spec.en_tv_input_linear:
         upd["zlnew_tv"] = state.u
+    if spec.en_consensus:
+        upd["zc0new"] = state.u[0]
     return state.replace(**upd) if upd else state
 
 
@@ -389,6 +435,9 @@ def solve(prob: TinyProblem, state: SolverState, Xref=None, Uref=None,
     """
     check_supported_settings(prob.settings)
     check_supported_spec(prob.spec, prob.settings)
+    if prob.spec.en_consensus and prob.cache.Kinf0 is None:
+        raise ValueError("en_consensus requires the step-0 consensus gains; "
+                         "configure the problem via with_consensus(...)")
     if prob.settings.adaptive_rho and prob.cache.dKinf_drho is None:
         raise ValueError("adaptive rho needs the rho sensitivities; attach "
                          "them with api.with_sensitivities(prob)")
@@ -452,6 +501,9 @@ def _solve_impl(prob, state, Xref, Uref, x0):
         if it1 % settings.check_termination == 0:
             prs, pri, drs, dri = compute_residuals(new, rho)
             ok = (prs < tol_p) & (pri < tol_p) & (drs < tol_d) & (dri < tol_d)
+            if spec.en_consensus:     # the consensus residual gates it too
+                ok = ok & (torch.amax(torch.abs(new.u[0] - new.zc0new),
+                                      dim=-1) < tol_p)
             just_conv = ok & active
             new = new.replace(
                 pri_res_state=torch.where(active, prs, state.pri_res_state),
@@ -510,11 +562,13 @@ def _adapt(prob, cache, tel, new, rho, rho_v, active, settings):
 
 
 def _commit(new: SolverState, old: SolverState, active) -> SolverState:
-    """Commit per-problem updates only where ``active`` (shape (*b,))."""
+    """Commit per-problem updates only where ``active`` (shape (*b,)):
+    (T, *b, F) iterates and the (*b, F) consensus pair."""
     upd = {}
     for fld in dataclasses.fields(new):
         n, o = getattr(new, fld.name), getattr(old, fld.name)
         if n is o or n is None or n.ndim == active.ndim:
             continue          # per-problem scalars are already masked
-        upd[fld.name] = _where_tf(active, n, o)
+        upd[fld.name] = torch.where(active[..., None], n, o) \
+            if n.ndim == active.ndim + 1 else _where_tf(active, n, o)
     return new.replace(**upd)

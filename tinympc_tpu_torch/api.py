@@ -6,6 +6,7 @@
     prob = with_settings(prob, max_iter=100, check_termination=25)
     sol, res = kernels.solve_fused(prob, Xref, None, x0s)
     prob = with_settings(prob, adaptive_rho=True)     # attaches d*/drho
+    prob = with_consensus(prob, rho_c=100.0)   # scenario groups, x0s (ng, G, nx)
 
 Problems live on one device, given explicitly. With no ``device`` argument
 :func:`setup` places the problem on ``cuda`` and raises when there is no
@@ -15,7 +16,7 @@ PyTorch path on the host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -210,13 +211,65 @@ def tv_from_stacked(A_stacked, b_stacked):
     return A_stacked.reshape(T, S, -1), b_stacked.T.copy()
 
 
+_CONSENSUS_ADAPTIVE = ("consensus is not compatible with adaptive_rho (the "
+                       "Taylor cache update does not track the consensus "
+                       "step-0 gains); pick one")
+
+
+def with_consensus(prob: TinyProblem, enable: bool = True,
+                   axis_name: Optional[str] = None,
+                   rho_c: Optional[float] = None) -> TinyProblem:
+    """Scenario-tree consensus ADMM on the first input: every problem of a
+    scenario group (the last batch axis) is driven to a common u[0].
+
+    ``rho_c`` is the consensus penalty weight (default: the problem's rho).
+    The prox is exact: the consensus slack touches u[0] only, so its
+    rho_c I term changes nothing but the first backward and forward step
+    under the stationary cost-to-go Pinf, and this builder bakes that
+    step's gain pair ``Cache.Quu0_inv`` / ``Kinf0`` into the cache.
+    ``axis_name`` (groups across a named mesh axis) is recorded in the
+    settings, and the solvers refuse it until the multi-GPU ``shard.py``
+    is ported. Refuses adaptive rho."""
+    if enable and prob.settings.adaptive_rho:
+        raise ValueError(_CONSENSUS_ADAPTIVE)
+    spec = dataclasses.replace(prob.spec, en_consensus=enable)
+    settings = dataclasses.replace(
+        prob.settings, consensus_axis_name=axis_name,
+        consensus_rho=None if rho_c is None else float(rho_c))
+    prob = prob.replace(spec=spec, settings=settings)
+    if enable:
+        prob = prob.replace(cache=_bake_consensus_gains(prob, rho_c))
+    return prob
+
+
+def _bake_consensus_gains(prob: TinyProblem, rho_c):
+    """The cache with the consensus step-0 gain pair, in the problem's dtype
+    on its device: Quu0_inv = (R1 + rho_c I + B'Pinf B)^-1 and
+    Kinf0 = Quu0_inv B'Pinf A, with R1 the Rdiag the Riccati iteration saw
+    (setup's once-augmented Rdiag plus the second rho I,
+    tiny_api.cpp:317-318)."""
+    c, nu = prob.cache, prob.spec.nu
+    kw = dict(dtype=prob.dtype, device=prob.device)
+    rc = c.rho if rho_c is None else torch.as_tensor(rho_c, **kw)
+    eye = torch.eye(nu, **kw)
+    Raug2 = torch.diag(prob.Rdiag) + c.rho * eye
+    BtP = prob.B.T @ c.Pinf
+    Quu0_inv = torch.linalg.inv(Raug2 + rc * eye + BtP @ prob.B)
+    return dataclasses.replace(c, Kinf0=Quu0_inv @ (BtP @ prob.A),
+                               Quu0_inv=Quu0_inv)
+
+
 def with_settings(prob: TinyProblem, **kw) -> TinyProblem:
     """Override settings fields (tiny_update_settings, tiny_api.cpp:388-411).
     Settings the solvers do not implement are accepted here and rejected by
     the solver that is asked to run them. Turning adaptive rho on attaches
     the rho sensitivities when the cache has none
-    (:func:`with_sensitivities`)."""
+    (:func:`with_sensitivities`); it is refused on a consensus problem.
+    A new ``consensus_rho`` on a consensus problem re-bakes its step-0
+    gains, which would otherwise no longer match the linear term."""
     settings = dataclasses.replace(prob.settings, **kw)
+    if settings.adaptive_rho and prob.spec.en_consensus:
+        raise ValueError(_CONSENSUS_ADAPTIVE)
     if settings.adaptive_rho_tolerance < 1.0:
         raise ValueError(
             "adaptive_rho_tolerance must be >= 1 (1.0 = the reference's "
@@ -224,6 +277,9 @@ def with_settings(prob: TinyProblem, **kw) -> TinyProblem:
     if settings.coarse_iters < 0:
         raise ValueError("coarse_iters must be >= 0")
     prob = prob.replace(settings=settings)
+    if "consensus_rho" in kw and prob.spec.en_consensus:
+        prob = prob.replace(cache=_bake_consensus_gains(
+            prob, settings.consensus_rho))
     if settings.adaptive_rho and prob.cache.dKinf_drho is None:
         prob = with_sensitivities(prob)
     return prob

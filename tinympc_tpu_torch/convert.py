@@ -8,7 +8,8 @@ port's problem from such a dict on a given device and dtype, without
 recomputing the Riccati cache, so both packages then solve the very same
 problem. The cache may be per problem (the final cache of an adaptive
 solve, leaves with a leading batch axis), and it carries the rho
-sensitivities and the C1/C2 matrices when present.
+sensitivities, the C1/C2 matrices and the consensus step-0 gains when
+present.
 
 :func:`carry_to_numpy` / :func:`carry_from_numpy` do the same for a warm
 carry (the port's :class:`~tinympc_tpu_torch.kernels.FusedCarry` or the JAX
@@ -33,9 +34,10 @@ from .types import (Cache, ConstraintData, ProblemSpec, Settings,
 PROBLEM_KEYS = ("A", "B", "f", "Qdiag", "Rdiag")
 CACHE_KEYS = ("rho", "Kinf", "Pinf", "Quu_inv", "AmBKt", "APf", "BPf")
 # Cache fields carried when present: C1/C2 (which the adaptive-rho Taylor
-# update moves apart from Quu_inv/AmBKt) and the rho sensitivities.
+# update moves apart from Quu_inv/AmBKt), the rho sensitivities and the
+# consensus step-0 gains.
 CACHE_EXTRA_KEYS = ("C1", "C2", "dKinf_drho", "dPinf_drho", "dC1_drho",
-                    "dC2_drho")
+                    "dC2_drho", "Kinf0", "Quu0_inv")
 BOX_KEYS = ("x_min", "x_max", "u_min", "u_max")
 # Constraint tables of the other families, carried when present.
 FAMILY_KEYS = ("cx", "cu", "Alin_x", "blin_x", "Alin_u", "blin_u",

@@ -353,11 +353,14 @@ struct Families {
   // (admm_pallas.py:1001-1003). The lane's last feedforward d is still in
   // d, so its forward rollout is run once more from x0 with the
   // arithmetic of admm_iteration's, which gives the iterate's bits --
-  // rather than storing x/u on every iteration. With no iteration run, the
+  // rather than storing x/u on every iteration; `kinf0` is the Kinf rows
+  // of step 0 (Mfwd's, or consensus's Kinf0). With no iteration run, the
   // seeded x/u stand.
   template <bool WARM>
-  __device__ __forceinline__ void finish(const Tables& tab, const float* x0r,
-                                         const float* d, int iters) const {
+  __device__ __forceinline__ void finish(const Tables& tab,
+                                         const float* kinf0,
+                                         const float* x0r, const float* d,
+                                         int iters) const {
     if (!WARM || iters == 0) return;
     float x[NX];
 #pragma unroll
@@ -367,12 +370,12 @@ struct Families {
       for (int k = 0; k < NX; ++k) a.x_out[xa(i, k)] = x[k];
       if (i == N - 1) break;
       float kx[NU], ax[NX], u[NU];
+      const float* kinf = i == 0 ? kinf0 : tab.Mfwd;
 #pragma unroll
       for (int row = 0; row < NU; ++row) {
         float acc = 0.f;
 #pragma unroll
-        for (int c = 0; c < NX; ++c)
-          acc = fmaf(tab.Mfwd[row * NX + c], x[c], acc);
+        for (int c = 0; c < NX; ++c) acc = fmaf(kinf[row * NX + c], x[c], acc);
         kx[row] = acc;
       }
 #pragma unroll

@@ -1,7 +1,8 @@
 // Fused batched ADMM solve, cold or warm start: box constraints alone, or
 // with the other constraint families (second-order cones, hyperplanes,
-// time-varying hyperplanes; admm_families.cuh), at fixed rho; or box
-// constraints with adaptive rho (admm_adaptive.cuh).
+// time-varying hyperplanes; admm_families.cuh) and scenario-tree consensus
+// on u[0] (admm_consensus.cuh), at fixed rho; or box constraints with
+// adaptive rho (admm_adaptive.cuh).
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
@@ -29,13 +30,22 @@
 // that iteration's feedforward once it has stopped. The families kernel
 // takes __launch_bounds__(128, 1): its longer live state fits in registers
 // only above the ~100 that ptxas otherwise aims for, and at the batches it
-// runs there is about one block an SM anyway.
+// runs there is about one block an SM anyway. Consensus is an
+// instantiation of the families kernel (a box problem with consensus runs
+// it with zero family counts): its slack and dual sit in shared memory,
+// (nu, 128) a block, beside the offers a group's lanes exchange there
+// after every iteration between two barriers that every thread of the
+// block reaches, a converged one too (admm_consensus.cuh). The step-0
+// gains follow the family tables. A warm consensus solve also carries x/u
+// and the pair.
 //
 // Design (the first, simple one):
 //   * One thread per problem; 128 threads a block; threads past B count as
 //     converged from the start. A converged lane stops computing and keeps
 //     its iterates, so what a lane returns does not depend on the block it
 //     shares (the TPU kernel snapshots instead; the outputs are the same).
+//     Under consensus a lane depends on its group's lanes, all in its
+//     block; a converged lane's last offer stands for its group.
 //   * Per-lane trajectories live in device memory in the lane-last layout
 //     (N, nx, B). vnew/znew are ping-pong halves (2, N, nx, B) /
 //     (2, N-1, nu, B): iteration `it` writes half it%2 and reads the
@@ -69,6 +79,7 @@
 // cudaError_t of the launch; it launches on the given stream and never
 // synchronises.
 #include "admm_adaptive.cuh"
+#include "admm_consensus.cuh"
 #include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
@@ -76,15 +87,20 @@ namespace {
 
 using tinympc::AdaptArgs;
 using tinympc::AdaptiveRho;
+using tinympc::ConsensusArgs;
 using tinympc::FamilyArgs;
 using tinympc::FixedRho;
 using tinympc::Layout;
 using tinympc::NegRefTable;
+using tinympc::NoConsensus;
 using tinympc::NoFamilies;
 using tinympc::Residuals;
 using tinympc::Tables;
 
 constexpr int kBlock = 128;
+
+template <int NX, int NU>
+using Consensus = tinympc::Consensus<NX, NU, kBlock>;
 
 // The carry of a warm solve; all pointers null on a cold one.
 struct Carry {
@@ -97,8 +113,9 @@ constexpr int kMinBlocksOf =
     Fam::kMinBlocks > Rho::kMinBlocks ? Fam::kMinBlocks : Rho::kMinBlocks;
 
 // Fam is NoFamilies (box only) or tinympc::Families<NX, NU>; Rho is
-// FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C> (box only).
-template <int NX, int NU, bool WARM, class Fam, class Rho>
+// FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C> (box only); Cons is
+// NoConsensus, or Consensus<NX, NU> with the families.
+template <int NX, int NU, bool WARM, class Fam, class Rho, class Cons>
 __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
     admm_fused_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
@@ -107,12 +124,14 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
         float* __restrict__ out_x, float* __restrict__ out_u,
         int* __restrict__ out_iters, unsigned char* __restrict__ out_solved,
         float* __restrict__ out_res, Carry carry, typename Fam::Args fa,
-        typename Rho::Args ra, int N, int B, int max_iter,
-        int check_termination, float rho, float tol_pri, float tol_dua) {
+        typename Rho::Args ra, typename Cons::Args ca, int N, int B,
+        int max_iter, int check_termination, float rho, float tol_pri,
+        float tol_dua) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
   const int fam_total = L.total + Fam::table_floats(fa, NX, NU, N);
-  const int total = fam_total + Rho::table_floats(ra, NX, NU);
+  const int rho_total = fam_total + Rho::table_floats(ra, NX, NU);
+  const int total = rho_total + Cons::table_floats(ca, NX, NU);
   for (int k = threadIdx.x; k < total; k += blockDim.x) sm[k] = tables[k];
   __syncthreads();
 
@@ -146,6 +165,9 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
   const size_t half_u = static_cast<size_t>(N - 1) * NU * sB;
   const Fam fam(fa, sm + L.total, sm + L.total, N, sB, b, rho);
   Rho rh(ra, sm + fam_total, pnref + NX, rho, sB, b);
+  // The lane arrays of consensus follow the terminal reference rows.
+  const Cons cons(ca, sm + rho_total, pnref + NX * (1 + Rho::kTerminalRows));
+  cons.template seed<WARM>(sB, b, lane);
 
   bool done = !lane;
   int iters = 0;
@@ -207,19 +229,20 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
   for (int it = 0; it < max_iter; ++it) {
     const int cur = it & 1;
     const bool checking = ((it + 1) % check_termination) == 0;
+    bool ok = false;      // this iteration's check passed (consensus)
+    float u0[NU];
     if (!done) {
       const float* vprev = vnew + (cur ^ 1) * half_x;
       const float* zprev = znew + (cur ^ 1) * half_u;
       // Iteration 0 of a warm solve compares against the carried v/z
       // (admm_pallas.py:1159-1164).
       const bool stale = WARM && it == 0;
-      float u0[NU];
       rh.begin(it);
       const Residuals r = tinympc::admm_iteration<NX, NU>(
           t, negxq, pnref, x0r, dvgN, vnew + cur * half_x,
           znew + cur * half_u, vprev, zprev, stale ? carry.v_in : vprev,
           stale ? carry.z_in : zprev, g, y, d, N, sB, b, rh.rho(), checking,
-          u0, fam, rh);
+          u0, fam, rh, cons);
       // Adaptive rho every 5th iteration (admm_pallas.py:1079-1142); the
       // dual residuals below scale with the rho after it.
       if constexpr (Rho::kAdaptive) {
@@ -235,9 +258,26 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
         res1 = r.pri_i;
         res2 = r.dua_s * rh.rho();
         res3 = r.dua_i * rh.rho();
-        done = (res0 < tol_pri) && (res1 < tol_pri) && (res2 < tol_dua) &&
-               (res3 < tol_dua);
+        const bool pass = (res0 < tol_pri) && (res1 < tol_pri) &&
+                          (res2 < tol_dua) && (res3 < tol_dua);
+        if constexpr (Cons::kHooks)
+          ok = pass;
+        else
+          done = pass;
       }
+      if constexpr (Cons::kHooks) cons.offer(u0);
+    }
+    if constexpr (Cons::kHooks) {
+      // Consensus (admm_pallas.py:1059-1066, :1171-1175): every thread of
+      // the block meets the exchange, a converged or idle one too.
+      // Convergence waits for the gate.
+      __syncthreads();
+      if (!done) {
+        const float cres = cons.update(u0);
+        ok = ok && cres < tol_pri;
+      }
+      __syncthreads();
+      if (checking && !done) done = ok;
     }
     // Block exit (admm_pallas.py:1220-1255): on check iterations, once no
     // lane of the block is still active. `checking` is uniform.
@@ -282,7 +322,8 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
     tinympc::copy_lane(carry.znew_out, zs, (N - 1) * NU, sB, b);
     tinympc::copy_lane(carry.z_out, zo, (N - 1) * NU, sB, b);
   }
-  fam.template finish<WARM>(t, x0r, d, iters);
+  fam.template finish<WARM>(t, cons.kinf(0, t.Mfwd), x0r, d, iters);
+  cons.template finish<WARM>(sB, b);
   rh.finish();
 }
 
@@ -297,16 +338,19 @@ struct Buffers {
   float rho, tol_pri, tol_dua;
 };
 
-template <int NX, int NU, bool WARM, class Fam, class Rho = FixedRho>
+template <int NX, int NU, bool WARM, class Fam, class Rho = FixedRho,
+          class Cons = NoConsensus>
 cudaError_t launch(const Buffers& p, const Carry& carry,
                    const typename Fam::Args& fa, cudaStream_t stream,
-                   const typename Rho::Args& ra = {}) {
+                   const typename Rho::Args& ra = {},
+                   const typename Cons::Args& ca = {}) {
   const int N = p.N;
   const size_t smem =
       (Layout(NX, NU, N).total + Fam::table_floats(fa, NX, NU, N) +
-       Rho::table_floats(ra, NX, NU) + NX * (1 + Rho::kTerminalRows)) *
+       Rho::table_floats(ra, NX, NU) + Cons::table_floats(ca, NX, NU) +
+       NX * (1 + Rho::kTerminalRows) + Cons::lane_floats(ca, NU)) *
       sizeof(float);
-  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam, Rho>;
+  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam, Rho, Cons>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -316,7 +360,7 @@ cudaError_t launch(const Buffers& p, const Carry& carry,
   const dim3 grid((p.B + kBlock - 1) / kBlock);
   kernel<<<grid, kBlock, smem, stream>>>(
       p.tables, p.x0, p.vnew, p.znew, p.g, p.y, p.d, p.out_x, p.out_u,
-      p.out_iters, p.out_solved, p.out_res, carry, fa, ra, N, p.B,
+      p.out_iters, p.out_solved, p.out_res, carry, fa, ra, ca, N, p.B,
       p.max_iter, p.check_termination, p.rho, p.tol_pri, p.tol_dua);
   return cudaGetLastError();
 }
@@ -340,14 +384,15 @@ bool bad_size(const Buffers& p) {
   return p.N < 2 || p.B < 1 || p.max_iter < 0 || p.check_termination < 1;
 }
 
-// The box-only kernel when no family beyond the box is on, else the
-// families kernel, at fixed rho; the adaptive-rho kernel when `adapt` is
-// given (box only); cudaErrorInvalidValue for an (nx, nu) pair or a
-// combination that is not instantiated.
+// The box-only kernel when no family beyond the box and no consensus is
+// on, else the families kernel, with consensus when its group is not 0, at
+// fixed rho; the adaptive-rho kernel when `adapt` is given (box only);
+// cudaErrorInvalidValue for an (nx, nu) pair or a combination that is not
+// instantiated.
 template <bool WARM>
 int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
              const Buffers& p, const Carry& carry, const FamilyArgs& fa,
-             cudaStream_t s) {
+             const ConsensusArgs& ca, cudaStream_t s) {
   if (adapt) {
     if (families || nx != 12 || nu != 4)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -362,12 +407,18 @@ int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
   if (!families && nx == 12 && nu == 4)   // the quadrotor of the main path
     return static_cast<int>(
         launch<12, 4, WARM, NoFamilies>(p, carry, NoFamilies::Args{}, s));
+  const bool cons = ca.group > 0;
   if (families && nx == 12 && nu == 4)    // the quadrotor hyperplane demos
     return static_cast<int>(
-        launch<12, 4, WARM, tinympc::Families<12, 4>>(p, carry, fa, s));
+        cons ? launch<12, 4, WARM, tinympc::Families<12, 4>, FixedRho,
+                      Consensus<12, 4>>(p, carry, fa, s, {}, ca)
+             : launch<12, 4, WARM, tinympc::Families<12, 4>>(p, carry, fa,
+                                                            s));
   if (families && nx == 6 && nu == 3)     // the rocket
     return static_cast<int>(
-        launch<6, 3, WARM, tinympc::Families<6, 3>>(p, carry, fa, s));
+        cons ? launch<6, 3, WARM, tinympc::Families<6, 3>, FixedRho,
+                      Consensus<6, 3>>(p, carry, fa, s, {}, ca)
+             : launch<6, 3, WARM, tinympc::Families<6, 3>>(p, carry, fa, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -424,7 +475,14 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // adapt: null at fixed rho; else the adaptive-rho arguments
 // (admm_adaptive.cuh: settings, rho_in -- the carried rho, required on a
 // warm solve --, rho_out, the scratch xs, us, axd), box only, rho the
-// problem's rho.
+// problem's rho. cons: null without consensus; else its arguments
+// (admm_consensus.cuh: the group size, a power of two up to the block
+// size dividing B, rho_c, and on a warm solve the carried dual in and the
+// slack and dual out; the carried u is fam's u_in), with the tables'
+// step-0 gains after the family tables; not with adapt. A consensus solve
+// runs the families kernel and, warm, carries x/u as the families do.
+// Group 0 runs the families kernel without consensus (the step-0 gains
+// in the table are then not read): the same solve without the exchange.
 extern "C" int tinympc_admm_fused(
     int warm, int nx, int nu, int N, int B, int max_iter,
     int check_termination, const int* counts, float rho, float tol_pri,
@@ -432,7 +490,7 @@ extern "C" int tinympc_admm_fused(
     void* znew, void* g, void* y, void* d, void* out_x, void* out_u,
     void* out_iters, void* out_solved, void* out_res,
     const void* const* carry, void* const* fam, const AdaptArgs* adapt,
-    void* stream) {
+    const ConsensusArgs* cons, void* stream) {
   FamilyArgs fa;
   fa.ncx = counts[0];
   fa.ncu = counts[1];
@@ -464,17 +522,30 @@ extern "C" int tinympc_admm_fused(
   if (adapt && (!adapt->rho_out || !adapt->xs || !adapt->us || !adapt->axd ||
                 (warm && !adapt->rho_in)))
     return static_cast<int>(cudaErrorInvalidValue);
+  ConsensusArgs ca = {0, 0.f, nullptr, nullptr, nullptr, nullptr};
+  if (cons) {
+    const int G = cons->group;
+    if (adapt || G < 0 || G > kBlock || (G & (G - 1)) || (G && B % G) ||
+        (warm && G && (!cons->yc0_in || !cons->zc0_out || !cons->yc0_out)) ||
+        (!(warm && G) && (cons->yc0_in || cons->zc0_out || cons->yc0_out)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (G) {
+      ca = *cons;
+      ca.u_in = fa.u_in;
+    }
+    families = true;
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   if (!warm) {
     if (fa.x_out || fa.u_out) return static_cast<int>(cudaErrorInvalidValue);
     const Carry none = {nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, nullptr};
-    return dispatch<false>(nx, nu, families, adapt, p, none, fa, s);
+    return dispatch<false>(nx, nu, families, adapt, p, none, fa, ca, s);
   }
   for (int k = 0; k < 10; ++k)
     if (!carry[k]) return static_cast<int>(cudaErrorInvalidValue);
   if (families && (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(nx, nu, families, adapt, p, carry_from(carry), fa,
-                        s);
+                        ca, s);
 }

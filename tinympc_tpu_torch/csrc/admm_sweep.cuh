@@ -131,7 +131,34 @@ struct NoFamilies {
   __device__ __forceinline__ void input_row(int, const float*) const {}
   template <bool WARM>
   __device__ __forceinline__ void finish(const Tables&, const float*,
-                                         const float*, int) const {}
+                                         const float*, const float*,
+                                         int) const {}
+};
+
+// Scenario-tree consensus on u[0] (admm_consensus.cuh implements it for
+// an instantiation of the families kernel): the row-0 hooks of the sweeps.
+// Every other kernel takes this empty set, whose hooks compile to nothing.
+struct NoConsensus {
+  struct Args {};
+  static constexpr bool kHooks = false;
+  NoConsensus() = default;
+  __device__ NoConsensus(const Args&, const float*, float*) {}
+  static __host__ __device__ int table_floats(const Args&, int, int) {
+    return 0;
+  }
+  static __host__ __device__ int lane_floats(const Args&, int) { return 0; }
+  __device__ __forceinline__ void r_terms(int, float*) const {}
+  __device__ __forceinline__ const float* quu(int, const float* q) const {
+    return q;
+  }
+  __device__ __forceinline__ const float* kinf(int,
+                                               const float* k) const {
+    return k;
+  }
+  template <bool WARM>
+  __device__ __forceinline__ void seed(size_t, int, bool) const {}
+  template <bool WARM>
+  __device__ __forceinline__ void finish(size_t, int) const {}
 };
 
 // Fixed rho: one rho for every lane. Adaptive rho (admm_adaptive.cuh)
@@ -191,13 +218,16 @@ struct FixedRho {
 //              cost after the box's
 //   rh         fixed or adaptive rho (its hooks move the products of the
 //              matrices the Taylor update moves); rho is the lane's rho
+//   cons       consensus on u[0]: row 0's r term after the families', and
+//              its gain Quu0_inv
 template <int NX, int NU, class NegXQ, class NegUR, class Fam = NoFamilies,
-          class Rho = FixedRho>
+          class Rho = FixedRho, class Cons = NoConsensus>
 __device__ __forceinline__ void backward_sweep(
     const Tables& t, NegXQ negxq, NegUR negur, const float* pnref,
     const float* dvgN, const float* vprev, const float* zprev,
     const float* g, const float* y, float* d, int N, size_t sB, int b,
-    float rho, const Fam& fam = Fam(), const Rho& rh = Rho()) {
+    float rho, const Fam& fam = Fam(), const Rho& rh = Rho(),
+    const Cons& cons = Cons()) {
   float p[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) p[k] = rh.pterm(k, pnref[k]) - rho * dvgN[k];
@@ -210,6 +240,7 @@ __device__ __forceinline__ void backward_sweep(
       r[k] = negur(i, k) - rho * (zprev[a] - y[a]);
     }
     fam.r_terms(i, r);
+    cons.r_terms(i, r);
 #pragma unroll
     for (int k = 0; k < NX; ++k) {
       const size_t a = (static_cast<size_t>(i) * NX + k) * sB + b;
@@ -237,11 +268,12 @@ __device__ __forceinline__ void backward_sweep(
     float w[NU];
 #pragma unroll
     for (int k = 0; k < NU; ++k) w[k] = bp[k] + r[k] + t.BPf[k];
+    const float* quu = cons.quu(i, t.Quu);
 #pragma unroll
     for (int row = 0; row < NU; ++row) {
       float acc = 0.f;
 #pragma unroll
-      for (int c = 0; c < NU; ++c) acc = fmaf(t.Quu[row * NU + c], w[c], acc);
+      for (int c = 0; c < NU; ++c) acc = fmaf(quu[row * NU + c], w[c], acc);
       d[(static_cast<size_t>(i) * NU + row) * sB + b] = rh.quu(row, acc, w);
     }
     // p[i] = q + AmBKt p - Kinf^T r + APf
@@ -266,13 +298,16 @@ __device__ __forceinline__ void backward_sweep(
 //   u0         out: the raw forward-pass u[0] of this iteration
 //   fam        the other constraint families: each projects row i once the
 //              sweep has formed it
+//   cons       consensus on u[0]: row 0's gain Kinf0
 // Residuals are accumulated only when `checking`.
-template <int NX, int NU, class Fam = NoFamilies, class Rho = FixedRho>
+template <int NX, int NU, class Fam = NoFamilies, class Rho = FixedRho,
+          class Cons = NoConsensus>
 __device__ __forceinline__ Residuals forward_sweep(
     const Tables& t, const float* x0r, float* dvgN, float* vcur, float* zcur,
     const float* vdprev, const float* zdprev, float* g, float* y,
     const float* d, int N, size_t sB, int b, bool checking, float* u0,
-    const Fam& fam = Fam(), const Rho& rh = Rho()) {
+    const Fam& fam = Fam(), const Rho& rh = Rho(),
+    const Cons& cons = Cons()) {
   float x[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) x[k] = x0r[k];
@@ -298,11 +333,12 @@ __device__ __forceinline__ Residuals forward_sweep(
     if (i == N - 1) break;
     // [Kinf; A] x, then u = -Kinf x - d as an exact subtract
     float kx[NU], ax[NX];
+    const float* kinf = cons.kinf(i, t.Mfwd);
 #pragma unroll
     for (int row = 0; row < NU; ++row) {
       float acc = 0.f;
 #pragma unroll
-      for (int c = 0; c < NX; ++c) acc = fmaf(t.Mfwd[row * NX + c], x[c], acc);
+      for (int c = 0; c < NX; ++c) acc = fmaf(kinf[row * NX + c], x[c], acc);
       kx[row] = rh.kx(row, acc, x);
     }
 #pragma unroll
@@ -355,17 +391,19 @@ __device__ __forceinline__ Residuals forward_sweep(
 // and the other arguments as the sweeps take them; the reference's
 // -(Uref .* R) is t.negur.
 template <int NX, int NU, class NegXQ, class Fam = NoFamilies,
-          class Rho = FixedRho>
+          class Rho = FixedRho, class Cons = NoConsensus>
 __device__ __forceinline__ Residuals admm_iteration(
     const Tables& t, NegXQ negxq, const float* pnref, const float* x0r,
     float* dvgN, float* vcur, float* zcur, const float* vprev,
     const float* zprev, const float* vdprev, const float* zdprev, float* g,
     float* y, float* d, int N, size_t sB, int b, float rho, bool checking,
-    float* u0, const Fam& fam = Fam(), const Rho& rh = Rho()) {
+    float* u0, const Fam& fam = Fam(), const Rho& rh = Rho(),
+    const Cons& cons = Cons()) {
   backward_sweep<NX, NU>(t, negxq, NegRefTable<NU>{t.negur}, pnref, dvgN,
-                         vprev, zprev, g, y, d, N, sB, b, rho, fam, rh);
+                         vprev, zprev, g, y, d, N, sB, b, rho, fam, rh,
+                         cons);
   return forward_sweep<NX, NU>(t, x0r, dvgN, vcur, zcur, vdprev, zdprev, g,
-                               y, d, N, sB, b, checking, u0, fam, rh);
+                               y, d, N, sB, b, checking, u0, fam, rh, cons);
 }
 
 // Copy (rows, F, B) lane b of src into dst.

@@ -11,8 +11,13 @@ its box-only instantiation; problems with second-order cones, hyperplanes
 or time-varying hyperplanes run on its families instantiation; box
 problems with adaptive rho (``Settings.adaptive_rho``) run on its adaptive
 instantiation, which carries one rho per lane and adapts it in the kernel.
+Scenario-tree consensus (:func:`~tinympc_tpu_torch.api.with_consensus`)
+rides the families instantiation as a run-time flag, box problems with zero
+family counts: a scenario group is ``G`` adjacent lanes of one block (G a
+power of two up to :data:`BLOCK`), whose u[0] slack is the group mean.
 The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
-:data:`FAMILY_KERNEL_DIMS` and :data:`ADAPTIVE_KERNEL_DIMS`. On CPU tensors
+:data:`FAMILY_KERNEL_DIMS` (the families and consensus) and
+:data:`ADAPTIVE_KERNEL_DIMS`. On CPU tensors
 the wrappers run the kernel's plain PyTorch versions,
 :func:`solve_fused_reference` and :func:`solve_fused_warm_reference`,
 instead; on CUDA tensors they launch the kernel or raise.
@@ -22,8 +27,12 @@ The public layout is the JAX package's: x0s is (B, nx), Xref (N, nx), Uref
 nx), ``Solution.u`` (N-1, B, nu), ``iter`` (B,) int32, ``solved`` (B,) bool,
 and residuals (4, B) in the row order pri_x, pri_u, dua_x, dua_u; with
 adaptive rho a 5th row holds each lane's final rho (:func:`adapted_cache`
-builds the per-problem cache from it). The carry keeps the JAX carry's
-lane-last layout. Everything runs in float32, as on the TPU.
+builds the per-problem cache from it). A consensus problem takes x0s as
+(n_groups, G, nx) and returns ``Solution.x`` (N, n_groups, G, nx),
+``Solution.u`` (N-1, n_groups, G, nu), ``iter`` / ``solved``
+(n_groups, G) and residuals (4, n_groups, G), as the JAX package does. The
+carry keeps the JAX carry's lane-last layout. Everything runs in float32,
+as on the TPU.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..admm import apply_cones, apply_hyperplanes, tv_rows
+from ..admm import apply_cones, apply_hyperplanes, consensus_rho, tv_rows
 from ..projections import sum_last
 from ..rho_adapt import RHO_EPS, taylor_update
 from ..types import (ADAPTIVE_RHO_PERIOD, Cache, Solution, TinyProblem,
@@ -53,15 +62,17 @@ F32_MAX = float(np.finfo(np.float32).max)
 SMEM_LIMIT = 232448
 
 # Launches of the CUDA kernel in this process: box-only cold and warm, with
-# the other families cold and warm, and with adaptive rho cold and warm.
-# chip_smoke.py resets and reads them to show that each path went through
-# its kernel.
+# the other families cold and warm, with adaptive rho cold and warm, and
+# with consensus cold and warm. chip_smoke.py resets and reads them to show
+# that each path went through its kernel.
 launch_count = 0
 warm_launch_count = 0
 families_launch_count = 0
 families_warm_launch_count = 0
 adaptive_launch_count = 0
 adaptive_warm_launch_count = 0
+consensus_launch_count = 0
+consensus_warm_launch_count = 0
 
 
 class Adaptive(NamedTuple):
@@ -85,6 +96,14 @@ def _adaptive(settings) -> Optional[Adaptive]:
                     f32(settings.adaptive_rho_min),
                     f32(settings.adaptive_rho_max),
                     f32(settings.adaptive_rho_tolerance))
+
+
+class Consensus(NamedTuple):
+    """Consensus parameters of a fused solve: the group size G (adjacent
+    lanes) and the weight rho_c, as float32."""
+
+    group: int
+    rho_c: float
 
 
 class Families(NamedTuple):
@@ -144,7 +163,7 @@ def _check(prob: TinyProblem) -> None:
     _check_problem(prob)
     spec = prob.spec
     smem = smem_bytes(spec.nx, spec.nu, spec.N, _families(spec),
-                      _adaptive(prob.settings))
+                      _adaptive(prob.settings), spec.en_consensus)
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"at N={spec.N} the fused kernel's tables take {smem} B of shared "
@@ -153,13 +172,17 @@ def _check(prob: TinyProblem) -> None:
 
 
 def smem_bytes(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
-               adapt: Optional[Adaptive] = None) -> int:
+               adapt: Optional[Adaptive] = None,
+               consensus: bool = False) -> int:
     """Shared memory of one block of csrc/admm_fused.cu: the packed table
     (:func:`_table_layout`) and the terminal reference term, with its
-    sensitivity under adaptive rho (admm_fused.cu:launch)."""
+    sensitivity under adaptive rho; under consensus also each lane's
+    slack, dual and exchanged u[0] + dual, (nu, BLOCK) each
+    (admm_fused.cu:launch)."""
     floats = sum(int(np.prod(shape)) for _, shape in _table_layout(
-        nx, nu, N, fam, adapt))
-    return 4 * (floats + nx * (1 if adapt is None else 2))
+        nx, nu, N, fam, adapt, consensus))
+    lanes = 3 * nu * BLOCK if consensus else 0
+    return 4 * (floats + nx * (1 if adapt is None else 2) + lanes)
 
 
 def _check_problem(prob: TinyProblem) -> None:
@@ -178,8 +201,13 @@ def _check_problem(prob: TinyProblem) -> None:
                 "the fused adaptive-rho kernel takes box constraints at "
                 f"(nx, nu) in {ADAPTIVE_KERNEL_DIMS}; adaptive rho with the "
                 "other constraint families or other sizes is not ported yet "
-                "(ROADMAP.md, Queue 2 item 4); use tinympc_tpu_torch.solve")
-    dims = FAMILY_KERNEL_DIMS if spec.any_extra_family else KERNEL_DIMS
+                "(ROADMAP.md, Queue 2 item 1d); use tinympc_tpu_torch.solve")
+    if spec.en_consensus and (prob.cache.Kinf0 is None
+                              or prob.cache.Quu0_inv is None):
+        raise ValueError("en_consensus requires the step-0 consensus gains; "
+                         "configure the problem via with_consensus(...)")
+    dims = FAMILY_KERNEL_DIMS if spec.any_extra_family or spec.en_consensus \
+        else KERNEL_DIMS
     if (spec.nx, spec.nu) not in dims:
         raise ValueError(f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of "
                          f"the kernel's instantiations {dims}")
@@ -202,8 +230,10 @@ def _check_problem(prob: TinyProblem) -> None:
 
 def fused_supported(prob: TinyProblem) -> bool:
     """True if :func:`solve_fused` handles this problem: box, SOC,
-    hyperplane and time-varying hyperplane constraints at fixed rho, or
-    box constraints with adaptive rho and its sensitivities attached;
+    hyperplane and time-varying hyperplane constraints at fixed rho, with
+    or without consensus within the batch (its step-0 gains baked by
+    ``with_consensus``), or box constraints with adaptive rho and its
+    sensitivities attached;
     ``matmul_precision="highest"``, no coarse schedule, an (nx, nu) pair
     the kernel is instantiated for, and tables that fit in a block's shared
     memory (:data:`SMEM_LIMIT`; past N ~ 1190 at (12, 4), where
@@ -220,7 +250,7 @@ def fused_supported(prob: TinyProblem) -> bool:
 @dataclass(frozen=True)
 class FusedCarry:
     """Warm-start carry of :func:`solve_fused_warm` (the fields of
-    ``tinympc_tpu.kernels.FusedCarry`` but the consensus ones), float32 in
+    ``tinympc_tpu.kernels.FusedCarry``), float32 in
     the kernel's lane-last layout: the reference's
     persistent workspace between solves -- final slacks ``vnew``/``znew``,
     duals ``g``/``y``, and the previous slacks ``v``/``z``, one iterate
@@ -228,8 +258,11 @@ class FusedCarry:
     on the converging iteration, admm.cpp:444-446). A problem with other
     families also carries their duals and the primal ``x``/``u``, whose
     rows seed the family slacks of the next solve (admm.cpp:352-376); the
-    fields of families that are off are None. An adaptive-rho problem
-    carries each lane's rho, which persists across solves as the
+    fields of families that are off are None. A consensus problem carries
+    each lane's consensus slack ``zc0`` and dual ``yc0`` and the primal
+    x/u: the next solve re-seeds the slack from the carried u[0]
+    (admm.seed_extra_slacks), and the dual persists. An adaptive-rho
+    problem carries each lane's rho, which persists across solves as the
     reference's cache->rho does."""
 
     vnew: torch.Tensor    # (N, nx, B)
@@ -244,6 +277,8 @@ class FusedCarry:
     yl: Optional[torch.Tensor] = None
     gtv: Optional[torch.Tensor] = None
     ytv: Optional[torch.Tensor] = None
+    zc0: Optional[torch.Tensor] = None   # (nu, B) consensus slack
+    yc0: Optional[torch.Tensor] = None   # (nu, B) consensus dual
     x: Optional[torch.Tensor] = None     # (N, nx, B)
     u: Optional[torch.Tensor] = None     # (N-1, nu, B)
     rho: Optional[torch.Tensor] = None   # (1, B)
@@ -259,11 +294,12 @@ _STATE_FIELDS = ("vnew", "g", "v", "gc", "gl", "gtv", "x")
 
 def init_carry(prob: TinyProblem, B: int) -> FusedCarry:
     """Zero carry (cold start) for :func:`solve_fused_warm`, on the
-    problem's device, with the fields of the problem's families; with
-    adaptive rho, every lane's rho starts at the problem's."""
+    problem's device, with the fields of the problem's families and
+    consensus; with adaptive rho, every lane's rho starts at the
+    problem's."""
     spec = prob.spec
     carry = _zero_carry(spec.N, spec.nx, spec.nu, B, prob.device,
-                        _families(spec))
+                        _families(spec), spec.en_consensus)
     if prob.settings.adaptive_rho:
         carry = carry.replace(rho=torch.full(
             (1, B), float(prob.cache.rho), dtype=torch.float32,
@@ -271,35 +307,43 @@ def init_carry(prob: TinyProblem, B: int) -> FusedCarry:
     return carry
 
 
-def _zero_carry(N, nx, nu, B, device, fam=NO_FAMILIES) -> FusedCarry:
+def _zero_carry(N, nx, nu, B, device, fam=NO_FAMILIES,
+                consensus=False) -> FusedCarry:
     return FusedCarry(**{
         name: torch.zeros(shape, dtype=torch.float32, device=device)
-        for name, shape in _carry_shapes(N, nx, nu, B, fam).items()})
+        for name, shape in _carry_shapes(N, nx, nu, B, fam,
+                                         consensus=consensus).items()})
 
 
 def shift_carry(carry: FusedCarry) -> FusedCarry:
     """Advance a warm carry one timestep for receding-horizon reuse (the
     classic MPC shift warm start): every time-indexed field drops its first
     row and repeats the last, so the previous solve's tail seeds the
-    overlapping window of the next horizon. The per-lane rho passes
-    through."""
+    overlapping window of the next horizon. The u[0] consensus pair and the
+    per-lane rho are step-invariant and pass through."""
     return carry.replace(**{
         name: torch.cat([a[1:], a[-1:]], dim=0)
         for name, a in ((n, getattr(carry, n)) for n in CARRY_FIELDS
-                        if n != "rho")
+                        if n not in _LANE_FIELDS)
         if a is not None})
 
 
-def _carry_shapes(N, nx, nu, B, fam=NO_FAMILIES, adaptive=False
-                  ) -> Dict[str, Tuple[int, ...]]:
+# Carry fields with one row a lane, which the shift passes through.
+_LANE_FIELDS = ("zc0", "yc0", "rho")
+
+
+def _carry_shapes(N, nx, nu, B, fam=NO_FAMILIES, adaptive=False,
+                  consensus=False) -> Dict[str, Tuple[int, ...]]:
     """Shape of each carry field the problem needs (admm_pallas.py:227-247):
-    the box fields, each family's dual, x/u when any family is on, and the
-    per-lane rho under adaptive rho."""
+    the box fields, each family's dual, the consensus pair, x/u when any
+    family or consensus is on, and the per-lane rho under adaptive rho."""
     on = {name: True for name in BOX_CARRY_FIELDS}
+    xu = any(fam) or consensus
     on.update(gc=fam.ncx > 0, yc=fam.ncu > 0, gl=fam.nlx > 0, yl=fam.nlu > 0,
-              gtv=fam.ntx > 0, ytv=fam.ntu > 0, x=any(fam), u=any(fam),
-              rho=adaptive)
-    shape = lambda name: ((1, B) if name == "rho" else (N, nx, B)
+              gtv=fam.ntx > 0, ytv=fam.ntu > 0, zc0=consensus, yc0=consensus,
+              x=xu, u=xu, rho=adaptive)
+    shape = lambda name: ((1, B) if name == "rho" else (nu, B)
+                          if name in ("zc0", "yc0") else (N, nx, B)
                           if name in _STATE_FIELDS else (N - 1, nu, B))
     return {name: shape(name) for name in CARRY_FIELDS if on[name]}
 
@@ -312,7 +356,7 @@ def _carry_tensors(prob: TinyProblem, carry, B: int) -> FusedCarry:
                          "init_carry(prob, B)")
     spec = prob.spec
     shapes = _carry_shapes(spec.N, spec.nx, spec.nu, B, _families(spec),
-                           prob.settings.adaptive_rho)
+                           prob.settings.adaptive_rho, spec.en_consensus)
     bad = [k for k in CARRY_FIELDS
            if (k in shapes) != (getattr(carry, k) is not None)]
     if bad:
@@ -339,19 +383,24 @@ def _carry_tensors(prob: TinyProblem, carry, B: int) -> FusedCarry:
 # ------------------------------------------------------------ input tables
 
 def _table_layout(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
-                  adapt: Optional[Adaptive] = None
+                  adapt: Optional[Adaptive] = None, consensus: bool = False
                   ) -> Tuple[Tuple[str, tuple], ...]:
     """Names and shapes of the packed float32 table, in the order of
     ``Layout`` (csrc/admm_sweep.cuh), then ``FamilyLayout``
     (csrc/admm_families.cuh), then ``AdaptiveLayout``
-    (csrc/admm_adaptive.cuh). The family and adaptive tables come after the
-    box tables and are empty for a box-only fixed-rho problem, so its table
-    is the box table alone. Cones are rows (start, dim, mu); each
-    hyperplane table is A, b and ||a||^2 of each row (``asq``). Adaptive
-    rho adds A^T, Pinf and the sensitivities dKinf, dKinf^T, dPinf,
-    dPinf^T, and dC1, dC2 under ``apply_c`` (admm_pallas.py:1550-1560)."""
+    (csrc/admm_adaptive.cuh), then the consensus gains
+    (csrc/admm_consensus.cuh). The family, adaptive and consensus tables
+    come after the box tables and are empty for a box-only fixed-rho
+    problem, so its table is the box table alone. Cones are rows (start,
+    dim, mu); each hyperplane table is A, b and ||a||^2 of each row
+    (``asq``). Adaptive rho adds A^T, Pinf and the sensitivities dKinf,
+    dKinf^T, dPinf, dPinf^T, and dC1, dC2 under ``apply_c``
+    (admm_pallas.py:1550-1560); consensus the step-0 gains Kinf0 and
+    Quu0_inv (``Quu0``; :804-806). Adaptive rho never goes with consensus,
+    so the consensus gains follow the family tables."""
     ax, au = (nx, nu) if adapt is not None else (0, 0)
     cx, cu = (nx, nu) if adapt is not None and adapt.apply_c else (0, 0)
+    k0 = nu if consensus else 0
     return (("Mback", (nu + nx, nx)), ("Mfwd", (nu + nx, nx)),
             ("Quu", (nu, nu)), ("KinfT", (nx, nu)), ("Bm", (nx, nu)),
             ("APf", (nx,)), ("BPf", (nu,)), ("f", (nx,)), ("Qd", (nx,)),
@@ -369,7 +418,8 @@ def _table_layout(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
             ("tv_blin_u", (N - 1, fam.ntu)), ("tv_asq_u", (N - 1, fam.ntu)),
             ("AT", (ax, nx)), ("Pinf", (ax, nx)), ("dK", (au, nx)),
             ("dKT", (ax, nu)), ("dP", (ax, nx)), ("dPT", (ax, nx)),
-            ("dC1", (cu, nu)), ("dC2", (cx, nx)))
+            ("dC1", (cu, nu)), ("dC2", (cx, nx)),
+            ("Kinf0", (k0, nx)), ("Quu0", (k0, nu)))
 
 
 def _pack_tables(prob: TinyProblem, Xref, Uref) -> torch.Tensor:
@@ -381,6 +431,7 @@ def _pack_tables(prob: TinyProblem, Xref, Uref) -> torch.Tensor:
     spec, c, cons = prob.spec, prob.cache, prob.cons
     N, nx, nu = spec.N, spec.nx, spec.nu
     fam, adapt = _families(spec), _adaptive(prob.settings)
+    consensus = spec.en_consensus
     kw = dict(dtype=torch.float32, device=prob.device)
 
     def f32(a, shape):
@@ -433,7 +484,10 @@ def _pack_tables(prob: TinyProblem, Xref, Uref) -> torch.Tensor:
         if adapt.apply_c:
             parts.update(dC1=f32(c.dC1_drho, (nu, nu)),
                          dC2=f32(c.dC2_drho, (nx, nx)))
-    layout = _table_layout(nx, nu, N, fam, adapt)
+    if consensus:
+        parts.update(Kinf0=f32(c.Kinf0, (nu, nx)),
+                     Quu0=f32(c.Quu0_inv, (nu, nu)))
+    layout = _table_layout(nx, nu, N, fam, adapt, consensus)
     return torch.cat([parts[name].reshape(-1) if name in parts
                       else torch.zeros(0, **kw) for name, _ in layout])
 
@@ -451,10 +505,10 @@ def _table_slice(name: str, nx: int, nu: int, N: int) -> slice:
 
 def _unpack_tables(tables: torch.Tensor, nx: int, nu: int, N: int,
                    fam: Families = NO_FAMILIES,
-                   adapt: Optional[Adaptive] = None
+                   adapt: Optional[Adaptive] = None, consensus: bool = False
                    ) -> Dict[str, torch.Tensor]:
     out, o = {}, 0
-    for name, shape in _table_layout(nx, nu, N, fam, adapt):
+    for name, shape in _table_layout(nx, nu, N, fam, adapt, consensus):
         n = int(np.prod(shape))
         out[name] = tables[o:o + n].reshape(shape)
         o += n
@@ -469,7 +523,10 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s):
 
 
 def _prepare_inputs(prob: TinyProblem, Xref, Uref, x0s):
-    """:func:`_prepare` for a problem that is already checked."""
+    """:func:`_prepare` for a problem that is already checked. A consensus
+    problem's x0s (n_groups, G, nx) comes back as (B, nx), its group size
+    in ``params["cons"]``."""
+    nx = prob.spec.nx
     if x0s is None:
         raise ValueError("solve_fused needs x0s, shape (B, nx)")
     if isinstance(x0s, torch.Tensor) and x0s.device != prob.device:
@@ -477,16 +534,47 @@ def _prepare_inputs(prob: TinyProblem, Xref, Uref, x0s):
                          f"{prob.device}")
     x0 = torch.as_tensor(x0s, dtype=torch.float32,
                          device=prob.device).contiguous()
-    if x0.ndim != 2 or x0.shape[1] != prob.spec.nx or x0.shape[0] < 1:
-        raise ValueError(f"x0s must be (B, {prob.spec.nx}) with B >= 1, "
+    cons = None
+    if prob.spec.en_consensus:
+        if x0.ndim != 3 or x0.shape[2] != nx or x0.numel() == 0:
+            raise ValueError(
+                f"a consensus solve takes x0s as (n_groups, G, {nx}), the "
+                "scenario group on the last batch axis as in "
+                f"tinympc_tpu_torch.solve; got {tuple(x0.shape)}")
+        G = x0.shape[1]
+        if G & (G - 1) or G > BLOCK:
+            raise ValueError(
+                f"scenario group size {G} must be a power of two and at "
+                f"most {BLOCK}, the kernel's block: a group's lanes "
+                "exchange through one block's shared memory (larger groups "
+                "are not ported yet, ROADMAP.md)")
+        cons = Consensus(G, float(np.float32(float(consensus_rho(prob)))))
+        x0 = x0.reshape(-1, nx)
+    elif x0.ndim != 2 or x0.shape[1] != nx or x0.shape[0] < 1:
+        raise ValueError(f"x0s must be (B, {nx}) with B >= 1, "
                          f"got {tuple(x0.shape)}")
     st = prob.settings
     params = dict(max_iter=int(st.max_iter), ct=int(st.check_termination),
                   rho=float(np.float32(float(prob.cache.rho))),
                   tol_pri=float(np.float32(st.abs_pri_tol)),
                   tol_dua=float(np.float32(st.abs_dua_tol)),
-                  fam=_families(prob.spec), adapt=_adaptive(st))
+                  fam=_families(prob.spec), adapt=_adaptive(st), cons=cons)
     return _pack_tables(prob, Xref, Uref), x0, params
+
+
+def _grouped(out, cons: Optional[Consensus]):
+    """``(Solution, residuals, ...)`` with the (n_groups, G) batch of a
+    consensus solve restored, as the JAX package returns it; the carry
+    stays lane-last."""
+    if cons is None:
+        return out
+    sol, res = out[0], out[1]
+    G = cons.group
+    lanes = lambda a: a.reshape(*a.shape[:-1], -1, G)
+    sol = Solution(iter=lanes(sol.iter), solved=lanes(sol.solved),
+                   x=sol.x.reshape(sol.x.shape[0], -1, G, sol.x.shape[-1]),
+                   u=sol.u.reshape(sol.u.shape[0], -1, G, sol.u.shape[-1]))
+    return (sol, lanes(res)) + tuple(out[2:])
 
 
 # ------------------------------------------------------------ entry points
@@ -501,11 +589,14 @@ def solve_fused(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
     tables, x0, params = _prepare(prob, Xref, Uref, x0s)
     spec = prob.spec
     if x0.device.type == "cpu":
-        return _solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
-                            **params)[:2]
-    if x0.device.type == "cuda":
-        return _solve_kernel(tables, x0, spec.N, spec.nx, spec.nu, **params)
-    raise ValueError(f"solve_fused runs on cuda or cpu, not {x0.device}")
+        out = _solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
+                           **params)[:2]
+    elif x0.device.type == "cuda":
+        out = _solve_kernel(tables, x0, spec.N, spec.nx, spec.nu, **params)
+    else:
+        raise ValueError(f"solve_fused runs on cuda or cpu, not "
+                         f"{x0.device}")
+    return _grouped(out, params["cons"])
 
 
 def solve_fused_reference(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
@@ -515,7 +606,8 @@ def solve_fused_reference(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
     kernel. Returns what :func:`solve_fused` returns."""
     tables, x0, params = _prepare(prob, Xref, Uref, x0s)
     spec = prob.spec
-    return _solve_plain(tables, x0, spec.N, spec.nx, spec.nu, **params)[:2]
+    return _grouped(_solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
+                                 **params)[:2], params["cons"])
 
 
 def solve_fused_warm(prob: TinyProblem, Xref=None, Uref=None, x0s=None,
@@ -538,13 +630,15 @@ def solve_fused_warm(prob: TinyProblem, Xref=None, Uref=None, x0s=None,
                                               final)
     spec = prob.spec
     if x0.device.type == "cpu":
-        return _solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
-                            carry=carry, **params)[:3]
-    if x0.device.type == "cuda":
-        return _solve_kernel_warm(tables, x0, carry, spec.N, spec.nx,
-                                  spec.nu, **params)
-    raise ValueError(f"solve_fused_warm runs on cuda or cpu, not "
-                     f"{x0.device}")
+        out = _solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
+                           carry=carry, **params)[:3]
+    elif x0.device.type == "cuda":
+        out = _solve_kernel_warm(tables, x0, carry, spec.N, spec.nx,
+                                 spec.nu, **params)
+    else:
+        raise ValueError(f"solve_fused_warm runs on cuda or cpu, not "
+                         f"{x0.device}")
+    return _grouped(out, params["cons"])
 
 
 def solve_fused_warm_reference(prob: TinyProblem, Xref=None, Uref=None,
@@ -556,8 +650,8 @@ def solve_fused_warm_reference(prob: TinyProblem, Xref=None, Uref=None,
     tables, x0, carry, params = _prepare_warm(prob, Xref, Uref, x0s, carry,
                                               final)
     spec = prob.spec
-    return _solve_plain(tables, x0, spec.N, spec.nx, spec.nu, carry=carry,
-                        **params)[:3]
+    return _grouped(_solve_plain(tables, x0, spec.N, spec.nx, spec.nu,
+                                 carry=carry, **params)[:3], params["cons"])
 
 
 def _prepare_warm(prob, Xref, Uref, x0s, carry, final):
@@ -632,7 +726,8 @@ def _plain_families(t, fam: Families, x_seed, u_seed, carry):
 def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                  tol_dua, carry: Optional[FusedCarry] = None,
                  fam: Families = NO_FAMILIES,
-                 adapt: Optional[Adaptive] = None):
+                 adapt: Optional[Adaptive] = None,
+                 cons: Optional[Consensus] = None):
     """The fused solve in the kernel's lane-last layout: every per-lane
     array is (rows, features, B). Converged lanes freeze their iterates,
     and the loop ends on the first check iteration on which every lane is
@@ -649,12 +744,27 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
     carry when warm, else ``rho``, the problem's), and every matrix the
     Taylor update moves acts as the base product plus ``drho`` times its
     sensitivity product, with drho = rho_lane - rho (admm_pallas.py:
-    861-920); see :func:`_adapt_plain` for the adaptation. Returns
-    ``(Solution, residuals, carry' or None, u0)``, where u0 (nu, B) is the
-    raw forward-pass u[0] of each lane's last iteration (zero when
+    861-920); see :func:`_adapt_plain` for the adaptation.
+
+    With ``cons`` the lanes form scenario groups of ``cons.group``
+    adjacent lanes: r[0] gains -rho_c (zc0 - yc0), step 0 of the sweeps
+    takes the gains Quu0_inv / Kinf0, and after the duals every lane
+    offers cand0 = u[0] + yc0 to its group. A lane's slack is the group
+    mean of the offers, summed in lane order and divided by G
+    (:func:`_group_mean`), its dual moves by u[0] - zc0, and it converges
+    only once max|u[0] - zc0| is below ``tol_pri`` too. A converged lane
+    freezes, and the offer of its converging iteration stands for the rest
+    of the solve: the kernel's rule, which computes nothing more for a
+    frozen lane. (The JAX package's XLA path offers one iteration past the
+    frozen iterate instead, and its TPU kernel keeps iterating converged
+    lanes; the three agree to the JAX tests' tolerances.) The slack starts
+    at the carried u[0] (zero cold), the dual at the carried yc0.
+
+    Returns ``(Solution, residuals, carry' or None, u0)``, where u0 (nu, B)
+    is the raw forward-pass u[0] of each lane's last iteration (zero when
     max_iter is 0) and residuals gain the final rho as a 5th row under
     ``adapt``."""
-    t = _unpack_tables(tables, nx, nu, N, fam, adapt)
+    t = _unpack_tables(tables, nx, nu, N, fam, adapt, cons is not None)
     B = x0.shape[0]
     kw = dict(dtype=torch.float32, device=x0.device)
     col = lambda v: v[:, None]                      # (F,) -> (F, 1)
@@ -702,6 +812,13 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
             else carry.rho[0].clone()
         lane_rho_v = lane_rho.clone()
         pnref_dP = -(t["Xref"][N - 1] @ t["dPT"].T.contiguous())
+    if cons is not None:
+        # [Kinf0; A], step 0's product, shaped as every other step's.
+        Mfwd0 = torch.cat([t["Kinf0"], t["Mfwd"][nu:]])
+        zc0 = ucar[0].clone()
+        yc0 = torch.zeros((nu, B), **kw) if carry is None \
+            else carry.yc0.clone()
+        offer = torch.zeros((nu, B), **kw)
 
     for it in range(max_iter):
         active = ~done
@@ -721,13 +838,16 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
             r = col(negur[i]) - rho_b * (znew[pv, i] - y[i])
             for f in ufams:
                 r = r - rho_b * (f.slack[i] - f.dual[i])
+            if cons is not None and i == 0:
+                r = r - cons.rho_c * (zc0 - yc0)
             q = col(negxq[i]) - rho_b * (vnew[pv, i] - g[i])
             for f in xfams:
                 q = q - rho_b * (f.slack[i] - f.dual[i])
             out = t["Mback"] @ p
             bp, ap = out[:nu], out[nu:]
             w = bp + r + col(t["BPf"])
-            d[i] = t["Quu"] @ w
+            d[i] = (t["Quu0"] if cons is not None and i == 0
+                    else t["Quu"]) @ w
             kr = t["KinfT"] @ r
             if adapt is not None:
                 kr = kr + dr * (t["dKT"] @ r)
@@ -740,7 +860,7 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
         x = x0T
         xs, us, axd = [x], [], []
         for i in range(N - 1):
-            out = t["Mfwd"] @ x
+            out = (Mfwd0 if cons is not None and i == 0 else t["Mfwd"]) @ x
             kx = out[:nu]
             if adapt is not None:
                 kx = kx + dr * (t["dK"] @ x)
@@ -770,6 +890,12 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 t, adapt, xs, us, torch.stack(axd), vn, zn, gn, yn, dr,
                 lane_rho, lane_rho_v, active)
             rho_b = lane_rho
+        # 5.7. consensus: the group slack, dual and residual
+        if cons is not None:
+            offer = torch.where(active, us[0] + yc0, offer)
+            zc0n = _group_mean(offer, cons.group)
+            yc0n = yc0 + us[0] - zc0n
+            cres = torch.amax(torch.abs(us[0] - zc0n), dim=0)
         checking = (it + 1) % ct == 0
         if checking:
             stale = carry is not None and it == 0
@@ -790,11 +916,16 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
         xcar = torch.where(active, xs, xcar)
         ucar = torch.where(active, us, ucar)
         u0 = torch.where(active, us[0], u0)
+        if cons is not None:
+            zc0 = torch.where(active, zc0n, zc0)
+            yc0 = torch.where(active, yc0n, yc0)
         iters = torch.where(active, it + 1, iters).to(torch.int32)
         if checking:
             res = torch.where(active, rows, res)
             ok = ((rows[0] < tol_pri) & (rows[1] < tol_pri)
                   & (rows[2] < tol_dua) & (rows[3] < tol_dua))
+            if cons is not None:
+                ok = ok & (cres < tol_pri)
             done = done | (ok & active)
             if bool(done.all()):
                 break
@@ -806,11 +937,26 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
     extra = {}
     if carry is not None:
         extra = {f.name: f.dual for f in xfams + ufams}
-        if any(fam):
+        if any(fam) or cons is not None:
             extra.update(x=xcar, u=ucar)
+        if cons is not None:
+            extra.update(zc0=zc0, yc0=yc0)
         if adapt is not None:
             extra.update(rho=lane_rho[None].clone())
     return _outputs(vnew, znew, g, y, iters, done, res, carry, extra) + (u0,)
+
+
+def _group_mean(offer, G: int):
+    """The mean of each group of ``G`` adjacent lanes of ``offer`` (rows,
+    B), broadcast back to its lanes: the G offers summed one after another
+    in lane order from zero, then divided by G, as the kernel sums them
+    (``torch.mean`` fixes no order)."""
+    rows, B = offer.shape
+    lanes = offer.reshape(rows, B // G, G)
+    total = torch.zeros_like(lanes[..., 0])
+    for j in range(G):
+        total = total + lanes[..., j]
+    return (total / G)[..., None].expand(rows, B // G, G).reshape(rows, B)
 
 
 def _outputs(vnew, znew, g, y, iters, done, res, carry, extra):
@@ -911,6 +1057,17 @@ class _AdaptArgs(ctypes.Structure):
                 ("axd", _PTR)]
 
 
+class _ConsensusArgs(ctypes.Structure):
+    """``ConsensusArgs`` of csrc/admm_consensus.cuh: the group size and
+    rho_c, the carried u (left null: the entry point takes the families'
+    u_in), the carried dual in and the slack and dual out (null on a cold
+    solve)."""
+
+    _fields_ = [("group", ctypes.c_int), ("rho_c", ctypes.c_float),
+                ("u_in", _PTR), ("yc0_in", _PTR), ("zc0_out", _PTR),
+                ("yc0_out", _PTR)]
+
+
 def _kernel_fn():
     """The C entry point of csrc/admm_fused.cu, built and loaded on first
     use."""
@@ -921,10 +1078,11 @@ def _kernel_fn():
     fn = lib.tinympc_admm_fused
     # warm nx nu N B max_iter ct | counts | rho tol_pri tol_dua |
     # 12 buffers | carry array, family array | adaptive-rho arguments |
-    # the stream
+    # consensus arguments | the stream
     fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
                    + [ctypes.c_float] * 3 + [_PTR] * 12 + [_PTRS] * 2
-                   + [ctypes.POINTER(_AdaptArgs), _PTR])
+                   + [ctypes.POINTER(_AdaptArgs),
+                      ctypes.POINTER(_ConsensusArgs), _PTR])
     fn.restype = ctypes.c_int
     return fn
 
@@ -939,7 +1097,8 @@ def _check_arg(t: torch.Tensor, shape, dtype, device) -> torch.Tensor:
     return t
 
 
-def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None):
+def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None,
+                    consensus=False):
     """Check the shared inputs and allocate the outputs and scratch of one
     launch; the kernel initialises the scratch it reads. Adaptive rho adds
     a 5th residual row (the final rho) and the scratch of the rows of an
@@ -949,7 +1108,7 @@ def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None):
     f32 = torch.float32
     _check_arg(x0, (B, nx), f32, dev)
     ntab = sum(int(np.prod(s)) for _, s in _table_layout(nx, nu, N, fam,
-                                                          adapt))
+                                                          adapt, consensus))
     _check_arg(tables, (ntab,), f32, dev)
     kw = dict(dtype=f32, device=dev)
     return dict(
@@ -974,18 +1133,19 @@ def _ptr_array(tensors):
         *(None if t is None else t.data_ptr() for t in tensors))
 
 
-def _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct, rho,
-            tol_pri, tol_dua):
+def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
+            rho, tol_pri, tol_dua):
     """Launch csrc/admm_fused.cu on the current stream of x0's device: cold
     when ``carry`` is None, else warm; the box-only kernel when ``fam`` is
-    all zero and ``adapt`` None, the families kernel for other families,
-    the adaptive-rho kernel under ``adapt``. Returns the outputs and
-    scratch, and the new carry of a warm solve (its duals are the kernel's
-    dual buffers)."""
+    all zero and ``adapt`` and ``cons`` None, the families kernel for other
+    families or consensus, the adaptive-rho kernel under ``adapt``. Returns
+    the outputs and scratch, and the new carry of a warm solve (its duals
+    are the kernel's dual buffers)."""
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
-    buf = _launch_buffers(tables, x0, N, nx, nu, fam, adapt)
-    shapes = _carry_shapes(N, nx, nu, B, fam, adapt is not None)
+    consensus = cons is not None
+    buf = _launch_buffers(tables, x0, N, nx, nu, fam, adapt, consensus)
+    shapes = _carry_shapes(N, nx, nu, B, fam, adapt is not None, consensus)
     work, duals = [], {}
     for dual, n in zip(_FAMILY_DUALS, fam):
         if n:            # the family's working slack, then its dual
@@ -999,8 +1159,9 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct, rho,
         for name, shape in shapes.items():
             _check_arg(getattr(carry, name), shape, torch.float32, dev)
         out = {k: torch.empty_like(getattr(carry, k))
-               for k in ("vnew", "znew", "v", "z") + (("x", "u") if any(fam)
-                                                      else ())}
+               for k in ("vnew", "znew", "v", "z") + (
+                   ("x", "u") if any(fam) or consensus else ())
+               + (("zc0", "yc0") if consensus else ())}
         carry_ptrs = [getattr(carry, k) for k in BOX_CARRY_FIELDS] + [
             out[k] for k in ("vnew", "znew", "v", "z")]
         fam_ptrs = work + [getattr(carry, k) for k in _FAMILY_DUALS
@@ -1014,6 +1175,13 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct, rho,
             adapt.rho_max, adapt.rho_tol,
             None if carry is None else carry.rho.data_ptr(),
             buf["res"][4].data_ptr(), *(a.data_ptr() for a in scratch)))
+    cons_args = None
+    if consensus:
+        warm = [None] * 3 if carry is None else [
+            carry.yc0.data_ptr(), out["zc0"].data_ptr(),
+            out["yc0"].data_ptr()]
+        cons_args = ctypes.byref(_ConsensusArgs(cons.group, cons.rho_c,
+                                                None, *warm))
     fn = _kernel_fn()
     counts = (ctypes.c_int * 6)(*fam)
     with torch.cuda.device(dev):
@@ -1022,7 +1190,7 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct, rho,
                  rho, tol_pri, tol_dua, tables.data_ptr(), x0.data_ptr(),
                  *(buf[k].data_ptr() for k in _BUFFER_ORDER),
                  _ptr_array(carry_ptrs), _ptr_array(fam_ptrs), adapt_args,
-                 stream)
+                 cons_args, stream)
     if err != 0:
         raise RuntimeError(f"admm_fused kernel launch failed: CUDA error "
                            f"{err}")
@@ -1037,13 +1205,16 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct, rho,
 
 
 def _solve_kernel(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
-                  tol_dua, fam=NO_FAMILIES, adapt=None):
-    """The cold solve on the kernel: box-only, families or adaptive-rho
-    instantiation."""
-    global launch_count, families_launch_count, adaptive_launch_count
-    sol, res, _ = _launch(tables, x0, N, nx, nu, fam, adapt, None,
+                  tol_dua, fam=NO_FAMILIES, adapt=None, cons=None):
+    """The cold solve on the kernel: box-only, families (with or without
+    consensus) or adaptive-rho instantiation."""
+    global launch_count, families_launch_count, adaptive_launch_count, \
+        consensus_launch_count
+    sol, res, _ = _launch(tables, x0, N, nx, nu, fam, adapt, cons, None,
                           max_iter, ct, rho, tol_pri, tol_dua)
-    if adapt is not None:
+    if cons is not None:
+        consensus_launch_count += 1
+    elif adapt is not None:
         adaptive_launch_count += 1
     elif any(fam):
         families_launch_count += 1
@@ -1054,14 +1225,16 @@ def _solve_kernel(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
 
 def _solve_kernel_warm(tables, x0, carry: FusedCarry, N, nx, nu, *,
                        max_iter, ct, rho, tol_pri, tol_dua,
-                       fam=NO_FAMILIES, adapt=None):
-    """The warm solve on the kernel: box-only, families or adaptive-rho
-    instantiation."""
+                       fam=NO_FAMILIES, adapt=None, cons=None):
+    """The warm solve on the kernel: box-only, families (with or without
+    consensus) or adaptive-rho instantiation."""
     global warm_launch_count, families_warm_launch_count, \
-        adaptive_warm_launch_count
-    out = _launch(tables, x0, N, nx, nu, fam, adapt, carry, max_iter, ct,
-                  rho, tol_pri, tol_dua)
-    if adapt is not None:
+        adaptive_warm_launch_count, consensus_warm_launch_count
+    out = _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter,
+                  ct, rho, tol_pri, tol_dua)
+    if cons is not None:
+        consensus_warm_launch_count += 1
+    elif adapt is not None:
         adaptive_warm_launch_count += 1
     elif any(fam):
         families_warm_launch_count += 1

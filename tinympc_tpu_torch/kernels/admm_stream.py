@@ -84,7 +84,8 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
     x0, the carry and the solver parameters."""
     _check(prob)
     tables, x0, params = _prepare_inputs(prob, Xref, Uref, x0s)
-    params.pop("adapt")
+    params.pop("adapt")        # refused by _check, as is consensus
+    params.pop("cons")
     if warm:
         if carry is None:
             raise ValueError("solve_fused_streamed_warm needs a carry; start "

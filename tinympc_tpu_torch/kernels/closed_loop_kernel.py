@@ -38,12 +38,15 @@ launch_count = 0
 def _check_loop(prob: TinyProblem) -> None:
     """Raise ``ValueError`` for a problem the closed loop does not cover.
     It takes box constraints at fixed rho only, as the JAX closed loop does
-    (closed_loop_pallas.py:326): the other families and adaptive rho would
-    otherwise be ignored in silence."""
-    if prob.spec.any_extra_family or prob.settings.adaptive_rho:
+    (closed_loop_pallas.py:326, :431): the other families, adaptive rho
+    and consensus would otherwise be ignored in silence."""
+    if prob.spec.any_extra_family or prob.settings.adaptive_rho \
+            or prob.spec.en_consensus:
         raise ValueError("closed_loop_fused supports box-constraint specs "
-                         "with fixed rho; use tinympc_tpu_torch.closed_loop "
-                         "(or solve_fused_warm in a host loop)")
+                         "with fixed rho and no consensus, as the JAX fused "
+                         "closed loop does (ROADMAP.md); use "
+                         "tinympc_tpu_torch.closed_loop (or solve_fused_warm "
+                         "in a host loop)")
     _check(prob)
     spec = prob.spec
     if (spec.nx, spec.nu) not in KERNEL_DIMS:
@@ -90,6 +93,7 @@ def _prepare_loop(prob: TinyProblem, Xref_total, x0s, n_steps, Uref):
     tables, x0, params = _prepare(prob, xtot[:N], Uref, x0s)
     params.pop("fam")           # box at fixed rho: _check_loop refused
     params.pop("adapt")         # the rest
+    params.pop("cons")
     return tables, xtot, x0, n_steps, params
 
 

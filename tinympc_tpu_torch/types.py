@@ -25,6 +25,12 @@ port yet; the solvers reject them with ``ValueError`` (see
 Adaptive rho keeps the cache's base matrices and their rho sensitivities
 (``Cache.d*_drho``); a solve returns the per-problem cache of its final
 rho, whose leaves carry the batch axes in front.
+
+Scenario-tree consensus (``ProblemSpec.en_consensus``) drives the first
+input u[0] of every problem in a group, the last batch axis, to a common
+value: the cache carries its step-0 gain pair (``Cache.Kinf0`` /
+``Quu0_inv``) and the state its slack and dual (``zc0new`` / ``yc0``,
+(*b, nu)).
 """
 from __future__ import annotations
 
@@ -148,15 +154,21 @@ def check_supported_settings(settings: Settings) -> None:
 def check_supported_spec(spec: ProblemSpec,
                          settings: Optional[Settings] = None) -> None:
     """Raise ``ValueError`` for constraint families the port does not
-    implement: box, SOC, hyperplane and time-varying hyperplane families
-    are ported; consensus is not, and never goes with adaptive rho (the
-    Taylor update does not track the consensus step-0 gains)."""
-    if spec.en_consensus:
-        if settings is not None and settings.adaptive_rho:
+    implement. Every family is ported, consensus within a batch among them;
+    consensus never goes with adaptive rho (the Taylor update does not
+    track the consensus step-0 gains), and consensus over a named mesh axis
+    (``Settings.consensus_axis_name``) is not ported yet."""
+    if spec.en_consensus and settings is not None:
+        if settings.adaptive_rho:
             raise ValueError("consensus is not compatible with adaptive_rho "
                              "(the Taylor cache update does not track the "
                              "consensus step-0 gains); pick one")
-        raise ValueError("the consensus family is not ported yet")
+        if settings.consensus_axis_name is not None:
+            raise ValueError(
+                "consensus over a named mesh axis (consensus_axis_name="
+                f"{settings.consensus_axis_name!r}) is not ported yet: it "
+                "waits for the multi-GPU shard.py (ROADMAP.md, Queue 1 "
+                "item 6); groups on the last batch axis are")
 
 
 @dataclass(frozen=True)
@@ -181,6 +193,12 @@ class Cache:
     dPinf_drho: Optional[torch.Tensor] = None   # (nx, nx)
     dC1_drho: Optional[torch.Tensor] = None     # (nu, nu)
     dC2_drho: Optional[torch.Tensor] = None     # (nx, nx)
+    # Consensus step-0 gains (api.with_consensus): the u[0]-only consensus
+    # prox adds rho_c I to the input quadratic at step 0 alone, whose exact
+    # gains under the stationary cost-to-go Pinf are
+    # Quu0_inv = (R1 + rho_c I + B'Pinf B)^-1 and Kinf0 = Quu0_inv B'Pinf A.
+    Kinf0: Optional[torch.Tensor] = None        # (nu, nx)
+    Quu0_inv: Optional[torch.Tensor] = None     # (nu, nu)
 
 
 @dataclass(frozen=True)
@@ -272,6 +290,9 @@ class SolverState:
     gl_tv: Optional[torch.Tensor] = None
     zlnew_tv: Optional[torch.Tensor] = None
     yl_tv: Optional[torch.Tensor] = None
+    # Consensus on u[0]: the group slack and each problem's dual
+    zc0new: Optional[torch.Tensor] = None   # (*b, nu)
+    yc0: Optional[torch.Tensor] = None      # (*b, nu)
 
     def replace(self, **kw) -> "SolverState":
         return dataclasses.replace(self, **kw)
@@ -321,6 +342,9 @@ def init_state(spec: ProblemSpec, batch_shape: Tuple[int, ...] = (),
         fam.update(vlnew_tv=zx(), gl_tv=zx())
     if spec.en_tv_input_linear:
         fam.update(zlnew_tv=zu(), yl_tv=zu())
+    if spec.en_consensus:
+        fam.update(zc0new=torch.zeros((*b, nu), dtype=dtype, device=device),
+                   yc0=torch.zeros((*b, nu), dtype=dtype, device=device))
 
     return SolverState(
         x=zx(), u=zu(), q=zx(), r=zu(), p=zx(), d=zu(),
