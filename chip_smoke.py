@@ -73,7 +73,23 @@ calls, and holds every kernel against its plain PyTorch version:
   kernels.solve_fused_warm, the nominal plant stepped with the group-mean
   u[0] and re-branched by 0.05 U[-1, 1]^12 from a seeded generator. Both
   sources set matmul_precision "high", a TPU mode the port refuses; these
-  run at "highest".
+  run at "highest";
+* lane compaction to convergence (kernels.make_compact_solver: phases of
+  warm solve_fused_warm(final=True) on csrc/admm_fused.cu, or of
+  solve_fused_streamed_warm on csrc/admm_stream.cu, with the live lanes
+  regathered between phases) and the consensus instantiations of the
+  streamed kernels: bench_all.py:448-452 / :497-501's mixed batch -- the
+  quadrotor at 20 Hz, N=20, box +-5 / +-0.5, max_iter 500, ct 1,
+  B=262144, x0 = U[-1, 1]^12 times linspace(0.05, 0.5) over the lanes,
+  permuted (default_rng(0)) -- in phases [100, 400] beside one long
+  solve_fused; :536-559's 1M fleet (B=2^20, segments of 2^18); :503-526's
+  streamed N=256 batch (B=4096) on both backends; bench_all.py:224-250's
+  G=16 batch compacted in group units on both backends, and solved by
+  solve_fused_streamed beside the resident consensus kernel; and
+  :413-435's precision-recovery ladder on the hard batch (B=32768, z 1,
+  max_iter 500, precise_tail 500) beside its matched-budget control
+  (max_iter 1000 in phases [100, 400, 500]). The sources' "high" runs at
+  "highest" here, so the ladder's tail changes only the budget.
 
 Phases, each of which raises on failure:
 
@@ -120,7 +136,30 @@ Phases, each of which raises on failure:
 24. the G=16 scenario batch at B=32768, and the same batch without
    consensus on the families kernel;
 25. the scenario-tree warm loop, 256 x 8, T=20;
-26. the kernels line, then the device line last.
+26. compaction on the kernels against compaction on the plain versions on
+   the CPU, B=1024: the box quadrotor's mixed batch (scales 0.05-0.45) at
+   ct 1 in phases of 15 and [100, 400] and at ct 25 in [100, 400], max_iter
+   500; the rocket SOC in phases of 20; adaptive rho (resident) in
+   [100, 400]; precise_tail 200 after a budget of 100; consensus 128 x 8 on
+   both backends;
+27. the streamed consensus kernels against their plain version and,
+   bitwise, the resident consensus kernel: phase 23's shapes at rho_c 100,
+   ct 1, cold then 4 warm solves;
+28. the mixed batch at B=262144 in phases [100, 400], bitwise against one
+   long solve_fused, with both times and the long solve's lane, warp and
+   block occupancy;
+29. the 1M fleet in segments of 2^18, bitwise against one long solve;
+30. streamed compaction at N=256, B=4096, on both backends, bitwise
+   against phase 20's long streamed solve, with "auto"'s pick and the
+   three times;
+31. consensus compaction of the G=16 batch on both backends, bitwise
+   between them and against a loop of full-width final=True phases with a
+   first-convergence freeze, the spread bar (its witness admm.solve on the
+   same phases); the same batch through
+   solve_fused_streamed beside the resident consensus kernel, and the
+   streamed consensus kernels per launch;
+32. the ladder against its matched-budget control, bitwise;
+33. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -148,8 +187,11 @@ is held to the bar against the plain version on the CPU (on the lanes
 whose counts agree), and against the plain version on the card to that
 version's own spread from the CPU. The streamed solve is held bitwise
 against the resident kernel on the same inputs (the same device functions;
-phases 17-21), and against its plain version at the bar, each single launch
-too; a plain run of fewer than 16384 lanes takes the batch repeated to
+phases 17-21, and under consensus phases 27 and 31), and against its plain
+version at the bar, each single launch too; a compacted solve is held
+bitwise against one long kernel solve (kernel against kernel: cuBLAS's
+order in a plain version depends on the width) and at the bar against
+compaction on the plain versions on the CPU; a plain run of fewer than 16384 lanes takes the batch repeated to
 16384, where cuBLAS sums each product in the kernels' column order. A
 consensus lane is held only where every lane of its group agrees on the
 count (at every step so far), and each group whose lanes all converged
@@ -225,6 +267,12 @@ CONS_N, CONS_RHO, CONS_ITER = 10, 100.0, 500
 CONS_NG, CONS_G = 2048, 16
 TREE_NG, TREE_G, TREE_T = 256, 8, 20
 CONS_SMALL_B = 1024
+# Lane compaction (make_compact_solver): bench_all.py:448-452 / :497-501's
+# mixed batch to convergence (B=262144), :536-559's 1M fleet in segments
+# of 2^18, both in phases [100, 400]; the small comparisons at B=1024.
+COMPACT_B, COMPACT_FLEET_B, COMPACT_SEGMENT = 262144, 1 << 20, 1 << 18
+COMPACT_CHUNK = [100, 400]
+COMPACT_SMALL_B = 1024
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -763,10 +811,12 @@ def ptxas_entries(text):
 def kernel_label(fn):
     """A readable name for a mangled kernel name of csrc/."""
     m = re.search(r"stream_(backward|forward)_kernelILi(\d+)ELi(\d+)E"
-                  r"(?:Lb([01])E)?", fn)
+                  r"Lb([01])E(?:Lb([01])E)?", fn)
     if m:
-        stale = " stale" if m[4] == "1" else ""
-        return f"admm_stream {m[1]}{stale} ({m[2]}, {m[3]})"
+        # backward<NX, NU, CONS>, forward<NX, NU, STALE, CONS>
+        stale, cons = (m[4], m[5]) if m[1] == "forward" else ("0", m[4])
+        return (f"admm_stream {m[1]}{' stale' if stale == '1' else ''}"
+                f"{' consensus' if cons == '1' else ''} ({m[2]}, {m[3]})")
     m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])EN7tinympc\d+(NoFamilies|"
                   r"Families)", fn)
     if m:
@@ -1134,23 +1184,29 @@ def stream_floats(spec, track=False):
     each family's slack and dual and writes d; the forward reads x0, g, y,
     d, the previous slacks and each family's dual and writes the slacks,
     the duals and each family's slack and dual (and, tracked, x and u).
-    Returns (backward, forward)."""
+    Under consensus the backward also reads each lane's zc0 and yc0, and
+    the forward reads and writes them (a lane that converges in the launch
+    also writes its standing offer, nu floats, which the caller counts
+    from the run's data). Returns (backward, forward)."""
     N, nx, nu = spec.N, spec.nx, spec.nu
+    cb, cf = (2 * nu, 4 * nu) if spec.en_consensus else (0, 0)
     fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
                         spec.n_tv_state_lin)))
     fu = sum(map(bool, (spec.enabled_input_cones, spec.n_input_lin,
                         spec.n_tv_input_lin)))
     sx, su = N * nx, (N - 1) * nu
-    bwd = 2 * sx + 3 * su + 2 * fx * sx + 2 * fu * su
-    fwd = nx + 4 * sx + 5 * su + 3 * fx * sx + 3 * fu * su
+    bwd = 2 * sx + 3 * su + 2 * fx * sx + 2 * fu * su + cb
+    fwd = nx + 4 * sx + 5 * su + 3 * fx * sx + 3 * fu * su + cf
     return bwd, fwd + (sx + su if track else 0)
 
 
-def stream_ops(spec):
+def stream_ops(spec, group=0):
     """Operations of one lane's backward and forward launch, as
     iteration_ops and family_ops count them: the backward sweep's
     products and linear cost (with each family's term, 3 a feature), the
-    forward sweep's products, projections and dual updates."""
+    forward sweep's products, projections and dual updates; under
+    consensus in groups of ``group`` lanes, r[0]'s term (3 a feature) and
+    consensus_ops (the step-0 gains replace products counted already)."""
     N, nx, nu = spec.N, spec.nx, spec.nu
     fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
                         spec.n_tv_state_lin)))
@@ -1161,6 +1217,8 @@ def stream_ops(spec):
         + (N - 1) * (6 * nx + 5 * nu) + cost
     fwd = 2 * (N - 1) * ((nu + nx) * nx + nx * nu) + N * nx * 5 \
         + (N - 1) * (nu * 6 + 2 * nx) + family_ops(spec) - cost
+    if spec.en_consensus:
+        bwd, fwd = bwd + 3 * nu, fwd + consensus_ops(group, nu)
     return bwd, fwd
 
 
@@ -1214,7 +1272,8 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     runs (the forward stale on a warm state): per-launch ms of each (CUDA
     events, median of REPS), one launch of each against its plain version
     on the same inputs (largest difference over every array it writes),
-    and the plain version's ms for one launch on the card."""
+    the plain version's ms for one launch on the card, and the lanes that
+    converged in the compared forward launch."""
     warm = carry is not None
     tables, x0c, carry_t, params = ast._prepare(prob, Xref, Uref, x0, carry,
                                                 warm)
@@ -1223,7 +1282,7 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     kw = {k: v for k, v in params.items() if k != "max_iter"}
 
     def fresh(launcher):
-        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"])
+        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"])
         return s, launcher(tables, x0c, s, carry_t, N, nx, nu, **kw)
 
     bwd, fwd = [], []
@@ -1240,7 +1299,8 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     run.forward(0, warm)
     plain_fwd_ms = host_ms(torch, lambda: plain.forward(0, warm))[0]
     pairs = [(s[k], sp[k]) for k in ("vnew", "znew", "g", "y", "res", "x",
-                                     "u") if s[k] is not None]
+                                     "u", "zc0", "yc0", "offer")
+             if s[k] is not None]
     pairs += [(a, b) for a, b in zip(s["fams"], sp["fams"]) if a is not None]
     err_f = max((a - b).abs().max().item() for a, b in pairs)
     same = torch.equal(s["iters"], sp["iters"]) and torch.equal(s["done"],
@@ -1248,7 +1308,8 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     return dict(bwd_ms=statistics.median(bwd), fwd_ms=statistics.median(fwd),
                 bwd_reps=bwd, fwd_reps=fwd, err_b=err_b,
                 err_f=err_f if same else float("inf"),
-                plain_bwd_ms=plain_bwd_ms, plain_fwd_ms=plain_fwd_ms)
+                plain_bwd_ms=plain_bwd_ms, plain_fwd_ms=plain_fwd_ms,
+                converged=int(s["done"].sum().item()))
 
 
 def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
@@ -1269,9 +1330,8 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
                if carry is None else
                kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, carry))
         torch.cuda.synchronize()
-        launches = (ast.stream_backward_launch_count,
-                    ast.stream_forward_launch_count,
-                    ast.stream_forward_stale_launch_count)
+        launches = tuple(ast.launch_counts[k] for k in (
+            "backward", "forward", "forward_stale"))
         if launches[0] < 1 or launches[1] + launches[2] < 1:
             raise AssertionError(f"{label} did not launch the streamed "
                                  "kernels")
@@ -1392,9 +1452,8 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
         carries.append(c_k)
         x = x @ prob.A.T + sol_k.u[0] @ prob.B.T
     torch.cuda.synchronize()
-    warm_launches = (ast.stream_backward_launch_count,
-                     ast.stream_forward_launch_count,
-                     ast.stream_forward_stale_launch_count)
+    warm_launches = tuple(ast.launch_counts[k] for k in (
+        "backward", "forward", "forward_stale"))
     if warm_launches[2] < 5:
         raise AssertionError("the warm long-horizon sequence did not launch "
                              "the stale forward kernel")
@@ -1558,7 +1617,7 @@ def spread_stats(sol, tol_pri):
                 all=spread.max().item())
 
 
-def hold_spread(label, stats, tol_pri, witness):
+def hold_spread(label, stats, tol_pri, witness, also=()):
     """tests/test_fused_kernel.py:262-268's bar: each group whose lanes all
     converged has its u[0] spread below 2 abs_pri_tol + 1e-5. A lane
     converges on its own |u[0] - zc0| < abs_pri_tol against the group
@@ -1568,7 +1627,9 @@ def hold_spread(label, stats, tol_pri, witness):
     it, ``witness()`` -- the port's admm.solve on the same inputs in
     float32 on the card, the JAX package's XLA path's rule -- gives the
     share of solved groups that miss it there, and the kernel's share may
-    pass that by WITNESS_SLACK at most."""
+    pass that by WITNESS_SLACK at most. ``also`` names further witnesses,
+    (name, function) pairs, whose shares are printed beside it and not
+    held."""
     bar = 2 * tol_pri + 1e-5
     msg = (f"  {label}: solved groups {stats['solved']} of "
            f"{stats['groups']}, their largest u[0] spread "
@@ -1584,6 +1645,11 @@ def hold_spread(label, stats, tol_pri, witness):
         f"inputs: solved groups {w['solved']}, largest spread "
         f"{w['worst']:.3e}, {w['over']} pass the bar (share of solved "
         f"groups: kernel {share:.5f}, admm.solve {share_w:.5f})")
+    for name, fn in also:
+        a = spread_stats(fn(), tol_pri)
+        log(f"  {label}: beside it, {name}: solved groups {a['solved']}, "
+            f"largest spread {a['worst']:.3e}, {a['over']} pass the bar "
+            f"(share {a['over'] / max(a['solved'], 1):.5f}; not held)")
     fail(label, share <= share_w + WITNESS_SLACK, f"{share:.4f} of solved "
          f"groups pass the spread bar, admm.solve's {share_w:.4f}")
 
@@ -1906,9 +1972,455 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     return rows
 
 
+def mixed_inputs(torch, B, lo=0.05, hi=0.5, permute=True):
+    """x0 = U[-1, 1]^12 times scales linspace(lo, hi) over the lanes, then
+    permuted (bench_all.py:448-452; default_rng(0)); unpermuted, the mixed
+    batch of tests/test_compact.py:42-47."""
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(-1, 1, (B, 12)) * np.linspace(lo, hi, B)[:, None]
+    if permute:
+        x0 = x0[rng.permutation(B)]
+    return torch.as_tensor(x0, dtype=torch.float32, device=DEVICE)
+
+
+def hover_ref(torch, N, z):
+    """Hover at height z over the horizon."""
+    Xref = np.zeros((N, 12))
+    Xref[:, 2] = z
+    return torch.as_tensor(Xref, dtype=torch.float32, device=DEVICE)
+
+
+def warp_shares(iters, its, block):
+    """Share of the lane-iterations of a run of ``its`` iterations that a
+    running lane, a warp with a running lane and a block with one take (a
+    converged lane idles in its warp; a block exits with its slowest
+    lane)."""
+    it = iters.reshape(-1)
+    B = it.numel()
+    return {n: int(it.reshape(-1, n).amax(dim=1).sum().item()) * n
+            / (its * B) for n in (1, 32, block)}
+
+
+def stream_consensus_small(torch, tt, ast, counters):
+    """Phase 27: the streamed consensus kernels against their plain version
+    and, bitwise, against the resident consensus kernel, cold and then 4
+    warm solves (phase 23's shapes). Returns the largest difference from
+    the plain version."""
+    kern = tt.kernels
+    ref, ref_warm = (kern.solve_fused_streamed_reference,
+                     kern.solve_fused_streamed_warm_reference)
+    phase(f"phase 27: streamed consensus kernels vs plain version and the "
+          f"resident consensus kernel, B={CONS_SMALL_B}")
+    err = 0.0
+    cases = [(f"quadrotor rho_c={CONS_RHO} {ng}x{G}", (ng, G), "quad")
+             for ng, G in ((CONS_SMALL_B // 8, 8), (CONS_SMALL_B // 2, 2),
+                           (8, CONS_SMALL_B // 8))]
+    cases.append((f"rocket SOC rho_c={CONS_RHO} {CONS_SMALL_B // 8}x8",
+                  (CONS_SMALL_B // 8, 8), "rocket"))
+    for label, (ng, G), kind in cases:
+        B = ng * G
+        if kind == "quad":
+            prob = consensus_problem(tt, torch, 100, 1)
+            x0, Xref = inputs(torch, B, N=CONS_N, spread=0.3)
+            Xref = Xref.clone()
+            Xref[:, 2] = 0.5
+            Uref = None
+        else:
+            prob = tt.with_consensus(rocket_problem(tt, torch, 100, 1),
+                                     rho_c=CONS_RHO)
+            x0, Xref, Uref = rocket_inputs(torch, B)
+        x = x0.reshape(ng, G, -1)
+        zero_counts(counters)
+        cold = kern.solve_fused_streamed(prob, Xref, Uref, x)
+        torch.cuda.synchronize()
+        if ast.launch_counts["forward_consensus"] < 1:
+            raise AssertionError(f"{label} did not launch the streamed "
+                                 "consensus kernels")
+        same_bits(torch, f"{label} streamed cold", cold,
+                  kern.solve_fused(prob, Xref, Uref, x), "solve_fused")
+        sol_p, res_p = plain_groups(torch, ref, prob, Xref, Uref, x)
+        fk, fp = lanes(cold[0]), lanes(sol_p)
+        agreed = group_agree(fk.iter, fp.iter, G)
+        err = max(err, compare(torch, f"{label} streamed cold vs plain", fk,
+                               fp, cold[1].reshape(4, -1),
+                               res_p.reshape(4, -1), lanes=agreed))
+        c_s = c_r = c_p = tt.init_carry(prob, B)
+        for step in range(1, 5):
+            name = f"{label} streamed warm step {step}"
+            before = agreed.clone()
+            s = kern.solve_fused_streamed_warm(prob, Xref, Uref, x, c_s)
+            r = kern.solve_fused_warm(prob, Xref, Uref, x, c_r)
+            sol_p, _, c_p = plain_groups(torch, ref_warm, prob, Xref, Uref, x,
+                                         c_p)
+            torch.cuda.synchronize()
+            same_bits(torch, name, s, r, "solve_fused_warm")
+            fk, fp = lanes(s[0]), lanes(sol_p)
+            agreed &= group_agree(fk.iter, fp.iter, G)
+            err = max(err, compare(torch, f"{name} vs plain", fk, fp,
+                                   lanes=agreed, among=before),
+                      compare_carry(torch, f"{name} vs plain", s[2], c_p,
+                                    agreed))
+            c_s, c_r = s[2], r[2]
+            x = (x.reshape(B, -1) @ prob.A.T + fk.u[0] @ prob.B.T
+                 + prob.f).reshape(ng, G, -1)
+    return err
+
+
+def compaction_phases(torch, tt, convert, admm_fused, ast, compact, counters,
+                      card, peak_flops, peak_bw):
+    """Phases 26-32: lane compaction (kernels/compact.py) on the resident
+    and streamed kernels, warm final=True phases, and the consensus
+    instantiations of the streamed kernels. Returns the kernels-line
+    numbers of the streamed consensus kernels."""
+    kern = tt.kernels
+    cpu = lambda a: None if a is None else a.cpu()
+    warm_counts = ("warm_launch_count", "families_warm_launch_count",
+                   "adaptive_warm_launch_count",
+                   "consensus_warm_launch_count")
+
+    def drive(label, prob, x0, Xref=None, Uref=None, **kw):
+        """One compacted solve through make_compact_solver with the counts
+        at 0: its result, the phases it ran and the launches of each warm
+        instantiation and of the streamed kernels."""
+        zero_counts(counters)
+        compact.phase_count = 0
+        out = kern.make_compact_solver(prob, **kw)(x0, Xref, Uref)
+        torch.cuda.synchronize()
+        warm = sum(getattr(admm_fused, k) for k in warm_counts)
+        stream = sum(ast.launch_counts[k] for k in (
+            "forward_stale", "forward_consensus_stale"))
+        phases = compact.phase_count
+        if phases < 1 or warm + stream != phases:
+            raise AssertionError(f"{label}: {phases} phases but {warm} warm "
+                                 f"and {stream} stale streamed launches")
+        fail(label, bool(torch.isfinite(out[0].x).all()
+                         and torch.isfinite(out[0].u).all()),
+             "output is not finite")
+        return out, phases
+
+    # 26. compaction on the kernels against compaction on the plain
+    # versions on the CPU, at the bar of kernel against plain version
+    B = COMPACT_SMALL_B
+    phase(f"phase 26: compaction kernels vs plain versions, B={B}")
+    x_mixed = mixed_inputs(torch, B, 0.05, 0.45, permute=False)
+    x_hard = torch.as_tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (B, 12)), dtype=torch.float32, device=DEVICE)
+    z1 = hover_ref(torch, N_HORIZON, 1.0)
+    x_rock, Xr, Ur = rocket_inputs(torch, B)
+    x_tree, Xt = tree_inputs(torch, B // 8, 8, 0.5)
+    tables = tt.systems.crazyflie_sensitivity_tables()
+    small = [
+        ("box ct 1 chunk 15", lambda: problem(tt, torch, 500, 1), x_mixed,
+         None, None, dict(chunk=15)),
+        ("box ct 1 chunk [100, 400]", lambda: problem(tt, torch, 500, 1),
+         x_mixed, None, None, dict(chunk=COMPACT_CHUNK)),
+        ("box ct 25 chunk [100, 400]", lambda: problem(tt, torch, 500, 25),
+         x_mixed, None, None, dict(chunk=COMPACT_CHUNK)),
+        ("rocket SOC chunk 20", lambda: rocket_problem(tt, torch, 100, 1),
+         x_rock, Xr, Ur, dict(chunk=20)),
+        ("adaptive rho chunk [100, 400]", lambda: adaptive_problem(
+            tt, torch, 5.0, N_HORIZON, 500, 1, tables=tables), x_hard, z1,
+         None, dict(chunk=COMPACT_CHUNK, backend="resident")),
+        ("box precise_tail 200 after 100", lambda: problem(tt, torch, 100,
+                                                            1),
+         x_mixed, None, None, dict(chunk=50, precise_tail=200)),
+    ] + [(f"consensus 128x8 {be} chunk [100, 400]",
+          lambda: consensus_problem(tt, torch, 500, 1), x_tree, Xt, None,
+          dict(chunk=COMPACT_CHUNK, backend=be))
+         for be in ("resident", "streamed")]
+    for label, make, x0, Xref, Uref, kw in small:
+        prob = make()
+        prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                            "cpu")
+        (sol_k, res_k), phases = drive(label, prob, x0, Xref, Uref, **kw)
+        t0 = time.perf_counter()
+        sol_c, res_c = kern.make_compact_solver(prob_c, **kw)(
+            cpu(x0), cpu(Xref), cpu(Uref))
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        atol = 1e-3 if prob.settings.max_iter >= 500 else BAR_ATOL
+        rows = res_k.shape[0]
+        fk, fc = lanes(on_cpu(sol_k)), lanes(sol_c)
+        held = (group_agree(fk.iter, fc.iter, x0.shape[1])
+                if prob.spec.en_consensus else fk.iter == fc.iter)
+        compare(torch, f"{label} vs plain(cpu)", fk, fc,
+                res_k.reshape(rows, -1).cpu(), res_c.reshape(rows, -1),
+                atol=atol, lanes=held)
+        if rows == 5:
+            compare_rho(f"{label} vs plain(cpu)", res_k[4].cpu(), res_c[4],
+                        held)
+        log(f"  {label}: {phases} phases, mean iters "
+            f"{fk.iter.float().mean().item():.4f} (max "
+            f"{fk.iter.max().item()}), solved frac "
+            f"{fk.solved.float().mean().item():.5f}, plain (CPU) "
+            f"{plain_ms:.1f} ms")
+
+    err = stream_consensus_small(torch, tt, ast, counters)
+
+    # 28. bench_all.py:448-452 / :497-501, the mixed batch to convergence
+    B = COMPACT_B
+    phase(f"phase 28: compaction of the mixed batch, B={B}, N={N_HORIZON}, "
+          f"max_iter 500, ct 1, chunk {COMPACT_CHUNK}")
+    prob = problem(tt, torch, 500, 1)
+    x0 = mixed_inputs(torch, B)
+    long_ms, long = host_ms(torch, lambda: kern.solve_fused(prob, None, None,
+                                                            x0))
+    (sol_c, res_c), phases = drive("mixed batch", prob, x0,
+                                   chunk=COMPACT_CHUNK)
+    same_bits(torch, "mixed batch compaction", (sol_c, res_c), long,
+              "one long solve_fused")
+    solver = kern.make_compact_solver(prob, chunk=COMPACT_CHUNK)
+    t_long = [host_ms(torch, lambda: kern.solve_fused(prob, None, None,
+                                                      x0))[0]
+              for _ in range(3)]
+    t_comp = [host_ms(torch, lambda: solver(x0))[0] for _ in range(3)]
+    card_comp, _ = cuda_ms(torch, lambda: solver(x0), 3)
+    it, sv = long[0].iter, long[0].solved
+    live = int((~(sv & (it <= COMPACT_CHUNK[0]))).sum().item())
+    sh = warp_shares(it, int(it.max().item()), admm_fused.BLOCK)
+    # The compacted solve's work: the long solve's iterations (the counts
+    # are the same), x0 and the outputs once, and each phase's carry read
+    # and written once at the phase's width.
+    ops, nbytes = fused_work(N_HORIZON, 12, 4, B, int(it.sum().item()))
+    nbytes += 2 * 4 * lane_carry_floats(tt.init_carry(prob, 1)) * (
+        B + max(live, min(256, B)))
+    b_comp = bound(ops, nbytes, peak_flops, peak_bw)
+    log(f"  mixed batch: one long solve_fused {statistics.median(t_long):.4f}"
+        f" ms (reps {[round(t, 4) for t in t_long]}), compaction "
+        f"{statistics.median(t_comp):.4f} ms (reps "
+        f"{[round(t, 4) for t in t_comp]}), both on the host clock; "
+        f"compaction {card_comp:.4f} ms on the card's clock, bound "
+        f"{b_comp[0]:.4f} ms ({b_comp[1]}); "
+        f"{phases} phases, live lanes {B} then {live} "
+        f"({live / B:.4f}); solved frac {sv.float().mean().item():.5f}, "
+        f"mean iters {it.float().mean().item():.4f}; the long solve's "
+        f"lane-iterations with a running lane {sh[1]:.4f}, warp-iterations "
+        f"with one {sh[32]:.4f}, block-iterations with one "
+        f"{sh[admm_fused.BLOCK]:.4f}; "
+        f"first call of the compaction {long_ms:.1f} ms long; card {card}")
+    del long, sol_c, res_c
+
+    # 29. bench_all.py:536-559, the 1M fleet, segments of 2^18
+    B = COMPACT_FLEET_B
+    phase(f"phase 29: the 1M fleet, B={B}, segment={COMPACT_SEGMENT}, "
+          f"chunk {COMPACT_CHUNK}")
+    x0 = mixed_inputs(torch, B)
+    t_long, long = host_ms(torch, lambda: kern.solve_fused(prob, None, None,
+                                                           x0))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (sol_c, res_c), phases = drive("1M fleet", prob, x0, chunk=COMPACT_CHUNK,
+                                   segment=COMPACT_SEGMENT)
+    t_comp = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    same_bits(torch, "1M fleet compaction", (sol_c, res_c), long,
+              "one long solve_fused")
+    log(f"  1M fleet: one long solve_fused {t_long:.4f} ms, compaction "
+        f"{t_comp:.4f} ms ({phases} phases over {B // COMPACT_SEGMENT} "
+        f"segments), both on the host clock; peak device memory of the "
+        f"compaction {peak:.2f} GiB; solved frac "
+        f"{long[0].solved.float().mean().item():.5f}; card {card}")
+    del long, sol_c, res_c, x0
+
+    # 30. bench_all.py:503-526, streamed compaction at N=256
+    B = LH_CONV_B
+    phase(f"phase 30: streamed compaction, N={LH_CONV_N}, B={B}, max_iter "
+          f"{LH_CONV_ITER}, chunk {COMPACT_CHUNK}")
+    prob = problem(tt, torch, LH_CONV_ITER, 1, N=LH_CONV_N)
+    x0 = mixed_inputs(torch, B)
+    long = kern.solve_fused_streamed(prob, None, None, x0)
+    out = {}
+    for be in ("streamed", "resident"):
+        out[be], phases = drive(f"N={LH_CONV_N} {be} compaction", prob, x0,
+                                chunk=COMPACT_CHUNK, backend=be)
+        same_bits(torch, f"N={LH_CONV_N} {be} compaction", out[be], long,
+                  "phase 20's long solve_fused_streamed")
+    auto = compact._backend(prob, "auto")
+    t = {name: statistics.median(host_ms(torch, fn)[0] for _ in range(3))
+         for name, fn in (
+             ("long streamed", lambda: kern.solve_fused_streamed(
+                 prob, None, None, x0)),
+             ("streamed compaction", lambda: kern.make_compact_solver(
+                 prob, chunk=COMPACT_CHUNK, backend="streamed")(x0)),
+             ("resident compaction", lambda: kern.make_compact_solver(
+                 prob, chunk=COMPACT_CHUNK, backend="resident")(x0)))}
+    log(f"  N={LH_CONV_N}: \"auto\" picks {auto}; on the host clock "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; solved frac {long[0].solved.float().mean().item():.5f}; card "
+        f"{card}")
+    del long, out
+
+    # 31. bench_all.py:224-250's G=16 batch: consensus compaction on both
+    # backends, and the streamed consensus solve beside the resident one
+    ng, G, B = CONS_NG, CONS_G, CONS_NG * CONS_G
+    phase(f"phase 31: consensus compaction, {ng} x {G}, max_iter "
+          f"{CONS_ITER}, chunk {COMPACT_CHUNK}; the streamed consensus "
+          f"solve")
+    prob = consensus_problem(tt, torch, CONS_ITER, 1)
+    x0, Xref = tree_inputs(torch, ng, G, 0.5)
+    comp, stale = {}, 0
+    for be in ("resident", "streamed"):
+        comp[be], _ = drive(f"G={G} {be} compaction", prob, x0, Xref,
+                            chunk=COMPACT_CHUNK, backend=be)
+        if be == "streamed":
+            stale = ast.launch_counts["forward_consensus_stale"]
+    same_bits(torch, f"G={G} compaction", comp["streamed"], comp["resident"],
+              "the resident backend")
+    # The manual loop on the card: every phase relaunches every group
+    # (full width) from its carry, the host keeps first-convergence
+    # outputs (tests/test_compact.py:296-321).
+    carry, man, used = tt.init_carry(prob, B), None, 0
+    for step in COMPACT_CHUNK:
+        p = tt.with_settings(prob, max_iter=step)
+        sol, res, carry = kern.solve_fused_warm(p, Xref, None, x0, carry,
+                                                final=True)
+        new = [sol.x, sol.u, sol.iter, sol.solved, res]
+        if man is None:
+            man = new
+        else:
+            live = ~man[3]
+            man = [torch.where(live[None, ..., None], new[0], man[0]),
+                   torch.where(live[None, ..., None], new[1], man[1]),
+                   torch.where(live, used + new[2], man[2]),
+                   man[3] | new[3],
+                   torch.where(live[None], new[4], man[4])]
+        used += step
+    same_bits(torch, f"G={G} compaction", comp["resident"],
+              (tt.Solution(iter=man[2], solved=man[3], x=man[0], u=man[1]),
+               man[4]), "the manual loop of final=True phases")
+    # The spread bar's witness: admm.solve (the XLA path's rule) on the
+    # same phases, its state carried between them and a lane's outputs
+    # kept from its first convergence on. A compacted consensus solve is a
+    # sequence of warm solves, each re-seeding a live group's slack from
+    # the carried u[0] (tinympc_tpu/kernels/compact.py:42-50), and misses
+    # the bar more often than one long solve does; one long admm.solve is
+    # printed beside it, and tests/test_torch_compact.py shows the JAX
+    # package's own compaction missing it more often than its long solve.
+    def phased_admm():
+        st, out = tt.init_state(prob, (ng, G)), None
+        for step in COMPACT_CHUNK:
+            sol, st, _ = tt.solve(tt.with_settings(prob, max_iter=step), st,
+                                  Xref, None, x0)
+            if out is None:
+                out = sol
+            else:
+                live = ~out.solved
+                out = dataclasses.replace(
+                    out, u=torch.where(live[None, ..., None], sol.u, out.u),
+                    solved=out.solved | sol.solved)
+        return out
+
+    hold_spread(f"G={G} compaction", spread_stats(comp["resident"][0],
+                                                  prob.settings.abs_pri_tol),
+                prob.settings.abs_pri_tol, phased_admm,
+                also=[("one long admm.solve", lambda: tt.solve(
+                    prob, tt.init_state(prob, (ng, G)), Xref, None,
+                    x0)[0])])
+    zero_counts(counters)
+    s_cold = kern.solve_fused_streamed(prob, Xref, None, x0)
+    torch.cuda.synchronize()
+    launches = (ast.launch_counts["backward_consensus"],
+                ast.launch_counts["forward_consensus"])
+    if min(launches) < 1 or stale < 1:
+        raise AssertionError("the G=16 batch did not launch the streamed "
+                             "consensus kernels")
+    same_bits(torch, f"G={G} streamed solve", s_cold,
+              kern.solve_fused(prob, Xref, None, x0), "solve_fused")
+    t = {name: statistics.median(host_ms(torch, fn)[0] for _ in range(3))
+         for name, fn in (
+             ("resident solve_fused", lambda: kern.solve_fused(
+                 prob, Xref, None, x0)),
+             ("solve_fused_streamed", lambda: kern.solve_fused_streamed(
+                 prob, Xref, None, x0)),
+             ("resident compaction", lambda: kern.make_compact_solver(
+                 prob, chunk=COMPACT_CHUNK)(x0, Xref)),
+             ("streamed compaction", lambda: kern.make_compact_solver(
+                 prob, chunk=COMPACT_CHUNK, backend="streamed")(x0, Xref)))}
+    log(f"  G={G}: on the host clock " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; streamed launches {launches} + {stale} stale (in the "
+        f"compaction); solved frac "
+        f"{s_cold[0].solved.float().mean().item():.5f}; card {card}")
+    # Per launch, on iteration 0 of a fresh state: cold, and stale from
+    # the compaction's first-phase carry.
+    spec = prob.spec
+    lt = stream_launches(torch, ast, prob, Xref, None, x0)
+    c1 = kern.solve_fused_streamed_warm(tt.with_settings(prob, max_iter=100),
+                                        Xref, None, x0,
+                                        tt.init_carry(prob, B))[2]
+    lt_s = stream_launches(torch, ast, prob, Xref, None, x0, c1)
+    # A lane that converges in the measured launch also stores its offer.
+    fb, ff = stream_floats(spec)
+    ob, of = stream_ops(spec, G)
+    b_bwd = bound(B * ob, 4 * B * fb, peak_flops, peak_bw)
+    b_fwd = bound(B * of, 4 * (B * ff + spec.nu * lt["converged"]),
+                  peak_flops, peak_bw)
+    b_stale = bound(B * of, 4 * (B * stream_floats(spec, True)[1]
+                                 + spec.nu * lt_s["converged"]),
+                    peak_flops, peak_bw)
+    log(f"  G={G}: lanes that converged in the measured forward launch "
+        f"{lt['converged']}, stale {lt_s['converged']}")
+    for name, ms, plain, b, e in (
+            ("backward", lt["bwd_ms"], lt["plain_bwd_ms"], b_bwd,
+             lt["err_b"]),
+            ("forward", lt["fwd_ms"], lt["plain_fwd_ms"], b_fwd,
+             lt["err_f"]),
+            ("forward stale", lt_s["fwd_ms"], lt_s["plain_fwd_ms"], b_stale,
+             lt_s["err_f"])):
+        log(f"  G={G} streamed consensus {name}: {ms:.4f} ms a launch, "
+            f"bound {b[0]:.6f} ms ({b[1]}), plain {plain:.1f} ms, one launch "
+            f"vs plain max diff {e:.3e}; card {card}")
+        fail(f"G={G} streamed consensus {name}", e <= BAR_ATOL,
+             f"one launch differs from its plain version by {e:.3e}")
+    rows = {
+        "backward_consensus": dict(
+            launches=launches[0], err=max(err, lt["err_b"]),
+            ms=lt["bwd_ms"], plain_ms=lt["plain_bwd_ms"], bound_ms=b_bwd[0],
+            bound_by=b_bwd[1]),
+        "forward_consensus": dict(
+            launches=launches[1], err=max(err, lt["err_f"]),
+            ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"], bound_ms=b_fwd[0],
+            bound_by=b_fwd[1]),
+        "forward_consensus_stale": dict(
+            launches=stale, err=max(err, lt_s["err_f"]), ms=lt_s["fwd_ms"],
+            plain_ms=lt_s["plain_fwd_ms"], bound_ms=b_stale[0],
+            bound_by=b_stale[1])}
+
+    # 32. bench_all.py:413-435, the precision-recovery ladder beside its
+    # matched-budget control
+    B = ADAPT_B
+    phase(f"phase 32: the ladder, hard batch B={B}, max_iter 500 + "
+          f"precise_tail 500 against max_iter 1000 in [100, 400, 500]")
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+        -0.5, 0.5, (B, 12)), dtype=torch.float32, device=DEVICE)
+    p500, p1k = problem(tt, torch, 500, 1), problem(tt, torch, 1000, 1)
+    (lad, ladres), ph_l = drive("ladder", p500, x0, z1, chunk=COMPACT_CHUNK,
+                                precise_tail=500)
+    (ctl, ctlres), ph_c = drive("ladder control", p1k, x0, z1,
+                                chunk=COMPACT_CHUNK + [500])
+    same_bits(torch, "ladder", (lad, ladres), (ctl, ctlres),
+              "the matched-budget control")
+    t_l = host_ms(torch, lambda: kern.make_compact_solver(
+        p500, chunk=COMPACT_CHUNK, precise_tail=500)(x0, z1))[0]
+    t_c = host_ms(torch, lambda: kern.make_compact_solver(
+        p1k, chunk=COMPACT_CHUNK + [500])(x0, z1))[0]
+    base = kern.solve_fused(p500, z1, None, x0)[0]
+    log(f"  ladder: {t_l:.4f} ms ({ph_l} phases), control {t_c:.4f} ms "
+        f"({ph_c} phases), on the host clock; solved frac at 500 "
+        f"{base.solved.float().mean().item():.5f}, after the tail "
+        f"{lad.solved.float().mean().item():.5f}, lanes past 500 "
+        f"{(lad.iter > 500).float().mean().item():.5f}; card {card}")
+    return rows
+
+
 def zero_counts(kernels):
+    """Set every launch count to 0: a module's counter, or each entry of
+    a module's dict of counters."""
     for mod, attr in kernels:
-        setattr(mod, attr, 0)
+        counts = getattr(mod, attr)
+        if isinstance(counts, dict):
+            counts.update(dict.fromkeys(counts, 0))
+        else:
+            setattr(mod, attr, 0)
 
 
 def main():
@@ -1919,10 +2431,9 @@ def main():
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch import convert
     from tinympc_tpu_torch.kernels import _build, admm_fused, admm_stream, \
-        closed_loop_kernel
-    counters = ((admm_stream, "stream_backward_launch_count"),
-                (admm_stream, "stream_forward_launch_count"),
-                (admm_stream, "stream_forward_stale_launch_count"),
+        closed_loop_kernel, compact
+    counters = ((admm_stream, "launch_counts"),
+                (compact, "phase_count"),
                 (admm_fused, "launch_count"),
                 (admm_fused, "warm_launch_count"),
                 (admm_fused, "families_launch_count"),
@@ -2454,6 +2965,9 @@ def main():
                                   counters, card, peak_flops, peak_bw)
     cons_rows = consensus_phases(torch, tt, convert, admm_fused, counters,
                                  card, peak_flops, peak_bw)
+    compact_rows = compaction_phases(torch, tt, convert, admm_fused,
+                                     admm_stream, compact, counters, card,
+                                     peak_flops, peak_bw)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -2461,8 +2975,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 26. kernels line, then the device line last
-    phase("phase 26: kernels line")
+    # 33. kernels line, then the device line last
+    phase("phase 33: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -2490,6 +3004,15 @@ def main():
                  ("backward", "tinympc_tpu/kernels/admm_stream.py:121"),
                  ("forward", "tinympc_tpu/kernels/admm_stream.py:258"),
                  ("forward_stale", "tinympc_tpu/kernels/admm_stream.py:258"))]
+    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
+              rep, compact_rows[key])
+             for key, rep in (
+                 ("backward_consensus",
+                  "tinympc_tpu/kernels/admm_stream.py:121"),
+                 ("forward_consensus",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_consensus_stale",
+                  "tinympc_tpu/kernels/admm_stream.py:258"))]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

@@ -323,14 +323,13 @@ def test_solve_fused_on_cpu_is_the_plain_version():
     ((1, 256, 12), "at most 128")])
 def test_refusals(shape, match):
     """x0s not (n_groups, G, nx), G not a power of two, and G past the
-    block; the streamed solve and the fused closed loop refuse consensus
-    (ROADMAP.md)."""
+    block, refused by the resident and the streamed solve alike; the fused
+    closed loop refuses consensus (ROADMAP.md)."""
     pt = _port(_jax_problem(5))
     with pytest.raises(ValueError, match=match):
         solve_fused(pt, None, None, torch.zeros(shape))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        tt.kernels.solve_fused_streamed(pt, None, None,
-                                        torch.zeros((1, 2, 12)))
+    with pytest.raises(ValueError, match=match):
+        tt.kernels.solve_fused_streamed(pt, None, None, torch.zeros(shape))
     with pytest.raises(ValueError, match="ROADMAP.md"):
         tt.kernels.closed_loop_fused(pt, torch.as_tensor(XREF),
                                      torch.zeros((2, 12)), 2)

@@ -72,13 +72,20 @@ def test_streamed_refuses_settings_outside_the_slice(settings, match):
 
 
 def test_streamed_refuses_consensus_and_other_sizes():
+    """Consensus without its step-0 gains (en_consensus set by hand, not by
+    with_consensus), a scenario group past the kernels' 128-lane block, an
+    uninstantiated (nx, nu) and a carry of another problem are refused."""
     p = _quad()
     consensus = p.replace(spec=dataclasses.replace(p.spec, en_consensus=True))
     s = tt.systems.cartpole()
     odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=5,
                    device="cpu")          # (nx, nu) = (4, 1): not built
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="with_consensus"):
         solve_fused_streamed(consensus, None, None, torch.zeros((2, 12)))
+    with pytest.raises(ValueError, match="power of two"):
+        solve_fused_streamed(tt.with_consensus(p), None, None,
+                             torch.zeros((1, 256, 12)))
+    assert stream_supported(tt.with_consensus(p))
     with pytest.raises(ValueError, match="instantiations"):
         solve_fused_streamed(odd, None, None, torch.zeros((2, 4)))
     assert not stream_supported(consensus) and not stream_supported(odd)
@@ -148,16 +155,18 @@ class _Entries:
         self.calls, self.active = [], active
 
     def backward(self, *args):
-        assert len(args) == 16
+        assert len(args) == 17
         nx, nu, N, B = args[:4]
         fam = [args[14][k] for k in range(12)]
         self.calls.append(("bwd", [args[4][k] for k in range(6)],
                            [p is not None for p in fam]))
         assert all(p is not None for p in args[6:14])
+        assert args[15] is None            # no consensus arguments
         return 0
 
     def forward(self, *args):
-        assert len(args) == 27
+        assert len(args) == 28
+        assert args[26] is None            # no consensus arguments
         stale, it, ct = args[0], args[5], args[6]
         prev = [args[13][k] for k in range(4)]
         assert prev[0] is not None and prev[1] is not None
@@ -182,10 +191,8 @@ def entries(monkeypatch):
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
                         types.SimpleNamespace(cuda_stream=0))
-    for name in ("stream_backward_launch_count",
-                 "stream_forward_launch_count",
-                 "stream_forward_stale_launch_count"):
-        monkeypatch.setattr(admm_stream, name, 0)
+    monkeypatch.setattr(admm_stream, "launch_counts",
+                        dict.fromkeys(admm_stream.launch_counts, 0))
     return e
 
 
@@ -216,9 +223,10 @@ def test_host_loop_launches_the_kernels(make, entries):
         ("bwd", list(fam), on), ("fwd", 1, False, False, on),
         ("bwd", list(fam), on), ("fwd", 0, True, tracked, on),
         ("bwd", list(fam), on), ("fwd", 1, False, tracked, on)]
-    assert admm_stream.stream_backward_launch_count == 4
-    assert admm_stream.stream_forward_launch_count == 3
-    assert admm_stream.stream_forward_stale_launch_count == 1
+    assert admm_stream.launch_counts == {
+        "backward": 4, "forward": 3, "forward_stale": 1,
+        "backward_consensus": 0, "forward_consensus": 0,
+        "forward_consensus_stale": 0}
     for f in dataclasses.fields(carry):
         assert (getattr(out, f.name) is None) == \
             (getattr(carry, f.name) is None), f.name

@@ -186,8 +186,15 @@ def test_solve_fused_warm_checks_its_inputs():
     c = init_carry(pt, 4)
     with pytest.raises(ValueError, match="carry"):
         solve_fused_warm(pt, Xref, None, x0, None)
-    with pytest.raises(ValueError, match="final"):
-        solve_fused_warm(pt, Xref, None, x0, c, final=True)
+    with pytest.raises(ValueError, match="carry"):
+        solve_fused_warm(pt, Xref, None, x0, None, final=True)
+    # final=True, the mode of lane compaction, is accepted: the port keeps
+    # no snapshots, so it hands over what final=False hands over.
+    a = solve_fused_warm(pt, Xref, None, x0, c, final=True)
+    b = solve_fused_warm(pt, Xref, None, x0, c)
+    assert all(torch.equal(getattr(a[0], k), getattr(b[0], k))
+               for k in ("x", "u", "iter", "solved"))
+    assert torch.equal(a[1], b[1]) and torch.equal(a[2].v, b[2].v)
     with pytest.raises(ValueError):
         solve_fused_warm(pt, Xref, None, x0, init_carry(pt, 3))
     soc = pt.replace(spec=dataclasses.replace(

@@ -35,8 +35,14 @@ Long horizons: ``kernels.solve_fused_streamed`` and
 ``solve_fused_streamed_warm`` (the same carry) run each iteration as a
 backward and a forward kernel over the horizon, with only the tables that do
 not grow with N in shared memory, so N may pass the resident kernel's
-shared-memory wall (~1190 at (12, 4)); fixed rho, every family but
-consensus.
+shared-memory wall (~1190 at (12, 4)); fixed rho, every family, with or
+without consensus.
+
+To convergence: ``kernels.make_compact_solver`` (and the one-shot
+``kernels.solve_fused_compact``) splits the budget into phases of warm
+``solve_fused_warm(final=True)`` (or streamed) solves and regathers the
+lanes still running between phases; bitwise equal to one long solve for box
+problems at fixed rho, and in group units under consensus.
 
 Adaptive rho: ``with_settings(prob, adaptive_rho=True)`` attaches the rho
 sensitivities (``with_sensitivities``; ``systems.crazyflie_sensitivity_

@@ -1,12 +1,15 @@
 // Streamed batched ADMM solve for long horizons: each iteration is two
 // launches, a backward and a forward sweep over the horizon, at fixed rho,
 // box constraints alone or with the other constraint families (second-order
-// cones, hyperplanes, time-varying hyperplanes; admm_families.cuh), cold or
+// cones, hyperplanes, time-varying hyperplanes; admm_families.cuh), with or
+// without scenario-tree consensus on u[0] (admm_consensus.cuh), cold or
 // warm. The host loop (kernels/admm_stream.py) launches them. One
 // instantiation serves every mix of families at each (nx, nu), (12, 4) and
 // (6, 3): a family that is off has count 0, and its hooks do nothing. (A
 // box-only instantiation, without the hooks, spilled 752 B in its backward
 // kernel at the 128-register cap, and spilled without the cap too.)
+// Consensus is an instantiation of its own (CONS), not a run-time flag: in
+// the resident families kernel such a flag cost the other problems ~12%.
 //
 // Replaces the TPU kernels of tinympc_tpu/kernels/admm_stream.py:
 //   * stream_backward_kernel <- _backward_kernel (:121): forms the q/r rows
@@ -18,8 +21,16 @@
 //     and updates the duals row by row, projects the other families,
 //     accumulates the four max-abs residuals, and does the bookkeeping of
 //     :573-641 (iterations, convergence every check_termination
-//     iterations, residuals). On warm solves with families it also writes
-//     the x/u trajectories the carry hands over (track_xu).
+//     iterations, residuals). On warm solves with families or consensus
+//     it also writes the x/u trajectories the carry hands over (track_xu).
+// Their CONS instantiations add consensus (admm_stream.py:229-239, :496-499,
+// :553-570): the backward kernel's row 0 takes r[0] - rho_c (zc0 - yc0) and
+// the Quu0_inv gain, the forward kernel's row 0 the Kinf0 gain, and at the
+// end of the forward launch the lanes of a group exchange their offers
+// u[0] + yc0 in shared memory: zc0 becomes the group mean, yc0 moves by
+// u[0] - zc0, and |u[0] - zc0| joins the convergence gate. The hooks and
+// the exchange are admm_consensus.cuh's, the resident kernel's, so the two
+// solves agree bitwise under consensus too.
 // The arithmetic of each sweep is admm_sweep.cuh's backward_sweep and
 // forward_sweep, the same device functions the resident fused solve
 // (admm_fused.cu) runs, so the two solves agree bitwise.
@@ -53,6 +64,16 @@
 //     so the host reads one int, after check iterations only.
 //   * The dead rows of the TPU kernels are not computed: d and u exist for
 //     rows 0..N-2 only.
+//   * Consensus: each lane's slack zc0, dual yc0 and standing offer live in
+//     device memory, (nu, B) each, between launches; a launch copies the
+//     lane's slack and dual into admm_consensus.cuh's shared-memory columns
+//     and stores a lane's offer only on its converging iteration. A group is G
+//     adjacent lanes of one block (G a power of two up to 128), so the
+//     exchange needs no other block. Every thread of a block that holds a
+//     running lane reaches the exchange's barrier, a converged one too
+//     (it puts its standing offer, the offer of its converging iteration,
+//     into shared memory); only a block whose lanes are all done returns
+//     at once.
 //
 // What bounds it on an H100: per lane and iteration the two sweeps move
 // ~104 floats a horizon row at (12, 4) (416 B: the backward reads vnew, g,
@@ -68,17 +89,40 @@
 // C interface (loaded with ctypes): tinympc_stream_backward and
 // tinympc_stream_forward launch on the given stream, never synchronise,
 // and return the cudaError_t of the launch.
+#include <type_traits>
+
+#include "admm_consensus.cuh"
 #include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
+namespace tinympc {
+
+// Consensus state of a streamed solve in device memory, lane-last, (nu, B)
+// each: every lane's slack zc0, dual yc0 and standing offer u[0] + yc0 (the
+// offer of its converging iteration, which stands for its group from then
+// on; stored then only, since no running lane reads it). group = 0 without
+// consensus.
+struct StreamConsensus {
+  int group;
+  float rho_c;
+  float* zc0;
+  float* yc0;
+  float* offer;
+};
+
+}  // namespace tinympc
+
 namespace {
 
+using tinympc::ConsensusArgs;
 using tinympc::FamilyArgs;
 using tinympc::Families;
 using tinympc::FixedRho;
 using tinympc::Layout;
 using tinympc::NegRefWindow;
+using tinympc::NoConsensus;
 using tinympc::Residuals;
+using tinympc::StreamConsensus;
 using tinympc::Tables;
 
 constexpr int kBlock = 128;
@@ -86,29 +130,76 @@ constexpr int kBlock = 128;
 // kernels fit without spilling (120 and 118 at (12, 4)).
 constexpr int kMinBlocks = 4;
 
-// Floats of shared memory a launch uses: the small box tables (Layout's
-// prefix, up to the reference), the family tables that do not grow with N,
-// and the terminal reference term.
-template <int NX, int NU>
-int shared_floats(const FamilyArgs& fa, int N) {
-  return Layout(NX, NU, N).xref + Families<NX, NU>::static_floats(fa, NX, NU)
-         + NX;
+// The consensus hooks of an instantiation: admm_consensus.cuh's under
+// CONS, else the empty set.
+template <int NX, int NU, bool CONS>
+using ConsOf = std::conditional_t<CONS, tinympc::Consensus<NX, NU, kBlock>,
+                                  NoConsensus>;
+
+template <int NX, int NU, bool CONS>
+__host__ __device__ typename ConsOf<NX, NU, CONS>::Args cons_args(
+    const StreamConsensus& sc) {
+  if constexpr (CONS)
+    return ConsensusArgs{sc.group, sc.rho_c, nullptr, nullptr, nullptr,
+                         nullptr};
+  else
+    return {};
 }
 
-// Copy the tables shared_floats counts into shared memory: Layout's prefix
-// to sm[0..), the family tables after it.
-template <int NX, int NU>
+// Shared memory of a launch, in floats, in this order: the small box tables
+// (Layout's prefix, up to the reference), the family tables that do not grow
+// with N, the consensus gains and lane columns (CONS), and the terminal
+// reference term (the backward launch only).
+template <int NX, int NU, bool CONS>
+struct SharedLayout {
+  int fam, cons, lanes, pnref, total;
+  __host__ __device__ SharedLayout(const FamilyArgs& fa,
+                                   const StreamConsensus& sc, int N) {
+    using Cons = ConsOf<NX, NU, CONS>;
+    const auto ca = cons_args<NX, NU, CONS>(sc);
+    fam = Layout(NX, NU, N).xref;
+    cons = fam + Families<NX, NU>::static_floats(fa, NX, NU);
+    lanes = cons + Cons::table_floats(ca, NX, NU);
+    pnref = lanes + Cons::lane_floats(ca, NU);
+    total = pnref + NX;
+  }
+};
+
+// Copy the tables SharedLayout counts into shared memory: Layout's prefix,
+// the static family tables, and under CONS the step-0 gains Kinf0 and
+// Quu0_inv, which follow every family table (the growing ones too) in the
+// packed table (kernels/admm_fused.py:_table_layout).
+template <int NX, int NU, bool CONS>
 __device__ void load_tables(float* sm, const float* tables, const Layout& L,
-                            const FamilyArgs& fa) {
+                            const SharedLayout<NX, NU, CONS>& S,
+                            const FamilyArgs& fa, int N) {
   for (int k = threadIdx.x; k < L.xref; k += blockDim.x) sm[k] = tables[k];
-  const int nf = Families<NX, NU>::static_floats(fa, NX, NU);
-  for (int k = threadIdx.x; k < nf; k += blockDim.x)
-    sm[L.xref + k] = tables[L.total + k];
+  for (int k = threadIdx.x; k < S.cons - S.fam; k += blockDim.x)
+    sm[S.fam + k] = tables[L.total + k];
+  const int gains = L.total + Families<NX, NU>::table_floats(fa, NX, NU, N);
+  for (int k = threadIdx.x; k < S.lanes - S.cons; k += blockDim.x)
+    sm[S.cons + k] = tables[gains + k];
 }
 
-// The forward sweep's family hooks plus, on warm family solves, the x/u
-// trajectories the carry hands over (admm_stream.py:547-551): row i of x
-// and u as the sweep forms them, for the lanes still running.
+// Under CONS, this lane's slack and dual into its shared-memory columns.
+template <int NX, int NU, bool CONS>
+__device__ __forceinline__ void load_lane(const ConsOf<NX, NU, CONS>& cons,
+                                          const StreamConsensus& sc,
+                                          size_t sB, int b) {
+  if constexpr (CONS) {
+#pragma unroll
+    for (int k = 0; k < NU; ++k) {
+      const size_t o = static_cast<size_t>(k) * sB + b;
+      cons.zc0(k) = sc.zc0[o];
+      cons.yc0(k) = sc.yc0[o];
+    }
+  }
+}
+
+// The forward sweep's family hooks plus, on warm family or consensus
+// solves, the x/u trajectories the carry hands over (admm_stream.py:
+// 547-551): row i of x and u as the sweep forms them, for the lanes still
+// running.
 template <int NX, int NU>
 struct TrackXU {
   const Families<NX, NU>& fam;
@@ -134,8 +225,9 @@ struct TrackXU {
   }
 };
 
-// Backward launch: d of every running lane from its previous iterate.
-template <int NX, int NU>
+// Backward launch: d of every running lane from its previous iterate;
+// under CONS row 0 takes the consensus term and the Quu0_inv gain.
+template <int NX, int NU, bool CONS>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_backward_kernel(const float* __restrict__ tables,
                            const float* __restrict__ vprev,
@@ -144,16 +236,17 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
                            const float* __restrict__ y,
                            float* __restrict__ d,
                            const unsigned char* __restrict__ done,
-                           int* __restrict__ active, FamilyArgs fa, int N,
-                           int B, float rho) {
+                           int* __restrict__ active, FamilyArgs fa,
+                           StreamConsensus sc, int N, int B, float rho) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
-  load_tables<NX, NU>(sm, tables, L, fa);
+  const SharedLayout<NX, NU, CONS> S(fa, sc, N);
+  load_tables<NX, NU, CONS>(sm, tables, L, S, fa, N);
   if (blockIdx.x == 0 && threadIdx.x == 0) *active = 0;
   __syncthreads();
   // Terminal reference term -Pinf^T Xref[N-1] (admm_stream.py:926), summed
   // as the resident kernel sums it.
-  float* pnref = sm + L.xref + Families<NX, NU>::static_floats(fa, NX, NU);
+  float* pnref = sm + S.pnref;
   if (threadIdx.x < NX) {
     const int k = threadIdx.x;
     float acc = 0.f;
@@ -168,8 +261,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   if (b >= B || done[b]) return;   // no barrier follows
   const size_t sB = static_cast<size_t>(B);
   const Tables t(sm, tables, L);
-  const Families<NX, NU> fam(fa, sm + L.xref, tables + L.total, N, sB, b,
+  const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b,
                              rho);
+  const ConsOf<NX, NU, CONS> cons(cons_args<NX, NU, CONS>(sc), sm + S.cons,
+                                  sm + S.lanes);
+  load_lane<NX, NU, CONS>(cons, sc, sB, b);
   const NegRefWindow<NX> negxq{tables + L.xref, sm + L.qd};
   const NegRefWindow<NU> negur{tables + L.uref, sm + L.rd};
   float dvgN[NX];
@@ -179,14 +275,17 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     dvgN[k] = vprev[a] - g[a];
   }
   tinympc::backward_sweep<NX, NU>(t, negxq, negur, pnref, dvgN, vprev, zprev,
-                                  g, y, d, N, sB, b, rho, fam, FixedRho());
+                                  g, y, d, N, sB, b, rho, fam, FixedRho(),
+                                  cons);
 }
 
 // Forward launch of iteration `it`: the new slacks into vcur/zcur, the
 // duals in place, the residuals and the bookkeeping. The dual residual
 // compares against vprev/zprev, or, in the STALE variant, against the
-// carried v/z (vstale/zstale; admm_stream.py:270-275).
-template <int NX, int NU, bool STALE>
+// carried v/z (vstale/zstale; admm_stream.py:270-275). Under CONS row 0
+// takes the Kinf0 gain, and the launch ends with the group exchange
+// (admm_consensus.cuh), whose residual gates convergence.
+template <int NX, int NU, bool STALE, bool CONS>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     stream_forward_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
@@ -196,45 +295,96 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         float* __restrict__ g, float* __restrict__ y,
         const float* __restrict__ d, int* __restrict__ iters,
         unsigned char* __restrict__ done, float* __restrict__ res,
-        int* __restrict__ active, FamilyArgs fa, float* x_out, float* u_out,
-        int it, int N, int B, int check_termination, float rho, float tol_pri,
-        float tol_dua) {
+        int* __restrict__ active, FamilyArgs fa, StreamConsensus sc,
+        float* x_out, float* u_out, int it, int N, int B,
+        int check_termination, float rho, float tol_pri, float tol_dua) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
-  load_tables<NX, NU>(sm, tables, L, fa);
+  const SharedLayout<NX, NU, CONS> S(fa, sc, N);
+  load_tables<NX, NU, CONS>(sm, tables, L, S, fa, N);
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B || done[b]) return;   // no barrier follows
+  const bool run = b < B && !done[b];
+  if constexpr (CONS) {
+    // The exchange's barrier needs every thread of a block that holds a
+    // running lane; a block whose lanes are all done returns at once.
+    if (!__syncthreads_or(run)) return;
+  } else {
+    if (!run) return;   // no barrier follows
+  }
   const size_t sB = static_cast<size_t>(B);
-  const Tables t(sm, tables, L);
-  const Families<NX, NU> fam(fa, sm + L.xref, tables + L.total, N, sB, b,
-                             rho);
-  const TrackXU<NX, NU> hooks{fam, x_out, u_out, sB, b};
+  const ConsOf<NX, NU, CONS> cons(cons_args<NX, NU, CONS>(sc), sm + S.cons,
+                                  sm + S.lanes);
   const bool checking = ((it + 1) % check_termination) == 0;
-  float x0r[NX], dvgN[NX], u0[NU];
+  bool pass = false;   // the box residuals' check of this iteration passed
+  float u0[NU];
+  if (run) {
+    const Tables t(sm, tables, L);
+    const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b,
+                               rho);
+    const TrackXU<NX, NU> hooks{fam, x_out, u_out, sB, b};
+    load_lane<NX, NU, CONS>(cons, sc, sB, b);
+    float x0r[NX], dvgN[NX];
 #pragma unroll
-  for (int k = 0; k < NX; ++k) x0r[k] = x0[static_cast<size_t>(b) * NX + k];
-  const Residuals r = tinympc::forward_sweep<NX, NU>(
-      t, x0r, dvgN, vcur, zcur, STALE ? vstale : vprev,
-      STALE ? zstale : zprev, g, y, d, N, sB, b, checking, u0, hooks,
-      FixedRho());
-  // Bookkeeping (admm_stream.py:576-641): iterations on every iteration,
-  // residuals (dual rows scaled by rho) and convergence on check
-  // iterations only.
-  iters[b] = it + 1;
-  if (checking) {
-    const float r2 = r.dua_s * rho, r3 = r.dua_i * rho;
-    res[b] = r.pri_s;
-    res[sB + b] = r.pri_i;
-    res[2 * sB + b] = r2;
-    res[3 * sB + b] = r3;
-    const bool ok = (r.pri_s < tol_pri) && (r.pri_i < tol_pri) &&
-                    (r2 < tol_dua) && (r3 < tol_dua);
-    if (ok)
-      done[b] = 1;
-    else
-      *active = 1;
+    for (int k = 0; k < NX; ++k) x0r[k] = x0[static_cast<size_t>(b) * NX + k];
+    const Residuals r = tinympc::forward_sweep<NX, NU>(
+        t, x0r, dvgN, vcur, zcur, STALE ? vstale : vprev,
+        STALE ? zstale : zprev, g, y, d, N, sB, b, checking, u0, hooks,
+        FixedRho(), cons);
+    // Bookkeeping (admm_stream.py:576-641): iterations on every iteration,
+    // residuals (dual rows scaled by rho) and convergence on check
+    // iterations only.
+    iters[b] = it + 1;
+    if (checking) {
+      const float r2 = r.dua_s * rho, r3 = r.dua_i * rho;
+      res[b] = r.pri_s;
+      res[sB + b] = r.pri_i;
+      res[2 * sB + b] = r2;
+      res[3 * sB + b] = r3;
+      pass = (r.pri_s < tol_pri) && (r.pri_i < tol_pri) && (r2 < tol_dua) &&
+             (r3 < tol_dua);
+      if constexpr (!CONS) {
+        if (pass)
+          done[b] = 1;
+        else
+          *active = 1;
+      }
+    }
+    if constexpr (CONS) cons.offer(u0);
+  }
+  if constexpr (CONS) {
+    // The exchange (admm_stream.py:553-570, the resident kernel's rule for
+    // a converged lane): a lane that is done offers what it offered on its
+    // converging iteration; a thread past the batch offers zero, which no
+    // group reads (B is a multiple of G).
+    if (!run) {
+#pragma unroll
+      for (int k = 0; k < NU; ++k)
+        cons.offers(k)[threadIdx.x] =
+            b < B ? sc.offer[static_cast<size_t>(k) * sB + b] : 0.f;
+    }
+    __syncthreads();
+    if (run) {
+      const float cres = cons.update(u0);
+#pragma unroll
+      for (int k = 0; k < NU; ++k) {
+        const size_t o = static_cast<size_t>(k) * sB + b;
+        sc.zc0[o] = cons.zc0(k);
+        sc.yc0[o] = cons.yc0(k);
+      }
+      if (checking && pass && cres < tol_pri) {
+        // Only a done lane's offer is read again: store the one that
+        // stands, that of its converging iteration.
+        done[b] = 1;
+#pragma unroll
+        for (int k = 0; k < NU; ++k)
+          sc.offer[static_cast<size_t>(k) * sB + b] =
+              cons.offers(k)[threadIdx.x];
+      } else if (checking) {
+        *active = 1;
+      }
+    }
   }
 }
 
@@ -265,6 +415,21 @@ bool family_args(const int* counts, void* const* fam, FamilyArgs* fa,
   return true;
 }
 
+// The consensus arguments of a launch: group 0 (none) for a null `cons`;
+// else a group size that is a power of two up to the block, divides B, and
+// comes with the three lane arrays.
+bool consensus_args(const StreamConsensus* cons, int B,
+                    StreamConsensus* sc) {
+  *sc = StreamConsensus{0, 0.f, nullptr, nullptr, nullptr};
+  if (!cons) return true;
+  const int G = cons->group;
+  if (G < 1 || G > kBlock || (G & (G - 1)) || B % G || !cons->zc0 ||
+      !cons->yc0 || !cons->offer)
+    return false;
+  *sc = *cons;
+  return true;
+}
+
 template <class Kernel>
 cudaError_t prepare(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -273,19 +438,36 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int NX, int NU>
-cudaError_t backward(const FamilyArgs& fa, int N, int B, float rho,
-                     const float* tables, const float* vprev,
-                     const float* zprev, const float* g, const float* y,
-                     float* d, const unsigned char* done, int* active,
-                     cudaStream_t s) {
-  const size_t smem = shared_floats<NX, NU>(fa, N) * sizeof(float);
-  auto kernel = stream_backward_kernel<NX, NU>;
+template <int NX, int NU, bool CONS>
+cudaError_t backward(const FamilyArgs& fa, const StreamConsensus& sc, int N,
+                     int B, float rho, const float* tables,
+                     const float* vprev, const float* zprev, const float* g,
+                     const float* y, float* d, const unsigned char* done,
+                     int* active, cudaStream_t s) {
+  const size_t smem = SharedLayout<NX, NU, CONS>(fa, sc, N).total *
+                      sizeof(float);
+  auto kernel = stream_backward_kernel<NX, NU, CONS>;
   const cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(B + kBlock - 1) / kBlock, kBlock, smem, s>>>(
-      tables, vprev, zprev, g, y, d, done, active, fa, N, B, rho);
+      tables, vprev, zprev, g, y, d, done, active, fa, sc, N, B, rho);
   return cudaGetLastError();
+}
+
+template <bool CONS>
+int backward_dispatch(int nx, int nu, const FamilyArgs& fa,
+                      const StreamConsensus& sc, int N, int B, float rho,
+                      const float* t, const float* vp, const float* zp,
+                      const float* gg, const float* yy, float* dd,
+                      const unsigned char* dn, int* act, cudaStream_t s) {
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return static_cast<int>(backward<12, 4, CONS>(fa, sc, N, B, rho, t, vp,
+                                                  zp, gg, yy, dd, dn, act,
+                                                  s));
+  if (nx == 6 && nu == 3)    // the rocket
+    return static_cast<int>(backward<6, 3, CONS>(fa, sc, N, B, rho, t, vp,
+                                                 zp, gg, yy, dd, dn, act, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Pointers of a forward launch.
@@ -300,31 +482,34 @@ struct Forward {
   float *x_out, *u_out;
 };
 
-template <int NX, int NU, bool STALE>
-cudaError_t forward(const FamilyArgs& fa, const Forward& p, int it, int N,
-                    int B, int ct, float rho, float tol_pri, float tol_dua,
+template <int NX, int NU, bool STALE, bool CONS>
+cudaError_t forward(const FamilyArgs& fa, const StreamConsensus& sc,
+                    const Forward& p, int it, int N, int B, int ct,
+                    float rho, float tol_pri, float tol_dua,
                     cudaStream_t s) {
-  const size_t smem = (shared_floats<NX, NU>(fa, N) - NX) * sizeof(float);
-  auto kernel = stream_forward_kernel<NX, NU, STALE>;
+  const size_t smem =
+      (SharedLayout<NX, NU, CONS>(fa, sc, N).total - NX) * sizeof(float);
+  auto kernel = stream_forward_kernel<NX, NU, STALE, CONS>;
   const cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(B + kBlock - 1) / kBlock, kBlock, smem, s>>>(
       p.tables, p.x0, p.vprev, p.zprev, p.vstale, p.zstale, p.vcur, p.zcur,
-      p.g, p.y, p.d, p.iters, p.done, p.res, p.active, fa, p.x_out, p.u_out,
-      it, N, B, ct, rho, tol_pri, tol_dua);
+      p.g, p.y, p.d, p.iters, p.done, p.res, p.active, fa, sc, p.x_out,
+      p.u_out, it, N, B, ct, rho, tol_pri, tol_dua);
   return cudaGetLastError();
 }
 
-template <bool STALE>
-int forward_dispatch(int nx, int nu, const FamilyArgs& fa, const Forward& p,
-                     int it, int N, int B, int ct, float rho, float tol_pri,
+template <bool STALE, bool CONS>
+int forward_dispatch(int nx, int nu, const FamilyArgs& fa,
+                     const StreamConsensus& sc, const Forward& p, int it,
+                     int N, int B, int ct, float rho, float tol_pri,
                      float tol_dua, cudaStream_t s) {
   if (nx == 12 && nu == 4)   // the quadrotor
-    return static_cast<int>(forward<12, 4, STALE>(fa, p, it, N, B, ct, rho,
-                                                  tol_pri, tol_dua, s));
+    return static_cast<int>(forward<12, 4, STALE, CONS>(
+        fa, sc, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
   if (nx == 6 && nu == 3)    // the rocket
-    return static_cast<int>(forward<6, 3, STALE>(fa, p, it, N, B, ct, rho,
-                                                 tol_pri, tol_dua, s));
+    return static_cast<int>(forward<6, 3, STALE, CONS>(
+        fa, sc, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -338,7 +523,10 @@ extern "C" int tinympc_stream_block() { return kBlock; }
 // 12 working slack and dual arrays (null for a family that is off).
 // vprev (N, nx, B), zprev (N-1, nu, B): the previous slacks; g, y the
 // duals; d (N-1, nu, B) out; done (B,) the lanes that have converged;
-// active one int, zeroed. Returns 0 or a cudaError_t;
+// active one int, zeroed. cons: null without consensus; else the group
+// size G (a power of two up to the block size, dividing B), rho_c and the
+// lanes' zc0, yc0 and offer arrays, (nu, B) each, with the tables' step-0
+// gains after the family tables. Returns 0 or a cudaError_t;
 // cudaErrorInvalidValue for an (nx, nu) pair this file does not
 // instantiate, a bad size or a missing array.
 extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
@@ -347,11 +535,15 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
                                        const void* zprev, const void* g,
                                        const void* y, void* d,
                                        const void* done, void* active,
-                                       void* const* fam, void* stream) {
+                                       void* const* fam,
+                                       const StreamConsensus* cons,
+                                       void* stream) {
   FamilyArgs fa;
+  StreamConsensus sc;
   bool families;
   if (N < 2 || B < 1 || !family_args(counts, fam, &fa, &families) ||
-      !tables || !vprev || !zprev || !g || !y || !d || !done || !active)
+      !consensus_args(cons, B, &sc) || !tables || !vprev || !zprev || !g ||
+      !y || !d || !done || !active)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* t = static_cast<const float*>(tables);
@@ -362,13 +554,11 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
   auto* dd = static_cast<float*>(d);
   const auto* dn = static_cast<const unsigned char*>(done);
   auto* act = static_cast<int*>(active);
-  if (nx == 12 && nu == 4)
-    return static_cast<int>(
-        backward<12, 4>(fa, N, B, rho, t, vp, zp, gg, yy, dd, dn, act, s));
-  if (nx == 6 && nu == 3)
-    return static_cast<int>(
-        backward<6, 3>(fa, N, B, rho, t, vp, zp, gg, yy, dd, dn, act, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return sc.group
+             ? backward_dispatch<true>(nx, nu, fa, sc, N, B, rho, t, vp, zp,
+                                       gg, yy, dd, dn, act, s)
+             : backward_dispatch<false>(nx, nu, fa, sc, N, B, rho, t, vp, zp,
+                                        gg, yy, dd, dn, act, s);
 }
 
 // The forward launch of iteration `it`, STALE when `stale` is set.
@@ -378,21 +568,25 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
 // launch; iters (B,) int, done (B,) bytes and res (4, B) updated for the
 // running lanes; active set on check iterations while a lane runs; fam as
 // for the backward launch; x_out/u_out the tracked trajectories (both or
-// neither; only with families). Returns 0 or a cudaError_t.
+// neither; only with families or consensus); cons as for the backward
+// launch, its zc0 and yc0 updated for the running lanes and the offer for
+// the lanes that converge in this launch. Returns 0 or a cudaError_t.
 extern "C" int tinympc_stream_forward(
     int stale, int nx, int nu, int N, int B, int it, int check_termination,
     const int* counts, float rho, float tol_pri, float tol_dua,
     const void* tables, const void* x0, const void* const* prev, void* vcur,
     void* zcur, void* g, void* y, const void* d, void* iters, void* done,
     void* res, void* active, void* const* fam, void* x_out, void* u_out,
-    void* stream) {
+    const StreamConsensus* cons, void* stream) {
   FamilyArgs fa;
+  StreamConsensus sc;
   bool families;
   if (N < 2 || B < 1 || it < 0 || check_termination < 1 ||
-      !family_args(counts, fam, &fa, &families) || !tables || !x0 ||
-      !prev[0] || !prev[1] || (stale && (!prev[2] || !prev[3])) || !vcur ||
-      !zcur || !g || !y || !d || !iters || !done || !res || !active ||
-      (!x_out != !u_out) || (x_out && !families))
+      !family_args(counts, fam, &fa, &families) ||
+      !consensus_args(cons, B, &sc) || !tables || !x0 || !prev[0] ||
+      !prev[1] || (stale && (!prev[2] || !prev[3])) || !vcur || !zcur ||
+      !g || !y || !d || !iters || !done || !res || !active ||
+      (!x_out != !u_out) || (x_out && !families && !sc.group))
     return static_cast<int>(cudaErrorInvalidValue);
   const Forward p = {static_cast<const float*>(tables),
                      static_cast<const float*>(x0),
@@ -412,10 +606,15 @@ extern "C" int tinympc_stream_forward(
                      static_cast<float*>(x_out),
                      static_cast<float*>(u_out)};
   const auto s = static_cast<cudaStream_t>(stream);
-  return stale ? forward_dispatch<true>(nx, nu, fa, p, it, N, B,
-                                        check_termination, rho, tol_pri,
-                                        tol_dua, s)
-               : forward_dispatch<false>(nx, nu, fa, p, it, N, B,
-                                         check_termination, rho, tol_pri,
-                                         tol_dua, s);
+  const int ct = check_termination;
+  if (sc.group)
+    return stale ? forward_dispatch<true, true>(nx, nu, fa, sc, p, it, N, B,
+                                                ct, rho, tol_pri, tol_dua, s)
+                 : forward_dispatch<false, true>(nx, nu, fa, sc, p, it, N, B,
+                                                 ct, rho, tol_pri, tol_dua,
+                                                 s);
+  return stale ? forward_dispatch<true, false>(nx, nu, fa, sc, p, it, N, B,
+                                               ct, rho, tol_pri, tol_dua, s)
+               : forward_dispatch<false, false>(nx, nu, fa, sc, p, it, N, B,
+                                                ct, rho, tol_pri, tol_dua, s);
 }

@@ -13,6 +13,7 @@ from .admm_stream import (solve_fused_streamed,
 from .closed_loop_kernel import (closed_loop_fused,
                                 closed_loop_fused_reference,
                                 closed_loop_fused_supported)
+from .compact import make_compact_solver, solve_fused_compact
 
 __all__ = ["FusedCarry", "adapted_cache", "fused_supported", "init_carry",
            "shift_carry", "solve_fused", "solve_fused_reference",
@@ -20,4 +21,5 @@ __all__ = ["FusedCarry", "adapted_cache", "fused_supported", "init_carry",
            "solve_fused_streamed", "solve_fused_streamed_reference",
            "solve_fused_streamed_warm", "solve_fused_streamed_warm_reference",
            "stream_supported", "closed_loop_fused",
-           "closed_loop_fused_reference", "closed_loop_fused_supported"]
+           "closed_loop_fused_reference", "closed_loop_fused_supported",
+           "make_compact_solver", "solve_fused_compact"]

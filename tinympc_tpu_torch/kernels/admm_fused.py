@@ -12,9 +12,11 @@ or time-varying hyperplanes run on its families instantiation; box
 problems with adaptive rho (``Settings.adaptive_rho``) run on its adaptive
 instantiation, which carries one rho per lane and adapts it in the kernel.
 Scenario-tree consensus (:func:`~tinympc_tpu_torch.api.with_consensus`)
-rides the families instantiation as a run-time flag, box problems with zero
-family counts: a scenario group is ``G`` adjacent lanes of one block (G a
-power of two up to :data:`BLOCK`), whose u[0] slack is the group mean.
+runs the consensus instantiation of the families kernel, box problems with
+zero family counts: a scenario group is ``G`` adjacent lanes of one block
+(G a power of two up to :data:`BLOCK`), whose u[0] slack is the group mean.
+``solve_fused_warm(final=True)``, the warm solve of lane compaction, runs
+the warm instantiations as they are.
 The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
 :data:`FAMILY_KERNEL_DIMS` (the families and consensus) and
 :data:`ADAPTIVE_KERNEL_DIMS`. On CPU tensors
@@ -622,10 +624,22 @@ def solve_fused_warm(prob: TinyProblem, Xref=None, Uref=None, x0s=None,
     Returns ``(Solution, residuals (4, B), carry')``, with per-lane freeze
     at convergence, as a warm-started :func:`tinympc_tpu_torch.solve`
     sequence gives; with adaptive rho each lane's rho rides the carry, and
-    the residuals gain the final rho as a 5th row. ``final=True`` (every
-    lane hands over its final iterate, the mode of lane compaction) is not
-    ported yet and raises ``ValueError``, as does a missing or mismatched
-    carry. On CPU tensors it runs :func:`solve_fused_warm_reference`."""
+    the residuals gain the final rho as a 5th row. A missing or mismatched
+    carry raises ``ValueError``. On CPU tensors it runs
+    :func:`solve_fused_warm_reference`.
+
+    ``final=True`` is the mode of lane compaction
+    (:func:`~.compact.make_compact_solver`; admm_pallas.py:415-420,
+    :1298-1315): a lane that has not converged hands over its final
+    iterate, field by field the JAX kernel's carry, and the solution
+    outputs freeze at first convergence as before. The TPU kernel drops its
+    per-lane snapshots there, since its lanes keep computing after they
+    converge; this kernel keeps no snapshots (a converged thread stops and
+    keeps its iterates), so ``final=True`` runs the same instantiation, and
+    a converged lane hands over its state at first convergence, the carry
+    of ``final=False``. (The JAX kernel hands over a post-convergence
+    iterate there; its contract reads a converged lane's carry only inside
+    a live consensus group.)"""
     tables, x0, carry, params = _prepare_warm(prob, Xref, Uref, x0s, carry,
                                               final)
     spec = prob.spec
@@ -645,7 +659,8 @@ def solve_fused_warm_reference(prob: TinyProblem, Xref=None, Uref=None,
                                x0s=None, carry: Optional[FusedCarry] = None,
                                *, final: bool = False):
     """The warm kernel's plain PyTorch version, on the problem's device,
-    with the kernel's load, freeze and carry-out rules. Returns what
+    with the kernel's load, freeze and carry-out rules (``final`` as
+    :func:`solve_fused_warm` takes it). Returns what
     :func:`solve_fused_warm` returns."""
     tables, x0, carry, params = _prepare_warm(prob, Xref, Uref, x0s, carry,
                                               final)
@@ -655,9 +670,9 @@ def solve_fused_warm_reference(prob: TinyProblem, Xref=None, Uref=None,
 
 
 def _prepare_warm(prob, Xref, Uref, x0s, carry, final):
-    if final:
-        raise ValueError("solve_fused_warm(final=True), the lane-compaction "
-                         "mode, is not ported yet")
+    """:func:`_prepare` and the carry of a warm solve. ``final`` changes
+    nothing here: the carry of every lane that has not converged is its
+    final iterate either way (see :func:`solve_fused_warm`)."""
     tables, x0, params = _prepare(prob, Xref, Uref, x0s)
     return tables, x0, _carry_tensors(prob, carry, x0.shape[0]), params
 

@@ -16,10 +16,16 @@ loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
 
 Scope: fixed rho; box, second-order cone, hyperplane and time-varying
-hyperplane constraints in any mix, at the (nx, nu) the resident kernels are
-instantiated for; cold and warm (the :class:`~.admm_fused.FusedCarry` of the
-resident solve, which either solve may hand to the other). Adaptive rho and
-consensus raise ``ValueError``.
+hyperplane constraints in any mix, with or without scenario-tree consensus
+on u[0] (x0s (n_groups, G, nx), G a power of two up to 128, as the resident
+solve takes it), at the (nx, nu) the resident kernels are instantiated for;
+cold and warm (the :class:`~.admm_fused.FusedCarry` of the resident solve,
+which either solve may hand to the other). Consensus runs the kernels'
+consensus instantiations: r[0]'s prox term and the Quu0_inv gain in the
+backward launch, the Kinf0 gain and the group exchange at the end of the
+forward launch; each lane's slack, dual and standing offer stay on the card
+between launches. Adaptive rho raises ``ValueError`` (ROADMAP.md, Queue 2
+item 3a).
 
 On CPU tensors the wrappers run the kernels' plain PyTorch versions,
 :func:`stream_backward_reference` and :func:`stream_forward_reference`,
@@ -38,40 +44,40 @@ import torch
 
 from ..types import TinyProblem
 from . import _build, admm_fused
-from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, FusedCarry,
-                         Families, _check_arg, _family_projectors, _outputs,
-                         _prepare_inputs, _ptr_array, _table_layout,
-                         _unpack_tables)
+from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, Consensus,
+                         FusedCarry, Families, _check_arg, _family_projectors,
+                         _group_mean, _grouped, _outputs, _prepare_inputs,
+                         _ptr_array, _table_layout, _unpack_tables)
 
 KERNEL = "admm_stream"
 
-# Launches of the backward kernel, the forward kernel and its stale variant
-# in this process; chip_smoke.py resets and reads them to show that the
-# streamed path went through its kernels.
-stream_backward_launch_count = 0
-stream_forward_launch_count = 0
-stream_forward_stale_launch_count = 0
+# Launches in this process of each streamed kernel, by the name of its
+# instantiation: the backward kernel, the forward kernel and its stale
+# variant, and their consensus instantiations; chip_smoke.py resets and
+# reads them to show that the streamed path went through its kernels.
+launch_counts = dict.fromkeys(
+    ("backward", "forward", "forward_stale", "backward_consensus",
+     "forward_consensus", "forward_consensus_stale"), 0)
 
 
 def _check(prob: TinyProblem) -> None:
     """Raise ``ValueError`` for a problem the streamed kernels do not
     cover: those of the resident kernel, whatever its horizon, less
-    adaptive rho and consensus."""
+    adaptive rho."""
     if prob.settings.adaptive_rho:
         raise ValueError("adaptive rho on the streamed path is not ported yet "
-                         "(ROADMAP.md, Queue 2); use solve_fused or "
+                         "(ROADMAP.md, Queue 2 item 3a); use solve_fused or "
                          "tinympc_tpu_torch.solve")
-    if prob.spec.en_consensus:
-        raise ValueError("consensus on the streamed path is not ported yet "
-                         "(ROADMAP.md, Queue 2)")
     admm_fused._check_problem(prob)
 
 
 def stream_supported(prob: TinyProblem) -> bool:
     """True if :func:`solve_fused_streamed` handles this problem: box, SOC,
-    hyperplane and time-varying hyperplane constraints at fixed rho, at any
-    horizon N >= 2, ``matmul_precision="highest"``, no coarse schedule, and
-    an (nx, nu) pair the kernels are instantiated for."""
+    hyperplane and time-varying hyperplane constraints at fixed rho, with or
+    without consensus within the batch (its step-0 gains baked by
+    ``with_consensus``), at any horizon N >= 2,
+    ``matmul_precision="highest"``, no coarse schedule, and an (nx, nu) pair
+    the kernels are instantiated for."""
     try:
         _check(prob)
     except ValueError:
@@ -84,8 +90,7 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
     x0, the carry and the solver parameters."""
     _check(prob)
     tables, x0, params = _prepare_inputs(prob, Xref, Uref, x0s)
-    params.pop("adapt")        # refused by _check, as is consensus
-    params.pop("cons")
+    params.pop("adapt")        # refused by _check
     if warm:
         if carry is None:
             raise ValueError("solve_fused_streamed_warm needs a carry; start "
@@ -98,12 +103,14 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
 
 def solve_fused_streamed(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
     """Long-horizon batched cold solve, two kernel launches an iteration.
-    Returns ``(Solution, residuals (4, B))`` as :func:`solve_fused` does.
+    Returns ``(Solution, residuals (4, B))`` as :func:`solve_fused` does (a
+    consensus problem in its (n_groups, G) layout).
 
     Raises ``ValueError`` for a problem outside :func:`stream_supported`.
     On CPU tensors it runs :func:`solve_fused_streamed_reference`."""
     tables, x0, _, params = _prepare(prob, Xref, Uref, x0s)
-    return _solve(prob, tables, x0, None, params)[:2]
+    return _grouped(_solve(prob, tables, x0, None, params)[:2],
+                    params["cons"])
 
 
 def solve_fused_streamed_warm(prob: TinyProblem, Xref=None, Uref=None,
@@ -113,10 +120,11 @@ def solve_fused_streamed_warm(prob: TinyProblem, Xref=None, Uref=None,
     from :func:`init_carry`; a carry of either solve serves the other). The
     first iteration's dual residual reads the carried one-behind v/z (the
     stale forward kernel); converged lanes hand over their first-convergence
-    iterate. On CPU tensors it runs
-    :func:`solve_fused_streamed_warm_reference`."""
+    iterate. A consensus solve re-seeds each lane's slack from the carried
+    u[0], keeps the carried dual, and hands over zc0 / yc0 and x/u. On CPU
+    tensors it runs :func:`solve_fused_streamed_warm_reference`."""
     tables, x0, carry, params = _prepare(prob, Xref, Uref, x0s, carry, True)
-    return _solve(prob, tables, x0, carry, params)
+    return _grouped(_solve(prob, tables, x0, carry, params), params["cons"])
 
 
 def solve_fused_streamed_reference(prob: TinyProblem, Xref=None, Uref=None,
@@ -126,7 +134,8 @@ def solve_fused_streamed_reference(prob: TinyProblem, Xref=None, Uref=None,
     the kernels, so that a mismatch points into a kernel. Returns what
     :func:`solve_fused_streamed` returns."""
     tables, x0, _, params = _prepare(prob, Xref, Uref, x0s)
-    return _loop(tables, x0, None, prob.spec, _PLAIN, **params)[:2]
+    return _grouped(_loop(tables, x0, None, prob.spec, _PLAIN, **params)[:2],
+                    params["cons"])
 
 
 def solve_fused_streamed_warm_reference(prob: TinyProblem, Xref=None,
@@ -135,7 +144,8 @@ def solve_fused_streamed_warm_reference(prob: TinyProblem, Xref=None,
     """The warm streamed solve on the plain versions, on the problem's
     device. Returns what :func:`solve_fused_streamed_warm` returns."""
     tables, x0, carry, params = _prepare(prob, Xref, Uref, x0s, carry, True)
-    return _loop(tables, x0, carry, prob.spec, _PLAIN, **params)
+    return _grouped(_loop(tables, x0, carry, prob.spec, _PLAIN, **params),
+                    params["cons"])
 
 
 def _solve(prob, tables, x0, carry, params):
@@ -149,19 +159,23 @@ def _solve(prob, tables, x0, carry, params):
 
 # ------------------------------------------------------------ the host loop
 
-def _init(x0, N, nx, nu, carry, fam: Families):
+def _init(x0, N, nx, nu, carry, fam: Families,
+          cons: Optional[Consensus] = None):
     """The working arrays of a solve, lane-last, on x0's device: vnew/znew
     as ping-pong halves (iteration it writes half it % 2; a warm solve's
     carried slack goes into half 1, which iteration 0 reads as previous),
     the duals, the feedforward d, the slack and dual of each family in the
     order of the kernels' family array (None for a family that is off),
-    the carried x/u of a warm family solve, and the bookkeeping: iters,
-    done, res and the one-int flag ``active``.
+    the carried x/u of a warm family or consensus solve, under consensus
+    each lane's slack zc0, dual yc0 and standing offer, (nu, B) each, and
+    the bookkeeping: iters, done, res and the one-int flag ``active``.
 
     Family slacks are seeded as the resident kernel seeds them
     (admm_stream.py:1196-1214): the state side from x0 in row 0 and zeros
     (cold) or the carried x after it, the input side from zeros or the
-    carried u; duals start at zero or from the carry."""
+    carried u; duals start at zero or from the carry. The consensus slack
+    starts at the carried u[0] (zero cold), its dual at the carried yc0
+    (:1231-1247), and no lane has offered yet."""
     B = x0.shape[0]
     kw = dict(dtype=torch.float32, device=x0.device)
     vnew = torch.zeros((2, N, nx, B), **kw)
@@ -171,7 +185,7 @@ def _init(x0, N, nx, nu, carry, fam: Families):
     else:
         vnew[1], znew[1] = carry.vnew, carry.znew
         g, y = carry.g.clone(), carry.y.clone()
-    track = carry is not None and any(fam)
+    track = carry is not None and (any(fam) or cons is not None)
     x_seed = torch.cat([x0.T[None], carry.x[1:] if track
                         else torch.zeros((N - 1, nx, B), **kw)])
     u_seed = carry.u if track else torch.zeros((N - 1, nu, B), **kw)
@@ -184,29 +198,36 @@ def _init(x0, N, nx, nu, carry, fam: Families):
             fams += [seed.clone(), torch.zeros_like(seed)]
         else:
             fams += [seed.clone(), getattr(carry, name).clone()]
-    return dict(vnew=vnew, znew=znew, g=g, y=y,
-                d=torch.zeros((N - 1, nu, B), **kw), fams=fams,
-                x=x_seed.clone() if track else None,
-                u=u_seed.clone() if track else None,
-                iters=torch.zeros(B, dtype=torch.int32, device=x0.device),
-                done=torch.zeros(B, dtype=torch.bool, device=x0.device),
-                res=torch.zeros((4, B), **kw),
-                active=torch.zeros(1, dtype=torch.int32, device=x0.device))
+    s = dict(vnew=vnew, znew=znew, g=g, y=y,
+             d=torch.zeros((N - 1, nu, B), **kw), fams=fams,
+             x=x_seed.clone() if track else None,
+             u=u_seed.clone() if track else None,
+             iters=torch.zeros(B, dtype=torch.int32, device=x0.device),
+             done=torch.zeros(B, dtype=torch.bool, device=x0.device),
+             res=torch.zeros((4, B), **kw),
+             active=torch.zeros(1, dtype=torch.int32, device=x0.device),
+             zc0=None, yc0=None, offer=None)
+    if cons is not None:
+        s.update(zc0=u_seed[0].clone(),
+                 yc0=torch.zeros((nu, B), **kw) if carry is None
+                 else carry.yc0.clone(),
+                 offer=torch.zeros((nu, B), **kw))
+    return s
 
 
 def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
-          tol_dua, fam: Families):
+          tol_dua, fam: Families, cons: Optional[Consensus] = None):
     """The ADMM loop around the two launches of each iteration, on the
     kernels (``_KERNELS``) or their plain versions (``_PLAIN``): iteration
     ``it`` runs the backward launch on half 1 - it % 2, then the forward
     launch into half it % 2 -- stale on iteration 0 of a warm solve. After
     each check iteration the host reads the flag and stops once no lane is
     still running, so the iteration count never passes max_iter. Returns
-    ``(Solution, residuals, carry' or None)``."""
+    ``(Solution, residuals, carry' or None)`` in the lane layout."""
     N, nx, nu = spec.N, spec.nx, spec.nu
-    s = _init(x0, N, nx, nu, carry, fam)
+    s = _init(x0, N, nx, nu, carry, fam, cons)
     run = launcher(tables, x0, s, carry, N, nx, nu, rho=rho, ct=ct,
-                   tol_pri=tol_pri, tol_dua=tol_dua, fam=fam)
+                   tol_pri=tol_pri, tol_dua=tol_dua, fam=fam, cons=cons)
     for it in range(max_iter):
         run.backward(1 - it % 2)
         run.forward(it, stale=carry is not None and it == 0)
@@ -218,6 +239,8 @@ def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
                  for k, name in enumerate(_FAMILY_DUALS) if fam[k]}
         if s["x"] is not None:
             extra.update(x=s["x"], u=s["u"])
+        if cons is not None:
+            extra.update(zc0=s["zc0"], yc0=s["yc0"])
     return _outputs(s["vnew"], s["znew"], s["g"], s["y"], s["iters"],
                     s["done"], s["res"], carry, extra)
 
@@ -233,8 +256,10 @@ def _sides(fams):
     return on(0), on(1)
 
 
-def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams, *,
-                              N, nx, nu, rho, fam: Families = NO_FAMILIES):
+def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams,
+                              zc0=None, yc0=None, *, N, nx, nu, rho,
+                              fam: Families = NO_FAMILIES,
+                              cons: Optional[Consensus] = None):
     """The backward kernel's plain version: the feedforward d (N-1, nu, B)
     of every lane not ``done`` from its previous slacks ``vprev``
     (N, nx, B) / ``zprev`` (N-1, nu, B), duals ``g``/``y`` and the family
@@ -242,8 +267,10 @@ def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams, *,
     stands for the lanes that are done. The linear cost is formed row by
     row inside the recursion (admm_stream.py:196-253), the family terms
     after the box's, in the arithmetic of
-    :func:`~.admm_fused.solve_fused_reference`. Returns the new d."""
-    t = _unpack_tables(tables, nx, nu, N, fam)
+    :func:`~.admm_fused.solve_fused_reference`. With ``cons`` row 0's r
+    gains -rho_c (zc0 - yc0) after the families' terms and d[0] takes the
+    Quu0_inv gain (:229-239). Returns the new d."""
+    t = _unpack_tables(tables, nx, nu, N, fam, None, cons is not None)
     col = lambda v: v[:, None]
     xf, uf = _sides(fams)
     negxq = -(t["Xref"] * t["Qd"])
@@ -258,21 +285,25 @@ def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams, *,
         r = col(negur[i]) - rho * (zprev[i] - y[i])
         for slack, dual in uf:
             r = r - rho * (slack[i] - dual[i])
+        first = cons is not None and i == 0
+        if first:
+            r = r - cons.rho_c * (zc0 - yc0)
         q = col(negxq[i]) - rho * (vprev[i] - g[i])
         for slack, dual in xf:
             q = q - rho * (slack[i] - dual[i])
         out = t["Mback"] @ p
         bp, ap = out[:nu], out[nu:]
-        dn[i] = t["Quu"] @ (bp + r + col(t["BPf"]))
+        dn[i] = (t["Quu0"] if first else t["Quu"]) @ (bp + r + col(t["BPf"]))
         p = q + ap - t["KinfT"] @ r + col(t["APf"])
     return torch.where(done, d, dn)
 
 
 def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
                              iters, done, res, fams, x_out=None, u_out=None,
-                             vstale=None, zstale=None, *, it, N, nx, nu, ct,
-                             rho, tol_pri, tol_dua,
-                             fam: Families = NO_FAMILIES):
+                             vstale=None, zstale=None, zc0=None, yc0=None,
+                             offer=None, *, it, N, nx, nu, ct, rho, tol_pri,
+                             tol_dua, fam: Families = NO_FAMILIES,
+                             cons: Optional[Consensus] = None):
     """The forward kernel's plain version for iteration ``it``, on the lanes
     not ``done``: the rollout from x0 (B, nx) with the feedforward ``d``,
     the box projection and dual update from the pre-update duals, each
@@ -280,18 +311,29 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
     residuals (the dual rows against ``vprev``/``zprev``, or the carried
     ``vstale``/``zstale`` in the stale variant; scaled by rho) and
     convergence (admm_stream.py:474-641). ``x_out``/``u_out``, when given,
-    receive the lanes' x/u trajectories. Returns what the kernel writes, as
-    a dict: vcur, zcur, g, y, fams, x_out, u_out, iters, done, res and
-    ``active`` (1 where a lane still runs after a check iteration, else
-    0)."""
-    t = _unpack_tables(tables, nx, nu, N, fam)
+    receive the lanes' x/u trajectories. With ``cons`` row 0 rolls out
+    with the Kinf0 gain (:496-499), and then every running lane offers
+    u[0] + yc0 to its group, a done lane its standing ``offer``; zc0
+    becomes the group mean of the offers (summed in lane order, divided by
+    G), yc0 moves by u[0] - zc0, and max|u[0] - zc0| < tol_pri joins the
+    convergence gate (:553-570), as in
+    :func:`~.admm_fused.solve_fused_reference`. A lane that converges
+    here stores its offer, which then stands; ``offer`` is written for no
+    other lane, as the kernel writes it. Returns what the kernel
+    writes, as a dict: vcur, zcur, g, y, fams, x_out, u_out, iters, done,
+    res, zc0, yc0, offer and ``active`` (1 where a lane still runs after a
+    check iteration, else 0)."""
+    t = _unpack_tables(tables, nx, nu, N, fam, None, cons is not None)
     col = lambda v: v[:, None]
     active = ~done
     keep = lambda new, old: torch.where(active, new, old)
+    if cons is not None:
+        # [Kinf0; A], step 0's product, shaped as every other step's.
+        Mfwd0 = torch.cat([t["Kinf0"], t["Mfwd"][nu:]])
     x = x0.T
     xs, us = [x], []
     for i in range(N - 1):
-        out = t["Mfwd"] @ x
+        out = (Mfwd0 if cons is not None and i == 0 else t["Mfwd"]) @ x
         u = -out[:nu] - d[i]
         x = out[nu:] + t["Bm"] @ u + col(t["f"])
         xs.append(x)
@@ -313,8 +355,13 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
                x_out=None if x_out is None else keep(xs, x_out),
                u_out=None if u_out is None else keep(us, u_out),
                iters=keep(torch.full_like(iters, it + 1), iters), done=done,
-               res=res, active=torch.zeros(1, dtype=torch.int32,
-                                           device=x0.device))
+               res=res, zc0=zc0, yc0=yc0, offer=offer,
+               active=torch.zeros(1, dtype=torch.int32, device=x0.device))
+    if cons is not None:
+        offers = keep(us[0] + yc0, offer)
+        zc0n = _group_mean(offers, cons.group)
+        cres = torch.amax(torch.abs(us[0] - zc0n), dim=0)
+        out.update(zc0=keep(zc0n, zc0), yc0=keep(yc0 + us[0] - zc0n, yc0))
     if (it + 1) % ct == 0:
         vd, zd = (vprev, zprev) if vstale is None else (vstale, zstale)
         rows = torch.stack([
@@ -324,8 +371,12 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
             torch.amax(torch.abs(zd - zn), dim=(0, 1)) * rho])
         ok = ((rows[0] < tol_pri) & (rows[1] < tol_pri)
               & (rows[2] < tol_dua) & (rows[3] < tol_dua))
+        if cons is not None:
+            ok = ok & (cres < tol_pri)
         out.update(res=keep(rows, res), done=done | (ok & active),
                    active=(active & ~ok).any().to(torch.int32).reshape(1))
+        if cons is not None:
+            out.update(offer=torch.where(ok & active, offers, offer))
     return out
 
 
@@ -342,8 +393,8 @@ class _PLAIN:
         s, p = self.s, self.params
         s["d"] = stream_backward_reference(
             self.tables, s["vnew"][prev], s["znew"][prev], s["g"], s["y"],
-            s["d"], s["done"], s["fams"], rho=p["rho"], fam=p["fam"],
-            **self.dims)
+            s["d"], s["done"], s["fams"], s["zc0"], s["yc0"], rho=p["rho"],
+            fam=p["fam"], cons=p["cons"], **self.dims)
 
     def forward(self, it, stale):
         s, cur = self.s, it % 2
@@ -352,14 +403,24 @@ class _PLAIN:
             self.tables, self.x0, s["vnew"][1 - cur], s["znew"][1 - cur],
             s["vnew"][cur], s["znew"][cur], s["g"], s["y"], s["d"],
             s["iters"], s["done"], s["res"], s["fams"], s["x"], s["u"],
-            *stale_vz, it=it, **self.dims, **self.params)
+            *stale_vz, s["zc0"], s["yc0"], s["offer"], it=it, **self.dims,
+            **self.params)
         s["vnew"][cur], s["znew"][cur] = out["vcur"], out["zcur"]
-        for k in ("g", "y", "fams", "iters", "done", "res", "active"):
+        for k in ("g", "y", "fams", "iters", "done", "res", "active", "zc0",
+                  "yc0", "offer"):
             s[k] = out[k]
         s["x"], s["u"] = out["x_out"], out["u_out"]
 
 
 # ------------------------------------------------------------ CUDA kernels
+
+class _StreamConsensus(ctypes.Structure):
+    """``StreamConsensus`` of csrc/admm_stream.cu: the group size and rho_c,
+    and each lane's slack, dual and standing offer, (nu, B) each."""
+
+    _fields_ = [("group", ctypes.c_int), ("rho_c", ctypes.c_float),
+                ("zc0", _PTR), ("yc0", _PTR), ("offer", _PTR)]
+
 
 def _kernel_fns():
     """The C entry points of csrc/admm_stream.cu, built and loaded on first
@@ -369,17 +430,18 @@ def _kernel_fns():
         raise RuntimeError("csrc/admm_stream.cu and admm_fused.BLOCK disagree "
                            "on the block size")
     bwd, fwd = lib.tinympc_stream_backward, lib.tinympc_stream_forward
+    cons = ctypes.POINTER(_StreamConsensus)
     # nx nu N B | counts | rho | tables vprev zprev g y d done active |
-    # family array | the stream
+    # family array | consensus arguments | the stream
     bwd.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
                                           ctypes.c_float]
-                    + [_PTR] * 8 + [_PTRS, _PTR])
+                    + [_PTR] * 8 + [_PTRS, cons, _PTR])
     # stale nx nu N B it ct | counts | rho tol_pri tol_dua | tables x0 |
     # prev array | vcur zcur g y d iters done res active | family array |
-    # x_out u_out, the stream
+    # x_out u_out | consensus arguments | the stream
     fwd.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
                     + [ctypes.c_float] * 3 + [_PTR] * 2 + [_PTRS]
-                    + [_PTR] * 9 + [_PTRS] + [_PTR] * 3)
+                    + [_PTR] * 9 + [_PTRS] + [_PTR] * 2 + [cons, _PTR])
     bwd.restype = fwd.restype = ctypes.c_int
     return bwd, fwd
 
@@ -387,26 +449,32 @@ def _kernel_fns():
 class _KERNELS:
     """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
     :func:`_init`, on the current stream of x0's device; each adds one to
-    its launch count."""
+    its instantiation's entry of ``launch_counts``."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
-                 tol_dua, fam):
+                 tol_dua, fam, cons=None):
         dev, B = x0.device, x0.shape[0]
         _check_arg(x0, (B, nx), torch.float32, dev)
-        ntab = sum(math.prod(shape)
-                   for _, shape in _table_layout(nx, nu, N, fam))
+        ntab = sum(math.prod(shape) for _, shape in _table_layout(
+            nx, nu, N, fam, None, cons is not None))
         _check_arg(tables, (ntab,), torch.float32, dev)
         self.tables, self.x0, self.s, self.carry = tables, x0, s, carry
         self.N, self.nx, self.nu, self.B = N, nx, nu, B
         self.rho, self.ct, self.tol_pri, self.tol_dua = rho, ct, tol_pri, \
             tol_dua
         self.counts = (ctypes.c_int * 6)(*fam)
+        self.cons, self.suffix = None, "" if cons is None else "_consensus"
+        if cons is not None:
+            for k in ("zc0", "yc0", "offer"):
+                _check_arg(s[k], (nu, B), torch.float32, dev)
+            self.cons = ctypes.byref(_StreamConsensus(
+                cons.group, cons.rho_c, s["zc0"].data_ptr(),
+                s["yc0"].data_ptr(), s["offer"].data_ptr()))
         self.bwd, self.fwd = _kernel_fns()
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
 
     def backward(self, prev):
-        global stream_backward_launch_count
         s = self.s
         err = self.bwd(self.nx, self.nu, self.N, self.B, self.counts,
                        self.rho, self.tables.data_ptr(),
@@ -414,14 +482,13 @@ class _KERNELS:
                        s["g"].data_ptr(), s["y"].data_ptr(),
                        s["d"].data_ptr(), s["done"].data_ptr(),
                        s["active"].data_ptr(), _ptr_array(s["fams"]),
-                       self.stream)
+                       self.cons, self.stream)
         if err != 0:
             raise RuntimeError(f"admm_stream backward launch failed: CUDA "
                                f"error {err}")
-        stream_backward_launch_count += 1
+        launch_counts["backward" + self.suffix] += 1
 
     def forward(self, it, stale):
-        global stream_forward_launch_count, stream_forward_stale_launch_count
         s, cur = self.s, it % 2
         prev = [s["vnew"][1 - cur], s["znew"][1 - cur]]
         prev += [self.carry.v, self.carry.z] if stale else [None, None]
@@ -435,11 +502,9 @@ class _KERNELS:
                        _ptr_array(s["fams"]),
                        None if s["x"] is None else s["x"].data_ptr(),
                        None if s["u"] is None else s["u"].data_ptr(),
-                       self.stream)
+                       self.cons, self.stream)
         if err != 0:
             raise RuntimeError(f"admm_stream forward launch failed: CUDA "
                                f"error {err}")
-        if stale:
-            stream_forward_stale_launch_count += 1
-        else:
-            stream_forward_launch_count += 1
+        launch_counts["forward" + self.suffix + ("_stale" if stale else "")] \
+            += 1
