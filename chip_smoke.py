@@ -89,9 +89,25 @@ calls, and holds every kernel against its plain PyTorch version:
   :413-435's precision-recovery ladder on the hard batch (B=32768, z 1,
   max_iter 500, precise_tail 500) beside its matched-budget control
   (max_iter 1000 in phases [100, 400, 500]). The sources' "high" runs at
-  "highest" here, so the ladder's tail changes only the budget.
+  "highest" here, so the ladder's tail changes only the budget;
+* adaptive rho with the constraint families and at the rocket's (6, 3), on
+  the families adaptive instantiation of csrc/admm_fused.cu: phase 10's
+  rocket SOC batch (B=16384) with adaptive_rho=True -- the rocket's
+  sensitivities from compute_sensitivities, adaptive_rho_min lowered to
+  0.05 so that its rho of 1 can move -- cold and as phase 11's
+  external-plant sequence of 5 warm solves, beside fixed rho on the same
+  inputs; and adaptive rho on the adaptive instantiations of
+  csrc/admm_stream.cu (backward, forward, stale forward): bench_all.py:
+  369-392's "long horizon N=256 adaptive rho (fused streamed)" -- the
+  quadrotor at 20 Hz, N=256, B=1024, box +-5 / +-0.5, z reference 1,
+  x0 ~ U[-0.3, 0.3]^12 (default_rng(0)), max_iter 20, ct 1 -- through
+  kernels.solve_fused_streamed beside the resident adaptive solve_fused,
+  then at N=2048; and :503-526's N=256 batch (B=4096, max_iter 500) with
+  adaptive rho, compacted in phases [100, 400] on both backends.
 
-Phases, each of which raises on failure:
+Phases, each of which raises on failure (phase 13 also times
+compute_sensitivities' fixed point run on the card, as it ran before it
+moved to the host):
 
 1. card: name and power limit (nvidia-smi); TF32 off;
 2. build: compile both csrc/*.cu for sm_90a, together (timed, set-up),
@@ -131,7 +147,7 @@ Phases, each of which raises on failure:
 22. the streamed solve at N=2048, which the resident solve refuses;
 23. consensus kernel against its plain versions, small: the quadrotor (z
    0.5) at rho_c 100 and the default as 128 x 8, 512 x 2 and 8 x 128 groups,
-   and the rocket's cones with consensus at (6, 3), 128 x 8; cold, then 4
+   and the rocket's cones with consensus at (6, 3), 128 x 8; cold, then 2
    warm solves, at ct 1 and 5;
 24. the G=16 scenario batch at B=32768, and the same batch without
    consensus on the families kernel;
@@ -159,7 +175,23 @@ Phases, each of which raises on failure:
    solve_fused_streamed beside the resident consensus kernel, and the
    streamed consensus kernels per launch;
 32. the ladder against its matched-budget control, bitwise;
-33. the kernels line, then the device line last.
+33. the families adaptive kernel against its plain versions, small
+   (B=1024): the rocket SOC cold (and with apply_c) and over 5 warm
+   solves, the box-only rocket with the guard (tol 3) and at fixed rho
+   (which runs the families kernel with zero counts), and the quadrotor
+   hyperplanes, static and time-varying, under phase 9's low ceilings;
+34. the rocket SOC batch with adaptive rho at B=16384, cold and 5 warm
+   solves, beside fixed rho on the same inputs;
+35. the streamed adaptive kernels against their plain versions and,
+   bitwise (final rho and carry included), the resident adaptive kernel,
+   B=1024, N=32: box, apply_c, the guard from rho0 1000, the rocket's
+   cones; cold and 5 warm solves (the plain version on the first and the
+   fifth);
+36. the long-horizon adaptive batch (N=256, B=1024), bitwise against the
+   resident adaptive kernel, per launch and per solve; then N=2048;
+37. adaptive compaction at N=256, B=4096, streamed bitwise against
+   resident, beside one long streamed solve;
+38. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -201,12 +233,14 @@ since the script began. Exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
 """
 import dataclasses
+import functools
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -262,17 +296,27 @@ WIDE_B = 16384
 # Scenario-tree consensus: bench_all.py:224-250's G=16 cold batch (2048
 # trees x 16 branches, max_iter 500, ct 1, rho_c 100, N=10, z 0.5),
 # examples/scenario_tree_mpc.py's warm loop (256 trees x 8, z 1, T=20), and
-# the small comparisons at B=1024.
+# the small comparisons at B=1024, each a cold solve and then
+# CONS_SMALL_WARM warm solves.
 CONS_N, CONS_RHO, CONS_ITER = 10, 100.0, 500
 CONS_NG, CONS_G = 2048, 16
 TREE_NG, TREE_G, TREE_T = 256, 8, 20
 CONS_SMALL_B = 1024
+CONS_SMALL_WARM = 2
 # Lane compaction (make_compact_solver): bench_all.py:448-452 / :497-501's
 # mixed batch to convergence (B=262144), :536-559's 1M fleet in segments
 # of 2^18, both in phases [100, 400]; the small comparisons at B=1024.
 COMPACT_B, COMPACT_FLEET_B, COMPACT_SEGMENT = 262144, 1 << 20, 1 << 18
 COMPACT_CHUNK = [100, 400]
 COMPACT_SMALL_B = 1024
+# Adaptive rho with the families and on the streamed kernels: the small
+# comparisons at B=1024 (the streamed ones at N=32, a horizon the resident
+# kernel takes). The rocket's rho of 1 sits on adaptive_rho_min's default of
+# 1 and its predictions fall below it, so its adaptive problems lower the
+# floor to let rho move.
+ADAPT_FAM_B = 1024
+STREAM_ADAPT_N = 32
+ROCKET_RHO_MIN = 0.05
 
 # Published dense peaks (NVIDIA data sheets): FP32 on the CUDA cores, and
 # device-memory bandwidth. The SXM part is the default.
@@ -331,9 +375,11 @@ def inputs(torch, B, N=N_HORIZON, spread=0.5):
     return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
 
 
-def rocket_problem(tt, torch, max_iter, ct, dtype=None, N=FAM_N):
-    """bench_all.py:199-222's rocket landing with its cones, through the
-    user's entry points (at horizon N: :343-367's full descent)."""
+def rocket_problem(tt, torch, max_iter, ct, dtype=None, N=FAM_N,
+                   cones=True):
+    """bench_all.py:199-222's rocket landing with its cones (or its box
+    alone), through the user's entry points (at horizon N: :343-367's full
+    descent)."""
     s = tt.systems.rocket_landing_20hz()
     prob = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
                     N=N, f=s["f"], dtype=dtype or torch.float32,
@@ -343,8 +389,9 @@ def rocket_problem(tt, torch, max_iter, ct, dtype=None, N=FAM_N):
                             (N, 1)),
         x_max=np.tile([5.0, 5.0, 100.0, 10.0, 10.0, 20.0], (N, 1)),
         u_min=-10.0, u_max=105.0)
-    prob = tt.with_cones(prob, state_cones=[(0, 3, 0.25)],
-                         input_cones=[(0, 3, 0.5)])
+    if cones:
+        prob = tt.with_cones(prob, state_cones=[(0, 3, 0.25)],
+                             input_cones=[(0, 3, 0.5)])
     return tt.with_settings(prob, max_iter=max_iter, check_termination=ct,
                             abs_pri_tol=2e-3)
 
@@ -700,12 +747,17 @@ def adaptive_ops(N, nx, nu, apply_c):
     dC2 p under apply_c), each scaled by drho and added (2 operations an
     output), and the terminal term's drho * (-dPinf^T Xref) (2 a
     feature)."""
-    fma = (N - 1) * (nu * nx + nx * nu)
-    scale = (N - 1) * (nu + nx) + nx
+    return sum(adaptive_sweep_ops(N, nx, nu, apply_c))
+
+
+def adaptive_sweep_ops(N, nx, nu, apply_c):
+    """:func:`adaptive_ops` split between the backward sweep (dKinf^T r,
+    the terminal term, and dC1 w, dC2 p under apply_c) and the forward
+    sweep (dKinf x): (backward, forward)."""
+    bwd = 2 * (N - 1) * nx * nu + 2 * ((N - 1) * nx + nx)
     if apply_c:
-        fma += (N - 1) * (nu * nu + nx * nx)
-        scale += (N - 1) * (nu + nx)
-    return 2 * fma + 2 * scale
+        bwd += 2 * (N - 1) * (nu * nu + nx * nx) + 2 * (N - 1) * (nu + nx)
+    return bwd, 2 * (N - 1) * nu * nx + 2 * (N - 1) * nu
 
 
 def adaptation_ops(N, nx, nu):
@@ -726,13 +778,14 @@ def adaptations(iters):
     return int(((iters.long() - 1).clamp(min=0) // 5).sum().item())
 
 
-def adaptive_work(N, nx, nu, B, iters, apply_c, carry_floats=0):
+def adaptive_work(N, nx, nu, B, iters, apply_c, carry_floats=0, spec=None):
     """Operations and bytes of an adaptive fused solve for this run: the
-    fixed-rho work of :func:`fused_work` plus :func:`adaptive_ops` on every
-    iteration and :func:`adaptation_ops` on every adaptation the run made;
-    bytes add the final rho row (and a warm carry, rho included)."""
+    fixed-rho work of :func:`fused_work` (with the families of ``spec``)
+    plus :func:`adaptive_ops` on every iteration and
+    :func:`adaptation_ops` on every adaptation the run made; bytes add the
+    final rho row (and a warm carry, rho included)."""
     iter_sum = int(iters.sum().item())
-    ops, nbytes = fused_work(N, nx, nu, B, iter_sum, carry_floats)
+    ops, nbytes = fused_work(N, nx, nu, B, iter_sum, carry_floats, spec)
     ops += float(iter_sum) * adaptive_ops(N, nx, nu, apply_c) \
         + float(adaptations(iters)) * adaptation_ops(N, nx, nu)
     return ops, nbytes + 4 * B
@@ -810,20 +863,23 @@ def ptxas_entries(text):
 
 def kernel_label(fn):
     """A readable name for a mangled kernel name of csrc/."""
+    a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
+    adapt = "" if a is None else \
+        "adaptive apply_c" if a[1] == "1" else "adaptive"
     m = re.search(r"stream_(backward|forward)_kernelILi(\d+)ELi(\d+)E"
                   r"Lb([01])E(?:Lb([01])E)?", fn)
     if m:
-        # backward<NX, NU, CONS>, forward<NX, NU, STALE, CONS>
+        # backward<NX, NU, CONS, Rho>, forward<NX, NU, STALE, CONS, Rho>
         stale, cons = (m[4], m[5]) if m[1] == "forward" else ("0", m[4])
         return (f"admm_stream {m[1]}{' stale' if stale == '1' else ''}"
-                f"{' consensus' if cons == '1' else ''} ({m[2]}, {m[3]})")
+                f"{' consensus' if cons == '1' else ''}"
+                f"{' ' + adapt if adapt else ''} ({m[2]}, {m[3]})")
     m = re.search(r"ILi(\d+)ELi(\d+)ELb([01])EN7tinympc\d+(NoFamilies|"
                   r"Families)", fn)
     if m:
         kind = "families" if m[4] == "Families" else "box"
-        a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
-        if a:
-            kind = "adaptive apply_c" if a[1] == "1" else "adaptive"
+        if adapt:
+            kind = adapt if kind == "box" else f"families {adapt}"
         if "ConsensusILi" in fn:
             kind = "families consensus"
         mode = "warm" if m[3] == "1" else "cold"
@@ -889,18 +945,20 @@ def sensitivity_tables(prob):
     return c.dKinf_drho, c.dPinf_drho, c.dC1_drho, c.dC2_drho
 
 
-def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B):
+def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B, Uref=None):
     """An adaptive cold batch, kernel against its plain version on the CPU
     at the default bar, and against its plain version on the card at the
     bar of the plain version's own spread between the two (its counts,
     solved fraction and values; never looser than the default bar); final
-    rho within RHO_RTOL on the lanes whose counts agree."""
+    rho within RHO_RTOL on the lanes whose counts agree. (A fixed-rho batch
+    is held the same way, without the rho row.)"""
     prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                         "cpu")
-    sol_k, res_k = tt.kernels.solve_fused(prob, Xref, None, x0)
-    sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, None, x0)
-    sol_c, res_c = tt.kernels.solve_fused_reference(prob_c, Xref.cpu(), None,
-                                                    x0.cpu())
+    cpu = lambda a: None if a is None else a.cpu()
+    sol_k, res_k = tt.kernels.solve_fused(prob, Xref, Uref, x0)
+    sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, Uref, x0)
+    sol_c, res_c = tt.kernels.solve_fused_reference(prob_c, cpu(Xref),
+                                                    cpu(Uref), x0.cpu())
     torch.cuda.synchronize()
     everyone = torch.ones(B, dtype=torch.bool)
     share, solved_tol, atol = spread_bars(
@@ -912,80 +970,43 @@ def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B):
              dict(atol=atol, solved_tol=solved_tol, share=share))):
         name = f"{label} vs {other}"
         compare(torch, name, sol_kc, sol_o, lanes="same_iters", **bars)
-        compare_rho(name, res_k[4].cpu(), res_o[4],
-                    sol_kc.iter == sol_o.iter)
-    log(f"  {label}: lanes whose rho moved "
-        f"{(res_k[4] != float(prob.cache.rho)).float().mean().item():.5f}, "
-        f"mean iters {sol_k.iter.float().mean().item():.4f}, solved frac "
+        if res_k.shape[0] == 5:
+            compare_rho(name, res_k[4].cpu(), res_o[4],
+                        sol_kc.iter == sol_o.iter)
+    moved = (res_k[4] != float(prob.cache.rho)).float().mean().item() \
+        if res_k.shape[0] == 5 else 0.0
+    log(f"  {label}: lanes whose rho moved {moved:.5f}, mean iters "
+        f"{sol_k.iter.float().mean().item():.4f}, solved frac "
         f"{sol_k.solved.float().mean().item():.5f}")
 
 
-def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
-                    peak_flops, peak_bw):
-    """Phases 13-16: adaptive rho on the adaptive instantiation of
-    csrc/admm_fused.cu. Returns the kernels-line numbers of the cold hard
-    batch and of the warm external-plant sequence."""
-    # 13. small batches against the plain version, on the card and the CPU
-    phase(f"phase 13: adaptive kernel vs plain versions, B={ADAPT_SMALL_B}")
-    t0 = time.perf_counter()
-    prob5 = adaptive_problem(tt, torch, 5.0, N_HORIZON, ADAPT_ITER, 1)
-    torch.cuda.synchronize()
-    sens5_ms = 1e3 * (time.perf_counter() - t0)
-    t5 = sensitivity_tables(prob5)
-    t0 = time.perf_counter()
-    prob85 = adaptive_problem(tt, torch, MISTUNED_RHO, N_HORIZON, ADAPT_ITER,
-                              1)
-    torch.cuda.synchronize()
-    sens85_ms = 1e3 * (time.perf_counter() - t0)
-    t85 = sensitivity_tables(prob85)
-    # The same tables on the host, for the set-up cost of the round trip
-    # a fixed-point step that the card pays.
-    c = prob5.cache
-    args = [a.cpu() for a in (prob5.A, prob5.B, prob5.f,
-                                prob5.Qdiag - c.rho, prob5.Rdiag - c.rho,
-                                c.rho)]
-    t0 = time.perf_counter()
-    t5_host = tt.riccati.compute_sensitivities(*args)
-    host5_ms = 1e3 * (time.perf_counter() - t0)
-    drift = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(t5, t5_host))
-    log(f"  setup with compute_sensitivities on the card (set-up): rho 5 "
-        f"{sens5_ms:.1f} ms, rho {MISTUNED_RHO} {sens85_ms:.1f} ms; "
-        f"compute_sensitivities alone on the host, rho 5: {host5_ms:.1f} "
-        f"ms, tables within {drift:.3e} (relative to each table's max) of "
-        f"the card's")
-    B = ADAPT_SMALL_B
-    x0, Xref = inputs(torch, B)
-    for label, rho, mi, tol, apply_c, tables in (
-            ("adaptive rho_tol 1", 5.0, 100, 1.0, False, t5),
-            ("adaptive rho_tol 3 rho0 85", MISTUNED_RHO, ADAPT_ITER, 3.0,
-             False, t85),
-            ("adaptive apply_c", 5.0, 100, 1.0, True, t5)):
-        prob = adaptive_problem(tt, torch, rho, N_HORIZON, mi, 1, tol,
-                                apply_c, tables)
-        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
-                       Xref, B)
-    # Warm: six solves of an external plant, rho riding the carry; each
-    # step held on the lanes whose counts agree at every step so far:
-    # against the plain version on the CPU at the default bar, on the card
-    # at the plain version's own spread.
-    prob = adaptive_problem(tt, torch, 5.0, SERVE_N, 100, 1, tables=t5)
+def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
+                        Uref=None, steps=5, carry_spread=False):
+    """An adaptive external-plant sequence of ``steps`` warm solves, rho
+    riding the carry, the plant stepped with the kernel's u0; each step held
+    on the lanes whose counts agree at every step so far: against the plain
+    version on the CPU at the default bar, on the card at the plain
+    version's own spread; the carried rho within RHO_RTOL. With
+    ``carry_spread`` the carry is held against the plain version on the CPU
+    to that spread too: its scaled duals grow as 1/rho, so where rho falls
+    far below 1 their rounding passes the absolute bar while x and u meet
+    it."""
     prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                         "cpu")
-    x, Xref = inputs(torch, B, N=SERVE_N, spread=0.3)
+    cpu = lambda a: None if a is None else a.cpu()
     c_k, c_p, c_c = (tt.init_carry(prob, B), tt.init_carry(prob, B),
                      tt.init_carry(prob_c, B))
     agreed = {o: torch.ones(B, dtype=torch.bool)
               for o in ("plain(cpu)", "plain(gpu)")}
-    for step in range(6):
-        sol_k, res_k, c_k = tt.kernels.solve_fused_warm(prob, Xref, None, x,
+    for step in range(steps):
+        sol_k, res_k, c_k = tt.kernels.solve_fused_warm(prob, Xref, Uref, x,
                                                         c_k)
         sol_p, res_p, c_p = tt.kernels.solve_fused_warm_reference(
-            prob, Xref, None, x, c_p)
+            prob, Xref, Uref, x, c_p)
         sol_c, res_c, c_c = tt.kernels.solve_fused_warm_reference(
-            prob_c, Xref.cpu(), None, x.cpu(), c_c)
+            prob_c, cpu(Xref), cpu(Uref), x.cpu(), c_c)
         torch.cuda.synchronize()
-        name = f"adaptive warm B={B} step {step}"
+        name = f"{label} B={B} step {step}"
         share_c, dsf_c, dval_c, _ = plain_spread(
             torch, sol_p, sol_c, agreed["plain(gpu)"], c_p, c_c)
         share, solved_tol, atol = spread_bars(name, share_c, dsf_c, dval_c,
@@ -1000,10 +1021,75 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
             compare(torch, f"{name} vs {other}", sol_kc, sol_o,
                     lanes=agreed[other], among=before, **bars)
             compare_carry(torch, f"{name} vs {other}", c_kc, c_o,
-                          agreed[other], atol=bars.get("atol", BAR_ATOL))
+                          agreed[other],
+                          atol=atol if carry_spread else bars.get(
+                              "atol", BAR_ATOL))
             compare_rho(f"{name} vs {other}", c_kc.rho[0], c_o.rho[0],
                         agreed[other])
         x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+
+
+def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
+                    peak_flops, peak_bw):
+    """Phases 13-16: adaptive rho on the adaptive instantiation of
+    csrc/admm_fused.cu. Returns the kernels-line numbers of the cold hard
+    batch and of the warm external-plant sequence, and the quadrotor's
+    sensitivity tables at each rho0 it set up."""
+    # 13. small batches against the plain version, on the card and the CPU
+    phase(f"phase 13: adaptive kernel vs plain versions, B={ADAPT_SMALL_B}")
+    t0 = time.perf_counter()
+    prob5 = adaptive_problem(tt, torch, 5.0, N_HORIZON, ADAPT_ITER, 1)
+    torch.cuda.synchronize()
+    sens5_ms = 1e3 * (time.perf_counter() - t0)
+    t5 = sensitivity_tables(prob5)
+    t0 = time.perf_counter()
+    prob85 = adaptive_problem(tt, torch, MISTUNED_RHO, N_HORIZON, ADAPT_ITER,
+                              1)
+    torch.cuda.synchronize()
+    sens85_ms = 1e3 * (time.perf_counter() - t0)
+    t85 = sensitivity_tables(prob85)
+    # compute_sensitivities alone, on host tensors.
+    c = prob5.cache
+    args = [a.cpu() for a in (prob5.A, prob5.B, prob5.f,
+                                prob5.Qdiag - c.rho, prob5.Rdiag - c.rho,
+                                c.rho)]
+    t0 = time.perf_counter()
+    t5_host = tt.riccati.compute_sensitivities(*args)
+    host5_ms = 1e3 * (time.perf_counter() - t0)
+    # The fixed point on the card, as compute_sensitivities ran it before
+    # it moved to the host: a few dozen small launches and a host read a
+    # step.
+    t0 = time.perf_counter()
+    t5_card = tt.riccati.sensitivity_tangents(
+        *(a.to(DEVICE) for a in args[:5]), args[5])
+    torch.cuda.synchronize()
+    card5_ms = 1e3 * (time.perf_counter() - t0)
+    drift = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(t5_card, t5_host))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(t5, t5_host))
+    log(f"  setup with compute_sensitivities (on the host, the tables "
+        f"moved to the card; set-up): rho 5 {sens5_ms:.1f} ms, rho "
+        f"{MISTUNED_RHO} {sens85_ms:.1f} ms; compute_sensitivities alone, "
+        f"rho 5: {host5_ms:.1f} ms, tables bitwise with_settings': {same}; "
+        f"its fixed point run on the card instead (sensitivity_tangents): "
+        f"{card5_ms:.1f} ms, tables within {drift:.3e} (relative to each "
+        f"table's max) of the host's")
+    B = ADAPT_SMALL_B
+    x0, Xref = inputs(torch, B)
+    for label, rho, mi, tol, apply_c, tables in (
+            ("adaptive rho_tol 1", 5.0, 100, 1.0, False, t5),
+            ("adaptive rho_tol 3 rho0 85", MISTUNED_RHO, ADAPT_ITER, 3.0,
+             False, t85),
+            ("adaptive apply_c", 5.0, 100, 1.0, True, t5)):
+        prob = adaptive_problem(tt, torch, rho, N_HORIZON, mi, 1, tol,
+                                apply_c, tables)
+        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
+                       Xref, B)
+    # Warm: six solves of an external plant, rho riding the carry.
+    prob = adaptive_problem(tt, torch, 5.0, SERVE_N, 100, 1, tables=t5)
+    x, Xref = inputs(torch, B, N=SERVE_N, spread=0.3)
+    adaptive_warm_small(torch, tt, convert, "adaptive warm", prob, x, Xref,
+                        B, steps=6)
 
     # 14. the adaptive hard batch at full width, and fixed rho beside it
     phase(f"phase 14: adaptive hard batch, B={ADAPT_B}, N={N_HORIZON}, "
@@ -1078,6 +1164,8 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     t0 = time.perf_counter()
     prob_d = adaptive_problem(tt, torch, DETUNED_RHO, N_HORIZON, ADAPT_ITER, 1)
     torch.cuda.synchronize()
+    sens = {5.0: t5, MISTUNED_RHO: t85,
+            DETUNED_RHO: sensitivity_tables(prob_d)}
     log(f"  setup with compute_sensitivities at rho {DETUNED_RHO} "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms (set-up)")
     for rho0, base in ((MISTUNED_RHO, prob85), (DETUNED_RHO, prob_d)):
@@ -1175,10 +1263,10 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     rows["adaptive_warm"] = dict(launches=warm_launches, err=err_w, ms=w_ms,
                                  plain_ms=plain_w_ms, bound_ms=w_bound_ms,
                                  bound_by=w_bound_by)
-    return rows
+    return rows, sens
 
 
-def stream_floats(spec, track=False):
+def stream_floats(spec, track=False, adaptive=False):
     """Floats one lane's backward and forward launch read and write in one
     iteration, each array once: the backward reads vnew, g, znew, y and
     each family's slack and dual and writes d; the forward reads x0, g, y,
@@ -1187,9 +1275,14 @@ def stream_floats(spec, track=False):
     Under consensus the backward also reads each lane's zc0 and yc0, and
     the forward reads and writes them (a lane that converges in the launch
     also writes its standing offer, nu floats, which the caller counts
-    from the run's data). Returns (backward, forward)."""
+    from the run's data). Under adaptive rho the backward also reads each
+    lane's rho, and the forward reads and writes its rho and virtual rho
+    (the scratch of an adaptation iteration is the launch's own). Returns
+    (backward, forward)."""
     N, nx, nu = spec.N, spec.nx, spec.nu
     cb, cf = (2 * nu, 4 * nu) if spec.en_consensus else (0, 0)
+    if adaptive:
+        cb, cf = cb + 1, cf + 4
     fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
                         spec.n_tv_state_lin)))
     fu = sum(map(bool, (spec.enabled_input_cones, spec.n_input_lin,
@@ -1200,13 +1293,16 @@ def stream_floats(spec, track=False):
     return bwd, fwd + (sx + su if track else 0)
 
 
-def stream_ops(spec, group=0):
+def stream_ops(spec, group=0, adapt=None):
     """Operations of one lane's backward and forward launch, as
     iteration_ops and family_ops count them: the backward sweep's
     products and linear cost (with each family's term, 3 a feature), the
     forward sweep's products, projections and dual updates; under
     consensus in groups of ``group`` lanes, r[0]'s term (3 a feature) and
-    consensus_ops (the step-0 gains replace products counted already)."""
+    consensus_ops (the step-0 gains replace products counted already);
+    under adaptive rho (``adapt``, the settings) the telescoped products of
+    :func:`adaptive_sweep_ops` (an adaptation's pass is counted per
+    adaptation, :func:`adaptation_ops`)."""
     N, nx, nu = spec.N, spec.nx, spec.nu
     fx = sum(map(bool, (spec.enabled_state_cones, spec.n_state_lin,
                         spec.n_tv_state_lin)))
@@ -1219,6 +1315,9 @@ def stream_ops(spec, group=0):
         + (N - 1) * (nu * 6 + 2 * nx) + family_ops(spec) - cost
     if spec.en_consensus:
         bwd, fwd = bwd + 3 * nu, fwd + consensus_ops(group, nu)
+    if adapt is not None:
+        ab, af = adaptive_sweep_ops(N, nx, nu, adapt.adaptive_rho_apply_c)
+        bwd, fwd = bwd + ab, fwd + af
     return bwd, fwd
 
 
@@ -1282,7 +1381,8 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     kw = {k: v for k, v in params.items() if k != "max_iter"}
 
     def fresh(launcher):
-        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"])
+        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"],
+                      None if params["adapt"] is None else params["rho"])
         return s, launcher(tables, x0c, s, carry_t, N, nx, nu, **kw)
 
     bwd, fwd = [], []
@@ -1299,7 +1399,8 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     run.forward(0, warm)
     plain_fwd_ms = host_ms(torch, lambda: plain.forward(0, warm))[0]
     pairs = [(s[k], sp[k]) for k in ("vnew", "znew", "g", "y", "res", "x",
-                                     "u", "zc0", "yc0", "offer")
+                                     "u", "zc0", "yc0", "offer", "rho",
+                                     "rho_v")
              if s[k] is not None]
     pairs += [(a, b) for a, b in zip(s["fams"], sp["fams"]) if a is not None]
     err_f = max((a - b).abs().max().item() for a, b in pairs)
@@ -1312,97 +1413,119 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
                 converged=int(s["done"].sum().item()))
 
 
-def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
-                    peak_bw):
+def stream_keys(prob):
+    """The launch counts of the streamed kernels a problem runs: backward,
+    forward and stale forward, adaptive or not."""
+    sfx = "_adaptive" if prob.settings.adaptive_rho else ""
+    return (f"backward{sfx}", f"forward{sfx}", f"forward{sfx}_stale")
+
+
+def stream_drive(ctx, label, prob, Xref, Uref, x0, carry=None):
+    """One streamed solve through the entry point with the counts at 0: its
+    result and the launches (backward, forward, stale forward)."""
+    torch, kern = ctx.torch, ctx.tt.kernels
+    zero_counts(ctx.counters)
+    out = (kern.solve_fused_streamed(prob, Xref, Uref, x0)
+           if carry is None else
+           kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, carry))
+    torch.cuda.synchronize()
+    launches = tuple(ctx.ast.launch_counts[k] for k in stream_keys(prob))
+    if launches[0] < 1 or launches[1] + launches[2] < 1:
+        raise AssertionError(f"{label} did not launch the streamed "
+                             "kernels")
+    spec, B = prob.spec, x0.shape[0]
+    if out[0].x.shape != (spec.N, B, spec.nx) or \
+            out[0].u.shape != (spec.N - 1, B, spec.nu):
+        raise AssertionError(f"{label}: bad output shapes "
+                             f"{out[0].x.shape} {out[0].u.shape}")
+    fail(label, bool(torch.isfinite(out[0].x).all()
+                     and torch.isfinite(out[0].u).all()),
+         "output is not finite")
+    return out, launches
+
+
+def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
+                  carry=None, resident=None):
+    """Per-launch and per-solve times beside their bounds; the kernels-line
+    numbers of the backward and forward kernel."""
+    torch, kern = ctx.torch, ctx.tt.kernels
+    spec, B = prob.spec, x0.shape[0]
+    warm = carry is not None
+    adaptive = prob.settings.adaptive_rho
+    lt = stream_launches(torch, ctx.ast, prob, Xref, Uref, x0, carry)
+    fail(label, lt["err_b"] <= BAR_ATOL and lt["err_f"] <= BAR_ATOL,
+         f"one launch differs from its plain version by "
+         f"{max(lt['err_b'], lt['err_f']):.3e}")
+    solve = ((lambda: kern.solve_fused_streamed(prob, Xref, Uref, x0))
+             if not warm else
+             (lambda: kern.solve_fused_streamed_warm(prob, Xref, Uref, x0,
+                                                     carry)))
+    solve_ms, times = cuda_ms(torch, solve, 3)
+    host = statistics.median(host_ms(torch, solve)[0] for _ in range(3))
+    track = warm and spec.any_extra_family
+    fb, ff = stream_floats(spec, track, adaptive)
+    ob, of = stream_ops(spec, adapt=prob.settings if adaptive else None)
+    b_bwd = bound(B * ob, 4 * B * fb, ctx.peak_flops, ctx.peak_bw)
+    b_fwd = bound(B * of, 4 * B * ff, ctx.peak_flops, ctx.peak_bw)
+    iter_sum = int(sol.iter.sum().item())
+    ops = iter_sum * (ob + of)
+    if adaptive:
+        ops += adaptations(sol.iter) * adaptation_ops(spec.N, spec.nx,
+                                                      spec.nu)
+    b_solve = bound(ops, 4 * iter_sum * (fb + ff), ctx.peak_flops,
+                    ctx.peak_bw)
+    its = launches[0]
+    kernel_ms = its * (lt["bwd_ms"] + lt["fwd_ms"])
+    res_txt = ""
+    if resident is not None:
+        res_ms = cuda_ms(torch, resident, 3)[0]
+        res_txt = (f", resident solve_fused{'_warm' if warm else ''} "
+                   f"{res_ms:.4f} ms (streamed / resident "
+                   f"{solve_ms / res_ms:.4f})")
+    log(f"  {label}: backward {lt['bwd_ms']:.4f} ms a launch (reps "
+        f"{[round(t, 4) for t in lt['bwd_reps']]}; bound "
+        f"{b_bwd[0]:.4f} ms, {b_bwd[1]}; plain {lt['plain_bwd_ms']:.1f} "
+        f"ms), forward{' (stale)' if warm else ''} {lt['fwd_ms']:.4f} ms "
+        f"(reps {[round(t, 4) for t in lt['fwd_reps']]}; bound "
+        f"{b_fwd[0]:.4f} ms, {b_fwd[1]}; plain {lt['plain_fwd_ms']:.1f} "
+        f"ms); one launch vs plain: max|d| {lt['err_b']:.3e}, forward "
+        f"{lt['err_f']:.3e}")
+    log(f"  {label}: solve {solve_ms:.4f} ms on the card's clock (reps "
+        f"{[round(t, 4) for t in times]}), {host:.4f} ms on the host "
+        f"clock, kernels ~{kernel_ms:.4f} ms ({its} iterations x the "
+        f"per-launch times; share {kernel_ms / host:.4f}), launches per "
+        f"solve {launches}, bound {b_solve[0]:.4f} ms ({b_solve[1]}), "
+        f"{4 * (fb + ff)} B a lane and iteration "
+        f"({4 * (fb + ff) / spec.N:.1f} B a horizon row), mean iters "
+        f"{iter_sum / B:.4f}, solved frac "
+        f"{sol.solved.float().mean().item():.5f}, "
+        f"{B / (solve_ms / 1e3):.1f} solves/s{res_txt}; {B} lanes fill "
+        f"{-(-B // ctx.admm_fused.BLOCK)} blocks on 132 SMs; card "
+        f"{ctx.card}")
+    return lt, b_bwd, b_fwd
+
+
+def resident_cold(admm_fused, prob, Xref, Uref, x0):
+    """One launch of the resident kernel on the solve's checked inputs."""
+    tables, x0c, params = admm_fused._prepare(prob, Xref, Uref, x0)
+    spec = prob.spec
+    return lambda: admm_fused._solve_kernel(tables, x0c, spec.N, spec.nx,
+                                            spec.nu, **params)
+
+
+def streamed_phases(ctx):
     """Phases 17-22: the streamed long-horizon solve on csrc/admm_stream.cu.
     Returns the kernels-line numbers of its backward kernel, its forward
     kernel and the forward's stale variant."""
+    torch, tt, admm_fused, ast = ctx.torch, ctx.tt, ctx.admm_fused, ctx.ast
+    counters = ctx.counters
     kern = tt.kernels
     ref, ref_warm = (kern.solve_fused_streamed_reference,
                      kern.solve_fused_streamed_warm_reference)
     rows = {}
-
-    def drive(label, prob, Xref, Uref, x0, carry=None):
-        """One solve through the entry point with the counts at 0: its
-        result and the launches (backward, forward, stale forward)."""
-        zero_counts(counters)
-        out = (kern.solve_fused_streamed(prob, Xref, Uref, x0)
-               if carry is None else
-               kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, carry))
-        torch.cuda.synchronize()
-        launches = tuple(ast.launch_counts[k] for k in (
-            "backward", "forward", "forward_stale"))
-        if launches[0] < 1 or launches[1] + launches[2] < 1:
-            raise AssertionError(f"{label} did not launch the streamed "
-                                 "kernels")
-        spec, B = prob.spec, x0.shape[0]
-        if out[0].x.shape != (spec.N, B, spec.nx) or \
-                out[0].u.shape != (spec.N - 1, B, spec.nu):
-            raise AssertionError(f"{label}: bad output shapes "
-                                 f"{out[0].x.shape} {out[0].u.shape}")
-        fail(label, bool(torch.isfinite(out[0].x).all()
-                         and torch.isfinite(out[0].u).all()),
-             "output is not finite")
-        return out, launches
-
-    def report(label, prob, Xref, Uref, x0, sol, launches, carry=None,
-               resident=None):
-        """Per-launch and per-solve times beside their bounds; the
-        kernels-line numbers of the backward and forward kernel."""
-        spec, B = prob.spec, x0.shape[0]
-        warm = carry is not None
-        lt = stream_launches(torch, ast, prob, Xref, Uref, x0, carry)
-        fail(label, lt["err_b"] <= BAR_ATOL and lt["err_f"] <= BAR_ATOL,
-             f"one launch differs from its plain version by "
-             f"{max(lt['err_b'], lt['err_f']):.3e}")
-        solve = ((lambda: kern.solve_fused_streamed(prob, Xref, Uref, x0))
-                 if not warm else
-                 (lambda: kern.solve_fused_streamed_warm(prob, Xref, Uref, x0,
-                                                         carry)))
-        solve_ms, times = cuda_ms(torch, solve, 3)
-        host = statistics.median(host_ms(torch, solve)[0] for _ in range(3))
-        track = warm and spec.any_extra_family
-        fb, ff = stream_floats(spec, track)
-        ob, of = stream_ops(spec)
-        b_bwd = bound(B * ob, 4 * B * fb, peak_flops, peak_bw)
-        b_fwd = bound(B * of, 4 * B * ff, peak_flops, peak_bw)
-        iter_sum = int(sol.iter.sum().item())
-        b_solve = bound(iter_sum * (ob + of), 4 * iter_sum * (fb + ff),
-                        peak_flops, peak_bw)
-        its = launches[0]
-        kernel_ms = its * (lt["bwd_ms"] + lt["fwd_ms"])
-        res_txt = ""
-        if resident is not None:
-            res_ms = cuda_ms(torch, resident, 3)[0]
-            res_txt = (f", resident solve_fused{'_warm' if warm else ''} "
-                       f"{res_ms:.4f} ms (streamed / resident "
-                       f"{solve_ms / res_ms:.4f})")
-        log(f"  {label}: backward {lt['bwd_ms']:.4f} ms a launch (reps "
-            f"{[round(t, 4) for t in lt['bwd_reps']]}; bound "
-            f"{b_bwd[0]:.4f} ms, {b_bwd[1]}; plain {lt['plain_bwd_ms']:.1f} "
-            f"ms), forward{' (stale)' if warm else ''} {lt['fwd_ms']:.4f} ms "
-            f"(reps {[round(t, 4) for t in lt['fwd_reps']]}; bound "
-            f"{b_fwd[0]:.4f} ms, {b_fwd[1]}; plain {lt['plain_fwd_ms']:.1f} "
-            f"ms); one launch vs plain: max|d| {lt['err_b']:.3e}, forward "
-            f"{lt['err_f']:.3e}")
-        log(f"  {label}: solve {solve_ms:.4f} ms on the card's clock (reps "
-            f"{[round(t, 4) for t in times]}), {host:.4f} ms on the host "
-            f"clock, kernels ~{kernel_ms:.4f} ms ({its} iterations x the "
-            f"per-launch times; share {kernel_ms / host:.4f}), launches per "
-            f"solve {launches}, bound {b_solve[0]:.4f} ms ({b_solve[1]}), "
-            f"{4 * (fb + ff)} B a lane and iteration "
-            f"({4 * (fb + ff) / spec.N:.1f} B a horizon row), mean iters "
-            f"{iter_sum / B:.4f}, solved frac "
-            f"{sol.solved.float().mean().item():.5f}, "
-            f"{B / (solve_ms / 1e3):.1f} solves/s{res_txt}; {B} lanes fill "
-            f"{-(-B // admm_fused.BLOCK)} blocks on 132 SMs; card {card}")
-        return lt, b_bwd, b_fwd
-
-    def resident_cold(prob, Xref, Uref, x0):
-        tables, x0c, params = admm_fused._prepare(prob, Xref, Uref, x0)
-        spec = prob.spec
-        return lambda: admm_fused._solve_kernel(tables, x0c, spec.N, spec.nx,
-                                                spec.nu, **params)
+    drive = functools.partial(stream_drive, ctx)
+    report = functools.partial(stream_report, ctx)
+    resident = functools.partial(resident_cold, admm_fused)
 
     # 17. examples/long_horizon.py, cold, at the source's batch and a fleet
     phase(f"phase 17: long horizon cold, N={LH_N}, B={LH_B} and "
@@ -1419,7 +1542,7 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
         err = compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
         lt, b_bwd, b_fwd = report(label, prob, Xref, None, x0, sol_k,
                                   launches,
-                                  resident=resident_cold(prob, Xref, None,
+                                  resident=resident(prob, Xref, None,
                                                          x0))
         log(f"  {label}: plain solve {plain_ms:.1f} ms")
         if B == LH_B:
@@ -1494,7 +1617,7 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
     sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
     compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
     report(label, prob, Xref, Uref, x0, sol_k, launches,
-           resident=resident_cold(prob, Xref, Uref, x0))
+           resident=resident(prob, Xref, Uref, x0))
 
     # 20. bench_all.py:503-518, N=256 to convergence, mixed x0 scales
     phase(f"phase 20: long horizon to convergence, N={LH_CONV_N}, "
@@ -1524,7 +1647,7 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
         f"{share[32]:.4f}, by a block with one {share[admm_fused.BLOCK]:.4f} "
         f"(the rest returned at once)")
     report(label, prob, None, None, x0, sol_k, launches,
-           resident=resident_cold(prob, None, None, x0))
+           resident=resident(prob, None, None, x0))
 
     # 21. phase 12's binding ceilings through the streamed kernels
     phase(f"phase 21: hyperplanes under low ceilings, streamed, B={FAM_B}, "
@@ -1538,7 +1661,7 @@ def streamed_phases(torch, tt, admm_fused, ast, counters, card, peak_flops,
         same_bits(torch, label, (sol_k, res_k),
                   kern.solve_fused(prob, Xref, None, x0), "solve_fused")
         report(label, prob, Xref, None, x0, sol_k, launches,
-               resident=resident_cold(prob, Xref, None, x0))
+               resident=resident(prob, Xref, None, x0))
 
     # 22. past the resident kernel's shared-memory wall
     phase(f"phase 22: long horizon N={LH_WALL_N}, B={LH_B}, max_iter "
@@ -1696,7 +1819,7 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     phase(f"phase 23: consensus kernel vs plain versions, B={CONS_SMALL_B}")
     # The quadrotor (hover z 0.5) at rho_c 100 and the default, as
     # 128 x 8, 512 x 2 and 8 x 128 groups; the rocket's cones (phase 9)
-    # with consensus at (6, 3), 128 x 8. Cold, then 4 warm solves of an
+    # with consensus at (6, 3), 128 x 8. Cold, then 2 warm solves of an
     # external plant stepped with the kernel's u0, at ct 1 and 5. Each
     # solve is held to the bar against the plain version on the CPU and on
     # the card (on the groups whose counts agree, at every step so far),
@@ -1734,7 +1857,7 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
         c_k = c_p = c_c = None
         x = x0
         states, spreads = [], []
-        for step in range(5):
+        for step in range(1 + CONS_SMALL_WARM):
             warm = step > 0
             name = (f"{label} {'warm' if warm else 'cold'} ct={ct}"
                     + (f" step {step}" if warm else ""))
@@ -1798,7 +1921,7 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
                 witness[0] = tt.solve(prob, tt.init_state(prob, (ng, G)),
                                       Xref, Uref, states[0])[0]
                 st = tt.init_state(prob, (ng, G))
-                for k in range(1, 5):
+                for k in range(1, len(states)):
                     witness[k], st, _ = tt.solve(prob, st, Xref, Uref,
                                                  states[k])
             return witness
@@ -2066,37 +2189,50 @@ def stream_consensus_small(torch, tt, ast, counters):
     return err
 
 
-def compaction_phases(torch, tt, convert, admm_fused, ast, compact, counters,
-                      card, peak_flops, peak_bw):
+# The warm instantiations' launch counts of csrc/admm_fused.cu, and the
+# stale forward launches of csrc/admm_stream.cu: one of them a phase of a
+# compacted solve.
+WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
+               "adaptive_warm_launch_count",
+               "adaptive_families_warm_launch_count",
+               "consensus_warm_launch_count")
+STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
+                "forward_adaptive_stale")
+
+
+def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, **kw):
+    """One compacted solve through make_compact_solver with the counts at
+    0: its result, the phases it ran and the launches of each warm
+    instantiation and of the streamed kernels."""
+    torch, compact = ctx.torch, ctx.compact
+    zero_counts(ctx.counters)
+    compact.phase_count = 0
+    out = ctx.tt.kernels.make_compact_solver(prob, **kw)(x0, Xref, Uref)
+    torch.cuda.synchronize()
+    warm = sum(getattr(ctx.admm_fused, k) for k in WARM_COUNTS)
+    stream = sum(ctx.ast.launch_counts[k] for k in STALE_COUNTS)
+    phases = compact.phase_count
+    if phases < 1 or warm + stream != phases:
+        raise AssertionError(f"{label}: {phases} phases but {warm} warm "
+                             f"and {stream} stale streamed launches")
+    fail(label, bool(torch.isfinite(out[0].x).all()
+                     and torch.isfinite(out[0].u).all()),
+         "output is not finite")
+    return out, phases
+
+
+def compaction_phases(ctx):
     """Phases 26-32: lane compaction (kernels/compact.py) on the resident
     and streamed kernels, warm final=True phases, and the consensus
     instantiations of the streamed kernels. Returns the kernels-line
     numbers of the streamed consensus kernels."""
+    torch, tt, convert, admm_fused, ast, compact = (
+        ctx.torch, ctx.tt, ctx.convert, ctx.admm_fused, ctx.ast, ctx.compact)
+    counters, card, peak_flops, peak_bw = (ctx.counters, ctx.card,
+                                           ctx.peak_flops, ctx.peak_bw)
     kern = tt.kernels
     cpu = lambda a: None if a is None else a.cpu()
-    warm_counts = ("warm_launch_count", "families_warm_launch_count",
-                   "adaptive_warm_launch_count",
-                   "consensus_warm_launch_count")
-
-    def drive(label, prob, x0, Xref=None, Uref=None, **kw):
-        """One compacted solve through make_compact_solver with the counts
-        at 0: its result, the phases it ran and the launches of each warm
-        instantiation and of the streamed kernels."""
-        zero_counts(counters)
-        compact.phase_count = 0
-        out = kern.make_compact_solver(prob, **kw)(x0, Xref, Uref)
-        torch.cuda.synchronize()
-        warm = sum(getattr(admm_fused, k) for k in warm_counts)
-        stream = sum(ast.launch_counts[k] for k in (
-            "forward_stale", "forward_consensus_stale"))
-        phases = compact.phase_count
-        if phases < 1 or warm + stream != phases:
-            raise AssertionError(f"{label}: {phases} phases but {warm} warm "
-                                 f"and {stream} stale streamed launches")
-        fail(label, bool(torch.isfinite(out[0].x).all()
-                         and torch.isfinite(out[0].u).all()),
-             "output is not finite")
-        return out, phases
+    drive = functools.partial(compact_drive, ctx)
 
     # 26. compaction on the kernels against compaction on the plain
     # versions on the CPU, at the bar of kernel against plain version
@@ -2412,6 +2548,391 @@ def compaction_phases(torch, tt, convert, admm_fused, ast, compact, counters,
     return rows
 
 
+def adaptive_rocket(ctx, max_iter, ct, tables, cones=True, tol=1.0,
+                    apply_c=False, N=FAM_N):
+    """phase 10's rocket (or its box alone) with adaptive rho, the rocket's
+    sensitivity ``tables`` attached, and its floor of rho lowered so that
+    rho moves (ROCKET_RHO_MIN)."""
+    prob = rocket_problem(ctx.tt, ctx.torch, max_iter, ct, N=N, cones=cones)
+    prob = ctx.tt.with_sensitivities(prob, tables)
+    return ctx.tt.with_settings(prob, adaptive_rho=True,
+                                adaptive_rho_min=ROCKET_RHO_MIN,
+                                adaptive_rho_tolerance=tol,
+                                adaptive_rho_apply_c=apply_c)
+
+
+def timed_setup(ctx, label, make):
+    """``make()`` on the card's clock, logged as set-up."""
+    t0 = time.perf_counter()
+    out = make()
+    ctx.torch.cuda.synchronize()
+    log(f"  {label}: {1e3 * (time.perf_counter() - t0):.1f} ms (set-up)")
+    return out
+
+
+def adaptive_family_phases(ctx):
+    """Phases 33-34: adaptive rho with the constraint families (and every
+    problem at (6, 3)) on the families adaptive instantiation of
+    csrc/admm_fused.cu. Returns the kernels-line numbers of the rocket SOC
+    cold batch and of its warm sequence."""
+    torch, tt, convert, admm_fused = (ctx.torch, ctx.tt, ctx.convert,
+                                      ctx.admm_fused)
+    kern = tt.kernels
+
+    # 33. small batches against the plain version, on the card and the CPU
+    B = ADAPT_FAM_B
+    phase(f"phase 33: families adaptive kernel vs plain versions, B={B}")
+    rocket = rocket_problem(tt, torch, 100, 1)
+    ctx.rocket_tables = sensitivity_tables(timed_setup(
+        ctx, "with_settings(adaptive_rho=True) on the rocket, "
+        "compute_sensitivities on the host",
+        lambda: tt.with_settings(rocket, adaptive_rho=True)))
+    plane = quad_plane_problem(tt, torch, False, 100, 1, LOW_CEILING["linear"])
+    plane_tables = sensitivity_tables(timed_setup(
+        ctx, "with_settings(adaptive_rho=True) on the 50 Hz quadrotor, "
+        "compute_sensitivities on the host",
+        lambda: tt.with_settings(plane, adaptive_rho=True)))
+    x_r, Xr, Ur = rocket_inputs(torch, B)
+    x_q, Xq, _ = quad_plane_inputs(torch, B)
+
+    def plane_problem(kind):
+        prob = quad_plane_problem(tt, torch, kind == "tv", 100, 1,
+                                  LOW_CEILING[kind])
+        return tt.with_settings(tt.with_sensitivities(prob, plane_tables),
+                                adaptive_rho=True)
+
+    t = ctx.rocket_tables
+    cases = [
+        ("rocket SOC adaptive", adaptive_rocket(ctx, 100, 1, t), x_r, Xr,
+         Ur),
+        ("rocket SOC adaptive apply_c", adaptive_rocket(
+            ctx, 100, 1, t, apply_c=True), x_r, Xr, Ur),
+        ("rocket box adaptive guard tol 3", adaptive_rocket(
+            ctx, 100, 1, t, cones=False, tol=3.0), x_r, Xr, Ur),
+        ("rocket box fixed rho", rocket_problem(tt, torch, 100, 1,
+                                                cones=False), x_r, Xr, Ur),
+        ("quadrotor linear low ceilings adaptive", plane_problem("linear"),
+         x_q, Xq, None),
+        ("quadrotor tv low ceilings adaptive", plane_problem("tv"), x_q,
+         Xq, None)]
+    for label, prob, x0, Xref, Uref in cases:
+        zero_counts(ctx.counters)
+        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
+                       Xref, B, Uref)
+        key = ("adaptive_families_launch_count"
+               if prob.settings.adaptive_rho else "families_launch_count")
+        fail(label, getattr(admm_fused, key) >= 1,
+             f"the kernel's {key} stayed 0")
+    adaptive_warm_small(torch, tt, convert, "rocket SOC adaptive warm",
+                        cases[0][1], x_r, Xr, B, Ur, steps=5,
+                        carry_spread=True)
+
+    # 34. the rocket SOC batch at full width with adaptive rho, beside
+    # fixed rho on the same inputs: cold, then phase 11's external plant
+    B = FAM_B
+    phase(f"phase 34: rocket SOC adaptive, B={B}, N={FAM_N}, cold and 5 "
+          f"warm solves, beside fixed rho")
+    prob_a = adaptive_rocket(ctx, 100, 1, t)
+    prob_f = rocket_problem(tt, torch, 100, 1)
+    x0, Xref, Uref = rocket_inputs(torch, B)
+    zero_counts(ctx.counters)
+    sol_k, res_k = kern.solve_fused(prob_a, Xref, Uref, x0)
+    torch.cuda.synchronize()
+    launches = admm_fused.adaptive_families_launch_count
+    if launches < 1:
+        raise AssertionError("the adaptive rocket batch did not launch the "
+                             "families adaptive kernel")
+    if sol_k.x.shape != (FAM_N, B, 6) or res_k.shape != (5, B):
+        raise AssertionError(f"bad output shapes {sol_k.x.shape} "
+                             f"{res_k.shape}")
+    plain_ms, (sol_p, res_p) = host_ms(
+        torch, lambda: kern.solve_fused_reference(prob_a, Xref, Uref, x0))
+    err = compare(torch, "rocket SOC adaptive cold", sol_k, sol_p,
+                  res_k[:4], res_p[:4], lanes="same_iters")
+    compare_rho("rocket SOC adaptive cold", res_k[4], res_p[4],
+                sol_k.iter == sol_p.iter)
+
+    def time_solve(prob, x, carry=None):
+        """Kernel ms (CUDA events), the entry point's call on the host
+        clock, and the kernel's solution."""
+        tables, xc, params = admm_fused._prepare(prob, Xref, Uref, x)
+        if carry is None:
+            run = lambda: admm_fused._solve_kernel(tables, xc, FAM_N, 6, 3,
+                                                   **params)
+            call = lambda: kern.solve_fused(prob, Xref, Uref, x)
+        else:
+            c = admm_fused._carry_tensors(prob, carry, B)
+            run = lambda: admm_fused._solve_kernel_warm(
+                tables, xc, c, FAM_N, 6, 3, **params)
+            call = lambda: kern.solve_fused_warm(prob, Xref, Uref, x, carry)
+        sol = run()[0]                                  # warm-up
+        ms, times = cuda_ms(torch, run, REPS)
+        call_ms = statistics.median(host_ms(torch, call)[0]
+                                    for _ in range(3))
+        return sol, ms, times, call_ms
+
+    rows = {}
+
+    def report(label, key, prob, sol, ms, times, call_ms, plain, errv,
+               nlaunch, fixed, carry=None):
+        floats = 0 if carry is None else lane_carry_floats(carry)
+        ops, nbytes = adaptive_work(FAM_N, 6, 3, B, sol.iter, False, floats,
+                                    prob.spec)
+        b = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+        mean_it = sol.iter.float().mean().item()
+        sol_f, ms_f = fixed
+        mean_f = sol_f.iter.float().mean().item()
+        log(f"  {label}: kernel {ms:.4f} ms (reps "
+            f"{[round(x, 4) for x in times]}), call {call_ms:.4f} ms on the "
+            f"host clock (kernel share {ms / call_ms:.4f}), "
+            f"{B / (ms / 1e3):.1f} solves/s, solved frac "
+            f"{sol.solved.float().mean().item():.5f}, mean iters "
+            f"{mean_it:.4f} ({ms / mean_it:.5f} ms per mean iteration), "
+            f"adaptations {adaptations(sol.iter)}, bound {b[0]:.4f} ms "
+            f"({b[1]}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), plain "
+            f"{plain:.1f} ms, launches {nlaunch}; fixed rho on the same "
+            f"inputs: kernel {ms_f:.4f} ms, solved frac "
+            f"{sol_f.solved.float().mean().item():.5f}, mean iters "
+            f"{mean_f:.4f} ({ms_f / mean_f:.5f} ms per mean iteration); "
+            f"adaptive / fixed per mean iteration "
+            f"{(ms / mean_it) / (ms_f / mean_f):.4f}; card {ctx.card}")
+        rows[key] = dict(launches=nlaunch, err=errv, ms=ms, plain_ms=plain,
+                         bound_ms=b[0], bound_by=b[1])
+
+    sol_t, ms, times, call_ms = time_solve(prob_a, x0)
+    sol_tf, ms_f = time_solve(prob_f, x0)[:2]
+    log(f"  rocket SOC adaptive cold: final rho quartiles "
+        f"{[round(q, 4) for q in quartiles(res_k[4])]}, lanes whose rho "
+        f"moved {(res_k[4] != float(prob_a.cache.rho)).float().mean():.5f}")
+    report("rocket SOC adaptive cold", "adaptive_families", prob_a, sol_t,
+           ms, times, call_ms, plain_ms, err, launches, (sol_tf, ms_f))
+    # The source's settings: adaptive_rho_min's default of 1 pins the
+    # rocket's rho of 1, so the adaptive kernel runs with drho = 0.
+    pinned = tt.with_settings(tt.with_sensitivities(prob_f, t),
+                              adaptive_rho=True)
+    sol_pin, ms_pin, times_pin = time_solve(pinned, x0)[:3]
+    same = all(torch.equal(getattr(sol_pin, k), getattr(sol_tf, k))
+               for k in ("x", "u", "iter", "solved"))
+    mean_pin = sol_pin.iter.float().mean().item()
+    mean_f = sol_tf.iter.float().mean().item()
+    log(f"  rocket SOC adaptive cold, adaptive_rho_min 1 (rho pinned at "
+        f"1): kernel {ms_pin:.4f} ms (reps "
+        f"{[round(v, 4) for v in times_pin]}), mean iters "
+        f"{mean_pin:.4f}, solved frac "
+        f"{sol_pin.solved.float().mean():.5f}, bitwise the fixed-rho "
+        f"kernel's solution: {same}; per mean iteration against fixed rho "
+        f"{(ms_pin / mean_pin) / (ms_f / mean_f):.4f}")
+
+    c_k, c_f = tt.init_carry(prob_a, B), tt.init_carry(prob_f, B)
+    zero_counts(ctx.counters)
+    states, sols, carries = [], [], []
+    x = x0
+    for step in range(5):
+        sol_k, _, c_k = kern.solve_fused_warm(prob_a, Xref, Uref, x, c_k)
+        states.append(x)
+        sols.append(sol_k)
+        carries.append(c_k)
+        x = x @ prob_a.A.T + sol_k.u[0] @ prob_a.B.T + prob_a.f
+    torch.cuda.synchronize()
+    warm_launches = admm_fused.adaptive_families_warm_launch_count
+    if warm_launches < 5:
+        raise AssertionError("the adaptive rocket sequence did not launch "
+                             "the warm families adaptive kernel")
+    c_p = tt.init_carry(prob_a, B)
+    agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    err_w = 0.0
+    for step, (x_s, sol_k, c_ks) in enumerate(zip(states, sols, carries)):
+        plain_w_ms, (sol_p, _, c_p) = host_ms(
+            torch, lambda: kern.solve_fused_warm_reference(
+                prob_a, Xref, Uref, x_s, c_p))
+        agreed &= sol_k.iter == sol_p.iter
+        err_w = max(err_w, compare(torch, f"rocket SOC adaptive warm step "
+                                   f"{step}", sol_k, sol_p, lanes=agreed))
+        compare_rho(f"rocket SOC adaptive warm step {step}", c_ks.rho[0],
+                    c_p.rho[0], agreed)
+        log(f"  step {step}: mean iters "
+            f"{sol_k.iter.float().mean().item():.4f}, solved frac "
+            f"{sol_k.solved.float().mean().item():.5f}")
+    compare_carry(torch, "rocket SOC adaptive after 5 steps", c_k, c_p,
+                  agreed)
+    # Fixed rho along the same states, for its sixth solve beside.
+    for x_s in states:
+        c_f = kern.solve_fused_warm(prob_f, Xref, Uref, x_s, c_f)[2]
+    sol_w, w_ms, times, call_ms = time_solve(prob_a, x, c_k)
+    sol_wf, w_ms_f = time_solve(prob_f, x, c_f)[:2]
+    report("rocket SOC adaptive solve_fused_warm (the sixth solve)",
+           "adaptive_families_warm", prob_a, sol_w, w_ms, times, call_ms,
+           plain_w_ms, err_w, warm_launches, (sol_wf, w_ms_f), c_k)
+    return rows
+
+
+def adaptive_stream_phases(ctx):
+    """Phases 35-37: adaptive rho on the adaptive instantiations of
+    csrc/admm_stream.cu, and compaction on adaptive problems. Returns the
+    kernels-line numbers of the adaptive backward, forward and stale
+    forward kernels."""
+    torch, tt, admm_fused, ast = ctx.torch, ctx.tt, ctx.admm_fused, ctx.ast
+    kern = tt.kernels
+    ref, ref_warm = (kern.solve_fused_streamed_reference,
+                     kern.solve_fused_streamed_warm_reference)
+    drive = functools.partial(stream_drive, ctx)
+    report = functools.partial(stream_report, ctx)
+    resident = functools.partial(resident_cold, admm_fused)
+    rows = {}
+
+    def row(key, launches, err, ms, plain_ms, b):
+        rows[key] = dict(launches=launches, err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1])
+
+    # 35. small batches: the streamed kernels against their plain versions
+    # and, bitwise, against the resident adaptive kernel, cold and warm
+    B, N = LH_B, STREAM_ADAPT_N
+    phase(f"phase 35: streamed adaptive kernels vs plain versions and the "
+          f"resident adaptive kernel, B={B}, N={N}")
+    t5 = ctx.tables[5.0]
+    x_q, X_q = inputs(torch, B, N=N, spread=0.3)
+    x_r, X_r, U_r = rocket_descent_inputs(torch, B, N)
+    cases = [
+        ("box", adaptive_problem(tt, torch, 5.0, N, 100, 1, tables=t5),
+         x_q, X_q, None),
+        ("box apply_c", adaptive_problem(tt, torch, 5.0, N, 100, 1,
+                                         apply_c=True, tables=t5),
+         x_q, X_q, None),
+        ("box guard tol 3 rho0 1000", adaptive_problem(
+            tt, torch, DETUNED_RHO, N, 100, 1, tol=3.0,
+            tables=ctx.tables[DETUNED_RHO]), x_q, X_q, None),
+        ("rocket SOC", adaptive_rocket(ctx, 100, 1, ctx.rocket_tables, N=N),
+         x_r, X_r, U_r)]
+    for label, prob, x0, Xref, Uref in cases:
+        label = f"streamed adaptive {label}"
+        (sol_k, res_k), launches = drive(label, prob, Xref, Uref, x0)
+        same_bits(torch, label, (sol_k, res_k),
+                  kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
+        sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
+        compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4],
+                res_p[:4])
+        compare_rho(f"{label} vs plain", res_k[4], res_p[4],
+                    sol_k.iter == sol_p.iter)
+        log(f"  {label}: launches {launches}, mean iters "
+            f"{sol_k.iter.float().mean().item():.4f}, solved frac "
+            f"{sol_k.solved.float().mean().item():.5f}, final rho "
+            f"quartiles {[round(q, 4) for q in quartiles(res_k[4])]}")
+        c_s = c_r = tt.init_carry(prob, B)
+        x = x0
+        states = []
+        err = 0.0
+        for step in range(5):
+            name = f"{label} warm step {step}"
+            s = kern.solve_fused_streamed_warm(prob, Xref, Uref, x, c_s)
+            r = kern.solve_fused_warm(prob, Xref, Uref, x, c_r)
+            same_bits(torch, name, s, r, "solve_fused_warm")
+            if step in (0, 4):
+                # The plain version on the first and the fifth solve, each
+                # from the kernels' carry in.
+                p = plain_wide(torch, ref_warm, prob, Xref, Uref, x, c_s)
+                held = s[0].iter == p[0].iter
+                err = max(err, compare(torch, f"{name} vs plain", s[0],
+                                       p[0], lanes=held),
+                          compare_carry(torch, f"{name} vs plain", s[2],
+                                        p[2], held))
+                compare_rho(f"{name} vs plain", s[2].rho[0], p[2].rho[0],
+                            held)
+            states.append((x, c_s))
+            c_s, c_r = s[2], r[2]
+            x = x @ prob.A.T + s[0].u[0] @ prob.B.T + prob.f
+        if label.endswith(" box"):
+            # The fifth solve again, for its launches and times.
+            x5, c5 = states[-1]
+            launches5 = drive(f"{label} warm", prob, Xref, Uref, x5, c5)[1]
+            lt, _, b_stale = report(f"{label} warm (the fifth solve)", prob,
+                                    Xref, Uref, x5, s[0], launches5,
+                                    carry=c5)
+            row("forward_adaptive_stale", launches5[2],
+                max(err, lt["err_f"]), lt["fwd_ms"], lt["plain_fwd_ms"],
+                b_stale)
+
+    # 36. bench_all.py:369-392, the long-horizon adaptive batch
+    B, N = LH_B, LH_SOC_N
+    phase(f"phase 36: long horizon adaptive, N={N}, B={B}, max_iter "
+          f"{LH_ITER}, ct 1; then N={LH_WALL_N}")
+    for label, fn in sorted(ctx.ptxas.items()):
+        if "admm_stream" in label and "adaptive" in label:
+            log(f"  ptxas {label}: {fn.get('regs')} registers, "
+                f"{fn.get('spill_st')} / {fn.get('spill_ld')} bytes spill "
+                f"stores / loads")
+    prob = adaptive_problem(tt, torch, 5.0, N, LH_ITER, 1, tables=t5)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.3, 0.3,
+                                                          (B, 12)),
+                         dtype=torch.float32, device=DEVICE)
+    Xref = hover_ref(torch, N, 1.0)
+    label = f"long horizon adaptive N={N}"
+    (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+    same_bits(torch, label, (sol_k, res_k),
+              kern.solve_fused(prob, Xref, None, x0), "solve_fused")
+    plain_ms, (sol_p, res_p) = host_ms(
+        torch, lambda: plain_wide(torch, ref, prob, Xref, None, x0))
+    err = compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4],
+                  res_p[:4])
+    compare_rho(f"{label} vs plain", res_k[4], res_p[4],
+                sol_k.iter == sol_p.iter)
+    lt, b_bwd, b_fwd = report(label, prob, Xref, None, x0, sol_k, launches,
+                              resident=resident(prob, Xref, None, x0))
+    log(f"  {label}: plain solve {plain_ms:.1f} ms, final rho quartiles "
+        f"{[round(q, 4) for q in quartiles(res_k[4])]}")
+    row("backward_adaptive", launches[0], max(err, lt["err_b"]),
+        lt["bwd_ms"], lt["plain_bwd_ms"], b_bwd)
+    row("forward_adaptive", launches[1], max(err, lt["err_f"]),
+        lt["fwd_ms"], lt["plain_fwd_ms"], b_fwd)
+    N = LH_WALL_N
+    prob = adaptive_problem(tt, torch, 5.0, N, LH_ITER, 1, tables=t5)
+    x0, Xref = long_horizon_inputs(torch, B, N)
+    fail(f"adaptive N={N}", not kern.fused_supported(prob)
+         and kern.stream_supported(prob),
+         "the resident solve takes, or the streamed one refuses, the "
+         "adaptive problem past shared memory")
+    label = f"long horizon adaptive cold N={N}"
+    (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+    sol_p, res_p = plain_wide(torch, ref, prob, Xref, None, x0)
+    compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4], res_p[:4])
+    compare_rho(f"{label} vs plain", res_k[4], res_p[4],
+                sol_k.iter == sol_p.iter)
+    report(label, prob, Xref, None, x0, sol_k, launches)
+    del sol_p, res_p
+
+    # 37. bench_all.py:503-526's N=256 batch to convergence, adaptive,
+    # compacted on both backends
+    B, N = LH_CONV_B, LH_CONV_N
+    phase(f"phase 37: adaptive compaction, N={N}, B={B}, max_iter "
+          f"{LH_CONV_ITER}, chunk {COMPACT_CHUNK}, both backends")
+    prob = adaptive_problem(tt, torch, 5.0, N, LH_CONV_ITER, 1, tables=t5)
+    x0 = mixed_inputs(torch, B)
+    out = {}
+    for be in ("streamed", "resident"):
+        out[be], phases = compact_drive(ctx, f"adaptive N={N} {be} "
+                                        f"compaction", prob, x0,
+                                        chunk=COMPACT_CHUNK, backend=be)
+    same_bits(torch, f"adaptive N={N} streamed compaction", out["streamed"],
+              out["resident"], "the resident compaction")
+    long = drive(f"adaptive N={N} long streamed", prob, None, None, x0)[0]
+    t = {name: host_ms(torch, fn)[0] for name, fn in (
+        ("long streamed", lambda: kern.solve_fused_streamed(
+            prob, None, None, x0)),
+        ("streamed compaction", lambda: kern.make_compact_solver(
+            prob, chunk=COMPACT_CHUNK, backend="streamed")(x0)),
+        ("resident compaction", lambda: kern.make_compact_solver(
+            prob, chunk=COMPACT_CHUNK, backend="resident")(x0)))}
+    sol_c = out["streamed"][0]
+    log(f"  adaptive N={N}: {phases} phases; \"auto\" picks "
+        f"{ctx.compact._backend(prob, 'auto')}; on the host clock "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + f"; compacted: solved frac {sol_c.solved.float().mean():.5f}, "
+        f"mean iters {sol_c.iter.float().mean():.4f}; one long streamed "
+        f"solve: solved frac {long[0].solved.float().mean():.5f}, mean iters "
+        f"{long[0].iter.float().mean():.4f} (each phase restarts the "
+        f"adaptation clock, so the two differ); card {ctx.card}")
+    return rows
+
+
 def zero_counts(kernels):
     """Set every launch count to 0: a module's counter, or each entry of
     a module's dict of counters."""
@@ -2441,6 +2962,8 @@ def main():
                 (closed_loop_kernel, "launch_count"),
                 (admm_fused, "adaptive_launch_count"),
                 (admm_fused, "adaptive_warm_launch_count"),
+                (admm_fused, "adaptive_families_launch_count"),
+                (admm_fused, "adaptive_families_warm_launch_count"),
                 (admm_fused, "consensus_launch_count"),
                 (admm_fused, "consensus_warm_launch_count"))
 
@@ -2453,6 +2976,13 @@ def main():
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
+    # What the phases share: modules, counters, the card, and what earlier
+    # phases found (ptxas entries by label, sensitivity tables).
+    ctx = types.SimpleNamespace(
+        torch=torch, tt=tt, convert=convert, admm_fused=admm_fused,
+        ast=admm_stream, compact=compact, counters=counters, card=card,
+        peak_flops=peak_flops, peak_bw=peak_bw, ptxas={}, tables={},
+        rocket_tables=None)
 
     # 2. build: every source, one nvcc each, started together
     t0 = time.perf_counter()
@@ -2470,6 +3000,7 @@ def main():
         for fn, e in sorted(ptxas_entries(text).items(),
                             key=lambda kv: kernel_label(kv[0])):
             label = kernel_label(fn)
+            ctx.ptxas[label] = e
             log(f"  ptxas summary: {label}: {e.get('regs')} registers, "
                 f"{e.get('stack')} bytes stack frame (local memory), "
                 f"{e.get('spill_st')} / {e.get('spill_ld')} bytes spill "
@@ -2959,15 +3490,15 @@ def main():
             f"{(dual[:, 2].abs().amax(dim=0) > 0).float().mean().item():.5f}"
             f" of lanes")
 
-    adapt_rows = adaptive_phases(torch, tt, convert, admm_fused, counters,
-                                 card, peak_flops, peak_bw)
-    stream_rows = streamed_phases(torch, tt, admm_fused, admm_stream,
-                                  counters, card, peak_flops, peak_bw)
+    adapt_rows, ctx.tables = adaptive_phases(torch, tt, convert, admm_fused,
+                                             counters, card, peak_flops,
+                                             peak_bw)
+    stream_rows = streamed_phases(ctx)
     cons_rows = consensus_phases(torch, tt, convert, admm_fused, counters,
                                  card, peak_flops, peak_bw)
-    compact_rows = compaction_phases(torch, tt, convert, admm_fused,
-                                     admm_stream, compact, counters, card,
-                                     peak_flops, peak_bw)
+    compact_rows = compaction_phases(ctx)
+    adapt_fam_rows = adaptive_family_phases(ctx)
+    adapt_stream_rows = adaptive_stream_phases(ctx)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -2975,8 +3506,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 33. kernels line, then the device line last
-    phase("phase 33: kernels line")
+    # 38. kernels line, then the device line last
+    phase("phase 38: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -3012,6 +3543,18 @@ def main():
                  ("forward_consensus",
                   "tinympc_tpu/kernels/admm_stream.py:258"),
                  ("forward_consensus_stale",
+                  "tinympc_tpu/kernels/admm_stream.py:258"))]
+    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", adapt_fam_rows[key])
+             for key in ("adaptive_families", "adaptive_families_warm")]
+    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
+              rep, adapt_stream_rows[key])
+             for key, rep in (
+                 ("backward_adaptive",
+                  "tinympc_tpu/kernels/admm_stream.py:121"),
+                 ("forward_adaptive",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_adaptive_stale",
                   "tinympc_tpu/kernels/admm_stream.py:258"))]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,

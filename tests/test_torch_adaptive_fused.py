@@ -245,9 +245,10 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
 
 
 def test_adaptive_outside_the_kernel_is_refused():
-    """Adaptive rho with another constraint family or at an (nx, nu) the
-    adaptive kernel is not instantiated for raises ValueError naming
-    ROADMAP; so does an adaptive problem without its sensitivities."""
+    """Adaptive rho runs with the other constraint families and at the
+    rocket's (6, 3), box-only too; at an (nx, nu) the kernel is not
+    instantiated for it raises ValueError naming ROADMAP, and so does an
+    adaptive problem without its sensitivities."""
     pt = _port(_jax_problem("rho_tol_1"))
     assert fused_supported(pt)
     cones = tt.with_cones(pt, state_cones=[(0, 3, 0.25)])
@@ -257,10 +258,18 @@ def test_adaptive_outside_the_kernel_is_refused():
     rocket = tt.with_settings(tt.with_sensitivities(
         rocket, [np.zeros((3, 6)), np.zeros((6, 6)), np.zeros((3, 3)),
                  np.zeros((6, 6))]), adaptive_rho=True)
-    for bad in (cones, rocket):
-        assert not fused_supported(bad)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            solve_fused(bad, None, None, torch.zeros((2, bad.spec.nx)))
+    for good in (cones, rocket, tt.with_cones(rocket,
+                                              input_cones=[(0, 3, 0.5)])):
+        assert fused_supported(good)
+    s = tt.systems.cartpole()
+    cart = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                    N=N, device="cpu")
+    cart = tt.with_settings(tt.with_sensitivities(
+        cart, [np.zeros((1, 4)), np.zeros((4, 4)), np.zeros((1, 1)),
+               np.zeros((4, 4))]), adaptive_rho=True)
+    assert not fused_supported(cart)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        solve_fused(cart, None, None, torch.zeros((2, 4)))
     bare = pt.replace(cache=dataclasses.replace(
         pt.cache, dKinf_drho=None, dPinf_drho=None, dC1_drho=None,
         dC2_drho=None))

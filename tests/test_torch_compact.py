@@ -410,8 +410,9 @@ def test_final_carry():
 def test_refusals():
     """A chunk that is not a positive multiple of check_termination (also
     in a schedule), an unknown backend, a consensus group that is not a
-    power of two or passes 128 lanes, and compaction on the streamed
-    kernels with adaptive rho (ROADMAP.md Queue 2 item 3a)."""
+    power of two or passes 128 lanes, and an adaptive-rho problem without
+    its sensitivities on either backend; with them, compaction on an
+    adaptive problem builds on both."""
     prob = _quad(40, check_termination=5)
     for chunk in (7, 0, [10, 12]):
         with pytest.raises(ValueError, match="chunk"):
@@ -425,21 +426,32 @@ def test_refusals():
     adaptive = _port(tm.with_settings(tm.with_sensitivities(
         _jax_quad(40), systems.crazyflie_sensitivity_tables()),
         adaptive_rho=True))
-    with pytest.raises(ValueError, match="3a"):
-        make_compact_solver(adaptive, backend="streamed")
+    make_compact_solver(adaptive, backend="streamed")
     make_compact_solver(adaptive, backend="resident")
+    bare = adaptive.replace(cache=dataclasses.replace(
+        adaptive.cache, dKinf_drho=None, dPinf_drho=None, dC1_drho=None,
+        dC2_drho=None))
+    for backend in ("streamed", "resident"):
+        with pytest.raises(ValueError, match="sensitivities"):
+            make_compact_solver(bare, backend=backend)
 
 
 def test_auto_backend_follows_shared_memory():
     """"auto" takes the resident kernel while its tables fit in a block's
     shared memory and the streamed kernels past that (N=1197 at (12, 4));
-    adaptive rho past the wall, which neither takes, raises. No solve
-    runs."""
+    so does an adaptive-rho problem (its tables move the wall to N=1183),
+    while one without its sensitivities, which neither takes, raises. No
+    solve runs."""
     assert compact._backend(_quad(40, N=1196), "auto") == "resident"
     assert compact._backend(_quad(40, N=1197), "auto") == "streamed"
+    tables = [np.asarray(a) for a in systems.crazyflie_sensitivity_tables()]
+    for N, backend in ((1182, "resident"), (1183, "streamed")):
+        adaptive = tt.with_settings(tt.with_sensitivities(
+            _quad(40, N=N), tables), adaptive_rho=True)
+        assert compact._backend(adaptive, "auto") == backend
     long = _quad(40, N=1197)
-    adaptive = long.replace(settings=dataclasses.replace(
+    bare = long.replace(settings=dataclasses.replace(
         long.settings, adaptive_rho=True))
     with pytest.raises(ValueError, match="neither"):
-        compact._backend(adaptive, "auto")
+        compact._backend(bare, "auto")
 

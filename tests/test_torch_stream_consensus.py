@@ -256,12 +256,12 @@ class _Entries:
                 all(p is not None for p in (c.zc0, c.yc0, c.offer)))
 
     def backward(self, *args):
-        assert len(args) == 17
+        assert len(args) == 18 and args[16] is None   # no adaptive rho
         self.calls.append(("bwd", self._cons(args[15])))
         return 0
 
     def forward(self, *args):
-        assert len(args) == 28
+        assert len(args) == 29 and args[27] is None   # no adaptive rho
         it, ct, x_out = args[5], args[6], args[24]
         self.calls.append(("fwd", it, bool(args[0]), x_out is not None,
                            self._cons(args[26])))
@@ -300,7 +300,8 @@ def test_host_loop_launches_the_consensus_kernels(monkeypatch):
     assert admm_stream.launch_counts == {
         "backward": 0, "forward": 0, "forward_stale": 0,
         "backward_consensus": 4, "forward_consensus": 3,
-        "forward_consensus_stale": 1}
+        "forward_consensus_stale": 1, "backward_adaptive": 0,
+        "forward_adaptive": 0, "forward_adaptive_stale": 0}
     for name in ("zc0", "yc0", "x", "u"):
         assert getattr(out, name) is not None, name
 
@@ -308,7 +309,7 @@ def test_host_loop_launches_the_consensus_kernels(monkeypatch):
 def test_refusals_and_support():
     """A consensus problem is streamed-supported; a group that is not a
     power of two or passes the 128-lane block, a flat x0s and adaptive
-    rho are refused."""
+    rho (which neither package runs with consensus) are refused."""
     prob = _port(_jax_problem(10, 5))
     assert stream_supported(prob)
     for shape in ((2, 3, 12), (1, 256, 12)):
@@ -319,6 +320,6 @@ def test_refusals_and_support():
     adaptive = prob.replace(settings=dataclasses.replace(
         prob.settings, adaptive_rho=True))
     assert not stream_supported(adaptive)
-    with pytest.raises(ValueError, match="3a"):
+    with pytest.raises(ValueError, match="adaptive_rho"):
         solve_fused_streamed(adaptive, None, None, torch.zeros((2, 4, 12)))
 

@@ -54,13 +54,13 @@ def _tv(N=8, **settings):
 
 
 @pytest.mark.parametrize("settings,match", [
-    (dict(adaptive_rho=True), "ROADMAP.md"),
+    (dict(adaptive_rho=True), "sensitivities"),
     (dict(matmul_precision="high"), "highest"),
     (dict(coarse_iters=50), "coarse_iters"),
 ], ids=["adaptive_rho", "high", "coarse_iters"])
 def test_streamed_refuses_settings_outside_the_slice(settings, match):
-    # The settings alone: adaptive rho is refused before its sensitivities
-    # would be read, so none are computed here.
+    # The settings alone: adaptive rho runs on the streamed kernels, but
+    # not without its sensitivities, which are not computed here.
     p = _quad()
     p = p.replace(settings=dataclasses.replace(p.settings, **settings))
     assert not stream_supported(p)
@@ -155,18 +155,20 @@ class _Entries:
         self.calls, self.active = [], active
 
     def backward(self, *args):
-        assert len(args) == 17
+        assert len(args) == 18
         nx, nu, N, B = args[:4]
         fam = [args[14][k] for k in range(12)]
         self.calls.append(("bwd", [args[4][k] for k in range(6)],
                            [p is not None for p in fam]))
         assert all(p is not None for p in args[6:14])
         assert args[15] is None            # no consensus arguments
+        assert args[16] is None            # no adaptive-rho arguments
         return 0
 
     def forward(self, *args):
-        assert len(args) == 28
+        assert len(args) == 29
         assert args[26] is None            # no consensus arguments
+        assert args[27] is None            # no adaptive-rho arguments
         stale, it, ct = args[0], args[5], args[6]
         prev = [args[13][k] for k in range(4)]
         assert prev[0] is not None and prev[1] is not None
@@ -226,7 +228,8 @@ def test_host_loop_launches_the_kernels(make, entries):
     assert admm_stream.launch_counts == {
         "backward": 4, "forward": 3, "forward_stale": 1,
         "backward_consensus": 0, "forward_consensus": 0,
-        "forward_consensus_stale": 0}
+        "forward_consensus_stale": 0, "backward_adaptive": 0,
+        "forward_adaptive": 0, "forward_adaptive_stale": 0}
     for f in dataclasses.fields(carry):
         assert (getattr(out, f.name) is None) == \
             (getattr(carry, f.name) is None), f.name

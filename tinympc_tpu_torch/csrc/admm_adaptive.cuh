@@ -2,7 +2,12 @@
 // (admm_sweep.cuh) and the per-lane adaptation. They replace the adaptive
 // part of the TPU kernel tinympc_tpu/kernels/admm_pallas.py:_make_kernel
 // (adaptive / apply_c / rho_tol; :424-441, :861-920, :1079-1142,
-// :1268-1271).
+// :1268-1271), with or without the other constraint families (whose
+// linear-cost terms take the lane's rho from the sweep), and the adaptive
+// part of the streamed kernels of tinympc_tpu/kernels/admm_stream.py
+// (_backward_kernel and _forward_kernel with `adaptive`; admm_stream.cu),
+// where the same hooks and the same adaptation pass run in the backward and
+// forward launches and the lane's rho waits in device memory in between.
 //
 // Each lane keeps its own rho, and the guard's virtual rho, in registers.
 // The Taylor update never builds per-lane matrices: it is linear in rho, so
@@ -23,7 +28,10 @@
 // residuals, A^T g[i+1] and B^T g[i+1] included, and the new rho. It reads
 // what its own thread wrote, so it needs no synchronisation, and it keeps
 // only one row in registers. Quotients and the root are IEEE's correctly
-// rounded ones (div_rn, sqrt_rn), as PyTorch's in the plain version.
+// rounded ones (div_rn, sqrt_rn), as PyTorch's in the plain version. (The
+// TPU's streamed forward kernel carries "pending" cross-row terms from one
+// horizon chunk to the next; here one thread walks every row of its lane in
+// one launch, so the streamed forward launch runs this same second pass.)
 #pragma once
 
 #include "admm_families.cuh"
@@ -36,13 +44,17 @@ constexpr float kRhoEps = 1e-10f;    // rho_benchmark.cpp:183
 
 // Per-launch adaptive-rho arguments (kernels/admm_fused.py:_AdaptArgs):
 // settings, the carried rho in (null on a cold solve), the final rho out,
-// and the lane-last scratch of an adaptation iteration: xs (N, nx, B), us
-// (N-1, nu, B), axd (N-1, nx, B).
+// the lane-last scratch of an adaptation iteration: xs (N, nx, B), us
+// (N-1, nu, B), axd (N-1, nx, B); and, for the streamed solve
+// (admm_stream.cu), which keeps each lane's rho in device memory between
+// its launches (rho_in and rho_out the same (B,) array there), the guard's
+// virtual rho, (B,) (null in the resident solve, which keeps it in a
+// register).
 struct AdaptArgs {
   int apply_c, clip;
   float rho_min, rho_max, rho_tol;
   const float* rho_in;
-  float *rho_out, *xs, *us, *axd;
+  float *rho_out, *xs, *us, *axd, *rho_v;
 };
 
 // Float offsets of the adaptive tables, which follow the box tables of
@@ -114,6 +126,18 @@ struct AdaptiveRho {
   __device__ __forceinline__ void init() {
     if constexpr (WARM) rho_lane = a.rho_in[b];
     rho_v = rho_lane;
+  }
+
+  // The streamed solve's launches: the lane's rho (and, for the forward
+  // launch, which adapts it, the virtual rho) from device memory, where the
+  // previous launch left them; the solve seeds them as init does.
+  __device__ __forceinline__ void resume(bool virt) {
+    rho_lane = a.rho_in[b];
+    rho_v = virt ? a.rho_v[b] : rho_lane;
+  }
+  __device__ __forceinline__ void suspend() const {
+    a.rho_out[b] = rho_lane;
+    a.rho_v[b] = rho_v;
   }
 
   __device__ __forceinline__ float rho() const { return rho_lane; }

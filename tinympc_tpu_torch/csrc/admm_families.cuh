@@ -186,7 +186,6 @@ struct Families {
   int N;
   size_t sB;
   int b;
-  float rho;
 
   // fsm: the family tables in shared memory, right after the box tables;
   // frows: where the time-varying hyperplane tables are read, the same
@@ -194,10 +193,9 @@ struct Families {
   // streamed solve, whose shared memory holds only the tables that do not
   // grow with N: the first static_floats of them).
   __device__ Families(const FamilyArgs& args, const float* fsm,
-                      const float* frows, int N_, size_t sB_, int b_,
-                      float rho_)
+                      const float* frows, int N_, size_t sB_, int b_)
       : a(args), t(fsm), tv(frows), L(args, NX, NU, N_), N(N_), sB(sB_),
-        b(b_), rho(rho_) {}
+        b(b_) {}
 
   static __host__ __device__ int table_floats(const FamilyArgs& args, int nx,
                                               int nu, int N) {
@@ -250,11 +248,13 @@ struct Families {
 
   // Linear-cost terms of the previous iterate's slacks and duals, after the
   // box's, in the order SOC, hyperplane, time-varying hyperplane
-  // (admm_pallas.py:896-927).
+  // (admm_pallas.py:896-927), each scaled by the lane's rho, which the
+  // sweep hands in (under adaptive rho it moves between iterations; the
+  // TPU kernel's form_q / form_r use its per-lane rho_b).
   // (One loop a family: interleaved, ptxas keeps every family's loads of a
   // row in flight at once and runs out of registers on the warm (12, 4)
   // kernel.)
-  __device__ __forceinline__ void q_terms(int i, float* q) const {
+  __device__ __forceinline__ void q_terms(int i, float* q, float rho) const {
     if (a.ncx) {
 #pragma unroll
       for (int k = 0; k < NX; ++k) {
@@ -277,10 +277,10 @@ struct Families {
       }
     }
   }
-  __device__ __forceinline__ void p_terminal(float* p) const {
-    q_terms(N - 1, p);
+  __device__ __forceinline__ void p_terminal(float* p, float rho) const {
+    q_terms(N - 1, p, rho);
   }
-  __device__ __forceinline__ void r_terms(int i, float* r) const {
+  __device__ __forceinline__ void r_terms(int i, float* r, float rho) const {
 #pragma unroll
     for (int k = 0; k < NU; ++k) {
       const size_t o = ua(i, k);
@@ -354,13 +354,14 @@ struct Families {
   // d, so its forward rollout is run once more from x0 with the
   // arithmetic of admm_iteration's, which gives the iterate's bits --
   // rather than storing x/u on every iteration; `kinf0` is the Kinf rows
-  // of step 0 (Mfwd's, or consensus's Kinf0). With no iteration run, the
-  // seeded x/u stand.
-  template <bool WARM>
+  // of step 0 (Mfwd's, or consensus's Kinf0), and `rh` the rho policy,
+  // whose kx hook telescopes the gain with the drho of that iteration
+  // under adaptive rho. With no iteration run, the seeded x/u stand.
+  template <bool WARM, class Rho>
   __device__ __forceinline__ void finish(const Tables& tab,
                                          const float* kinf0,
                                          const float* x0r, const float* d,
-                                         int iters) const {
+                                         int iters, const Rho& rh) const {
     if (!WARM || iters == 0) return;
     float x[NX];
 #pragma unroll
@@ -376,7 +377,7 @@ struct Families {
         float acc = 0.f;
 #pragma unroll
         for (int c = 0; c < NX; ++c) acc = fmaf(kinf[row * NX + c], x[c], acc);
-        kx[row] = acc;
+        kx[row] = rh.kx(row, acc, x);
       }
 #pragma unroll
       for (int row = 0; row < NX; ++row) {

@@ -1,8 +1,8 @@
 // Fused batched ADMM solve, cold or warm start: box constraints alone, or
 // with the other constraint families (second-order cones, hyperplanes,
 // time-varying hyperplanes; admm_families.cuh) and scenario-tree consensus
-// on u[0] (admm_consensus.cuh), at fixed rho; or box constraints with
-// adaptive rho (admm_adaptive.cuh).
+// on u[0] (admm_consensus.cuh), at fixed rho; or any of those families
+// (consensus aside) with adaptive rho (admm_adaptive.cuh).
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
@@ -14,9 +14,15 @@
 //
 // Instantiations: the box-only kernel for (nx, nu) = (12, 4), the
 // quadrotor of the main path; the families kernel for (12, 4) and (6, 3),
-// the rocket; the adaptive-rho kernel for (12, 4), with and without
-// apply_c. The adaptive kernel is the box kernel with the rho hooks filled
-// in: each lane's rho and the guard's virtual rho in registers, the
+// the rocket (at (6, 3) a box-only problem runs it with zero family
+// counts); the adaptive-rho kernel for (12, 4) box-only problems, and the
+// families adaptive-rho kernel for (12, 4) with the families and for every
+// problem at (6, 3), each with and without apply_c. The families adaptive
+// kernel is the families kernel with the rho hooks filled in, its tables
+// the family tables and then the adaptive ones; the family hooks scale
+// their linear-cost terms by the lane's rho. The adaptive kernel is the box
+// kernel with the rho hooks filled in: each lane's rho and the guard's
+// virtual rho in registers, the
 // sensitivity tables after the box tables in shared memory, the adaptation
 // every 5th iteration as a second pass over the rows of that iteration
 // (admm_adaptive.cuh), the final rho out, and on a warm solve the carried
@@ -113,8 +119,8 @@ constexpr int kMinBlocksOf =
     Fam::kMinBlocks > Rho::kMinBlocks ? Fam::kMinBlocks : Rho::kMinBlocks;
 
 // Fam is NoFamilies (box only) or tinympc::Families<NX, NU>; Rho is
-// FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C> (box only); Cons is
-// NoConsensus, or Consensus<NX, NU> with the families.
+// FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C>; Cons is NoConsensus,
+// or Consensus<NX, NU> with the families at fixed rho.
 template <int NX, int NU, bool WARM, class Fam, class Rho, class Cons>
 __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
     admm_fused_kernel(
@@ -163,7 +169,7 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
   const size_t sB = static_cast<size_t>(B);
   const size_t half_x = static_cast<size_t>(N) * NX * sB;
   const size_t half_u = static_cast<size_t>(N - 1) * NU * sB;
-  const Fam fam(fa, sm + L.total, sm + L.total, N, sB, b, rho);
+  const Fam fam(fa, sm + L.total, sm + L.total, N, sB, b);
   Rho rh(ra, sm + fam_total, pnref + NX, rho, sB, b);
   // The lane arrays of consensus follow the terminal reference rows.
   const Cons cons(ca, sm + rho_total, pnref + NX * (1 + Rho::kTerminalRows));
@@ -322,7 +328,7 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
     tinympc::copy_lane(carry.znew_out, zs, (N - 1) * NU, sB, b);
     tinympc::copy_lane(carry.z_out, zo, (N - 1) * NU, sB, b);
   }
-  fam.template finish<WARM>(t, cons.kinf(0, t.Mfwd), x0r, d, iters);
+  fam.template finish<WARM>(t, cons.kinf(0, t.Mfwd), x0r, d, iters, rh);
   cons.template finish<WARM>(sB, b);
   rh.finish();
 }
@@ -385,40 +391,52 @@ bool bad_size(const Buffers& p) {
 }
 
 // The box-only kernel when no family beyond the box and no consensus is
-// on, else the families kernel, with consensus when its group is not 0, at
-// fixed rho; the adaptive-rho kernel when `adapt` is given (box only);
-// cudaErrorInvalidValue for an (nx, nu) pair or a combination that is not
-// instantiated.
+// on, else the families kernel, with consensus when its group is not 0;
+// under `adapt`, the adaptive-rho kernel (box only) or the families
+// adaptive-rho kernel. At (6, 3) every problem runs a families
+// instantiation, a box-only one with zero family counts; at (12, 4) a
+// box-only problem runs the box kernel. cudaErrorInvalidValue for an
+// (nx, nu) pair or a combination that is not instantiated.
+template <bool WARM, int NX, int NU>
+int dispatch_families(const AdaptArgs* adapt, const Buffers& p,
+                      const Carry& carry, const FamilyArgs& fa,
+                      const ConsensusArgs& ca, cudaStream_t s) {
+  using Fam = tinympc::Families<NX, NU>;
+  if (adapt)
+    return static_cast<int>(
+        adapt->apply_c
+            ? launch<NX, NU, WARM, Fam, AdaptiveRho<NX, NU, true>>(
+                  p, carry, fa, s, *adapt)
+            : launch<NX, NU, WARM, Fam, AdaptiveRho<NX, NU, false>>(
+                  p, carry, fa, s, *adapt));
+  if (ca.group > 0)
+    return static_cast<int>(
+        launch<NX, NU, WARM, Fam, FixedRho, Consensus<NX, NU>>(p, carry, fa,
+                                                               s, {}, ca));
+  return static_cast<int>(launch<NX, NU, WARM, Fam>(p, carry, fa, s));
+}
+
 template <bool WARM>
 int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
              const Buffers& p, const Carry& carry, const FamilyArgs& fa,
              const ConsensusArgs& ca, cudaStream_t s) {
-  if (adapt) {
-    if (families || nx != 12 || nu != 4)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const NoFamilies::Args none{};
-    return static_cast<int>(
-        adapt->apply_c
-            ? launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, true>>(
-                  p, carry, none, s, *adapt)
-            : launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, false>>(
-                  p, carry, none, s, *adapt));
+  if (nx == 12 && nu == 4) {   // the quadrotor
+    if (!families && adapt) {
+      const NoFamilies::Args none{};
+      return static_cast<int>(
+          adapt->apply_c
+              ? launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, true>>(
+                    p, carry, none, s, *adapt)
+              : launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, false>>(
+                    p, carry, none, s, *adapt));
+    }
+    if (!families)             // the main path
+      return static_cast<int>(
+          launch<12, 4, WARM, NoFamilies>(p, carry, NoFamilies::Args{}, s));
+    return dispatch_families<WARM, 12, 4>(adapt, p, carry, fa, ca, s);
   }
-  if (!families && nx == 12 && nu == 4)   // the quadrotor of the main path
-    return static_cast<int>(
-        launch<12, 4, WARM, NoFamilies>(p, carry, NoFamilies::Args{}, s));
-  const bool cons = ca.group > 0;
-  if (families && nx == 12 && nu == 4)    // the quadrotor hyperplane demos
-    return static_cast<int>(
-        cons ? launch<12, 4, WARM, tinympc::Families<12, 4>, FixedRho,
-                      Consensus<12, 4>>(p, carry, fa, s, {}, ca)
-             : launch<12, 4, WARM, tinympc::Families<12, 4>>(p, carry, fa,
-                                                            s));
-  if (families && nx == 6 && nu == 3)     // the rocket
-    return static_cast<int>(
-        cons ? launch<6, 3, WARM, tinympc::Families<6, 3>, FixedRho,
-                      Consensus<6, 3>>(p, carry, fa, s, {}, ca)
-             : launch<6, 3, WARM, tinympc::Families<6, 3>>(p, carry, fa, s));
+  if (nx == 6 && nu == 3)      // the rocket
+    return dispatch_families<WARM, 6, 3>(adapt, p, carry, fa, ca, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -471,10 +489,12 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // (N-1, nu, B); all null on a cold solve. fam: 22 arrays -- the working
 // slack and dual of each family (vc gc zc yc vl gl zl yl vtv gtv ztv ytv;
 // null for a family that is off), then the warm carry in (gc yc gl yl gtv
-// ytv x u) and the carried x/u out (null on a cold or box-only solve).
+// ytv x u) and the carried x/u out (null on a cold or box-only solve; on
+// a warm solve at (6, 3), which runs a families instantiation, x/u in and
+// out are required, a box-only problem's as scratch).
 // adapt: null at fixed rho; else the adaptive-rho arguments
 // (admm_adaptive.cuh: settings, rho_in -- the carried rho, required on a
-// warm solve --, rho_out, the scratch xs, us, axd), box only, rho the
+// warm solve --, rho_out, the scratch xs, us, axd; rho_v unused), rho the
 // problem's rho. cons: null without consensus; else its arguments
 // (admm_consensus.cuh: the group size, a power of two up to the block
 // size dividing B, rho_c, and on a warm solve the carried dual in and the
@@ -544,7 +564,10 @@ extern "C" int tinympc_admm_fused(
   }
   for (int k = 0; k < 10; ++k)
     if (!carry[k]) return static_cast<int>(cudaErrorInvalidValue);
-  if (families && (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
+  // A families instantiation (every problem at (6, 3)) seeds from the
+  // carried x/u and hands them over.
+  if ((families || (nx == 6 && nu == 3)) &&
+      (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(nx, nu, families, adapt, p, carry_from(carry), fa,
                         ca, s);

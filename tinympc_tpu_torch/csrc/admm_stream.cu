@@ -1,8 +1,9 @@
 // Streamed batched ADMM solve for long horizons: each iteration is two
-// launches, a backward and a forward sweep over the horizon, at fixed rho,
-// box constraints alone or with the other constraint families (second-order
-// cones, hyperplanes, time-varying hyperplanes; admm_families.cuh), with or
-// without scenario-tree consensus on u[0] (admm_consensus.cuh), cold or
+// launches, a backward and a forward sweep over the horizon, box
+// constraints alone or with the other constraint families (second-order
+// cones, hyperplanes, time-varying hyperplanes; admm_families.cuh), at
+// fixed rho with or without scenario-tree consensus on u[0]
+// (admm_consensus.cuh), or with adaptive rho (admm_adaptive.cuh), cold or
 // warm. The host loop (kernels/admm_stream.py) launches them. One
 // instantiation serves every mix of families at each (nx, nu), (12, 4) and
 // (6, 3): a family that is off has count 0, and its hooks do nothing. (A
@@ -31,6 +32,19 @@
 // u[0] - zc0, and |u[0] - zc0| joins the convergence gate. The hooks and
 // the exchange are admm_consensus.cuh's, the resident kernel's, so the two
 // solves agree bitwise under consensus too.
+// Their adaptive instantiations (the rho policy Rho = AdaptiveRho, as the
+// resident kernel takes it; admm_stream.py:121-191, :203-210, :258,
+// :400-472, :577-621) keep each lane's rho and the guard's virtual rho in
+// device memory, (B,) each, between launches: the backward launch reads the
+// lane's rho, scales the box and family terms by it and adds the
+// drho-scaled sensitivity products (dKinf^T r, the terminal -dPinf^T
+// Xref[N-1], and dC1 w, dC2 p under apply_c); the forward launch telescopes
+// the rollout gain, runs admm_adaptive.cuh's adaptation pass on an
+// adaptation iteration of a running lane -- a second pass over the rows the
+// sweep kept in scratch, on the same thread, where the TPU kernel carries
+// "pending" cross-row terms between its horizon chunks -- and commits the
+// new rho before the termination check. apply_c moves only the backward
+// sweep, so the forward kernel has one adaptive instantiation.
 // The arithmetic of each sweep is admm_sweep.cuh's backward_sweep and
 // forward_sweep, the same device functions the resident fused solve
 // (admm_fused.cu) runs, so the two solves agree bitwise.
@@ -91,6 +105,7 @@
 // and return the cudaError_t of the launch.
 #include <type_traits>
 
+#include "admm_adaptive.cuh"
 #include "admm_consensus.cuh"
 #include "admm_families.cuh"
 #include "admm_sweep.cuh"
@@ -114,6 +129,8 @@ struct StreamConsensus {
 
 namespace {
 
+using tinympc::AdaptArgs;
+using tinympc::AdaptiveRho;
 using tinympc::ConsensusArgs;
 using tinympc::FamilyArgs;
 using tinympc::Families;
@@ -126,9 +143,15 @@ using tinympc::StreamConsensus;
 using tinympc::Tables;
 
 constexpr int kBlock = 128;
-// At least 4 blocks an SM: at most 128 registers a thread, which the
-// kernels fit without spilling (120 and 118 at (12, 4)).
-constexpr int kMinBlocks = 4;
+// At fixed rho at least 4 blocks an SM: at most 128 registers a thread,
+// which the kernels fit without spilling (120 and 118 at (12, 4)). The
+// adaptive instantiations take AdaptiveRho's minimum, as the resident
+// kernel does (kMinBlocksOf in admm_fused.cu): the lane's rho state and the
+// adaptation pass need more registers, and at the batches the streamed
+// solve runs (up to 128 blocks at B=16384, on 132 SMs) no SM holds a second
+// block anyway.
+template <class Rho>
+constexpr int kMinBlocksOf = Rho::kAdaptive ? Rho::kMinBlocks : 4;
 
 // The consensus hooks of an instantiation: admm_consensus.cuh's under
 // CONS, else the empty set.
@@ -148,37 +171,47 @@ __host__ __device__ typename ConsOf<NX, NU, CONS>::Args cons_args(
 
 // Shared memory of a launch, in floats, in this order: the small box tables
 // (Layout's prefix, up to the reference), the family tables that do not grow
-// with N, the consensus gains and lane columns (CONS), and the terminal
-// reference term (the backward launch only).
-template <int NX, int NU, bool CONS>
+// with N, the consensus gains and lane columns (CONS), the adaptive tables
+// (Rho; the forward launch's AdaptiveRho<NX, NU, false> leaves out dC1 and
+// dC2, which only the backward sweep reads), and the terminal reference term
+// with its sensitivity under adaptive rho (the backward launch only).
+template <int NX, int NU, bool CONS, class Rho>
 struct SharedLayout {
-  int fam, cons, lanes, pnref, total;
+  int fam, cons, lanes, adapt, pnref, total;
   __host__ __device__ SharedLayout(const FamilyArgs& fa,
-                                   const StreamConsensus& sc, int N) {
+                                   const StreamConsensus& sc,
+                                   const typename Rho::Args& ra, int N) {
     using Cons = ConsOf<NX, NU, CONS>;
     const auto ca = cons_args<NX, NU, CONS>(sc);
     fam = Layout(NX, NU, N).xref;
     cons = fam + Families<NX, NU>::static_floats(fa, NX, NU);
     lanes = cons + Cons::table_floats(ca, NX, NU);
-    pnref = lanes + Cons::lane_floats(ca, NU);
-    total = pnref + NX;
+    adapt = lanes + Cons::lane_floats(ca, NU);
+    pnref = adapt + Rho::table_floats(ra, NX, NU);
+    total = pnref + NX * (1 + Rho::kTerminalRows);
   }
 };
 
 // Copy the tables SharedLayout counts into shared memory: Layout's prefix,
-// the static family tables, and under CONS the step-0 gains Kinf0 and
-// Quu0_inv, which follow every family table (the growing ones too) in the
-// packed table (kernels/admm_fused.py:_table_layout).
-template <int NX, int NU, bool CONS>
+// the static family tables, under CONS the step-0 gains Kinf0 and
+// Quu0_inv, and under adaptive rho the adaptive tables; the last two follow
+// every family table (the growing ones too) in the packed table
+// (kernels/admm_fused.py:_table_layout), the adaptive ones first.
+template <int NX, int NU, bool CONS, class Rho>
 __device__ void load_tables(float* sm, const float* tables, const Layout& L,
-                            const SharedLayout<NX, NU, CONS>& S,
+                            const SharedLayout<NX, NU, CONS, Rho>& S,
                             const FamilyArgs& fa, int N) {
   for (int k = threadIdx.x; k < L.xref; k += blockDim.x) sm[k] = tables[k];
   for (int k = threadIdx.x; k < S.cons - S.fam; k += blockDim.x)
     sm[S.fam + k] = tables[L.total + k];
-  const int gains = L.total + Families<NX, NU>::table_floats(fa, NX, NU, N);
-  for (int k = threadIdx.x; k < S.lanes - S.cons; k += blockDim.x)
-    sm[S.cons + k] = tables[gains + k];
+  const int after = L.total + Families<NX, NU>::table_floats(fa, NX, NU, N);
+  if constexpr (Rho::kAdaptive) {
+    for (int k = threadIdx.x; k < S.pnref - S.adapt; k += blockDim.x)
+      sm[S.adapt + k] = tables[after + k];
+  } else {
+    for (int k = threadIdx.x; k < S.lanes - S.cons; k += blockDim.x)
+      sm[S.cons + k] = tables[after + k];
+  }
 }
 
 // Under CONS, this lane's slack and dual into its shared-memory columns.
@@ -226,9 +259,16 @@ struct TrackXU {
 };
 
 // Backward launch: d of every running lane from its previous iterate;
-// under CONS row 0 takes the consensus term and the Quu0_inv gain.
-template <int NX, int NU, bool CONS>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+// under CONS row 0 takes the consensus term and the Quu0_inv gain; under
+// adaptive rho (Rho) the lane's rho comes from device memory, the family
+// and box terms scale by it, and each product of a matrix the Taylor update
+// moves gains its drho-scaled sensitivity product, as in the resident
+// kernel (admm_stream.py:121-191, :203-210). The rho policy's arguments
+// come last in both kernels: placed before N, B and rho they moved those
+// parameters' offsets, and ptxas then gave the fixed-rho backward kernel 2
+// to 6 more registers.
+template <int NX, int NU, bool CONS, class Rho>
+__global__ void __launch_bounds__(kBlock, kMinBlocksOf<Rho>)
     stream_backward_kernel(const float* __restrict__ tables,
                            const float* __restrict__ vprev,
                            const float* __restrict__ zprev,
@@ -237,23 +277,26 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
                            float* __restrict__ d,
                            const unsigned char* __restrict__ done,
                            int* __restrict__ active, FamilyArgs fa,
-                           StreamConsensus sc, int N, int B, float rho) {
+                           StreamConsensus sc, int N, int B, float rho,
+                           typename Rho::Args ra) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
-  const SharedLayout<NX, NU, CONS> S(fa, sc, N);
-  load_tables<NX, NU, CONS>(sm, tables, L, S, fa, N);
+  const SharedLayout<NX, NU, CONS, Rho> S(fa, sc, ra, N);
+  load_tables<NX, NU, CONS, Rho>(sm, tables, L, S, fa, N);
   if (blockIdx.x == 0 && threadIdx.x == 0) *active = 0;
   __syncthreads();
-  // Terminal reference term -Pinf^T Xref[N-1] (admm_stream.py:926), summed
-  // as the resident kernel sums it.
+  // Terminal reference term -Pinf^T Xref[N-1] (admm_stream.py:926), and
+  // under adaptive rho its sensitivity -dPinf^T Xref[N-1] after it, summed
+  // as the resident kernel sums them.
   float* pnref = sm + S.pnref;
   if (threadIdx.x < NX) {
     const int k = threadIdx.x;
+    const float* xref_last = tables + L.xref + (N - 1) * NX;
     float acc = 0.f;
     for (int j = 0; j < NX; ++j)
-      acc = fmaf(sm[L.pinft + k * NX + j], tables[L.xref + (N - 1) * NX + j],
-                 acc);
+      acc = fmaf(sm[L.pinft + k * NX + j], xref_last[j], acc);
     pnref[k] = -acc;
+    Rho::prologue(ra, sm + S.adapt, xref_last, pnref + NX, k);
   }
   __syncthreads();
 
@@ -261,11 +304,13 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   if (b >= B || done[b]) return;   // no barrier follows
   const size_t sB = static_cast<size_t>(B);
   const Tables t(sm, tables, L);
-  const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b,
-                             rho);
+  const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b);
   const ConsOf<NX, NU, CONS> cons(cons_args<NX, NU, CONS>(sc), sm + S.cons,
                                   sm + S.lanes);
   load_lane<NX, NU, CONS>(cons, sc, sB, b);
+  Rho rh(ra, sm + S.adapt, pnref + NX, rho, sB, b);
+  if constexpr (Rho::kAdaptive) rh.resume(false);
+  rh.begin(0);   // the sweep reads drho only
   const NegRefWindow<NX> negxq{tables + L.xref, sm + L.qd};
   const NegRefWindow<NU> negur{tables + L.uref, sm + L.rd};
   float dvgN[NX];
@@ -275,7 +320,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     dvgN[k] = vprev[a] - g[a];
   }
   tinympc::backward_sweep<NX, NU>(t, negxq, negur, pnref, dvgN, vprev, zprev,
-                                  g, y, d, N, sB, b, rho, fam, FixedRho(),
+                                  g, y, d, N, sB, b, rh.rho(), fam, rh,
                                   cons);
 }
 
@@ -284,9 +329,15 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 // compares against vprev/zprev, or, in the STALE variant, against the
 // carried v/z (vstale/zstale; admm_stream.py:270-275). Under CONS row 0
 // takes the Kinf0 gain, and the launch ends with the group exchange
-// (admm_consensus.cuh), whose residual gates convergence.
-template <int NX, int NU, bool STALE, bool CONS>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
+// (admm_consensus.cuh), whose residual gates convergence. Under adaptive
+// rho (Rho) the rollout gain telescopes (Kinf x + drho dKinf x), an
+// adaptation iteration (every 5th, it > 0) keeps its rows in scratch and
+// runs admm_adaptive.cuh's second pass over them -- the OSQP residuals, the
+// guard, the clip -- and the new rho is committed before termination, whose
+// dual residuals scale with it (admm_stream.py:400-472, :577-621); the
+// lane's rho and virtual rho go back to device memory.
+template <int NX, int NU, bool STALE, bool CONS, class Rho>
+__global__ void __launch_bounds__(kBlock, kMinBlocksOf<Rho>)
     stream_forward_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
         const float* __restrict__ vprev, const float* __restrict__ zprev,
@@ -297,11 +348,12 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
         unsigned char* __restrict__ done, float* __restrict__ res,
         int* __restrict__ active, FamilyArgs fa, StreamConsensus sc,
         float* x_out, float* u_out, int it, int N, int B,
-        int check_termination, float rho, float tol_pri, float tol_dua) {
+        int check_termination, float rho, float tol_pri, float tol_dua,
+        typename Rho::Args ra) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
-  const SharedLayout<NX, NU, CONS> S(fa, sc, N);
-  load_tables<NX, NU, CONS>(sm, tables, L, S, fa, N);
+  const SharedLayout<NX, NU, CONS, Rho> S(fa, sc, ra, N);
+  load_tables<NX, NU, CONS, Rho>(sm, tables, L, S, fa, N);
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -321,23 +373,30 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float u0[NU];
   if (run) {
     const Tables t(sm, tables, L);
-    const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b,
-                               rho);
+    const Families<NX, NU> fam(fa, sm + S.fam, tables + L.total, N, sB, b);
     const TrackXU<NX, NU> hooks{fam, x_out, u_out, sB, b};
     load_lane<NX, NU, CONS>(cons, sc, sB, b);
+    Rho rh(ra, sm + S.adapt, nullptr, rho, sB, b);
+    if constexpr (Rho::kAdaptive) rh.resume(true);
+    rh.begin(it);
     float x0r[NX], dvgN[NX];
 #pragma unroll
     for (int k = 0; k < NX; ++k) x0r[k] = x0[static_cast<size_t>(b) * NX + k];
     const Residuals r = tinympc::forward_sweep<NX, NU>(
         t, x0r, dvgN, vcur, zcur, STALE ? vstale : vprev,
-        STALE ? zstale : zprev, g, y, d, N, sB, b, checking, u0, hooks,
-        FixedRho(), cons);
+        STALE ? zstale : zprev, g, y, d, N, sB, b, checking, u0, hooks, rh,
+        cons);
+    if constexpr (Rho::kAdaptive) {
+      if (rh.adapting())
+        rh.adapt(t, sm + L.qd, sm + L.rd, vcur, zcur, g, y, N);
+      rh.suspend();
+    }
     // Bookkeeping (admm_stream.py:576-641): iterations on every iteration,
-    // residuals (dual rows scaled by rho) and convergence on check
-    // iterations only.
+    // residuals (dual rows scaled by the rho after adaptation) and
+    // convergence on check iterations only.
     iters[b] = it + 1;
     if (checking) {
-      const float r2 = r.dua_s * rho, r3 = r.dua_i * rho;
+      const float r2 = r.dua_s * rh.rho(), r3 = r.dua_i * rh.rho();
       res[b] = r.pri_s;
       res[sB + b] = r.pri_i;
       res[2 * sB + b] = r2;
@@ -438,36 +497,46 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int NX, int NU, bool CONS>
-cudaError_t backward(const FamilyArgs& fa, const StreamConsensus& sc, int N,
-                     int B, float rho, const float* tables,
-                     const float* vprev, const float* zprev, const float* g,
-                     const float* y, float* d, const unsigned char* done,
-                     int* active, cudaStream_t s) {
-  const size_t smem = SharedLayout<NX, NU, CONS>(fa, sc, N).total *
-                      sizeof(float);
-  auto kernel = stream_backward_kernel<NX, NU, CONS>;
+// Pointers of a backward launch.
+struct Backward {
+  const float *tables, *vprev, *zprev, *g, *y;
+  float* d;
+  const unsigned char* done;
+  int* active;
+};
+
+template <int NX, int NU, bool CONS, class Rho>
+cudaError_t backward(const FamilyArgs& fa, const StreamConsensus& sc,
+                     const typename Rho::Args& ra, const Backward& p, int N,
+                     int B, float rho, cudaStream_t s) {
+  const size_t smem =
+      SharedLayout<NX, NU, CONS, Rho>(fa, sc, ra, N).total * sizeof(float);
+  auto kernel = stream_backward_kernel<NX, NU, CONS, Rho>;
   const cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(B + kBlock - 1) / kBlock, kBlock, smem, s>>>(
-      tables, vprev, zprev, g, y, d, done, active, fa, sc, N, B, rho);
+      p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, fa, sc,
+      N, B, rho, ra);
   return cudaGetLastError();
 }
 
-template <bool CONS>
-int backward_dispatch(int nx, int nu, const FamilyArgs& fa,
-                      const StreamConsensus& sc, int N, int B, float rho,
-                      const float* t, const float* vp, const float* zp,
-                      const float* gg, const float* yy, float* dd,
-                      const unsigned char* dn, int* act, cudaStream_t s) {
-  if (nx == 12 && nu == 4)   // the quadrotor
-    return static_cast<int>(backward<12, 4, CONS>(fa, sc, N, B, rho, t, vp,
-                                                  zp, gg, yy, dd, dn, act,
-                                                  s));
-  if (nx == 6 && nu == 3)    // the rocket
-    return static_cast<int>(backward<6, 3, CONS>(fa, sc, N, B, rho, t, vp,
-                                                 zp, gg, yy, dd, dn, act, s));
-  return static_cast<int>(cudaErrorInvalidValue);
+// The instantiation of a backward launch at (NX, NU): adaptive rho (with
+// or without apply_c), consensus, or neither.
+template <int NX, int NU>
+int backward_at(const FamilyArgs& fa, const StreamConsensus& sc,
+                const AdaptArgs* adapt, const Backward& p, int N, int B,
+                float rho, cudaStream_t s) {
+  if (adapt)
+    return static_cast<int>(
+        adapt->apply_c
+            ? backward<NX, NU, false, AdaptiveRho<NX, NU, true>>(
+                  fa, sc, *adapt, p, N, B, rho, s)
+            : backward<NX, NU, false, AdaptiveRho<NX, NU, false>>(
+                  fa, sc, *adapt, p, N, B, rho, s));
+  return static_cast<int>(
+      sc.group ? backward<NX, NU, true, FixedRho>(fa, sc, {}, p, N, B, rho, s)
+               : backward<NX, NU, false, FixedRho>(fa, sc, {}, p, N, B, rho,
+                                                   s));
 }
 
 // Pointers of a forward launch.
@@ -482,34 +551,54 @@ struct Forward {
   float *x_out, *u_out;
 };
 
-template <int NX, int NU, bool STALE, bool CONS>
+template <int NX, int NU, bool STALE, bool CONS, class Rho>
 cudaError_t forward(const FamilyArgs& fa, const StreamConsensus& sc,
-                    const Forward& p, int it, int N, int B, int ct,
-                    float rho, float tol_pri, float tol_dua,
-                    cudaStream_t s) {
+                    const typename Rho::Args& ra, const Forward& p, int it,
+                    int N, int B, int ct, float rho, float tol_pri,
+                    float tol_dua, cudaStream_t s) {
   const size_t smem =
-      (SharedLayout<NX, NU, CONS>(fa, sc, N).total - NX) * sizeof(float);
-  auto kernel = stream_forward_kernel<NX, NU, STALE, CONS>;
+      SharedLayout<NX, NU, CONS, Rho>(fa, sc, ra, N).pnref * sizeof(float);
+  auto kernel = stream_forward_kernel<NX, NU, STALE, CONS, Rho>;
   const cudaError_t e = prepare(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<(B + kBlock - 1) / kBlock, kBlock, smem, s>>>(
       p.tables, p.x0, p.vprev, p.zprev, p.vstale, p.zstale, p.vcur, p.zcur,
       p.g, p.y, p.d, p.iters, p.done, p.res, p.active, fa, sc, p.x_out,
-      p.u_out, it, N, B, ct, rho, tol_pri, tol_dua);
+      p.u_out, it, N, B, ct, rho, tol_pri, tol_dua, ra);
   return cudaGetLastError();
 }
 
-template <bool STALE, bool CONS>
+// The instantiation of a forward launch at (NX, NU): stale or not, with
+// adaptive rho (AdaptiveRho<NX, NU, false> either way: apply_c moves only
+// the backward sweep's products), consensus, or neither.
+template <int NX, int NU, bool STALE>
+int forward_at(const FamilyArgs& fa, const StreamConsensus& sc,
+               const AdaptArgs* adapt, const Forward& p, int it, int N, int B,
+               int ct, float rho, float tol_pri, float tol_dua,
+               cudaStream_t s) {
+  if (adapt)
+    return static_cast<int>(
+        forward<NX, NU, STALE, false, AdaptiveRho<NX, NU, false>>(
+            fa, sc, *adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  return static_cast<int>(
+      sc.group ? forward<NX, NU, STALE, true, FixedRho>(
+                     fa, sc, {}, p, it, N, B, ct, rho, tol_pri, tol_dua, s)
+               : forward<NX, NU, STALE, false, FixedRho>(
+                     fa, sc, {}, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+}
+
+template <bool STALE>
 int forward_dispatch(int nx, int nu, const FamilyArgs& fa,
-                     const StreamConsensus& sc, const Forward& p, int it,
-                     int N, int B, int ct, float rho, float tol_pri,
-                     float tol_dua, cudaStream_t s) {
+                     const StreamConsensus& sc, const AdaptArgs* adapt,
+                     const Forward& p, int it, int N, int B, int ct,
+                     float rho, float tol_pri, float tol_dua,
+                     cudaStream_t s) {
   if (nx == 12 && nu == 4)   // the quadrotor
-    return static_cast<int>(forward<12, 4, STALE, CONS>(
-        fa, sc, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+    return forward_at<12, 4, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                    tol_pri, tol_dua, s);
   if (nx == 6 && nu == 3)    // the rocket
-    return static_cast<int>(forward<6, 3, STALE, CONS>(
-        fa, sc, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+    return forward_at<6, 3, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -526,9 +615,12 @@ extern "C" int tinympc_stream_block() { return kBlock; }
 // active one int, zeroed. cons: null without consensus; else the group
 // size G (a power of two up to the block size, dividing B), rho_c and the
 // lanes' zc0, yc0 and offer arrays, (nu, B) each, with the tables' step-0
-// gains after the family tables. Returns 0 or a cudaError_t;
-// cudaErrorInvalidValue for an (nx, nu) pair this file does not
-// instantiate, a bad size or a missing array.
+// gains after the family tables. adapt: null at fixed rho; else the
+// adaptive-rho arguments (admm_adaptive.cuh), of which the backward launch
+// reads apply_c and rho_in, each lane's rho (B,), with the tables' adaptive
+// tables after the family tables; not with cons. rho is the problem's rho.
+// Returns 0 or a cudaError_t; cudaErrorInvalidValue for an (nx, nu) pair
+// this file does not instantiate, a bad size or a missing array.
 extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
                                        const int* counts, float rho,
                                        const void* tables, const void* vprev,
@@ -537,28 +629,29 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
                                        const void* done, void* active,
                                        void* const* fam,
                                        const StreamConsensus* cons,
-                                       void* stream) {
+                                       const AdaptArgs* adapt, void* stream) {
   FamilyArgs fa;
   StreamConsensus sc;
   bool families;
   if (N < 2 || B < 1 || !family_args(counts, fam, &fa, &families) ||
       !consensus_args(cons, B, &sc) || !tables || !vprev || !zprev || !g ||
-      !y || !d || !done || !active)
+      !y || !d || !done || !active ||
+      (adapt && (sc.group || !adapt->rho_in)))
     return static_cast<int>(cudaErrorInvalidValue);
+  const Backward p = {static_cast<const float*>(tables),
+                      static_cast<const float*>(vprev),
+                      static_cast<const float*>(zprev),
+                      static_cast<const float*>(g),
+                      static_cast<const float*>(y),
+                      static_cast<float*>(d),
+                      static_cast<const unsigned char*>(done),
+                      static_cast<int*>(active)};
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const float*>(tables);
-  const auto* vp = static_cast<const float*>(vprev);
-  const auto* zp = static_cast<const float*>(zprev);
-  const auto* gg = static_cast<const float*>(g);
-  const auto* yy = static_cast<const float*>(y);
-  auto* dd = static_cast<float*>(d);
-  const auto* dn = static_cast<const unsigned char*>(done);
-  auto* act = static_cast<int*>(active);
-  return sc.group
-             ? backward_dispatch<true>(nx, nu, fa, sc, N, B, rho, t, vp, zp,
-                                       gg, yy, dd, dn, act, s)
-             : backward_dispatch<false>(nx, nu, fa, sc, N, B, rho, t, vp, zp,
-                                        gg, yy, dd, dn, act, s);
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return backward_at<12, 4>(fa, sc, adapt, p, N, B, rho, s);
+  if (nx == 6 && nu == 3)    // the rocket
+    return backward_at<6, 3>(fa, sc, adapt, p, N, B, rho, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The forward launch of iteration `it`, STALE when `stale` is set.
@@ -570,14 +663,18 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
 // for the backward launch; x_out/u_out the tracked trajectories (both or
 // neither; only with families or consensus); cons as for the backward
 // launch, its zc0 and yc0 updated for the running lanes and the offer for
-// the lanes that converge in this launch. Returns 0 or a cudaError_t.
+// the lanes that converge in this launch. adapt: null at fixed rho; else
+// the adaptive-rho arguments with rho_in and rho_out the lanes' rho (B,)
+// and rho_v their virtual rho (B,), both updated for the running lanes,
+// and the scratch xs (N, nx, B), us (N-1, nu, B), axd (N-1, nx, B); not
+// with cons. Returns 0 or a cudaError_t.
 extern "C" int tinympc_stream_forward(
     int stale, int nx, int nu, int N, int B, int it, int check_termination,
     const int* counts, float rho, float tol_pri, float tol_dua,
     const void* tables, const void* x0, const void* const* prev, void* vcur,
     void* zcur, void* g, void* y, const void* d, void* iters, void* done,
     void* res, void* active, void* const* fam, void* x_out, void* u_out,
-    const StreamConsensus* cons, void* stream) {
+    const StreamConsensus* cons, const AdaptArgs* adapt, void* stream) {
   FamilyArgs fa;
   StreamConsensus sc;
   bool families;
@@ -586,7 +683,9 @@ extern "C" int tinympc_stream_forward(
       !consensus_args(cons, B, &sc) || !tables || !x0 || !prev[0] ||
       !prev[1] || (stale && (!prev[2] || !prev[3])) || !vcur || !zcur ||
       !g || !y || !d || !iters || !done || !res || !active ||
-      (!x_out != !u_out) || (x_out && !families && !sc.group))
+      (!x_out != !u_out) || (x_out && !families && !sc.group) ||
+      (adapt && (sc.group || !adapt->rho_in || !adapt->rho_out ||
+                 !adapt->rho_v || !adapt->xs || !adapt->us || !adapt->axd)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Forward p = {static_cast<const float*>(tables),
                      static_cast<const float*>(x0),
@@ -607,14 +706,8 @@ extern "C" int tinympc_stream_forward(
                      static_cast<float*>(u_out)};
   const auto s = static_cast<cudaStream_t>(stream);
   const int ct = check_termination;
-  if (sc.group)
-    return stale ? forward_dispatch<true, true>(nx, nu, fa, sc, p, it, N, B,
-                                                ct, rho, tol_pri, tol_dua, s)
-                 : forward_dispatch<false, true>(nx, nu, fa, sc, p, it, N, B,
-                                                 ct, rho, tol_pri, tol_dua,
-                                                 s);
-  return stale ? forward_dispatch<true, false>(nx, nu, fa, sc, p, it, N, B,
-                                               ct, rho, tol_pri, tol_dua, s)
-               : forward_dispatch<false, false>(nx, nu, fa, sc, p, it, N, B,
-                                                ct, rho, tol_pri, tol_dua, s);
+  return stale ? forward_dispatch<true>(nx, nu, fa, sc, adapt, p, it, N, B,
+                                        ct, rho, tol_pri, tol_dua, s)
+               : forward_dispatch<false>(nx, nu, fa, sc, adapt, p, it, N, B,
+                                         ct, rho, tol_pri, tol_dua, s);
 }

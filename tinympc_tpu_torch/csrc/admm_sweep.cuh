@@ -115,7 +115,7 @@ struct NoFamilies {
   static constexpr int kMinBlocks = 0;   // no minimum: __launch_bounds__(B)
   NoFamilies() = default;
   __device__ NoFamilies(const Args&, const float*, const float*, int, size_t,
-                        int, float) {}
+                        int) {}
   static __host__ __device__ int table_floats(const Args&, int, int, int) {
     return 0;
   }
@@ -124,15 +124,15 @@ struct NoFamilies {
   }
   template <bool WARM>
   __device__ __forceinline__ void seed(const float*) const {}
-  __device__ __forceinline__ void p_terminal(float*) const {}
-  __device__ __forceinline__ void q_terms(int, float*) const {}
-  __device__ __forceinline__ void r_terms(int, float*) const {}
+  __device__ __forceinline__ void p_terminal(float*, float) const {}
+  __device__ __forceinline__ void q_terms(int, float*, float) const {}
+  __device__ __forceinline__ void r_terms(int, float*, float) const {}
   __device__ __forceinline__ void state_row(int, const float*) const {}
   __device__ __forceinline__ void input_row(int, const float*) const {}
-  template <bool WARM>
+  template <bool WARM, class Rho>
   __device__ __forceinline__ void finish(const Tables&, const float*,
-                                         const float*, const float*,
-                                         int) const {}
+                                         const float*, const float*, int,
+                                         const Rho&) const {}
 };
 
 // Scenario-tree consensus on u[0] (admm_consensus.cuh implements it for
@@ -215,7 +215,7 @@ struct FixedRho {
 //   vprev/zprev the previous slacks; g, y the duals; d out, (N-1, NU, B)
 //   negxq/negur -(Xref .* Q) and -(Uref .* R), row i, feature k
 //   fam        the other constraint families: their terms join the linear
-//              cost after the box's
+//              cost after the box's, scaled by the lane's rho
 //   rh         fixed or adaptive rho (its hooks move the products of the
 //              matrices the Taylor update moves); rho is the lane's rho
 //   cons       consensus on u[0]: row 0's r term after the families', and
@@ -231,7 +231,7 @@ __device__ __forceinline__ void backward_sweep(
   float p[NX];
 #pragma unroll
   for (int k = 0; k < NX; ++k) p[k] = rh.pterm(k, pnref[k]) - rho * dvgN[k];
-  fam.p_terminal(p);
+  fam.p_terminal(p, rho);
   for (int i = N - 2; i >= 0; --i) {
     float r[NU], q[NX];
 #pragma unroll
@@ -239,14 +239,14 @@ __device__ __forceinline__ void backward_sweep(
       const size_t a = (static_cast<size_t>(i) * NU + k) * sB + b;
       r[k] = negur(i, k) - rho * (zprev[a] - y[a]);
     }
-    fam.r_terms(i, r);
+    fam.r_terms(i, r, rho);
     cons.r_terms(i, r);
 #pragma unroll
     for (int k = 0; k < NX; ++k) {
       const size_t a = (static_cast<size_t>(i) * NX + k) * sB + b;
       q[k] = negxq(i, k) - rho * (vprev[a] - g[a]);
     }
-    fam.q_terms(i, q);
+    fam.q_terms(i, q, rho);
     // [B^T; AmBKt] p
     float bp[NU], ap[NX];
 #pragma unroll

@@ -6,11 +6,14 @@ fixed-rho problems in one launch of the hand-written CUDA kernel
 ``csrc/admm_fused.cu``; :func:`solve_fused_warm` does the same from a
 warm-start :class:`FusedCarry` and hands the next one back (the
 external-plant receding-horizon pattern). The kernel replaces the TPU
-kernel ``admm_pallas._make_kernel`` for those variants. Box bounds run on
-its box-only instantiation; problems with second-order cones, hyperplanes
-or time-varying hyperplanes run on its families instantiation; box
-problems with adaptive rho (``Settings.adaptive_rho``) run on its adaptive
-instantiation, which carries one rho per lane and adapts it in the kernel.
+kernel ``admm_pallas._make_kernel`` for those variants. Box bounds at
+(12, 4) run on its box-only instantiation; problems with second-order
+cones, hyperplanes or time-varying hyperplanes, and every problem at
+(6, 3), run on its families instantiation (a box-only one with zero family
+counts); under adaptive rho (``Settings.adaptive_rho``) box problems at
+(12, 4) run on its adaptive instantiation and every other problem on its
+families adaptive instantiation, which carry one rho per lane and adapt it
+in the kernel.
 Scenario-tree consensus (:func:`~tinympc_tpu_torch.api.with_consensus`)
 runs the consensus instantiation of the families kernel, box problems with
 zero family counts: a scenario group is ``G`` adjacent lanes of one block
@@ -19,7 +22,7 @@ zero family counts: a scenario group is ``G`` adjacent lanes of one block
 the warm instantiations as they are.
 The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
 :data:`FAMILY_KERNEL_DIMS` (the families and consensus) and
-:data:`ADAPTIVE_KERNEL_DIMS`. On CPU tensors
+:data:`ADAPTIVE_KERNEL_DIMS` (adaptive rho, every family). On CPU tensors
 the wrappers run the kernel's plain PyTorch versions,
 :func:`solve_fused_reference` and :func:`solve_fused_warm_reference`,
 instead; on CUDA tensors they launch the kernel or raise.
@@ -57,22 +60,25 @@ KERNEL = "admm_fused"
 BLOCK = 128                          # threads (= problems) per block
 KERNEL_DIMS = ((12, 4),)             # (nx, nu) of the box-only kernel
 FAMILY_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of the families kernel
-ADAPTIVE_KERNEL_DIMS = ((12, 4),)    # (nx, nu) of the adaptive-rho kernel
+ADAPTIVE_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of adaptive rho
 F32_MAX = float(np.finfo(np.float32).max)
 # Shared memory a block may have on Hopper (cudaFuncSetAttribute refuses
 # more); the kernel keeps its whole packed table there.
 SMEM_LIMIT = 232448
 
-# Launches of the CUDA kernel in this process: box-only cold and warm, with
-# the other families cold and warm, with adaptive rho cold and warm, and
-# with consensus cold and warm. chip_smoke.py resets and reads them to show
-# that each path went through its kernel.
+# Launches of the CUDA kernel in this process, by instantiation (see
+# :func:`_instantiation`): box-only cold and warm, families cold and warm,
+# adaptive rho (box only) cold and warm, families with adaptive rho cold and
+# warm, and consensus cold and warm. chip_smoke.py resets and reads them to
+# show that each path went through its kernel.
 launch_count = 0
 warm_launch_count = 0
 families_launch_count = 0
 families_warm_launch_count = 0
 adaptive_launch_count = 0
 adaptive_warm_launch_count = 0
+adaptive_families_launch_count = 0
+adaptive_families_warm_launch_count = 0
 consensus_launch_count = 0
 consensus_warm_launch_count = 0
 
@@ -193,26 +199,22 @@ def _check_problem(prob: TinyProblem) -> None:
     check_supported_settings(prob.settings)
     check_supported_spec(prob.spec, prob.settings)
     spec = prob.spec
-    if prob.settings.adaptive_rho:
-        if prob.cache.dKinf_drho is None:
-            raise ValueError("adaptive rho needs the rho sensitivities; "
-                             "attach them with api.with_sensitivities(prob)")
-        if spec.any_extra_family or (spec.nx, spec.nu) not in \
-                ADAPTIVE_KERNEL_DIMS:
-            raise ValueError(
-                "the fused adaptive-rho kernel takes box constraints at "
-                f"(nx, nu) in {ADAPTIVE_KERNEL_DIMS}; adaptive rho with the "
-                "other constraint families or other sizes is not ported yet "
-                "(ROADMAP.md, Queue 2 item 1d); use tinympc_tpu_torch.solve")
+    if prob.settings.adaptive_rho and prob.cache.dKinf_drho is None:
+        raise ValueError("adaptive rho needs the rho sensitivities; attach "
+                         "them with api.with_sensitivities(prob)")
     if spec.en_consensus and (prob.cache.Kinf0 is None
                               or prob.cache.Quu0_inv is None):
         raise ValueError("en_consensus requires the step-0 consensus gains; "
                          "configure the problem via with_consensus(...)")
-    dims = FAMILY_KERNEL_DIMS if spec.any_extra_family or spec.en_consensus \
-        else KERNEL_DIMS
+    # Every family mix runs at each of these (nx, nu): a box-only problem
+    # at (6, 3) runs a families instantiation with zero counts.
+    dims = ADAPTIVE_KERNEL_DIMS if prob.settings.adaptive_rho \
+        else FAMILY_KERNEL_DIMS
     if (spec.nx, spec.nu) not in dims:
-        raise ValueError(f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of "
-                         f"the kernel's instantiations {dims}")
+        raise ValueError(
+            f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of the kernel's "
+            f"instantiations {dims}; other sizes are not ported yet "
+            "(ROADMAP.md, Queue 2 item 1c); use tinympc_tpu_torch.solve")
     if spec.N < 2:
         raise ValueError("the fused solve needs a horizon N >= 2")
     if prob.cache.rho.ndim != 0:
@@ -232,10 +234,10 @@ def _check_problem(prob: TinyProblem) -> None:
 
 def fused_supported(prob: TinyProblem) -> bool:
     """True if :func:`solve_fused` handles this problem: box, SOC,
-    hyperplane and time-varying hyperplane constraints at fixed rho, with
-    or without consensus within the batch (its step-0 gains baked by
-    ``with_consensus``), or box constraints with adaptive rho and its
-    sensitivities attached;
+    hyperplane and time-varying hyperplane constraints in any mix, at fixed
+    rho with or without consensus within the batch (its step-0 gains baked
+    by ``with_consensus``), or with adaptive rho and its sensitivities
+    attached;
     ``matmul_precision="highest"``, no coarse schedule, an (nx, nu) pair
     the kernel is instantiated for, and tables that fit in a block's shared
     memory (:data:`SMEM_LIMIT`; past N ~ 1190 at (12, 4), where
@@ -424,17 +426,20 @@ def _table_layout(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
             ("Kinf0", (k0, nx)), ("Quu0", (k0, nu)))
 
 
-def _pack_tables(prob: TinyProblem, Xref, Uref) -> torch.Tensor:
+def _pack_tables(prob: TinyProblem, Xref, Uref,
+                 dtype=torch.float32) -> torch.Tensor:
     """The kernel's shared inputs as one contiguous float32 vector on the
-    problem's device. Bounds of a disabled family are +-FLT_MAX, and +-inf
-    bounds are clamped to +-FLT_MAX: inf would poison the clamp arithmetic
-    (admm_pallas.py:1534-1539). Each hyperplane's ||a||^2 is summed here,
-    once, in feature order from zero, as the projection would sum it."""
+    problem's device (``dtype`` float64 gives the plain version's float64
+    tables, against which tests hold it to the float64 solver). Bounds of
+    a disabled family are +-FLT_MAX, and +-inf bounds are clamped to
+    +-FLT_MAX: inf would poison the clamp arithmetic (admm_pallas.py:
+    1534-1539). Each hyperplane's ||a||^2 is summed here, once, in feature
+    order from zero, as the projection would sum it."""
     spec, c, cons = prob.spec, prob.cache, prob.cons
     N, nx, nu = spec.N, spec.nx, spec.nu
     fam, adapt = _families(spec), _adaptive(prob.settings)
     consensus = spec.en_consensus
-    kw = dict(dtype=torch.float32, device=prob.device)
+    kw = dict(dtype=dtype, device=prob.device)
 
     def f32(a, shape):
         t = torch.as_tensor(a, **kw)
@@ -781,7 +786,7 @@ def _solve_plain(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
     ``adapt``."""
     t = _unpack_tables(tables, nx, nu, N, fam, adapt, cons is not None)
     B = x0.shape[0]
-    kw = dict(dtype=torch.float32, device=x0.device)
+    kw = dict(dtype=tables.dtype, device=x0.device)
     col = lambda v: v[:, None]                      # (F,) -> (F, 1)
 
     vnew = torch.zeros((2, N, nx, B), **kw)         # ping-pong halves
@@ -1062,14 +1067,15 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 class _AdaptArgs(ctypes.Structure):
     """``AdaptArgs`` of csrc/admm_adaptive.cuh: the adaptive-rho settings,
-    the carried rho in (null on a cold solve), the final rho out, and the
-    kernel's scratch for the rows of an adaptation iteration."""
+    the carried rho in (null on a cold solve), the final rho out, the
+    kernel's scratch for the rows of an adaptation iteration, and the
+    virtual rho of the streamed solve's lanes (null here)."""
 
     _fields_ = [("apply_c", ctypes.c_int), ("clip", ctypes.c_int),
                 ("rho_min", ctypes.c_float), ("rho_max", ctypes.c_float),
                 ("rho_tol", ctypes.c_float), ("rho_in", _PTR),
                 ("rho_out", _PTR), ("xs", _PTR), ("us", _PTR),
-                ("axd", _PTR)]
+                ("axd", _PTR), ("rho_v", _PTR)]
 
 
 class _ConsensusArgs(ctypes.Structure):
@@ -1148,14 +1154,28 @@ def _ptr_array(tensors):
         *(None if t is None else t.data_ptr() for t in tensors))
 
 
+def _instantiation(nx, nu, fam, adapt, cons) -> str:
+    """The instantiation of csrc/admm_fused.cu a solve runs (its
+    ``dispatch``): "consensus", "adaptive_families" (adaptive rho with a
+    family beyond the box, or at (6, 3)), "adaptive" (box only at (12, 4)),
+    "families" (a family beyond the box, or at (6, 3)) or "box"."""
+    families = any(fam) or (nx, nu) not in KERNEL_DIMS
+    if cons is not None:
+        return "consensus"
+    if adapt is not None:
+        return "adaptive_families" if families else "adaptive"
+    return "families" if families else "box"
+
+
 def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
             rho, tol_pri, tol_dua):
     """Launch csrc/admm_fused.cu on the current stream of x0's device: cold
-    when ``carry`` is None, else warm; the box-only kernel when ``fam`` is
-    all zero and ``adapt`` and ``cons`` None, the families kernel for other
-    families or consensus, the adaptive-rho kernel under ``adapt``. Returns
-    the outputs and scratch, and the new carry of a warm solve (its duals
-    are the kernel's dual buffers)."""
+    when ``carry`` is None, else warm, on the instantiation
+    :func:`_instantiation` names. Returns the outputs and scratch, and the
+    new carry of a warm solve (its duals are the kernel's dual buffers). A
+    warm box-only solve on a families instantiation (at (6, 3)) hands the
+    kernel scratch for the x/u it seeds and hands over, which its carry
+    does not keep."""
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     consensus = cons is not None
@@ -1179,8 +1199,14 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
                + (("zc0", "yc0") if consensus else ())}
         carry_ptrs = [getattr(carry, k) for k in BOX_CARRY_FIELDS] + [
             out[k] for k in ("vnew", "znew", "v", "z")]
-        fam_ptrs = work + [getattr(carry, k) for k in _FAMILY_DUALS
-                           + ("x", "u")] + [out.get("x"), out.get("u")]
+        xu_in = [getattr(carry, "x"), getattr(carry, "u")]
+        xu_out = [out.get("x"), out.get("u")]
+        if xu_in[0] is None and "families" in _instantiation(
+                nx, nu, fam, adapt, cons):
+            xu_in = xu_out = [torch.empty(shapes["vnew"], **kw),
+                              torch.empty(shapes["znew"], **kw)]
+        fam_ptrs = work + [getattr(carry, k) for k in _FAMILY_DUALS] \
+            + xu_in + xu_out
     adapt_args = None
     if adapt is not None:
         scratch = [torch.empty(shape, **kw) for shape in (
@@ -1219,40 +1245,27 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
                                        **duals)
 
 
+def _count(kind: str, warm: bool) -> None:
+    """One more launch of the instantiation ``kind`` (cold or warm)."""
+    name = ("" if kind == "box" else kind + "_") + ("warm_" if warm else "") \
+        + "launch_count"
+    globals()[name] += 1
+
+
 def _solve_kernel(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                   tol_dua, fam=NO_FAMILIES, adapt=None, cons=None):
-    """The cold solve on the kernel: box-only, families (with or without
-    consensus) or adaptive-rho instantiation."""
-    global launch_count, families_launch_count, adaptive_launch_count, \
-        consensus_launch_count
+    """The cold solve on the kernel's instantiation for the problem."""
     sol, res, _ = _launch(tables, x0, N, nx, nu, fam, adapt, cons, None,
                           max_iter, ct, rho, tol_pri, tol_dua)
-    if cons is not None:
-        consensus_launch_count += 1
-    elif adapt is not None:
-        adaptive_launch_count += 1
-    elif any(fam):
-        families_launch_count += 1
-    else:
-        launch_count += 1
+    _count(_instantiation(nx, nu, fam, adapt, cons), False)
     return sol, res
 
 
 def _solve_kernel_warm(tables, x0, carry: FusedCarry, N, nx, nu, *,
                        max_iter, ct, rho, tol_pri, tol_dua,
                        fam=NO_FAMILIES, adapt=None, cons=None):
-    """The warm solve on the kernel: box-only, families (with or without
-    consensus) or adaptive-rho instantiation."""
-    global warm_launch_count, families_warm_launch_count, \
-        adaptive_warm_launch_count, consensus_warm_launch_count
+    """The warm solve on the kernel's instantiation for the problem."""
     out = _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter,
                   ct, rho, tol_pri, tol_dua)
-    if cons is not None:
-        consensus_warm_launch_count += 1
-    elif adapt is not None:
-        adaptive_warm_launch_count += 1
-    elif any(fam):
-        families_warm_launch_count += 1
-    else:
-        warm_launch_count += 1
+    _count(_instantiation(nx, nu, fam, adapt, cons), True)
     return out

@@ -15,17 +15,22 @@ the duals, accumulates the residuals and keeps each lane's bookkeeping. The
 loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
 
-Scope: fixed rho; box, second-order cone, hyperplane and time-varying
-hyperplane constraints in any mix, with or without scenario-tree consensus
-on u[0] (x0s (n_groups, G, nx), G a power of two up to 128, as the resident
-solve takes it), at the (nx, nu) the resident kernels are instantiated for;
-cold and warm (the :class:`~.admm_fused.FusedCarry` of the resident solve,
-which either solve may hand to the other). Consensus runs the kernels'
-consensus instantiations: r[0]'s prox term and the Quu0_inv gain in the
-backward launch, the Kinf0 gain and the group exchange at the end of the
-forward launch; each lane's slack, dual and standing offer stay on the card
-between launches. Adaptive rho raises ``ValueError`` (ROADMAP.md, Queue 2
-item 3a).
+Scope: box, second-order cone, hyperplane and time-varying hyperplane
+constraints in any mix, at fixed rho with or without scenario-tree
+consensus on u[0] (x0s (n_groups, G, nx), G a power of two up to 128, as
+the resident solve takes it), or with adaptive rho, at the (nx, nu) the
+resident kernels are instantiated for; cold and warm (the
+:class:`~.admm_fused.FusedCarry` of the resident solve, which either solve
+may hand to the other). Consensus runs the kernels' consensus
+instantiations: r[0]'s prox term and the Quu0_inv gain in the backward
+launch, the Kinf0 gain and the group exchange at the end of the forward
+launch; each lane's slack, dual and standing offer stay on the card between
+launches. Adaptive rho runs their adaptive instantiations: each lane's rho
+and the guard's virtual rho stay on the card between launches, the backward
+launch telescopes the products the Taylor update moves, and the forward
+launch adapts rho every 5th iteration of a running lane before its
+termination check; the residuals gain the final rho as a 5th row and the
+warm carry each lane's rho, as in the resident solve.
 
 On CPU tensors the wrappers run the kernels' plain PyTorch versions,
 :func:`stream_backward_reference` and :func:`stream_forward_reference`,
@@ -42,10 +47,11 @@ from typing import Optional
 
 import torch
 
-from ..types import TinyProblem
+from ..types import ADAPTIVE_RHO_PERIOD, TinyProblem
 from . import _build, admm_fused
-from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, Consensus,
-                         FusedCarry, Families, _check_arg, _family_projectors,
+from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, Adaptive,
+                         Consensus, FusedCarry, Families, _AdaptArgs,
+                         _adapt_plain, _check_arg, _family_projectors,
                          _group_mean, _grouped, _outputs, _prepare_inputs,
                          _ptr_array, _table_layout, _unpack_tables)
 
@@ -53,31 +59,29 @@ KERNEL = "admm_stream"
 
 # Launches in this process of each streamed kernel, by the name of its
 # instantiation: the backward kernel, the forward kernel and its stale
-# variant, and their consensus instantiations; chip_smoke.py resets and
-# reads them to show that the streamed path went through its kernels.
+# variant, their consensus instantiations and their adaptive ones;
+# chip_smoke.py resets and reads them to show that the streamed path went
+# through its kernels.
 launch_counts = dict.fromkeys(
     ("backward", "forward", "forward_stale", "backward_consensus",
-     "forward_consensus", "forward_consensus_stale"), 0)
+     "forward_consensus", "forward_consensus_stale", "backward_adaptive",
+     "forward_adaptive", "forward_adaptive_stale"), 0)
 
 
 def _check(prob: TinyProblem) -> None:
     """Raise ``ValueError`` for a problem the streamed kernels do not
-    cover: those of the resident kernel, whatever its horizon, less
-    adaptive rho."""
-    if prob.settings.adaptive_rho:
-        raise ValueError("adaptive rho on the streamed path is not ported yet "
-                         "(ROADMAP.md, Queue 2 item 3a); use solve_fused or "
-                         "tinympc_tpu_torch.solve")
+    cover: those of the resident kernel, whatever its horizon."""
     admm_fused._check_problem(prob)
 
 
 def stream_supported(prob: TinyProblem) -> bool:
     """True if :func:`solve_fused_streamed` handles this problem: box, SOC,
-    hyperplane and time-varying hyperplane constraints at fixed rho, with or
-    without consensus within the batch (its step-0 gains baked by
-    ``with_consensus``), at any horizon N >= 2,
-    ``matmul_precision="highest"``, no coarse schedule, and an (nx, nu) pair
-    the kernels are instantiated for."""
+    hyperplane and time-varying hyperplane constraints in any mix, at fixed
+    rho with or without consensus within the batch (its step-0 gains baked
+    by ``with_consensus``), or with adaptive rho and its sensitivities
+    attached, at any horizon N >= 2, ``matmul_precision="highest"``, no
+    coarse schedule, and an (nx, nu) pair the kernels are instantiated
+    for."""
     try:
         _check(prob)
     except ValueError:
@@ -90,7 +94,6 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
     x0, the carry and the solver parameters."""
     _check(prob)
     tables, x0, params = _prepare_inputs(prob, Xref, Uref, x0s)
-    params.pop("adapt")        # refused by _check
     if warm:
         if carry is None:
             raise ValueError("solve_fused_streamed_warm needs a carry; start "
@@ -104,7 +107,8 @@ def _prepare(prob: TinyProblem, Xref, Uref, x0s, carry=None, warm=False):
 def solve_fused_streamed(prob: TinyProblem, Xref=None, Uref=None, x0s=None):
     """Long-horizon batched cold solve, two kernel launches an iteration.
     Returns ``(Solution, residuals (4, B))`` as :func:`solve_fused` does (a
-    consensus problem in its (n_groups, G) layout).
+    consensus problem in its (n_groups, G) layout; with adaptive rho the
+    residuals are (5, B), the last row each lane's final rho).
 
     Raises ``ValueError`` for a problem outside :func:`stream_supported`.
     On CPU tensors it runs :func:`solve_fused_streamed_reference`."""
@@ -121,8 +125,10 @@ def solve_fused_streamed_warm(prob: TinyProblem, Xref=None, Uref=None,
     first iteration's dual residual reads the carried one-behind v/z (the
     stale forward kernel); converged lanes hand over their first-convergence
     iterate. A consensus solve re-seeds each lane's slack from the carried
-    u[0], keeps the carried dual, and hands over zc0 / yc0 and x/u. On CPU
-    tensors it runs :func:`solve_fused_streamed_warm_reference`."""
+    u[0], keeps the carried dual, and hands over zc0 / yc0 and x/u; an
+    adaptive one starts each lane from its carried rho and hands over the
+    final one. On CPU tensors it runs
+    :func:`solve_fused_streamed_warm_reference`."""
     tables, x0, carry, params = _prepare(prob, Xref, Uref, x0s, carry, True)
     return _grouped(_solve(prob, tables, x0, carry, params), params["cons"])
 
@@ -160,22 +166,26 @@ def _solve(prob, tables, x0, carry, params):
 # ------------------------------------------------------------ the host loop
 
 def _init(x0, N, nx, nu, carry, fam: Families,
-          cons: Optional[Consensus] = None):
+          cons: Optional[Consensus] = None, rho: Optional[float] = None):
     """The working arrays of a solve, lane-last, on x0's device: vnew/znew
     as ping-pong halves (iteration it writes half it % 2; a warm solve's
     carried slack goes into half 1, which iteration 0 reads as previous),
     the duals, the feedforward d, the slack and dual of each family in the
     order of the kernels' family array (None for a family that is off),
     the carried x/u of a warm family or consensus solve, under consensus
-    each lane's slack zc0, dual yc0 and standing offer, (nu, B) each, and
-    the bookkeeping: iters, done, res and the one-int flag ``active``.
+    each lane's slack zc0, dual yc0 and standing offer, (nu, B) each, under
+    adaptive rho (``rho``, the problem's rho) each lane's rho and virtual
+    rho, (B,) each, and the bookkeeping: iters, done, res and the one-int
+    flag ``active``.
 
     Family slacks are seeded as the resident kernel seeds them
     (admm_stream.py:1196-1214): the state side from x0 in row 0 and zeros
     (cold) or the carried x after it, the input side from zeros or the
     carried u; duals start at zero or from the carry. The consensus slack
     starts at the carried u[0] (zero cold), its dual at the carried yc0
-    (:1231-1247), and no lane has offered yet."""
+    (:1231-1247), and no lane has offered yet. A lane's rho starts at the
+    carried one (the problem's cold), and its virtual rho restarts from it,
+    as in the resident solve."""
     B = x0.shape[0]
     kw = dict(dtype=torch.float32, device=x0.device)
     vnew = torch.zeros((2, N, nx, B), **kw)
@@ -206,7 +216,11 @@ def _init(x0, N, nx, nu, carry, fam: Families,
              done=torch.zeros(B, dtype=torch.bool, device=x0.device),
              res=torch.zeros((4, B), **kw),
              active=torch.zeros(1, dtype=torch.int32, device=x0.device),
-             zc0=None, yc0=None, offer=None)
+             zc0=None, yc0=None, offer=None, rho=None, rho_v=None)
+    if rho is not None:
+        s["rho"] = torch.full((B,), rho, **kw) if carry is None \
+            else carry.rho[0].clone()
+        s["rho_v"] = s["rho"].clone()
     if cons is not None:
         s.update(zc0=u_seed[0].clone(),
                  yc0=torch.zeros((nu, B), **kw) if carry is None
@@ -216,7 +230,8 @@ def _init(x0, N, nx, nu, carry, fam: Families,
 
 
 def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
-          tol_dua, fam: Families, cons: Optional[Consensus] = None):
+          tol_dua, fam: Families, adapt: Optional[Adaptive] = None,
+          cons: Optional[Consensus] = None):
     """The ADMM loop around the two launches of each iteration, on the
     kernels (``_KERNELS``) or their plain versions (``_PLAIN``): iteration
     ``it`` runs the backward launch on half 1 - it % 2, then the forward
@@ -225,9 +240,11 @@ def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
     still running, so the iteration count never passes max_iter. Returns
     ``(Solution, residuals, carry' or None)`` in the lane layout."""
     N, nx, nu = spec.N, spec.nx, spec.nu
-    s = _init(x0, N, nx, nu, carry, fam, cons)
+    s = _init(x0, N, nx, nu, carry, fam, cons,
+              None if adapt is None else rho)
     run = launcher(tables, x0, s, carry, N, nx, nu, rho=rho, ct=ct,
-                   tol_pri=tol_pri, tol_dua=tol_dua, fam=fam, cons=cons)
+                   tol_pri=tol_pri, tol_dua=tol_dua, fam=fam, adapt=adapt,
+                   cons=cons)
     for it in range(max_iter):
         run.backward(1 - it % 2)
         run.forward(it, stale=carry is not None and it == 0)
@@ -241,8 +258,12 @@ def _loop(tables, x0, carry, spec, launcher, *, max_iter, ct, rho, tol_pri,
             extra.update(x=s["x"], u=s["u"])
         if cons is not None:
             extra.update(zc0=s["zc0"], yc0=s["yc0"])
+        if adapt is not None:
+            extra.update(rho=s["rho"][None].clone())
+    res = s["res"] if adapt is None else torch.cat([s["res"],
+                                                     s["rho"][None]])
     return _outputs(s["vnew"], s["znew"], s["g"], s["y"], s["iters"],
-                    s["done"], s["res"], carry, extra)
+                    s["done"], res, carry, extra)
 
 
 # ------------------------------------------------------------ plain versions
@@ -257,8 +278,9 @@ def _sides(fams):
 
 
 def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams,
-                              zc0=None, yc0=None, *, N, nx, nu, rho,
-                              fam: Families = NO_FAMILIES,
+                              zc0=None, yc0=None, rho_lane=None, *, N, nx,
+                              nu, rho, fam: Families = NO_FAMILIES,
+                              adapt: Optional[Adaptive] = None,
                               cons: Optional[Consensus] = None):
     """The backward kernel's plain version: the feedforward d (N-1, nu, B)
     of every lane not ``done`` from its previous slacks ``vprev``
@@ -269,40 +291,58 @@ def stream_backward_reference(tables, vprev, zprev, g, y, d, done, fams,
     after the box's, in the arithmetic of
     :func:`~.admm_fused.solve_fused_reference`. With ``cons`` row 0's r
     gains -rho_c (zc0 - yc0) after the families' terms and d[0] takes the
-    Quu0_inv gain (:229-239). Returns the new d."""
-    t = _unpack_tables(tables, nx, nu, N, fam, None, cons is not None)
+    Quu0_inv gain (:229-239). With ``adapt`` each lane's ``rho_lane`` (B,)
+    scales the linear cost, and with drho = rho_lane - rho the terminal
+    reference term gains drho (-dPinf^T Xref[N-1]), Kinf^T r gains
+    drho dKinf^T r, and under apply_c Quu_inv w and AmBKt p gain drho dC1 w
+    and drho dC2 p (:121-191, :203-210). Returns the new d."""
+    t = _unpack_tables(tables, nx, nu, N, fam, adapt, cons is not None)
     col = lambda v: v[:, None]
     xf, uf = _sides(fams)
     negxq = -(t["Xref"] * t["Qd"])
     negur = -(t["Uref"] * t["Rd"])
     # -Pinf^T Xref[N-1], summed as admm.update_linear_cost sums it.
     p = col(-(t["Xref"][N - 1] @ t["PinfT"].T.contiguous()))
-    p = p - rho * (vprev[N - 1] - g[N - 1])
+    if adapt is None:
+        rho_b, dr = rho, None
+    else:
+        rho_b, dr = rho_lane, rho_lane - rho
+        p = p + dr * col(-(t["Xref"][N - 1] @ t["dPT"].T.contiguous()))
+    p = p - rho_b * (vprev[N - 1] - g[N - 1])
     for slack, dual in xf:
-        p = p - rho * (slack[N - 1] - dual[N - 1])
+        p = p - rho_b * (slack[N - 1] - dual[N - 1])
     dn = torch.empty_like(d)
     for i in range(N - 2, -1, -1):
-        r = col(negur[i]) - rho * (zprev[i] - y[i])
+        r = col(negur[i]) - rho_b * (zprev[i] - y[i])
         for slack, dual in uf:
-            r = r - rho * (slack[i] - dual[i])
+            r = r - rho_b * (slack[i] - dual[i])
         first = cons is not None and i == 0
         if first:
             r = r - cons.rho_c * (zc0 - yc0)
-        q = col(negxq[i]) - rho * (vprev[i] - g[i])
+        q = col(negxq[i]) - rho_b * (vprev[i] - g[i])
         for slack, dual in xf:
-            q = q - rho * (slack[i] - dual[i])
+            q = q - rho_b * (slack[i] - dual[i])
         out = t["Mback"] @ p
         bp, ap = out[:nu], out[nu:]
-        dn[i] = (t["Quu0"] if first else t["Quu"]) @ (bp + r + col(t["BPf"]))
-        p = q + ap - t["KinfT"] @ r + col(t["APf"])
+        w = bp + r + col(t["BPf"])
+        dn[i] = (t["Quu0"] if first else t["Quu"]) @ w
+        kr = t["KinfT"] @ r
+        if adapt is not None:
+            kr = kr + dr * (t["dKT"] @ r)
+            if adapt.apply_c:
+                ap = ap + dr * (t["dC2"] @ p)
+                dn[i] = dn[i] + dr * (t["dC1"] @ w)
+        p = q + ap - kr + col(t["APf"])
     return torch.where(done, d, dn)
 
 
 def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
                              iters, done, res, fams, x_out=None, u_out=None,
                              vstale=None, zstale=None, zc0=None, yc0=None,
-                             offer=None, *, it, N, nx, nu, ct, rho, tol_pri,
-                             tol_dua, fam: Families = NO_FAMILIES,
+                             offer=None, rho_lane=None, rho_v=None, *, it, N,
+                             nx, nu, ct, rho, tol_pri, tol_dua,
+                             fam: Families = NO_FAMILIES,
+                             adapt: Optional[Adaptive] = None,
                              cons: Optional[Consensus] = None):
     """The forward kernel's plain version for iteration ``it``, on the lanes
     not ``done``: the rollout from x0 (B, nx) with the feedforward ``d``,
@@ -319,30 +359,43 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
     convergence gate (:553-570), as in
     :func:`~.admm_fused.solve_fused_reference`. A lane that converges
     here stores its offer, which then stands; ``offer`` is written for no
-    other lane, as the kernel writes it. Returns what the kernel
-    writes, as a dict: vcur, zcur, g, y, fams, x_out, u_out, iters, done,
-    res, zc0, yc0, offer and ``active`` (1 where a lane still runs after a
-    check iteration, else 0)."""
-    t = _unpack_tables(tables, nx, nu, N, fam, None, cons is not None)
+    other lane, as the kernel writes it. With ``adapt`` the rollout gain is
+    Kinf x + drho dKinf x (drho = rho_lane - rho), and on an adaptation
+    iteration (every ADAPTIVE_RHO_PERIOD-th, it > 0) each running lane's
+    ``rho_lane`` and virtual ``rho_v`` move by
+    :func:`~.admm_fused._adapt_plain`'s OSQP residuals before the check,
+    whose dual rows scale with the new rho (:400-472, :577-621). Returns
+    what the kernel writes, as a dict: vcur, zcur, g, y, fams, x_out,
+    u_out, iters, done, res, zc0, yc0, offer, rho, rho_v and ``active`` (1
+    where a lane still runs after a check iteration, else 0)."""
+    t = _unpack_tables(tables, nx, nu, N, fam, adapt, cons is not None)
     col = lambda v: v[:, None]
     active = ~done
     keep = lambda new, old: torch.where(active, new, old)
     if cons is not None:
         # [Kinf0; A], step 0's product, shaped as every other step's.
         Mfwd0 = torch.cat([t["Kinf0"], t["Mfwd"][nu:]])
+    dr = None if adapt is None else rho_lane - rho
     x = x0.T
-    xs, us = [x], []
+    xs, us, axd = [x], [], []
     for i in range(N - 1):
         out = (Mfwd0 if cons is not None and i == 0 else t["Mfwd"]) @ x
-        u = -out[:nu] - d[i]
-        x = out[nu:] + t["Bm"] @ u + col(t["f"])
+        kx = out[:nu]
+        if adapt is not None:
+            kx = kx + dr * (t["dK"] @ x)
+        u = -kx - d[i]
+        s = out[nu:] + t["Bm"] @ u
+        x = s + col(t["f"])
         xs.append(x)
         us.append(u)
+        if adapt is not None:
+            axd.append(s - x)
     xs, us = torch.stack(xs), torch.stack(us)
     vn = torch.minimum(t["xmax"][:, :, None],
                        torch.maximum(t["xmin"][:, :, None], xs + g))
     zn = torch.minimum(t["umax"][:, :, None],
                        torch.maximum(t["umin"][:, :, None], us + y))
+    gn, yn = g + xs - vn, y + us - zn
     new_fams = list(fams)
     for k, proj in enumerate(_family_projectors(t, fam)):
         if proj is not None:
@@ -350,12 +403,20 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
             sn = proj(prim + dual)
             new_fams[2 * k] = keep(sn, slack)
             new_fams[2 * k + 1] = keep(dual + prim - sn, dual)
-    out = dict(vcur=keep(vn, vcur), zcur=keep(zn, zcur), g=keep(g + xs - vn, g),
-               y=keep(y + us - zn, y), fams=new_fams,
+    rho_b = rho
+    if adapt is not None:
+        if it > 0 and it % ADAPTIVE_RHO_PERIOD == 0:
+            rho_lane, rho_v = _adapt_plain(
+                t, adapt, xs, us, torch.stack(axd), vn, zn, gn, yn, dr,
+                rho_lane, rho_v, active)
+        rho_b = rho_lane
+    out = dict(vcur=keep(vn, vcur), zcur=keep(zn, zcur), g=keep(gn, g),
+               y=keep(yn, y), fams=new_fams,
                x_out=None if x_out is None else keep(xs, x_out),
                u_out=None if u_out is None else keep(us, u_out),
                iters=keep(torch.full_like(iters, it + 1), iters), done=done,
-               res=res, zc0=zc0, yc0=yc0, offer=offer,
+               res=res, zc0=zc0, yc0=yc0, offer=offer, rho=rho_lane,
+               rho_v=rho_v,
                active=torch.zeros(1, dtype=torch.int32, device=x0.device))
     if cons is not None:
         offers = keep(us[0] + yc0, offer)
@@ -367,8 +428,8 @@ def stream_forward_reference(tables, x0, vprev, zprev, vcur, zcur, g, y, d,
         rows = torch.stack([
             torch.amax(torch.abs(xs - vn), dim=(0, 1)),
             torch.amax(torch.abs(us - zn), dim=(0, 1)),
-            torch.amax(torch.abs(vd - vn), dim=(0, 1)) * rho,
-            torch.amax(torch.abs(zd - zn), dim=(0, 1)) * rho])
+            torch.amax(torch.abs(vd - vn), dim=(0, 1)) * rho_b,
+            torch.amax(torch.abs(zd - zn), dim=(0, 1)) * rho_b])
         ok = ((rows[0] < tol_pri) & (rows[1] < tol_pri)
               & (rows[2] < tol_dua) & (rows[3] < tol_dua))
         if cons is not None:
@@ -393,8 +454,9 @@ class _PLAIN:
         s, p = self.s, self.params
         s["d"] = stream_backward_reference(
             self.tables, s["vnew"][prev], s["znew"][prev], s["g"], s["y"],
-            s["d"], s["done"], s["fams"], s["zc0"], s["yc0"], rho=p["rho"],
-            fam=p["fam"], cons=p["cons"], **self.dims)
+            s["d"], s["done"], s["fams"], s["zc0"], s["yc0"], s["rho"],
+            rho=p["rho"], fam=p["fam"], adapt=p["adapt"], cons=p["cons"],
+            **self.dims)
 
     def forward(self, it, stale):
         s, cur = self.s, it % 2
@@ -403,11 +465,11 @@ class _PLAIN:
             self.tables, self.x0, s["vnew"][1 - cur], s["znew"][1 - cur],
             s["vnew"][cur], s["znew"][cur], s["g"], s["y"], s["d"],
             s["iters"], s["done"], s["res"], s["fams"], s["x"], s["u"],
-            *stale_vz, s["zc0"], s["yc0"], s["offer"], it=it, **self.dims,
-            **self.params)
+            *stale_vz, s["zc0"], s["yc0"], s["offer"], s["rho"],
+            s["rho_v"], it=it, **self.dims, **self.params)
         s["vnew"][cur], s["znew"][cur] = out["vcur"], out["zcur"]
         for k in ("g", "y", "fams", "iters", "done", "res", "active", "zc0",
-                  "yc0", "offer"):
+                  "yc0", "offer", "rho", "rho_v"):
             s[k] = out[k]
         s["x"], s["u"] = out["x_out"], out["u_out"]
 
@@ -431,17 +493,20 @@ def _kernel_fns():
                            "on the block size")
     bwd, fwd = lib.tinympc_stream_backward, lib.tinympc_stream_forward
     cons = ctypes.POINTER(_StreamConsensus)
+    adapt = ctypes.POINTER(_AdaptArgs)
     # nx nu N B | counts | rho | tables vprev zprev g y d done active |
-    # family array | consensus arguments | the stream
+    # family array | consensus arguments | adaptive-rho arguments | the
+    # stream
     bwd.argtypes = ([ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
                                           ctypes.c_float]
-                    + [_PTR] * 8 + [_PTRS, cons, _PTR])
+                    + [_PTR] * 8 + [_PTRS, cons, adapt, _PTR])
     # stale nx nu N B it ct | counts | rho tol_pri tol_dua | tables x0 |
     # prev array | vcur zcur g y d iters done res active | family array |
-    # x_out u_out | consensus arguments | the stream
+    # x_out u_out | consensus arguments | adaptive-rho arguments | the
+    # stream
     fwd.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
                     + [ctypes.c_float] * 3 + [_PTR] * 2 + [_PTRS]
-                    + [_PTR] * 9 + [_PTRS] + [_PTR] * 2 + [cons, _PTR])
+                    + [_PTR] * 9 + [_PTRS] + [_PTR] * 2 + [cons, adapt, _PTR])
     bwd.restype = fwd.restype = ctypes.c_int
     return bwd, fwd
 
@@ -452,24 +517,40 @@ class _KERNELS:
     its instantiation's entry of ``launch_counts``."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
-                 tol_dua, fam, cons=None):
+                 tol_dua, fam, adapt=None, cons=None):
         dev, B = x0.device, x0.shape[0]
         _check_arg(x0, (B, nx), torch.float32, dev)
         ntab = sum(math.prod(shape) for _, shape in _table_layout(
-            nx, nu, N, fam, None, cons is not None))
+            nx, nu, N, fam, adapt, cons is not None))
         _check_arg(tables, (ntab,), torch.float32, dev)
         self.tables, self.x0, self.s, self.carry = tables, x0, s, carry
         self.N, self.nx, self.nu, self.B = N, nx, nu, B
         self.rho, self.ct, self.tol_pri, self.tol_dua = rho, ct, tol_pri, \
             tol_dua
         self.counts = (ctypes.c_int * 6)(*fam)
-        self.cons, self.suffix = None, "" if cons is None else "_consensus"
+        self.cons, self.adapt, self.suffix = None, None, ""
         if cons is not None:
             for k in ("zc0", "yc0", "offer"):
                 _check_arg(s[k], (nu, B), torch.float32, dev)
             self.cons = ctypes.byref(_StreamConsensus(
                 cons.group, cons.rho_c, s["zc0"].data_ptr(),
                 s["yc0"].data_ptr(), s["offer"].data_ptr()))
+            self.suffix = "_consensus"
+        if adapt is not None:
+            # Each lane's rho is read and written in place (rho_in and
+            # rho_out the same array); the scratch holds the rows of an
+            # adaptation iteration, as in the resident kernel.
+            for k in ("rho", "rho_v"):
+                _check_arg(s[k], (B,), torch.float32, dev)
+            kw = dict(dtype=torch.float32, device=dev)
+            self.scratch = [torch.empty(shape, **kw) for shape in (
+                (N, nx, B), (N - 1, nu, B), (N - 1, nx, B))]
+            self.adapt = ctypes.byref(_AdaptArgs(
+                int(adapt.apply_c), int(adapt.clip), adapt.rho_min,
+                adapt.rho_max, adapt.rho_tol, s["rho"].data_ptr(),
+                s["rho"].data_ptr(), *(a.data_ptr() for a in self.scratch),
+                s["rho_v"].data_ptr()))
+            self.suffix = "_adaptive"
         self.bwd, self.fwd = _kernel_fns()
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
@@ -482,7 +563,7 @@ class _KERNELS:
                        s["g"].data_ptr(), s["y"].data_ptr(),
                        s["d"].data_ptr(), s["done"].data_ptr(),
                        s["active"].data_ptr(), _ptr_array(s["fams"]),
-                       self.cons, self.stream)
+                       self.cons, self.adapt, self.stream)
         if err != 0:
             raise RuntimeError(f"admm_stream backward launch failed: CUDA "
                                f"error {err}")
@@ -502,7 +583,7 @@ class _KERNELS:
                        _ptr_array(s["fams"]),
                        None if s["x"] is None else s["x"].data_ptr(),
                        None if s["u"] is None else s["u"].data_ptr(),
-                       self.cons, self.stream)
+                       self.cons, self.adapt, self.stream)
         if err != 0:
             raise RuntimeError(f"admm_stream forward launch failed: CUDA "
                                f"error {err}")

@@ -80,10 +80,6 @@ def _backend(prob: TinyProblem, backend: str) -> str:
                 errors.append(str(e))
         raise ValueError("neither the resident nor the streamed kernel takes "
                          "this problem: " + "; ".join(errors))
-    if backend == "streamed" and prob.settings.adaptive_rho:
-        raise ValueError("compaction with backend='streamed' on an "
-                         "adaptive-rho problem is not ported yet (ROADMAP.md, "
-                         "Queue 2 item 3a); use backend='resident'")
     (admm_fused._check if backend == "resident" else admm_stream._check)(prob)
     return backend
 
@@ -123,8 +119,8 @@ def make_compact_solver(prob: TinyProblem, *,
         a lane). None: the whole batch. Consensus ignores it.
       backend: "resident" (:func:`~.admm_fused.solve_fused_warm`,
         ``final=True``), "streamed"
-        (:func:`~.admm_stream.solve_fused_streamed_warm`, the same carry;
-        not with adaptive rho, ROADMAP.md Queue 2 item 3a), or "auto": the
+        (:func:`~.admm_stream.solve_fused_streamed_warm`, the same carry),
+        or "auto": the
         resident kernel where :func:`~.admm_fused.fused_supported` holds,
         else the streamed kernels where
         :func:`~.admm_stream.stream_supported` does, else ``ValueError``.

@@ -80,13 +80,26 @@ def compute_sensitivities(A, B, f, Qdiag_user, Rdiag_user, rho, *,
     derivative is captured. The tight tolerance makes the derivative of the
     truncated iteration agree with the fixed point's; in float32 it may
     never be met, and the iteration then runs ``max_iters`` steps, as in
-    the JAX package. It runs in the inputs' dtype on their device; on the
-    card the stopping test reads one scalar back to the host a step, once
-    per problem set-up."""
+    the JAX package. It runs on the host in the inputs' dtype and returns
+    the tangents on ``A``'s device: each of its steps is a few dozen small
+    operations on matrices of at most nx x nx, which on the card cost a
+    launch each (set-up times in PERF.md). Once per problem set-up."""
     dtype, device = A.dtype, A.device
+    host = torch.device("cpu")
     A, B, f, Qdiag_user, Rdiag_user = (
-        torch.as_tensor(a, dtype=dtype, device=device)
+        torch.as_tensor(a, dtype=dtype).to(host)
         for a in (A, B, f, Qdiag_user, Rdiag_user))
+    tangents = sensitivity_tangents(A, B, f, Qdiag_user, Rdiag_user, rho,
+                                    tol=tol, max_iters=max_iters)
+    return tuple(t.to(device) for t in tangents)
+
+
+def sensitivity_tangents(A, B, f, Qdiag_user, Rdiag_user, rho, *,
+                         tol=1e-10, max_iters=10_000):
+    """:func:`compute_sensitivities`' dual-number fixed point on the
+    inputs' own device (tensors of one dtype and device), its stopping
+    test read back to the host every step."""
+    dtype, device = A.dtype, A.device
     eye = lambda n: torch.eye(n, dtype=dtype, device=device)
     with fwAD.dual_level():
         r = fwAD.make_dual(torch.as_tensor(rho, dtype=dtype, device=device),
