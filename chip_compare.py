@@ -16,14 +16,41 @@ at N=10), and writes every output and carry field. ``diff`` prints, for
 each entry, whether the two files hold the same bits, and exits non-zero
 when any differs. Two packages cannot share a process: run ``save`` once
 per checkout.
+
+    python3 chip_compare.py build OUT.json   # in each checkout, on the GPU
+    python3 chip_compare.py diff A.json B.json
+
+``build`` compiles csrc/admm_fused.cu afresh and writes, for each of its
+kernels by chip_smoke.py's label, the ptxas registers, stack and spills
+and a hash of its SASS (cuobjdump -sass, addresses and encodings
+dropped; the instructions themselves in OUT.json.sass); ``diff`` of two
+such files says, for each label both have, whether the ptxas figures and
+the instructions are the same, and exits non-zero when any differs.
+
+    python3 chip_compare.py time             # in each checkout, on the GPU
+
+``time`` times the main path's kernel (bench.py's batch: the quadrotor at
+20 Hz, N=20, box +-5 / +-0.5, hover, B=32768, x0 ~ U[-0.5, 0.5] from
+default_rng(0), max_iter 100, check_termination 25): ``TIME_REPS``
+launches on CUDA events after one to warm up, and prints one JSON line with
+every time, the median, the card's name and power limit and its SM clock
+sampled just after. Run it in alternation (parent, change, change,
+parent) to compare two checkouts on one card.
 """
 import dataclasses
+import hashlib
+import json
+import re
+import shutil
+import statistics
+import subprocess
 import sys
 
 import numpy as np
 
 B = 1024
 DEVICE = "cuda"
+TIME_B, TIME_REPS = 32768, 20
 
 
 def _quad(tt, torch, N, max_iter=100, ct=1):
@@ -143,7 +170,102 @@ def save(path):
           f"{torch.cuda.get_device_name(0)}")
 
 
+def _smi(query):
+    return subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def time_main_path():
+    import torch
+    import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch.kernels import admm_fused
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    prob = _quad(tt, torch, 20, ct=25)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5,
+                                                         (TIME_B, 12)), **kw)
+    Xref = torch.zeros((20, 12), **kw)
+    Xref[:, 2] = 1.0
+    tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
+    run = lambda: admm_fused._solve_kernel(tables, x0c, 20, 12, 4, **params)
+    sol = run()[0]
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(TIME_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    print(json.dumps({
+        "main_path_ms": statistics.median(times), "times_ms": times,
+        "mean_iters": sol.iter.float().mean().item(),
+        "card": _smi("name,power.limit"),
+        "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+
+
+def build_report(path):
+    import chip_smoke
+    from tinympc_tpu_torch.kernels import _build
+    lib = _build.library_path("admm_fused")
+    if lib.exists():
+        lib.unlink()
+    log = _build.build(["admm_fused"])["admm_fused"]
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            funcs[cur] = []
+            continue
+        ins = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                     line).strip()
+        if cur is not None and ins:
+            funcs[cur].append(ins)
+    out, text = {}, []
+    for fn, e in sorted(chip_smoke.ptxas_entries(log).items()):
+        label = chip_smoke.kernel_label(fn)
+        ins = funcs.get(fn)
+        out[label] = dict(e, sass=None if ins is None else hashlib.sha256(
+            "\n".join(ins).encode()).hexdigest())
+        text += [f"== {label}"] + (ins or [])
+    with open(path, "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+    # The instructions themselves, beside the report, for a textual diff.
+    with open(path + ".sass", "w") as f:
+        f.write("\n".join(text) + "\n")
+    print(f"chip_compare: {len(out)} kernels of admm_fused.cu written to "
+          f"{path} (SASS text in {path}.sass)")
+
+
+def diff_reports(a_path, b_path):
+    a, b = (json.load(open(p)) for p in (a_path, b_path))
+    bad = 0
+    for k in sorted(set(a) & set(b)):
+        regs = {f: (a[k].get(f), b[k].get(f)) for f in
+                ("regs", "stack", "spill_st", "spill_ld")}
+        same_ptxas = all(x == y for x, y in regs.values())
+        same_sass = a[k]["sass"] is not None and a[k]["sass"] == b[k]["sass"]
+        bad += not (same_ptxas and same_sass)
+        print(f"{k}: ptxas {'same' if same_ptxas else regs}, SASS "
+              f"{'same' if same_sass else 'DIFFERS'}")
+    for k in sorted(set(a) ^ set(b)):
+        print(f"{k}: only in {a_path if k in a else b_path}")
+    print(f"chip_compare: {len(set(a) & set(b)) - bad} of "
+          f"{len(set(a) & set(b))} common kernels the same")
+    return 1 if bad else 0
+
+
 def diff(a_path, b_path):
+    if a_path.endswith(".json"):
+        return diff_reports(a_path, b_path)
     import torch
     a, b = torch.load(a_path), torch.load(b_path)
     bad = 0
@@ -160,6 +282,12 @@ def diff(a_path, b_path):
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "save":
         save(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 3 and sys.argv[1] == "build":
+        build_report(sys.argv[2])
+        sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "time":
+        time_main_path()
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "diff":
         sys.exit(diff(sys.argv[2], sys.argv[3]))

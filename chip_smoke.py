@@ -103,7 +103,21 @@ calls, and holds every kernel against its plain PyTorch version:
   x0 ~ U[-0.3, 0.3]^12 (default_rng(0)), max_iter 20, ct 1 -- through
   kernels.solve_fused_streamed beside the resident adaptive solve_fused,
   then at N=2048; and :503-526's N=256 batch (B=4096, max_iter 500) with
-  adaptive rho, compacted in phases [100, 400] on both backends.
+  adaptive rho, compacted in phases [100, 400] on both backends;
+* the roofline probes of csrc/roofline.cu (tools/roofline.py's dot and
+  elementwise probes) through python -m tinympc_tpu_torch.roofline's
+  three configs -- the quadrotor at N=20, B=32768, ct 1 and 25, and
+  synthetic(32, 8) at B=16384, max_iter 100, tolerances 0 -- beside the
+  fused solve;
+* heterogeneous fleets in one multi-system launch of csrc/admm_fused.cu:
+  bench_all.py:273-300's "hetero fleet 16 systems" -- the quadrotor's A
+  scaled off the diagonal by 1 + 0.002 (i - 8), i < 16, N=10, box +-5 /
+  +-0.5, max_iter 100, ct 25, 2048 lanes a system (B=32768), x0 ~
+  U[-0.5, 0.5]^12 (default_rng(0)) -- through make_fleet_solver, and
+  examples/serving_fleet.py:100-113's 4 variants (1 + 0.004 (i - 2), hover
+  reference, ct 25) as a warm fleet of 16384 lanes with random
+  assignments, x0 = hover + U[-0.3, 0.3]^12, 5 external-plant solves,
+  each plant stepped with its own system.
 
 Phases, each of which raises on failure (phase 13 also times
 compute_sensitivities' fixed point run on the card, as it ran before it
@@ -191,7 +205,18 @@ moved to the host):
    resident adaptive kernel, per launch and per solve; then N=2048;
 37. adaptive compaction at N=256, B=4096, streamed bitwise against
    resident, beside one long streamed solve;
-38. the kernels line, then the device line last.
+38. the roofline probes against their plain versions, small (B=1000,
+   ragged) and at the tool's shapes, with the dot kernels' FFMA count in
+   the SASS and the reps scaling; then the tool's three configs, timed,
+   the elementwise rate at L2 (4096 lanes) and HBM (32768 lanes) size;
+39. the cold fleet of 16 systems: the one launch bitwise the 16 per-bucket
+   solve_fused launches and at the bar against its plain version, a small
+   ragged fleet (4 systems, B=1000, random assignments) the same, and the
+   one launch timed beside the 16 and beside one single-system launch;
+40. the warm fleet, 4 systems, B=16384, 5 external-plant solves: bitwise
+   the per-bucket solve_fused_warm launches at every step, at the bar
+   against its plain version, the sixth solve timed;
+41. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -322,6 +347,19 @@ ROCKET_RHO_MIN = 0.05
 # device-memory bandwidth. The SXM part is the default.
 PEAKS = (("H100 PCIe", 51.2e12, 2.0e12), ("H100 NVL", 60.0e12, 3.9e12),
          ("H100", 67.0e12, 3.35e12))
+# bf16 on the tensor cores, dense (the same sheets): the bound of the bf16
+# dot probe, whose products of bf16 values with float32 sums are what the
+# tensor cores compute.
+PEAKS_BF16 = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12))
+# Heterogeneous fleets: bench_all.py:273-300's 16 quadrotor variants of
+# 2048 lanes each (N=10, max_iter 100, ct 25), and
+# examples/serving_fleet.py:100-113's 4 variants as a warm fleet of 16384
+# lanes with random assignments.
+FLEET_N, FLEET_SYS, FLEET_PER = 10, 16, 2048
+WARM_FLEET_SYS, WARM_FLEET_B = 4, 16384
+# Lanes of the elementwise probe's stream: its two arrays resident in L2
+# (10.5 MB at the quadrotor's N=20, F=16), and from device memory (84 MB).
+STREAM_LANES = (4096, 32768)
 
 
 def log(msg):
@@ -883,7 +921,8 @@ def kernel_label(fn):
         if "ConsensusILi" in fn:
             kind = "families consensus"
         mode = "warm" if m[3] == "1" else "cold"
-        return f"admm_fused {kind} {mode} ({m[1]}, {m[2]})"
+        multi = " multi" if re.search(r"Lb1EEEv", fn) else ""
+        return f"admm_fused {kind} {mode}{multi} ({m[1]}, {m[2]})"
     return "closed_loop_fused" if "closed_loop" in fn else fn
 
 
@@ -2933,6 +2972,469 @@ def adaptive_stream_phases(ctx):
     return rows
 
 
+def sass_ffma(path):
+    """FFMA instructions in each function of a built library's SASS
+    (cuobjdump -sass), by mangled name; None where cuobjdump cannot read
+    it."""
+    import shutil
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([exe, "-sass", str(path)], capture_output=True,
+                             text=True, timeout=600, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bFFMA\b", line):
+            counts[cur] += 1
+    return counts
+
+
+def dot_work(L, depth, lanes, reps, chained, bf16):
+    """Operations and bytes of one dot probe: L products of depth^2 FMAs (2
+    operations each) a lane and rep; the matrix read (M chained, Ms
+    independent; 2 bytes an entry in bf16) and v read and out written
+    once, float32."""
+    mats = depth * depth * (1 if chained else L) * (2 if bf16 else 4)
+    return 2.0 * L * depth * depth * lanes * reps, mats + 8 * depth * lanes
+
+
+def elementwise_work(N, F, lanes, passes, reductions, reps):
+    """Operations and bytes of one elementwise probe: per element and rep 3
+    a pass (add, max, min) and 2 a reduction (abs, max), per lane and rep
+    the max and the add into the sum; a (and b with passes) read once and
+    out written once."""
+    rows = N * F * lanes
+    ops = float(reps) * (rows * (3 * passes + 2 * reductions) + 2 * lanes)
+    return ops, 4 * rows * (2 if passes else 1) + 4 * lanes
+
+
+def merge_buckets(af, B, parts):
+    """Per-bucket outputs ``[(lanes, (Solution, residuals[, carry]))]``
+    scattered into one batch-order output of the same form."""
+    n = len(parts[0][1])
+    return af.merge_lanes([(idx, (tuple(o) + (None,))[:3])
+                           for idx, o in parts], B)[:n]
+
+
+def roofline_phase(ctx):
+    """Phase 38: the roofline probes of csrc/roofline.cu against their
+    plain versions, small and at full size; tinympc_tpu_torch.roofline's
+    three configs; the elementwise rate at L2 and at HBM size. Returns the
+    kernels-line numbers of the three probes."""
+    torch, rf, tool, card = ctx.torch, ctx.rf, ctx.tool, ctx.card
+    phase("phase 38: roofline probes vs plain versions, then "
+          "tools/roofline.py's configs")
+    counts = sass_ffma(ctx.build.library_path(rf.KERNEL))
+    if counts is None:
+        log("  SASS: cuobjdump could not read the probes' library; the "
+            "reps scaling below stands for the check")
+    else:
+        for fn, n in sorted(counts.items()):
+            m = re.search(r"dot_(chained|independent)_kernelILi(\d+)ELb([01])",
+                          fn)
+            if not m:
+                continue
+            d = int(m[2])
+            operand = "bf16" if m[3] == "1" else "f32"
+            log(f"  SASS dot {m[1]} depth {d} {operand}: {n} FFMA (one "
+                f"product is {d * d})")
+            fail(f"SASS dot {m[1]} {d}", n >= d * d,
+                 f"{n} FFMA, fewer than one product's {d * d}: the loop "
+                 "was collapsed")
+
+    def hold_dot(label, L, depth, lanes, chained, reps, operand):
+        """The kernel against the plain version on inputs whose chain stays
+        of order one (rf.held_dot_inputs; on the TPU probe's own, used for
+        the timings, the chain leaves float32's normal range): bf16
+        operands at rtol 8e-3 chained (a dot re-rounds its operand) and
+        1e-5 independent; the float32 chain against the plain version in
+        float64 at rtol 1e-5. No absolute floor. Returns the max abs
+        difference."""
+        M, Ms, v = rf.held_dot_inputs(L, depth, lanes, operand, device=DEVICE)
+        k = rf.run_dot(M, Ms, v, chained, reps)
+        if operand == "bf16":
+            p = rf.dot_probe_reference(M, Ms, v, chained, reps).double()
+            rtol = 8e-3 if chained else 1e-5
+        else:
+            p = rf.dot_probe_reference(M.double(), Ms.double(), v.double(),
+                                       chained, reps)
+            rtol = 1e-5
+        torch.cuda.synchronize()
+        d = (k.double() - p).abs()
+        fail(f"dot {operand} {label} L={L} depth={depth} inputs",
+             p.abs().min().item() > 0.1,
+             f"the plain output fell to {p.abs().min().item():.3e}: the "
+             "held inputs no longer keep the chain of order one")
+        ok = bool(torch.isfinite(k).all()) and bool((d <= rtol * p.abs())
+                                                    .all())
+        rel = (d / p.abs()).max().item()
+        log(f"  dot {operand} {label}: L={L} depth={depth} lanes={lanes} "
+            f"reps={reps}: max rel diff {rel:.3e} (rtol {rtol}), max abs "
+            f"diff {d.max().item():.3e}, |out| in [{p.abs().min().item():.4f}"
+            f", {p.abs().max().item():.4f}]")
+        fail(f"dot {operand} {label} L={L} depth={depth}", ok,
+             f"kernel differs from plain version beyond rtol {rtol}")
+        return d.max().item()
+
+    def hold_elementwise(N, F, lanes, passes, reductions, reps):
+        a, b = rf.elementwise_inputs(N, F, lanes, DEVICE)
+        k = rf.run_elementwise(a, b, passes, reductions, reps)
+        p = rf.elementwise_probe_reference(a, b, passes, reductions, reps)
+        torch.cuda.synchronize()
+        same = torch.equal(k, p)
+        log(f"  elementwise N={N} F={F} lanes={lanes} passes={passes} "
+            f"reductions={reductions} reps={reps}: bitwise {same}")
+        fail(f"elementwise lanes={lanes} passes={passes}", same,
+             "kernel not bitwise the plain version")
+
+    for operand, depth, L in (("bf16", 36, 4), ("bf16", 96, 4),
+                              ("f32", 12, 38), ("f32", 32, 38)):
+        for chained in (True, False):
+            hold_dot("chained" if chained else "independent", L, depth, 1000,
+                     chained, 2, operand)
+    for passes, reductions in ((8, 4), (8, 0), (0, 4)):
+        hold_elementwise(20, 16, 1000, passes, reductions, 2)
+    # Full size: the shapes of the tool's configs, one rep. The kernels
+    # line reports the bf16 errors at the first config's (the quadrotor's).
+    full_err = {}
+    for nx, nu, N, lanes in sorted({c[2:6] for c in tool.CONFIGS}):
+        for operand, depth, L in (("bf16", 3 * nx, 5 * (N - 1)),
+                                  ("f32", nx, tool.chain_length(N))):
+            for chained in (True, False):
+                full_err[(nx, N, lanes, operand, chained)] = hold_dot(
+                    ("chained" if chained else "independent") + " full", L,
+                    depth, lanes, chained, 1, operand)
+        hold_elementwise(N, nx + nu, lanes, 8, 4, 1)
+
+    zero_counts(ctx.counters)
+    lines = []
+    for label, name, nx, nu, N, B, ct in tool.CONFIGS:
+        sysd = ctx.tt.systems.synthetic(nx, nu) if name == "synthetic" \
+            else getattr(ctx.tt.systems, name)()
+        lines.append(tool.run_config(label, sysd, nx, nu, N, B, ct,
+                                     tool.card_info(), device=DEVICE))
+    torch.cuda.synchronize()
+    launches = dict(rf.launch_counts)
+    log(f"  probe launches in the tool's run: {launches}")
+    for key in launches:
+        if launches[key] < 1:
+            raise AssertionError(f"the roofline tool did not launch the "
+                                 f"{key} kernel")
+    for line in lines:
+        log(f"  {line['config']}: chained/independent bf16 "
+            f"{line['chain_vs_pipeline']}, f32 {line['f32_chain_vs_pipeline']}"
+            f"; {line['ns_per_chained_matvec']} ns per chained f32 matvec "
+            f"x {line['f32_chain_matvecs_per_iter']} = predicted iteration "
+            f"{line['predicted_iter_us']} us against measured "
+            f"{line['measured_iter_us']} us (the main path's, ct 25 with its "
+            f"tolerances: {ctx.main_iter_us:.4f} us); SM clock after the "
+            f"probes {line['sm_clock_after_probes']}, after the solve "
+            f"{line['sm_clock_after_solve']}; card {card}")
+    # The elementwise stream at L2 size (4096 lanes, 10.5 MB) and HBM size
+    # (32768 lanes, 84 MB): 8 passes, a and b read once a rep.
+    for lanes in STREAM_LANES:
+        a, b = rf.elementwise_inputs(20, 16, lanes, DEVICE)
+        t = tool.cuda_ms(lambda: rf.run_elementwise(a, b, 8, 0, tool.REPS)) \
+            / tool.REPS
+        nbytes = 8 * 20 * 16 * lanes
+        log(f"  elementwise stream, {lanes} lanes ({nbytes / 1e6:.2f} MB a "
+            f"rep): {t:.6f} ms a rep, {nbytes / (t * 1e-3) / 1e12:.4f} TB/s "
+            f"against the card's 3.35 TB/s; card {card}")
+    # reps scaling: a rep loop the compiler folded would not scale.
+    _, _, nx, nu, N, lanes, _ = tool.CONFIGS[0]
+    M, Ms, v = rf.dot_inputs(5 * (N - 1), 3 * nx, lanes, "bf16", DEVICE)
+    t1 = tool.cuda_ms(lambda: rf.run_dot(M, Ms, v, True, 1))
+    t20 = tool.cuda_ms(lambda: rf.run_dot(M, Ms, v, True, tool.REPS))
+    log(f"  chained dots, reps {tool.REPS} against 1: {t20 / t1:.3f}x")
+    fail("dot reps scaling", t20 / t1 > tool.REPS / 2,
+         f"reps {tool.REPS} took {t20 / t1:.3f}x reps 1: a rep was folded")
+
+    # Kernels-line rows: one rep at the quadrotor's shapes, timed on the
+    # TPU probe's inputs; the error is the full-size hold's above.
+    rows = {}
+    for key, chained in (("dot_chained", True), ("dot_independent", False)):
+        L, depth = 5 * (N - 1), 3 * nx
+        M, Ms, v = rf.dot_inputs(L, depth, lanes, "bf16", DEVICE)
+        ms = tool.cuda_ms(lambda: rf.run_dot(M, Ms, v, chained, 1), REPS)
+        k = rf.run_dot(M, Ms, v, chained, 1)
+        plain_ms, _ = host_ms(torch, lambda: rf.dot_probe_reference(
+            M, Ms, v, chained, 1))
+        err = full_err[(nx, N, lanes, "bf16", chained)]
+        ops, nbytes = dot_work(L, depth, lanes, 1, chained, True)
+        bound_ms, bound_by = bound(ops, nbytes, ctx.peak_bf16, ctx.peak_bw)
+        lib_ms = None
+        if not chained:
+            # One call computes the sum of the L products: the matrices
+            # side by side times the operand stacked L times (the operands'
+            # layout made outside the timing), in float32 on bf16 values.
+            mcat = Ms.float().permute(1, 0, 2).reshape(depth, L * depth)
+            ystack = v.to(torch.bfloat16).float().repeat(L, 1)
+            lib_ms = tool.cuda_ms(lambda: torch.matmul(mcat, ystack), REPS)
+            lib = torch.matmul(mcat, ystack)
+            log(f"  library torch.matmul (depth x L*depth) @ (L*depth x "
+                f"lanes): {lib_ms:.4f} ms, max rel diff from the kernel "
+                f"{((lib - k).abs() / k.abs()).max().item():.3e}")
+            del mcat, ystack, lib
+        log(f"  {key} (bf16, L={L}, depth {depth}, {lanes} lanes, one rep): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP at the "
+            f"bf16 tensor-core peak, {nbytes / 1e6:.2f} MB), library "
+            f"{lib_ms}, launches {launches[key]}; card {card}")
+        rows[key] = dict(launches=launches[key], err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=lib_ms)
+    a, b = rf.elementwise_inputs(N, nx + nu, lanes, DEVICE)
+    ms = tool.cuda_ms(lambda: rf.run_elementwise(a, b, 8, 4, 1), REPS)
+    k = rf.run_elementwise(a, b, 8, 4, 1)
+    plain_ms, p = host_ms(torch, lambda: rf.elementwise_probe_reference(
+        a, b, 8, 4, 1))
+    ops, nbytes = elementwise_work(N, nx + nu, lanes, 8, 4, 1)
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  elementwise (N={N}, F={nx + nu}, {lanes} lanes, 8 passes, 4 "
+        f"reductions, one rep): kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), no single library call (clip of a "
+        f"sum is two calls), launches {launches['elementwise']}; card {card}")
+    rows["elementwise"] = dict(
+        launches=launches["elementwise"], err=(k - p).abs().max().item(),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None)
+    return rows
+
+
+def fleet_problems(ctx, scales, device=None):
+    """Quadrotor variants at 20 Hz, A off the diagonal scaled by each of
+    ``scales`` (bench_all.py:281-284), N=FLEET_N, box +-5 / +-0.5,
+    max_iter 100, ct 25."""
+    tt, torch = ctx.tt, ctx.torch
+    s = tt.systems.quadrotor_20hz()
+    out = []
+    for scale in scales:
+        A = s["A"] * np.where(np.eye(12) == 1, 1.0, scale)
+        p = tt.setup(A, s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                     N=FLEET_N, dtype=torch.float32, device=device or DEVICE)
+        p = tt.with_bounds(p, x_min=-5.0, x_max=5.0, u_min=-0.5, u_max=0.5)
+        out.append(tt.with_settings(p, max_iter=100, check_termination=25))
+    return out
+
+
+def fleet_launch(af, tables, x0, bk, carry, params):
+    """One multi-system launch on inputs already in the padded layout
+    (timing only; not counted)."""
+    return lambda: af._launch(
+        tables.reshape(-1), x0, FLEET_N, 12, 4, params["fam"], None, None,
+        carry, params["max_iter"], params["ct"], params["rho"],
+        params["tol_pri"], params["tol_dua"], block_sys=bk.block_sys)
+
+
+def bucket_launches(af, probs, idxs, x, Xref, carry=None):
+    """The per-bucket launches of the same fleet on gathered lanes (timing
+    only; not counted)."""
+    runs = []
+    for p, idx in zip(probs, idxs):
+        tables, x0, params = af._prepare(p, Xref, None, x[idx])
+        c = None if carry is None else af._take_lanes(carry, idx)
+        runs.append((tables, x0, c, params))
+    return lambda: [af._launch(t, x0, FLEET_N, 12, 4, pr["fam"], None, None,
+                               c, pr["max_iter"], pr["ct"], pr["rho"],
+                               pr["tol_pri"], pr["tol_dua"])
+                    for t, x0, c, pr in runs]
+
+
+def cold_fleet_phase(ctx):
+    """Phase 39: bench_all.py:273-300's fleet of 16 quadrotor variants in
+    one multi-system launch: bitwise the per-bucket solve_fused launches,
+    at the bar against the plain version, a small ragged fleet, and the
+    one launch timed beside the 16 and beside one single-system launch of
+    the same width. Returns the kernels-line numbers."""
+    torch, tt, af, card = ctx.torch, ctx.tt, ctx.admm_fused, ctx.card
+    B = FLEET_SYS * FLEET_PER
+    phase(f"phase 39: cold fleet, {FLEET_SYS} systems x {FLEET_PER} "
+          f"(B={B}), N={FLEET_N}, max_iter 100, ct 25")
+    kw = dict(dtype=torch.float32, device=DEVICE)
+
+    def drive(label, probs, assign, x0):
+        """The fleet through make_fleet_solver with the counts at 0, held
+        bitwise against per-bucket solve_fused and at the bar against the
+        plain version. Returns the numbers of the run."""
+        n, Bn = len(probs), x0.shape[0]
+        solver = tt.make_fleet_solver(probs)
+        zero_counts(ctx.counters)
+        call_ms, out = host_ms(torch, lambda: solver(assign, x0))
+        launches = af.multi_launch_count
+        if launches < 1:
+            raise AssertionError(f"{label} did not launch the multi-system "
+                                 "kernel")
+        if out[0].x.shape != (FLEET_N, Bn, 12) or \
+                out[0].u.shape != (FLEET_N - 1, Bn, 4):
+            raise AssertionError(f"bad fleet output shapes {out[0].x.shape} "
+                                 f"{out[0].u.shape}")
+        idxs = [torch.as_tensor(np.flatnonzero(assign == s), device=DEVICE)
+                for s in range(n)]
+        parts = [(idx, tt.kernels.solve_fused(p, None, None, x0[idx]))
+                 for p, idx in zip(probs, idxs) if idx.numel()]
+        torch.cuda.synchronize()
+        same_bits(torch, label, out, merge_buckets(af, Bn, parts),
+                  "per-bucket solve_fused launches")
+        tables = af.system_tables(probs)
+        x0c, params = af._x0_params(probs[0], x0)
+        bk = af.buckets(assign, n, DEVICE)
+        plain_ms, (sol_p, res_p) = host_ms(torch, lambda: af.solve_systems(
+            tables, x0c, bk, FLEET_N, 12, 4, plain=True, **params)[:2])
+        # The bar, the values held on the lanes whose counts agree (a lane
+        # that crosses the tolerance one check earlier ends elsewhere).
+        err = compare(torch, f"{label} vs plain", out[0], sol_p, out[1],
+                      res_p, lanes="same_iters")
+        return dict(out=out, launches=launches, err=err, plain_ms=plain_ms,
+                    call_ms=call_ms, tables=tables, x0c=x0c, params=params,
+                    bk=bk, idxs=idxs)
+
+    # The small ragged fleet: 4 systems, random assignments, B=1000.
+    rng = np.random.default_rng(1)
+    small = fleet_problems(ctx, [1 + 0.002 * (i - 8) for i in range(4)])
+    drive("ragged fleet 4 systems B=1000", small, rng.integers(0, 4, 1000),
+          torch.as_tensor(rng.uniform(-0.5, 0.5, (1000, 12)), **kw))
+
+    probs = fleet_problems(ctx, [1 + 0.002 * (i - FLEET_SYS // 2)
+                                 for i in range(FLEET_SYS)])
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5,
+                                                         (B, 12)), **kw)
+    assign = np.repeat(np.arange(FLEET_SYS), FLEET_PER)
+    r = drive(f"fleet {FLEET_SYS} x {FLEET_PER}", probs, assign, x0)
+    bk, params = r["bk"], r["params"]
+    multi = fleet_launch(af, r["tables"], r["x0c"].index_select(0, bk.gather),
+                         bk, None, params)
+    ms, times = cuda_ms(torch, multi, REPS)
+    buckets_ms = cuda_ms(torch, bucket_launches(af, probs, r["idxs"], x0,
+                                                None), REPS)[0]
+    tables0, x00, p0 = af._prepare(probs[0], None, None, x0)
+    single_ms = cuda_ms(torch, lambda: af._launch(
+        tables0, x00, FLEET_N, 12, 4, p0["fam"], None, None, None,
+        p0["max_iter"], p0["ct"], p0["rho"], p0["tol_pri"], p0["tol_dua"]),
+        REPS)[0]
+    # A tick of a built solver whose assignment pattern is known: the
+    # tables were packed and the indices built by its first call.
+    solver = tt.make_fleet_solver(probs)
+    solver(assign, x0)
+    call_ms = statistics.median(host_ms(torch, lambda: solver(assign, x0))[0]
+                                for _ in range(REPS))
+    sol = r["out"][0]
+    iter_sum = int(sol.iter.sum().item())
+    ops, nbytes = fused_work(FLEET_N, 12, 4, B, iter_sum)
+    nbytes += 4 * r["tables"].numel()
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  one multi-system launch {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}), {FLEET_SYS} per-bucket launches "
+        f"{buckets_ms:.4f} ms, one single-system launch of {B} lanes "
+        f"{single_ms:.4f} ms; {B / (ms / 1e3):.1f} solves/s; a tick of "
+        f"the built solver {call_ms:.4f} ms on the host clock (its first "
+        f"call, indices built: {r['call_ms']:.4f} ms); mean iters "
+        f"{iter_sum / B:.4f}, "
+        f"solved frac {sol.solved.float().mean().item():.5f}; bound "
+        f"{bound_ms:.4f} ms ({bound_by}); plain {r['plain_ms']:.1f} ms; "
+        f"launches {r['launches']}; card {card}")
+    return dict(launches=r["launches"], err=r["err"], ms=ms,
+                plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by)
+
+
+def warm_fleet_phase(ctx):
+    """Phase 40: examples/serving_fleet.py:100-113's 4 variants as a warm
+    fleet with random assignments, B=WARM_FLEET_B, 5 external-plant solves
+    (each plant stepped with its own system): the one launch bitwise the
+    per-bucket solve_fused_warm launches at every step and at the bar
+    against the plain version; the sixth solve timed beside the per-bucket
+    launches. Returns the kernels-line numbers."""
+    torch, tt, af, card = ctx.torch, ctx.tt, ctx.admm_fused, ctx.card
+    B, n = WARM_FLEET_B, WARM_FLEET_SYS
+    phase(f"phase 40: warm fleet, {n} systems, B={B}, 5 external-plant "
+          f"solves, ct 25")
+    probs = fleet_problems(ctx, [1 + 0.004 * (i - n // 2) for i in range(n)])
+    rng = np.random.default_rng(0)
+    hover = torch.as_tensor(HOVER, dtype=torch.float32, device=DEVICE)
+    Xref = hover.expand(FLEET_N, 12).contiguous()
+    x = hover + torch.as_tensor(rng.uniform(-0.3, 0.3, (B, 12)),
+                                dtype=torch.float32, device=DEVICE)
+    assign = rng.integers(0, n, B)
+    idxs = [torch.as_tensor(np.flatnonzero(assign == s), device=DEVICE)
+            for s in range(n)]
+
+    def plant(x, u0):
+        out = torch.empty_like(x)
+        for p, idx in zip(probs, idxs):
+            out[idx] = x[idx] @ p.A.T + u0[idx] @ p.B.T + p.f
+        return out
+
+    solve = tt.make_fleet_solver(probs, warm=True)
+    carry = tt.init_carry(probs[0], B)
+    zero_counts(ctx.counters)
+    states, outs = [], []
+    for _ in range(5):
+        out = solve(assign, x, carry, Xref)
+        states.append(x)
+        outs.append(out)
+        carry = out[2]
+        x = plant(x, out[0].u[0])
+    torch.cuda.synchronize()
+    launches = af.multi_warm_launch_count
+    if launches < 5:
+        raise AssertionError("the warm fleet did not launch the warm "
+                             "multi-system kernel")
+    carries = [tt.init_carry(p, idx.numel()) for p, idx in zip(probs, idxs)]
+    tables = af.system_tables(probs, Xref)
+    bk = af.buckets(assign, n, DEVICE)
+    c_p = af._carry_tensors(probs[0], tt.init_carry(probs[0], B), B)
+    agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    err = 0.0
+    for step, (x_s, out) in enumerate(zip(states, outs)):
+        parts = []
+        for s, (p, idx) in enumerate(zip(probs, idxs)):
+            w = tt.kernels.solve_fused_warm(p, Xref, None, x_s[idx],
+                                            carries[s])
+            carries[s] = w[2]
+            parts.append((idx, w))
+        torch.cuda.synchronize()
+        same_bits(torch, f"warm fleet step {step}", out,
+                  merge_buckets(af, B, parts),
+                  "per-bucket solve_fused_warm launches")
+        x0c, params = af._x0_params(probs[0], x_s)
+        plain_ms, (sol_p, res_p, c_p) = host_ms(torch, lambda: af.solve_systems(
+            tables, x0c, bk, FLEET_N, 12, 4, c_p, plain=True, **params))
+        agreed &= out[0].iter == sol_p.iter
+        err = max(err, compare(torch, f"warm fleet step {step} vs plain",
+                               out[0], sol_p, lanes=agreed,
+                               solved_tol=2 / B))
+        log(f"  step {step}: mean iters "
+            f"{out[0].iter.float().mean().item():.4f}, solved frac "
+            f"{out[0].solved.float().mean().item():.5f}")
+    compare_carry(torch, "warm fleet after 5 steps", carry, c_p, agreed)
+    x0c, params = af._x0_params(probs[0], x)
+    carry_t = af._carry_tensors(probs[0], carry, B)
+    multi = fleet_launch(af, tables, x0c.index_select(0, bk.gather), bk,
+                         af._take_lanes(carry_t, bk.gather), params)
+    sol_w = multi()[0]
+    ms, times = cuda_ms(torch, multi, REPS)
+    buckets_ms = cuda_ms(torch, bucket_launches(af, probs, idxs, x, Xref,
+                                                carry_t), REPS)[0]
+    # The bound counts the fleet's B lanes, not the padding's copies.
+    iter_sum = int(sol_w.iter.index_select(0, bk.real).sum().item())
+    ops, nbytes = fused_work(FLEET_N, 12, 4, B, iter_sum,
+                             lane_carry_floats(carry))
+    nbytes += 4 * tables.numel()
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  the sixth solve: one warm multi-system launch {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}; {sol_w.iter.shape[0]} padded "
+        f"lanes for {B}), {n} per-bucket warm launches {buckets_ms:.4f} ms; "
+        f"mean iters {iter_sum / B:.4f}; bound {bound_ms:.4f} "
+        f"ms ({bound_by}); plain {plain_ms:.1f} ms; launches {launches}; "
+        f"card {card}")
+    return dict(launches=launches, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def zero_counts(kernels):
     """Set every launch count to 0: a module's counter, or each entry of
     a module's dict of counters."""
@@ -2951,9 +3453,13 @@ def main():
         return 2
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch import convert
+    from tinympc_tpu_torch import roofline as roofline_tool
     from tinympc_tpu_torch.kernels import _build, admm_fused, admm_stream, \
-        closed_loop_kernel, compact
+        closed_loop_kernel, compact, roofline
     counters = ((admm_stream, "launch_counts"),
+                (roofline, "launch_counts"),
+                (admm_fused, "multi_launch_count"),
+                (admm_fused, "multi_warm_launch_count"),
                 (compact, "phase_count"),
                 (admm_fused, "launch_count"),
                 (admm_fused, "warm_launch_count"),
@@ -2973,6 +3479,7 @@ def main():
     card = card_line()
     name = torch.cuda.get_device_name(0)
     peak_flops, peak_bw = peaks(name)
+    peak_bf16 = next(v for key, v in PEAKS_BF16 if key in name)
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {name} count {torch.cuda.device_count()}")
@@ -2981,15 +3488,18 @@ def main():
     ctx = types.SimpleNamespace(
         torch=torch, tt=tt, convert=convert, admm_fused=admm_fused,
         ast=admm_stream, compact=compact, counters=counters, card=card,
-        peak_flops=peak_flops, peak_bw=peak_bw, ptxas={}, tables={},
-        rocket_tables=None)
+        peak_flops=peak_flops, peak_bw=peak_bw, peak_bf16=peak_bf16,
+        ptxas={}, tables={}, rocket_tables=None, rf=roofline,
+        tool=roofline_tool, build=_build, main_iter_us=None)
 
     # 2. build: every source, one nvcc each, started together
     t0 = time.perf_counter()
     logs = _build.build(_build.SOURCES)
     admm_fused._kernel_fn()
+    admm_fused._kernel_fn(multi=True)
     closed_loop_kernel._kernel_fn()
     admm_stream._kernel_fns()
+    roofline._fns()
     log(f"build: {time.perf_counter() - t0:.1f} s (set-up), "
         f"{len(logs)} sources compiled")
     for src, text in logs.items():
@@ -3090,6 +3600,8 @@ def main():
         regimes[(mi, ct)] = dict(launches=launches, err=err, ms=ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms,
                                  bound_by=bound_by)
+        if (mi, ct) == (100, 25):
+            ctx.main_iter_us = 1e3 * ms / avg_it
 
     # 5. warm kernel against plain version, small external-plant sequences
     phase("phase 5: warm kernel vs plain version, B=1000, 6 warm solves")
@@ -3499,6 +4011,9 @@ def main():
     compact_rows = compaction_phases(ctx)
     adapt_fam_rows = adaptive_family_phases(ctx)
     adapt_stream_rows = adaptive_stream_phases(ctx)
+    probe_rows = roofline_phase(ctx)
+    fleet_rows = {"multi": cold_fleet_phase(ctx),
+                  "multi_warm": warm_fleet_phase(ctx)}
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -3506,8 +4021,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 38. kernels line, then the device line last
-    phase("phase 38: kernels line")
+    # 41. kernels line, then the device line last
+    phase("phase 41: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -3556,11 +4071,19 @@ def main():
                   "tinympc_tpu/kernels/admm_stream.py:258"),
                  ("forward_adaptive_stale",
                   "tinympc_tpu/kernels/admm_stream.py:258"))]
+    rows += [(f"roofline_{key}", "tinympc_tpu_torch/csrc/roofline.cu", rep,
+              probe_rows[key])
+             for key, rep in (("dot_chained", "tools/roofline.py:59"),
+                              ("dot_independent", "tools/roofline.py:59"),
+                              ("elementwise", "tools/roofline.py:98"))]
+    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", fleet_rows[key])
+             for key in ("multi", "multi_warm")]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None,
+        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
     } for kname, src, rep, r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

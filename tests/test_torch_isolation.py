@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (its
-adaptive-rho modules included), runs on cuda unless told otherwise, and
-rejects what this slice does not cover."""
+adaptive-rho modules, the fleet solver and the roofline probes and tool
+included), runs on cuda unless told otherwise, and rejects what this slice
+does not cover."""
 import ast
 import dataclasses
 import os
@@ -34,6 +35,10 @@ assert torch.isfinite(sol.x).all() and torch.isfinite(sol2.x).all()
 sol5, _ = tt.kernels.solve_fused_streamed(p, None, None, x0)
 assert torch.equal(sol5.x, sol.x)
 assert "tinympc_tpu_torch.kernels.admm_stream" in sys.modules
+sol6, _ = tt.make_fleet_solver([p, p])(np.array([0, 1, 1]), x0)
+assert torch.equal(sol6.x[:, 1:], sol.x[:, 1:])
+assert tt.kernels.dot_probe(2, 12, 4, True, 1, device="cpu").shape == (12, 4)
+import tinympc_tpu_torch.roofline
 p = tt.with_settings(p, adaptive_rho=True)     # computes the sensitivities
 sol3, res3 = tt.kernels.solve_fused(p, None, None, x0)
 sol4, _, cache = tt.solve(p, tt.init_state(p, (3,)), x0=x0)

@@ -50,13 +50,23 @@ tables`` gives the reference's), and ``solve`` returns each problem's
 final cache; the fused kernel runs it for box problems at (12, 4), cold
 and warm, the final rho a 5th residual row (``kernels.adapted_cache``)
 and, warm, a ``FusedCarry`` field.
+
+Heterogeneous fleets: ``make_fleet_solver(probs, warm=...)`` (and the
+one-shot ``solve_fused_fleet``) solve a batch whose problems name their
+system in a host assignment array, in one multi-system launch of the fused
+kernel (``solve_fused_multi`` for a system-major batch), cold or warm.
+``python -m tinympc_tpu_torch.roofline`` measures the fused solve beside the
+probes of ``kernels.dot_probe`` and ``kernels.elementwise_probe`` on the
+card.
 """
 from . import admm, convert, kernels, rho_adapt, systems
 from .admm import solve
 from .closed_loop import closed_loop, shift_state
 from .kernels import (FusedCarry, closed_loop_fused, init_carry,
-                      shift_carry, solve_fused_streamed,
-                      solve_fused_streamed_warm, solve_fused_warm)
+                      make_fleet_solver, shift_carry, solve_fused_fleet,
+                      solve_fused_multi, solve_fused_multi_reference,
+                      solve_fused_streamed, solve_fused_streamed_warm,
+                      solve_fused_warm)
 from .api import (init_state, setup, tv_from_stacked, with_bounds,
                   with_cones, with_consensus, with_linear_constraints,
                   with_sensitivities, with_settings,
@@ -70,7 +80,8 @@ __all__ = [
     "closed_loop",
     "shift_state", "FusedCarry", "init_carry", "shift_carry",
     "solve_fused_warm", "solve_fused_streamed", "solve_fused_streamed_warm",
-    "closed_loop_fused", "init_state", "setup",
+    "closed_loop_fused", "solve_fused_multi", "solve_fused_multi_reference",
+    "make_fleet_solver", "solve_fused_fleet", "init_state", "setup",
     "with_bounds", "with_cones", "with_consensus", "with_linear_constraints",
     "with_tv_linear_constraints", "tv_from_stacked", "with_settings",
     "with_sensitivities", "precompute_cache", "compute_sensitivities",

@@ -45,6 +45,21 @@
 // gains follow the family tables. A warm consensus solve also carries x/u
 // and the pair.
 //
+// Multi-system launch (the TPU kernel's multi_tps variant,
+// admm_pallas.py:532-575, entry solve_fused_multi): a heterogeneous fleet
+// in one launch of any instantiation but consensus, cold or warm. The
+// wrapper stacks one packed table per system and pads each system's lanes
+// to whole blocks; block k loads table block_sys[k] into shared memory
+// and then runs the single-system solve. The TPU kernel selects its tile's
+// system from the stack in VMEM, which cost it Mosaic's hoisting; here
+// every block loads its table anyway, so the index only moves the load's
+// source. The index and stride come last among the kernel's arguments
+// (arguments before N, B, rho cost the stream kernels registers), and the
+// system selection is a template parameter (MULTI): a single-system
+// instantiation's code is that of a kernel without the multi-system
+// launch (with a run-time select instead, the main path measured ~1%
+// slower on an H100).
+//
 // Design (the first, simple one):
 //   * One thread per problem; 128 threads a block; threads past B count as
 //     converged from the start. A converged lane stops computing and keeps
@@ -81,9 +96,12 @@
 // state on chip and spreading a problem over several threads is later work.
 //
 // C interface (loaded with ctypes): tinympc_admm_fused, one entry for the
-// cold and the warm solve, box-only or with the families, returns the
-// cudaError_t of the launch; it launches on the given stream and never
-// synchronises.
+// cold and the warm solve, box-only or with the families, and
+// tinympc_admm_fused_multi, the same with the multi-system launch's two
+// arguments, return the cudaError_t of the launch; they launch on the
+// given stream and never synchronise.
+#include <type_traits>
+
 #include "admm_adaptive.cuh"
 #include "admm_consensus.cuh"
 #include "admm_families.cuh"
@@ -120,8 +138,10 @@ constexpr int kMinBlocksOf =
 
 // Fam is NoFamilies (box only) or tinympc::Families<NX, NU>; Rho is
 // FixedRho or tinympc::AdaptiveRho<NX, NU, APPLY_C>; Cons is NoConsensus,
-// or Consensus<NX, NU> with the families at fixed rho.
-template <int NX, int NU, bool WARM, class Fam, class Rho, class Cons>
+// or Consensus<NX, NU> with the families at fixed rho. MULTI: a block
+// loads table block_sys[blockIdx.x] of a stack (never with consensus).
+template <int NX, int NU, bool WARM, class Fam, class Rho, class Cons,
+          bool MULTI>
 __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
     admm_fused_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
@@ -132,13 +152,20 @@ __global__ void __launch_bounds__(kBlock, (kMinBlocksOf<Fam, Rho>))
         float* __restrict__ out_res, Carry carry, typename Fam::Args fa,
         typename Rho::Args ra, typename Cons::Args ca, int N, int B,
         int max_iter, int check_termination, float rho, float tol_pri,
-        float tol_dua) {
+        float tol_dua, const int* __restrict__ block_sys,
+        int table_stride) {
   extern __shared__ float sm[];
   const Layout L(NX, NU, N);
   const int fam_total = L.total + Fam::table_floats(fa, NX, NU, N);
   const int rho_total = fam_total + Rho::table_floats(ra, NX, NU);
   const int total = rho_total + Cons::table_floats(ca, NX, NU);
-  for (int k = threadIdx.x; k < total; k += blockDim.x) sm[k] = tables[k];
+  // A multi-system launch gives each block its system's packed table, one
+  // of the stacked tables; everything after this load is the
+  // single-system solve.
+  const float* tab = tables;
+  if constexpr (MULTI)
+    tab += static_cast<size_t>(block_sys[blockIdx.x]) * table_stride;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) sm[k] = tab[k];
   __syncthreads();
 
   // Terminal reference term -Pinf^T Xref[N-1] (admm_pallas.py:823) and,
@@ -342,8 +369,35 @@ struct Buffers {
   float* out_res;
   int N, B, max_iter, check_termination;
   float rho, tol_pri, tol_dua;
+  const int* block_sys;   // null: one system; else each block's system
+  int table_stride;       // floats between two systems' tables
 };
 
+template <int NX, int NU, bool WARM, class Fam, class Rho, class Cons,
+          bool MULTI>
+cudaError_t launch_kernel(const Buffers& p, const Carry& carry,
+                          const typename Fam::Args& fa,
+                          const typename Rho::Args& ra,
+                          const typename Cons::Args& ca, size_t smem,
+                          cudaStream_t stream) {
+  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam, Rho, Cons, MULTI>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((p.B + kBlock - 1) / kBlock);
+  kernel<<<grid, kBlock, smem, stream>>>(
+      p.tables, p.x0, p.vnew, p.znew, p.g, p.y, p.d, p.out_x, p.out_u,
+      p.out_iters, p.out_solved, p.out_res, carry, fa, ra, ca, p.N, p.B,
+      p.max_iter, p.check_termination, p.rho, p.tol_pri, p.tol_dua,
+      p.block_sys, p.table_stride);
+  return cudaGetLastError();
+}
+
+// The single-system instantiation, or with p.block_sys the multi-system
+// one (none with consensus: the entry refuses that pair).
 template <int NX, int NU, bool WARM, class Fam, class Rho = FixedRho,
           class Cons = NoConsensus>
 cudaError_t launch(const Buffers& p, const Carry& carry,
@@ -356,26 +410,21 @@ cudaError_t launch(const Buffers& p, const Carry& carry,
        Rho::table_floats(ra, NX, NU) + Cons::table_floats(ca, NX, NU) +
        NX * (1 + Rho::kTerminalRows) + Cons::lane_floats(ca, NU)) *
       sizeof(float);
-  auto kernel = admm_fused_kernel<NX, NU, WARM, Fam, Rho, Cons>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+  if constexpr (std::is_same_v<Cons, NoConsensus>) {
+    if (p.block_sys)
+      return launch_kernel<NX, NU, WARM, Fam, Rho, Cons, true>(
+          p, carry, fa, ra, ca, smem, stream);
   }
-  const dim3 grid((p.B + kBlock - 1) / kBlock);
-  kernel<<<grid, kBlock, smem, stream>>>(
-      p.tables, p.x0, p.vnew, p.znew, p.g, p.y, p.d, p.out_x, p.out_u,
-      p.out_iters, p.out_solved, p.out_res, carry, fa, ra, ca, N, p.B,
-      p.max_iter, p.check_termination, p.rho, p.tol_pri, p.tol_dua);
-  return cudaGetLastError();
+  return launch_kernel<NX, NU, WARM, Fam, Rho, Cons, false>(
+      p, carry, fa, ra, ca, smem, stream);
 }
 
 Buffers buffers(int N, int B, int max_iter, int check_termination, float rho,
                 float tol_pri, float tol_dua, const void* tables,
                 const void* x0, void* vnew, void* znew, void* g, void* y,
                 void* d, void* out_x, void* out_u, void* out_iters,
-                void* out_solved, void* out_res) {
+                void* out_solved, void* out_res, const void* block_sys,
+                int table_stride) {
   return {static_cast<const float*>(tables), static_cast<const float*>(x0),
           static_cast<float*>(vnew),         static_cast<float*>(znew),
           static_cast<float*>(g),            static_cast<float*>(y),
@@ -383,11 +432,13 @@ Buffers buffers(int N, int B, int max_iter, int check_termination, float rho,
           static_cast<float*>(out_u),        static_cast<int*>(out_iters),
           static_cast<unsigned char*>(out_solved),
           static_cast<float*>(out_res),      N, B, max_iter,
-          check_termination, rho, tol_pri, tol_dua};
+          check_termination, rho, tol_pri, tol_dua,
+          static_cast<const int*>(block_sys), table_stride};
 }
 
 bool bad_size(const Buffers& p) {
-  return p.N < 2 || p.B < 1 || p.max_iter < 0 || p.check_termination < 1;
+  return p.N < 2 || p.B < 1 || p.max_iter < 0 || p.check_termination < 1 ||
+         (p.block_sys && p.table_stride < 1);
 }
 
 // The box-only kernel when no family beyond the box and no consensus is
@@ -503,6 +554,16 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // runs the families kernel and, warm, carries x/u as the families do.
 // Group 0 runs the families kernel without consensus (the step-0 gains
 // in the table are then not read): the same solve without the exchange.
+extern "C" int tinympc_admm_fused_multi(
+    int warm, int nx, int nu, int N, int B, int max_iter,
+    int check_termination, const int* counts, float rho, float tol_pri,
+    float tol_dua, const void* tables, const void* x0, void* vnew,
+    void* znew, void* g, void* y, void* d, void* out_x, void* out_u,
+    void* out_iters, void* out_solved, void* out_res,
+    const void* const* carry, void* const* fam, const AdaptArgs* adapt,
+    const ConsensusArgs* cons, const void* block_sys, int table_stride,
+    void* stream);
+
 extern "C" int tinympc_admm_fused(
     int warm, int nx, int nu, int N, int B, int max_iter,
     int check_termination, const int* counts, float rho, float tol_pri,
@@ -511,6 +572,26 @@ extern "C" int tinympc_admm_fused(
     void* out_iters, void* out_solved, void* out_res,
     const void* const* carry, void* const* fam, const AdaptArgs* adapt,
     const ConsensusArgs* cons, void* stream) {
+  return tinympc_admm_fused_multi(
+      warm, nx, nu, N, B, max_iter, check_termination, counts, rho, tol_pri,
+      tol_dua, tables, x0, vnew, znew, g, y, d, out_x, out_u, out_iters,
+      out_solved, out_res, carry, fam, adapt, cons, nullptr, 0, stream);
+}
+
+// The multi-system launch: tinympc_admm_fused's arguments, and before the
+// stream block_sys and table_stride. block_sys null is the single-system
+// solve; else (not with consensus) tables holds one packed table per
+// system, table_stride floats apart, and block k of the ceil(B / 128)
+// blocks solves its lanes with table block_sys[k].
+extern "C" int tinympc_admm_fused_multi(
+    int warm, int nx, int nu, int N, int B, int max_iter,
+    int check_termination, const int* counts, float rho, float tol_pri,
+    float tol_dua, const void* tables, const void* x0, void* vnew,
+    void* znew, void* g, void* y, void* d, void* out_x, void* out_u,
+    void* out_iters, void* out_solved, void* out_res,
+    const void* const* carry, void* const* fam, const AdaptArgs* adapt,
+    const ConsensusArgs* cons, const void* block_sys, int table_stride,
+    void* stream) {
   FamilyArgs fa;
   fa.ncx = counts[0];
   fa.ncu = counts[1];
@@ -537,7 +618,8 @@ extern "C" int tinympc_admm_fused(
   }
   const Buffers p = buffers(N, B, max_iter, check_termination, rho, tol_pri,
                             tol_dua, tables, x0, vnew, znew, g, y, d, out_x,
-                            out_u, out_iters, out_solved, out_res);
+                            out_u, out_iters, out_solved, out_res, block_sys,
+                            table_stride);
   if (bad_size(p)) return static_cast<int>(cudaErrorInvalidValue);
   if (adapt && (!adapt->rho_out || !adapt->xs || !adapt->us || !adapt->axd ||
                 (warm && !adapt->rho_in)))
@@ -549,6 +631,7 @@ extern "C" int tinympc_admm_fused(
         (warm && G && (!cons->yc0_in || !cons->zc0_out || !cons->yc0_out)) ||
         (!(warm && G) && (cons->yc0_in || cons->zc0_out || cons->yc0_out)))
       return static_cast<int>(cudaErrorInvalidValue);
+    if (G && block_sys) return static_cast<int>(cudaErrorInvalidValue);
     if (G) {
       ca = *cons;
       ca.u_in = fa.u_in;

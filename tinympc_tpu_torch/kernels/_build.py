@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fPIC", "-Xptxas", "-v")
 
 # The kernel sources, csrc/<name>.cu: the resident fused solve, the fused
-# closed loop and the streamed long-horizon solve.
-SOURCES = ("admm_fused", "closed_loop_fused", "admm_stream")
+# closed loop, the streamed long-horizon solve and the roofline probes.
+SOURCES = ("admm_fused", "closed_loop_fused", "admm_stream", "roofline")
 
 # Loaded libraries of this process, by source name.
 _LOADED: Dict[str, ctypes.CDLL] = {}

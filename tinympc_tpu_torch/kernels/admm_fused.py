@@ -81,6 +81,10 @@ adaptive_families_launch_count = 0
 adaptive_families_warm_launch_count = 0
 consensus_launch_count = 0
 consensus_warm_launch_count = 0
+# Multi-system launches (solve_fused_multi and the fleet solver), any
+# instantiation but consensus, cold and warm.
+multi_launch_count = 0
+multi_warm_launch_count = 0
 
 
 class Adaptive(NamedTuple):
@@ -533,6 +537,13 @@ def _prepare_inputs(prob: TinyProblem, Xref, Uref, x0s):
     """:func:`_prepare` for a problem that is already checked. A consensus
     problem's x0s (n_groups, G, nx) comes back as (B, nx), its group size
     in ``params["cons"]``."""
+    x0, params = _x0_params(prob, x0s)
+    return _pack_tables(prob, Xref, Uref), x0, params
+
+
+def _x0_params(prob: TinyProblem, x0s):
+    """x0s checked and as a contiguous float32 (B, nx) tensor on the
+    problem's device, and the solver parameters of the problem."""
     nx = prob.spec.nx
     if x0s is None:
         raise ValueError("solve_fused needs x0s, shape (B, nx)")
@@ -566,7 +577,7 @@ def _prepare_inputs(prob: TinyProblem, Xref, Uref, x0s):
                   tol_pri=float(np.float32(st.abs_pri_tol)),
                   tol_dua=float(np.float32(st.abs_dua_tol)),
                   fam=_families(prob.spec), adapt=_adaptive(st), cons=cons)
-    return _pack_tables(prob, Xref, Uref), x0, params
+    return x0, params
 
 
 def _grouped(out, cons: Optional[Consensus]):
@@ -1089,21 +1100,23 @@ class _ConsensusArgs(ctypes.Structure):
                 ("yc0_out", _PTR)]
 
 
-def _kernel_fn():
+def _kernel_fn(multi: bool = False):
     """The C entry point of csrc/admm_fused.cu, built and loaded on first
-    use."""
+    use: ``tinympc_admm_fused``, or with ``multi`` the multi-system
+    ``tinympc_admm_fused_multi`` (two more arguments before the stream)."""
     lib = _build.load(KERNEL)
     if lib.tinympc_admm_fused_block() != BLOCK:
         raise RuntimeError("csrc/admm_fused.cu and admm_fused.BLOCK disagree "
                            "on the block size")
-    fn = lib.tinympc_admm_fused
+    fn = lib.tinympc_admm_fused_multi if multi else lib.tinympc_admm_fused
     # warm nx nu N B max_iter ct | counts | rho tol_pri tol_dua |
     # 12 buffers | carry array, family array | adaptive-rho arguments |
-    # consensus arguments | the stream
+    # consensus arguments | (multi: block systems, table stride) | the stream
     fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
                    + [ctypes.c_float] * 3 + [_PTR] * 12 + [_PTRS] * 2
                    + [ctypes.POINTER(_AdaptArgs),
-                      ctypes.POINTER(_ConsensusArgs), _PTR])
+                      ctypes.POINTER(_ConsensusArgs)]
+                   + ([_PTR, ctypes.c_int] if multi else []) + [_PTR])
     fn.restype = ctypes.c_int
     return fn
 
@@ -1118,19 +1131,26 @@ def _check_arg(t: torch.Tensor, shape, dtype, device) -> torch.Tensor:
     return t
 
 
+def _table_floats(nx, nu, N, fam=NO_FAMILIES, adapt=None,
+                  consensus=False) -> int:
+    """Floats of one packed table (:func:`_table_layout`)."""
+    return sum(int(np.prod(s)) for _, s in _table_layout(nx, nu, N, fam,
+                                                         adapt, consensus))
+
+
 def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None,
-                    consensus=False):
-    """Check the shared inputs and allocate the outputs and scratch of one
-    launch; the kernel initialises the scratch it reads. Adaptive rho adds
-    a 5th residual row (the final rho) and the scratch of the rows of an
-    adaptation iteration: x, u and the dynamics rows."""
+                    consensus=False, n_sys=1):
+    """Check the shared inputs (``n_sys`` packed tables one after another)
+    and allocate the outputs and scratch of one launch; the kernel
+    initialises the scratch it reads. Adaptive rho adds a 5th residual row
+    (the final rho) and the scratch of the rows of an adaptation iteration:
+    x, u and the dynamics rows."""
     dev = x0.device
     B = x0.shape[0]
     f32 = torch.float32
     _check_arg(x0, (B, nx), f32, dev)
-    ntab = sum(int(np.prod(s)) for _, s in _table_layout(nx, nu, N, fam,
-                                                          adapt, consensus))
-    _check_arg(tables, (ntab,), f32, dev)
+    ntab = _table_floats(nx, nu, N, fam, adapt, consensus)
+    _check_arg(tables, (n_sys * ntab,), f32, dev)
     kw = dict(dtype=f32, device=dev)
     return dict(
         vnew=torch.empty((2, N, nx, B), **kw),
@@ -1168,18 +1188,28 @@ def _instantiation(nx, nu, fam, adapt, cons) -> str:
 
 
 def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
-            rho, tol_pri, tol_dua):
+            rho, tol_pri, tol_dua, block_sys=None):
     """Launch csrc/admm_fused.cu on the current stream of x0's device: cold
     when ``carry`` is None, else warm, on the instantiation
     :func:`_instantiation` names. Returns the outputs and scratch, and the
     new carry of a warm solve (its duals are the kernel's dual buffers). A
     warm box-only solve on a families instantiation (at (6, 3)) hands the
     kernel scratch for the x/u it seeds and hands over, which its carry
-    does not keep."""
+    does not keep. ``block_sys`` (int32, a system for each block of
+    :data:`BLOCK` lanes) makes it the multi-system launch: ``tables`` then
+    holds one packed table per system."""
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     consensus = cons is not None
-    buf = _launch_buffers(tables, x0, N, nx, nu, fam, adapt, consensus)
+    stride = _table_floats(nx, nu, N, fam, adapt, consensus)
+    n_sys = 1
+    if block_sys is not None:
+        if consensus:
+            raise ValueError("the multi-system launch takes no consensus")
+        _check_arg(block_sys, (-(-B // BLOCK),), torch.int32, dev)
+        n_sys = tables.numel() // stride
+    buf = _launch_buffers(tables, x0, N, nx, nu, fam, adapt, consensus,
+                          n_sys)
     shapes = _carry_shapes(N, nx, nu, B, fam, adapt is not None, consensus)
     work, duals = [], {}
     for dual, n in zip(_FAMILY_DUALS, fam):
@@ -1223,15 +1253,16 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
             out["yc0"].data_ptr()]
         cons_args = ctypes.byref(_ConsensusArgs(cons.group, cons.rho_c,
                                                 None, *warm))
-    fn = _kernel_fn()
+    fn = _kernel_fn() if block_sys is None else _kernel_fn(multi=True)
     counts = (ctypes.c_int * 6)(*fam)
+    systems = () if block_sys is None else (block_sys.data_ptr(), stride)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(int(carry is not None), nx, nu, N, B, max_iter, ct, counts,
                  rho, tol_pri, tol_dua, tables.data_ptr(), x0.data_ptr(),
                  *(buf[k].data_ptr() for k in _BUFFER_ORDER),
                  _ptr_array(carry_ptrs), _ptr_array(fam_ptrs), adapt_args,
-                 cons_args, stream)
+                 cons_args, *systems, stream)
     if err != 0:
         raise RuntimeError(f"admm_fused kernel launch failed: CUDA error "
                            f"{err}")
@@ -1269,3 +1300,262 @@ def _solve_kernel_warm(tables, x0, carry: FusedCarry, N, nx, nu, *,
                   ct, rho, tol_pri, tol_dua)
     _count(_instantiation(nx, nu, fam, adapt, cons), True)
     return out
+
+
+# ------------------------------------------------- many systems, one launch
+
+def check_systems(probs, fleet: bool = False) -> list:
+    """The problems of a multi-system solve as a list, checked: the JAX
+    package's rules (admm_pallas.py:1362-1378) -- not empty, one spec and
+    one settings, one setup rho (the kernel takes one rho a launch), no
+    consensus -- and each problem's :func:`fused_supported` checks, all on
+    one device. ``fleet`` words the first, second and fourth in the JAX
+    package's ``make_fleet_solver``'s terms (fleet.py:79-95). Raises
+    ``ValueError``."""
+    probs = list(probs)
+    if not probs:
+        raise ValueError("empty fleet" if fleet else "empty system list")
+    spec0, set0 = probs[0].spec, probs[0].settings
+    if fleet and spec0.en_consensus:
+        raise ValueError(
+            "make_fleet_solver takes flat (B, nx) batches; consensus "
+            "specs use grouped (n_groups, G, nx) batches -- run each "
+            "system's scenario trees through solve_fused directly")
+    rho0 = float(probs[0].cache.rho)
+    for i, p in enumerate(probs[1:], 1):
+        if p.spec != spec0 or p.settings != set0:
+            raise ValueError(
+                f"fleet system {i} differs from system 0 in spec/settings; "
+                "buckets must share the static layout (dims, families, "
+                "iteration budget) -- heterogeneity is in the numeric data"
+                if fleet else f"system {i} differs in spec/settings")
+        if float(p.cache.rho) != rho0:
+            raise ValueError(
+                f"system {i} has rho {float(p.cache.rho)} != {rho0}; the "
+                "kernel takes one rho a launch -- fleets must share the "
+                "setup rho")
+        if p.device != probs[0].device:
+            raise ValueError(f"system {i} is on {p.device}, system 0 on "
+                             f"{probs[0].device}")
+    if spec0.en_consensus:
+        raise ValueError("multi-system launch does not support consensus "
+                         "specs yet; use per-bucket solve_fused")
+    for p in probs:
+        _check(p)
+    return probs
+
+
+class Buckets(NamedTuple):
+    """The lanes of a batch by system, for a multi-system solve. ``lanes``
+    holds each system's batch lanes in order (empty for a system with
+    none). The kernel takes them system-major, each system's lanes padded
+    to whole blocks of :data:`BLOCK` with copies of its first lane, so that
+    no block mixes systems: padded lane j is batch lane ``gather[j]``,
+    block k solves system ``block_sys[k]``, and batch lane ``targets[i]``
+    is padded lane ``real[i]``."""
+
+    lanes: Tuple[torch.Tensor, ...]
+    gather: torch.Tensor       # (Bp,) int64
+    real: torch.Tensor         # (B,) int64
+    targets: torch.Tensor      # (B,) int64
+    block_sys: torch.Tensor    # (Bp // BLOCK,) int32
+
+
+def buckets(assignments, n_sys: int, device) -> Buckets:
+    """:class:`Buckets` of a host ``(B,)`` array of system indices in
+    [0, n_sys), its index tensors on ``device``."""
+    assignments = np.asarray(assignments, dtype=np.int64)
+    lanes, gather, real, block_sys = [], [], [], []
+    start = 0                  # the padded position of the system's lane 0
+    for s in range(n_sys):
+        idx = np.flatnonzero(assignments == s)
+        lanes.append(idx)
+        if idx.size == 0:
+            continue
+        blocks = -(-idx.size // BLOCK)
+        real.append(start + np.arange(idx.size))
+        gather.append(np.concatenate(
+            [idx, np.full(blocks * BLOCK - idx.size, idx[0])]))
+        block_sys.append(np.full(blocks, s))
+        start += blocks * BLOCK
+    as_t = lambda a, dt=torch.int64: torch.as_tensor(
+        np.concatenate(a) if a else np.zeros(0), dtype=dt, device=device)
+    return Buckets(lanes=tuple(torch.as_tensor(i, device=device)
+                               for i in lanes),
+                   gather=as_t(gather), real=as_t(real),
+                   targets=as_t(lanes), block_sys=as_t(block_sys,
+                                                       torch.int32))
+
+
+def system_tables(probs, Xrefs=None, Urefs=None) -> torch.Tensor:
+    """One packed table a system, stacked (n_sys, floats), with the
+    references of :func:`with_references`."""
+    return with_references(torch.stack([_pack_tables(p, None, None)
+                                        for p in probs]), probs[0].spec,
+                           Xrefs, Urefs)
+
+
+def with_references(tables: torch.Tensor, spec, Xrefs=None, Urefs=None
+                    ) -> torch.Tensor:
+    """Stacked system tables (n_sys, floats) with ``Xrefs`` / ``Urefs``
+    written into each system's reference slots: one reference a system (a
+    list or tuple, None for zeros), one shared array, or None (the slots
+    as they are). ``tables`` itself when both are None, else a copy; the
+    rest of each table is not repacked."""
+    if Xrefs is None and Urefs is None:
+        return tables
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    n = tables.shape[0]
+    out = tables.clone()
+    kw = dict(dtype=tables.dtype, device=tables.device)
+
+    def ref(a, shape):
+        t = torch.zeros(shape, **kw) if a is None else torch.as_tensor(a,
+                                                                       **kw)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"expected shape {shape}, got {tuple(t.shape)}")
+        return t.reshape(1, -1)
+
+    for name, refs, shape in (("Xref", Xrefs, (N, nx)),
+                              ("Uref", Urefs, (N - 1, nu))):
+        if refs is None:
+            continue
+        if isinstance(refs, (list, tuple)):
+            if len(refs) != n:
+                raise ValueError(f"{len(refs)} references for {n} systems")
+            vals = torch.cat([ref(r, shape) for r in refs])
+        else:
+            vals = ref(refs, shape)
+        out[:, _table_slice(name, nx, nu, N)] = vals
+    return out
+
+
+def _lane_tensors(out):
+    """The tensors of a ``(Solution, residuals, carry or None)`` output and
+    the axis of each that runs over the lanes, in a fixed order."""
+    sol, res, carry = out
+    items = [(sol.iter, 0), (sol.solved, 0), (sol.x, 1), (sol.u, 1),
+             (res, 1)]
+    if carry is not None:
+        items += [(a, a.ndim - 1) for a in (getattr(carry, k)
+                                            for k in CARRY_FIELDS)
+                  if a is not None]
+    return items
+
+
+def _rebuild(out, tensors):
+    """``out`` with its tensors replaced, in :func:`_lane_tensors`'s
+    order."""
+    sol, res, carry = out
+    it = iter(tensors)
+    sol = Solution(iter=next(it), solved=next(it), x=next(it), u=next(it))
+    res = next(it)
+    if carry is not None:
+        carry = FusedCarry(**{k: None if getattr(carry, k) is None
+                              else next(it) for k in CARRY_FIELDS})
+    return sol, res, carry
+
+
+def _empty_lanes(t: torch.Tensor, ax: int, B: int) -> torch.Tensor:
+    """An empty tensor shaped as ``t`` with B lanes on axis ``ax``."""
+    shape = list(t.shape)
+    shape[ax] = B
+    return torch.empty(shape, dtype=t.dtype, device=t.device)
+
+
+def merge_lanes(parts, B: int):
+    """One batch-order ``(Solution, residuals, carry or None)`` of B lanes
+    from outputs of parts of the batch, ``[(lanes, output)]``, each output
+    written to its lanes."""
+    out = parts[0][1]
+    dst = [_empty_lanes(t, ax, B) for t, ax in _lane_tensors(out)]
+    for idx, part in parts:
+        for d, (t, ax) in zip(dst, _lane_tensors(part)):
+            d.index_copy_(ax, idx, t)
+    return _rebuild(out, dst)
+
+
+def _take_lanes(carry: Optional[FusedCarry], idx) -> Optional[FusedCarry]:
+    """The lanes ``idx`` of each field of a lane-last carry."""
+    if carry is None:
+        return None
+    return FusedCarry(**{k: None if a is None else a.index_select(
+        a.ndim - 1, idx) for k, a in ((k, getattr(carry, k))
+                                      for k in CARRY_FIELDS)})
+
+
+def solve_systems(tables, x0, bk: Buckets, N, nx, nu, carry=None, *,
+                  plain=False, **params):
+    """The multi-system solve of x0 (B, nx) and, warm, a carry of B lanes,
+    each lane with the table of its system (``tables`` (n_sys, floats),
+    lanes by :class:`Buckets`); returns ``(Solution, residuals, carry' or
+    None)`` in batch order. On a CUDA tensor it is one launch of the
+    kernel; on a CPU tensor, or with ``plain``, the plain version runs on
+    each system's lanes with that system's table."""
+    if x0.device.type == "cpu" or plain:
+        return merge_lanes([
+            (idx, _solve_plain(tables[s], x0.index_select(0, idx), N, nx, nu,
+                               carry=_take_lanes(carry, idx), **params)[:3])
+            for s, idx in enumerate(bk.lanes) if idx.numel()], x0.shape[0])
+    if x0.device.type != "cuda":
+        raise ValueError(f"the multi-system solve runs on cuda or cpu, not "
+                         f"{x0.device}")
+    return _solve_systems_kernel(tables, x0, bk, N, nx, nu, carry, **params)
+
+
+def _solve_systems_kernel(tables, x0, bk: Buckets, N, nx, nu, carry=None,
+                          **params):
+    """:func:`solve_systems` on the kernel: the lanes and carry gathered
+    into the padded system-major layout, one multi-system launch, the
+    outputs scattered back into batch order."""
+    B = x0.shape[0]
+    padded = _launch(tables.reshape(-1), x0.index_select(0, bk.gather), N,
+                     nx, nu, params["fam"], params["adapt"], params["cons"],
+                     _take_lanes(carry, bk.gather), params["max_iter"],
+                     params["ct"], params["rho"], params["tol_pri"],
+                     params["tol_dua"], block_sys=bk.block_sys)
+    _count("multi", carry is not None)
+    return _rebuild(padded, [
+        _empty_lanes(t, ax, B).index_copy_(ax, bk.targets,
+                                           t.index_select(ax, bk.real))
+        for t, ax in _lane_tensors(padded)])
+
+
+def _prepare_multi(probs, x0s, Xrefs, Urefs):
+    probs = check_systems(probs)
+    x0, params = _x0_params(probs[0], x0s)
+    n_sys, B = len(probs), x0.shape[0]
+    if B % n_sys:
+        raise ValueError(f"batch {B} must split into {n_sys} equal system "
+                         "buckets")
+    bk = buckets(np.repeat(np.arange(n_sys), B // n_sys), n_sys, x0.device)
+    return system_tables(probs, Xrefs, Urefs), x0, bk, probs[0].spec, params
+
+
+def solve_fused_multi(probs, x0s, Xrefs=None, Urefs=None):
+    """Heterogeneous multi-system cold solve in one launch of the fused
+    kernel (the JAX package's ``solve_fused_multi``; its ``tile`` and
+    ``interpret`` have no counterpart here).
+
+    ``x0s`` is ``(n_sys * per, nx)``, system-major: system s owns rows
+    ``[s*per, (s+1)*per)``. Every problem must share spec, settings and the
+    setup rho, and none may use consensus; ``Xrefs`` / ``Urefs`` are one
+    reference a system (a list or tuple), one shared array, or None.
+    Each system's lanes are padded to whole blocks inside the launch, so
+    any ``per`` is taken. Returns ``(Solution, residuals)`` as
+    :func:`solve_fused` does; each system's lanes are those of
+    :func:`solve_fused` on its own rows. On CPU tensors it runs
+    :func:`solve_fused_multi_reference`."""
+    tables, x0, bk, spec, params = _prepare_multi(probs, x0s, Xrefs, Urefs)
+    return solve_systems(tables, x0, bk, spec.N, spec.nx, spec.nu,
+                         **params)[:2]
+
+
+def solve_fused_multi_reference(probs, x0s, Xrefs=None, Urefs=None):
+    """The multi-system launch's plain PyTorch version, on the problems'
+    device: :func:`solve_fused_reference`'s solve of each system's rows
+    with that system's table. Returns what :func:`solve_fused_multi`
+    returns."""
+    tables, x0, bk, spec, params = _prepare_multi(probs, x0s, Xrefs, Urefs)
+    return solve_systems(tables, x0, bk, spec.N, spec.nx, spec.nu,
+                         plain=True, **params)[:2]
