@@ -7,35 +7,54 @@ were, across two checkouts on one card.
     python3 chip_compare.py diff A.pt B.pt   # anywhere
 
 ``save`` runs, at B=1024 with inputs from numpy's default_rng(0), the box
-kernel cold and warm (the quadrotor at 20 Hz, N=20), the families kernel
+kernel cold and warm (the quadrotor at 20 Hz, N=20), a fleet of two
+quadrotor variants cold and over two warm solves (N=10, random
+assignments; the multi-system launch), the families kernel
 cold and warm (the rocket's cones at N=10; the quadrotor's static and
 time-varying hyperplanes under low z ceilings), the families kernel with
-consensus (128 groups of 8), the fused closed loop (T=10), and the streamed
+consensus (128 groups of 8), the fused closed loop (T=10), the streamed
 kernels cold and warm (box at N=64, the rocket's cones at N=32, consensus
-at N=10), and writes every output and carry field. ``diff`` prints, for
-each entry, whether the two files hold the same bits, and exits non-zero
-when any differs. Two packages cannot share a process: run ``save`` once
-per checkout.
+at N=10), and, at B=64, the long horizons where the thread-group kernels
+keep their table and saved columns in device memory (box cold at N=700,
+two warm solves at N=1100 and at N=1150, closed loops at N=700 and
+N=1150 with T=2), and writes every output and carry field. ``diff``
+prints, for each entry, whether the two files hold the same bits, and
+exits non-zero when any differs. Two packages cannot share a process: run
+``save`` once per checkout.
 
     python3 chip_compare.py build OUT.json   # in each checkout, on the GPU
     python3 chip_compare.py diff A.json B.json
 
-``build`` compiles csrc/admm_fused.cu afresh and writes, for each of its
-kernels by chip_smoke.py's label, the ptxas registers, stack and spills
+``build`` compiles the resident solve's and the closed loop's sources
+afresh (csrc/admm_group.cu where the checkout has it, csrc/admm_fused.cu,
+csrc/closed_loop_fused.cu) and writes, for each of their kernels by
+chip_smoke.py's label, the ptxas registers, stack and spills
 and a hash of its SASS (cuobjdump -sass, addresses and encodings
 dropped; the instructions themselves in OUT.json.sass); ``diff`` of two
 such files says, for each label both have, whether the ptxas figures and
 the instructions are the same, and exits non-zero when any differs.
 
-    python3 chip_compare.py time             # in each checkout, on the GPU
+    python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
+                                 [loop=B,B,...] [profile]
 
 ``time`` times the main path's kernel (bench.py's batch: the quadrotor at
-20 Hz, N=20, box +-5 / +-0.5, hover, B=32768, x0 ~ U[-0.5, 0.5] from
-default_rng(0), max_iter 100, check_termination 25): ``TIME_REPS``
-launches on CUDA events after one to warm up, and prints one JSON line with
-every time, the median, the card's name and power limit and its SM clock
-sampled just after. Run it in alternation (parent, change, change,
-parent) to compare two checkouts on one card.
+20 Hz, N=20, box +-5 / +-0.5, hover, x0 ~ U[-0.5, 0.5] from
+default_rng(0), max_iter 100, check_termination 25) at each batch of
+``cold`` (default 32768), the warm solve of the same problem from a zero
+carry (``init_carry``) at each batch of ``warm`` (default none), and the
+fused closed loop (bench_all.py:569-596:
+N=10, hover z=1, x0 ~ U[-0.3, 0.3], T=50, max_iter 100, ct 5) at each
+batch of ``loop`` (default none): ``TIME_REPS`` launches on CUDA events
+after one to warm up. It prints one JSON line a configuration with every
+time, the median, the mean iterations, the time a lane-iteration (the
+kernel's time over the iterations its lanes ran, summed), the card's name
+and power limit and its SM clock sampled just after. ``profile`` adds the
+device time torch.profiler records for one main-path call at each cold
+batch, by kernel. Run it in alternation (parent, change, change, parent)
+to compare two checkouts on one card; for the parent, unpack the parent
+commit's tree before the first edit into the ignored ``_checkout/parent``
+(``git archive HEAD | tar -x -C _checkout/parent``, the directory emptied
+first, since an older parent may lie there) and copy this file into it.
 """
 import dataclasses
 import hashlib
@@ -151,10 +170,45 @@ def save(path):
     c = tt.init_carry(tree, B)
     out.update(_flat("consensus.warm",
                      kern.solve_fused_warm(tree, hover(10), None, x_g, c)))
+    fleet = []
+    for i in range(2):
+        p = _quad(tt, torch, 10, ct=25)
+        A = p.A.clone()
+        A[~torch.eye(12, dtype=torch.bool, device=A.device)] *= 1 + 0.004 * i
+        s = tt.systems.quadrotor_20hz()
+        q = tt.setup(A, s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=10,
+                     dtype=torch.float32, device=DEVICE)
+        q = tt.with_bounds(q, x_min=-5.0, x_max=5.0, u_min=-0.5, u_max=0.5)
+        fleet.append(tt.with_settings(q, max_iter=100, check_termination=25))
+    assign = rng.integers(0, 2, B)
+    out.update(_flat("fleet.cold", kern.make_fleet_solver(fleet)(
+        assign, x_q, Xref=hover(10))))
+    c = tt.init_carry(fleet[0], B)
+    warm_fleet = kern.make_fleet_solver(fleet, warm=True)
+    for step in range(2):
+        w = warm_fleet(assign, x_q, c, Xref=hover(10))
+        out.update(_flat(f"fleet.warm{step}", w))
+        c = w[2]
     loop = kern.closed_loop_fused(_quad(tt, torch, 10, ct=5),
                                   hover(10 + 9), x_q, 10)
     out.update({f"closed_loop.{k}": v for k, v in zip(
         ("xs", "us", "iters", "solved"), loop)})
+    x_l = x_q[:64].contiguous()
+    for N in (700, 1100, 1150):
+        prob = _quad(tt, torch, N, max_iter=12, ct=3)
+        if N == 700:
+            out.update(_flat(f"long{N}.cold",
+                             kern.solve_fused(prob, hover(N), None, x_l)))
+        c = tt.init_carry(prob, 64)
+        for step in range(2):
+            w = kern.solve_fused_warm(prob, hover(N), None, x_l, c)
+            out.update(_flat(f"long{N}.warm{step}", w))
+            c = w[2]
+    for N in (700, 1150):
+        loop = kern.closed_loop_fused(_quad(tt, torch, N, max_iter=12, ct=3),
+                                      hover(N), x_l, 2, shift_warm=True)
+        out.update({f"long{N}.closed_loop.{k}": v for k, v in zip(
+            ("xs", "us", "iters", "solved"), loop)})
     streamed = [("box", _quad(tt, torch, 64, 20), x_q, hover(64), None),
                 ("rocket_soc", _rocket(tt, torch, 32), x_r, *descent(32)),
                 ("consensus", tree, x_g, hover(10), None)]
@@ -177,23 +231,13 @@ def _smi(query):
                           check=True).stdout.strip().splitlines()[0]
 
 
-def time_main_path():
-    import torch
-    import tinympc_tpu_torch as tt
-    from tinympc_tpu_torch.kernels import admm_fused
-    torch.backends.cuda.matmul.allow_tf32 = False
-    kw = dict(dtype=torch.float32, device=DEVICE)
-    prob = _quad(tt, torch, 20, ct=25)
-    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.5, 0.5,
-                                                         (TIME_B, 12)), **kw)
-    Xref = torch.zeros((20, 12), **kw)
-    Xref[:, 2] = 1.0
-    tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
-    run = lambda: admm_fused._solve_kernel(tables, x0c, 20, 12, 4, **params)
-    sol = run()[0]
+def _timed(torch, run, reps):
+    """Median and every time of ``reps`` calls of ``run`` on CUDA events,
+    after one to warm up."""
+    run()
     torch.cuda.synchronize()
     times = []
-    for _ in range(TIME_REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -201,23 +245,106 @@ def time_main_path():
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    print(json.dumps({
-        "main_path_ms": statistics.median(times), "times_ms": times,
-        "mean_iters": sol.iter.float().mean().item(),
-        "card": _smi("name,power.limit"),
-        "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+    return statistics.median(times), times
+
+
+def _device_times(torch, run):
+    """Device time of one call of ``run`` by kernel name, from
+    torch.profiler (None where the profiler records no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            out[e.key[:120]] = us / 1e3
+    return out or None
+
+
+def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=()):
+    import torch
+    import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch.kernels import admm_fused, closed_loop_kernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    card = _smi("name,power.limit")
+    for B_ in cold:
+        prob = _quad(tt, torch, 20, ct=25)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -0.5, 0.5, (B_, 12)), **kw)
+        Xref = torch.zeros((20, 12), **kw)
+        Xref[:, 2] = 1.0
+        tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
+        run = lambda: admm_fused._solve_kernel(tables, x0c, 20, 12, 4,
+                                               **params)
+        lane_iters = int(run()[0].iter.sum().item())
+        ms, times = _timed(torch, run, TIME_REPS)
+        rec = {"kind": "cold", "B": B_, "ms": ms, "times_ms": times,
+               "mean_iters": lane_iters / B_,
+               "us_per_lane_iter": 1e3 * ms / lane_iters,
+               "card": card, "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}
+        if B_ == TIME_B:
+            rec["main_path_ms"] = ms
+        if profile:
+            rec["profiler_device_ms"] = _device_times(torch, run)
+        print(json.dumps(rec), flush=True)
+    for B_ in warm:
+        prob = _quad(tt, torch, 20, ct=25)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -0.5, 0.5, (B_, 12)), **kw)
+        Xref = torch.zeros((20, 12), **kw)
+        Xref[:, 2] = 1.0
+        tables, x0c, params = admm_fused._prepare(prob, Xref, None, x0)
+        carry = admm_fused._carry_tensors(prob, tt.init_carry(prob, B_), B_)
+        run = lambda: admm_fused._solve_kernel_warm(tables, x0c, carry, 20,
+                                                    12, 4, **params)
+        lane_iters = int(run()[0].iter.sum().item())
+        ms, times = _timed(torch, run, TIME_REPS)
+        print(json.dumps({
+            "kind": "warm", "B": B_, "ms": ms, "times_ms": times,
+            "mean_iters": lane_iters / B_,
+            "us_per_lane_iter": 1e3 * ms / lane_iters, "card": card,
+            "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+    for B_ in loop:
+        prob = _quad(tt, torch, 10, ct=5)
+        x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+            -0.3, 0.3, (B_, 12)), **kw)
+        Xref = torch.zeros((10, 12), **kw)
+        Xref[:, 2] = 1.0
+        tables, xtot, x0c, T, params = closed_loop_kernel._prepare_loop(
+            prob, Xref, x0, 50, None)
+        run = lambda: closed_loop_kernel._loop_kernel(
+            tables, xtot, x0c, T, 10, 12, 4, reset_duals=False,
+            shift_warm=False, **params)
+        lane_iters = int(run()[2].sum().item())
+        ms, times = _timed(torch, run, TIME_REPS)
+        print(json.dumps({
+            "kind": "closed_loop", "B": B_, "T": T, "ms": ms,
+            "times_ms": times, "mean_iters": lane_iters / (B_ * T),
+            "us_per_lane_iter": 1e3 * ms / lane_iters, "card": card,
+            "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
 
 
 def build_report(path):
     import chip_smoke
     from tinympc_tpu_torch.kernels import _build
-    lib = _build.library_path("admm_fused")
-    if lib.exists():
-        lib.unlink()
-    log = _build.build(["admm_fused"])["admm_fused"]
+    names = [n for n in ("admm_group", "admm_fused", "closed_loop_fused")
+             if (_build.CSRC_DIR / f"{n}.cu").exists()]
+    for n in names:
+        if _build.library_path(n).exists():
+            _build.library_path(n).unlink()
+    logs = _build.build(names)
+    log = "\n".join(logs[n] for n in names)
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=600, check=True).stdout
+    sass = "\n".join(subprocess.run(
+        [exe, "-sass", str(_build.library_path(n))], capture_output=True,
+        text=True, timeout=600, check=True).stdout for n in names)
     funcs, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -241,8 +368,8 @@ def build_report(path):
     # The instructions themselves, beside the report, for a textual diff.
     with open(path + ".sass", "w") as f:
         f.write("\n".join(text) + "\n")
-    print(f"chip_compare: {len(out)} kernels of admm_fused.cu written to "
-          f"{path} (SASS text in {path}.sass)")
+    print(f"chip_compare: {len(out)} kernels of {', '.join(names)} written "
+          f"to {path} (SASS text in {path}.sass)")
 
 
 def diff_reports(a_path, b_path):
@@ -286,8 +413,13 @@ if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "build":
         build_report(sys.argv[2])
         sys.exit(0)
-    if len(sys.argv) == 2 and sys.argv[1] == "time":
-        time_main_path()
+    if len(sys.argv) >= 2 and sys.argv[1] == "time":
+        opts = dict(a.split("=", 1) if "=" in a else (a, "1")
+                    for a in sys.argv[2:])
+        batches = lambda key, dflt: tuple(
+            int(b) for b in opts[key].split(",")) if key in opts else dflt
+        time_kernels(batches("cold", (TIME_B,)), batches("loop", ()),
+                     "profile" in opts, batches("warm", ()))
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "diff":
         sys.exit(diff(sys.argv[2], sys.argv[3]))

@@ -11,7 +11,8 @@ calls, and holds every kernel against its plain PyTorch version:
   on x and +-0.5 on u, hover reference, cold start, fixed rho, B=32768
   problems with x0 ~ U[-0.5, 0.5]^12 from numpy's default_rng(0),
   max_iter=100, check_termination=25, through setup -> with_bounds ->
-  with_settings -> kernels.solve_fused (csrc/admm_fused.cu, cold);
+  with_settings -> kernels.solve_fused (csrc/admm_group.cu, cold: a
+  problem a group of 16 threads, its trajectories in shared memory);
 * the serving loop -- the closed-loop workload of bench_all.py:569-596: the
   same quadrotor at N=10, hover reference z=1, B=16384 plants with
   x0 ~ U[-0.3, 0.3]^12 from default_rng(0), T=50 MPC steps, max_iter=100,
@@ -20,7 +21,7 @@ calls, and holds every kernel against its plain PyTorch version:
   regime with shift_warm off and on;
 * the external-plant loop of examples/serving_fleet.py:62-77 at B=16384
   (x0 = hover + U[-0.3, 0.3]^12, max_iter=100, check_termination=1):
-  5 warm solves through kernels.solve_fused_warm (csrc/admm_fused.cu,
+  5 warm solves through kernels.solve_fused_warm (csrc/admm_group.cu,
   warm), the plant stepped with the applied input plus 0.01 N(0,1)
   actuator noise from the seeded generator;
 * the constraint families on the families kernel (csrc/admm_fused.cu with
@@ -109,7 +110,7 @@ calls, and holds every kernel against its plain PyTorch version:
   three configs -- the quadrotor at N=20, B=32768, ct 1 and 25, and
   synthetic(32, 8) at B=16384, max_iter 100, tolerances 0 -- beside the
   fused solve;
-* heterogeneous fleets in one multi-system launch of csrc/admm_fused.cu:
+* heterogeneous fleets in one multi-system launch of csrc/admm_group.cu:
   bench_all.py:273-300's "hetero fleet 16 systems" -- the quadrotor's A
   scaled off the diagonal by 1 + 0.002 (i - 8), i < 16, N=10, box +-5 /
   +-0.5, max_iter 100, ct 25, 2048 lanes a system (B=32768), x0 ~
@@ -124,11 +125,14 @@ compute_sensitivities' fixed point run on the card, as it ran before it
 moved to the host):
 
 1. card: name and power limit (nvidia-smi); TF32 off;
-2. build: compile both csrc/*.cu for sm_90a, together (timed, set-up),
-   with each kernel's ptxas register and spill lines;
+2. build: compile every csrc/*.cu for sm_90a, one nvcc each, together
+   (timed, set-up), with each kernel's ptxas register and spill lines (a
+   families, streamed, thread-group or closed-loop kernel that spills
+   fails the run);
 3. cold kernel against its plain version at B=1000 (ragged) and 1024,
    check_termination 25 and 1; and against the port's admm.solve at B=256;
-4. cold main path at B=32768 and bench.py's two other regimes;
+4. cold main path at B=32768 and bench.py's two other regimes, each
+   launch on the thread-group kernel's entry (tinympc_admm_group);
 5. warm kernel against its plain version, small: B=1000, an external-plant
    sequence of 6 solves at check_termination 1 and 5;
 6. closed-loop kernel against its plain version, small: B=1000, T=20, at
@@ -216,7 +220,15 @@ moved to the host):
 40. the warm fleet, 4 systems, B=16384, 5 external-plant solves: bitwise
    the per-bucket solve_fused_warm launches at every step, at the bar
    against its plain version, the sixth solve timed;
-41. the kernels line, then the device line last.
+41. the group kernels' other places (csrc/admm_group.cuh Place): at N=64
+   the box solve, cold and over 2 warm solves, and the closed loop at N=10
+   (T=20, shift_warm, reset_duals) launched at every place and smaller
+   blocks, bitwise the launch the wrappers choose; then the places long
+   horizons choose, through the entry points at the bar against the plain
+   version: a cold solve at N=700 (the table in device memory), warm
+   solves at N=1100 and N=1150 (past N=1117 the saved columns in device
+   memory too), closed loops at N=700 and N=1150 (T=2);
+42. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -257,6 +269,7 @@ phase's start prints the seconds
 since the script began. Exits non-zero, printing no result, without a CUDA
 device or outside a checkout of the repository.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -923,7 +936,18 @@ def kernel_label(fn):
         mode = "warm" if m[3] == "1" else "cold"
         multi = " multi" if re.search(r"Lb1EEEv", fn) else ""
         return f"admm_fused {kind} {mode}{multi} ({m[1]}, {m[2]})"
-    return "closed_loop_fused" if "closed_loop" in fn else fn
+    # The group kernels' PLACE (csrc/admm_group.cuh Place)
+    place = {"0": "", "1": " table in device memory",
+             "2": " saved columns in device memory"}
+    m = re.search(r"admm_group_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E",
+                  fn)
+    if m:
+        return (f"admm_group box {'warm' if m[3] == '1' else 'cold'} "
+                f"({m[1]}, {m[2]}){place[m[4]]}")
+    m = re.search(r"closed_loop_group_kernelILi(\d+)ELi(\d+)ELi(\d)E", fn)
+    if m:
+        return f"closed_loop_fused ({m[1]}, {m[2]}){place[m[3]]}"
+    return fn
 
 
 def check_rounding(torch, lib, n=1 << 24):
@@ -2152,15 +2176,16 @@ def hover_ref(torch, N, z):
     return torch.as_tensor(Xref, dtype=torch.float32, device=DEVICE)
 
 
-def warp_shares(iters, its, block):
+def warp_shares(iters, its, warp, block):
     """Share of the lane-iterations of a run of ``its`` iterations that a
     running lane, a warp with a running lane and a block with one take (a
     converged lane idles in its warp; a block exits with its slowest
-    lane)."""
+    lane); ``warp`` and ``block`` are the lanes of a warp and of a block
+    (the box solve's thread groups: 32 / GROUP and P problems)."""
     it = iters.reshape(-1)
     B = it.numel()
     return {n: int(it.reshape(-1, n).amax(dim=1).sum().item()) * n
-            / (its * B) for n in (1, 32, block)}
+            / (its * B) for n in (1, warp, block)}
 
 
 def stream_consensus_small(torch, tt, ast, counters):
@@ -2351,7 +2376,9 @@ def compaction_phases(ctx):
     card_comp, _ = cuda_ms(torch, lambda: solver(x0), 3)
     it, sv = long[0].iter, long[0].solved
     live = int((~(sv & (it <= COMPACT_CHUNK[0]))).sum().item())
-    sh = warp_shares(it, int(it.max().item()), admm_fused.BLOCK)
+    w_lanes = 32 // admm_fused.GROUP
+    b_lanes = admm_fused.group_geometry(N_HORIZON, False)[0]
+    sh = warp_shares(it, int(it.max().item()), w_lanes, b_lanes)
     # The compacted solve's work: the long solve's iterations (the counts
     # are the same), x0 and the outputs once, and each phase's carry read
     # and written once at the phase's width.
@@ -2369,8 +2396,8 @@ def compaction_phases(ctx):
         f"({live / B:.4f}); solved frac {sv.float().mean().item():.5f}, "
         f"mean iters {it.float().mean().item():.4f}; the long solve's "
         f"lane-iterations with a running lane {sh[1]:.4f}, warp-iterations "
-        f"with one {sh[32]:.4f}, block-iterations with one "
-        f"{sh[admm_fused.BLOCK]:.4f}; "
+        f"with one {sh[w_lanes]:.4f} ({w_lanes} problems a warp), "
+        f"block-iterations with one {sh[b_lanes]:.4f} ({b_lanes} a block); "
         f"first call of the compaction {long_ms:.1f} ms long; card {card}")
     del long, sol_c, res_c
 
@@ -3269,6 +3296,7 @@ def cold_fleet_phase(ctx):
         if launches < 1:
             raise AssertionError(f"{label} did not launch the multi-system "
                                  "kernel")
+        took_group(af, label, launches)
         if out[0].x.shape != (FLEET_N, Bn, 12) or \
                 out[0].u.shape != (FLEET_N - 1, Bn, 4):
             raise AssertionError(f"bad fleet output shapes {out[0].x.shape} "
@@ -3383,6 +3411,7 @@ def warm_fleet_phase(ctx):
     if launches < 5:
         raise AssertionError("the warm fleet did not launch the warm "
                              "multi-system kernel")
+    took_group(af, "warm fleet", launches)
     carries = [tt.init_carry(p, idx.numel()) for p, idx in zip(probs, idxs)]
     tables = af.system_tables(probs, Xref)
     bk = af.buckets(assign, n, DEVICE)
@@ -3435,6 +3464,131 @@ def warm_fleet_phase(ctx):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+@contextlib.contextmanager
+def pinned(module, name, geometry):
+    """``module.<name>`` (a geometry function) returns ``geometry`` while
+    the block runs: a launch at a place and block of the check's choosing."""
+    keep = getattr(module, name)
+    setattr(module, name, lambda *a, **k: geometry)
+    try:
+        yield
+    finally:
+        setattr(module, name, keep)
+
+
+def group_places_phase(ctx):
+    """Phase 41: every place of the group kernels (csrc/admm_group.cuh
+    Place) and smaller blocks, bitwise the place the wrappers choose, at
+    the horizons of the main path's neighbourhood; then the long horizons
+    that choose the other places, at the bar against the plain version.
+    Each launch is held to the place it was meant to take."""
+    torch, tt, af = ctx.torch, ctx.tt, ctx.admm_fused
+    from tinympc_tpu_torch.kernels import closed_loop_kernel as clk
+    phase("phase 41: the group kernels' places, pinned at N=64 and N=10, "
+          "then long horizons")
+    places = {af.PLACE_SHARED: "shared", af.PLACE_TABLE_GLOBAL: "table "
+              "global", af.PLACE_SAVED_GLOBAL: "saved global"}
+
+    def launches_at(geom, run):
+        """``run()`` with its launch pinned to ``geom`` = (P, place, smem)
+        and the counts at 0; one group entry launch (or one closed-loop
+        launch) expected."""
+        zero_counts(ctx.counters)
+        with pinned(af, "group_geometry", geom), \
+                pinned(clk, "loop_geometry", geom):
+            out = run()
+        torch.cuda.synchronize()
+        n = af.entry_counts["tinympc_admm_group"] + clk.launch_count
+        fail("pinned launch", n >= 1, f"no group launch at {geom}")
+        return out
+
+    N = 64
+    prob = problem(tt, torch, 100, 5, N=N)
+    x0, Xref = inputs(torch, 1000, N=N, spread=0.3)
+    cold = lambda: tt.kernels.solve_fused(prob, Xref, None, x0)
+
+    def warm():
+        c, outs = tt.init_carry(prob, 1000), []
+        for _ in range(2):
+            out = tt.kernels.solve_fused_warm(prob, Xref, None, x0, c)
+            outs.append(out)
+            c = out[2]
+        return outs
+
+    for save, run, kind in ((False, cold, "cold"), (True, warm, "warm")):
+        base = af.group_geometry(N, save)
+        want = run()
+        log(f"  box {kind} N={N}: the wrappers launch P={base[0]} at "
+            f"{places[base[1]]}")
+        table = af._table_floats(12, 4, N)
+        for place in places:
+            if place == af.PLACE_SAVED_GLOBAL and not save:
+                continue
+            for P in (base[0], 1):
+                geom = (P, place, af.group_smem(N, P, place, save, table))
+                got = launches_at(geom, run)
+                for k, (g, w) in enumerate(zip(
+                        got if save else [got], want if save else [want])):
+                    same_bits(torch, f"box {kind} N={N} P={P} "
+                              f"{places[place]} solve {k}", g, w,
+                              "the wrappers' launch")
+    # The closed loop at the serving horizon: its options at every place.
+    N, T = SERVE_N, 20
+    prob = problem(tt, torch, 100, 5, N=N)
+    x0, Xref = inputs(torch, 1000, N=N, spread=0.3)
+    table = clk._table_floats(N, T)
+    for opts in (dict(), dict(shift_warm=True), dict(reset_duals=True)):
+        run = lambda: tt.kernels.closed_loop_fused(prob, Xref, x0, T, **opts)
+        want = run()
+        for place in places:
+            P = 2
+            geom = (P, place, af.group_smem(N, P, place, True, table))
+            got = launches_at(geom, run)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            log(f"  closed loop N={N} T={T} {opts} P={P} {places[place]}: "
+                f"bitwise the wrappers' launch: {same}")
+            fail(f"closed loop {opts} {places[place]}", same,
+                 "not bitwise equal to the wrappers' launch")
+    # Long horizons through the entry points, each on the place it chooses.
+    B = 64
+    for N, kind, T in ((700, "cold", None), (1100, "warm", None),
+                       (1150, "warm", None), (700, "loop", 2),
+                       (1150, "loop", 2)):
+        prob = problem(tt, torch, 12, 3, N=N)
+        x0, Xref = inputs(torch, B, N=N, spread=0.3)
+        geom = clk.loop_geometry(N, T) if kind == "loop" else \
+            af.group_geometry(N, kind == "warm")
+        label = f"{kind} N={N} ({places[geom[1]]}, P={geom[0]})"
+        zero_counts(ctx.counters)
+        if kind == "cold":
+            sol_k, res_k = tt.kernels.solve_fused(prob, Xref, None, x0)
+            sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, None,
+                                                            x0)
+            took_group(af, label, 1)
+            compare(torch, label, sol_k, sol_p, res_k, res_p)
+        elif kind == "warm":
+            c_k = c_p = tt.init_carry(prob, B)
+            agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+            for step in range(2):
+                sol_k, res_k, c_k = tt.kernels.solve_fused_warm(
+                    prob, Xref, None, x0, c_k)
+                sol_p, res_p, c_p = tt.kernels.solve_fused_warm_reference(
+                    prob, Xref, None, x0, c_p)
+                agreed &= sol_k.iter == sol_p.iter
+                compare(torch, f"{label} step {step}", sol_k, sol_p,
+                        lanes=agreed)
+                compare_carry(torch, f"{label} step {step}", c_k, c_p,
+                              agreed)
+            took_group(af, label, 2)
+        else:
+            out_k = tt.kernels.closed_loop_fused(prob, Xref, x0, T,
+                                                 shift_warm=True)
+            out_p = tt.kernels.closed_loop_fused_reference(
+                prob, Xref, x0, T, shift_warm=True)
+            fail(label, clk.launch_count == 1, "no closed-loop launch")
+            compare_loop(torch, label, out_k, out_p)
+
+
 def zero_counts(kernels):
     """Set every launch count to 0: a module's counter, or each entry of
     a module's dict of counters."""
@@ -3444,6 +3598,19 @@ def zero_counts(kernels):
             counts.update(dict.fromkeys(counts, 0))
         else:
             setattr(mod, attr, 0)
+
+
+def took_group(admm_fused, label, launches):
+    """Fail the run unless the box-only fixed-rho launches since the counts
+    were last zeroed took the thread-group kernel's entry
+    (tinympc_admm_group, csrc/admm_group.cu), ``launches`` of them, and no
+    launch took the one-thread-a-problem entries."""
+    e = admm_fused.entry_counts
+    fail(f"{label} entry", e["tinympc_admm_group"] == launches
+         and e["tinympc_admm_fused"] == 0
+         and e["tinympc_admm_fused_multi"] == 0,
+         f"launches by entry {e}, {launches} expected on tinympc_admm_group")
+    log(f"  {label}: launches by entry {e}")
 
 
 def main():
@@ -3471,7 +3638,8 @@ def main():
                 (admm_fused, "adaptive_families_launch_count"),
                 (admm_fused, "adaptive_families_warm_launch_count"),
                 (admm_fused, "consensus_launch_count"),
-                (admm_fused, "consensus_warm_launch_count"))
+                (admm_fused, "consensus_warm_launch_count"),
+                (admm_fused, "entry_counts"))
 
     # 1. card
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3495,6 +3663,7 @@ def main():
     # 2. build: every source, one nvcc each, started together
     t0 = time.perf_counter()
     logs = _build.build(_build.SOURCES)
+    admm_fused._group_fn()
     admm_fused._kernel_fn()
     admm_fused._kernel_fn(multi=True)
     closed_loop_kernel._kernel_fn()
@@ -3515,7 +3684,8 @@ def main():
                 f"{e.get('stack')} bytes stack frame (local memory), "
                 f"{e.get('spill_st')} / {e.get('spill_ld')} bytes spill "
                 f"stores / loads")
-            if "families" in label or "admm_stream" in label:
+            if "families" in label or "admm_stream" in label \
+                    or "admm_group" in label or "closed_loop" in label:
                 fail(f"ptxas {label}", e.get("stack") == 0
                      and e.get("spill_st") == 0 and e.get("spill_ld") == 0,
                      "the kernel spills or uses local memory")
@@ -3563,6 +3733,7 @@ def main():
         launches = admm_fused.launch_count
         if launches < 1:
             raise AssertionError("the main path did not launch the kernel")
+        took_group(admm_fused, f"main path max_iter={mi} ct={ct}", launches)
         if sol_k.x.shape != (N_HORIZON, BATCH, 12) or \
                 sol_k.u.shape != (N_HORIZON - 1, BATCH, 4):
             raise AssertionError(f"bad output shapes {sol_k.x.shape} "
@@ -3729,6 +3900,7 @@ def main():
     if warm_launches < 5:
         raise AssertionError("the external-plant loop did not launch the "
                              "warm kernel")
+    took_group(admm_fused, "external-plant loop", warm_launches)
     # The plain version on the same plant states, with its own carry.
     c_p = tt.init_carry(prob, SERVE_B)
     agreed = torch.ones(SERVE_B, dtype=torch.bool, device=DEVICE)
@@ -4014,6 +4186,7 @@ def main():
     probe_rows = roofline_phase(ctx)
     fleet_rows = {"multi": cold_fleet_phase(ctx),
                   "multi_warm": warm_fleet_phase(ctx)}
+    group_places_phase(ctx)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -4021,12 +4194,12 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 41. kernels line, then the device line last
-    phase("phase 41: kernels line")
+    # 42. kernels line, then the device line last
+    phase("phase 42: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
-    rows = [("admm_fused", "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows = [("admm_group", "tinympc_tpu_torch/csrc/admm_group.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
-            ("admm_fused_warm", "tinympc_tpu_torch/csrc/admm_fused.cu",
+            ("admm_group_warm", "tinympc_tpu_torch/csrc/admm_group.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387",
              dict(launches=warm_launches, err=err_warm, ms=warm_ms,
                   plain_ms=plain_ms, bound_ms=warm_bound_ms,
@@ -4076,7 +4249,7 @@ def main():
              for key, rep in (("dot_chained", "tools/roofline.py:59"),
                               ("dot_independent", "tools/roofline.py:59"),
                               ("elementwise", "tools/roofline.py:98"))]
-    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fleet_rows[key])
              for key in ("multi", "multi_warm")]
     print(json.dumps({"kernels": [{

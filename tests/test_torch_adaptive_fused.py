@@ -204,8 +204,9 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
     """The launch glue, against a stand-in for the C entry point of
     csrc/admm_fused.cu: an adaptive solve passes its settings, the carried
     rho (warm only), the final-rho row and the scratch of the adaptation
-    rows; a fixed-rho solve passes none. The new carry takes the final
-    rho."""
+    rows; the fixed-rho solve of the same box problem takes the box
+    solve's entry (tinympc_admm_group, csrc/admm_group.cu), which has no
+    adaptive arguments. The new carry takes the final rho."""
     pt = _port(_jax_problem("rho_tol_3"))
     seen = []
 
@@ -222,7 +223,13 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
                      all(p is not None for p in (a.xs, a.us, a.axd))))
         return 0
 
+    def group_entry(*args):
+        assert len(args) == 24
+        seen.append("group")
+        return 0
+
     monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    monkeypatch.setattr(admm_fused, "_group_fn", lambda: group_entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -241,7 +248,7 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
             _, res = admm_fused._solve_kernel(tables, x0c, N, 12, 4,
                                               **params)
         assert res.shape == (4 if params["adapt"] is None else 5, 3)
-    assert seen == [(0, 1, 1.0, 100.0, 3.0, warm, True, True), None]
+    assert seen == [(0, 1, 1.0, 100.0, 3.0, warm, True, True), "group"]
 
 
 def test_adaptive_outside_the_kernel_is_refused():

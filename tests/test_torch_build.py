@@ -24,12 +24,19 @@ def test_library_name_follows_source_and_every_shared_header(tmp_path,
 
 def test_package_ships_its_kernel_sources():
     """Every kernel the wrappers load has its source and the shared header
-    in the package; the fused solve also includes the families' and the
-    adaptive-rho headers."""
+    in the package: the fused solve includes admm_sweep.cuh, the box solve
+    and the closed loop the thread-group sweep admm_group.cuh, which
+    includes admm_sweep.cuh; the fused solve also includes the families'
+    and the adaptive-rho headers."""
     from tinympc_tpu_torch.kernels import admm_fused, closed_loop_kernel
-    for name in (admm_fused.KERNEL, closed_loop_kernel.KERNEL):
+    for name, header in ((admm_fused.KERNEL, "admm_sweep.cuh"),
+                         (admm_fused.GROUP_KERNEL, "admm_group.cuh"),
+                         (closed_loop_kernel.KERNEL, "admm_group.cuh")):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
-        assert '#include "admm_sweep.cuh"' in src
+        assert f'#include "{header}"' in src
+        assert name in _build.SOURCES
+    assert '#include "admm_sweep.cuh"' in (
+        _build.CSRC_DIR / "admm_group.cuh").read_text()
     src = (_build.CSRC_DIR / f"{admm_fused.KERNEL}.cu").read_text()
     for header in ("admm_sweep.cuh", "admm_families.cuh",
                    "admm_adaptive.cuh"):

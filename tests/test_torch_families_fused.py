@@ -350,7 +350,9 @@ def test_launch_passes_each_family_its_arrays(case, monkeypatch):
     csrc/admm_fused.cu: one entry for every solve, the family counts, a
     slack and a dual for each family that is on and null for the others,
     the carry on a warm solve only, and the new carry with exactly the
-    problem's fields. All zero counts select the box-only kernel."""
+    problem's fields. All zero counts at (12, 4) select the box-only
+    solve's own entry, tinympc_admm_group (csrc/admm_group.cu), which takes
+    the carry and no family arrays."""
     if case == "box":
         s = tt.systems.quadrotor_20hz()
         pt = tt.with_bounds(tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"],
@@ -379,7 +381,16 @@ def test_launch_passes_each_family_its_arrays(case, monkeypatch):
         seen.append((warm, counts))
         return 0
 
+    def group_entry(*args):
+        assert len(args) == 24
+        warm = args[0]
+        assert all((args[19][k] is not None) == bool(warm)
+                   for k in range(12))
+        seen.append((warm, [0] * 6))
+        return 0
+
     monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    monkeypatch.setattr(admm_fused, "_group_fn", lambda: group_entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:

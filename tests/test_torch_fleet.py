@@ -310,20 +310,20 @@ def test_kernel_path_pads_gathers_and_scatters(warm, monkeypatch):
 
 
 def test_launch_passes_the_block_systems_to_the_multi_entry(monkeypatch):
-    """The launch glue against a stand-in for tinympc_admm_fused_multi: the
-    single-system arguments, then the block systems and the stride of one
-    table, then the stream; the single-system solve keeps its entry."""
+    """The launch glue against a stand-in for the box solve's entry,
+    tinympc_admm_group (csrc/admm_group.cu), which takes the multi-system
+    launch too: the single-system arguments, then the systems of the
+    128-lane tiles and the stride of one table, then the saved columns
+    (none at this horizon) and the stream; no other entry is called."""
     pt = _port(_quads(scales=(1.0, 1.01)))
     seen = []
 
-    def entry(multi):
-        def fn(*args):
-            seen.append((multi, len(args), args[27:29] if multi else None))
-            return 0
-        return fn
+    def fn(*args):
+        seen.append((True, len(args), args[20:23]))
+        return 0
 
-    monkeypatch.setattr(admm_fused, "_kernel_fn",
-                        lambda multi=False: entry(multi))
+    monkeypatch.setattr(admm_fused, "_group_fn", lambda: fn)
+    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda multi=False: None)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -335,7 +335,7 @@ def test_launch_passes_the_block_systems_to_the_multi_entry(monkeypatch):
     admm_fused._solve_systems_kernel(tables, x0, bk, N, 12, 4, **params)
     stride = admm_fused._table_floats(12, 4, N)
     assert tables.shape == (2, stride)
-    assert seen == [(True, 30, (bk.block_sys.data_ptr(), stride))]
+    assert seen == [(True, 24, (bk.block_sys.data_ptr(), stride, None))]
     assert bk.block_sys.tolist() == [0, 1, 1]
     assert admm_fused.multi_launch_count == 1
 

@@ -4,276 +4,294 @@
 // Replaces the TPU kernel tinympc_tpu/kernels/closed_loop_pallas.py:_kernel
 // (launched by closed_loop_fused). For every plant and every step: a
 // warm-started ADMM solve on the window Xref_total[step : step+N] (the
-// iteration of admm_sweep.cuh), then the applied input u0 -- the raw
+// iteration of admm_group.cuh), then the applied input u0 -- the raw
 // forward-pass u[0] of the converging iteration, or of the last one for a
-// lane that ran out of iterations -- steps the plant x+ = A x + B u0 + f.
+// plant that ran out of iterations -- steps the plant x+ = A x + B u0 + f.
 // Options: reset_duals zeroes g and y before each solve; shift_warm drops
 // row 0 of every carried array and repeats the last row after each solve.
 //
-// Design (the first, simple one):
-//   * One thread per plant runs all T steps, and inside each step its own
-//     ADMM loop until it converges or reaches max_iter. A lane's result
-//     never depends on its neighbours (the TPU kernel freezes converged
-//     lanes by snapshot), so no block-wide exit or barrier is needed after
-//     the tables are loaded.
-//   * The shared matrices, the bounds and the reference trajectory (when it
-//     fits) sit in shared memory. Threads are at different steps, so the
-//     per-step terms -(Xref .* Q) and -Pinf^T Xref[step+N-1] are formed per
-//     thread from the trajectory, never as one block-wide table per step.
-//   * The plant state x, the applied input u0, the terminal term
-//     vnew[N-1] - g[N-1] and -Pinf^T Xref[step+N-1] live in registers.
-//   * Per-lane trajectories live lane-last in device memory: vnew
-//     (2, N, nx, B), znew (2, N-1, nu, B), g, y, vstale, zstale, d. A
-//     per-thread parity `c` names the half that holds the carried slack;
-//     iteration `it` of a step writes half c^1^(it&1), so iteration 0 reads
-//     the carried slack as "previous" and no end-of-step copy is needed.
-//     vstale/zstale hold what iteration 0's dual residual compares against
-//     (closed_loop_pallas.py:216-217): after a step, the previous slack of
-//     the converging iteration, or the last half for a max-iter lane.
-//   * 32 threads a block, so that B=16384 plants (512 warps) spread over
-//     all 132 SMs.
+// What bounds it on an H100: operations. The serving loop (nx=12, nu=4,
+// N=10, B=16384 plants, T=50, ~14.9 mean iterations a step) does ~4.5k FMA
+// a plant and iteration, 1.9868 ms at the FP32 peak of 67 TFLOP/s; its
+// bytes (x0, the reference, the outputs) take ~0.06 ms. The first design
+// (one thread a plant, 32 a block, trajectories lane-last in device memory)
+// took 41.3163 ms on an NVIDIA H100 80GB HBM3 at 700 W: ~4 warps an SM,
+// each thread running every iteration's serial chain of 16-row matvecs
+// alone, latency-bound.
 //
-// What bounds it on an H100: per lane and iteration at nx=12, nu=4, N=10
-// the sweeps are ~4.5k FMA (~110 GFLOP for 16384 plants x 50 steps x ~15
-// iterations: ~1.6 ms at the FP32 peak), but every iteration streams the
-// lane's ~2.6 KB of trajectories through device memory, and at B=16384 an
-// SM holds only ~4 warps, far too few to hide the serial chain of each
-// iteration: the kernel is latency-bound. Keeping the state on chip and
-// spreading a plant over several threads is later work.
+// Design (admm_group.cuh, as the resident solve in admm_group.cu):
+//   * One plant a group of G threads (16 at (12, 4): a thread a row), P
+//     plants a block (8 for the serving loop: 128 threads, 2048 blocks at
+//     B=16384). Each thread keeps its rows of the matrices in registers.
+//   * A plant's trajectories stay in shared memory for all T steps: the
+//     slack, dual and stale (saved) columns and the feedforward. Iteration
+//     0 of a step compares against the stale slack (closed_loop_pallas.py:
+//     216-217); a later check iteration saves the slack it overwrites, so
+//     after the step the saved column holds what the next step's iteration
+//     0 compares against: the previous slack of the converging iteration,
+//     unchanged if that was iteration 0, or -- copied from the slack -- the
+//     last slack of a plant that ran out (:255-290). One copy of each
+//     slack, no ping-pong, no end-of-step copy but that one.
+//   * The packed table (the matrices, the bounds) and the reference
+//     trajectory sit in shared memory beside the arena when they fit (the
+//     serving loop's N=10, T=50 with room to spare); past that, both are
+//     read from device memory, and past N = 1117 the saved columns too
+//     (Place, admm_group.cuh), as in admm_group.cu. Plants are at
+//     different iterations, so the per-step terms -(Xref .* Q) and
+//     -Pinf^T Xref[step+N-1] are formed per row from the trajectory. The
+//     plant step takes u0 from the input rows through the group's
+//     exchange slot.
+//   * The groups of a warp keep to one step and one iteration: a converged
+//     plant skips the iteration, and the warp leaves the step's loop on a
+//     check iteration once all of its plants have converged (a vote). A
+//     plant's result never depends on its neighbours.
+//
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section 6): the
+// serving loop 14.4464-14.7915 ms in turns with the first design's
+// 38.3238-39.2950 (chip_compare.py time), bitwise the first design's.
 //
 // C interface (loaded with ctypes): tinympc_closed_loop_fused_box returns
 // the cudaError_t of the launch; it launches on the given stream and never
 // synchronises.
-#include "admm_sweep.cuh"
+#include "admm_group.cuh"
 
 namespace {
 
+using tinympc::GroupArena;
+using tinympc::GroupSweep;
 using tinympc::Layout;
-using tinympc::NegRefWindow;
 using tinympc::Residuals;
-using tinympc::Tables;
 
-constexpr int kBlock = 32;
+using tinympc::Place;
 
-// Drop row 0 of lane b of a (rows, F, B) array and repeat the last row.
-template <int F>
-__device__ __forceinline__ void shift_lane(float* a, int rows, size_t sB,
-                                           int b) {
-  for (int i = 0; i + 1 < rows; ++i) {
-#pragma unroll
-    for (int k = 0; k < F; ++k)
-      a[(static_cast<size_t>(i) * F + k) * sB + b] =
-          a[(static_cast<size_t>(i + 1) * F + k) * sB + b];
-  }
-}
+constexpr int kGroup = 16;         // threads a plant: a row each at (12, 4)
+constexpr int kMaxThreads = 128;   // P * kGroup
+// Blocks an SM must hold: the register budget (5: at most 102 registers a
+// thread; at 6, 85, ptxas spills).
+constexpr int kMinBlocks = 5;
+constexpr size_t kMaxSmem = 232448;
 
-__device__ __forceinline__ void zero_lane(float* a, int n, size_t sB, int b) {
-  for (int k = 0; k < n; ++k) a[static_cast<size_t>(k) * sB + b] = 0.f;
-}
-
-template <int NX, int NU>
-__global__ void __launch_bounds__(kBlock) closed_loop_fused_box_kernel(
+// PLACE (tinympc::Place): kShared copies the packed table and the
+// reference trajectory into shared memory (their reads are then
+// shared-memory loads); kTableGlobal reads both in device memory;
+// kSavedGlobal also keeps the saved columns in `saved`, (grid, N,
+// P * (NX + NU)).
+template <int NX, int NU, int PLACE>
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks) closed_loop_group_kernel(
     const float* __restrict__ tables, const float* __restrict__ xref_total,
-    const float* __restrict__ x0, float* __restrict__ vnew,
-    float* __restrict__ znew, float* __restrict__ g, float* __restrict__ y,
-    float* __restrict__ vstale, float* __restrict__ zstale,
-    float* __restrict__ d, float* __restrict__ out_xs,
+    const float* __restrict__ x0, float* __restrict__ out_xs,
     float* __restrict__ out_us, int* __restrict__ out_iters,
     unsigned char* __restrict__ out_solved, int N, int B, int T,
     int max_iter, int check_termination, float rho, float tol_pri,
-    float tol_dua, bool reset_duals, bool shift_warm, bool xref_in_smem) {
-  extern __shared__ float sm[];
+    float tol_dua, bool reset_duals, bool shift_warm, int P,
+    float* __restrict__ saved) {
+  constexpr int G = kGroup;
+  using Sweep = GroupSweep<NX, NU, G>;
+  constexpr int R = Sweep::R;
+  extern __shared__ float4 sm4[];
+  float* sm = reinterpret_cast<float*>(sm4);
   const Layout L(NX, NU, N);
-  const int nref = (T + N - 1) * NX;
-  for (int k = threadIdx.x; k < L.total; k += blockDim.x) sm[k] = tables[k];
-  if (xref_in_smem)
+  const float* tab = tables;
+  const float* xtot = xref_total;
+  float* arena = sm;
+  if constexpr (PLACE == Place::kShared) {
+    const int nref = (T + N - 1) * NX;
+    for (int k = threadIdx.x; k < L.total; k += blockDim.x) sm[k] = tables[k];
     for (int k = threadIdx.x; k < nref; k += blockDim.x)
       sm[L.total + k] = xref_total[k];
+    tab = sm;
+    xtot = sm + L.total;
+    arena = sm + tinympc::align4(L.total + nref);
+  }
+  float* vg = nullptr;
+  if constexpr (PLACE == Place::kSavedGlobal)
+    vg = saved + blockIdx.x * GroupArena<NX, NU>::saved_floats(N, P);
   __syncthreads();
-  // -(Uref .* R) in place (closed_loop_pallas.py:133).
-  for (int k = threadIdx.x; k < (N - 1) * NU; k += blockDim.x)
-    sm[L.uref + k] = -(sm[L.uref + k] * sm[L.rd + k % NU]);
-  __syncthreads();
-
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;   // no barrier follows
-
-  const Tables t(sm, L);
-  const float* xtot = xref_in_smem ? sm + L.total : xref_total;
-  const float* qd = sm + L.qd;
-  const float* PinfT = sm + L.pinft;
-  const float* A = t.Mfwd + NU * NX;     // rows NU.. of [Kinf; A]
+  const int p = threadIdx.x / G, g = threadIdx.x % G;
+  const int b = blockIdx.x * P + p;
+  const bool plant = b < B;
+  Sweep sw(tab, L, arena, N, P, p, g, PLACE != Place::kSavedGlobal, vg);
   const size_t sB = static_cast<size_t>(B);
-  const size_t half_x = static_cast<size_t>(N) * NX * sB;
-  const size_t half_u = static_cast<size_t>(N - 1) * NU * sB;
-  const int nvx = N * NX, nvu = (N - 1) * NU;
+  // The lanes of this thread's warp: the vote below needs all of them.
+  const int wbase = threadIdx.x & ~31;
+  const int wsize = min(32, static_cast<int>(blockDim.x) - wbase);
+  const unsigned warp = wsize == 32 ? 0xffffffffu : (1u << wsize) - 1;
 
-  // Cold start (closed_loop_pallas.py:135-138): the carried half 1, g, y
-  // and the stale slacks are zero.
-  int c = 1;
-  zero_lane(vnew + half_x, nvx, sB, b);
-  zero_lane(znew + half_u, nvu, sB, b);
-  zero_lane(g, nvx, sB, b);
-  zero_lane(y, nvu, sB, b);
-  zero_lane(vstale, nvx, sB, b);
-  zero_lane(zstale, nvu, sB, b);
-  float x[NX];
+  // Cold start (closed_loop_pallas.py:135-138): slacks, duals and the
+  // stale slacks zero.
+  float x[R];
 #pragma unroll
-  for (int k = 0; k < NX; ++k) x[k] = x0[static_cast<size_t>(b) * NX + k];
+  for (int r = 0; r < R; ++r) {
+    x[r] = (plant && sw.state(r)) ? x0[static_cast<size_t>(b) * NX + sw.feat[r]]
+                               : 0.f;
+    if (plant)
+      for (int i = 0; i < sw.rows(r, N); ++i)
+        sw.slack(r, i) = sw.dual(r, i) = sw.saved(r, i) = 0.f;
+  }
 
   for (int step = 0; step < T; ++step) {
     // Per-step set-up (closed_loop_pallas.py:140-156): the window, the
-    // terminal reference term, done/iters, and the optional dual reset
-    // before the terminal carry term is formed.
+    // terminal reference term, and the optional dual reset before the
+    // terminal carry term is formed.
     const float* xwin = xtot + static_cast<size_t>(step) * NX;
-    float pnref[NX];
+    float pt0[R], dvgN[R], u0[R];
+    if (plant) {
 #pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      float acc = 0.f;
-#pragma unroll
-      for (int j = 0; j < NX; ++j)
-        acc = fmaf(PinfT[k * NX + j], xwin[(N - 1) * NX + j], acc);
-      pnref[k] = -acc;
-    }
-    if (reset_duals) {
-      zero_lane(g, nvx, sB, b);
-      zero_lane(y, nvu, sB, b);
-    }
-    float dvgN[NX];
-#pragma unroll
-    for (int k = 0; k < NX; ++k) {
-      const size_t a = (static_cast<size_t>(N - 1) * NX + k) * sB + b;
-      dvgN[k] = vnew[c * half_x + a] - g[a];
-    }
-    const NegRefWindow<NX> negxq{xwin, qd};
-    bool done = false;
-    int iters = 0;
-    float u0[NU];
-    for (int it = 0; it < max_iter; ++it) {
-      const int cur = c ^ 1 ^ (it & 1);
-      const bool checking = ((it + 1) % check_termination) == 0;
-      const float* vprev = vnew + (cur ^ 1) * half_x;
-      const float* zprev = znew + (cur ^ 1) * half_u;
-      const Residuals r = tinympc::admm_iteration<NX, NU>(
-          t, negxq, pnref, x, dvgN, vnew + cur * half_x, znew + cur * half_u,
-          vprev, zprev, it == 0 ? vstale : vprev, it == 0 ? zstale : zprev,
-          g, y, d, N, sB, b, rho, checking, u0);
-      iters = it + 1;
-      if (checking) {
-        done = (r.pri_s < tol_pri) && (r.pri_i < tol_pri) &&
-               (r.dua_s * rho < tol_dua) && (r.dua_i * rho < tol_dua);
-        if (done) break;
+      for (int r = 0; r < R; ++r) {
+        if (sw.state(r)) sw.ref[r] = xwin + sw.feat[r];
+        pt0[r] = sw.state(r) ? sw.pnref(r, tab + L.pinft, xwin + (N - 1) * NX)
+                          : 0.f;
+        if (reset_duals)
+          for (int i = 0; i < sw.rows(r, N); ++i) sw.dual(r, i) = 0.f;
+        dvgN[r] = sw.state(r) ? sw.slack(r, N - 1) - sw.dual(r, N - 1) : 0.f;
       }
     }
-
-    // End-of-step merge (closed_loop_pallas.py:255-290). The last-written
-    // half becomes the carried slack. The stale slacks become the previous
-    // slack of the converging iteration (unchanged if that was iteration
-    // 0), or the last half for a max-iter lane.
-    const int last = c ^ 1 ^ ((iters - 1) & 1);
-    if (!done || iters > 1) {
-      const int src = done ? last ^ 1 : last;
-      tinympc::copy_lane(vstale, vnew + src * half_x, nvx, sB, b);
-      tinympc::copy_lane(zstale, znew + src * half_u, nvu, sB, b);
+    bool done = !plant;
+    int iters = 0;
+    for (int it = 0; it < max_iter; ++it) {
+      const bool checking = ((it + 1) % check_termination) == 0;
+      if (!done) {
+        float pt[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) pt[r] = pt0[r] - rho * dvgN[r];
+        sw.backward(N, rho, pt);
+        const Residuals rr =
+            sw.template forward<true>(N, x, dvgN, checking, it == 0, u0);
+        iters = it + 1;
+        if (checking)
+          done = (rr.pri_s < tol_pri) && (rr.pri_i < tol_pri) &&
+                 (rr.dua_s * rho < tol_dua) && (rr.dua_i * rho < tol_dua);
+      }
+      if (checking && !__any_sync(warp, !done)) break;
     }
-    c = last;
-    if (shift_warm) {
-      shift_lane<NX>(vnew + c * half_x, N, sB, b);
-      shift_lane<NU>(znew + c * half_u, N - 1, sB, b);
-      shift_lane<NX>(g, N, sB, b);
-      shift_lane<NU>(y, N - 1, sB, b);
-      shift_lane<NX>(vstale, N, sB, b);
-      shift_lane<NU>(zstale, N - 1, sB, b);
+    if (!plant) continue;
+
+    // End-of-step merge (closed_loop_pallas.py:255-290): a plant that ran
+    // out hands its last slack to the next step's iteration 0; then the
+    // optional shift of every carried column.
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = sw.rows(r, N);
+      if (!done)
+        for (int i = 0; i < n; ++i) sw.saved(r, i) = sw.slack(r, i);
+      if (shift_warm)
+        for (int i = 0; i + 1 < n; ++i) {
+          sw.slack(r, i) = sw.slack(r, i + 1);
+          sw.dual(r, i) = sw.dual(r, i + 1);
+          sw.saved(r, i) = sw.saved(r, i + 1);
+        }
     }
 
-    // Record (:292-296), then step the plant with the applied input.
+    // Record (:292-296), then step the plant with the applied input:
+    // x+ = (A x + B u0) + f, its rows from the state threads' registers.
     const size_t o = static_cast<size_t>(step) * sB + b;
 #pragma unroll
-    for (int k = 0; k < NX; ++k) out_xs[o * NX + k] = x[k];
-#pragma unroll
-    for (int k = 0; k < NU; ++k) out_us[o * NU + k] = u0[k];
-    out_iters[o] = iters;
-    out_solved[o] = done ? 1 : 0;
-    float xn[NX];
-#pragma unroll
-    for (int row = 0; row < NX; ++row) {
-      float ax = 0.f, bu = 0.f;
-#pragma unroll
-      for (int cc = 0; cc < NX; ++cc) ax = fmaf(A[row * NX + cc], x[cc], ax);
-#pragma unroll
-      for (int cc = 0; cc < NU; ++cc) bu = fmaf(t.Bm[row * NU + cc], u0[cc], bu);
-      xn[row] = ax + bu + t.fv[row];
+    for (int r = 0; r < R; ++r) {
+      if (sw.state(r)) {
+        out_xs[o * NX + sw.feat[r]] = x[r];
+        sw.X[sw.feat[r]] = x[r];
+      } else {
+        out_us[o * NU + sw.feat[r]] = u0[r];
+        sw.X[NX + sw.feat[r]] = u0[r];
+      }
     }
+    if (g == 0) {
+      out_iters[o] = iters;
+      out_solved[o] = done ? 1 : 0;
+    }
+    sw.sync();
+    float xv[NX], uv[NU];
+    Sweep::load(xv, sw.X);
+    Sweep::load(uv, sw.X + NX);
 #pragma unroll
-    for (int k = 0; k < NX; ++k) x[k] = xn[k];
+    for (int r = 0; r < R; ++r)
+      if (sw.state(r)) x[r] = Sweep::dot(sw.f1[r], xv) + Sweep::dot(sw.bm[r], uv)
+                           + sw.fv[r];
+    sw.sync();
   }
+}
+
+// Shared memory of a launch: the table and the reference (kShared) and the
+// arena of P plants, with the saved columns but at kSavedGlobal.
+template <int NX, int NU>
+size_t smem_bytes(int N, int T, int P, int place) {
+  const int table = place == Place::kShared
+                        ? tinympc::align4(Layout(NX, NU, N).total +
+                                          (T + N - 1) * NX)
+                        : 0;
+  return (table + GroupArena<NX, NU>::floats(
+                      N, P, place != Place::kSavedGlobal)) *
+         sizeof(float);
 }
 
 template <int NX, int NU>
 cudaError_t launch(const float* tables, const float* xref_total,
-                   const float* x0, float* vnew, float* znew, float* g,
-                   float* y, float* vstale, float* zstale, float* d,
-                   float* out_xs, float* out_us, int* out_iters,
-                   unsigned char* out_solved, int N, int B, int T,
-                   int max_iter, int ct, float rho, float tol_pri,
-                   float tol_dua, bool reset_duals, bool shift_warm,
-                   cudaStream_t stream) {
-  constexpr size_t kMaxSmem = 227 * 1024;
-  const size_t base = Layout(NX, NU, N).total * sizeof(float);
-  const size_t with_ref =
-      base + static_cast<size_t>(T + N - 1) * NX * sizeof(float);
-  const bool xref_in_smem = with_ref <= kMaxSmem;
-  const size_t smem = xref_in_smem ? with_ref : base;
+                   const float* x0, float* out_xs, float* out_us,
+                   int* out_iters, unsigned char* out_solved, int N, int B,
+                   int T, int max_iter, int ct, float rho, float tol_pri,
+                   float tol_dua, bool reset_duals, bool shift_warm, int P,
+                   int place, float* saved, cudaStream_t stream) {
+  if (P < 1 || P * kGroup > kMaxThreads) return cudaErrorInvalidValue;
+  if (place == Place::kSavedGlobal ? !saved
+                                   : place != Place::kShared &&
+                                         place != Place::kTableGlobal)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<NX, NU>(N, T, P, place);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = closed_loop_fused_box_kernel<NX, NU>;
+  auto kernel =
+      place == Place::kShared
+          ? closed_loop_group_kernel<NX, NU, Place::kShared>
+          : place == Place::kTableGlobal
+                ? closed_loop_group_kernel<NX, NU, Place::kTableGlobal>
+                : closed_loop_group_kernel<NX, NU, Place::kSavedGlobal>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((B + kBlock - 1) / kBlock);
-  kernel<<<grid, kBlock, smem, stream>>>(
-      tables, xref_total, x0, vnew, znew, g, y, vstale, zstale, d, out_xs,
-      out_us, out_iters, out_solved, N, B, T, max_iter, ct, rho, tol_pri,
-      tol_dua, reset_duals, shift_warm, xref_in_smem);
+  const dim3 grid((B + P - 1) / P);
+  kernel<<<grid, P * kGroup, smem, stream>>>(
+      tables, xref_total, x0, out_xs, out_us, out_iters, out_solved, N, B,
+      T, max_iter, ct, rho, tol_pri, tol_dua, reset_duals, shift_warm, P,
+      saved);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int tinympc_closed_loop_fused_block() { return kBlock; }
+extern "C" int tinympc_closed_loop_fused_max_threads() { return kMaxThreads; }
+extern "C" int tinympc_closed_loop_fused_width() { return kGroup; }
+// Bytes of shared memory of a launch at (N, T, P, place) at (12, 4); the
+// wrapper holds its own geometry against it.
+extern "C" long long tinympc_closed_loop_fused_smem(int N, int T, int P,
+                                                    int place) {
+  return static_cast<long long>(smem_bytes<12, 4>(N, T, P, place));
+}
 
 // Returns 0 on success, a cudaError_t otherwise; cudaErrorInvalidValue for
-// an (nx, nu) pair this file does not instantiate or a bad size.
-// xref_total is (T + N - 1, nx); x0 (B, nx); scratch vnew (2, N, nx, B),
-// znew (2, N-1, nu, B), g/vstale (N, nx, B), y/zstale/d (N-1, nu, B);
+// an (nx, nu) this file does not instantiate or a bad size or geometry.
+// problems: P, plants a block (P * 16 <= 128); place: a tinympc::Place,
+// with `saved` a (ceil(B / P), N, P * (nx + nu)) float buffer at
+// kSavedGlobal (else unused). xref_total is (T + N - 1, nx); x0 (B, nx);
 // outputs xs (T, B, nx), us (T, B, nu), iters (T, B) int32, solved (T, B)
 // uint8.
 extern "C" int tinympc_closed_loop_fused_box(
-    int nx, int nu, int N, int B, int T, int max_iter, int check_termination,
-    float rho, float tol_pri, float tol_dua, int reset_duals, int shift_warm,
-    const void* tables, const void* xref_total, const void* x0, void* vnew,
-    void* znew, void* g, void* y, void* vstale, void* zstale, void* d,
-    void* out_xs, void* out_us, void* out_iters, void* out_solved,
-    void* stream) {
+    int nx, int nu, int problems, int place, int N, int B, int T,
+    int max_iter, int check_termination, float rho, float tol_pri,
+    float tol_dua, int reset_duals, int shift_warm, const void* tables,
+    const void* xref_total, const void* x0, void* out_xs, void* out_us,
+    void* out_iters, void* out_solved, void* saved, void* stream) {
   if (N < 2 || B < 1 || T < 1 || max_iter < 1 || check_termination < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-#define TINYMPC_LAUNCH(NX_, NU_)                                              \
-  if (nx == NX_ && nu == NU_)                                                 \
-    return static_cast<int>(launch<NX_, NU_>(                                 \
-        static_cast<const float*>(tables),                                    \
-        static_cast<const float*>(xref_total),                                \
-        static_cast<const float*>(x0), static_cast<float*>(vnew),             \
-        static_cast<float*>(znew), static_cast<float*>(g),                    \
-        static_cast<float*>(y), static_cast<float*>(vstale),                  \
-        static_cast<float*>(zstale), static_cast<float*>(d),                  \
-        static_cast<float*>(out_xs), static_cast<float*>(out_us),             \
-        static_cast<int*>(out_iters),                                         \
-        static_cast<unsigned char*>(out_solved), N, B, T, max_iter,           \
-        check_termination, rho, tol_pri, tol_dua, reset_duals != 0,           \
-        shift_warm != 0, static_cast<cudaStream_t>(stream)));
-  TINYMPC_LAUNCH(12, 4)   // the quadrotor of the serving loop
-#undef TINYMPC_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (nx != 12 || nu != 4)   // the quadrotor of the serving loop
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch<12, 4>(
+      static_cast<const float*>(tables),
+      static_cast<const float*>(xref_total), static_cast<const float*>(x0),
+      static_cast<float*>(out_xs), static_cast<float*>(out_us),
+      static_cast<int*>(out_iters), static_cast<unsigned char*>(out_solved),
+      N, B, T, max_iter, check_termination, rho, tol_pri, tol_dua,
+      reset_duals != 0, shift_warm != 0, problems, place,
+      static_cast<float*>(saved), static_cast<cudaStream_t>(stream)));
 }

@@ -5,9 +5,13 @@
 fixed-rho problems in one launch of the hand-written CUDA kernel
 ``csrc/admm_fused.cu``; :func:`solve_fused_warm` does the same from a
 warm-start :class:`FusedCarry` and hands the next one back (the
-external-plant receding-horizon pattern). The kernel replaces the TPU
+external-plant receding-horizon pattern). The kernels replace the TPU
 kernel ``admm_pallas._make_kernel`` for those variants. Box bounds at
-(12, 4) run on its box-only instantiation; problems with second-order
+(12, 4) at fixed rho, the main path, run on ``csrc/admm_group.cu``: a
+problem a group of :data:`GROUP` threads, its trajectories in shared
+memory for the whole solve (the one-launch fleet too, a system a 128-lane
+tile). Every other problem runs an instantiation of the one-thread-a-
+problem kernel ``csrc/admm_fused.cu``: problems with second-order
 cones, hyperplanes or time-varying hyperplanes, and every problem at
 (6, 3), run on its families instantiation (a box-only one with zero family
 counts); under adaptive rho (``Settings.adaptive_rho``) box problems at
@@ -43,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -57,7 +62,25 @@ from ..types import (ADAPTIVE_RHO_PERIOD, Cache, Solution, TinyProblem,
 from . import _build
 
 KERNEL = "admm_fused"
-BLOCK = 128                          # threads (= problems) per block
+# Threads (= problems) per block of csrc/admm_fused.cu, and the lanes of a
+# multi-system launch's tile: each system's lanes are padded to whole
+# tiles, one block_sys entry a tile.
+BLOCK = 128
+# The box-only fixed-rho solve runs csrc/admm_group.cu: a problem a group
+# of GROUP threads, at most GROUP_PROBLEMS problems a block (fewer where
+# the shared memory a block may have holds fewer; group_geometry). The
+# closed loop (csrc/closed_loop_fused.cu) shares both.
+GROUP_KERNEL = "admm_group"
+GROUP = 16                           # csrc/admm_group.cu kGroup
+GROUP_MAX_THREADS = 128              # csrc/admm_group.cu kMaxThreads
+GROUP_PROBLEMS = GROUP_MAX_THREADS // GROUP
+# Where a group launch keeps what its block's shared memory cannot hold
+# (csrc/admm_group.cuh Place), in the order group_geometry tries them: the
+# table (the closed loop's: and its reference) and the arena in shared
+# memory; the table in device memory; the saved slack columns as well, in
+# a (blocks, N, P * (nx + nu)) device-memory buffer (a warm solve or the
+# closed loop past N = 1117 at (12, 4)).
+PLACE_SHARED, PLACE_TABLE_GLOBAL, PLACE_SAVED_GLOBAL = 0, 1, 2
 KERNEL_DIMS = ((12, 4),)             # (nx, nu) of the box-only kernel
 FAMILY_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of the families kernel
 ADAPTIVE_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of adaptive rho
@@ -85,6 +108,11 @@ consensus_warm_launch_count = 0
 # instantiation but consensus, cold and warm.
 multi_launch_count = 0
 multi_warm_launch_count = 0
+# Launches by C entry: the box-only fixed-rho solve's (single and
+# multi-system) is tinympc_admm_group, every other instantiation's
+# tinympc_admm_fused or tinympc_admm_fused_multi.
+entry_counts = dict.fromkeys(("tinympc_admm_group", "tinympc_admm_fused",
+                              "tinympc_admm_fused_multi"), 0)
 
 
 class Adaptive(NamedTuple):
@@ -195,6 +223,81 @@ def smem_bytes(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
         nx, nu, N, fam, adapt, consensus))
     lanes = 3 * nu * BLOCK if consensus else 0
     return 4 * (floats + nx * (1 if adapt is None else 2) + lanes)
+
+
+def group_arena_floats(N: int, P: int, saved: bool, nx: int = 12,
+                       nu: int = 4) -> int:
+    """Floats of the shared-memory arena of P problems of the group kernels
+    (``GroupArena`` of csrc/admm_group.cuh): the exchange slots, the slack,
+    dual and -- with ``saved`` (a warm solve or the closed loop, but at
+    :data:`PLACE_SAVED_GLOBAL`) -- saved columns of every row, and the
+    input rows' feedforward."""
+    slot = -(-(nx + 2 * nu) // 4) * 4
+    return P * slot + (3 if saved else 2) * N * P * (nx + nu) \
+        + (N - 1) * P * nu
+
+
+def _align4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def group_smem(N: int, P: int, place: int, save: bool, table: int,
+               nx: int = 12, nu: int = 4) -> int:
+    """Bytes of shared memory of a group launch of P problems at ``place``:
+    the ``table`` floats (the packed table; the closed loop's and its
+    reference), 16-byte aligned, at :data:`PLACE_SHARED`, and the arena,
+    with the saved columns where ``save`` and they are not in device
+    memory (csrc/admm_group.cu and csrc/closed_loop_fused.cu smem_bytes)."""
+    return 4 * ((_align4(table) if place == PLACE_SHARED else 0)
+                + group_arena_floats(
+                    N, P, save and place != PLACE_SAVED_GLOBAL, nx, nu))
+
+
+def group_geometry(N: int, save: bool, table: Optional[int] = None,
+                   nx: int = 12, nu: int = 4):
+    """The launch of a group kernel for horizon N: ``(P, place, smem)`` --
+    problems a block (a power of two at most :data:`GROUP_PROBLEMS`, so
+    that a block lies inside one 128-lane tile of a fleet), where it keeps
+    its table and saved columns (``PLACE_*``), and the bytes of shared
+    memory (:func:`group_smem`). ``save``: a warm solve or the closed
+    loop, which keep a saved slack column a row; ``table``: the floats a
+    block copies at :data:`PLACE_SHARED`, by default the packed table of
+    csrc/admm_group.cu. The first place that fits, each with P halved as
+    far as 1: the table in shared memory beside the arena; the arena alone;
+    and, with ``save``, the arena without the saved columns (to N = 1613
+    at (12, 4), past every horizon :func:`fused_supported` takes)."""
+    if table is None:
+        table = _table_floats(nx, nu, N)
+    places = (PLACE_SHARED, PLACE_TABLE_GLOBAL) \
+        + ((PLACE_SAVED_GLOBAL,) if save else ())
+    for place in places:
+        P = GROUP_PROBLEMS
+        while P >= 1:
+            smem = group_smem(N, P, place, save, table, nx, nu)
+            if smem <= SMEM_LIMIT:
+                return P, place, smem
+            P //= 2
+    raise ValueError(
+        f"at N={N} one problem's trajectories take "
+        f"{group_smem(N, 1, places[-1], save, table, nx, nu)} B of shared "
+        f"memory, more than the {SMEM_LIMIT} B a block may have")
+
+
+def group_grid(B: int, P: int) -> int:
+    """Blocks of a group launch: one a P problems, the last ragged."""
+    return -(-B // P)
+
+
+def group_saved(x0: torch.Tensor, N: int, P: int, place: int, nx: int,
+                nu: int) -> Optional[torch.Tensor]:
+    """The device-memory buffer of a launch's saved columns at
+    :data:`PLACE_SAVED_GLOBAL` (a block's (N, P * (nx + nu)) slice each),
+    else None: the only scratch a group launch allocates, past the
+    horizons where one problem's columns fit a block's shared memory."""
+    if place != PLACE_SAVED_GLOBAL:
+        return None
+    return torch.empty(group_grid(x0.shape[0], P) * N * P * (nx + nu),
+                       dtype=torch.float32, device=x0.device)
 
 
 def _check_problem(prob: TinyProblem) -> None:
@@ -1198,6 +1301,9 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
     does not keep. ``block_sys`` (int32, a system for each block of
     :data:`BLOCK` lanes) makes it the multi-system launch: ``tables`` then
     holds one packed table per system."""
+    if _instantiation(nx, nu, fam, adapt, cons) == "box":
+        return _launch_group(tables, x0, N, nx, nu, carry, max_iter, ct, rho,
+                             tol_pri, tol_dua, block_sys)
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     consensus = cons is not None
@@ -1266,6 +1372,8 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
     if err != 0:
         raise RuntimeError(f"admm_fused kernel launch failed: CUDA error "
                            f"{err}")
+    entry_counts["tinympc_admm_fused" if block_sys is None
+                 else "tinympc_admm_fused_multi"] += 1
     sol = Solution(iter=buf["iters"], solved=buf["solved"], x=buf["out_x"],
                    u=buf["out_u"])
     if carry is None:
@@ -1274,6 +1382,130 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
         out["rho"] = buf["res"][4:5].clone()
     return sol, buf["res"], FusedCarry(g=buf["g"], y=buf["y"], **out,
                                        **duals)
+
+
+def _supported_horizons(nx: int, nu: int):
+    """Every N the box-only fused solve takes at (nx, nu): its tables fit a
+    block's shared memory (:func:`_check`)."""
+    N = 2
+    while smem_bytes(nx, nu, N) <= SMEM_LIMIT:
+        yield N
+        N += 1
+
+
+def check_group_geometry(smem_fn, table_fn=None, nx: int = 12,
+                         nu: int = 4, kinds=(False, True)) -> None:
+    """Hold :func:`group_geometry` against a library's own count of the
+    shared memory of a launch, ``smem_fn(N, P, place, kind)``, at every
+    supported horizon and each of ``kinds`` (``save`` unless ``table_fn``
+    maps a kind to the table floats of the closed loop's launch, which
+    always saves): raise ``RuntimeError`` where they disagree, before a
+    launch fails on it."""
+    for N in _supported_horizons(nx, nu):
+        for kind in kinds:
+            save = True if table_fn else kind
+            table = table_fn(N, kind) if table_fn else None
+            P, place, smem = group_geometry(N, save, table, nx, nu)
+            got = smem_fn(N, P, place, kind)
+            if got != smem:
+                raise RuntimeError(
+                    f"the kernel counts {got} B of shared memory at N={N}, "
+                    f"P={P}, place {place}, the wrapper {smem}: their "
+                    "arena layouts disagree")
+
+
+@functools.lru_cache(maxsize=None)
+def _group_fn():
+    """The C entry point of csrc/admm_group.cu, ``tinympc_admm_group``,
+    built and loaded on first use, its block, group width, tile and shared
+    memory held against this module's."""
+    lib = _build.load(GROUP_KERNEL)
+    if (lib.tinympc_admm_group_max_threads() != GROUP_MAX_THREADS
+            or lib.tinympc_admm_group_width() != GROUP
+            or lib.tinympc_admm_group_tile() != BLOCK):
+        raise RuntimeError("csrc/admm_group.cu and admm_fused disagree on "
+                           "the block size, the group or the fleet's tile")
+    lib.tinympc_admm_group_smem.restype = ctypes.c_longlong
+    check_group_geometry(lambda N, P, place, warm:
+                         lib.tinympc_admm_group_smem(N, P, place, int(warm)))
+    fn = lib.tinympc_admm_group
+    # warm nx nu problems place N B max_iter ct | rho tol_pri tol_dua |
+    # tables x0, 5 outputs | carry array | block systems, table stride |
+    # saved columns, the stream
+    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [_PTR] * 7
+                   + [_PTRS, _PTR, ctypes.c_int, _PTR, _PTR])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _group_buffers(x0, N, nx, nu, warm: bool):
+    """What a launch of csrc/admm_group.cu allocates: the outputs and, warm,
+    the carry out. No trajectory scratch: its trajectories stay in shared
+    memory (but the saved columns past N = 1117, :func:`group_saved`)."""
+    dev, B = x0.device, x0.shape[0]
+    kw = dict(dtype=torch.float32, device=dev)
+    buf = dict(out_x=torch.empty((N, B, nx), **kw),
+               out_u=torch.empty((N - 1, B, nu), **kw),
+               iters=torch.empty(B, dtype=torch.int32, device=dev),
+               solved=torch.empty(B, dtype=torch.bool, device=dev),
+               res=torch.empty((4, B), **kw))
+    if warm:
+        buf.update({f"carry_{k}": torch.empty(
+            (N, nx, B) if k in _STATE_FIELDS else (N - 1, nu, B), **kw)
+            for k in _GROUP_CARRY_OUT})
+    return buf
+
+
+# The carry out of csrc/admm_group.cu, in its argument order.
+_GROUP_CARRY_OUT = ("vnew", "znew", "v", "z", "g", "y")
+
+
+def _launch_group(tables, x0, N, nx, nu, carry, max_iter, ct, rho, tol_pri,
+                  tol_dua, block_sys=None):
+    """Launch csrc/admm_group.cu, the box-only fixed-rho solve, on the
+    current stream of x0's device: cold when ``carry`` is None, else warm;
+    with ``block_sys`` (int32, a system for each 128-lane tile) the
+    multi-system launch. Returns ``(Solution, residuals, carry' or
+    None)``."""
+    dev, B = x0.device, x0.shape[0]
+    f32 = torch.float32
+    _check_arg(x0, (B, nx), f32, dev)
+    stride = _table_floats(nx, nu, N)
+    if block_sys is not None:
+        _check_arg(block_sys, (-(-B // BLOCK),), torch.int32, dev)
+        if tables.numel() % stride:
+            raise ValueError("stacked tables must be whole system tables")
+    else:
+        _check_arg(tables, (stride,), f32, dev)
+    warm = carry is not None
+    P, place, _ = group_geometry(N, warm, None, nx, nu)
+    buf = _group_buffers(x0, N, nx, nu, warm)
+    saved = group_saved(x0, N, P, place, nx, nu)
+    ptrs = [None] * 12
+    if warm:
+        for name, shape in _carry_shapes(N, nx, nu, B).items():
+            _check_arg(getattr(carry, name), shape, f32, dev)
+        ptrs = [getattr(carry, k) for k in BOX_CARRY_FIELDS] + [
+            buf["carry_" + k] for k in _GROUP_CARRY_OUT]
+    fn = _group_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(int(warm), nx, nu, P, place, N, B, max_iter, ct, rho,
+                 tol_pri, tol_dua, tables.data_ptr(), x0.data_ptr(),
+                 *(buf[k].data_ptr() for k in ("out_x", "out_u", "iters",
+                                               "solved", "res")),
+                 _ptr_array(ptrs),
+                 None if block_sys is None else block_sys.data_ptr(), stride,
+                 None if saved is None else saved.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"admm_group kernel launch failed: CUDA error "
+                           f"{err}")
+    entry_counts["tinympc_admm_group"] += 1
+    sol = Solution(iter=buf["iters"], solved=buf["solved"], x=buf["out_x"],
+                   u=buf["out_u"])
+    out = None if not warm else FusedCarry(**{
+        k: buf["carry_" + k] for k in _GROUP_CARRY_OUT})
+    return sol, buf["res"], out
 
 
 def _count(kind: str, warm: bool) -> None:

@@ -16,17 +16,18 @@ int32, solved (T, B) bool; float32 throughout. Any B is taken.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from ..types import TinyProblem
 from . import _build
-from .admm_fused import (_check, _check_arg, _prepare, _solve_plain,
-                         _table_slice, _unpack_tables, _zero_carry,
-                         shift_carry)
+from .admm_fused import (GROUP, GROUP_MAX_THREADS, _check, _check_arg,
+                         _prepare, _solve_plain, _table_slice,
+                         _unpack_tables, _zero_carry, check_group_geometry,
+                         group_geometry, group_saved, shift_carry)
 
 KERNEL = "closed_loop_fused"
-BLOCK = 32                           # threads (= plants) per block
 KERNEL_DIMS = ((12, 4),)             # (nx, nu) csrc/closed_loop_fused.cu
 #                                      instantiates
 
@@ -183,19 +184,38 @@ def _loop_plain(tables, xtot, x0, T, N, nx, nu, *, reset_duals, shift_warm,
 _PTR = ctypes.c_void_p
 
 
+def _table_floats(N: int, T: int, nx: int = 12, nu: int = 4) -> int:
+    """Floats a block copies into shared memory at ``PLACE_SHARED``: the
+    packed table and the reference trajectory (T + N - 1 rows)."""
+    return _table_slice("umax", nx, nu, N).stop + (T + N - 1) * nx
+
+
+def loop_geometry(N: int, T: int, nx: int = 12, nu: int = 4):
+    """The launch of csrc/closed_loop_fused.cu: ``(P, place, smem)``, as
+    :func:`~.admm_fused.group_geometry` gives it for a kernel that keeps
+    saved columns and copies the table and the reference."""
+    return group_geometry(N, True, _table_floats(N, T, nx, nu), nx, nu)
+
+
+@functools.lru_cache(maxsize=None)
 def _kernel_fn():
     """The C entry point of csrc/closed_loop_fused.cu, built and loaded on
-    first use."""
+    first use, its block, group width and shared memory held against the
+    wrapper's."""
     lib = _build.load(KERNEL)
-    if lib.tinympc_closed_loop_fused_block() != BLOCK:
-        raise RuntimeError("csrc/closed_loop_fused.cu and "
-                           "closed_loop_fused.BLOCK disagree on the block "
-                           "size")
+    if (lib.tinympc_closed_loop_fused_max_threads() != GROUP_MAX_THREADS
+            or lib.tinympc_closed_loop_fused_width() != GROUP):
+        raise RuntimeError("csrc/closed_loop_fused.cu and the wrapper "
+                           "disagree on the block size or the group")
+    lib.tinympc_closed_loop_fused_smem.restype = ctypes.c_longlong
+    check_group_geometry(
+        lambda N, P, place, T: lib.tinympc_closed_loop_fused_smem(
+            N, T, P, place), _table_floats, kinds=(1, 50, 1000))
     fn = lib.tinympc_closed_loop_fused_box
-    # nx nu N B T max_iter ct | rho tol_pri tol_dua | reset shift |
-    # 14 buffers, the stream
-    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 3
-                   + [ctypes.c_int] * 2 + [_PTR] * 15)
+    # nx nu plants place N B T max_iter ct | rho tol_pri tol_dua | reset
+    # shift | tables xref x0, 4 outputs, saved columns, the stream
+    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 2 + [_PTR] * 9)
     fn.restype = ctypes.c_int
     return fn
 
@@ -203,34 +223,31 @@ def _kernel_fn():
 def _loop_kernel(tables, xtot, x0, T, N, nx, nu, *, max_iter, ct, rho,
                  tol_pri, tol_dua, reset_duals, shift_warm):
     """Launch csrc/closed_loop_fused.cu on the current stream of x0's
-    device. Outputs and scratch are allocated here; the kernel initialises
-    the scratch it reads."""
+    device. Only the outputs are allocated: the plants' trajectories stay
+    in shared memory (but the saved columns past N = 1117,
+    :func:`~.admm_fused.group_saved`)."""
     global launch_count
     dev, B = x0.device, x0.shape[0]
     f32 = torch.float32
     _check_arg(x0, (B, nx), f32, dev)
     _check_arg(xtot, (T + N - 1, nx), f32, dev)
     _check_arg(tables, (_table_slice("umax", nx, nu, N).stop,), f32, dev)
+    P, place, _ = loop_geometry(N, T, nx, nu)
     kw = dict(dtype=f32, device=dev)
-    scratch = [torch.empty((2, N, nx, B), **kw),      # vnew halves
-               torch.empty((2, N - 1, nu, B), **kw),  # znew halves
-               torch.empty((N, nx, B), **kw),         # g
-               torch.empty((N - 1, nu, B), **kw),     # y
-               torch.empty((N, nx, B), **kw),         # vstale
-               torch.empty((N - 1, nu, B), **kw),     # zstale
-               torch.empty((N - 1, nu, B), **kw)]     # d
     xs = torch.empty((T, B, nx), **kw)
     us = torch.empty((T, B, nu), **kw)
     iters = torch.empty((T, B), dtype=torch.int32, device=dev)
     solved = torch.empty((T, B), dtype=torch.bool, device=dev)
+    saved = group_saved(x0, N, P, place, nx, nu)
     fn = _kernel_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(nx, nu, N, B, T, max_iter, ct, rho, tol_pri, tol_dua,
-                 int(reset_duals), int(shift_warm), tables.data_ptr(),
-                 xtot.data_ptr(), x0.data_ptr(),
-                 *(a.data_ptr() for a in scratch), xs.data_ptr(),
-                 us.data_ptr(), iters.data_ptr(), solved.data_ptr(), stream)
+        err = fn(nx, nu, P, place, N, B, T, max_iter, ct, rho, tol_pri,
+                 tol_dua, int(reset_duals), int(shift_warm),
+                 tables.data_ptr(), xtot.data_ptr(), x0.data_ptr(),
+                 xs.data_ptr(), us.data_ptr(), iters.data_ptr(),
+                 solved.data_ptr(),
+                 None if saved is None else saved.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"closed_loop_fused kernel launch failed: CUDA "
                            f"error {err}")

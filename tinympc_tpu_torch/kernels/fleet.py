@@ -4,10 +4,12 @@
 A fleet is many problems over a few systems: each problem (a lane) names
 its system in a host ``(B,)`` assignment array. :func:`make_fleet_solver`
 builds a reusable solver that runs the whole fleet in one multi-system
-launch of ``csrc/admm_fused.cu`` (:func:`~.admm_fused.solve_fused_multi`'s
-launch): the lanes are gathered into the system-major layout, each
-system's lanes padded to whole blocks of 128 so that a block loads one
-system's table, and the results scattered back into fleet order. The JAX
+launch (:func:`~.admm_fused.solve_fused_multi`'s launch: box-only
+problems at fixed rho on ``csrc/admm_group.cu``, every other on
+``csrc/admm_fused.cu``): the lanes are gathered into the system-major
+layout, each system's lanes padded to whole tiles of 128 lanes so that a
+block (128 problems, or a thread group's 8, which divide the tile) loads
+one system's table, and the results scattered back into fleet order. The JAX
 package dispatches one launch a system bucket instead, because its
 single-launch variant measured slower on the TPU, where selecting a tile's
 system defeated Mosaic's hoisting; on the GPU every block loads its own
