@@ -13,8 +13,10 @@ assignments; the multi-system launch), the families kernel
 cold and warm (the rocket's cones at N=10; the quadrotor's static and
 time-varying hyperplanes under low z ceilings), the families kernel with
 consensus (128 groups of 8), the fused closed loop (T=10), the streamed
-kernels cold and warm (box at N=64, the rocket's cones at N=32, consensus
-at N=10), and, at B=64, the long horizons where the thread-group kernels
+kernels cold and warm (box at N=64, and at N=256 on 256 lanes and N=1300,
+past the resident kernel's wall, on 64; the rocket's box alone at N=32, a
+box problem at (6, 3); the rocket's cones at N=32, consensus at N=10),
+and, at B=64, the long horizons where the thread-group kernels
 keep their table and saved columns in device memory (box cold at N=700,
 two warm solves at N=1100 and at N=1150, closed loops at N=700 and
 N=1150 with T=2), and writes every output and carry field. ``diff``
@@ -35,7 +37,8 @@ such files says, for each label both have, whether the ptxas figures and
 the instructions are the same, and exits non-zero when any differs.
 
     python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
-                                 [loop=B,B,...] [profile]
+                                 [loop=B,B,...] [stream=B,B,...] [dot]
+                                 [profile]
 
 ``time`` times the main path's kernel (bench.py's batch: the quadrotor at
 20 Hz, N=20, box +-5 / +-0.5, hover, x0 ~ U[-0.5, 0.5] from
@@ -44,8 +47,18 @@ default_rng(0), max_iter 100, check_termination 25) at each batch of
 carry (``init_carry``) at each batch of ``warm`` (default none), and the
 fused closed loop (bench_all.py:569-596:
 N=10, hover z=1, x0 ~ U[-0.3, 0.3], T=50, max_iter 100, ct 5) at each
-batch of ``loop`` (default none): ``TIME_REPS`` launches on CUDA events
-after one to warm up. It prints one JSON line a configuration with every
+batch of ``loop`` (default none), and the streamed solve's forward
+launch (examples/long_horizon.py's size: the quadrotor at N=512, box
++-5 / +-0.5, hover z=1, x0 ~ U[-0.3, 0.3] from default_rng(0), ct 1; and
+the rocket with its box alone at N=512, a box problem at (6, 3), x0 the
+descent's start times U[0.9, 1.2]; the launch of iteration 0 on a fresh
+state after its backward launch, every lane running) with the backward
+launch beside it, at each batch of
+``stream`` (default none), and with ``dot`` the roofline tool's
+independent bf16 dot probe (L=95 dots on the TPU probe's inputs, one rep:
+depth 36 on 32768 lanes, depth 96 on 16384) beside one ``torch.matmul`` of
+the same sum on float32 and on bf16 operands: ``TIME_REPS`` launches on
+CUDA events after one to warm up. It prints one JSON line a configuration with every
 time, the median, the mean iterations, the time a lane-iteration (the
 kernel's time over the iterations its lanes ran, summed), the card's name
 and power limit and its SM clock sampled just after. ``profile`` adds the
@@ -80,7 +93,7 @@ def _quad(tt, torch, N, max_iter=100, ct=1):
     return tt.with_settings(p, max_iter=max_iter, check_termination=ct)
 
 
-def _rocket(tt, torch, N):
+def _rocket(tt, torch, N, cones=True):
     s = tt.systems.rocket_landing_20hz()
     p = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=N,
                  f=s["f"], dtype=torch.float32, device=DEVICE)
@@ -88,8 +101,9 @@ def _rocket(tt, torch, N):
         p, x_min=np.tile([-5, -5, -0.5, -10, -10, -20.], (N, 1)),
         x_max=np.tile([5, 5, 100, 10, 10, 20.], (N, 1)), u_min=-10.0,
         u_max=105.0)
-    p = tt.with_cones(p, state_cones=[(0, 3, 0.25)],
-                      input_cones=[(0, 3, 0.5)])
+    if cones:
+        p = tt.with_cones(p, state_cones=[(0, 3, 0.25)],
+                          input_cones=[(0, 3, 0.5)])
     return tt.with_settings(p, max_iter=100, check_termination=1,
                             abs_pri_tol=2e-3)
 
@@ -210,12 +224,19 @@ def save(path):
         out.update({f"long{N}.closed_loop.{k}": v for k, v in zip(
             ("xs", "us", "iters", "solved"), loop)})
     streamed = [("box", _quad(tt, torch, 64, 20), x_q, hover(64), None),
+                ("box256", _quad(tt, torch, 256, 20), x_q[:256].contiguous(),
+                 hover(256), None),
+                ("box1300", _quad(tt, torch, 1300, 12, 3), x_l, hover(1300),
+                 None),
+                ("rocket_box", _rocket(tt, torch, 32, cones=False), x_r,
+                 *descent(32)),
                 ("rocket_soc", _rocket(tt, torch, 32), x_r, *descent(32)),
                 ("consensus", tree, x_g, hover(10), None)]
     for name, prob, x0, Xref, Uref in streamed:
         out.update(_flat(f"streamed.{name}.cold", kern.solve_fused_streamed(
             prob, Xref, Uref, x0)))
-        c = tt.init_carry(prob, B)
+        c = tt.init_carry(prob, x0.shape[0] * (
+            x0.shape[1] if x0.dim() == 3 else 1))
         out.update(_flat(f"streamed.{name}.warm",
                          kern.solve_fused_streamed_warm(prob, Xref, Uref,
                                                         x0, c)))
@@ -267,10 +288,12 @@ def _device_times(torch, run):
     return out or None
 
 
-def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=()):
+def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
+                 stream=(), dot=False):
     import torch
     import tinympc_tpu_torch as tt
-    from tinympc_tpu_torch.kernels import admm_fused, closed_loop_kernel
+    from tinympc_tpu_torch.kernels import admm_fused, admm_stream, \
+        closed_loop_kernel
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(dtype=torch.float32, device=DEVICE)
     card = _smi("name,power.limit")
@@ -329,6 +352,70 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=()):
             "times_ms": times, "mean_iters": lane_iters / (B_ * T),
             "us_per_lane_iter": 1e3 * ms / lane_iters, "card": card,
             "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+    N = 512
+    xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
+    for B_, system in ((b, sy) for b in stream
+                       for sy in ("quadrotor", "rocket_box")):
+        rng = np.random.default_rng(0)
+        if system == "quadrotor":
+            prob = _quad(tt, torch, N, max_iter=20, ct=1)
+            x0 = torch.as_tensor(rng.uniform(-0.3, 0.3, (B_, 12)), **kw)
+            Xref = torch.zeros((N, 12), **kw)
+            Xref[:, 2] = 1.0
+            Uref = None
+        else:
+            prob = tt.with_settings(_rocket(tt, torch, N, cones=False),
+                                    max_iter=20)
+            x0 = torch.as_tensor(xinit * rng.uniform(0.9, 1.2, (B_, 1)), **kw)
+            Xref = torch.as_tensor(np.linspace(xinit, np.zeros(6), N), **kw)
+            Uref = torch.zeros((N - 1, 3), **kw)
+            Uref[:, 2] = 10.0
+        nx, nu = prob.spec.nx, prob.spec.nu
+        tables, x0c, _, params = admm_stream._prepare(prob, Xref, Uref, x0)
+        kw_ = {k: v for k, v in params.items() if k != "max_iter"}
+        times = {"backward": [], "forward": []}
+        for rep in range(TIME_REPS + 1):
+            # A fresh state each launch: iteration 0, every lane running.
+            s = admm_stream._init(x0c, N, nx, nu, None, params["fam"])
+            run = admm_stream._KERNELS(tables, x0c, s, None, N, nx, nu,
+                                       **kw_)
+            for name, fn in (("backward", lambda: run.backward(1)),
+                             ("forward", lambda: run.forward(0, False))):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                if rep:     # the first launch of each warms up
+                    times[name].append(start.elapsed_time(end))
+            del s, run
+        print(json.dumps({
+            "kind": "stream_forward", "system": system, "N": N, "B": B_,
+            "ms": statistics.median(times["forward"]),
+            "times_ms": times["forward"],
+            "backward_ms": statistics.median(times["backward"]),
+            "launch_counts": {k: v for k, v in
+                              admm_stream.launch_counts.items() if v},
+            "card": card,
+            "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+    for depth, lanes in ((36, 32768), (96, 16384)) if dot else ():
+        from tinympc_tpu_torch.kernels import roofline as rf
+        L = 95
+        M, Ms, v = rf.dot_inputs(L, depth, lanes, "bf16", DEVICE)
+        ms, times = _timed(torch, lambda: rf.run_dot(M, Ms, v, False, 1),
+                           TIME_REPS)
+        mcat = Ms.float().permute(1, 0, 2).reshape(depth, L * depth)
+        ys = v.to(torch.bfloat16).float().repeat(L, 1)
+        lib = _timed(torch, lambda: torch.matmul(mcat, ys), TIME_REPS)[0]
+        mb, yb = mcat.to(torch.bfloat16), ys.to(torch.bfloat16)
+        lib_b = _timed(torch, lambda: torch.matmul(mb, yb), TIME_REPS)[0]
+        print(json.dumps({
+            "kind": "dot_independent_bf16", "L": L, "depth": depth,
+            "lanes": lanes, "ms": ms, "times_ms": times,
+            "matmul_f32_ms": lib, "matmul_bf16_ms": lib_b, "card": card,
+            "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+        del M, Ms, v, mcat, ys, mb, yb
 
 
 def build_report(path):
@@ -418,8 +505,13 @@ if __name__ == "__main__":
                     for a in sys.argv[2:])
         batches = lambda key, dflt: tuple(
             int(b) for b in opts[key].split(",")) if key in opts else dflt
-        time_kernels(batches("cold", (TIME_B,)), batches("loop", ()),
-                     "profile" in opts, batches("warm", ()))
+        # cold defaults to the main path's batch unless only another
+        # kind is asked for
+        only = any(k in opts for k in ("warm", "loop", "stream", "dot"))
+        time_kernels(batches("cold", () if only else (TIME_B,)),
+                     batches("loop", ()),
+                     "profile" in opts, batches("warm", ()),
+                     batches("stream", ()), "dot" in opts)
         sys.exit(0)
     if len(sys.argv) == 4 and sys.argv[1] == "diff":
         sys.exit(diff(sys.argv[2], sys.argv[3]))

@@ -127,8 +127,8 @@ moved to the host):
 1. card: name and power limit (nvidia-smi); TF32 off;
 2. build: compile every csrc/*.cu for sm_90a, one nvcc each, together
    (timed, set-up), with each kernel's ptxas register and spill lines (a
-   families, streamed, thread-group or closed-loop kernel that spills
-   fails the run);
+   families, streamed, thread-group, closed-loop or tensor-core probe
+   kernel that spills fails the run);
 3. cold kernel against its plain version at B=1000 (ragged) and 1024,
    check_termination 25 and 1; and against the port's admm.solve at B=256;
 4. cold main path at B=32768 and bench.py's two other regimes, each
@@ -917,6 +917,12 @@ def kernel_label(fn):
     a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
     adapt = "" if a is None else \
         "adaptive apply_c" if a[1] == "1" else "adaptive"
+    m = re.search(r"stream_forward_team_kernelILi(\d+)ELi(\d+)E", fn)
+    if m:
+        return f"admm_stream forward team ({m[1]}, {m[2]})"
+    m = re.search(r"dot_independent_mma_kernelILi(\d+)E", fn)
+    if m:
+        return f"roofline dot independent bf16 mma ({m[1]})"
     m = re.search(r"stream_(backward|forward)_kernelILi(\d+)ELi(\d+)E"
                   r"Lb([01])E(?:Lb([01])E)?", fn)
     if m:
@@ -1476,11 +1482,50 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
                 converged=int(s["done"].sum().item()))
 
 
+# The launch counts of the streamed forward kernel on lane teams
+# (csrc/admm_stream_team.cuh): box problems at fixed rho.
+TEAM_KEYS = ("forward_team", "forward_team_stale")
+
+
+def team_route(prob):
+    """Whether a problem's streamed forward launches run on lane teams: a
+    box problem at fixed rho without consensus."""
+    spec = prob.spec
+    return not (prob.settings.adaptive_rho or spec.any_extra_family
+                or spec.en_consensus)
+
+
 def stream_keys(prob):
     """The launch counts of the streamed kernels a problem runs: backward,
-    forward and stale forward, adaptive or not."""
+    forward and stale forward (on lane teams for a box problem at fixed
+    rho), adaptive or not."""
     sfx = "_adaptive" if prob.settings.adaptive_rho else ""
-    return (f"backward{sfx}", f"forward{sfx}", f"forward{sfx}_stale")
+    fwd = "forward_team" if team_route(prob) else f"forward{sfx}"
+    return (f"backward{sfx}", fwd, f"{fwd}_stale")
+
+
+def took_route(ast, label, prob):
+    """Fail the run unless the streamed forward launches since the counts
+    were last zeroed took the problem's route: the team entry alone for a
+    box problem at fixed rho, the one-thread forward kernel alone for any
+    other (families, adaptive rho, consensus)."""
+    c = ast.launch_counts
+    team = sum(c[k] for k in TEAM_KEYS)
+    other = sum(v for k, v in c.items()
+                if k.startswith("forward") and k not in TEAM_KEYS)
+    want = "lane teams" if team_route(prob) else "one thread a lane"
+    ok = (team > 0 and other == 0) if team_route(prob) else \
+        (team == 0 and other > 0)
+    fwd = {k: v for k, v in c.items() if k.startswith("forward") and v}
+    log(f"  {label}: forward launches {fwd} (want {want})")
+    fail(f"{label} route", ok, f"forward launches {fwd}, {want} expected")
+
+
+def team_lanes(ast, spec):
+    """The lanes a block of the team forward launch holds at the spec's
+    (nx, nu), as csrc/admm_stream.cu counts them."""
+    return ast._build.load(ast.KERNEL).tinympc_stream_team_lanes(spec.nx,
+                                                                 spec.nu)
 
 
 def stream_drive(ctx, label, prob, Xref, Uref, x0, carry=None):
@@ -1496,6 +1541,7 @@ def stream_drive(ctx, label, prob, Xref, Uref, x0, carry=None):
     if launches[0] < 1 or launches[1] + launches[2] < 1:
         raise AssertionError(f"{label} did not launch the streamed "
                              "kernels")
+    took_route(ctx.ast, label, prob)
     spec, B = prob.spec, x0.shape[0]
     if out[0].x.shape != (spec.N, B, spec.nx) or \
             out[0].u.shape != (spec.N - 1, B, spec.nu):
@@ -1539,6 +1585,8 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
                     ctx.peak_bw)
     its = launches[0]
     kernel_ms = its * (lt["bwd_ms"] + lt["fwd_ms"])
+    fwd_lanes = team_lanes(ctx.ast, spec) if team_route(prob) else \
+        ctx.admm_fused.BLOCK
     res_txt = ""
     if resident is not None:
         res_ms = cuda_ms(torch, resident, 3)[0]
@@ -1563,8 +1611,8 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
         f"{iter_sum / B:.4f}, solved frac "
         f"{sol.solved.float().mean().item():.5f}, "
         f"{B / (solve_ms / 1e3):.1f} solves/s{res_txt}; {B} lanes fill "
-        f"{-(-B // ctx.admm_fused.BLOCK)} blocks on 132 SMs; card "
-        f"{ctx.card}")
+        f"{-(-B // ctx.admm_fused.BLOCK)} backward and {-(-B // fwd_lanes)} "
+        f"forward blocks on 132 SMs; card {ctx.card}")
     return lt, b_bwd, b_fwd
 
 
@@ -1613,10 +1661,11 @@ def streamed_phases(ctx):
                                     ms=lt["bwd_ms"],
                                     plain_ms=lt["plain_bwd_ms"],
                                     bound_ms=b_bwd[0], bound_by=b_bwd[1])
-            rows["forward"] = dict(launches=launches[1], err=lt["err_f"],
-                                   ms=lt["fwd_ms"],
-                                   plain_ms=lt["plain_fwd_ms"],
-                                   bound_ms=b_fwd[0], bound_by=b_fwd[1])
+            rows["forward_team"] = dict(launches=launches[1],
+                                        err=lt["err_f"], ms=lt["fwd_ms"],
+                                        plain_ms=lt["plain_fwd_ms"],
+                                        bound_ms=b_fwd[0],
+                                        bound_by=b_fwd[1])
 
     # 18. examples/long_horizon.py:78-97, warm: 5 solves of a plant
     phase(f"phase 18: long horizon warm, N={LH_N}, B={LH_B}, 5 warm solves "
@@ -1638,11 +1687,11 @@ def streamed_phases(ctx):
         carries.append(c_k)
         x = x @ prob.A.T + sol_k.u[0] @ prob.B.T
     torch.cuda.synchronize()
-    warm_launches = tuple(ast.launch_counts[k] for k in (
-        "backward", "forward", "forward_stale"))
+    warm_launches = tuple(ast.launch_counts[k] for k in stream_keys(prob))
     if warm_launches[2] < 5:
         raise AssertionError("the warm long-horizon sequence did not launch "
                              "the stale forward kernel")
+    took_route(ast, "long horizon warm sequence", prob)
     # The plain version on the first and the fifth solve, each from the
     # kernel's carry in (a plain warm solve at N=512 takes ~10 s).
     err_w = 0.0
@@ -1663,14 +1712,16 @@ def streamed_phases(ctx):
     lt, _, b_stale = report("long horizon warm (the fifth solve)", prob,
                             Xref, None, states[-1], sols[-1], launches5,
                             carry=carries[-2])
-    rows["forward_stale"] = dict(launches=warm_launches[2],
-                                 err=max(err_w, lt["err_f"]), ms=lt["fwd_ms"],
-                                 plain_ms=lt["plain_fwd_ms"],
-                                 bound_ms=b_stale[0], bound_by=b_stale[1])
+    rows["forward_team_stale"] = dict(
+        launches=warm_launches[2], err=max(err_w, lt["err_f"]),
+        ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"], bound_ms=b_stale[0],
+        bound_by=b_stale[1])
 
-    # 19. bench_all.py:343-367, rocket SOC full descent
+    # 19. bench_all.py:343-367, rocket SOC full descent; then as an
+    # external-plant sequence of 2 warm solves (the one-thread forward
+    # kernel and its stale launch, which the families run)
     phase(f"phase 19: rocket SOC full descent, N={LH_SOC_N}, B={LH_B}, "
-          f"max_iter {LH_ITER}")
+          f"max_iter {LH_ITER}, cold and 2 warm solves")
     prob = rocket_problem(tt, torch, LH_ITER, 1, N=LH_SOC_N)
     x0, Xref, Uref = rocket_descent_inputs(torch, LH_B, LH_SOC_N)
     label = f"rocket SOC N={LH_SOC_N}"
@@ -1679,8 +1730,39 @@ def streamed_phases(ctx):
               kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
     sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
     compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
-    report(label, prob, Xref, Uref, x0, sol_k, launches,
-           resident=resident(prob, Xref, Uref, x0))
+    lt, _, b_fwd = report(label, prob, Xref, Uref, x0, sol_k, launches,
+                          resident=resident(prob, Xref, Uref, x0))
+    rows["forward"] = dict(launches=launches[1], err=lt["err_f"],
+                           ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"],
+                           bound_ms=b_fwd[0], bound_by=b_fwd[1])
+    c_k = c_r = tt.init_carry(prob, LH_B)
+    x = x0
+    for step in range(2):
+        zero_counts(counters)
+        out_k = kern.solve_fused_streamed_warm(prob, Xref, Uref, x, c_k)
+        torch.cuda.synchronize()
+        took_route(ast, f"{label} warm step {step}", prob)
+        stale = ast.launch_counts["forward_stale"]
+        out_r = kern.solve_fused_warm(prob, Xref, Uref, x, c_r)
+        same_bits(torch, f"{label} warm step {step}", out_k, out_r,
+                  "solve_fused_warm")
+        x_prev, c_prev = x, c_k
+        c_k, c_r = out_k[2], out_r[2]
+        x = x @ prob.A.T + out_k[0].u[0] @ prob.B.T + prob.f
+    sol_p, _, c_p = plain_wide(torch, ref_warm, prob, Xref, Uref, x_prev,
+                               c_prev)
+    err_w = max(compare(torch, f"{label} warm step 1 vs plain", out_k[0],
+                        sol_p),
+                compare_carry(torch, f"{label} warm step 1 vs plain", c_k,
+                              c_p, torch.ones(LH_B, dtype=torch.bool,
+                                              device=DEVICE)))
+    launches = drive(f"{label} warm", prob, Xref, Uref, x_prev, c_prev)[1]
+    lt, _, b_stale = report(f"{label} warm (the second solve)", prob, Xref,
+                            Uref, x_prev, out_k[0], launches, carry=c_prev)
+    rows["forward_stale"] = dict(
+        launches=stale, err=max(err_w, lt["err_f"]), ms=lt["fwd_ms"],
+        plain_ms=lt["plain_fwd_ms"], bound_ms=b_stale[0],
+        bound_by=b_stale[1])
 
     # 20. bench_all.py:503-518, N=256 to convergence, mixed x0 scales
     phase(f"phase 20: long horizon to convergence, N={LH_CONV_N}, "
@@ -1695,20 +1777,23 @@ def streamed_phases(ctx):
     same_bits(torch, label, (sol_k, res_k),
               kern.solve_fused(prob, None, None, x0), "solve_fused")
     its = launches[0]
-    # Iterations in which a lane, a warp (32 lanes) or a block had a lane
-    # running: a converged lane returns at once, a warp runs while one of
+    # Iterations in which a lane, a warp (32 lanes), a backward block or a
+    # forward block (a team of lanes) had a lane running: a converged lane
+    # returns at once from the backward launch, a warp runs while one of
     # its lanes does, a block returns at once when all of its lanes have.
+    team = team_lanes(ast, prob.spec)
     busy = {n: int(sol_k.iter.reshape(-1, n).amax(dim=1).sum().item())
-            for n in (1, 32, admm_fused.BLOCK)}
+            for n in (1, team, 32, admm_fused.BLOCK)}
     share = {n: busy[n] * n / (its * LH_CONV_B) for n in busy}
     log(f"  {label}: solved frac {sol_k.solved.float().mean().item():.5f}, "
         f"mean iters {sol_k.iter.float().mean().item():.4f}, loop ran {its} "
         f"of {LH_CONV_ITER} iterations ({2 * its} launches, "
         f"{2 * (LH_CONV_ITER - its)} saved by the stop once every lane is "
         f"done); share of the launches' lane-iterations run by a running "
-        f"lane {share[1]:.4f}, by a warp with a running lane "
-        f"{share[32]:.4f}, by a block with one {share[admm_fused.BLOCK]:.4f} "
-        f"(the rest returned at once)")
+        f"lane {share[1]:.4f}, by a forward block ({team} lanes) with one "
+        f"{share[team]:.4f}, by a warp of the backward launch with a "
+        f"running lane {share[32]:.4f}, by a backward block with one "
+        f"{share[admm_fused.BLOCK]:.4f} (the rest returned at once)")
     report(label, prob, None, None, x0, sol_k, launches,
            resident=resident(prob, None, None, x0))
 
@@ -2223,6 +2308,7 @@ def stream_consensus_small(torch, tt, ast, counters):
         if ast.launch_counts["forward_consensus"] < 1:
             raise AssertionError(f"{label} did not launch the streamed "
                                  "consensus kernels")
+        took_route(ast, f"{label} streamed cold", prob)
         same_bits(torch, f"{label} streamed cold", cold,
                   kern.solve_fused(prob, Xref, Uref, x), "solve_fused")
         sol_p, res_p = plain_groups(torch, ref, prob, Xref, Uref, x)
@@ -2261,7 +2347,7 @@ WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
                "adaptive_families_warm_launch_count",
                "consensus_warm_launch_count")
 STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
-                "forward_adaptive_stale")
+                "forward_adaptive_stale", "forward_team_stale")
 
 
 def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, **kw):
@@ -2434,6 +2520,8 @@ def compaction_phases(ctx):
     for be in ("streamed", "resident"):
         out[be], phases = drive(f"N={LH_CONV_N} {be} compaction", prob, x0,
                                 chunk=COMPACT_CHUNK, backend=be)
+        if be == "streamed":
+            took_route(ast, f"N={LH_CONV_N} streamed compaction", prob)
         same_bits(torch, f"N={LH_CONV_N} {be} compaction", out[be], long,
                   "phase 20's long solve_fused_streamed")
     auto = compact._backend(prob, "auto")
@@ -2525,6 +2613,7 @@ def compaction_phases(ctx):
     if min(launches) < 1 or stale < 1:
         raise AssertionError("the G=16 batch did not launch the streamed "
                              "consensus kernels")
+    took_route(ast, f"G={G} streamed solve", prob)
     same_bits(torch, f"G={G} streamed solve", s_cold,
               kern.solve_fused(prob, Xref, None, x0), "solve_fused")
     t = {name: statistics.median(host_ms(torch, fn)[0] for _ in range(3))
@@ -2999,10 +3088,10 @@ def adaptive_stream_phases(ctx):
     return rows
 
 
-def sass_ffma(path):
-    """FFMA instructions in each function of a built library's SASS
-    (cuobjdump -sass), by mangled name; None where cuobjdump cannot read
-    it."""
+def sass_counts(path):
+    """FFMA and HMMA instructions in each function of a built library's
+    SASS (cuobjdump -sass), by mangled name, as {"FFMA": n, "HMMA": m};
+    None where cuobjdump cannot read it."""
     import shutil
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     try:
@@ -3015,9 +3104,11 @@ def sass_ffma(path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and re.search(r"\bFFMA\b", line):
-            counts[cur] += 1
+            counts[cur] = {"FFMA": 0, "HMMA": 0}
+        elif cur is not None:
+            for op in ("FFMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
     return counts
 
 
@@ -3056,23 +3147,36 @@ def roofline_phase(ctx):
     torch, rf, tool, card = ctx.torch, ctx.rf, ctx.tool, ctx.card
     phase("phase 38: roofline probes vs plain versions, then "
           "tools/roofline.py's configs")
-    counts = sass_ffma(ctx.build.library_path(rf.KERNEL))
+    counts = sass_counts(ctx.build.library_path(rf.KERNEL))
     if counts is None:
         log("  SASS: cuobjdump could not read the probes' library; the "
             "reps scaling below stands for the check")
     else:
         for fn, n in sorted(counts.items()):
-            m = re.search(r"dot_(chained|independent)_kernelILi(\d+)ELb([01])",
+            # The CUDA-core dots: one product's depth^2 FFMA at least. The
+            # tensor-core dots: one matrix's mma.sync tiles at least, a
+            # warp's 32 lanes being 4 tiles of 8 and the padded depth
+            # P = 16 ceil(depth / 16) (P / 16)^2 tiles of 16 x 16 each.
+            m = re.search(r"dot_(chained|independent)_kernelILi(\d+)E(Lb([01]))?",
                           fn)
-            if not m:
-                continue
-            d = int(m[2])
-            operand = "bf16" if m[3] == "1" else "f32"
-            log(f"  SASS dot {m[1]} depth {d} {operand}: {n} FFMA (one "
-                f"product is {d * d})")
-            fail(f"SASS dot {m[1]} {d}", n >= d * d,
-                 f"{n} FFMA, fewer than one product's {d * d}: the loop "
-                 "was collapsed")
+            t = re.search(r"dot_independent_mma_kernelILi(\d+)E", fn)
+            if m:
+                d = int(m[2])
+                operand = "bf16" if m[4] == "1" else "f32"
+                log(f"  SASS dot {m[1]} depth {d} {operand}: {n['FFMA']} "
+                    f"FFMA (one product is {d * d})")
+                fail(f"SASS dot {m[1]} {d}", n["FFMA"] >= d * d,
+                     f"{n['FFMA']} FFMA, fewer than one product's {d * d}: "
+                     "the loop was collapsed")
+            elif t:
+                d = int(t[1])
+                need = (-(-d // 16)) ** 2 * 4
+                log(f"  SASS dot independent depth {d} bf16 (tensor "
+                    f"cores): {n['HMMA']} HMMA (one matrix is {need} "
+                    f"m16n8k16 tiles a warp), {n['FFMA']} FFMA")
+                fail(f"SASS dot independent mma {d}", n["HMMA"] >= need,
+                     f"{n['HMMA']} HMMA, fewer than one matrix's {need}: "
+                     "not on the tensor cores, or the loop was collapsed")
 
     def hold_dot(label, L, depth, lanes, chained, reps, operand):
         """The kernel against the plain version on inputs whose chain stays
@@ -3204,9 +3308,19 @@ def roofline_phase(ctx):
             lib_ms = tool.cuda_ms(lambda: torch.matmul(mcat, ystack), REPS)
             lib = torch.matmul(mcat, ystack)
             log(f"  library torch.matmul (depth x L*depth) @ (L*depth x "
-                f"lanes): {lib_ms:.4f} ms, max rel diff from the kernel "
+                f"lanes), float32 operands holding bf16 values, float32 "
+                f"out: {lib_ms:.4f} ms, max rel diff from the kernel "
                 f"{((lib - k).abs() / k.abs()).max().item():.3e}")
-            del mcat, ystack, lib
+            # The same product on bf16 operands (cuBLAS on the tensor
+            # cores, float32 accumulation, bf16 out): a second yardstick,
+            # logged beside the first, not the kernels line's.
+            mb, yb = mcat.to(torch.bfloat16), ystack.to(torch.bfloat16)
+            lib_bf16_ms = tool.cuda_ms(lambda: torch.matmul(mb, yb), REPS)
+            lib_b = torch.matmul(mb, yb)
+            log(f"  library torch.matmul on bf16 operands, {lib_b.dtype} "
+                f"out: {lib_bf16_ms:.4f} ms, max rel diff from the kernel "
+                f"{((lib_b.float() - k).abs() / k.abs()).max().item():.3e}")
+            del mcat, ystack, lib, mb, yb, lib_b
         log(f"  {key} (bf16, L={L}, depth {depth}, {lanes} lanes, one rep): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {ops / 1e9:.2f} GFLOP at the "
@@ -3685,7 +3799,8 @@ def main():
                 f"{e.get('spill_st')} / {e.get('spill_ld')} bytes spill "
                 f"stores / loads")
             if "families" in label or "admm_stream" in label \
-                    or "admm_group" in label or "closed_loop" in label:
+                    or "admm_group" in label or "closed_loop" in label \
+                    or "mma" in label:
                 fail(f"ptxas {label}", e.get("stack") == 0
                      and e.get("spill_st") == 0 and e.get("spill_ld") == 0,
                      "the kernel spills or uses local memory")
@@ -4217,12 +4332,19 @@ def main():
     rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", cons_rows[key])
              for key in ("consensus", "consensus_warm")]
-    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
-              rep, stream_rows[key])
-             for key, rep in (
-                 ("backward", "tinympc_tpu/kernels/admm_stream.py:121"),
-                 ("forward", "tinympc_tpu/kernels/admm_stream.py:258"),
-                 ("forward_stale", "tinympc_tpu/kernels/admm_stream.py:258"))]
+    rows += [(f"admm_stream_{key}", f"tinympc_tpu_torch/csrc/{src}", rep,
+              stream_rows[key])
+             for key, src, rep in (
+                 ("backward", "admm_stream.cu",
+                  "tinympc_tpu/kernels/admm_stream.py:121"),
+                 ("forward_team", "admm_stream_team.cuh",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_team_stale", "admm_stream_team.cuh",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward", "admm_stream.cu",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_stale", "admm_stream.cu",
+                  "tinympc_tpu/kernels/admm_stream.py:258"))]
     rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
               rep, compact_rows[key])
              for key, rep in (

@@ -60,6 +60,57 @@ def test_dot_probe_matches_the_jax_probe(jax_tool, chained, L, reps):
                                rtol=8e-3 if chained else 1e-5)
 
 
+def mma_dot_emulation(Ms, v, reps):
+    """The independent bf16 dots in the tile order of csrc/roofline.cu's
+    dot_independent_mma_kernel, on the CPU: depth padded with zeros to a
+    multiple of 16; each rep's operand bf16(v + r); each matrix's dot
+    formed from zero over its k16 chunks (a chunk's 16 products, exact in
+    float64, added to the dot so far and rounded to float32, as the tensor
+    core's accumulate rounds to within its own last bits), then added to
+    the float32 sum with an IEEE add, rep then matrix."""
+    L, D, _ = Ms.shape
+    P = -(-D // 16) * 16
+    Mp = torch.zeros((L, P, P), dtype=torch.float64)
+    Mp[:, :D, :D] = Ms.double()
+    acc = torch.zeros((P, v.shape[1]))
+    for r in range(reps):
+        y = torch.zeros((P, v.shape[1]), dtype=torch.float64)
+        y[:D] = (v + r).to(torch.bfloat16).double()
+        for k in range(L):
+            dot = torch.zeros_like(acc)
+            for c in range(0, P, 16):
+                dot = (dot.double() + Mp[k, :, c:c + 16] @ y[c:c + 16]).float()
+            acc = acc + dot
+    return acc[:D]
+
+
+@pytest.mark.parametrize("depth,L,reps", [(36, 95, 1), (36, 7, 3),
+                                          (96, 95, 1), (96, 4, 2)])
+def test_mma_tile_order_holds_to_the_plain_version(depth, L, reps):
+    """The tensor-core kernel's order (zero padding to 16, each matrix's
+    dot from zero in k16 chunks, then the sum) against the plain version
+    on the inputs chip_smoke.py holds the kernel on, at the TPU probe's
+    full L = 95 and short ones, depths 36 (padded to 48) and 96: rtol
+    1e-5, chip_smoke.py's bar, with no absolute floor."""
+    M, Ms, v = rf.held_dot_inputs(L, depth, 200, "bf16", device="cpu")
+    got = mma_dot_emulation(Ms, v, reps)
+    want = rf.dot_probe_reference(M, Ms, v, False, reps).double()
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), atol=0,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("L,reps", [(4, 2), (3, 3)])
+def test_mma_tile_order_matches_the_jax_probe(jax_tool, L, reps):
+    """The same order on the TPU probe's own inputs against tools/roofline.
+    py's dot_kernel in interpret mode, independent dots at depth 36: rtol
+    1e-5, as the plain version is held."""
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_tool.dot_kernel(L, 36, 128, False, reps)())
+    _, Ms, v = rf.dot_inputs(L, 36, 128, "bf16", "cpu")
+    np.testing.assert_allclose(mma_dot_emulation(Ms, v, reps).numpy(), want,
+                               atol=0, rtol=1e-5)
+
+
 @pytest.mark.parametrize("passes,reductions,reps", [(8, 4, 2), (8, 0, 2),
                                                     (0, 4, 2), (3, 1, 1)])
 def test_elementwise_probe_matches_the_jax_probe_bitwise(

@@ -147,12 +147,14 @@ def test_streamed_on_cpu_returns_the_public_layout():
 
 
 class _Entries:
-    """Stand-ins for tinympc_stream_backward / tinympc_stream_forward: they
-    record what each launch is given and write nothing; ``active`` says
-    what the forward launch of a check iteration leaves in the flag."""
+    """Stand-ins for tinympc_stream_backward / tinympc_stream_forward /
+    tinympc_stream_forward_team: they record what each launch is given and
+    write nothing; ``active`` says what the forward launch of a check
+    iteration leaves in the flag; ``stale_v`` is the address of the carried
+    v, which a team launch's dual residual reads in its stale launch."""
 
     def __init__(self, active=0):
-        self.calls, self.active = [], active
+        self.calls, self.active, self.stale_v = [], active, None
 
     def backward(self, *args):
         assert len(args) == 18
@@ -183,12 +185,24 @@ class _Entries:
             ctypes.c_int.from_address(args[22]).value = self.active
         return 0
 
+    def team(self, *args):
+        assert len(args) == 23
+        assert all(p is not None for p in args[9:22])
+        it, ct = args[4], args[5]
+        # no family arrays and no tracked x/u: a box problem's
+        self.calls.append(("fwd", it, args[11] == self.stale_v, False,
+                           [False] * 12))
+        if (it + 1) % ct == 0:
+            ctypes.c_int.from_address(args[21]).value = self.active
+        return 0
+
 
 @pytest.fixture
 def entries(monkeypatch):
     e = _Entries()
     monkeypatch.setattr(admm_stream, "_kernel_fns",
                         lambda: (e.backward, e.forward))
+    monkeypatch.setattr(admm_stream, "_team_fn", lambda: e.team)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -206,7 +220,9 @@ def test_host_loop_launches_the_kernels(make, entries):
     it is on, the stale forward kernel on a warm solve's first iteration
     only, x/u tracked on warm family solves only, the counters counted,
     and the loop stopped after the first check iteration whose flag reads
-    0 (here ct 2: after iteration 1)."""
+    0 (here ct 2: after iteration 1). The box problem's forward launches
+    take the team entry (its stale launch reads the carried v), counted
+    under forward_team / forward_team_stale."""
     p = make(max_iter=5, check_termination=2)
     spec = p.spec
     B = 3
@@ -217,6 +233,7 @@ def test_host_loop_launches_the_kernels(make, entries):
     admm_stream._loop(tables, x0, None, spec, admm_stream._KERNELS,
                       **params)
     carry = admm_fused._carry_tensors(p, init_carry(p, B), B)
+    entries.stale_v = carry.v.data_ptr()
     _, _, out = admm_stream._loop(tables, x0, carry, spec,
                                   admm_stream._KERNELS, **params)
     tracked = any(fam)
@@ -225,11 +242,10 @@ def test_host_loop_launches_the_kernels(make, entries):
         ("bwd", list(fam), on), ("fwd", 1, False, False, on),
         ("bwd", list(fam), on), ("fwd", 0, True, tracked, on),
         ("bwd", list(fam), on), ("fwd", 1, False, tracked, on)]
-    assert admm_stream.launch_counts == {
-        "backward": 4, "forward": 3, "forward_stale": 1,
-        "backward_consensus": 0, "forward_consensus": 0,
-        "forward_consensus_stale": 0, "backward_adaptive": 0,
-        "forward_adaptive": 0, "forward_adaptive_stale": 0}
+    fwd = "forward_team" if not any(fam) else "forward"
+    assert admm_stream.launch_counts == dict(
+        dict.fromkeys(admm_stream.launch_counts, 0), backward=4,
+        **{fwd: 3, fwd + "_stale": 1})
     for f in dataclasses.fields(carry):
         assert (getattr(out, f.name) is None) == \
             (getattr(carry, f.name) is None), f.name

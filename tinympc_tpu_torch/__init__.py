@@ -35,8 +35,10 @@ Long horizons: ``kernels.solve_fused_streamed`` and
 ``solve_fused_streamed_warm`` (the same carry) run each iteration as a
 backward and a forward kernel over the horizon, with only the tables that do
 not grow with N in shared memory, so N may pass the resident kernel's
-shared-memory wall (~1190 at (12, 4)); fixed rho, every family, with or
-without consensus.
+shared-memory wall (~1190 at (12, 4)); every family, at (12, 4) and
+(6, 3), at fixed rho with or without consensus, or with adaptive rho. The
+forward launch of a box problem at fixed rho runs on lane teams (a thread
+a row of each lane), every other on one thread a lane.
 
 To convergence: ``kernels.make_compact_solver`` (and the one-shot
 ``kernels.solve_fused_compact``) splits the budget into phases of warm
@@ -47,9 +49,9 @@ problems at fixed rho, and in group units under consensus.
 Adaptive rho: ``with_settings(prob, adaptive_rho=True)`` attaches the rho
 sensitivities (``with_sensitivities``; ``systems.crazyflie_sensitivity_
 tables`` gives the reference's), and ``solve`` returns each problem's
-final cache; the fused kernel runs it for box problems at (12, 4), cold
-and warm, the final rho a 5th residual row (``kernels.adapted_cache``)
-and, warm, a ``FusedCarry`` field.
+final cache; the fused and the streamed kernels run it with every family
+at (12, 4) and (6, 3), cold and warm, the final rho a 5th residual row
+(``kernels.adapted_cache``) and, warm, a ``FusedCarry`` field.
 
 Heterogeneous fleets: ``make_fleet_solver(probs, warm=...)`` (and the
 one-shot ``solve_fused_fleet``) solve a batch whose problems name their

@@ -24,6 +24,11 @@
 //     :573-641 (iterations, convergence every check_termination
 //     iterations, residuals). On warm solves with families or consensus
 //     it also writes the x/u trajectories the carry hands over (track_xu).
+//     It runs the problems with families, consensus or adaptive rho;
+//   * stream_forward_team_kernel (admm_stream_team.cuh) <- the same
+//     _forward_kernel, for box problems at fixed rho: a thread a row of
+//     each lane, bitwise stream_forward_kernel's (its stale launch is the
+//     same kernel given the carried v/z).
 // Their CONS instantiations add consensus (admm_stream.py:229-239, :496-499,
 // :553-570): the backward kernel's row 0 takes r[0] - rho_c (zc0 - yc0) and
 // the Quu0_inv gain, the forward kernel's row 0 the Kinf0 gain, and at the
@@ -96,9 +101,13 @@
 // alone a launch is memory-bound. But one thread a lane fills only B / 128
 // blocks (8 of 132 SMs at B=1024) and each thread walks its rows in
 // series, each row waiting on device-memory latency and on the row
-// before's p or x: at small batches the launches are latency-bound. Several
-// threads a lane, prefetching the next rows (or staging them through TMA)
-// are later work.
+// before's p or x: at small batches the launches are latency-bound. The
+// box forward launch therefore runs on lane teams, its rows staged ahead
+// (admm_stream_team.cuh; N=512, B=4096: 0.3672-0.3699 against
+// 3.5065-3.5435 ms a launch in turns with this file's one-thread kernel,
+// chip_compare.py time, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+// section 6); the backward launch and the other forward instantiations are
+// still one thread a lane.
 //
 // C interface (loaded with ctypes): tinympc_stream_backward and
 // tinympc_stream_forward launch on the given stream, never synchronise,
@@ -108,6 +117,7 @@
 #include "admm_adaptive.cuh"
 #include "admm_consensus.cuh"
 #include "admm_families.cuh"
+#include "admm_stream_team.cuh"
 #include "admm_sweep.cuh"
 
 namespace tinympc {
@@ -141,6 +151,7 @@ using tinympc::NoConsensus;
 using tinympc::Residuals;
 using tinympc::StreamConsensus;
 using tinympc::Tables;
+using tinympc::TeamShape;
 
 constexpr int kBlock = 128;
 // At fixed rho at least 4 blocks an SM: at most 128 registers a thread,
@@ -602,9 +613,33 @@ int forward_dispatch(int nx, int nu, const FamilyArgs& fa,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// A forward launch on lane teams (admm_stream_team.cuh) at (NX, NU): one
+// block a team of TeamShape's lanes; p.vprev / p.zprev hold the slacks the
+// dual residual compares against (the carried v/z in the stale launch).
+template <int NX, int NU>
+cudaError_t forward_team(const Forward& p, int it, int N, int B, int ct,
+                         float rho, float tol_pri, float tol_dua,
+                         cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  tinympc::stream_forward_team_kernel<NX, NU>
+      <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
+          p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
+          p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri,
+          tol_dua);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int tinympc_stream_block() { return kBlock; }
+
+// The lanes a block of the team forward launch holds at (nx, nu); 0 for a
+// pair this file does not instantiate.
+extern "C" int tinympc_stream_team_lanes(int nx, int nu) {
+  if (nx == 12 && nu == 4) return TeamShape<12, 4>::kLanes;
+  if (nx == 6 && nu == 3) return TeamShape<6, 3>::kLanes;
+  return 0;
+}
 
 // The backward launch. counts: the six family sizes beyond the box (state
 // cones, input cones, state and input hyperplanes, state and input
@@ -710,4 +745,47 @@ extern "C" int tinympc_stream_forward(
                                         ct, rho, tol_pri, tol_dua, s)
                : forward_dispatch<false>(nx, nu, fa, sc, adapt, p, it, N, B,
                                          ct, rho, tol_pri, tol_dua, s);
+}
+
+// The forward launch of iteration `it` of a box problem at fixed rho (no
+// family, no consensus, no adaptive rho), on lane teams. vd, zd: the
+// slacks the dual residual compares against -- the previous iterate's
+// vprev (N, nx, B) / zprev (N-1, nu, B), or in the stale launch (the first
+// iteration of a warm solve) the carried v/z; the other arguments as
+// tinympc_stream_forward takes them. Returns 0 or a cudaError_t;
+// cudaErrorInvalidValue for an (nx, nu) pair this file does not
+// instantiate, a bad size or a missing array.
+extern "C" int tinympc_stream_forward_team(
+    int nx, int nu, int N, int B, int it, int check_termination, float rho,
+    float tol_pri, float tol_dua, const void* tables, const void* x0,
+    const void* vd, const void* zd, void* vcur, void* zcur, void* g,
+    void* y, const void* d, void* iters, void* done, void* res,
+    void* active, void* stream) {
+  if (N < 2 || B < 1 || it < 0 || check_termination < 1 || !tables || !x0 ||
+      !vd || !zd || !vcur || !zcur || !g || !y || !d || !iters || !done ||
+      !res || !active)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Forward p = {};
+  p.tables = static_cast<const float*>(tables);
+  p.x0 = static_cast<const float*>(x0);
+  p.vprev = static_cast<const float*>(vd);
+  p.zprev = static_cast<const float*>(zd);
+  p.vcur = static_cast<float*>(vcur);
+  p.zcur = static_cast<float*>(zcur);
+  p.g = static_cast<float*>(g);
+  p.y = static_cast<float*>(y);
+  p.d = static_cast<const float*>(d);
+  p.iters = static_cast<int*>(iters);
+  p.done = static_cast<unsigned char*>(done);
+  p.res = static_cast<float*>(res);
+  p.active = static_cast<int*>(active);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int ct = check_termination;
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return static_cast<int>(
+        forward_team<12, 4>(p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  if (nx == 6 && nu == 3)    // the rocket
+    return static_cast<int>(
+        forward_team<6, 3>(p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

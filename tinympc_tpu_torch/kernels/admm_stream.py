@@ -11,7 +11,9 @@ CUDA kernels in ``csrc/admm_stream.cu``: a backward sweep (the TPU kernel
 ``admm_stream._backward_kernel``) that writes the feedforward d, and a
 forward sweep (``admm_stream._forward_kernel``, and its ``stale`` variant
 for the first iteration of a warm solve) that rolls out, projects, updates
-the duals, accumulates the residuals and keeps each lane's bookkeeping. The
+the duals, accumulates the residuals and keeps each lane's bookkeeping; a
+box problem at fixed rho runs its forward launches on lane teams
+(``csrc/admm_stream_team.cuh``, a thread a row of each lane). The
 loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
 
@@ -59,13 +61,15 @@ KERNEL = "admm_stream"
 
 # Launches in this process of each streamed kernel, by the name of its
 # instantiation: the backward kernel, the forward kernel and its stale
-# variant, their consensus instantiations and their adaptive ones;
-# chip_smoke.py resets and reads them to show that the streamed path went
-# through its kernels.
+# variant (the problems with families), their consensus instantiations and
+# their adaptive ones, and the forward kernel on lane teams and its stale
+# launch (box problems at fixed rho); chip_smoke.py resets and reads them
+# to show that the streamed path went through its kernels.
 launch_counts = dict.fromkeys(
     ("backward", "forward", "forward_stale", "backward_consensus",
      "forward_consensus", "forward_consensus_stale", "backward_adaptive",
-     "forward_adaptive", "forward_adaptive_stale"), 0)
+     "forward_adaptive", "forward_adaptive_stale", "forward_team",
+     "forward_team_stale"), 0)
 
 
 def _check(prob: TinyProblem) -> None:
@@ -511,10 +515,25 @@ def _kernel_fns():
     return bwd, fwd
 
 
+def _team_fn():
+    """The C entry of the forward launch on lane teams (box problems at
+    fixed rho; csrc/admm_stream_team.cuh), built and loaded on first
+    use."""
+    fn = _build.load(KERNEL).tinympc_stream_forward_team
+    # nx nu N B it ct | rho tol_pri tol_dua | tables x0 vd zd vcur zcur g y
+    # d iters done res active | the stream
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [_PTR] * 14
+    fn.restype = ctypes.c_int
+    return fn
+
+
 class _KERNELS:
     """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
     :func:`_init`, on the current stream of x0's device; each adds one to
-    its instantiation's entry of ``launch_counts``."""
+    its instantiation's entry of ``launch_counts``. The forward launch of a
+    box problem at fixed rho (no family, no consensus, no adaptive rho)
+    runs on lane teams (``tinympc_stream_forward_team``); every other
+    forward launch, and every backward launch, on one thread a lane."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
                  tol_dua, fam, adapt=None, cons=None):
@@ -552,6 +571,8 @@ class _KERNELS:
                 s["rho_v"].data_ptr()))
             self.suffix = "_adaptive"
         self.bwd, self.fwd = _kernel_fns()
+        self.team = _team_fn() if cons is None and adapt is None and \
+            not any(fam) else None
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
 
@@ -570,6 +591,8 @@ class _KERNELS:
         launch_counts["backward" + self.suffix] += 1
 
     def forward(self, it, stale):
+        if self.team is not None:
+            return self._forward_team(it, stale)
         s, cur = self.s, it % 2
         prev = [s["vnew"][1 - cur], s["znew"][1 - cur]]
         prev += [self.carry.v, self.carry.z] if stale else [None, None]
@@ -589,3 +612,20 @@ class _KERNELS:
                                f"error {err}")
         launch_counts["forward" + self.suffix + ("_stale" if stale else "")] \
             += 1
+
+    def _forward_team(self, it, stale):
+        s, cur = self.s, it % 2
+        vd, zd = (self.carry.v, self.carry.z) if stale else \
+            (s["vnew"][1 - cur], s["znew"][1 - cur])
+        err = self.team(self.nx, self.nu, self.N, self.B, it, self.ct,
+                        self.rho, self.tol_pri, self.tol_dua,
+                        self.tables.data_ptr(), self.x0.data_ptr(),
+                        vd.data_ptr(), zd.data_ptr(),
+                        s["vnew"][cur].data_ptr(), s["znew"][cur].data_ptr(),
+                        *(s[k].data_ptr() for k in ("g", "y", "d", "iters",
+                                                    "done", "res", "active")),
+                        self.stream)
+        if err != 0:
+            raise RuntimeError(f"admm_stream team forward launch failed: "
+                               f"CUDA error {err}")
+        launch_counts["forward_team_stale" if stale else "forward_team"] += 1

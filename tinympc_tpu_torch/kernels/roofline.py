@@ -11,8 +11,10 @@ kernels of ``csrc/roofline.cu`` (they replace ``tools/roofline.py``'s
 inputs (``tools/roofline.py:85-88``, ``:115-116``) on ``device`` and returns
 what the TPU probe writes: (depth, lanes) and (1, lanes) float32. The dot's
 operand is ``"bf16"`` -- the TPU function: matrices in bf16, each dot's
-operand rounded to bf16, float32 accumulation -- or ``"f32"``, the card's
-own chain: float32 matrices and operands, no cast.
+operand rounded to bf16, float32 accumulation; the independent dots on the
+tensor cores (mma.sync), the chained ones on the CUDA cores -- or
+``"f32"``, the card's own chain: float32 matrices and operands, no cast,
+on the CUDA cores.
 
 On CPU tensors the wrappers run the plain PyTorch versions,
 :func:`dot_probe_reference` and :func:`elementwise_probe_reference`; on

@@ -16,7 +16,12 @@ solve's fields are null.
 
 The probes, timed per rep of the whole batch:
   * the TPU probe's dots: L = 5 (N-1) dots of depth 3 nx with bf16
-    operands and float32 accumulation, chained and independent;
+    operands and float32 accumulation, chained (on the CUDA cores: a chain
+    of one-column products, the solve's pattern) and independent (on the
+    tensor cores, mma.sync, as the TPU probe runs on the MXU). So
+    ``independent_dots_us`` is the card's bf16 tensor-core rate at these
+    shapes, and ``chain_vs_pipeline`` the solve's chain against it, as the
+    TPU tool meant it against the MXU;
   * the card's own chain: float32 matvecs at depth nx, chained and
     independent, L = 2 (N-1). That is the depth-nx matvecs on one
     iteration's serial chain in ``csrc/admm_sweep.cuh``: the backward
