@@ -15,8 +15,11 @@ time-varying hyperplanes under low z ceilings), the families kernel with
 consensus (128 groups of 8), the fused closed loop (T=10), the streamed
 kernels cold and warm (box at N=64, and at N=256 on 256 lanes and N=1300,
 past the resident kernel's wall, on 64; the rocket's box alone at N=32, a
-box problem at (6, 3); the rocket's cones at N=32, consensus at N=10),
-and, at B=64, the long horizons where the thread-group kernels
+box problem at (6, 3); the rocket's cones at N=32, consensus at N=10; and
+with adaptive rho the box at N=64 -- the Crazyflie tables, with and
+without apply_c, and the guard at rho 1000 with its own sensitivities --
+at N=256 on 256 lanes, at N=1300 on 64, and the rocket's box alone at
+N=32), and, at B=64, the long horizons where the thread-group kernels
 keep their table and saved columns in device memory (box cold at N=700,
 two warm solves at N=1100 and at N=1150, closed loops at N=700 and
 N=1150 with T=2), and writes every output and carry field. ``diff``
@@ -36,6 +39,12 @@ dropped; the instructions themselves in OUT.json.sass); ``diff`` of two
 such files says, for each label both have, whether the ptxas figures and
 the instructions are the same, and exits non-zero when any differs.
 
+    python3 chip_compare.py race             # on the GPU
+
+``race`` runs small streamed solves on lane teams bitwise against the
+one-thread kernels (see ``race``); run it under ``compute-sanitizer
+--tool racecheck`` to have the team kernels' shared memory checked.
+
     python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
                                  [loop=B,B,...] [stream=B,B,...] [dot]
                                  [profile]
@@ -54,7 +63,12 @@ the rocket with its box alone at N=512, a box problem at (6, 3), x0 the
 descent's start times U[0.9, 1.2]; the launch of iteration 0 on a fresh
 state after its backward launch, every lane running) with the backward
 launch beside it, at each batch of
-``stream`` (default none), and with ``dot`` the roofline tool's
+``stream`` (default none), each launch in turns with the one-thread
+launch on its own fresh state (``_KERNELS(..., team=False)``); with
+``stream`` also phase 36's adaptive point (the quadrotor at N=2048 with the Crazyflie
+tables, B=1024, x0 ~ U[-0.3, 0.3]): the backward and the forward launch
+of iteration 0 and the forward of an adaptation iteration (5), on teams
+and on one thread a lane in turns; and with ``dot`` the roofline tool's
 independent bf16 dot probe (L=95 dots on the TPU probe's inputs, one rep:
 depth 36 on 32768 lanes, depth 96 on 16384) beside one ``torch.matmul`` of
 the same sum on float32 and on bf16 operands: ``TIME_REPS`` launches on
@@ -83,12 +97,13 @@ import numpy as np
 B = 1024
 DEVICE = "cuda"
 TIME_B, TIME_REPS = 32768, 20
+STREAM_ADAPT_B, STREAM_ADAPT_N = 1024, 2048   # phase 36's adaptive point
 
 
-def _quad(tt, torch, N, max_iter=100, ct=1):
+def _quad(tt, torch, N, max_iter=100, ct=1, rho=None):
     s = tt.systems.quadrotor_20hz()
-    p = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=N,
-                 dtype=torch.float32, device=DEVICE)
+    p = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=rho or s["rho"],
+                 N=N, dtype=torch.float32, device=DEVICE)
     p = tt.with_bounds(p, x_min=-5.0, x_max=5.0, u_min=-0.5, u_max=0.5)
     return tt.with_settings(p, max_iter=max_iter, check_termination=ct)
 
@@ -232,6 +247,27 @@ def save(path):
                  *descent(32)),
                 ("rocket_soc", _rocket(tt, torch, 32), x_r, *descent(32)),
                 ("consensus", tree, x_g, hover(10), None)]
+    tables = tt.systems.crazyflie_sensitivity_tables()
+    adaptive = lambda p, **kw: tt.with_settings(
+        p, adaptive_rho=True, **kw)
+    rb = _rocket(tt, torch, 32, cones=False)
+    streamed += [
+        ("adaptive_box", adaptive(tt.with_sensitivities(
+            _quad(tt, torch, 64, 20), tables)), x_q, hover(64), None),
+        ("adaptive_box_apply_c", adaptive(tt.with_sensitivities(
+            _quad(tt, torch, 64, 20), tables), adaptive_rho_apply_c=True),
+         x_q, hover(64), None),
+        ("adaptive_guard", adaptive(
+            _quad(tt, torch, 64, 20, rho=1000.0),
+            adaptive_rho_tolerance=3.0), x_q, hover(64), None),
+        ("adaptive_box256", adaptive(tt.with_sensitivities(
+            _quad(tt, torch, 256, 20), tables)), x_q[:256].contiguous(),
+         hover(256), None),
+        ("adaptive_box1300", adaptive(tt.with_sensitivities(
+            _quad(tt, torch, 1300, 12, 3), tables)), x_l, hover(1300), None),
+        ("adaptive_rocket_box", adaptive(
+            tt.with_settings(rb, max_iter=20), adaptive_rho_min=0.05), x_r,
+         *descent(32))]
     for name, prob, x0, Xref, Uref in streamed:
         out.update(_flat(f"streamed.{name}.cold", kern.solve_fused_streamed(
             prob, Xref, Uref, x0)))
@@ -354,15 +390,21 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
             "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
     N = 512
     xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
-    for B_, system in ((b, sy) for b in stream
-                       for sy in ("quadrotor", "rocket_box")):
+    points = [(b, sy) for b in stream for sy in ("quadrotor", "rocket_box")]
+    points += [(STREAM_ADAPT_B, "quadrotor_adaptive")] if stream else []
+    for B_, system in points:
         rng = np.random.default_rng(0)
-        if system == "quadrotor":
-            prob = _quad(tt, torch, N, max_iter=20, ct=1)
+        Uref, n_ = None, N
+        if system.startswith("quadrotor"):
+            n_ = STREAM_ADAPT_N if system == "quadrotor_adaptive" else N
+            prob = _quad(tt, torch, n_, max_iter=20, ct=1)
+            if system == "quadrotor_adaptive":
+                prob = tt.with_settings(tt.with_sensitivities(
+                    prob, tt.systems.crazyflie_sensitivity_tables()),
+                    adaptive_rho=True)
             x0 = torch.as_tensor(rng.uniform(-0.3, 0.3, (B_, 12)), **kw)
-            Xref = torch.zeros((N, 12), **kw)
+            Xref = torch.zeros((n_, 12), **kw)
             Xref[:, 2] = 1.0
-            Uref = None
         else:
             prob = tt.with_settings(_rocket(tt, torch, N, cones=False),
                                     max_iter=20)
@@ -373,32 +415,42 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
         nx, nu = prob.spec.nx, prob.spec.nu
         tables, x0c, _, params = admm_stream._prepare(prob, Xref, Uref, x0)
         kw_ = {k: v for k, v in params.items() if k != "max_iter"}
-        times = {"backward": [], "forward": []}
+        rho0 = params["rho"] if params["adapt"] is not None else None
+        its = (0, 5) if rho0 is not None else (0,)
+        # Each launch on a fresh state (iteration `it`, every lane
+        # running), on lane teams and, in turns, on one thread a lane.
+        times = {f"{name}{'' if design else '_one_thread'}": []
+                 for design in (True, False) for name in
+                 ["backward"] + [f"forward{it or ''}" for it in its]}
         for rep in range(TIME_REPS + 1):
-            # A fresh state each launch: iteration 0, every lane running.
-            s = admm_stream._init(x0c, N, nx, nu, None, params["fam"])
-            run = admm_stream._KERNELS(tables, x0c, s, None, N, nx, nu,
-                                       **kw_)
-            for name, fn in (("backward", lambda: run.backward(1)),
-                             ("forward", lambda: run.forward(0, False))):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                torch.cuda.synchronize()
-                if rep:     # the first launch of each warms up
-                    times[name].append(start.elapsed_time(end))
-            del s, run
-        print(json.dumps({
-            "kind": "stream_forward", "system": system, "N": N, "B": B_,
-            "ms": statistics.median(times["forward"]),
-            "times_ms": times["forward"],
-            "backward_ms": statistics.median(times["backward"]),
-            "launch_counts": {k: v for k, v in
-                              admm_stream.launch_counts.items() if v},
-            "card": card,
-            "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
+            for design in (True, False):
+                s = admm_stream._init(x0c, n_, nx, nu, None, params["fam"],
+                                      None, rho0)
+                run = admm_stream._KERNELS(tables, x0c, s, None, n_, nx, nu,
+                                           **kw_, team=design)
+                sfx = "" if design else "_one_thread"
+                launches = [("backward", lambda: run.backward(1))]
+                launches += [(f"forward{it or ''}", lambda it=it:
+                              run.forward(it, False)) for it in its]
+                for name, fn in launches:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    fn()
+                    end.record()
+                    torch.cuda.synchronize()
+                    if rep:     # the first launch of each warms up
+                        times[name + sfx].append(start.elapsed_time(end))
+                del s, run
+        rec = {"kind": "stream", "system": system, "N": n_, "B": B_,
+               "ms": statistics.median(times["forward"]),
+               "backward_ms": statistics.median(times["backward"])}
+        rec.update({f"{k}_ms": statistics.median(v) for k, v in times.items()
+                    if k not in ("forward", "backward")})
+        rec.update({"times_ms": times, "launch_counts": {
+            k: v for k, v in admm_stream.launch_counts.items() if v},
+            "card": card, "sm_clock_after": _smi("clocks.sm,clocks.max.sm")})
+        print(json.dumps(rec), flush=True)
     for depth, lanes in ((36, 32768), (96, 16384)) if dot else ():
         from tinympc_tpu_torch.kernels import roofline as rf
         L = 95
@@ -416,6 +468,74 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
             "matmul_f32_ms": lib, "matmul_bf16_ms": lib_b, "card": card,
             "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}), flush=True)
         del M, Ms, v, mcat, ys, mb, yb
+
+
+def race():
+    """Small streamed solves whose launches run on lane teams, each
+    bitwise against the same solve on one thread a lane: the quadrotor at
+    fixed rho and, with the Crazyflie tables, at adaptive rho with and
+    without apply_c, and the rocket's box alone at adaptive rho (a box
+    problem at (6, 3)); N=16, B=20 (a partial last team block), max_iter
+    20, ct 1, so that iterations 5, 10 and 15 adapt rho; cold, then warm
+    from the carry of a warm solve from a zero carry. Prints one line a solve and exits
+    non-zero when any differs. Small enough to run under
+    ``compute-sanitizer --tool racecheck``, which reports the kernels'
+    shared-memory hazards."""
+    import functools
+    import torch
+    import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch.kernels import admm_stream
+    torch.backends.cuda.matmul.allow_tf32 = False
+    N, B_ = 16, 20
+    rng = np.random.default_rng(0)
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    x_q = torch.as_tensor(rng.uniform(-0.3, 0.3, (B_, 12)), **kw)
+    xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
+    x_r = torch.as_tensor(xinit * rng.uniform(0.9, 1.2, (B_, 1)), **kw)
+    hover = torch.zeros((N, 12), **kw)
+    hover[:, 2] = 1.0
+    U_r = torch.zeros((N - 1, 3), **kw)
+    U_r[:, 2] = 10.0
+    X_r = torch.as_tensor(np.linspace(xinit, np.zeros(6), N), **kw)
+    cf = tt.systems.crazyflie_sensitivity_tables()
+    adaptive = lambda p, **k: tt.with_settings(p, adaptive_rho=True, **k)
+    quad = lambda: _quad(tt, torch, N, 20)
+    cases = [
+        ("box", quad(), x_q, hover, None),
+        ("box adaptive", adaptive(tt.with_sensitivities(quad(), cf)), x_q,
+         hover, None),
+        ("box adaptive apply_c", adaptive(tt.with_sensitivities(quad(), cf),
+                                          adaptive_rho_apply_c=True),
+         x_q, hover, None),
+        ("rocket box adaptive", adaptive(tt.with_settings(
+            _rocket(tt, torch, N, cones=False), max_iter=20),
+            adaptive_rho_min=0.05), x_r, X_r, U_r)]
+    one_thread = functools.partial(admm_stream._KERNELS, team=False)
+    bad = 0
+    for name, prob, x0, Xref, Uref in cases:
+        carry = None
+        for kind in ("cold", "warm"):
+            warm = kind == "warm"
+            tables, x0c, c_t, params = admm_stream._prepare(
+                prob, Xref, Uref, x0, carry, warm)
+            admm_stream.launch_counts.update(
+                dict.fromkeys(admm_stream.launch_counts, 0))
+            team = admm_stream._loop(tables, x0c, c_t, prob.spec,
+                                     admm_stream._KERNELS, **params)
+            counts = {k: v for k, v in admm_stream.launch_counts.items()
+                      if v}
+            one = admm_stream._loop(tables, x0c, c_t, prob.spec,
+                                    one_thread, **params)
+            a, b = _flat("t", team), _flat("t", one)
+            same = a.keys() == b.keys() and all(
+                torch.equal(a[k], b[k]) for k in a)
+            bad += not same
+            print(f"race: {name} {kind}: team launches {counts}, "
+                  f"{'bitwise the one-thread solve' if same else 'DIFFERS'}"
+                  f", iterations {int(team[0].iter.max())}")
+            carry = tt.kernels.solve_fused_streamed_warm(
+                prob, Xref, Uref, x0, tt.init_carry(prob, B_))[2]
+    return 1 if bad else 0
 
 
 def build_report(path):
@@ -513,6 +633,8 @@ if __name__ == "__main__":
                      "profile" in opts, batches("warm", ()),
                      batches("stream", ()), "dot" in opts)
         sys.exit(0)
+    if len(sys.argv) == 2 and sys.argv[1] == "race":
+        sys.exit(race())
     if len(sys.argv) == 4 and sys.argv[1] == "diff":
         sys.exit(diff(sys.argv[2], sys.argv[3]))
     print(__doc__, file=sys.stderr)

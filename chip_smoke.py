@@ -61,7 +61,10 @@ calls, and holds every kernel against its plain PyTorch version:
   500, x0 = U[-1, 1]^12 times scales 0.05 .. 0.5, permuted); phase 12's
   low-ceiling hyperplane batches; and the long-horizon set-up at N=2048,
   past the resident kernel's shared-memory wall -- through
-  kernels.solve_fused_streamed(_warm);
+  kernels.solve_fused_streamed(_warm); box problems, at fixed and adaptive
+  rho, on the lane-team kernels of csrc/admm_stream_team.cuh (both
+  launches), the rocket's cones on the one-thread kernels, each route
+  checked from the launch counts;
 * scenario-tree consensus on u[0] on the families instantiation of
   csrc/admm_fused.cu (with csrc/admm_consensus.cuh): bench_all.py:224-250's
   "consensus G=16 cold solve (fused)" -- the quadrotor at 20 Hz, N=10, box
@@ -257,7 +260,9 @@ whose counts agree), and against the plain version on the card to that
 version's own spread from the CPU. The streamed solve is held bitwise
 against the resident kernel on the same inputs (the same device functions;
 phases 17-21, and under consensus phases 27 and 31), and against its plain
-version at the bar, each single launch too; a compacted solve is held
+version at the bar, each single launch too; each team launch is held
+bitwise against the one-thread launch on the same state (team=False,
+phases 17, 18, 20, 22, 35, 36); a compacted solve is held
 bitwise against one long kernel solve (kernel against kernel: cuBLAS's
 order in a plain version depends on the width) and at the bar against
 compaction on the plain versions on the CPU; a plain run of fewer than 16384 lanes takes the batch repeated to
@@ -917,9 +922,11 @@ def kernel_label(fn):
     a = re.search(r"AdaptiveRhoILi\d+ELi\d+ELb([01])E", fn)
     adapt = "" if a is None else \
         "adaptive apply_c" if a[1] == "1" else "adaptive"
-    m = re.search(r"stream_forward_team_kernelILi(\d+)ELi(\d+)E", fn)
+    m = re.search(r"stream_(backward|forward)_team_kernelILi(\d+)ELi(\d+)E",
+                  fn)
     if m:
-        return f"admm_stream forward team ({m[1]}, {m[2]})"
+        return (f"admm_stream {m[1]} team{' ' + adapt if adapt else ''} "
+                f"({m[2]}, {m[3]})")
     m = re.search(r"dot_independent_mma_kernelILi(\d+)E", fn)
     if m:
         return f"roofline dot independent bf16 mma ({m[1]})"
@@ -1439,20 +1446,35 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
     """The two kernels of iteration 0 on a fresh state, where every lane
     runs (the forward stale on a warm state): per-launch ms of each (CUDA
     events, median of REPS), one launch of each against its plain version
-    on the same inputs (largest difference over every array it writes),
-    the plain version's ms for one launch on the card, and the lanes that
-    converged in the compared forward launch."""
+    on the same inputs (largest difference over every array it writes;
+    the plain launch runs on the batch repeated to WIDE_B lanes, as
+    plain_wide runs a solve, and is cut back), the plain version's ms for
+    one launch on the card at the batch itself, and the lanes that
+    converged in the compared forward launch. Below WIDE_B lanes two
+    witnesses of that choice: the same differences against the plain
+    launch at the batch itself, on the card (where cuBLAS may sum in
+    another order) and on the CPU (where PyTorch sums each row in the
+    kernels' column order)."""
     warm = carry is not None
     tables, x0c, carry_t, params = ast._prepare(prob, Xref, Uref, x0, carry,
                                                 warm)
     spec = prob.spec
     N, nx, nu = spec.N, spec.nx, spec.nu
+    B = x0c.shape[0]
     kw = {k: v for k, v in params.items() if k != "max_iter"}
+    k = max(1, WIDE_B // B)
+    carry_w = None if carry is None else dataclasses.replace(carry, **{
+        f.name: torch.cat([getattr(carry, f.name)] * k, dim=-1)
+        for f in dataclasses.fields(carry)
+        if getattr(carry, f.name) is not None})
+    _, x0w, carry_tw, _ = ast._prepare(
+        prob, Xref, Uref, x0.repeat(k, *([1] * (x0.dim() - 1))), carry_w,
+        warm)
 
-    def fresh(launcher):
-        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"],
+    def fresh(launcher, x=x0c, c=carry_t, t=tables):
+        s = ast._init(x, N, nx, nu, c, params["fam"], params["cons"],
                       None if params["adapt"] is None else params["rho"])
-        return s, launcher(tables, x0c, s, carry_t, N, nx, nu, **kw)
+        return s, launcher(t, x, s, c, N, nx, nu, **kw)
 
     bwd, fwd = [], []
     for _ in range(REPS):
@@ -1461,64 +1483,173 @@ def stream_launches(torch, ast, prob, Xref, Uref, x0, carry=None):
         fwd.append(cuda_ms(torch, lambda: run.forward(0, warm), 1)[0])
     s, run = fresh(ast._KERNELS)
     sp, plain = fresh(ast._PLAIN)
+    sw, wide = fresh(ast._PLAIN, x0w, carry_tw)
+    cut = lambda a: a[..., :B]
+    cpu = lambda c: c if c is None else dataclasses.replace(c, **{
+        f.name: getattr(c, f.name).cpu() for f in dataclasses.fields(c)
+        if getattr(c, f.name) is not None})
+    sc, plain_cpu = fresh(ast._PLAIN, x0c.cpu(), cpu(carry_t),
+                          tables.cpu()) if k > 1 else (None, None)
     run.backward(1)
     plain_bwd_ms = host_ms(torch, lambda: plain.backward(1))[0]
-    err_b = (s["d"] - sp["d"]).abs().max().item()
+    wide.backward(1)
+    err_b = (s["d"] - cut(sw["d"])).abs().max().item()
+    wit = {}
+    if k > 1:
+        plain_cpu.backward(1)
+        wit["b_card"] = (s["d"] - sp["d"]).abs().max().item()
+        wit["b_cpu"] = (s["d"].cpu() - sc["d"]).abs().max().item()
+        sc["d"] = s["d"].cpu()
     sp["d"] = s["d"].clone()
+    sw["d"] = torch.cat([s["d"]] * k, dim=-1)
     run.forward(0, warm)
     plain_fwd_ms = host_ms(torch, lambda: plain.forward(0, warm))[0]
-    pairs = [(s[k], sp[k]) for k in ("vnew", "znew", "g", "y", "res", "x",
-                                     "u", "zc0", "yc0", "offer", "rho",
-                                     "rho_v")
-             if s[k] is not None]
-    pairs += [(a, b) for a, b in zip(s["fams"], sp["fams"]) if a is not None]
-    err_f = max((a - b).abs().max().item() for a, b in pairs)
-    same = torch.equal(s["iters"], sp["iters"]) and torch.equal(s["done"],
-                                                                sp["done"])
+    wide.forward(0, warm)
+
+    def err_fwd(o, at=lambda a: a):
+        pairs = [(s[n], at(o[n])) for n in (
+            "vnew", "znew", "g", "y", "res", "x", "u", "zc0", "yc0",
+            "offer", "rho", "rho_v") if s[n] is not None]
+        pairs += [(a, at(b)) for a, b in zip(s["fams"], o["fams"])
+                  if a is not None]
+        same = torch.equal(s["iters"], at(o["iters"])) and torch.equal(
+            s["done"], at(o["done"]))
+        return max((a - b).abs().max().item()
+                   for a, b in pairs) if same else float("inf")
+
+    err_f = err_fwd(sw, cut)
+    if k > 1:
+        plain_cpu.forward(0, warm)
+        wit["f_card"] = err_fwd(sp)
+        wit["f_cpu"] = err_fwd(sc, lambda a: a.to(s["d"].device))
     return dict(bwd_ms=statistics.median(bwd), fwd_ms=statistics.median(fwd),
-                bwd_reps=bwd, fwd_reps=fwd, err_b=err_b,
-                err_f=err_f if same else float("inf"),
-                plain_bwd_ms=plain_bwd_ms, plain_fwd_ms=plain_fwd_ms,
+                bwd_reps=bwd, fwd_reps=fwd, err_b=err_b, err_f=err_f,
+                witness=wit, plain_bwd_ms=plain_bwd_ms,
+                plain_fwd_ms=plain_fwd_ms,
                 converged=int(s["done"].sum().item()))
 
 
-# The launch counts of the streamed forward kernel on lane teams
-# (csrc/admm_stream_team.cuh): box problems at fixed rho.
-TEAM_KEYS = ("forward_team", "forward_team_stale")
+def witness_text(lt):
+    """stream_launches' differences against the plain launch at the batch
+    itself (below WIDE_B lanes), as text for a log line."""
+    w = lt["witness"]
+    if not w:
+        return ""
+    return (f" (plain launch at the batch itself: on the card max|d| "
+            f"{w['b_card']:.3e}, forward {w['f_card']:.3e}; on the CPU "
+            f"max|d| {w['b_cpu']:.3e}, forward {w['f_cpu']:.3e})")
 
 
 def team_route(prob):
-    """Whether a problem's streamed forward launches run on lane teams: a
-    box problem at fixed rho without consensus."""
+    """Whether a problem's streamed launches run on lane teams
+    (csrc/admm_stream_team.cuh): a box problem, at fixed or adaptive rho,
+    without consensus."""
     spec = prob.spec
-    return not (prob.settings.adaptive_rho or spec.any_extra_family
-                or spec.en_consensus)
+    return not (spec.any_extra_family or spec.en_consensus)
 
 
 def stream_keys(prob):
     """The launch counts of the streamed kernels a problem runs: backward,
-    forward and stale forward (on lane teams for a box problem at fixed
-    rho), adaptive or not."""
+    forward and stale forward (on lane teams for a box problem), adaptive
+    or not."""
     sfx = "_adaptive" if prob.settings.adaptive_rho else ""
-    fwd = "forward_team" if team_route(prob) else f"forward{sfx}"
-    return (f"backward{sfx}", fwd, f"{fwd}_stale")
+    team = "_team" if team_route(prob) else ""
+    return (f"backward{team}{sfx}", f"forward{team}{sfx}",
+            f"forward{team}{sfx}_stale")
 
 
 def took_route(ast, label, prob):
-    """Fail the run unless the streamed forward launches since the counts
-    were last zeroed took the problem's route: the team entry alone for a
-    box problem at fixed rho, the one-thread forward kernel alone for any
-    other (families, adaptive rho, consensus)."""
+    """Fail the run unless both streamed launches since the counts were
+    last zeroed took the problem's route: the team entries alone for a box
+    problem (fixed or adaptive rho), the one-thread kernels alone for any
+    other (families, consensus)."""
     c = ast.launch_counts
-    team = sum(c[k] for k in TEAM_KEYS)
-    other = sum(v for k, v in c.items()
-                if k.startswith("forward") and k not in TEAM_KEYS)
     want = "lane teams" if team_route(prob) else "one thread a lane"
-    ok = (team > 0 and other == 0) if team_route(prob) else \
-        (team == 0 and other > 0)
-    fwd = {k: v for k, v in c.items() if k.startswith("forward") and v}
-    log(f"  {label}: forward launches {fwd} (want {want})")
-    fail(f"{label} route", ok, f"forward launches {fwd}, {want} expected")
+    for side in ("backward", "forward"):
+        team = sum(v for k, v in c.items()
+                   if k.startswith(side) and "_team" in k)
+        other = sum(v for k, v in c.items()
+                    if k.startswith(side) and "_team" not in k)
+        ok = (team > 0 and other == 0) if team_route(prob) else \
+            (team == 0 and other > 0)
+        got = {k: v for k, v in c.items() if k.startswith(side) and v}
+        log(f"  {label}: {side} launches {got} (want {want})")
+        fail(f"{label} {side} route", ok,
+             f"{side} launches {got}, {want} expected")
+
+
+# The ptxas label (kernel_label) of the instantiation each streamed row of
+# the kernels line measured: at (12, 4) the box and consensus phases
+# (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35).
+STREAM_PTXAS = {
+    "backward_team": "admm_stream backward team (12, 4)",
+    "forward_team": "admm_stream forward team (12, 4)",
+    "forward_team_stale": "admm_stream forward team (12, 4)",
+    "backward": "admm_stream backward (6, 3)",
+    "forward": "admm_stream forward (6, 3)",
+    "forward_stale": "admm_stream forward stale (6, 3)",
+    "backward_consensus": "admm_stream backward consensus (12, 4)",
+    "forward_consensus": "admm_stream forward consensus (12, 4)",
+    "forward_consensus_stale": "admm_stream forward stale consensus (12, 4)",
+    "backward_team_adaptive": "admm_stream backward team adaptive (12, 4)",
+    "forward_team_adaptive": "admm_stream forward team adaptive (12, 4)",
+    "forward_team_adaptive_stale":
+        "admm_stream forward team adaptive (12, 4)",
+    "backward_adaptive": "admm_stream backward adaptive (6, 3)",
+    "forward_adaptive": "admm_stream forward adaptive (6, 3)",
+    "forward_adaptive_stale": "admm_stream forward stale adaptive (6, 3)",
+}
+
+
+def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
+    """Each team launch of a box problem against the one-thread launch on
+    the same state (``_KERNELS(..., team=False)``), bitwise: from the state
+    the team kernels reach in some iterations (3 cold, 4 under adaptive
+    rho, so that the second compared forward launch adapts rho; none warm,
+    whose first launch is the stale one), two iterations from copies of
+    it, at ct 2 cold (a check and a non-check launch) and ct 1 warm; every
+    array either launch writes. Logs each compared launch's ms (one launch
+    on CUDA events)."""
+    torch, ast = ctx.torch, ctx.ast
+    warm = carry is not None
+    tables, x0c, carry_t, params = ast._prepare(prob, Xref, Uref, x0, carry,
+                                                warm)
+    spec = prob.spec
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    kw = {k: v for k, v in params.items() if k != "max_iter"}
+    kw["ct"] = 1 if warm else 2
+    adaptive = params["adapt"] is not None
+    s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"],
+                  params["rho"] if adaptive else None)
+    run = ast._KERNELS(tables, x0c, s, carry_t, N, nx, nu, **kw)
+    first = 0 if warm else 4 if adaptive else 3
+    for it in range(first):
+        run.backward(1 - it % 2)
+        run.forward(it, False)
+    s1 = {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+    one = ast._KERNELS(tables, x0c, s1, carry_t, N, nx, nu, **kw,
+                       team=False)
+    keys = [k for k in ("vnew", "znew", "g", "y", "d", "iters", "done",
+                        "res", "active", "rho", "rho_v") if s[k] is not None]
+    same, ms = True, {}
+    for it in (first, first + 1):
+        stale = warm and it == 0
+        for name, r in (("team", run), ("one thread", one)):
+            ms[(name, it, "backward")] = cuda_ms(
+                torch, lambda: r.backward(1 - it % 2), 1)[0]
+            ms[(name, it, "forward")] = cuda_ms(
+                torch, lambda: r.forward(it, stale), 1)[0]
+        same = same and all(torch.equal(s[k], s1[k]) for k in keys)
+    log(f"  {label}: team launches bitwise the one-thread launches on the "
+        f"same state (iterations {first} and {first + 1}, ct {kw['ct']}"
+        f"{', the first stale' if warm else ''}"
+        f"{', the second adapting rho' if adaptive and not warm else ''}): "
+        f"{same}; ms " + ", ".join(
+            f"{side} it {it} {name} {v:.4f}"
+            for (name, it, side), v in sorted(ms.items(),
+                                              key=lambda kv: kv[0][1:])))
+    fail(f"{label} team launches", same, "a team launch differs from the "
+         "one-thread launch on the same state")
 
 
 def team_lanes(ast, spec):
@@ -1565,6 +1696,8 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
     fail(label, lt["err_b"] <= BAR_ATOL and lt["err_f"] <= BAR_ATOL,
          f"one launch differs from its plain version by "
          f"{max(lt['err_b'], lt['err_f']):.3e}")
+    if team_route(prob):
+        team_bits(ctx, label, prob, Xref, Uref, x0, carry)
     solve = ((lambda: kern.solve_fused_streamed(prob, Xref, Uref, x0))
              if not warm else
              (lambda: kern.solve_fused_streamed_warm(prob, Xref, Uref, x0,
@@ -1585,7 +1718,7 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
                     ctx.peak_bw)
     its = launches[0]
     kernel_ms = its * (lt["bwd_ms"] + lt["fwd_ms"])
-    fwd_lanes = team_lanes(ctx.ast, spec) if team_route(prob) else \
+    lanes = team_lanes(ctx.ast, spec) if team_route(prob) else \
         ctx.admm_fused.BLOCK
     res_txt = ""
     if resident is not None:
@@ -1600,7 +1733,7 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
         f"(reps {[round(t, 4) for t in lt['fwd_reps']]}; bound "
         f"{b_fwd[0]:.4f} ms, {b_fwd[1]}; plain {lt['plain_fwd_ms']:.1f} "
         f"ms); one launch vs plain: max|d| {lt['err_b']:.3e}, forward "
-        f"{lt['err_f']:.3e}")
+        f"{lt['err_f']:.3e}" + witness_text(lt))
     log(f"  {label}: solve {solve_ms:.4f} ms on the card's clock (reps "
         f"{[round(t, 4) for t in times]}), {host:.4f} ms on the host "
         f"clock, kernels ~{kernel_ms:.4f} ms ({its} iterations x the "
@@ -1611,8 +1744,8 @@ def stream_report(ctx, label, prob, Xref, Uref, x0, sol, launches,
         f"{iter_sum / B:.4f}, solved frac "
         f"{sol.solved.float().mean().item():.5f}, "
         f"{B / (solve_ms / 1e3):.1f} solves/s{res_txt}; {B} lanes fill "
-        f"{-(-B // ctx.admm_fused.BLOCK)} backward and {-(-B // fwd_lanes)} "
-        f"forward blocks on 132 SMs; card {ctx.card}")
+        f"{-(-B // lanes)} blocks of each launch on 132 SMs; card "
+        f"{ctx.card}")
     return lt, b_bwd, b_fwd
 
 
@@ -1627,7 +1760,8 @@ def resident_cold(admm_fused, prob, Xref, Uref, x0):
 def streamed_phases(ctx):
     """Phases 17-22: the streamed long-horizon solve on csrc/admm_stream.cu.
     Returns the kernels-line numbers of its backward kernel, its forward
-    kernel and the forward's stale variant."""
+    kernel and the forward's stale variant, on lane teams (box problems)
+    and on one thread a lane (the rocket's cones)."""
     torch, tt, admm_fused, ast = ctx.torch, ctx.tt, ctx.admm_fused, ctx.ast
     counters = ctx.counters
     kern = tt.kernels
@@ -1657,10 +1791,11 @@ def streamed_phases(ctx):
                                                          x0))
         log(f"  {label}: plain solve {plain_ms:.1f} ms")
         if B == LH_B:
-            rows["backward"] = dict(launches=launches[0], err=lt["err_b"],
-                                    ms=lt["bwd_ms"],
-                                    plain_ms=lt["plain_bwd_ms"],
-                                    bound_ms=b_bwd[0], bound_by=b_bwd[1])
+            rows["backward_team"] = dict(launches=launches[0],
+                                         err=lt["err_b"], ms=lt["bwd_ms"],
+                                         plain_ms=lt["plain_bwd_ms"],
+                                         bound_ms=b_bwd[0],
+                                         bound_by=b_bwd[1])
             rows["forward_team"] = dict(launches=launches[1],
                                         err=lt["err_f"], ms=lt["fwd_ms"],
                                         plain_ms=lt["plain_fwd_ms"],
@@ -1718,8 +1853,8 @@ def streamed_phases(ctx):
         bound_by=b_stale[1])
 
     # 19. bench_all.py:343-367, rocket SOC full descent; then as an
-    # external-plant sequence of 2 warm solves (the one-thread forward
-    # kernel and its stale launch, which the families run)
+    # external-plant sequence of 2 warm solves (the one-thread kernels and
+    # the forward's stale launch, which the families run)
     phase(f"phase 19: rocket SOC full descent, N={LH_SOC_N}, B={LH_B}, "
           f"max_iter {LH_ITER}, cold and 2 warm solves")
     prob = rocket_problem(tt, torch, LH_ITER, 1, N=LH_SOC_N)
@@ -1730,8 +1865,11 @@ def streamed_phases(ctx):
               kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
     sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
     compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
-    lt, _, b_fwd = report(label, prob, Xref, Uref, x0, sol_k, launches,
-                          resident=resident(prob, Xref, Uref, x0))
+    lt, b_bwd, b_fwd = report(label, prob, Xref, Uref, x0, sol_k, launches,
+                              resident=resident(prob, Xref, Uref, x0))
+    rows["backward"] = dict(launches=launches[0], err=lt["err_b"],
+                            ms=lt["bwd_ms"], plain_ms=lt["plain_bwd_ms"],
+                            bound_ms=b_bwd[0], bound_by=b_bwd[1])
     rows["forward"] = dict(launches=launches[1], err=lt["err_f"],
                            ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"],
                            bound_ms=b_fwd[0], bound_by=b_fwd[1])
@@ -1777,23 +1915,22 @@ def streamed_phases(ctx):
     same_bits(torch, label, (sol_k, res_k),
               kern.solve_fused(prob, None, None, x0), "solve_fused")
     its = launches[0]
-    # Iterations in which a lane, a warp (32 lanes), a backward block or a
-    # forward block (a team of lanes) had a lane running: a converged lane
-    # returns at once from the backward launch, a warp runs while one of
-    # its lanes does, a block returns at once when all of its lanes have.
+    # Iterations in which a lane, a block of the team launches (a team of
+    # lanes) or a block of the one-thread launches (128 lanes) had a lane
+    # running: a block returns at once when all of its lanes are done.
     team = team_lanes(ast, prob.spec)
     busy = {n: int(sol_k.iter.reshape(-1, n).amax(dim=1).sum().item())
-            for n in (1, team, 32, admm_fused.BLOCK)}
+            for n in (1, team, admm_fused.BLOCK)}
     share = {n: busy[n] * n / (its * LH_CONV_B) for n in busy}
     log(f"  {label}: solved frac {sol_k.solved.float().mean().item():.5f}, "
         f"mean iters {sol_k.iter.float().mean().item():.4f}, loop ran {its} "
         f"of {LH_CONV_ITER} iterations ({2 * its} launches, "
         f"{2 * (LH_CONV_ITER - its)} saved by the stop once every lane is "
         f"done); share of the launches' lane-iterations run by a running "
-        f"lane {share[1]:.4f}, by a forward block ({team} lanes) with one "
-        f"{share[team]:.4f}, by a warp of the backward launch with a "
-        f"running lane {share[32]:.4f}, by a backward block with one "
-        f"{share[admm_fused.BLOCK]:.4f} (the rest returned at once)")
+        f"lane {share[1]:.4f}, by a block of {team} lanes (both launches) "
+        f"with one {share[team]:.4f} (the rest returned at once), by a "
+        f"block of {admm_fused.BLOCK} with one {share[admm_fused.BLOCK]:.4f} "
+        f"(one thread a lane)")
     report(label, prob, None, None, x0, sol_k, launches,
            resident=resident(prob, None, None, x0))
 
@@ -2347,7 +2484,8 @@ WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
                "adaptive_families_warm_launch_count",
                "consensus_warm_launch_count")
 STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
-                "forward_adaptive_stale", "forward_team_stale")
+                "forward_adaptive_stale", "forward_team_stale",
+                "forward_team_adaptive_stale")
 
 
 def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, **kw):
@@ -2925,7 +3063,8 @@ def adaptive_stream_phases(ctx):
     """Phases 35-37: adaptive rho on the adaptive instantiations of
     csrc/admm_stream.cu, and compaction on adaptive problems. Returns the
     kernels-line numbers of the adaptive backward, forward and stale
-    forward kernels."""
+    forward kernels, on lane teams (box problems) and on one thread a lane
+    (the rocket's cones)."""
     torch, tt, admm_fused, ast = ctx.torch, ctx.tt, ctx.admm_fused, ctx.ast
     kern = tt.kernels
     ref, ref_warm = (kern.solve_fused_streamed_reference,
@@ -2958,8 +3097,8 @@ def adaptive_stream_phases(ctx):
             tables=ctx.tables[DETUNED_RHO]), x_q, X_q, None),
         ("rocket SOC", adaptive_rocket(ctx, 100, 1, ctx.rocket_tables, N=N),
          x_r, X_r, U_r)]
-    for label, prob, x0, Xref, Uref in cases:
-        label = f"streamed adaptive {label}"
+    for case, prob, x0, Xref, Uref in cases:
+        label = f"streamed adaptive {case}"
         (sol_k, res_k), launches = drive(label, prob, Xref, Uref, x0)
         same_bits(torch, label, (sol_k, res_k),
                   kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
@@ -2972,6 +3111,14 @@ def adaptive_stream_phases(ctx):
             f"{sol_k.iter.float().mean().item():.4f}, solved frac "
             f"{sol_k.solved.float().mean().item():.5f}, final rho "
             f"quartiles {[round(q, 4) for q in quartiles(res_k[4])]}")
+        if case == "rocket SOC":
+            # The one-thread adaptive kernels, which the families run.
+            lt, b_bwd, b_fwd = report(label, prob, Xref, Uref, x0, sol_k,
+                                      launches)
+            row("backward_adaptive", launches[0], lt["err_b"],
+                lt["bwd_ms"], lt["plain_bwd_ms"], b_bwd)
+            row("forward_adaptive", launches[1], lt["err_f"], lt["fwd_ms"],
+                lt["plain_fwd_ms"], b_fwd)
         c_s = c_r = tt.init_carry(prob, B)
         x = x0
         states = []
@@ -2995,14 +3142,15 @@ def adaptive_stream_phases(ctx):
             states.append((x, c_s))
             c_s, c_r = s[2], r[2]
             x = x @ prob.A.T + s[0].u[0] @ prob.B.T + prob.f
-        if label.endswith(" box"):
-            # The fifth solve again, for its launches and times.
+        if case in ("box", "rocket SOC"):
+            # The fifth solve again, for its launches and times: the team
+            # kernels' stale launch (box) and the one-thread kernel's.
             x5, c5 = states[-1]
             launches5 = drive(f"{label} warm", prob, Xref, Uref, x5, c5)[1]
             lt, _, b_stale = report(f"{label} warm (the fifth solve)", prob,
                                     Xref, Uref, x5, s[0], launches5,
                                     carry=c5)
-            row("forward_adaptive_stale", launches5[2],
+            row(f"{stream_keys(prob)[2]}", launches5[2],
                 max(err, lt["err_f"]), lt["fwd_ms"], lt["plain_fwd_ms"],
                 b_stale)
 
@@ -3034,9 +3182,9 @@ def adaptive_stream_phases(ctx):
                               resident=resident(prob, Xref, None, x0))
     log(f"  {label}: plain solve {plain_ms:.1f} ms, final rho quartiles "
         f"{[round(q, 4) for q in quartiles(res_k[4])]}")
-    row("backward_adaptive", launches[0], max(err, lt["err_b"]),
+    row("backward_team_adaptive", launches[0], max(err, lt["err_b"]),
         lt["bwd_ms"], lt["plain_bwd_ms"], b_bwd)
-    row("forward_adaptive", launches[1], max(err, lt["err_f"]),
+    row("forward_team_adaptive", launches[1], max(err, lt["err_f"]),
         lt["fwd_ms"], lt["plain_fwd_ms"], b_fwd)
     N = LH_WALL_N
     prob = adaptive_problem(tt, torch, 5.0, N, LH_ITER, 1, tables=t5)
@@ -3066,6 +3214,8 @@ def adaptive_stream_phases(ctx):
         out[be], phases = compact_drive(ctx, f"adaptive N={N} {be} "
                                         f"compaction", prob, x0,
                                         chunk=COMPACT_CHUNK, backend=be)
+        if be == "streamed":
+            took_route(ast, f"adaptive N={N} streamed compaction", prob)
     same_bits(torch, f"adaptive N={N} streamed compaction", out["streamed"],
               out["resident"], "the resident compaction")
     long = drive(f"adaptive N={N} long streamed", prob, None, None, x0)[0]
@@ -4335,6 +4485,8 @@ def main():
     rows += [(f"admm_stream_{key}", f"tinympc_tpu_torch/csrc/{src}", rep,
               stream_rows[key])
              for key, src, rep in (
+                 ("backward_team", "admm_stream_team.cuh",
+                  "tinympc_tpu/kernels/admm_stream.py:121"),
                  ("backward", "admm_stream.cu",
                   "tinympc_tpu/kernels/admm_stream.py:121"),
                  ("forward_team", "admm_stream_team.cuh",
@@ -4357,14 +4509,20 @@ def main():
     rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_fam_rows[key])
              for key in ("adaptive_families", "adaptive_families_warm")]
-    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
-              rep, adapt_stream_rows[key])
-             for key, rep in (
-                 ("backward_adaptive",
+    rows += [(f"admm_stream_{key}", f"tinympc_tpu_torch/csrc/{src}", rep,
+              adapt_stream_rows[key])
+             for key, src, rep in (
+                 ("backward_team_adaptive", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:121"),
-                 ("forward_adaptive",
+                 ("forward_team_adaptive", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"),
-                 ("forward_adaptive_stale",
+                 ("forward_team_adaptive_stale", "admm_stream_team.cuh",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("backward_adaptive", "admm_stream.cu",
+                  "tinympc_tpu/kernels/admm_stream.py:121"),
+                 ("forward_adaptive", "admm_stream.cu",
+                  "tinympc_tpu/kernels/admm_stream.py:258"),
+                 ("forward_adaptive_stale", "admm_stream.cu",
                   "tinympc_tpu/kernels/admm_stream.py:258"))]
     rows += [(f"roofline_{key}", "tinympc_tpu_torch/csrc/roofline.cu", rep,
               probe_rows[key])
@@ -4374,6 +4532,24 @@ def main():
     rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fleet_rows[key])
              for key in ("multi", "multi_warm")]
+    # Each streamed row's ptxas line: the instantiation it measured spills
+    # nothing.
+    spills = 0
+    for kname, _, _, _ in rows:
+        if not kname.startswith("admm_stream_"):
+            continue
+        label = STREAM_PTXAS[kname[len("admm_stream_"):]]
+        e = ctx.ptxas.get(label, {})
+        ok = bool(e) and e.get("stack") == 0 and e.get("spill_st") == 0 \
+            and e.get("spill_ld") == 0
+        spills += not ok
+        log(f"  {kname}: ptxas {label}: {e.get('regs')} registers, "
+            f"{e.get('stack')} bytes stack frame, {e.get('spill_st')} / "
+            f"{e.get('spill_ld')} bytes spill stores / loads"
+            f"{'' if ok else ' -- MISSING OR SPILLS'}")
+    if spills:
+        log(f"{spills} streamed row(s) without a spill-free ptxas entry")
+        return 1
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": src, "replaces": rep,
         "launches": r["launches"], "max_abs_err": r["err"], "ms": r["ms"],

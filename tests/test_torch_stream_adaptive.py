@@ -272,12 +272,14 @@ class _Entries:
 
 
 def test_host_loop_launches_the_adaptive_kernels(monkeypatch):
-    """Cold then warm through the kernel launchers on an adaptive problem:
-    every launch gets the settings, each lane's rho (read and written in
-    place), its virtual rho and the scratch of an adaptation iteration; the
-    stale forward runs on the warm solve's first iteration; the adaptive
-    counters count; the residuals gain the rho row and the carry the
-    rho."""
+    """Cold then warm through the kernel launchers on an adaptive problem
+    with a family (the guard's settings on the time-varying hyperplane;
+    an adaptive box problem takes the team entries,
+    tests/test_torch_stream_team_backward.py): every launch gets the
+    settings, each lane's rho (read and written in place), its virtual
+    rho and the scratch of an adaptation iteration; the stale forward runs
+    on the warm solve's first iteration; the adaptive counters count; the
+    residuals gain the rho row and the carry the rho."""
     e = _Entries()
     monkeypatch.setattr(admm_stream, "_kernel_fns",
                         lambda: (e.backward, e.forward))
@@ -287,14 +289,15 @@ def test_host_loop_launches_the_adaptive_kernels(monkeypatch):
                         types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(admm_stream, "launch_counts",
                         dict.fromkeys(admm_stream.launch_counts, 0))
-    pt = tt.with_settings(_port(_jax_problem("guard")), max_iter=4,
-                          check_termination=2, adaptive_rho_apply_c=True)
+    pt = tt.with_settings(_port(_jax_problem("tv")), max_iter=4,
+                          check_termination=2, adaptive_rho_apply_c=True,
+                          adaptive_rho_tolerance=3.0)
     tables, x0, _, params = admm_stream._prepare(pt, None, None,
                                                  torch.zeros((3, 12)))
     _, res = admm_stream._loop(tables, x0, None, pt.spec,
                                admm_stream._KERNELS, **params)[:2]
-    assert res.shape == (5, 3) and torch.equal(res[4], torch.full((3,),
-                                                                  1000.0))
+    assert res.shape == (5, 3) and torch.equal(
+        res[4], torch.full((3,), float(pt.cache.rho)))
     carry = admm_fused._carry_tensors(pt, init_carry(pt, 3), 3)
     out = admm_stream._loop(tables, x0, carry, pt.spec,
                             admm_stream._KERNELS, **params)[2]

@@ -147,11 +147,11 @@ def test_streamed_on_cpu_returns_the_public_layout():
 
 
 class _Entries:
-    """Stand-ins for tinympc_stream_backward / tinympc_stream_forward /
-    tinympc_stream_forward_team: they record what each launch is given and
-    write nothing; ``active`` says what the forward launch of a check
-    iteration leaves in the flag; ``stale_v`` is the address of the carried
-    v, which a team launch's dual residual reads in its stale launch."""
+    """Stand-ins for tinympc_stream_backward / tinympc_stream_forward and
+    their team entries: they record what each launch is given and write
+    nothing; ``active`` says what the forward launch of a check iteration
+    leaves in the flag; ``stale_v`` is the address of the carried v, which
+    a team launch's dual residual reads in its stale launch."""
 
     def __init__(self, active=0):
         self.calls, self.active, self.stale_v = [], active, None
@@ -185,9 +185,18 @@ class _Entries:
             ctypes.c_int.from_address(args[22]).value = self.active
         return 0
 
+    def team_backward(self, *args):
+        assert len(args) == 15
+        assert all(p is not None for p in args[5:13])
+        assert args[13] is None            # no adaptive-rho arguments
+        # a box problem's: no family counts and no family arrays
+        self.calls.append(("bwd", [0] * 6, [False] * 12))
+        return 0
+
     def team(self, *args):
-        assert len(args) == 23
+        assert len(args) == 24
         assert all(p is not None for p in args[9:22])
+        assert args[22] is None            # no adaptive-rho arguments
         it, ct = args[4], args[5]
         # no family arrays and no tracked x/u: a box problem's
         self.calls.append(("fwd", it, args[11] == self.stale_v, False,
@@ -202,7 +211,8 @@ def entries(monkeypatch):
     e = _Entries()
     monkeypatch.setattr(admm_stream, "_kernel_fns",
                         lambda: (e.backward, e.forward))
-    monkeypatch.setattr(admm_stream, "_team_fn", lambda: e.team)
+    monkeypatch.setattr(admm_stream, "_team_fns",
+                        lambda: (e.team_backward, e.team))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -220,9 +230,9 @@ def test_host_loop_launches_the_kernels(make, entries):
     it is on, the stale forward kernel on a warm solve's first iteration
     only, x/u tracked on warm family solves only, the counters counted,
     and the loop stopped after the first check iteration whose flag reads
-    0 (here ct 2: after iteration 1). The box problem's forward launches
-    take the team entry (its stale launch reads the carried v), counted
-    under forward_team / forward_team_stale."""
+    0 (here ct 2: after iteration 1). The box problem's launches take the
+    team entries (its stale launch reads the carried v), counted under
+    backward_team / forward_team / forward_team_stale."""
     p = make(max_iter=5, check_termination=2)
     spec = p.spec
     B = 3
@@ -242,10 +252,11 @@ def test_host_loop_launches_the_kernels(make, entries):
         ("bwd", list(fam), on), ("fwd", 1, False, False, on),
         ("bwd", list(fam), on), ("fwd", 0, True, tracked, on),
         ("bwd", list(fam), on), ("fwd", 1, False, tracked, on)]
-    fwd = "forward_team" if not any(fam) else "forward"
+    team = "_team" if not any(fam) else ""
     assert admm_stream.launch_counts == dict(
-        dict.fromkeys(admm_stream.launch_counts, 0), backward=4,
-        **{fwd: 3, fwd + "_stale": 1})
+        dict.fromkeys(admm_stream.launch_counts, 0),
+        **{f"backward{team}": 4, f"forward{team}": 3,
+           f"forward{team}_stale": 1})
     for f in dataclasses.fields(carry):
         assert (getattr(out, f.name) is None) == \
             (getattr(carry, f.name) is None), f.name

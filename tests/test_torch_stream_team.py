@@ -13,9 +13,11 @@ check and non-check iterations, at (12, 4) and (6, 3), with a partial last
 team), and a whole streamed solve driven through it against the JAX
 package's streamed kernels in interpret mode. The launch glue is held
 against stand-ins for the C entries: box problems at fixed rho take the
-team entry and its counts, families, adaptive rho and consensus the
-one-thread forward kernel and theirs. The CUDA kernel itself runs on the
-card only (chip_smoke.py phases 17-22)."""
+team entries and their counts, families (adaptive or not) and consensus
+the one-thread kernels and theirs. The emulation also runs adaptive rho
+(tests/test_torch_stream_team_backward.py holds it and the team backward
+kernel). The CUDA kernels themselves run on the card only (chip_smoke.py
+phases 17-22, 35-37)."""
 import contextlib
 import ctypes
 import dataclasses
@@ -32,6 +34,7 @@ from tinympc_tpu import systems
 from tinympc_tpu.kernels import solve_fused_streamed as jax_streamed
 
 import tinympc_tpu_torch as tt
+from tinympc_tpu_torch.types import ADAPTIVE_RHO_PERIOD
 from tinympc_tpu_torch.convert import problem_from_numpy, problem_to_numpy
 from tinympc_tpu_torch.kernels import (init_carry,
                                        solve_fused_streamed_reference,
@@ -79,19 +82,36 @@ def team_lanes(nx):
     return 8 if 8 * nx % 32 == 0 else 16 if 16 * nx % 32 == 0 else 32
 
 
-def _offsets(nx, nu, N):
+def _offsets(nx, nu, N, adapt=None):
     out, o = {}, 0
-    for name, shape in admm_fused._table_layout(nx, nu, N):
+    for name, shape in admm_fused._table_layout(nx, nu, N,
+                                                admm_fused.NO_FAMILIES,
+                                                adapt):
         out[name] = o
         o += math.prod(shape)
     return out
 
 
+def sqrt_rn(x):
+    """The correctly rounded float32 root (the kernels' sqrt_rn)."""
+    return torch.sqrt(x.double()).float()
+
+
+def maxabs(m, a):
+    return max_nan(m, a.abs())
+
+
 def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
-                 active, *, it, N, nx, nu, ct, rho, tol_pri, tol_dua):
-    """One launch of stream_forward_team_kernel<nx, nu>, every thread of
-    every block at once as a (block, thread) tensor. Reads and writes the
-    lane-last arrays in place, as the kernel does."""
+                 active, *, it, N, nx, nu, ct, rho, tol_pri, tol_dua,
+                 adapt=None, rho_lane=None, rho_v=None):
+    """One launch of stream_forward_team_kernel<nx, nu, Rho>, every thread
+    of every block at once as a (block, thread) tensor. Reads and writes the
+    lane-last arrays in place, as the kernel does. With ``adapt`` (the
+    adaptive-rho settings) each lane's ``rho_lane`` telescopes the rollout
+    gain and, on an adaptation iteration, the OSQP terms of row j are
+    folded in at step j+1 from the lane's new dual g[j+1] in its slot; row
+    0's thread forms the new rho, updating ``rho_lane`` / ``rho_v`` in
+    place."""
     B = x0.shape[0]
     lanes = team_lanes(nx)
     rows = nx + nu
@@ -104,7 +124,8 @@ def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
     run = (b < B) & ~done[bc]
     st_row = row < nx
     k = torch.where(st_row, row, row - nx)                   # (thread,)
-    o = _offsets(nx, nu, N)
+    ku = k.clamp(max=nu - 1)
+    o = _offsets(nx, nu, N, adapt)
     # Each thread's row of [Kinf; A] and of B, and f.
     mrow = torch.where(st_row, nu + k, k)
     f1 = tables[o["Mfwd"] + mrow[:, None] * nx + torch.arange(nx)]
@@ -114,6 +135,20 @@ def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
     fv = torch.where(st_row, tables[o["f"] + k.clamp(max=nx - 1)],
                      torch.zeros(()))
     checking = (it + 1) % ct == 0
+    adapting = adapt is not None and it > 0 and \
+        it % ADAPTIVE_RHO_PERIOD == 0
+    drho = torch.zeros(())
+    if adapt is not None:
+        # An input row's row of dKinf; the row of A^T (state) or B^T
+        # (input) the adaptation applies to g[j+1]; Q or R; the lane's rho.
+        cols = torch.arange(nx)
+        dk = tables[o["dK"] + ku[:, None] * nx + cols]
+        gr = torch.where(st_row[:, None],
+                         tables[o["AT"] + k[:, None] * nx + cols],
+                         tables[o["Mback"] + ku[:, None] * nx + cols])
+        wq = torch.where(st_row, tables[o["Qd"] + k], tables[o["Rd"] + ku])
+        rl = torch.where(run, rho_lane[bc], torch.tensor(rho))
+        drho = rl - rho
     sm, im = run & st_row, run & ~st_row         # running state / input rows
     kk = k.expand(nblk, T)
     pr = torch.zeros((nblk, T))
@@ -121,25 +156,60 @@ def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
 
     def project(i, val, mask, lo, hi, dual, slack, prev):
         """Row i of the masked threads: project, update the dual from the
-        pre-update one, store both, fold in the residual maxima."""
+        pre-update one, store both, fold in the residual maxima; returns
+        the new slack and dual (0 off the mask)."""
         nonlocal pr, du
         ks, bs = kk[mask], b[mask]
         v = val[mask]
         dn0 = dual[i, ks, bs]
         sn = clamp_nan(v + dn0, lo[i, ks], hi[i, ks])
-        dual[i, ks, bs] = dn0 + v - sn
+        dn = dn0 + v - sn
+        dual[i, ks, bs] = dn
         slack[i, ks, bs] = sn
         if checking:
             pr[mask] = max_nan(pr[mask], (v - sn).abs())
             du[mask] = max_nan(du[mask], (prev[i, ks, bs] - sn).abs())
+        out_s, out_d = torch.zeros((nblk, T)), torch.zeros((nblk, T))
+        out_s[mask], out_d[mask] = sn, dn
+        return out_s, out_d
 
     t_ = {n: tables[o[n]:o[n] + math.prod(s)].reshape(s)
-          for n, s in admm_fused._table_layout(nx, nu, N)}
+          for n, s in admm_fused._table_layout(nx, nu, N,
+                                               admm_fused.NO_FAMILIES,
+                                               adapt)}
     state = (t_["xmin"], t_["xmax"], g, vcur, vd)
     inputs = (t_["umin"], t_["umax"], y, zcur, zd)
     slot = torch.zeros((nblk, lanes, nx + nu))                # x, then u
+    gslot = torch.zeros((nblk, lanes, nx))
     blk = torch.arange(nblk)[:, None].expand(nblk, T)
     ln = lane.expand(nblk, T)
+    z = lambda: torch.zeros((nblk, T))
+    pres, pnorm, dres, dnorm = z(), z(), z(), z()
+    pa, pb, pc, ad1, ad2 = z(), z(), z(), z(), z()
+
+    def terms(j):
+        """Row j's OSQP terms on the running threads, g[j+1] in the
+        slots; ad2 is the dynamics row j-1."""
+        nonlocal pres, pnorm, dres, dnorm
+        gv = gslot[:, lane, :]
+        acc = torch.zeros((nblk, T))
+        for c in range(nx):
+            acc = fma32(gr[:, c], gv[..., c], acc)
+        w = lambda mask, new, old: torch.where(mask, new, old)
+        qx = wq * pa
+        aty = acc - (pb if j >= 1 else 0.0)
+        dres = w(sm, maxabs(dres, qx + qx + aty), dres)
+        dnorm = w(sm, maxabs(maxabs(maxabs(dnorm, qx), aty), qx), dnorm)
+        if j >= 1:
+            pres = w(sm, maxabs(pres, ad2 - pc), pres)
+            pnorm = w(sm, maxabs(maxabs(pnorm, ad2), pc), pnorm)
+        ru = wq * pa
+        atu = pb + acc
+        dres = w(im, maxabs(dres, 2.0 * ru + atu), dres)
+        dnorm = w(im, maxabs(maxabs(dnorm, ru), atu), dnorm)
+        pres = w(im, maxabs(pres, pa - pc), pres)
+        pnorm = w(im, maxabs(maxabs(pnorm, pa), pc), pnorm)
+
     xo = torch.zeros((nblk, T))
     xo[sm] = x0[b[sm], kk[sm]]
     slot[blk[sm], ln[sm], kk[sm]] = xo[sm]
@@ -149,26 +219,91 @@ def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
         a1 = torch.zeros((nblk, T))
         for c in range(nx):
             a1 = fma32(f1[:, c], x[..., c], a1)
-        project(i, xo, sm, *state)
+        sn_x, dn_x = project(i, xo, sm, *state)
+        kx = a1
+        if adapt is not None:
+            s = torch.zeros((nblk, T))
+            for c in range(nx):
+                s = fma32(dk[:, c], x[..., c], s)
+            kx = a1 + drho * s
         u = torch.zeros((nblk, T))
-        u[im] = -a1[im] - d[i, kk[im], b[im]]
+        u[im] = -kx[im] - d[i, kk[im], b[im]]
         slot[blk[im], ln[im], nx + kk[im]] = u[im]
-        project(i, u, im, *inputs)
+        sn_u, dn_u = project(i, u, im, *inputs)
+        if adapting:
+            gslot[blk[sm], ln[sm], kk[sm]] = dn_x[sm]
         # after the second barrier: u of step i in the slots
         us = slot[:, lane, nx:]
         acc = torch.zeros((nblk, T))
         for c in range(nu):
             acc = fma32(bm[:, c], us[..., c], acc)
-        xo = torch.where(sm, a1 + acc + fv, xo)
-        slot[blk[sm], ln[sm], kk[sm]] = xo[sm]
-    project(N - 1, xo, sm, *state)
+        s = a1 + acc
+        xn = torch.where(sm, s + fv, xo)
+        slot[blk[sm], ln[sm], kk[sm]] = xn[sm]
+        if adapting:
+            if i >= 1:
+                terms(i - 1)
+            pa = torch.where(st_row, xo, u)
+            pb = torch.where(st_row, dn_x, dn_u)
+            pc = torch.where(st_row, sn_x, sn_u)
+            ad2, ad1 = ad1, s - xn
+        xo = xn
+    snN, dnN = project(N - 1, xo, sm, *state)
+    if adapting:
+        gslot[blk[sm], ln[sm], kk[sm]] = dnN[sm]
+        terms(N - 2)
+        # Row N-1: the terminal Pinf telescoped by drho dPinf, no A^T g
+        # term, the dynamics row N-2 against the slack of row N-1.
+        x = slot[:, lane, :nx]
+        pp, dp = torch.zeros((nblk, T)), torch.zeros((nblk, T))
+        for c in range(nx):
+            kc = k.clamp(max=nx - 1) * nx + c
+            pp = fma32(tables[o["Pinf"] + kc], x[..., c], pp)
+            dp = fma32(tables[o["dP"] + kc], x[..., c], dp)
+        px = pp + drho * dp
+        qx = wq * xo
+        aty = 0.0 - dnN
+        dres = torch.where(sm, maxabs(dres, px + qx + aty), dres)
+        dnorm = torch.where(sm, maxabs(maxabs(maxabs(dnorm, px), aty), qx),
+                            dnorm)
+        pres = torch.where(sm, maxabs(pres, ad1 - snN), pres)
+        pnorm = torch.where(sm, maxabs(maxabs(pnorm, ad1), snN), pnorm)
     # Row 0's thread of each running lane: the team's maxima, bookkeeping.
     lead = run & (row == 0)
     bl = b[lead]
     iters[bl] = it + 1
+    team = lambda v: v.reshape(nblk, rows, lanes)
+    rho_b = torch.full((nblk, lanes), rho)
+    if adapt is not None:
+        rho_b = rl[:, :lanes].clone()
+        if adapting:
+            m = []
+            for v in (pres, pnorm, dres, dnorm):
+                acc = torch.zeros((nblk, lanes))
+                for r in range(rows):
+                    acc = max_nan(acc, team(v)[:, r])
+                m.append(acc)
+            eps = 1e-10
+            ratio = (m[0] / (m[1] + eps)) / (m[2] / (m[3] + eps) + eps)
+            factor = sqrt_rn(ratio)
+            clip = (lambda v: clamp_nan(v, torch.tensor(adapt.rho_min),
+                                        torch.tensor(adapt.rho_max))) \
+                if adapt.clip else (lambda v: v)
+            rv = rho_v[bc[:, :lanes]]
+            if adapt.rho_tol > 1.0:
+                nv = clip(rv * factor)
+                commit = (nv >= adapt.rho_tol * rho_b) | \
+                    (nv * adapt.rho_tol <= rho_b)
+                rho_b = torch.where(commit, nv, rho_b)
+                rv = nv
+            else:
+                rho_b = clip(rho_b * factor)
+            keep = lead[:, :lanes]
+            rho_v[b[:, :lanes][keep]] = rv[keep]
+        rho_lane[bl] = rho_b[lead[:, :lanes]]
     if not checking:
         return
-    red = [r.reshape(nblk, rows, lanes) for r in (pr, du)]
+    red = [team(r) for r in (pr, du)]
     m = [torch.zeros((nblk, lanes)) for _ in range(4)]   # ps, ds, pi, di
     for r in range(rows):
         side = 0 if r < nx else 2
@@ -176,7 +311,8 @@ def team_forward(tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
         m[side + 1] = max_nan(m[side + 1], red[1][:, r])
     ps, ds, pi, di = (v[:, None, :].expand(nblk, rows, lanes)
                       .reshape(nblk, T)[lead] for v in m)
-    r2, r3 = ds * rho, di * rho
+    rb = rho_b[:, None, :].expand(nblk, rows, lanes).reshape(nblk, T)[lead]
+    r2, r3 = ds * rb, di * rb
     res[0, bl], res[1, bl], res[2, bl], res[3, bl] = ps, pi, r2, r3
     ok = (ps < tol_pri) & (pi < tol_pri) & (r2 < tol_dua) & (r3 < tol_dua)
     done[bl[ok]] = True
@@ -391,18 +527,18 @@ def _view(ptr, shape, dtype=torch.float32):
 
 
 class _Entries:
-    """Stand-ins for the C entries of csrc/admm_stream.cu. The backward and
-    the team forward entry run the plain backward launch and the team
-    emulation through the pointers they are given; the one-thread forward
-    entry records its launch and leaves the flag at 0."""
+    """Stand-ins for the C entries of csrc/admm_stream.cu. The team
+    backward and the team forward entry run the plain backward launch and
+    the team emulation through the pointers they are given; the one-thread
+    forward entry records its launch and leaves the flag at 0."""
 
     def __init__(self):
         self.calls = []
 
     def backward(self, *args):
-        nx, nu, N, B, counts, rho = args[:6]
-        tables, vprev, zprev, g, y, d, done, active = args[6:14]
-        assert all(counts[k] == 0 for k in range(6))
+        assert len(args) == 15 and args[13] is None   # fixed rho
+        nx, nu, N, B, rho = args[:5]
+        tables, vprev, zprev, g, y, d, done, active = args[5:13]
         ntab = sum(math.prod(s) for _, s in admm_fused._table_layout(nx, nu,
                                                                       N))
         x, u = (N, nx, B), (N - 1, nu, B)
@@ -426,7 +562,7 @@ class _Entries:
         return 0
 
     def team(self, *args):
-        assert len(args) == 23
+        assert len(args) == 24 and args[22] is None   # fixed rho
         nx, nu, N, B, it, ct, rho, tol_pri, tol_dua = args[:9]
         (tables, x0, vd, zd, vcur, zcur, g, y, d, iters, done, res,
          active) = args[9:22]
@@ -449,8 +585,9 @@ class _Entries:
 def entries(monkeypatch):
     e = _Entries()
     monkeypatch.setattr(admm_stream, "_kernel_fns",
-                        lambda: (e.backward, e.forward))
-    monkeypatch.setattr(admm_stream, "_team_fn", lambda: e.team)
+                        lambda: (None, e.forward))
+    monkeypatch.setattr(admm_stream, "_team_fns",
+                        lambda: (e.backward, e.team))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -463,11 +600,11 @@ def entries(monkeypatch):
 @pytest.mark.parametrize("nx", [12, 6])
 def test_box_solves_launch_the_team_entry(nx, entries):
     """A box problem at fixed rho through the kernel launchers, cold then
-    warm (B=13, ct 3): every forward launch on the team entry, the warm
-    solve's first as its stale launch (the carried v/z as the dual
-    residual's slacks), counted under forward_team / forward_team_stale;
-    the results, run through the pointers, bitwise the plain streamed
-    solve."""
+    warm (B=13, ct 3): every launch on the team entries, the warm solve's
+    first forward as its stale launch (the carried v/z as the dual
+    residual's slacks), counted under backward_team / forward_team /
+    forward_team_stale; the results, run through the pointers, bitwise the
+    plain streamed solve."""
     N, B = 10, 13
     prob = PROBLEMS[nx](N, max_iter=30, ct=3)
     x0, Xref, Uref = _inputs(nx, N, B, 9)
@@ -479,7 +616,7 @@ def test_box_solves_launch_the_team_entry(nx, entries):
     assert torch.equal(sol_k.iter, sol_p.iter) and torch.equal(res_k, res_p)
     cold = dict(admm_stream.launch_counts)
     its = int(sol_k.iter.max())
-    assert cold == dict(dict.fromkeys(cold, 0), backward=its,
+    assert cold == dict(dict.fromkeys(cold, 0), backward_team=its,
                         forward_team=its)
     assert "forward" not in [c[0] for c in entries.calls
                              if isinstance(c, tuple)]
@@ -508,8 +645,15 @@ def _consensus():
 
 
 def _adaptive():
-    p = tt.with_sensitivities(_quad(8, max_iter=4, ct=2),
-                              tt.systems.crazyflie_sensitivity_tables())
+    """Adaptive rho with a family (a time-varying hyperplane on z): an
+    adaptive box problem runs on the team entries since the team backward
+    kernel (tests/test_torch_stream_team_backward.py)."""
+    N = 8
+    a = np.zeros((N, 1, 12))
+    a[:, 0, 2] = 1.0
+    p = tt.with_tv_linear_constraints(_quad(N, max_iter=4, ct=2), a,
+                                      np.full((N, 1), 0.6))
+    p = tt.with_sensitivities(p, tt.systems.crazyflie_sensitivity_tables())
     return tt.with_settings(p, adaptive_rho=True)
 
 
@@ -518,9 +662,9 @@ def _adaptive():
     (_adaptive, (4, 12), "_adaptive")], ids=["soc", "consensus", "adaptive"])
 def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
                                                           monkeypatch):
-    """Families, consensus and adaptive rho: every forward launch on the
-    one-thread forward entry, counted under its own keys; the team entry
-    is never loaded."""
+    """Families (at fixed or adaptive rho) and consensus: every launch on
+    the one-thread entries, counted under their own keys; the team entries
+    are never loaded."""
     calls = []
 
     def record(name):
@@ -536,7 +680,7 @@ def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
 
     monkeypatch.setattr(admm_stream, "_kernel_fns",
                         lambda: (record("bwd"), record("fwd")))
-    monkeypatch.setattr(admm_stream, "_team_fn", no_team)
+    monkeypatch.setattr(admm_stream, "_team_fns", no_team)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -559,8 +703,9 @@ def test_no_new_refusal(entries, monkeypatch):
     2 to past the resident wall, batches that leave the last team partial
     or hold a single lane, at (12, 4) and (6, 3), all on the team entry
     (its arithmetic stood in by a recorder here)."""
-    monkeypatch.setattr(admm_stream, "_team_fn", lambda: lambda *a: (
-        entries.calls.append(("team", a[:4])), 0)[1])
+    monkeypatch.setattr(admm_stream, "_team_fns", lambda: (
+        entries.backward, lambda *a: (entries.calls.append(("team", a[:4])),
+                                      0)[1]))
     for make, nx in ((_quad, 12), (_rocket_box, 6)):
         for N, batches in ((2, (1, 13, 1029)), (3, (7,)), (2048, (1, 13))):
             prob = make(N, max_iter=1, ct=2)

@@ -81,10 +81,37 @@ __device__ __forceinline__ float maxabs(float m, float a) {
   return max_nan(m, fabsf(a));
 }
 
+// The new rho of a lane from the maxima of its OSQP residuals and norms
+// (admm_pallas.py:1127-1142): rho * sqrt(normalised primal / normalised
+// dual), clipped, committed directly or, with rho_tol > 1, through the
+// virtual rho (the guard).
+__device__ __forceinline__ void rho_update(const AdaptArgs& a, float pri_res,
+                                           float pri_norm, float dual_res,
+                                           float dual_norm, float& rho_lane,
+                                           float& rho_v) {
+  const float ratio = div_rn(div_rn(pri_res, pri_norm + kRhoEps),
+                             div_rn(dual_res, dual_norm + kRhoEps) +
+                                 kRhoEps);
+  const float factor = sqrt_rn(ratio);
+  if (a.rho_tol > 1.f) {
+    float nv = rho_v * factor;
+    if (a.clip) nv = clamp_nan(nv, a.rho_min, a.rho_max);
+    const bool commit =
+        (nv >= a.rho_tol * rho_lane) || (nv * a.rho_tol <= rho_lane);
+    rho_v = nv;
+    if (commit) rho_lane = nv;
+  } else {
+    float nr = rho_lane * factor;
+    if (a.clip) nr = clamp_nan(nr, a.rho_min, a.rho_max);
+    rho_lane = nr;
+  }
+}
+
 template <int NX, int NU, bool APPLY_C>
 struct AdaptiveRho {
   using Args = AdaptArgs;
   static constexpr bool kAdaptive = true;
+  static constexpr bool kApplyC = APPLY_C;
   // Above ~100 registers ptxas spills without a minimum of blocks (as the
   // families kernel did); one block an SM is all a large batch gets anyway.
   static constexpr int kMinBlocks = 1;
@@ -287,22 +314,7 @@ struct AdaptiveRho {
         pri_norm = maxabs(maxabs(pri_norm, u), z);
       }
     }
-    const float ratio = div_rn(div_rn(pri_res, pri_norm + kRhoEps),
-                               div_rn(dual_res, dual_norm + kRhoEps) +
-                                   kRhoEps);
-    const float factor = sqrt_rn(ratio);
-    if (a.rho_tol > 1.f) {
-      float nv = rho_v * factor;
-      if (a.clip) nv = clamp_nan(nv, a.rho_min, a.rho_max);
-      const bool commit =
-          (nv >= a.rho_tol * rho_lane) || (nv * a.rho_tol <= rho_lane);
-      rho_v = nv;
-      if (commit) rho_lane = nv;
-    } else {
-      float nr = rho_lane * factor;
-      if (a.clip) nr = clamp_nan(nr, a.rho_min, a.rho_max);
-      rho_lane = nr;
-    }
+    rho_update(a, pri_res, pri_norm, dual_res, dual_norm, rho_lane, rho_v);
   }
 
   // Converged lanes froze their rho: the final rho of the lane.

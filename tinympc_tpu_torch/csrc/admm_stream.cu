@@ -24,11 +24,12 @@
 //     :573-641 (iterations, convergence every check_termination
 //     iterations, residuals). On warm solves with families or consensus
 //     it also writes the x/u trajectories the carry hands over (track_xu).
-//     It runs the problems with families, consensus or adaptive rho;
-//   * stream_forward_team_kernel (admm_stream_team.cuh) <- the same
-//     _forward_kernel, for box problems at fixed rho: a thread a row of
-//     each lane, bitwise stream_forward_kernel's (its stale launch is the
-//     same kernel given the carried v/z).
+//     Both run the problems with families or consensus;
+//   * stream_backward_team_kernel and stream_forward_team_kernel
+//     (admm_stream_team.cuh) <- the same two TPU kernels, for box problems
+//     at fixed or adaptive rho: a thread a row of each lane, bitwise the
+//     one-thread kernels' (the forward's stale launch is the same kernel
+//     given the carried v/z).
 // Their CONS instantiations add consensus (admm_stream.py:229-239, :496-499,
 // :553-570): the backward kernel's row 0 takes r[0] - rho_c (zc0 - yc0) and
 // the Quu0_inv gain, the forward kernel's row 0 the Kinf0 gain, and at the
@@ -102,16 +103,16 @@
 // blocks (8 of 132 SMs at B=1024) and each thread walks its rows in
 // series, each row waiting on device-memory latency and on the row
 // before's p or x: at small batches the launches are latency-bound. The
-// box forward launch therefore runs on lane teams, its rows staged ahead
-// (admm_stream_team.cuh; N=512, B=4096: 0.3672-0.3699 against
-// 3.5065-3.5435 ms a launch in turns with this file's one-thread kernel,
-// chip_compare.py time, on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
-// section 6); the backward launch and the other forward instantiations are
+// box launches therefore run on lane teams, their rows staged ahead
+// (admm_stream_team.cuh; the fixed-rho forward at N=512, B=4096:
+// 0.3672-0.3699 against 3.5065-3.5435 ms a launch in turns with this file's
+// one-thread kernel, chip_compare.py time, on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md section 6); the launches with families or consensus are
 // still one thread a lane.
 //
-// C interface (loaded with ctypes): tinympc_stream_backward and
-// tinympc_stream_forward launch on the given stream, never synchronise,
-// and return the cudaError_t of the launch.
+// C interface (loaded with ctypes): tinympc_stream_backward,
+// tinympc_stream_forward and their team entries launch on the given
+// stream, never synchronise, and return the cudaError_t of the launch.
 #include <type_traits>
 
 #include "admm_adaptive.cuh"
@@ -613,28 +614,63 @@ int forward_dispatch(int nx, int nu, const FamilyArgs& fa,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// A forward launch on lane teams (admm_stream_team.cuh) at (NX, NU): one
-// block a team of TeamShape's lanes; p.vprev / p.zprev hold the slacks the
-// dual residual compares against (the carried v/z in the stale launch).
-template <int NX, int NU>
-cudaError_t forward_team(const Forward& p, int it, int N, int B, int ct,
-                         float rho, float tol_pri, float tol_dua,
-                         cudaStream_t s) {
+// The launches on lane teams (admm_stream_team.cuh) at (NX, NU): one block
+// a team of TeamShape's lanes, at fixed rho (FixedRho) or adaptive rho
+// (AdaptiveRho; the forward's with apply_c off, which moves only the
+// backward sweep). The forward's p.vprev / p.zprev hold the slacks the dual
+// residual compares against (the carried v/z in the stale launch).
+template <int NX, int NU, class Rho>
+cudaError_t backward_team(const typename Rho::Args& ra, const Backward& p,
+                          int N, int B, float rho, cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  tinympc::stream_forward_team_kernel<NX, NU>
+  tinympc::stream_backward_team_kernel<NX, NU, Rho>
+      <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
+          p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
+          rho, ra);
+  return cudaGetLastError();
+}
+
+template <int NX, int NU>
+cudaError_t backward_team_at(const AdaptArgs* adapt, const Backward& p,
+                             int N, int B, float rho, cudaStream_t s) {
+  if (!adapt) return backward_team<NX, NU, FixedRho>({}, p, N, B, rho, s);
+  return adapt->apply_c
+             ? backward_team<NX, NU, AdaptiveRho<NX, NU, true>>(
+                   *adapt, p, N, B, rho, s)
+             : backward_team<NX, NU, AdaptiveRho<NX, NU, false>>(
+                   *adapt, p, N, B, rho, s);
+}
+
+template <int NX, int NU, class Rho>
+cudaError_t forward_team(const typename Rho::Args& ra, const Forward& p,
+                         int it, int N, int B, int ct, float rho,
+                         float tol_pri, float tol_dua, cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  tinympc::stream_forward_team_kernel<NX, NU, Rho>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
           p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri,
-          tol_dua);
+          tol_dua, ra);
   return cudaGetLastError();
+}
+
+template <int NX, int NU>
+cudaError_t forward_team_at(const AdaptArgs* adapt, const Forward& p, int it,
+                            int N, int B, int ct, float rho, float tol_pri,
+                            float tol_dua, cudaStream_t s) {
+  if (!adapt)
+    return forward_team<NX, NU, FixedRho>({}, p, it, N, B, ct, rho, tol_pri,
+                                          tol_dua, s);
+  return forward_team<NX, NU, AdaptiveRho<NX, NU, false>>(
+      *adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s);
 }
 
 }  // namespace
 
 extern "C" int tinympc_stream_block() { return kBlock; }
 
-// The lanes a block of the team forward launch holds at (nx, nu); 0 for a
-// pair this file does not instantiate.
+// The lanes a block of the team launches holds at (nx, nu); 0 for a pair
+// this file does not instantiate.
 extern "C" int tinympc_stream_team_lanes(int nx, int nu) {
   if (nx == 12 && nu == 4) return TeamShape<12, 4>::kLanes;
   if (nx == 6 && nu == 3) return TeamShape<6, 3>::kLanes;
@@ -747,23 +783,57 @@ extern "C" int tinympc_stream_forward(
                                          ct, rho, tol_pri, tol_dua, s);
 }
 
-// The forward launch of iteration `it` of a box problem at fixed rho (no
-// family, no consensus, no adaptive rho), on lane teams. vd, zd: the
-// slacks the dual residual compares against -- the previous iterate's
-// vprev (N, nx, B) / zprev (N-1, nu, B), or in the stale launch (the first
-// iteration of a warm solve) the carried v/z; the other arguments as
-// tinympc_stream_forward takes them. Returns 0 or a cudaError_t;
+// The backward launch of a box problem (no family, no consensus) on lane
+// teams, at fixed rho (adapt null) or adaptive rho (apply_c and rho_in read;
+// the adaptive tables after the box tables); the other arguments as
+// tinympc_stream_backward takes them. Returns 0 or a cudaError_t;
 // cudaErrorInvalidValue for an (nx, nu) pair this file does not
 // instantiate, a bad size or a missing array.
+extern "C" int tinympc_stream_backward_team(
+    int nx, int nu, int N, int B, float rho, const void* tables,
+    const void* vprev, const void* zprev, const void* g, const void* y,
+    void* d, const void* done, void* active, const AdaptArgs* adapt,
+    void* stream) {
+  if (N < 2 || B < 1 || !tables || !vprev || !zprev || !g || !y || !d ||
+      !done || !active || (adapt && !adapt->rho_in))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Backward p = {static_cast<const float*>(tables),
+                      static_cast<const float*>(vprev),
+                      static_cast<const float*>(zprev),
+                      static_cast<const float*>(g),
+                      static_cast<const float*>(y),
+                      static_cast<float*>(d),
+                      static_cast<const unsigned char*>(done),
+                      static_cast<int*>(active)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return static_cast<int>(backward_team_at<12, 4>(adapt, p, N, B, rho, s));
+  if (nx == 6 && nu == 3)    // the rocket
+    return static_cast<int>(backward_team_at<6, 3>(adapt, p, N, B, rho, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward launch of iteration `it` of a box problem (no family, no
+// consensus) on lane teams. vd, zd: the slacks the dual residual compares
+// against -- the previous iterate's vprev (N, nx, B) / zprev (N-1, nu, B),
+// or in the stale launch (the first iteration of a warm solve) the carried
+// v/z. adapt: null at fixed rho; else the adaptive-rho arguments, of which
+// this launch reads the settings, rho_in, rho_out and rho_v (the lanes' rho
+// and virtual rho, (B,) each, updated for the running lanes) and not the
+// scratch (its adaptation needs none); the adaptive tables after the box
+// tables. The other arguments as tinympc_stream_forward takes them. Returns
+// 0 or a cudaError_t; cudaErrorInvalidValue for an (nx, nu) pair this file
+// does not instantiate, a bad size or a missing array.
 extern "C" int tinympc_stream_forward_team(
     int nx, int nu, int N, int B, int it, int check_termination, float rho,
     float tol_pri, float tol_dua, const void* tables, const void* x0,
     const void* vd, const void* zd, void* vcur, void* zcur, void* g,
     void* y, const void* d, void* iters, void* done, void* res,
-    void* active, void* stream) {
+    void* active, const AdaptArgs* adapt, void* stream) {
   if (N < 2 || B < 1 || it < 0 || check_termination < 1 || !tables || !x0 ||
       !vd || !zd || !vcur || !zcur || !g || !y || !d || !iters || !done ||
-      !res || !active)
+      !res || !active ||
+      (adapt && (!adapt->rho_in || !adapt->rho_out || !adapt->rho_v)))
     return static_cast<int>(cudaErrorInvalidValue);
   Forward p = {};
   p.tables = static_cast<const float*>(tables);
@@ -782,10 +852,10 @@ extern "C" int tinympc_stream_forward_team(
   const auto s = static_cast<cudaStream_t>(stream);
   const int ct = check_termination;
   if (nx == 12 && nu == 4)   // the quadrotor
-    return static_cast<int>(
-        forward_team<12, 4>(p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+    return static_cast<int>(forward_team_at<12, 4>(
+        adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
   if (nx == 6 && nu == 3)    // the rocket
-    return static_cast<int>(
-        forward_team<6, 3>(p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+    return static_cast<int>(forward_team_at<6, 3>(
+        adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

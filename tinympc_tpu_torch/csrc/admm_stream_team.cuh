@@ -1,19 +1,29 @@
-// The streamed forward launch of box problems at fixed rho on lane teams:
-// the forward kernel that the long-horizon box solves run (admm_stream.cu
-// routes families, adaptive rho and consensus to stream_forward_kernel).
+// The streamed solve's two launches for box problems on lane teams, at
+// fixed and at adaptive rho: the kernels that the long-horizon box solves
+// run (admm_stream.cu routes problems with families or consensus to the
+// one-thread stream_backward_kernel / stream_forward_kernel).
 //
-// It computes what admm_sweep.cuh's forward_sweep computes with
-// NoFamilies, FixedRho and NoConsensus, and the bookkeeping of
-// stream_forward_kernel (admm_stream.py:474-641): the rollout u = -Kinf x
-// - d, x+ = A x + B u + f; each row projected onto its box and its dual
-// updated from the pre-update dual; the four max-abs residuals on check
-// iterations; iterations, residuals, convergence and the `active` flag.
+// stream_backward_team_kernel computes what admm_sweep.cuh's backward_sweep
+// computes with NoFamilies and NoConsensus (admm_stream.py:121-253): the
+// terminal costate, then for rows N-2 down to 0 the linear cost r, q from
+// the previous slacks and duals, d = Quu_inv (B^T p + r + BPf) and
+// p = q + AmBKt p - Kinf^T r + APf, with AdaptiveRho's telescoped products
+// under adaptive rho. stream_forward_team_kernel computes what
+// forward_sweep computes with NoFamilies and NoConsensus, and the
+// bookkeeping of stream_forward_kernel (admm_stream.py:474-641): the
+// rollout u = -Kinf x - d, x+ = A x + B u + f; each row projected onto its
+// box and its dual updated from the pre-update dual; the four max-abs
+// residuals on check iterations; under adaptive rho the telescoped gain
+// and, on an adaptation iteration, the OSQP residuals and the new rho
+// (admm_adaptive.cuh's adapt); iterations, residuals, convergence and the
+// `active` flag.
 //
-// Why a team: stream_forward_kernel runs one thread a lane, 128 lanes a
+// Why a team: the one-thread kernels run one thread a lane, 128 lanes a
 // block, so B=1024 fills 8 of the H100's 132 SMs and B=4096 32, and each
 // thread walks its lane's rows in series, every row waiting on device
-// memory and on the row before's x (1.7357 ms a launch at N=256, B=4096,
-// against a 0.0851 ms byte bound; PERF.md section 6, row 4). Here:
+// memory and on the row before's x or p (PERF.md section 6: the forward
+// launch 1.7357 ms at N=256, B=4096, against a 0.0851 ms byte bound; the
+// backward 0.9704 ms at N=512, B=1024, against 0.0225). Here:
 //   * A lane's NX + NU rows are a team of threads, one a row (state rows
 //     k < NX, then input rows), kLanes lanes a block: thread t holds row
 //     t / kLanes of lane t % kLanes. A warp holds 32 / kLanes rows of
@@ -25,44 +35,69 @@
 //     (8 lanes of 16 row slots, 7 idle, was 3-21% slower at N=512 and
 //     mixes the roles in a warp). B=1024 at (12, 4) is then 128 blocks,
 //     B=4096 512.
-//   * Each thread keeps its row of [Kinf; A] and of B in registers, as
-//     admm_group.cuh does. x and u pass through the lane's slot in shared
-//     memory, two barriers a step: after the first every thread reads x,
+//   * Each thread keeps its rows of the small matrices in registers, as
+//     admm_group.cuh does; the vectors a step's products read pass through
+//     the lane's slot in shared memory.
+//   * Forward: two barriers a step. After the first every thread reads x,
 //     the input rows form u = -Kinf x - d and write it, the state rows form
 //     A x; after the second the state rows read u and write x+. Each row's
 //     projection and dual update sit beside the dot products of its step,
 //     off the x -> u -> x+ chain.
+//   * Backward: one barrier a step. The chain is p alone: the r rows do not
+//     hang on it, so the input rows form r one step ahead and leave it in
+//     the slot, and the state rows read p_{i+1} and r_i after the same
+//     barrier; Quu_inv w, d, is off the chain too, and the input rows finish
+//     it one step later. p, r and w take two halves of the slot each (the
+//     step's parity), so a step's writes never meet the reads of the step
+//     before.
 //   * What a row reads at step i and that does not hang on the chain -- its
-//     dual, its bounds, the slack of the dual residual, d -- is staged into
-//     shared memory kTeamDepth - 1 steps ahead with cp.async, each thread
-//     its own entries (ring[stage][field][thread]: no other thread reads
-//     them, so cp.async.wait_group alone orders them). At B=1024 a block
-//     has an SM to itself and nothing else hides device memory's latency:
-//     one row ahead (kTeamDepth 2, the lookahead of a register double
-//     buffer) ran N=512 1.3-1.4x slower than 7 rows ahead, 3 rows ahead
+//     dual, its bounds, the slack of the dual residual, d (forward); its
+//     slack, its dual, its reference (backward) -- is staged into shared
+//     memory kTeamDepth - 1 steps ahead with cp.async, each thread its own
+//     entries (ring[stage][field][thread]: no other thread reads them, so
+//     cp.async.wait_group alone orders them). At B=1024 a block has an SM
+//     to itself and nothing else hides device memory's latency: one row
+//     ahead (kTeamDepth 2, the lookahead of a register double buffer) ran
+//     the forward at N=512 1.3-1.4x slower than 7 rows ahead, 3 rows ahead
 //     in between.
 //   * Residuals: each thread keeps the maxima of its own rows; they are
-//     reduced over the lane's team once, at the end of a check launch,
-//     with max_nan, which is order-free (a NaN sticks in any order).
+//     reduced over the lane's team once, at the end of the launch, with
+//     max_nan, which is order-free (a NaN sticks in any order).
+//   * Adaptive rho: each thread reads its lane's rho from device memory
+//     (drho = rho_lane - rho); an input row keeps its row of dKinf, a state
+//     row its row of dKinf^T (and, under apply_c, the rows of dC1 / dC2).
+//     The forward's adaptation runs inside the sweep, not as the one-thread
+//     kernel's second pass over scratch rows: the OSQP terms of row i need
+//     the lane's whole new dual g[i+1] (A^T g[i+1], B^T g[i+1]), which the
+//     state rows leave in the slot at step i+1, and its own x_i, u_i, the
+//     new slacks and duals of row i and the dynamics row i-1, which each
+//     thread keeps one step; the terminal Pinf / dPinf product reads x[N-1]
+//     from the slot. So row i's terms are folded in at step i+1, no scratch
+//     is written, and the four maxima reduce over the team with the
+//     residuals'. Row 0's thread forms the new rho (rho_update) and, with
+//     it, the scaled dual residuals: it alone does the bookkeeping.
 //   * A converged lane's threads reach every barrier and store nothing; a
 //     block whose lanes are all done returns at once; a lane past B is a
 //     done lane. Its iterates stay as they were at first convergence.
-//   * Bits: every row's dot product is summed from zero in
-//     forward_sweep's column order with fmaf, and every elementwise term
-//     rounds as there (-fmad=false), so the outputs are bitwise
-//     stream_forward_kernel's.
-// The stale launch (the first iteration of a warm solve) is this kernel
-// given the carried v/z for the dual residual's slacks: nothing else
+//   * Bits: every row's dot product is summed from zero in backward_sweep's
+//     or forward_sweep's column order with fmaf, and every elementwise term
+//     rounds as there (-fmad=false): w = (bp + r) + BPf, p = ((q + ap) -
+//     kr) + APf, each telescoped product base + drho s; so the outputs are
+//     bitwise the one-thread kernels'.
+// The forward's stale launch (the first iteration of a warm solve) is this
+// kernel given the carried v/z for the dual residual's slacks: nothing else
 // differs (stream_forward_kernel's STALE only picks those pointers).
 //
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_compare.py time in
 // turns with the one-thread kernel, N=512, a fresh launch; PERF.md section
-// 6): B=1024 0.1787-0.1902 against 2.9296-2.9562 ms, B=4096 0.3672-0.3699
-// against 3.5065-3.5435, B=16384 1.4818-1.4919 against 3.9565-3.9738
-// (byte bounds 0.0426, 0.1702, 0.6809). The staging depth and the (6, 3)
-// mapping were chosen by timing copies of this file (PERF.md section 6).
+// 6): the fixed-rho forward B=1024 0.1787-0.1902 against 2.9296-2.9562 ms,
+// B=4096 0.3672-0.3699 against 3.5065-3.5435, B=16384 1.4818-1.4919
+// against 3.9565-3.9738 (byte bounds 0.0426, 0.1702, 0.6809). The staging
+// depth and the (6, 3) mapping were chosen by timing copies of this file
+// (PERF.md section 6).
 #pragma once
 
+#include "admm_adaptive.cuh"
 #include "admm_sweep.cuh"
 
 namespace tinympc {
@@ -81,14 +116,26 @@ struct TeamShape {
   static constexpr int kUP = (NU + 3) / 4 * 4;
   static constexpr int kSlot =
       ((kXP + kUP) / 4) % 2 ? kXP + kUP : kXP + kUP + 4;
+  // The forward's new dual g[i] of an adaptation iteration, alone.
+  static constexpr int kGSlot = (kXP / 4) % 2 ? kXP : kXP + 4;
+  // The backward's slot: p, r and w, two halves each.
+  static constexpr int kBSlot =
+      ((kXP + 2 * kUP) / 2) % 2 ? 2 * (kXP + 2 * kUP)
+                                : 2 * (kXP + 2 * kUP) + 4;
 };
 
-// Steps staged ahead, the fields of a staged step (dual, lower and upper
-// bound, the dual residual's slack, d), and the blocks an SM the register
-// budget leaves room for.
+// Steps staged ahead, the fields of a staged forward step (dual, lower and
+// upper bound, the dual residual's slack, d) and backward step (slack,
+// dual, reference), and the blocks an SM the register budget leaves room
+// for: 6 (at most 85 registers a thread at (12, 4)) for every kernel but
+// the adaptive forward, whose rows of dKinf and A^T / B^T and whose
+// adaptation take 107 registers at (12, 4) under a bound of 4 (ptxas on
+// an H100, PERF.md section 6).
 constexpr int kTeamDepth = 8;
 constexpr int kTeamFields = 5;
+constexpr int kTeamBackFields = 3;
 constexpr int kTeamMinBlocks = 6;
+constexpr int kTeamAdaptMinBlocks = 4;
 
 __device__ __forceinline__ void stage_copy(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -118,13 +165,206 @@ __device__ __forceinline__ void load_slot(float (&v)[n], const float* s) {
   }
 }
 
+// Backward launch: d of every running lane from its previous iterate
+// (vprev / zprev, the duals g / y). Under adaptive rho (Rho =
+// AdaptiveRho<NX, NU, APPLY_C>) the lane's rho comes from ra.rho_in and the
+// products the Taylor update moves gain their drho-scaled sensitivity
+// products. Zeroes *active.
+template <int NX, int NU, class Rho>
+__global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
+                                  kTeamMinBlocks)
+    stream_backward_team_kernel(
+        const float* __restrict__ tables, const float* __restrict__ vprev,
+        const float* __restrict__ zprev, const float* __restrict__ g,
+        const float* __restrict__ y, float* __restrict__ d,
+        const unsigned char* __restrict__ done, int* __restrict__ active,
+        int N, int B, float rho, typename Rho::Args ra) {
+  using S = TeamShape<NX, NU>;
+  constexpr bool kAdapt = Rho::kAdaptive;
+  constexpr bool kC = Rho::kApplyC;
+  __shared__ __align__(16) float slots[S::kLanes * S::kBSlot];
+  __shared__ float ring[kTeamDepth][kTeamBackFields][S::kThreads];
+  __shared__ float pnref[2 * NX];
+  const int t = threadIdx.x;
+  const int row = t / S::kLanes, lane = t % S::kLanes;
+  const int b = blockIdx.x * S::kLanes + lane;
+  const bool run = b < B && !done[b];
+  const Layout L(NX, NU, N);
+  const AdaptiveLayout AL(NX, NU, kC);
+  const float* at = tables + L.total;   // the adaptive tables (no family's)
+  if (blockIdx.x == 0 && t == 0) *active = 0;
+  // Terminal reference term -Pinf^T Xref[N-1] (admm_stream.py:926), and
+  // under adaptive rho its sensitivity -dPinf^T Xref[N-1], summed as the
+  // one-thread kernel's prologue sums them.
+  if (t < NX) {
+    const float* xref_last = tables + L.xref + (N - 1) * NX;
+    float acc = 0.f, dacc = 0.f;
+    for (int j = 0; j < NX; ++j) {
+      acc = fmaf(tables[L.pinft + t * NX + j], xref_last[j], acc);
+      if constexpr (kAdapt)
+        dacc = fmaf(at[AL.dpt + t * NX + j], xref_last[j], dacc);
+    }
+    pnref[t] = -acc;
+    pnref[NX + t] = -dacc;
+  }
+  if (!__syncthreads_or(run)) return;
+
+  const size_t sB = static_cast<size_t>(B);
+  const bool st = row < NX;   // a state row; else an input row
+  const int k = st ? row : row - NX;
+  // This row of [B^T; AmBKt], of Kinf^T (a state row) or Quu_inv (an input
+  // row), APf or BPf, and Q or R; under adaptive rho dKinf^T (a state row)
+  // or, under apply_c, dC1 (an input row), and dC2 (a state row).
+  float mb[NX], c1[NU], e1[NU], e2[NX];
+  const int mrow = st ? NU + k : k;
+#pragma unroll
+  for (int c = 0; c < NX; ++c) mb[c] = tables[L.mback + mrow * NX + c];
+#pragma unroll
+  for (int c = 0; c < NU; ++c)
+    c1[c] = st ? tables[L.kinft + k * NU + c] : tables[L.quu + k * NU + c];
+  const float cst = st ? tables[L.apf + k] : tables[L.bpf + k];
+  const float wq = st ? tables[L.qd + k] : tables[L.rd + k];
+  float rho_l = rho;
+  if constexpr (kAdapt) {
+#pragma unroll
+    for (int c = 0; c < NU; ++c)
+      e1[c] = st ? at[AL.dkt + k * NU + c]
+                 : (kC ? at[AL.dc1 + k * NU + c] : 0.f);
+    if constexpr (kC) {
+#pragma unroll
+      for (int c = 0; c < NX; ++c)
+        e2[c] = st ? at[AL.dc2 + k * NX + c] : 0.f;
+    }
+    if (run) rho_l = ra.rho_in[b];
+  }
+  const float drho = rho_l - rho;
+  // Item n of this row: a state row's row N-1-n (the terminal one first),
+  // an input row's row N-2-n; lane-last arrays at (j * F + k) * sB + b, the
+  // reference at j * F + k.
+  const int F = st ? NX : NU;
+  const size_t step = static_cast<size_t>(F) * sB;
+  const size_t off = static_cast<size_t>(k) * sB + b;
+  const float* slk = (st ? vprev : zprev) + off;
+  const float* dua = (st ? g : y) + off;
+  const float* ref = tables + (st ? L.xref : L.uref) + k;
+  const int items = st ? N : N - 1;
+  const int top = st ? N - 1 : N - 2;
+  // The lane's halves of p, r and w in its slot, by the step's parity.
+  float* const sl = slots + lane * S::kBSlot;
+  auto P = [&](int i) { return sl + (i & 1) * S::kXP; };
+  auto R = [&](int i) { return sl + 2 * S::kXP + (i & 1) * S::kUP; };
+  auto W = [&](int i) {
+    return sl + 2 * (S::kXP + S::kUP) + (i & 1) * S::kUP;
+  };
+
+  // Stage item n's fields (nothing for a done lane or past the row's
+  // items); one commit group an item, empty or not, on every thread.
+  auto issue = [&](int n) {
+    if (run && n < items) {
+      const int s = n % kTeamDepth, j = top - n;
+      const size_t a = static_cast<size_t>(j) * step;
+      stage_copy(&ring[s][0][t], slk + a);
+      stage_copy(&ring[s][1][t], dua + a);
+      stage_copy(&ring[s][2][t], ref + j * F);
+    }
+    stage_commit();
+  };
+  // The linear-cost term of item n: -(ref .* w) - rho (slack - dual).
+  auto lin = [&](int n) {
+    const int s = n % kTeamDepth;
+    return -(ring[s][2][t] * wq) - rho_l * (ring[s][0][t] - ring[s][1][t]);
+  };
+  // d of row i from the lane's w: Quu_inv w (+ drho dC1 w under apply_c).
+  auto store_d = [&](int i, const float* wv) {
+    float w[S::kUP];
+    load_slot(w, wv);
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < NU; ++c) acc = fmaf(c1[c], w[c], acc);
+    if constexpr (kC) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < NU; ++c) s = fmaf(e1[c], w[c], s);
+      acc = acc + drho * s;
+    }
+    d[static_cast<size_t>(i) * NU * sB + off] = acc;
+  };
+
+#pragma unroll 1
+  for (int n = 0; n < kTeamDepth; ++n) issue(n);
+  stage_wait<kTeamDepth - 1>();   // item 0 has landed
+  float r_own = 0.f;   // an input row's r of the next step
+  if (run) {
+    if (st) {
+      // p[N-1] = pterm - rho (vprev[N-1] - g[N-1])
+      float pt = pnref[k];
+      if constexpr (kAdapt) pt = pt + drho * pnref[NX + k];
+      const int s = 0;
+      P(N - 1)[k] = pt - rho_l * (ring[s][0][t] - ring[s][1][t]);
+    } else {
+      r_own = lin(0);
+      R(N - 2)[k] = r_own;
+    }
+  }
+#pragma unroll 1
+  for (int i = N - 2; i >= 0; --i) {
+    __syncthreads();   // p[i+1], r[i] and w[i+1] in the slots
+    const int n = N - 1 - i;   // this step's item
+    issue(n + kTeamDepth - 1);
+    stage_wait<kTeamDepth - 1>();
+    if (!run) continue;
+    float p[S::kXP];
+    load_slot(p, P(i + 1));
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < NX; ++c) acc = fmaf(mb[c], p[c], acc);
+    if (st) {
+      // p[i] = q + AmBKt p - Kinf^T r + APf
+      float ap = acc;
+      if constexpr (kC) {
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < NX; ++c) s = fmaf(e2[c], p[c], s);
+        ap = ap + drho * s;
+      }
+      float r[S::kUP];
+      load_slot(r, R(i));
+      float kr = 0.f;
+#pragma unroll
+      for (int c = 0; c < NU; ++c) kr = fmaf(c1[c], r[c], kr);
+      if constexpr (kAdapt) {
+        float s = 0.f;
+#pragma unroll
+        for (int c = 0; c < NU; ++c) s = fmaf(e1[c], r[c], s);
+        kr = kr + drho * s;
+      }
+      P(i)[k] = ((lin(n) + ap) - kr) + cst;
+    } else {
+      // w[i] = (B^T p + r) + BPf; d[i+1] from w[i+1]; r[i-1] ahead
+      W(i)[k] = (acc + r_own) + cst;
+      if (i + 1 <= N - 2) store_d(i + 1, W(i + 1));
+      if (i >= 1) {
+        r_own = lin(n);
+        R(i - 1)[k] = r_own;
+      }
+    }
+  }
+  __syncthreads();   // w[0] in the slots
+  if (run && !st) store_d(0, W(0));
+}
+
 // Forward launch of iteration `it`: the new slacks into vcur/zcur, the
 // duals g/y in place, and for the running lanes the bookkeeping; vd/zd are
 // the slacks the dual residual compares against (the previous iterate's,
-// or the carried v/z in the stale launch).
-template <int NX, int NU>
+// or the carried v/z in the stale launch). Under adaptive rho (Rho =
+// AdaptiveRho<NX, NU, false>) the lane's rho comes from ra.rho_in, an
+// adaptation iteration (every kAdaptivePeriod-th, it > 0) moves it and the
+// virtual rho (ra.rho_v) before the termination check, and the lane's rho
+// goes to ra.rho_out; the adaptive tables follow the box tables.
+template <int NX, int NU, class Rho>
 __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
-                                  kTeamMinBlocks)
+                                  Rho::kAdaptive ? kTeamAdaptMinBlocks
+                                                 : kTeamMinBlocks)
     stream_forward_team_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
         const float* __restrict__ vd, const float* __restrict__ zd,
@@ -133,11 +373,14 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
         const float* __restrict__ d, int* __restrict__ iters,
         unsigned char* __restrict__ done, float* __restrict__ res,
         int* __restrict__ active, int it, int N, int B,
-        int check_termination, float rho, float tol_pri, float tol_dua) {
+        int check_termination, float rho, float tol_pri, float tol_dua,
+        typename Rho::Args ra) {
   using S = TeamShape<NX, NU>;
+  constexpr bool kAdapt = Rho::kAdaptive;
   __shared__ __align__(16) float xu[S::kLanes * S::kSlot];
+  __shared__ __align__(16) float gs[kAdapt ? S::kLanes * S::kGSlot : 4];
   __shared__ float ring[kTeamDepth][kTeamFields][S::kThreads];
-  __shared__ float red[2][S::kThreads];
+  __shared__ float red[kAdapt ? 6 : 2][S::kThreads];
   const int t = threadIdx.x;
   const int row = t / S::kLanes, lane = t % S::kLanes;
   const int b = blockIdx.x * S::kLanes + lane;
@@ -147,16 +390,32 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const Layout L(NX, NU, N);
   const size_t sB = static_cast<size_t>(B);
   const bool checking = ((it + 1) % check_termination) == 0;
+  const bool adapting = kAdapt && it > 0 && it % kAdaptivePeriod == 0;
   const bool st = row < NX;   // a state row; else an input row
   const int k = st ? row : row - NX;
-  // This row of [Kinf; A] and of B (an input row: no B row), and f.
-  float f1[NX], bm[NU];
+  // This row of [Kinf; A] and of B (an input row: no B row), and f; under
+  // adaptive rho an input row's row of dKinf, the row of A^T (a state row)
+  // or B^T (an input row) that the adaptation applies to g[i+1], and Q or R.
+  float f1[NX], bm[NU], dk[NX], gr[NX];
   const int mrow = st ? NU + k : k;
 #pragma unroll
   for (int c = 0; c < NX; ++c) f1[c] = tables[L.mfwd + mrow * NX + c];
 #pragma unroll
   for (int c = 0; c < NU; ++c) bm[c] = st ? tables[L.bm + k * NU + c] : 0.f;
   const float fv = st ? tables[L.f + k] : 0.f;
+  const AdaptiveLayout AL(NX, NU, false);
+  const float* at = tables + L.total;   // the adaptive tables (no family's)
+  float rho_l = rho, wq = 0.f;
+  if constexpr (kAdapt) {
+#pragma unroll
+    for (int c = 0; c < NX; ++c) {
+      dk[c] = st ? 0.f : at[AL.dk + k * NX + c];
+      gr[c] = st ? at[AL.at + k * NX + c] : tables[L.mback + k * NX + c];
+    }
+    wq = st ? tables[L.qd + k] : tables[L.rd + k];
+    if (run) rho_l = ra.rho_in[b];
+  }
+  const float drho = rho_l - rho;
   // Step i of this row: lane-last arrays at (i * F + k) * sB + b, the
   // bound tables at i * F + k.
   const int F = st ? NX : NU;
@@ -170,6 +429,7 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const float* hi = tables + (st ? L.xmax : L.umax) + k;
   const int rows = st ? N : N - 1;
   float* slot = xu + lane * S::kSlot;
+  float* gslot = gs + lane * S::kGSlot;
 
   // Stage step i's fields of this row (nothing for a done lane or past the
   // row's steps); one commit group a step, empty or not, on every thread.
@@ -187,17 +447,55 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   };
   float pr = 0.f, du = 0.f;   // this row's residual maxima
   // Project `val` (x or u of step i) onto the box, update the dual from the
-  // pre-update one, store both, and fold in the residuals.
-  auto project = [&](int i, float val) {
+  // pre-update one, store both, and fold in the residuals; the new slack
+  // and dual into sn, dn.
+  auto project = [&](int i, float val, float& sn, float& dn) {
     const int s = i % kTeamDepth;
     const size_t a = static_cast<size_t>(i) * step;
     const float dn0 = ring[s][0][t];
-    const float sn = clamp_nan(val + dn0, ring[s][1][t], ring[s][2][t]);
-    dual[a] = dn0 + val - sn;
+    sn = clamp_nan(val + dn0, ring[s][1][t], ring[s][2][t]);
+    dn = dn0 + val - sn;
+    dual[a] = dn;
     slack[a] = sn;
     if (checking) {
       pr = max_nan(pr, fabsf(val - sn));
       du = max_nan(du, fabsf(ring[s][3][t] - sn));
+    }
+  };
+  // The adaptation's maxima (admm_adaptive.cuh's adapt) and what row i's
+  // terms keep until g[i+1] is in the slot: x_i or u_i, the new dual and
+  // slack of row i, and a state row's dynamics rows i-1 (ad1) and i-2
+  // (ad2) at step i.
+  float pres = 0.f, pnorm = 0.f, dres = 0.f, dnorm = 0.f;
+  float pa = 0.f, pb = 0.f, pc = 0.f, ad1 = 0.f, ad2 = 0.f;
+  // Row j's OSQP terms at step j+1, g[j+1] in the slot: ad2 is then the
+  // dynamics row j-1.
+  auto terms = [&](int j) {
+    float gv[S::kXP];
+    load_slot(gv, gslot);
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < NX; ++c) acc = fmaf(gr[c], gv[c], acc);
+    if (st) {
+      // P x = Q x on the stages; A^T g[j+1] - g[j]; dynamics row j-1
+      // against the slack of state row j.
+      const float qx = wq * pa;
+      const float px = qx;
+      const float aty = acc - (j >= 1 ? pb : 0.f);
+      dres = maxabs(dres, px + qx + aty);
+      dnorm = maxabs(maxabs(maxabs(dnorm, px), aty), qx);
+      if (j >= 1) {
+        pres = maxabs(pres, ad2 - pc);
+        pnorm = maxabs(maxabs(pnorm, ad2), pc);
+      }
+    } else {
+      // R u and y + B^T g[j+1]
+      const float ru = wq * pa;
+      const float aty = pb + acc;
+      dres = maxabs(dres, 2.f * ru + aty);
+      dnorm = maxabs(maxabs(dnorm, ru), aty);
+      pres = maxabs(pres, pa - pc);
+      pnorm = maxabs(maxabs(pnorm, pa), pc);
     }
   };
 
@@ -213,46 +511,117 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
     __syncthreads();   // x of step i in the slots
     issue(i + kTeamDepth - 1);
     stage_wait<kTeamDepth - 1>();   // step i's fields have landed
-    float a1 = 0.f;
+    float a1 = 0.f, val = 0.f, sn = 0.f, dn = 0.f, axd = 0.f;
     if (run) {
       float x[S::kXP];
       load_slot(x, slot);
 #pragma unroll
       for (int c = 0; c < NX; ++c) a1 = fmaf(f1[c], x[c], a1);   // A x / Kinf x
       if (st) {
-        project(i, xo);
+        val = xo;
       } else {
-        // u = -Kinf x - d as an exact subtract
-        const float u = -a1 - ring[i % kTeamDepth][4][t];
-        slot[S::kXP + k] = u;
-        project(i, u);
+        // u = -(Kinf x + drho dKinf x) - d as an exact subtract
+        float kx = a1;
+        if constexpr (kAdapt) {
+          float s = 0.f;
+#pragma unroll
+          for (int c = 0; c < NX; ++c) s = fmaf(dk[c], x[c], s);
+          kx = a1 + drho * s;
+        }
+        val = -kx - ring[i % kTeamDepth][4][t];
+        slot[S::kXP + k] = val;
       }
+      project(i, val, sn, dn);
+      if (adapting && st) gslot[k] = dn;
     }
-    __syncthreads();   // u of step i in the slots
+    __syncthreads();   // u of step i in the slots; g[i] under adaptation
     if (run && st) {
       float u[S::kUP];
       load_slot(u, slot + S::kXP);
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < NU; ++c) acc = fmaf(bm[c], u[c], acc);
-      // x+ = (A x + B u) + f
-      xo = a1 + acc + fv;
+      // x+ = (A x + B u) + f; (A x + B u) - x+ is the dynamics row of the
+      // OSQP residuals (exactly 0 when f = 0)
+      const float s = a1 + acc;
+      xo = s + fv;
       slot[k] = xo;
+      axd = s - xo;
+    }
+    if (adapting && run) {
+      if (i >= 1) terms(i - 1);
+      pa = val;
+      pb = dn;
+      pc = sn;
+      ad2 = ad1;
+      ad1 = axd;
     }
   }
   stage_wait<0>();
-  if (run && st) project(N - 1, xo);
+  float snN = 0.f, dnN = 0.f;
+  if (run && st) project(N - 1, xo, snN, dnN);
+  if (adapting) {
+    // Every row's terms(N-3) of the last step has read g[N-2] from the
+    // slot before a state row overwrites it with g[N-1]: a lane's rows sit
+    // in several warps, which the loop's barriers no longer order here.
+    __syncthreads();
+    if (run && st) gslot[k] = dnN;
+    __syncthreads();   // g[N-1] and x[N-1] in the slots
+    if (run) {
+      terms(N - 2);
+      if (st) {
+        // Row N-1: P x the terminal Pinf telescoped by drho dPinf, no A^T
+        // g term, and the dynamics row N-2 against the slack of row N-1.
+        float x[S::kXP];
+        load_slot(x, slot);
+        float pp = 0.f, dp = 0.f;
+#pragma unroll
+        for (int c = 0; c < NX; ++c) {
+          pp = fmaf(at[AL.pinf + k * NX + c], x[c], pp);
+          dp = fmaf(at[AL.dp + k * NX + c], x[c], dp);
+        }
+        const float px = pp + drho * dp;
+        const float qx = wq * xo;
+        const float aty = 0.f - dnN;
+        dres = maxabs(dres, px + qx + aty);
+        dnorm = maxabs(maxabs(maxabs(dnorm, px), aty), qx);
+        pres = maxabs(pres, ad1 - snN);
+        pnorm = maxabs(maxabs(pnorm, ad1), snN);
+      }
+    }
+  }
 
-  // Bookkeeping (admm_stream.py:576-641), by row 0's thread: iterations on
-  // every iteration, residuals (dual rows scaled by rho) and convergence on
-  // check iterations, the team's maxima reduced first.
-  if (checking) {
+  // Bookkeeping (admm_stream.py:576-641), by row 0's thread: under adaptive
+  // rho the new rho first; iterations on every iteration, residuals (dual
+  // rows scaled by the lane's rho) and convergence on check iterations, the
+  // team's maxima reduced first.
+  if (checking || adapting) {
     red[0][t] = pr;
     red[1][t] = du;
+    if constexpr (kAdapt) {
+      red[2][t] = pres;
+      red[3][t] = pnorm;
+      red[4][t] = dres;
+      red[5][t] = dnorm;
+    }
     __syncthreads();
   }
   if (!run || row != 0) return;
   iters[b] = it + 1;
+  if constexpr (kAdapt) {
+    if (adapting) {
+      float m[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < S::kRows; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          m[q] = max_nan(m[q], red[2 + q][r * S::kLanes + lane]);
+      float rv = ra.rho_v[b];
+      rho_update(ra, m[0], m[1], m[2], m[3], rho_l, rv);
+      ra.rho_v[b] = rv;
+    }
+    ra.rho_out[b] = rho_l;
+  }
   if (!checking) return;
   float ps = 0.f, ds = 0.f, pi = 0.f, di = 0.f;
 #pragma unroll
@@ -265,7 +634,7 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
     pi = max_nan(pi, red[0][r * S::kLanes + lane]);
     di = max_nan(di, red[1][r * S::kLanes + lane]);
   }
-  const float r2 = ds * rho, r3 = di * rho;
+  const float r2 = ds * rho_l, r3 = di * rho_l;
   res[b] = ps;
   res[sB + b] = pi;
   res[2 * sB + b] = r2;

@@ -169,6 +169,7 @@ struct NoConsensus {
 struct FixedRho {
   struct Args {};
   static constexpr bool kAdaptive = false;
+  static constexpr bool kApplyC = false;
   static constexpr int kMinBlocks = 0;
   static constexpr int kTerminalRows = 0;   // shared rows after -Pinf^T Xref
   float rho0 = 0.f;

@@ -12,7 +12,7 @@ CUDA kernels in ``csrc/admm_stream.cu``: a backward sweep (the TPU kernel
 forward sweep (``admm_stream._forward_kernel``, and its ``stale`` variant
 for the first iteration of a warm solve) that rolls out, projects, updates
 the duals, accumulates the residuals and keeps each lane's bookkeeping; a
-box problem at fixed rho runs its forward launches on lane teams
+box problem, at fixed or adaptive rho, runs both launches on lane teams
 (``csrc/admm_stream_team.cuh``, a thread a row of each lane). The
 loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
@@ -60,16 +60,18 @@ from .admm_fused import (_FAMILY_DUALS, _PTR, _PTRS, NO_FAMILIES, Adaptive,
 KERNEL = "admm_stream"
 
 # Launches in this process of each streamed kernel, by the name of its
-# instantiation: the backward kernel, the forward kernel and its stale
-# variant (the problems with families), their consensus instantiations and
-# their adaptive ones, and the forward kernel on lane teams and its stale
-# launch (box problems at fixed rho); chip_smoke.py resets and reads them
-# to show that the streamed path went through its kernels.
+# instantiation: the one-thread backward kernel, forward kernel and its
+# stale variant (the problems with families), their consensus
+# instantiations and their adaptive ones (families with adaptive rho), and
+# the kernels on lane teams (box problems): the backward, the forward and
+# its stale launch, at fixed rho and at adaptive rho; chip_smoke.py resets
+# and reads them to show that the streamed path went through its kernels.
 launch_counts = dict.fromkeys(
     ("backward", "forward", "forward_stale", "backward_consensus",
      "forward_consensus", "forward_consensus_stale", "backward_adaptive",
-     "forward_adaptive", "forward_adaptive_stale", "forward_team",
-     "forward_team_stale"), 0)
+     "forward_adaptive", "forward_adaptive_stale", "backward_team",
+     "forward_team", "forward_team_stale", "backward_team_adaptive",
+     "forward_team_adaptive", "forward_team_adaptive_stale"), 0)
 
 
 def _check(prob: TinyProblem) -> None:
@@ -515,28 +517,39 @@ def _kernel_fns():
     return bwd, fwd
 
 
-def _team_fn():
-    """The C entry of the forward launch on lane teams (box problems at
-    fixed rho; csrc/admm_stream_team.cuh), built and loaded on first
-    use."""
-    fn = _build.load(KERNEL).tinympc_stream_forward_team
+def _team_fns():
+    """The C entries of the launches on lane teams (box problems at fixed
+    or adaptive rho; csrc/admm_stream_team.cuh), built and loaded on first
+    use: (backward, forward)."""
+    lib = _build.load(KERNEL)
+    bwd = lib.tinympc_stream_backward_team
+    fwd = lib.tinympc_stream_forward_team
+    adapt = ctypes.POINTER(_AdaptArgs)
+    # nx nu N B | rho | tables vprev zprev g y d done active | adaptive-rho
+    # arguments | the stream
+    bwd.argtypes = [ctypes.c_int] * 4 + [ctypes.c_float] + [_PTR] * 8 + [
+        adapt, _PTR]
     # nx nu N B it ct | rho tol_pri tol_dua | tables x0 vd zd vcur zcur g y
-    # d iters done res active | the stream
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [_PTR] * 14
-    fn.restype = ctypes.c_int
-    return fn
+    # d iters done res active | adaptive-rho arguments | the stream
+    fwd.argtypes = [ctypes.c_int] * 6 + [ctypes.c_float] * 3 + [_PTR] * 13 \
+        + [adapt, _PTR]
+    bwd.restype = fwd.restype = ctypes.c_int
+    return bwd, fwd
 
 
 class _KERNELS:
     """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
     :func:`_init`, on the current stream of x0's device; each adds one to
-    its instantiation's entry of ``launch_counts``. The forward launch of a
-    box problem at fixed rho (no family, no consensus, no adaptive rho)
-    runs on lane teams (``tinympc_stream_forward_team``); every other
-    forward launch, and every backward launch, on one thread a lane."""
+    its instantiation's entry of ``launch_counts``. A box problem (no
+    family, no consensus), at fixed or adaptive rho, runs both launches on
+    lane teams (``tinympc_stream_backward_team``,
+    ``tinympc_stream_forward_team``; ``team`` holds the pair); every other
+    problem runs the one-thread entries. ``team=False`` sends a box
+    problem's launches to the one-thread entries too, on the same state:
+    the in-process A/B of the two designs."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
-                 tol_dua, fam, adapt=None, cons=None):
+                 tol_dua, fam, adapt=None, cons=None, team=True):
         dev, B = x0.device, x0.shape[0]
         _check_arg(x0, (B, nx), torch.float32, dev)
         ntab = sum(math.prod(shape) for _, shape in _table_layout(
@@ -555,29 +568,46 @@ class _KERNELS:
                 cons.group, cons.rho_c, s["zc0"].data_ptr(),
                 s["yc0"].data_ptr(), s["offer"].data_ptr()))
             self.suffix = "_consensus"
+        self.bwd, self.fwd = _kernel_fns()
+        self.team = (_team_fns() if team and cons is None and not any(fam)
+                     else None)
         if adapt is not None:
             # Each lane's rho is read and written in place (rho_in and
-            # rho_out the same array); the scratch holds the rows of an
-            # adaptation iteration, as in the resident kernel.
+            # rho_out the same array), beside its virtual rho; the scratch
+            # holds the rows of an adaptation iteration for the one-thread
+            # forward kernel, as in the resident kernel (the team kernels
+            # fold the adaptation into their sweep and keep none).
             for k in ("rho", "rho_v"):
                 _check_arg(s[k], (B,), torch.float32, dev)
             kw = dict(dtype=torch.float32, device=dev)
-            self.scratch = [torch.empty(shape, **kw) for shape in (
-                (N, nx, B), (N - 1, nu, B), (N - 1, nx, B))]
+            self.scratch = [] if self.team is not None else [
+                torch.empty(shape, **kw) for shape in (
+                    (N, nx, B), (N - 1, nu, B), (N - 1, nx, B))]
             self.adapt = ctypes.byref(_AdaptArgs(
                 int(adapt.apply_c), int(adapt.clip), adapt.rho_min,
                 adapt.rho_max, adapt.rho_tol, s["rho"].data_ptr(),
-                s["rho"].data_ptr(), *(a.data_ptr() for a in self.scratch),
+                s["rho"].data_ptr(),
+                *([a.data_ptr() for a in self.scratch] or [None] * 3),
                 s["rho_v"].data_ptr()))
             self.suffix = "_adaptive"
-        self.bwd, self.fwd = _kernel_fns()
-        self.team = _team_fn() if cons is None and adapt is None and \
-            not any(fam) else None
         with torch.cuda.device(dev):
             self.stream = torch.cuda.current_stream(dev).cuda_stream
 
     def backward(self, prev):
         s = self.s
+        if self.team is not None:
+            err = self.team[0](self.nx, self.nu, self.N, self.B, self.rho,
+                               self.tables.data_ptr(),
+                               s["vnew"][prev].data_ptr(),
+                               s["znew"][prev].data_ptr(),
+                               *(s[k].data_ptr() for k in (
+                                   "g", "y", "d", "done", "active")),
+                               self.adapt, self.stream)
+            if err != 0:
+                raise RuntimeError(f"admm_stream team backward launch "
+                                   f"failed: CUDA error {err}")
+            launch_counts["backward_team" + self.suffix] += 1
+            return
         err = self.bwd(self.nx, self.nu, self.N, self.B, self.counts,
                        self.rho, self.tables.data_ptr(),
                        s["vnew"][prev].data_ptr(), s["znew"][prev].data_ptr(),
@@ -617,15 +647,18 @@ class _KERNELS:
         s, cur = self.s, it % 2
         vd, zd = (self.carry.v, self.carry.z) if stale else \
             (s["vnew"][1 - cur], s["znew"][1 - cur])
-        err = self.team(self.nx, self.nu, self.N, self.B, it, self.ct,
-                        self.rho, self.tol_pri, self.tol_dua,
-                        self.tables.data_ptr(), self.x0.data_ptr(),
-                        vd.data_ptr(), zd.data_ptr(),
-                        s["vnew"][cur].data_ptr(), s["znew"][cur].data_ptr(),
-                        *(s[k].data_ptr() for k in ("g", "y", "d", "iters",
-                                                    "done", "res", "active")),
-                        self.stream)
+        err = self.team[1](self.nx, self.nu, self.N, self.B, it, self.ct,
+                           self.rho, self.tol_pri, self.tol_dua,
+                           self.tables.data_ptr(), self.x0.data_ptr(),
+                           vd.data_ptr(), zd.data_ptr(),
+                           s["vnew"][cur].data_ptr(),
+                           s["znew"][cur].data_ptr(),
+                           *(s[k].data_ptr() for k in (
+                               "g", "y", "d", "iters", "done", "res",
+                               "active")),
+                           self.adapt, self.stream)
         if err != 0:
             raise RuntimeError(f"admm_stream team forward launch failed: "
                                f"CUDA error {err}")
-        launch_counts["forward_team_stale" if stale else "forward_team"] += 1
+        launch_counts["forward_team" + self.suffix
+                      + ("_stale" if stale else "")] += 1
