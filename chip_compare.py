@@ -12,7 +12,13 @@ quadrotor variants cold and over two warm solves (N=10, random
 assignments; the multi-system launch), the families kernel
 cold and warm (the rocket's cones at N=10; the quadrotor's static and
 time-varying hyperplanes under low z ceilings), the families kernel with
-consensus (128 groups of 8), the fused closed loop (T=10), the streamed
+consensus (128 groups of 8), the resident box consensus kernel (the
+quadrotor at N=10, rho_c 100, groups of 1, 2, 8, 16 and 128: cold, two
+warm solves and a final=True solve), the resident box adaptive kernel
+(N=20, the Crazyflie tables, with and without apply_c, and the guard from
+rho 1000 with its own sensitivities; cold and two warm solves; and a
+two-system adaptive fleet at N=10, cold and two warm solves), the fused
+closed loop (T=10), the streamed
 kernels cold and warm (box at N=64, and at N=256 on 256 lanes and N=1300,
 past the resident kernel's wall, on 64; the rocket's box alone at N=32, a
 box problem at (6, 3); the rocket's cones at N=32, consensus at N=10; and
@@ -42,11 +48,14 @@ the instructions are the same, and exits non-zero when any differs.
     python3 chip_compare.py race             # on the GPU
 
 ``race`` runs small streamed solves on lane teams bitwise against the
-one-thread kernels (see ``race``); run it under ``compute-sanitizer
---tool racecheck`` to have the team kernels' shared memory checked.
+one-thread kernels, and small box consensus solves whose scenario groups
+span thread-block clusters bitwise against the one-thread consensus
+kernel (see ``race``); run it under ``compute-sanitizer --tool
+racecheck`` to have the team kernels' shared memory checked.
 
     python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
                                  [loop=B,B,...] [stream=B,B,...] [dot]
+                                 [cons[=tree,g16]] [adapt[=hard,warm]]
                                  [profile]
 
 ``time`` times the main path's kernel (bench.py's batch: the quadrotor at
@@ -71,8 +80,18 @@ of iteration 0 and the forward of an adaptation iteration (5), on teams
 and on one thread a lane in turns; and with ``dot`` the roofline tool's
 independent bf16 dot probe (L=95 dots on the TPU probe's inputs, one rep:
 depth 36 on 32768 lanes, depth 96 on 16384) beside one ``torch.matmul`` of
-the same sum on float32 and on bf16 operands: ``TIME_REPS`` launches on
-CUDA events after one to warm up. It prints one JSON line a configuration with every
+the same sum on float32 and on bf16 operands; with ``cons`` the consensus
+solves of chip_smoke.py: ``tree``, the warm solve after the scenario-tree
+loop of examples/scenario_tree_mpc.py (256 trees x 8, N=10, max_iter 500,
+ct 1, rho_c 100, T=20 steps of the nominal plant re-branched from a
+seeded generator; the 21st solve timed), and ``g16``, bench_all.py:224-
+250's G=16 batch (2048 x 16, z 0.5, the same settings); with ``adapt``
+the adaptive solves: ``hard``, bench_all.py:401-447's hard batch (N=20,
+rho0 5, B=32768, x0 ~ U[-0.5, 0.5], z 1, max_iter 500, ct 1, the
+sensitivities from compute_sensitivities), and ``warm``, the sixth solve
+of phase 16's adaptive external-plant sequence (N=10, B=16384, hover +
+U[-0.3, 0.3], max_iter 100, ct 1, five solves before it): ``TIME_REPS``
+launches on CUDA events after one to warm up. It prints one JSON line a configuration with every
 time, the median, the mean iterations, the time a lane-iteration (the
 kernel's time over the iterations its lanes ran, summed), the card's name
 and power limit and its SM clock sampled just after. ``profile`` adds the
@@ -98,6 +117,7 @@ B = 1024
 DEVICE = "cuda"
 TIME_B, TIME_REPS = 32768, 20
 STREAM_ADAPT_B, STREAM_ADAPT_N = 1024, 2048   # phase 36's adaptive point
+CONS_GROUPS = (1, 2, 8, 16, 128)              # save's box consensus groups
 
 
 def _quad(tt, torch, N, max_iter=100, ct=1, rho=None):
@@ -199,6 +219,40 @@ def save(path):
     c = tt.init_carry(tree, B)
     out.update(_flat("consensus.warm",
                      kern.solve_fused_warm(tree, hover(10), None, x_g, c)))
+    # The resident box consensus kernel at each group size: cold, two warm
+    # solves, and the warm solve of compaction (final=True).
+    for G in CONS_GROUPS:
+        cp = tt.with_consensus(_quad(tt, torch, 10, max_iter=200),
+                               rho_c=100.0)
+        xg = x_q.reshape(B // G, G, 12)
+        out.update(_flat(f"consensus_g{G}.cold", kern.solve_fused(
+            cp, hover(10, 0.5), None, xg)))
+        c = tt.init_carry(cp, B)
+        for step in range(2):
+            w = kern.solve_fused_warm(cp, hover(10, 0.5), None, xg, c)
+            out.update(_flat(f"consensus_g{G}.warm{step}", w))
+            c = w[2]
+        out.update(_flat(f"consensus_g{G}.final", kern.solve_fused_warm(
+            cp, hover(10, 0.5), None, xg, c, final=True)))
+    # The resident box adaptive kernel: cold and two warm solves, rho
+    # riding the carry; and a two-system adaptive fleet.
+    cf = tt.systems.crazyflie_sensitivity_tables()
+    ad = lambda p, **k: tt.with_settings(p, adaptive_rho=True, **k)
+    for name, prob in (
+            ("adaptive", ad(tt.with_sensitivities(_quad(tt, torch, 20),
+                                                  cf))),
+            ("adaptive_apply_c", ad(tt.with_sensitivities(
+                _quad(tt, torch, 20), cf), adaptive_rho_apply_c=True)),
+            ("adaptive_guard", ad(_quad(tt, torch, 20, max_iter=300,
+                                        rho=1000.0),
+                                  adaptive_rho_tolerance=3.0))):
+        out.update(_flat(f"{name}.cold", kern.solve_fused(
+            prob, hover(20), None, x_q)))
+        c = tt.init_carry(prob, B)
+        for step in range(2):
+            w = kern.solve_fused_warm(prob, hover(20), None, x_q, c)
+            out.update(_flat(f"{name}.warm{step}", w))
+            c = w[2]
     fleet = []
     for i in range(2):
         p = _quad(tt, torch, 10, ct=25)
@@ -217,6 +271,15 @@ def save(path):
     for step in range(2):
         w = warm_fleet(assign, x_q, c, Xref=hover(10))
         out.update(_flat(f"fleet.warm{step}", w))
+        c = w[2]
+    afleet = [ad(tt.with_sensitivities(p, cf)) for p in fleet]
+    out.update(_flat("adaptive_fleet.cold", kern.make_fleet_solver(afleet)(
+        assign, x_q, Xref=hover(10))))
+    c = tt.init_carry(afleet[0], B)
+    warm_afleet = kern.make_fleet_solver(afleet, warm=True)
+    for step in range(2):
+        w = warm_afleet(assign, x_q, c, Xref=hover(10))
+        out.update(_flat(f"adaptive_fleet.warm{step}", w))
         c = w[2]
     loop = kern.closed_loop_fused(_quad(tt, torch, 10, ct=5),
                                   hover(10 + 9), x_q, 10)
@@ -247,9 +310,8 @@ def save(path):
                  *descent(32)),
                 ("rocket_soc", _rocket(tt, torch, 32), x_r, *descent(32)),
                 ("consensus", tree, x_g, hover(10), None)]
-    tables = tt.systems.crazyflie_sensitivity_tables()
-    adaptive = lambda p, **kw: tt.with_settings(
-        p, adaptive_rho=True, **kw)
+    tables = cf
+    adaptive = ad
     rb = _rocket(tt, torch, 32, cones=False)
     streamed += [
         ("adaptive_box", adaptive(tt.with_sensitivities(
@@ -324,8 +386,110 @@ def _device_times(torch, run):
     return out or None
 
 
+def _timed_record(torch, kind, run, iters_of, B_, card, **extra):
+    """One JSON line: ``run`` timed (``_timed``), its mean iterations
+    (``iters_of`` of its output) and time a lane-iteration."""
+    lane_iters = int(iters_of(run()).sum().item())
+    ms, times = _timed(torch, run, TIME_REPS)
+    print(json.dumps(dict({
+        "kind": kind, "B": B_, "ms": ms, "times_ms": times,
+        "mean_iters": lane_iters / B_,
+        "us_per_lane_iter": 1e3 * ms / lane_iters, "card": card,
+        "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}, **extra)),
+        flush=True)
+
+
+def time_resident(torch, tt, cons=(), adapt=()):
+    """The consensus (``tree``, ``g16``) and adaptive (``hard``, ``warm``)
+    solves of the module docstring, each launch timed on its own inputs
+    through admm_fused's kernel entry (the call the wrapper makes)."""
+    from tinympc_tpu_torch.kernels import admm_fused as af
+    card = _smi("name,power.limit")
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    s = tt.systems.quadrotor_20hz()
+
+    def quad(N, max_iter, ct, rho=None):
+        return _quad(tt, torch, N, max_iter=max_iter, ct=ct, rho=rho)
+
+    def trees(ng, G, z):
+        rng = np.random.default_rng(0)
+        nominal = rng.uniform(-0.3, 0.3, (ng, 1, 12))
+        x0 = nominal + 0.05 * rng.uniform(-1, 1, (ng, G, 12))
+        Xref = torch.zeros((10, 12), **kw)
+        Xref[:, 2] = z
+        return torch.as_tensor(x0, **kw), Xref
+
+    iters = lambda out: out[0].iter
+    zero = lambda: af.entry_counts.update(dict.fromkeys(af.entry_counts, 0))
+    for name in cons:
+        zero()
+        prob = tt.with_consensus(quad(10, 500, 1), rho_c=100.0)
+        if name == "tree":
+            ng, G = 256, 8
+            x, Xref = trees(ng, G, 1.0)
+            gen = torch.Generator(device=DEVICE).manual_seed(0)
+            c = tt.init_carry(prob, ng * G)
+            for _ in range(20):
+                sol, _, c = tt.kernels.solve_fused_warm(prob, Xref, None, x,
+                                                        c)
+                u0 = sol.u[0].mean(dim=1, keepdim=True)
+                x_nom = x.mean(dim=1, keepdim=True)
+                branch = 0.05 * (2 * torch.rand((ng, G, 12), generator=gen,
+                                                device=DEVICE) - 1)
+                x = x_nom @ prob.A.T + u0 @ prob.B.T + branch
+            tables, xc, params = af._prepare(prob, Xref, None, x)
+            carry = af._carry_tensors(prob, c, ng * G)
+            run = lambda: af._solve_kernel_warm(tables, xc, carry, 10, 12, 4,
+                                                **params)
+        else:
+            ng, G = 2048, 16
+            x, Xref = trees(ng, G, 0.5)
+            tables, xc, params = af._prepare(prob, Xref, None, x)
+            run = lambda: af._solve_kernel(tables, xc, 10, 12, 4, **params)
+        _timed_record(torch, f"consensus_{name}", run, iters, ng * G, card,
+                      entry_counts={k: v for k, v in af.entry_counts.items()
+                                    if v})
+    t5 = None
+    for name in adapt:
+        zero()
+        if t5 is None:
+            p5 = tt.with_settings(quad(20, 500, 1), adaptive_rho=True)
+            t5 = (p5.cache.dKinf_drho, p5.cache.dPinf_drho,
+                  p5.cache.dC1_drho, p5.cache.dC2_drho)
+        if name == "hard":
+            B_ = 32768
+            x0 = torch.as_tensor(np.random.default_rng(0).uniform(
+                -0.5, 0.5, (B_, 12)), **kw)
+            Xref = torch.zeros((20, 12), **kw)
+            Xref[:, 2] = 1.0
+            tables, xc, params = af._prepare(p5, Xref, None, x0)
+            run = lambda: af._solve_kernel(tables, xc, 20, 12, 4, **params)
+        else:
+            B_ = 16384
+            prob = tt.with_settings(tt.with_sensitivities(quad(10, 100, 1),
+                                                          t5),
+                                    adaptive_rho=True)
+            hover = torch.zeros(12, **kw)
+            hover[2] = 1.0
+            Xref = hover.expand(10, 12).contiguous()
+            x = hover + torch.as_tensor(np.random.default_rng(0).uniform(
+                -0.3, 0.3, (B_, 12)), **kw)
+            c = tt.init_carry(prob, B_)
+            for _ in range(5):
+                sol, _, c = tt.kernels.solve_fused_warm(prob, Xref, None, x,
+                                                        c)
+                x = x @ prob.A.T + sol.u[0] @ prob.B.T + prob.f
+            tables, xc, params = af._prepare(prob, Xref, None, x)
+            carry = af._carry_tensors(prob, c, B_)
+            run = lambda: af._solve_kernel_warm(tables, xc, carry, 10, 12, 4,
+                                                **params)
+        _timed_record(torch, f"adaptive_{name}", run, iters, B_, card,
+                      entry_counts={k: v for k, v in af.entry_counts.items()
+                                    if v})
+
+
 def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
-                 stream=(), dot=False):
+                 stream=(), dot=False, cons=(), adapt=()):
     import torch
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch.kernels import admm_fused, admm_stream, \
@@ -333,6 +497,7 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
     torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(dtype=torch.float32, device=DEVICE)
     card = _smi("name,power.limit")
+    time_resident(torch, tt, cons, adapt)
     for B_ in cold:
         prob = _quad(tt, torch, 20, ct=25)
         x0 = torch.as_tensor(np.random.default_rng(0).uniform(
@@ -470,6 +635,64 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
         del M, Ms, v, mcat, ys, mb, yb
 
 
+def race_consensus():
+    """Small box consensus solves on the thread-group kernel whose scenario
+    groups span thread-block clusters -- 4 groups of 16 (2 blocks), 2 of 32
+    (4), 1 of 128 (16) and, in one block, 8 of 8 -- at N=12, max_iter 60,
+    ct 1, rho_c 100, cold and then two warm solves, each bitwise against
+    the same solve on the one-thread consensus kernel (csrc/admm_fused.cu,
+    taken by giving the route rule no group launch). Returns the number of
+    solves that differ."""
+    import contextlib
+    import torch
+    import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch.kernels import admm_fused as af
+    N = 12
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    Xref = torch.zeros((N, 12), **kw)
+    Xref[:, 2] = 0.5
+    prob = tt.with_consensus(_quad(tt, torch, N, max_iter=60), rho_c=100.0)
+
+    @contextlib.contextmanager
+    def one_thread():
+        route = af.group_route
+        af.group_route = lambda *a, **k: None
+        try:
+            yield
+        finally:
+            af.group_route = route
+
+    bad = 0
+    for ng, G in ((4, 16), (2, 32), (1, 128), (8, 8)):
+        rng = np.random.default_rng(G)
+        x = torch.as_tensor(rng.uniform(-0.3, 0.3, (ng, 1, 12))
+                            + 0.05 * rng.uniform(-1, 1, (ng, G, 12)), **kw)
+        c_g = c_o = None
+        for step in range(3):
+            af.entry_counts.update(dict.fromkeys(af.entry_counts, 0))
+            if step == 0:
+                a = tt.kernels.solve_fused(prob, Xref, None, x)
+                with one_thread():
+                    b = tt.kernels.solve_fused(prob, Xref, None, x)
+            else:
+                c_g = c_g or tt.init_carry(prob, ng * G)
+                c_o = c_o or tt.init_carry(prob, ng * G)
+                a = tt.kernels.solve_fused_warm(prob, Xref, None, x, c_g)
+                with one_thread():
+                    b = tt.kernels.solve_fused_warm(prob, Xref, None, x, c_o)
+                c_g, c_o = a[2], b[2]
+            fa, fb = _flat("t", a), _flat("t", b)
+            same = fa.keys() == fb.keys() and all(
+                torch.equal(fa[k], fb[k]) for k in fa)
+            bad += not same
+            print(f"race: consensus {ng} x {G} "
+                  f"{'cold' if step == 0 else f'warm {step}'}: entries "
+                  f"{ {k: v for k, v in af.entry_counts.items() if v} }, "
+                  f"{'bitwise the one-thread solve' if same else 'DIFFERS'}"
+                  f", iterations {int(a[0].iter.max())}", flush=True)
+    return bad
+
+
 def race():
     """Small streamed solves whose launches run on lane teams, each
     bitwise against the same solve on one thread a lane: the quadrotor at
@@ -511,7 +734,7 @@ def race():
             _rocket(tt, torch, N, cones=False), max_iter=20),
             adaptive_rho_min=0.05), x_r, X_r, U_r)]
     one_thread = functools.partial(admm_stream._KERNELS, team=False)
-    bad = 0
+    bad = race_consensus()
     for name, prob, x0, Xref, Uref in cases:
         carry = None
         for kind in ("cold", "warm"):
@@ -627,11 +850,16 @@ if __name__ == "__main__":
             int(b) for b in opts[key].split(",")) if key in opts else dflt
         # cold defaults to the main path's batch unless only another
         # kind is asked for
-        only = any(k in opts for k in ("warm", "loop", "stream", "dot"))
+        only = any(k in opts for k in ("warm", "loop", "stream", "dot",
+                                       "cons", "adapt"))
+        names = lambda key, every: () if key not in opts else every \
+            if opts[key] == "1" else tuple(opts[key].split(","))
         time_kernels(batches("cold", () if only else (TIME_B,)),
                      batches("loop", ()),
                      "profile" in opts, batches("warm", ()),
-                     batches("stream", ()), "dot" in opts)
+                     batches("stream", ()), "dot" in opts,
+                     names("cons", ("tree", "g16")),
+                     names("adapt", ("hard", "warm")))
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "race":
         sys.exit(race())

@@ -38,8 +38,9 @@ calls, and holds every kernel against its plain PyTorch version:
   off, z <= 3 and sum(u) <= 6 (tv: z below the demo's first window of
   z_lim_total), max_iter 100, ct 1, B=16384, x0 = [-2, -2, 1, 0...] +
   0.1 U[-1, 1]^12 (default_rng(0)), Xref the demo's step-0 window;
-* adaptive rho on the adaptive instantiation of csrc/admm_fused.cu (with
-  csrc/admm_adaptive.cuh): bench_all.py:401-446's "to-convergence 500it
+* adaptive rho on the thread-group kernel csrc/admm_group.cu (entry
+  tinympc_admm_group_adaptive; admm_group.cuh's GroupAdaptiveRho, the
+  adaptation folded into the forward sweep): bench_all.py:401-446's "to-convergence 500it
   hard batch (adaptive rho)" -- the quadrotor at N=20, rho0=5, box +-5 /
   +-0.5, z reference 1, B=32768 with x0 ~ U[-0.5, 0.5]^12
   (default_rng(0)), max_iter 500, check_termination 1, the sensitivities
@@ -65,7 +66,11 @@ calls, and holds every kernel against its plain PyTorch version:
   rho, on the lane-team kernels of csrc/admm_stream_team.cuh (both
   launches), the rocket's cones on the one-thread kernels, each route
   checked from the launch counts;
-* scenario-tree consensus on u[0] on the families instantiation of
+* scenario-tree consensus on u[0] on the thread-group kernel
+  csrc/admm_group.cu (entry tinympc_admm_group_consensus: a scenario
+  group's offers through one block's shared memory, or through a
+  thread-block cluster's when the group spans blocks), and with the
+  rocket's cones on the families consensus instantiation of
   csrc/admm_fused.cu (with csrc/admm_consensus.cuh): bench_all.py:224-250's
   "consensus G=16 cold solve (fused)" -- the quadrotor at 20 Hz, N=10, box
   +-5 / +-0.5, z reference 0.5, max_iter 500, ct 1, rho_c 100, 2048 groups
@@ -79,7 +84,9 @@ calls, and holds every kernel against its plain PyTorch version:
   sources set matmul_precision "high", a TPU mode the port refuses; these
   run at "highest";
 * lane compaction to convergence (kernels.make_compact_solver: phases of
-  warm solve_fused_warm(final=True) on csrc/admm_fused.cu, or of
+  warm solve_fused_warm(final=True) on the resident kernels -- box
+  problems at (12, 4) on csrc/admm_group.cu, fixed or adaptive rho or
+  consensus, the rest on csrc/admm_fused.cu --, or of
   solve_fused_streamed_warm on csrc/admm_stream.cu, with the live lanes
   regathered between phases) and the consensus instantiations of the
   streamed kernels: bench_all.py:448-452 / :497-501's mixed batch -- the
@@ -166,10 +173,12 @@ moved to the host):
 20. the streamed solve to convergence, N=256, B=4096, max_iter 500;
 21. the streamed solve on phase 12's low-ceiling batches;
 22. the streamed solve at N=2048, which the resident solve refuses;
-23. consensus kernel against its plain versions, small: the quadrotor (z
-   0.5) at rho_c 100 and the default as 128 x 8, 512 x 2 and 8 x 128 groups,
-   and the rocket's cones with consensus at (6, 3), 128 x 8; cold, then 2
-   warm solves, at ct 1 and 5;
+23. consensus kernels against their plain versions, small: the quadrotor
+   (z 0.5) at rho_c 100 and the default as 128 x 8, 512 x 2 and 8 x 128
+   groups (the last a cluster of 16 blocks), and the rocket's cones with
+   consensus at (6, 3), 128 x 8; cold, then 2 warm solves, at ct 1 and 5;
+   each case's C entry checked; then the rocket's case timed on the
+   one-thread families consensus kernel;
 24. the G=16 scenario batch at B=32768, and the same batch without
    consensus on the families kernel;
 25. the scenario-tree warm loop, 256 x 8, T=20;
@@ -952,10 +961,14 @@ def kernel_label(fn):
     # The group kernels' PLACE (csrc/admm_group.cuh Place)
     place = {"0": "", "1": " table in device memory",
              "2": " saved columns in device memory"}
-    m = re.search(r"admm_group_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E",
-                  fn)
+    # ... and its KIND (csrc/admm_group.cu Kind)
+    kinds = {"0": "box", "1": "consensus", "2": "adaptive",
+             "3": "adaptive apply_c"}
+    m = re.search(r"admm_group_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E"
+                  r"Li(\d)E", fn)
     if m:
-        return (f"admm_group box {'warm' if m[3] == '1' else 'cold'} "
+        return (f"admm_group {kinds[m[5]]} "
+                f"{'warm' if m[3] == '1' else 'cold'} "
                 f"({m[1]}, {m[2]}){place[m[4]]}")
     m = re.search(r"closed_loop_group_kernelILi(\d+)ELi(\d+)ELi(\d)E", fn)
     if m:
@@ -1107,10 +1120,11 @@ def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
 
 def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
                     peak_flops, peak_bw):
-    """Phases 13-16: adaptive rho on the adaptive instantiation of
-    csrc/admm_fused.cu. Returns the kernels-line numbers of the cold hard
-    batch and of the warm external-plant sequence, and the quadrotor's
-    sensitivity tables at each rho0 it set up."""
+    """Phases 13-16: box adaptive rho at (12, 4) on the thread-group
+    kernel (csrc/admm_group.cu, tinympc_admm_group_adaptive). Returns the
+    kernels-line numbers of the cold hard batch and of the warm
+    external-plant sequence, and the quadrotor's sensitivity tables at each
+    rho0 it set up."""
     # 13. small batches against the plain version, on the card and the CPU
     phase(f"phase 13: adaptive kernel vs plain versions, B={ADAPT_SMALL_B}")
     t0 = time.perf_counter()
@@ -1152,6 +1166,7 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
         f"table's max) of the host's")
     B = ADAPT_SMALL_B
     x0, Xref = inputs(torch, B)
+    zero_entries(admm_fused)
     for label, rho, mi, tol, apply_c, tables in (
             ("adaptive rho_tol 1", 5.0, 100, 1.0, False, t5),
             ("adaptive rho_tol 3 rho0 85", MISTUNED_RHO, ADAPT_ITER, 3.0,
@@ -1166,6 +1181,9 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     x, Xref = inputs(torch, B, N=SERVE_N, spread=0.3)
     adaptive_warm_small(torch, tt, convert, "adaptive warm", prob, x, Xref,
                         B, steps=6)
+    # Box adaptive rho at (12, 4) runs the thread-group kernel's adaptive
+    # entry: 3 cold solves and 6 warm ones.
+    took_entries(admm_fused, "adaptive small batches", {GROUP_ADAPT: 9})
 
     # 14. the adaptive hard batch at full width, and fixed rho beside it
     phase(f"phase 14: adaptive hard batch, B={ADAPT_B}, N={N_HORIZON}, "
@@ -1178,6 +1196,7 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     if launches < 1:
         raise AssertionError("the adaptive hard batch did not launch the "
                              "adaptive kernel")
+    took_entries(admm_fused, "adaptive hard batch", {GROUP_ADAPT: launches})
     if sol_k.x.shape != (N_HORIZON, ADAPT_B, 12) or \
             res_k.shape != (5, ADAPT_B):
         raise AssertionError(f"bad output shapes {sol_k.x.shape} "
@@ -1252,7 +1271,10 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
             name = f"rho0 {rho0:g} {label}"
             prob = tt.with_settings(base, adaptive_rho=ad,
                                     adaptive_rho_tolerance=tol)
+            zero_entries(admm_fused)
             sol, res = tt.kernels.solve_fused(prob, Xref, None, x0)
+            took_entries(admm_fused, name, {
+                GROUP_ADAPT if ad else "tinympc_admm_group": 1})
             if ad:
                 sol_p, res_p = tt.kernels.solve_fused_reference(
                     prob, Xref, None, x0)
@@ -1298,6 +1320,8 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     if warm_launches < 5:
         raise AssertionError("the adaptive sequence did not launch the warm "
                              "adaptive kernel")
+    took_entries(admm_fused, "adaptive external-plant sequence",
+                 {GROUP_ADAPT: warm_launches})
     c_p = tt.init_carry(prob, SERVE_B)
     agreed = torch.ones(SERVE_B, dtype=torch.bool, device=DEVICE)
     err_w = 0.0
@@ -2094,9 +2118,12 @@ def plain_groups(torch, fn, prob, Xref, Uref, x0, carry=None):
 
 def consensus_phases(torch, tt, convert, admm_fused, counters, card,
                      peak_flops, peak_bw):
-    """Phases 23-25: consensus on the families instantiation of
-    csrc/admm_fused.cu (with csrc/admm_consensus.cuh). Returns the
-    kernels-line numbers of its cold and warm launches."""
+    """Phases 23-25: box consensus at (12, 4) on the thread-group kernel
+    (csrc/admm_group.cu, tinympc_admm_group_consensus), consensus with the
+    rocket's cones on the families consensus instantiation of
+    csrc/admm_fused.cu. Returns the kernels-line numbers of the group
+    kernel's cold and warm launches and of the families consensus
+    kernel."""
     kern = tt.kernels
     cpu = lambda a: None if a is None else a.cpu()
     rows = {}
@@ -2123,9 +2150,11 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
                       lambda mi, ct: tt.with_consensus(
                           rocket_problem(tt, torch, mi, ct),
                           rho_c=CONS_RHO), (CONS_SMALL_B // 8, 8), "rocket"))
+    errs = {}
     for label, ct, make, (ng, G), kind in small:
         B = ng * G
         prob = make(100, ct)
+        zero_entries(admm_fused)
         prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                             "cpu")
         if kind == "quad":
@@ -2183,9 +2212,10 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
                                                   dval_c, B)
             before = agreed.clone()
             agreed &= group_agree(fk.iter, fp.iter, G)
-            compare(torch, name, fk, fp, res_k.reshape(4, -1),
-                    res_p.reshape(4, -1), atol=atol, lanes=agreed,
-                    solved_tol=solved_tol, share=share, among=before)
+            errs[(kind, ct, step)] = compare(
+                torch, name, fk, fp, res_k.reshape(4, -1),
+                res_p.reshape(4, -1), atol=atol, lanes=agreed,
+                solved_tol=solved_tol, share=share, among=before)
             if warm:
                 # The CPU's float32 torch.sqrt is not always correctly
                 # rounded (ROADMAP.md, Queue 3), which the rocket's duals
@@ -2197,6 +2227,11 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
             xf = x.reshape(B, -1)
             x = (xf @ prob.A.T + fk.u[0] @ prob.B.T + prob.f).reshape(
                 ng, G, -1)
+        # Box consensus at (12, 4) runs the thread-group kernel's consensus
+        # entry (a group of 128 across a cluster of 16 blocks); with the
+        # rocket's cones the one-thread families consensus kernel.
+        took_entries(admm_fused, f"{label} ct={ct}", {
+            GROUP_CONS if kind == "quad" else FUSED: 1 + CONS_SMALL_WARM})
         # The spread bar, with admm.solve's witness where it is missed: a
         # cold solve, then a warm sequence of its own on the same states.
         witness = {}
@@ -2215,6 +2250,37 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
             hold_spread(name, stats, prob.settings.abs_pri_tol,
                         lambda k=k: admm_solves()[k])
 
+    # The one-thread families consensus kernel (csrc/admm_fused.cu), which
+    # consensus with a family beyond the box runs: the rocket's cones,
+    # 128 x 8, cold, ct 1, timed.
+    ng, G, B = CONS_SMALL_B // 8, 8, CONS_SMALL_B
+    prob = tt.with_consensus(rocket_problem(tt, torch, 100, 1),
+                             rho_c=CONS_RHO)
+    x0, Xref, Uref = rocket_inputs(torch, B)
+    x0 = x0.reshape(ng, G, -1)
+    zero_counts(counters)
+    sol_k, _ = kern.solve_fused(prob, Xref, Uref, x0)
+    torch.cuda.synchronize()
+    launches = admm_fused.entry_counts[FUSED]
+    took_entries(admm_fused, "rocket SOC consensus", {FUSED: 1})
+    plain_ms, _ = host_ms(torch, lambda: plain_groups(
+        torch, kern.solve_fused_reference, prob, Xref, Uref, x0))
+    tables, x0c, params = admm_fused._prepare(prob, Xref, Uref, x0)
+    ms, times = cuda_ms(torch, lambda: admm_fused._solve_kernel(
+        tables, x0c, FAM_N, 6, 3, **params), REPS)
+    iter_sum = int(sol_k.iter.sum().item())
+    ops, nbytes = fused_work(FAM_N, 6, 3, B, iter_sum, spec=prob.spec)
+    ops += float(iter_sum) * consensus_ops(G, 3)
+    bound_ms, bound_by = bound(ops, nbytes, peak_flops, peak_bw)
+    log(f"  rocket SOC consensus 128 x 8 (one-thread families consensus "
+        f"kernel): kernel {ms:.4f} ms (reps {[round(t, 4) for t in times]})"
+        f", mean iters {iter_sum / B:.4f}, bound {bound_ms:.4f} ms "
+        f"({bound_by}), plain {plain_ms:.1f} ms, launches {launches}; card "
+        f"{card}")
+    rows["families_consensus"] = dict(
+        launches=launches, err=errs[("rocket", 1, 0)], ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
     phase(f"phase 24: consensus G={CONS_G} scenario batch, "
           f"B={CONS_NG * CONS_G}, max_iter {CONS_ITER}, ct 1")
     # bench_all.py:224-250: 2048 scenario trees x 16 branches.
@@ -2230,6 +2296,7 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     if launches < 1:
         raise AssertionError("the scenario batch did not launch the "
                              "consensus kernel")
+    took_entries(admm_fused, f"G={G} scenario batch", {GROUP_CONS: launches})
     if sol_k.x.shape != (CONS_N, ng, G, 12) or \
             sol_k.u.shape != (CONS_N - 1, ng, G, 4) or \
             res_k.shape != (4, ng, G):
@@ -2265,7 +2332,9 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     run_off = lambda: admm_fused._launch(
         tables, x0c, CONS_N, 12, 4, off["fam"], None, off["cons"], None,
         CONS_ITER, 1, off["rho"], off["tol_pri"], off["tol_dua"])
+    zero_entries(admm_fused)
     sol_off = run_off()[0]
+    took_entries(admm_fused, f"G={G} batch without consensus", {FUSED: 1})
     ms_off, times_off = cuda_ms(torch, run_off, REPS)
     avg_off = sol_off.iter.float().mean().item()
     blk = block_iters(torch, sol_k.iter, admm_fused.BLOCK)
@@ -2282,14 +2351,14 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
         f"kernel / bound {ms / bound_ms:.2f}), plain {plain_ms:.1f} ms, "
         f"launches {launches}; setup + with_consensus {setup_ms:.1f} ms; "
         f"card {card}")
-    log(f"  the same batch without consensus on the families kernel "
-        f"(group 0): {ms_off:.4f} ms (reps "
+    log(f"  the same batch without consensus on the one-thread families "
+        f"kernel (group 0): {ms_off:.4f} ms (reps "
         f"{[round(t, 4) for t in times_off]}), mean iters {avg_off:.4f}, "
         f"mean block iterations {blk_off:.4f}, {ms_off / blk_off:.6f} ms a "
         f"block iteration, solved frac "
-        f"{sol_off.solved.float().mean().item():.5f}; the exchange and "
-        f"step-0 gains cost {ms / blk - ms_off / blk_off:.6f} ms a block "
-        f"iteration ({(ms / blk) / (ms_off / blk_off):.4f}x)")
+        f"{sol_off.solved.float().mean().item():.5f}; the group kernel with "
+        f"the exchange takes {(ms / blk) / (ms_off / blk_off):.4f}x its "
+        f"time a block iteration (blocks of {admm_fused.BLOCK} lanes)")
     rows["consensus"] = dict(launches=launches, err=err, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by)
@@ -2322,6 +2391,7 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     if warm_launches < TREE_T:
         raise AssertionError("the scenario-tree loop did not launch the warm "
                              "consensus kernel")
+    took_entries(admm_fused, "scenario-tree loop", {GROUP_CONS: warm_launches})
     c_p = tt.init_carry(prob, B)
     agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
     err_w = 0.0
@@ -2476,9 +2546,9 @@ def stream_consensus_small(torch, tt, ast, counters):
     return err
 
 
-# The warm instantiations' launch counts of csrc/admm_fused.cu, and the
-# stale forward launches of csrc/admm_stream.cu: one of them a phase of a
-# compacted solve.
+# The warm instantiations' launch counts of the resident kernels
+# (csrc/admm_group.cu, csrc/admm_fused.cu), and the stale forward launches
+# of csrc/admm_stream.cu: one of them a phase of a compacted solve.
 WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
                "adaptive_warm_launch_count",
                "adaptive_families_warm_launch_count",
@@ -2488,15 +2558,19 @@ STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
                 "forward_team_adaptive_stale")
 
 
-def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, **kw):
+def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, entries=None,
+                  **kw):
     """One compacted solve through make_compact_solver with the counts at
     0: its result, the phases it ran and the launches of each warm
-    instantiation and of the streamed kernels."""
+    instantiation and of the streamed kernels; with ``entries``, the set
+    of resident C entries its phases must take (took_entries)."""
     torch, compact = ctx.torch, ctx.compact
     zero_counts(ctx.counters)
     compact.phase_count = 0
     out = ctx.tt.kernels.make_compact_solver(prob, **kw)(x0, Xref, Uref)
     torch.cuda.synchronize()
+    if entries is not None:
+        took_entries(ctx.admm_fused, label, entries)
     warm = sum(getattr(ctx.admm_fused, k) for k in WARM_COUNTS)
     stream = sum(ctx.ast.launch_counts[k] for k in STALE_COUNTS)
     phases = compact.phase_count
@@ -2533,30 +2607,37 @@ def compaction_phases(ctx):
     x_rock, Xr, Ur = rocket_inputs(torch, B)
     x_tree, Xt = tree_inputs(torch, B // 8, 8, 0.5)
     tables = tt.systems.crazyflie_sensitivity_tables()
+    # Each case with the resident C entries its phases take: box (fixed
+    # and adaptive rho, consensus) at (12, 4) the thread-group kernel's,
+    # the rocket's cones the one-thread kernel's, the streamed backend
+    # none.
+    box = {"tinympc_admm_group"}
     small = [
         ("box ct 1 chunk 15", lambda: problem(tt, torch, 500, 1), x_mixed,
-         None, None, dict(chunk=15)),
+         None, None, dict(chunk=15), box),
         ("box ct 1 chunk [100, 400]", lambda: problem(tt, torch, 500, 1),
-         x_mixed, None, None, dict(chunk=COMPACT_CHUNK)),
+         x_mixed, None, None, dict(chunk=COMPACT_CHUNK), box),
         ("box ct 25 chunk [100, 400]", lambda: problem(tt, torch, 500, 25),
-         x_mixed, None, None, dict(chunk=COMPACT_CHUNK)),
+         x_mixed, None, None, dict(chunk=COMPACT_CHUNK), box),
         ("rocket SOC chunk 20", lambda: rocket_problem(tt, torch, 100, 1),
-         x_rock, Xr, Ur, dict(chunk=20)),
+         x_rock, Xr, Ur, dict(chunk=20), {FUSED}),
         ("adaptive rho chunk [100, 400]", lambda: adaptive_problem(
             tt, torch, 5.0, N_HORIZON, 500, 1, tables=tables), x_hard, z1,
-         None, dict(chunk=COMPACT_CHUNK, backend="resident")),
+         None, dict(chunk=COMPACT_CHUNK, backend="resident"), {GROUP_ADAPT}),
         ("box precise_tail 200 after 100", lambda: problem(tt, torch, 100,
                                                             1),
-         x_mixed, None, None, dict(chunk=50, precise_tail=200)),
+         x_mixed, None, None, dict(chunk=50, precise_tail=200), box),
     ] + [(f"consensus 128x8 {be} chunk [100, 400]",
           lambda: consensus_problem(tt, torch, 500, 1), x_tree, Xt, None,
-          dict(chunk=COMPACT_CHUNK, backend=be))
+          dict(chunk=COMPACT_CHUNK, backend=be),
+          {GROUP_CONS} if be == "resident" else set())
          for be in ("resident", "streamed")]
-    for label, make, x0, Xref, Uref, kw in small:
+    for label, make, x0, Xref, Uref, kw, entries in small:
         prob = make()
         prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                             "cpu")
-        (sol_k, res_k), phases = drive(label, prob, x0, Xref, Uref, **kw)
+        (sol_k, res_k), phases = drive(label, prob, x0, Xref, Uref,
+                                       entries=entries, **kw)
         t0 = time.perf_counter()
         sol_c, res_c = kern.make_compact_solver(prob_c, **kw)(
             cpu(x0), cpu(Xref), cpu(Uref))
@@ -2688,7 +2769,9 @@ def compaction_phases(ctx):
     comp, stale = {}, 0
     for be in ("resident", "streamed"):
         comp[be], _ = drive(f"G={G} {be} compaction", prob, x0, Xref,
-                            chunk=COMPACT_CHUNK, backend=be)
+                            chunk=COMPACT_CHUNK, backend=be,
+                            entries={GROUP_CONS} if be == "resident"
+                            else set())
         if be == "streamed":
             stale = ast.launch_counts["forward_consensus_stale"]
     same_bits(torch, f"G={G} compaction", comp["streamed"], comp["resident"],
@@ -2697,6 +2780,7 @@ def compaction_phases(ctx):
     # (full width) from its carry, the host keeps first-convergence
     # outputs (tests/test_compact.py:296-321).
     carry, man, used = tt.init_carry(prob, B), None, 0
+    zero_entries(admm_fused)
     for step in COMPACT_CHUNK:
         p = tt.with_settings(prob, max_iter=step)
         sol, res, carry = kern.solve_fused_warm(p, Xref, None, x0, carry,
@@ -2712,6 +2796,8 @@ def compaction_phases(ctx):
                    man[3] | new[3],
                    torch.where(live[None], new[4], man[4])]
         used += step
+    took_entries(admm_fused, f"G={G} final=True phases",
+                 {GROUP_CONS: len(COMPACT_CHUNK)})
     same_bits(torch, f"G={G} compaction", comp["resident"],
               (tt.Solution(iter=man[2], solved=man[3], x=man[0], u=man[1]),
                man[4]), "the manual loop of final=True phases")
@@ -3100,8 +3186,13 @@ def adaptive_stream_phases(ctx):
     for case, prob, x0, Xref, Uref in cases:
         label = f"streamed adaptive {case}"
         (sol_k, res_k), launches = drive(label, prob, Xref, Uref, x0)
+        zero_entries(admm_fused)
         same_bits(torch, label, (sol_k, res_k),
                   kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
+        # The resident adaptive kernel it is held to: the thread-group
+        # kernel's for box problems at (12, 4), else the one-thread one.
+        took_entries(admm_fused, f"{label} resident", {
+            FUSED if prob.spec.nx == 6 else GROUP_ADAPT: 1})
         sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
         compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4],
                 res_p[:4])
@@ -3170,8 +3261,10 @@ def adaptive_stream_phases(ctx):
     Xref = hover_ref(torch, N, 1.0)
     label = f"long horizon adaptive N={N}"
     (sol_k, res_k), launches = drive(label, prob, Xref, None, x0)
+    zero_entries(admm_fused)
     same_bits(torch, label, (sol_k, res_k),
               kern.solve_fused(prob, Xref, None, x0), "solve_fused")
+    took_entries(admm_fused, f"{label} resident", {GROUP_ADAPT: 1})
     plain_ms, (sol_p, res_p) = host_ms(
         torch, lambda: plain_wide(torch, ref, prob, Xref, None, x0))
     err = compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4],
@@ -3213,7 +3306,9 @@ def adaptive_stream_phases(ctx):
     for be in ("streamed", "resident"):
         out[be], phases = compact_drive(ctx, f"adaptive N={N} {be} "
                                         f"compaction", prob, x0,
-                                        chunk=COMPACT_CHUNK, backend=be)
+                                        chunk=COMPACT_CHUNK, backend=be,
+                                        entries={GROUP_ADAPT}
+                                        if be == "resident" else set())
         if be == "streamed":
             took_route(ast, f"adaptive N={N} streamed compaction", prob)
     same_bits(torch, f"adaptive N={N} streamed compaction", out["streamed"],
@@ -3864,6 +3959,27 @@ def zero_counts(kernels):
             setattr(mod, attr, 0)
 
 
+def took_entries(admm_fused, label, want):
+    """Fail the run unless the resident launches since the counts were
+    last zeroed took exactly the C entries of ``want`` (a dict of entry
+    and launches; a set of entries, each launched at least once); every
+    other entry launched no time."""
+    got = {k: v for k, v in admm_fused.entry_counts.items() if v}
+    ok = got == want if isinstance(want, dict) else set(got) == set(want)
+    fail(f"{label} entry", ok, f"launches by entry {got}, expected "
+         f"{want if isinstance(want, dict) else sorted(want)}")
+    log(f"  {label}: launches by entry {got}")
+
+
+def zero_entries(admm_fused):
+    admm_fused.entry_counts.update(dict.fromkeys(admm_fused.entry_counts, 0))
+
+
+GROUP_CONS = "tinympc_admm_group_consensus"
+GROUP_ADAPT = "tinympc_admm_group_adaptive"
+FUSED = "tinympc_admm_fused"
+
+
 def took_group(admm_fused, label, launches):
     """Fail the run unless the box-only fixed-rho launches since the counts
     were last zeroed took the thread-group kernel's entry
@@ -4476,12 +4592,16 @@ def main():
               "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fam_rows[key])
              for key in ("soc", "soc_warm", "linear", "tv")]
-    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_rows[key])
              for key in ("adaptive", "adaptive_warm")]
-    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", cons_rows[key])
              for key in ("consensus", "consensus_warm")]
+    rows += [("admm_fused_families_consensus",
+              "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387",
+              cons_rows["families_consensus"])]
     rows += [(f"admm_stream_{key}", f"tinympc_tpu_torch/csrc/{src}", rep,
               stream_rows[key])
              for key, src, rep in (

@@ -201,26 +201,24 @@ def test_adaptive_tables_follow_the_box_tables(apply_c):
 
 @pytest.mark.parametrize("warm", [False, True])
 def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
-    """The launch glue, against a stand-in for the C entry point of
-    csrc/admm_fused.cu: an adaptive solve passes its settings, the carried
-    rho (warm only), the final-rho row and the scratch of the adaptation
-    rows; the fixed-rho solve of the same box problem takes the box
-    solve's entry (tinympc_admm_group, csrc/admm_group.cu), which has no
-    adaptive arguments. The new carry takes the final rho."""
+    """The launch glue, against stand-ins for the C entry points of
+    csrc/admm_group.cu: an adaptive box solve at (12, 4) takes
+    tinympc_admm_group_adaptive with its settings, the carried rho (warm
+    only), the final-rho row and no scratch (the adaptation runs in the
+    forward sweep); the fixed-rho solve of the same box problem takes the
+    box solve's entry (tinympc_admm_group), which has no adaptive
+    arguments; the one-thread entry of csrc/admm_fused.cu is not called.
+    The new carry takes the final rho."""
     pt = _port(_jax_problem("rho_tol_3"))
     seen = []
 
-    def entry(*args):
-        assert len(args) == 28
-        assert args[26] is None            # no consensus arguments
-        a = args[25]
-        if a is None:
-            seen.append(None)
-            return 0
-        a = a._obj
+    def adaptive_entry(*args):
+        assert len(args) == 25
+        a = args[23]._obj
         seen.append((a.apply_c, a.clip, a.rho_min, a.rho_max, a.rho_tol,
                      a.rho_in is not None, a.rho_out is not None,
-                     all(p is not None for p in (a.xs, a.us, a.axd))))
+                     any(p is not None for p in (a.xs, a.us, a.axd,
+                                                 a.rho_v))))
         return 0
 
     def group_entry(*args):
@@ -228,8 +226,14 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
         seen.append("group")
         return 0
 
-    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    def fused_entry(*args):
+        raise AssertionError("a box problem at (12, 4) reached "
+                             "csrc/admm_fused.cu")
+
+    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: fused_entry)
     monkeypatch.setattr(admm_fused, "_group_fn", lambda: group_entry)
+    monkeypatch.setattr(admm_fused, "_group_policy_fn",
+                        lambda kind: adaptive_entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -248,7 +252,7 @@ def test_launch_passes_the_adaptive_arguments(warm, monkeypatch):
             _, res = admm_fused._solve_kernel(tables, x0c, N, 12, 4,
                                               **params)
         assert res.shape == (4 if params["adapt"] is None else 5, 3)
-    assert seen == [(0, 1, 1.0, 100.0, 3.0, warm, True, True), "group"]
+    assert seen == [(0, 1, 1.0, 100.0, 3.0, warm, True, False), "group"]
 
 
 def test_adaptive_outside_the_kernel_is_refused():

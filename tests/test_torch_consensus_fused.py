@@ -229,28 +229,40 @@ def test_a_converged_lane_offers_its_converging_iterate():
 
 
 def test_launch_passes_the_consensus_arguments(monkeypatch):
-    """The launch glue, against a stand-in for the C entry point: a box
-    problem with consensus goes with zero family counts and its consensus
-    arguments (group, rho_c, and on a warm solve the carried dual in and
-    the pair out), x/u in the carry, and counts as a consensus launch."""
+    """The launch glue, against stand-ins for the C entry points: a box
+    problem with consensus at (12, 4) goes to the thread-group kernel's
+    consensus entry (tinympc_admm_group_consensus) with its group, the
+    blocks of its cluster (1: a group of 4 lies in a block of 8), rho_c,
+    and on a warm solve the carried u, x and dual in and the pair and x/u
+    out, x/u in the carry, and counts as a consensus launch; with the
+    exchange off (group 0) the same problem goes to the families kernel's
+    one-thread entry with zero family counts."""
     pt = tt.with_consensus(_port(_jax_problem(5)), rho_c=100.0)
     seen = []
 
+    def group_entry(*args):
+        assert len(args) == 25
+        warm = args[0]
+        c = args[23]._obj
+        assert (c.group, c.cluster, c.rho_c) == (4, 1, 100.0)
+        assert args[3] == 8 and args[20] is None     # P, no block systems
+        assert all((getattr(c, f) is not None) == bool(warm) for f in (
+            "u_in", "x_in", "yc0_in", "zc0_out", "yc0_out", "x_out",
+            "u_out"))
+        seen.append(("group", warm))
+        return 0
+
     def entry(*args):
         assert len(args) == 28
-        warm = args[0]
         counts = [args[7][k] for k in range(6)]
-        fam = [args[24][k] for k in range(22)]
         c = args[26]._obj
-        assert args[25] is None
-        assert (c.group, c.rho_c) == (4, 100.0) and c.u_in is None
-        assert all((p is not None) == bool(warm)
-                   for p in (c.yc0_in, c.zc0_out, c.yc0_out))
-        assert all((p is not None) == bool(warm) for p in fam[18:22])
-        seen.append((warm, counts))
+        assert args[25] is None and c.group == 0
+        seen.append(("fused", args[0], counts))
         return 0
 
     monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    monkeypatch.setattr(admm_fused, "_group_policy_fn",
+                        lambda kind: group_entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -265,7 +277,11 @@ def test_launch_passes_the_consensus_arguments(monkeypatch):
     carry = admm_fused._carry_tensors(pt, init_carry(pt, 8), 8)
     _, _, out = admm_fused._solve_kernel_warm(tables, x0, carry, N, 12, 4,
                                               **params)
-    assert seen == [(0, [0] * 6), (1, [0] * 6)]
+    off = dict(params, cons=admm_fused.Consensus(0, 0.0))
+    admm_fused._launch(tables, x0, N, 12, 4, off["fam"], None, off["cons"],
+                       None, 5, 1, off["rho"], off["tol_pri"],
+                       off["tol_dua"])
+    assert seen == [("group", 0), ("group", 1), ("fused", 0, [0] * 6)]
     for k in ("zc0", "yc0", "x", "u"):
         assert getattr(out, k).shape == getattr(carry, k).shape
     assert admm_fused.consensus_launch_count == 1

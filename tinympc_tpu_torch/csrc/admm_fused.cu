@@ -1,9 +1,12 @@
 // Fused batched ADMM solve, cold or warm start, with the constraint
 // families beyond the box (second-order cones, hyperplanes, time-varying
 // hyperplanes; admm_families.cuh) and scenario-tree consensus on u[0]
-// (admm_consensus.cuh) at fixed rho; or box-only or with any of those
-// families (consensus aside) at adaptive rho (admm_adaptive.cuh). The
-// box-only solve at fixed rho, the main path, runs admm_group.cu.
+// (admm_consensus.cuh) at fixed rho; or with any of those families
+// (consensus aside), and every problem at (6, 3), at adaptive rho
+// (admm_adaptive.cuh). Box-only problems at (12, 4) -- at fixed rho (the
+// main path), at adaptive rho and under consensus -- run admm_group.cu;
+// consensus reaches this file for them only for group 0 (no exchange) or a
+// scenario group whose thread-block cluster cannot be formed there.
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
@@ -15,18 +18,14 @@
 //
 // Instantiations: the families kernel for (12, 4) and (6, 3),
 // the rocket (at (6, 3) a box-only problem runs it with zero family
-// counts); the adaptive-rho kernel for (12, 4) box-only problems, and the
-// families adaptive-rho kernel for (12, 4) with the families and for every
-// problem at (6, 3), each with and without apply_c. The families adaptive
-// kernel is the families kernel with the rho hooks filled in, its tables
-// the family tables and then the adaptive ones; the family hooks scale
-// their linear-cost terms by the lane's rho. The adaptive kernel is the
-// template below with no family and the rho hooks filled in: each lane's rho and the guard's
-// virtual rho in registers, the
-// sensitivity tables after the box tables in shared memory, the adaptation
-// every 5th iteration as a second pass over the rows of that iteration
-// (admm_adaptive.cuh), the final rho out, and on a warm solve the carried
-// rho in. The families kernel is the template with the family hooks
+// counts); the families adaptive-rho kernel for (12, 4) with the families
+// and for every problem at (6, 3), with and without apply_c: the families
+// kernel with the rho hooks filled in, its tables the family tables and
+// then the adaptive ones; the family hooks scale their linear-cost terms
+// by the lane's rho; each lane's rho and the guard's virtual rho in
+// registers, the adaptation every 5th iteration as a second pass over the
+// rows of that iteration (admm_adaptive.cuh), the final rho out, and on a
+// warm solve the carried rho in. The families kernel is the template with the family hooks
 // filled in: each family's slack and dual arrays sit beside the box's in
 // device memory, its tables follow the box tables in shared memory, and
 // termination still reads the box family's residuals only, as the
@@ -60,9 +59,9 @@
 // launch (with a run-time select instead, the main path measured ~1%
 // slower on an H100).
 //
-// Design (one thread a problem; the box-only fixed-rho solve moved to
-// admm_group.cu's thread groups, these instantiations are queued to
-// follow, ROADMAP.md Queue 2):
+// Design (one thread a problem; the box-only solves at (12, 4) -- fixed
+// rho, adaptive rho, consensus -- moved to admm_group.cu's thread groups,
+// these instantiations are queued to follow, ROADMAP.md Queue 2):
 //   * One thread per problem; 128 threads a block; threads past B count as
 //     converged from the start. A converged lane stops computing and keeps
 //     its iterates, so what a lane returns does not depend on the block it
@@ -89,18 +88,18 @@
 //     other half), or the last half for a lane that ran out of iterations
 //     (the reference's v <- vnew copy ran for it).
 //
-// What bounds it on an H100: operations (the hard batch with adaptive rho,
-// B=32768, N=20, max_iter 500: 7.0192 ms at the FP32 peak), but this design
-// streams each lane's trajectories (~7 KB an iteration at nx=12, nu=4,
-// N=20) through device memory and runs one thread a problem, ~250 threads
-// an SM at B=32768: it measured 114.9255 ms on that batch (NVIDIA H100
-// 80GB HBM3, 700 W). The box-only solve measured the same layout's limit
-// before it moved to admm_group.cu: its time a lane-iteration fell from
-// 5.25 to 3.61 ns as the batch grew from 32768 to 131072 lanes (more
-// warps), the mark of too few threads to hide latency.
+// What bounds it on an H100: operations, but this design streams each
+// lane's trajectories (~7 KB an iteration at nx=12, nu=4, N=20) through
+// device memory and runs one thread a problem, ~250 threads an SM at
+// B=32768: the adaptive hard batch (B=32768, N=20, max_iter 500; 7.0192 ms
+// at the FP32 peak) measured 114.9255 ms here (NVIDIA H100 80GB HBM3,
+// 700 W) before it moved to admm_group.cu. The box-only solve measured the
+// same layout's limit: its time a lane-iteration fell from 5.25 to 3.61 ns
+// as the batch grew from 32768 to 131072 lanes (more warps), the mark of
+// too few threads to hide latency.
 //
 // C interface (loaded with ctypes): tinympc_admm_fused, one entry for the
-// cold and the warm solve, adaptive box-only or with the families, and
+// cold and the warm solve, adaptive with the families or at (6, 3), and
 // tinympc_admm_fused_multi, the same with the multi-system launch's two
 // arguments, return the cudaError_t of the launch; they launch on the
 // given stream and never synchronise.
@@ -446,11 +445,11 @@ bool bad_size(const Buffers& p) {
 }
 
 // The families kernel, with consensus when its group is not 0; under
-// `adapt`, the adaptive-rho kernel (box only) or the families adaptive-rho
-// kernel. At (6, 3) every problem runs a families instantiation, a
-// box-only one with zero family counts; at (12, 4) a box-only problem at
-// fixed rho runs admm_group.cu and is refused here. cudaErrorInvalidValue
-// for an (nx, nu) pair or a combination that is not instantiated.
+// `adapt`, the families adaptive-rho kernel. At (6, 3) every problem runs a
+// families instantiation, a box-only one with zero family counts; at
+// (12, 4) a box-only problem at fixed or adaptive rho runs admm_group.cu
+// and is refused here. cudaErrorInvalidValue for an (nx, nu) pair or a
+// combination that is not instantiated.
 template <bool WARM, int NX, int NU>
 int dispatch_families(const AdaptArgs* adapt, const Buffers& p,
                       const Carry& carry, const FamilyArgs& fa,
@@ -475,16 +474,7 @@ int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
              const Buffers& p, const Carry& carry, const FamilyArgs& fa,
              const ConsensusArgs& ca, cudaStream_t s) {
   if (nx == 12 && nu == 4) {   // the quadrotor
-    if (!families && adapt) {
-      const NoFamilies::Args none{};
-      return static_cast<int>(
-          adapt->apply_c
-              ? launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, true>>(
-                    p, carry, none, s, *adapt)
-              : launch<12, 4, WARM, NoFamilies, AdaptiveRho<12, 4, false>>(
-                    p, carry, none, s, *adapt));
-    }
-    if (!families)             // the main path: admm_group.cu
+    if (!families)   // box only, at fixed or adaptive rho: admm_group.cu
       return static_cast<int>(cudaErrorInvalidValue);
     return dispatch_families<WARM, 12, 4>(adapt, p, carry, fa, ca, s);
   }
@@ -536,8 +526,8 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // file does not instantiate, a bad size or a missing array.
 // counts: the six family sizes beyond the box (state cones, input cones,
 // state and input hyperplanes, state and input time-varying hyperplanes);
-// all zero at fixed rho without consensus at (12, 4) is refused (the box
-// solve of admm_group.cu). carry: the warm carry in (vnew_in,
+// all zero without consensus at (12, 4) is refused (the box solves of
+// admm_group.cu, at fixed and adaptive rho). carry: the warm carry in (vnew_in,
 // znew_in, g_in, y_in, v_in, z_in) and out (vnew_out, znew_out, v_out,
 // z_out; g and y are the carry's g/y out), lane-last (N, nx, B) and
 // (N-1, nu, B); all null on a cold solve. fam: 22 arrays -- the working

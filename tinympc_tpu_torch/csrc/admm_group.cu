@@ -1,16 +1,21 @@
-// Fused batched ADMM solve of box-constrained problems at fixed rho, cold
-// or warm start, one system or a fleet (a system a 128-lane tile): the
-// main path's kernel.
+// Fused batched ADMM solve of box-constrained problems, cold or warm
+// start: at fixed rho, one system or a fleet (a system a 128-lane tile) --
+// the main path's kernel --; with consensus on u[0] within scenario groups
+// of the batch; and at adaptive rho, one system or a fleet.
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call;
 // the multi_tps variant, :532-575): the cold solve (solve_fused), the warm
 // solve with its carry (solve_fused_warm, FusedCarry; final=True too, which
-// keeps no snapshots here), and solve_fused_multi / the fleet solver. One
-// launch runs the whole ADMM loop for every problem of the batch,
-// termination every check_termination iterations, and a per-block exit
-// once every problem of the block has converged. The other families,
-// adaptive rho and consensus run csrc/admm_fused.cu.
+// keeps no snapshots here), and solve_fused_multi / the fleet solver; and,
+// for box problems at (12, 4), its consensus variant (`consensus`, `group`,
+// `rho_c`) and its adaptive-rho variant (`adaptive`, `apply_c`, `rho_tol`;
+// multi_tps too). One launch runs the whole ADMM loop for every problem of
+// the batch, termination every check_termination iterations, and a
+// per-block exit once every problem of the block (of the cluster, under
+// consensus across blocks) has converged. The other families, consensus
+// with them or at (6, 3), adaptive rho with them or at (6, 3), and a
+// consensus group whose cluster cannot be formed run csrc/admm_fused.cu.
 //
 // What bounds it on an H100: operations. The main path (nx=12, nu=4,
 // N=20, B=32768, ~97.7 mean iterations) does ~9.4k FMA a problem and
@@ -64,14 +69,55 @@
 // G=16, P=8 and a budget of 4 blocks an SM were chosen by timing copies
 // of this file at G=4 and G=8 and at other budgets (PERF.md, section 6).
 //
+// Consensus (admm_consensus.cuh's rule, GroupConsensus in admm_group.cuh):
+// a scenario group is G adjacent problems. After every iteration each
+// running problem's input rows write its offer u[0] + yc0 into the
+// block's (NU, P) offers array, every thread of the block meets a barrier
+// (a converged or out-of-range problem's too), each running input row
+// sums its group's G offers in lane order from zero, divides by G
+// (div_rn), moves zc0 and yc0, and the group's threads reduce
+// max|u[0] - zc0| for the gate; a second barrier keeps the next offers
+// from overwriting offers still being read. A converged problem freezes
+// and its last offer stands. G <= P: the group lies in one block and the
+// barriers are __syncthreads. G > P: the group is a thread-block cluster
+// of G / P blocks (cudaLaunchKernelEx with a cluster dimension; past 8
+// blocks a non-portable size), the offers of the other blocks are read
+// through distributed shared memory (map_shared_rank) and the barriers are
+// cluster barriers; the exit is voted over the cluster (each block's
+// "any running" flag in its arena, read by every block after the second
+// barrier), so no block leaves while a cluster-mate may still read its
+// offers, and a last cluster barrier precedes the exit. A warm solve also
+// carries zc0 / yc0 and the x / u of the last iteration each problem ran:
+// once the loop ends, a problem's group re-runs that iteration's rollout
+// from x0 and its feedforward d, still in shared memory (the one-thread
+// kernel's Families::finish, whose bits it gives).
+//
+// Adaptive rho (GroupAdaptiveRho): each problem's rho and virtual rho on
+// every thread of its group, the sensitivity rows read from the table, the
+// adaptation folded into the forward sweep (admm_group.cuh) and the new
+// rho formed by rho_update on every thread of the group from the same
+// maxima; residual row 4 holds each problem's final rho.
+//
 // C interface (loaded with ctypes): tinympc_admm_group returns the
 // cudaError_t of the launch; it launches on the given stream and never
 // synchronises.
+#include <cooperative_groups.h>
+#include <type_traits>
+
 #include "admm_group.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+
+using tinympc::AdaptArgs;
+using tinympc::AdaptMaxima;
+using tinympc::GroupAdaptiveRho;
 using tinympc::GroupArena;
+using tinympc::GroupConsensus;
+using tinympc::GroupConsensusArgs;
+using tinympc::GroupFixedRho;
+using tinympc::GroupNoConsensus;
 using tinympc::GroupSweep;
 using tinympc::Layout;
 using tinympc::Residuals;
@@ -81,11 +127,40 @@ using tinympc::Place;
 constexpr int kGroup = 16;         // threads a problem: a row each at (12, 4)
 constexpr int kMaxThreads = 128;   // P * kGroup
 // Blocks an SM must hold: the register budget. ptxas then keeps ~96
-// registers a thread, at most 128 (80 under a bound of 256 threads and no
-// minimum, which measured slower; 3 blocks and 4 measured alike).
+// registers a thread at fixed rho, at most 128 (80 under a bound of 256
+// threads and no minimum, which measured slower; 3 blocks and 4 measured
+// alike). The adaptive kinds use all 128 (their sensitivity rows read
+// from the table, not kept in registers: in registers they spilled here,
+// and at 3 blocks the hard batch ran 17% slower; PERF.md, section 6).
 constexpr int kMinBlocks = 4;
 constexpr int kTile = 128;         // lanes a fleet's block_sys entry covers
 constexpr size_t kMaxSmem = 232448;
+// Blocks of a consensus group's cluster at most: past 8 a non-portable
+// cluster size, which an H100 takes to 16.
+constexpr int kMaxCluster = 16;
+
+// What a launch solves: box at fixed rho, consensus within the batch
+// (fixed rho), adaptive rho without and with apply_c.
+enum Kind : int { kBox = 0, kConsensus = 1, kAdaptive = 2, kAdaptiveC = 3 };
+
+template <int NX, int NU, int KIND>
+struct Policies {
+  static constexpr int R = (NX + NU) / kGroup;
+  using Rho = std::conditional_t<
+      (KIND == kAdaptive || KIND == kAdaptiveC),
+      GroupAdaptiveRho<NX, NU, R, KIND == kAdaptiveC>, GroupFixedRho>;
+  using Cons = std::conditional_t<KIND == kConsensus,
+                                  GroupConsensus<NX, NU, R>,
+                                  GroupNoConsensus>;
+  using Sweep = GroupSweep<NX, NU, kGroup, Rho, Cons>;
+  using Arena = typename Sweep::Arena;
+  // The packed table: the box tables, then the adaptive tables or the
+  // step-0 consensus gains.
+  static __host__ __device__ int table_floats(int N) {
+    return Layout(NX, NU, N).total + Rho::table_floats(NX, NU) +
+           Cons::table_floats(NX, NU);
+  }
+};
 
 // The carry of a warm solve; all pointers null on a cold one.
 struct Carry {
@@ -96,8 +171,9 @@ struct Carry {
 // PLACE (tinympc::Place): kShared copies the packed table into shared
 // memory (its reads are then shared-memory loads); kTableGlobal reads it in
 // device memory; kSavedGlobal (warm only) also keeps the saved columns in
-// `saved`, (grid, N, P * (NX + NU)).
-template <int NX, int NU, bool WARM, int PLACE>
+// `saved`, (grid, N, P * (NX + NU)). KIND: what the launch solves (Kind);
+// ra / ca the adaptive-rho and consensus arguments of its kind.
+template <int NX, int NU, bool WARM, int PLACE, int KIND>
 __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) admm_group_kernel(
     const float* __restrict__ tables, const float* __restrict__ x0,
     float* __restrict__ out_x, float* __restrict__ out_u,
@@ -105,25 +181,31 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) admm_group_kernel(
     float* __restrict__ out_res, Carry carry, int N, int B, int max_iter,
     int check_termination, float rho, float tol_pri, float tol_dua, int P,
     const int* __restrict__ block_sys, int table_stride,
-    float* __restrict__ saved) {
+    float* __restrict__ saved,
+    typename Policies<NX, NU, KIND>::Rho::Args ra,
+    typename Policies<NX, NU, KIND>::Cons::Args ca) {
   constexpr int G = kGroup;
-  using Sweep = GroupSweep<NX, NU, G>;
+  using Pol = Policies<NX, NU, KIND>;
+  using Rho = typename Pol::Rho;
+  using Cons = typename Pol::Cons;
+  using Sweep = typename Pol::Sweep;
   constexpr int R = Sweep::R;
   extern __shared__ float4 sm4[];
   float* sm = reinterpret_cast<float*>(sm4);
   const Layout L(NX, NU, N);
+  const int total = Pol::table_floats(N);
   const int b0 = blockIdx.x * P;
   const float* tab = tables;
   if (block_sys) tab += static_cast<size_t>(block_sys[b0 / kTile]) * table_stride;
   float* arena = sm;
   if constexpr (PLACE == Place::kShared) {
-    for (int k = threadIdx.x; k < L.total; k += blockDim.x) sm[k] = tab[k];
+    for (int k = threadIdx.x; k < total; k += blockDim.x) sm[k] = tab[k];
     tab = sm;
-    arena = sm + tinympc::align4(L.total);
+    arena = sm + tinympc::align4(total);
   }
   float* vg = nullptr;
   if constexpr (PLACE == Place::kSavedGlobal)
-    vg = saved + blockIdx.x * GroupArena<NX, NU>::saved_floats(N, P);
+    vg = saved + blockIdx.x * Pol::Arena::saved_floats(N, P);
   __syncthreads();
 
   const int p = threadIdx.x / G, g = threadIdx.x % G;
@@ -165,31 +247,180 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) admm_group_kernel(
     }
   }
 
+  // Adaptive rho: the adaptive tables, -dPinf^T Xref[N-1] (admm_pallas.py:
+  // 832-837, summed as -Pinf^T Xref[N-1]), the problem's rho (the carry's
+  // on a warm solve) and the guard's virtual rho, restarting from it every
+  // solve (admm_pallas.py:665-669).
+  Rho rh;
+  if constexpr (Rho::kAdaptive) {
+    const tinympc::AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+    rh.t = tab + L.total;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      rh.pdp[r] = sw.state(r)
+                      ? sw.pnref(r, rh.t + AL.dpt, tab + L.xref + (N - 1) * NX)
+                      : 0.f;
+    rh.rho0 = rho;
+    rh.rho = rho;
+    if constexpr (WARM)
+      if (lane) rh.rho = ra.rho_in[b];
+    rh.rho_v = rh.rho;
+    rh.drho = 0.f;
+  }
+
+  // Consensus: an input row's rows of Kinf0 and Quu0_inv (after the box
+  // tables), its slack from the carried u[0] and dual from the carry (zero
+  // cold; admm_pallas.py:693-707), and no offer yet.
+  Cons cs;
+  float* offers = nullptr;
+  int* vote = nullptr;
+  const int cluster = [&] {
+    if constexpr (Cons::kHooks) return ca.cluster;
+    return 1;
+  }();
+  if constexpr (Cons::kHooks) {
+    const float* t0 = tab + L.total;
+    offers = arena + Pol::Arena::lanes_at(N, P, WARM && PLACE != Place::kSavedGlobal);
+    vote = reinterpret_cast<int*>(offers + NU * P);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int k = sw.feat[r];
+      const bool st = sw.state(r);
+#pragma unroll
+      for (int c = 0; c < NX; ++c) cs.k0[r][c] = st ? 0.f : t0[k * NX + c];
+#pragma unroll
+      for (int c = 0; c < NU; ++c)
+        cs.q0[r][c] = st ? 0.f : t0[NU * NX + k * NU + c];
+      const size_t o = static_cast<size_t>(k) * sB + b;
+      cs.zc[r] = (WARM && lane && !st) ? ca.u_in[o] : 0.f;
+      cs.yc[r] = (WARM && lane && !st) ? ca.yc0_in[o] : 0.f;
+      if (!st) offers[k * P + p] = 0.f;
+    }
+    cs.rho_c = ca.rho_c;
+  }
+
   for (int it = 0; it < max_iter; ++it) {
     const bool checking = ((it + 1) % check_termination) == 0;
+    bool ok = false;      // this iteration's check passed (consensus)
     if (!done) {
       float pt[R];
+      float rho_it = rho;
+      bool adapting = false;
+      if constexpr (Rho::kAdaptive) {
+        rh.drho = rh.rho - rh.rho0;
+        adapting = it > 0 && it % tinympc::kAdaptivePeriod == 0;
+        rho_it = rh.rho;
 #pragma unroll
-      for (int r = 0; r < R; ++r) pt[r] = pnref[r] - rho * dvgN[r];
-      sw.backward(N, rho, pt);
+        for (int r = 0; r < R; ++r)
+          pt[r] = (pnref[r] + rh.drho * rh.pdp[r]) - rho_it * dvgN[r];
+      } else {
+#pragma unroll
+        for (int r = 0; r < R; ++r) pt[r] = pnref[r] - rho * dvgN[r];
+      }
+      sw.backward(N, rho_it, pt, rh, cs);
       // Iteration 0 of a warm solve compares against the carried v/z
       // (admm_pallas.py:1159-1164).
-      const Residuals rr = sw.template forward<WARM>(N, x0r, dvgN, checking,
-                                                     WARM && it == 0, u0);
+      AdaptMaxima am;
+      const Residuals rr = sw.template forward<WARM>(
+          N, x0r, dvgN, checking, WARM && it == 0, u0, rh, cs, adapting,
+          &am);
+      // Adaptive rho every 5th iteration (admm_pallas.py:1079-1142); the
+      // dual residuals below scale with the rho after it.
+      if constexpr (Rho::kAdaptive) {
+        if (adapting)
+          tinympc::rho_update(ra, am.pri_res, am.pri_norm, am.dual_res,
+                              am.dual_norm, rh.rho, rh.rho_v);
+        rho_it = rh.rho;
+      }
       // Bookkeeping (admm_pallas.py:1144-1182).
       iters = it + 1;
       if (checking) {
         res0 = rr.pri_s;
         res1 = rr.pri_i;
-        res2 = rr.dua_s * rho;
-        res3 = rr.dua_i * rho;
-        done = (res0 < tol_pri) && (res1 < tol_pri) && (res2 < tol_dua) &&
-               (res3 < tol_dua);
+        res2 = rr.dua_s * rho_it;
+        res3 = rr.dua_i * rho_it;
+        const bool pass = (res0 < tol_pri) && (res1 < tol_pri) &&
+                          (res2 < tol_dua) && (res3 < tol_dua);
+        if constexpr (Cons::kHooks)
+          ok = pass;
+        else
+          done = pass;
       }
     }
-    // Block exit (admm_pallas.py:1220-1255): on check iterations, once no
-    // problem of the block is still active. `checking` is uniform.
-    if (checking && !__syncthreads_or(!done)) break;
+    if constexpr (Cons::kHooks) {
+      // Consensus (admm_pallas.py:1059-1066, :1171-1175): every thread of
+      // the block (the cluster) meets the exchange, a converged or idle
+      // one too; convergence waits for the gate.
+      cg::cluster_group cl = cg::this_cluster();
+      if (!done) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (!sw.state(r)) offers[sw.feat[r] * P + p] = u0[r] + cs.yc[r];
+      }
+      if (cluster > 1)
+        cl.sync();
+      else
+        __syncthreads();
+      if (!done) {
+        const int GS = ca.group;
+        float cres = 0.f;
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (sw.state(r)) continue;
+          const int k = sw.feat[r];
+          // The group's offers in lane order, summed from zero.
+          float sum = 0.f;
+          if (cluster > 1) {
+            for (int q = 0; q < cluster; ++q) {
+              const float* o = cl.map_shared_rank(offers + k * P, q);
+              for (int j = 0; j < P; ++j) sum = sum + o[j];
+            }
+          } else {
+            const float* o = offers + k * P + (p & ~(GS - 1));
+            for (int j = 0; j < GS; ++j) sum = sum + o[j];
+          }
+          const float z = tinympc::div_rn(sum, static_cast<float>(GS));
+          cs.yc[r] = cs.yc[r] + u0[r] - z;
+          cs.zc[r] = z;
+          cres = tinympc::max_nan(cres, fabsf(u0[r] - z));
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+          cres = tinympc::max_nan(cres,
+                                  __shfl_xor_sync(sw.mask, cres, off, G));
+        ok = ok && cres < tol_pri;
+      }
+      const bool now_done = done || ok;
+      // The second barrier; on check iterations it also votes the exit
+      // (admm_pallas.py:1220-1255), over the cluster when there is one.
+      bool stop = false;
+      if (checking) {
+        const int any = __syncthreads_or(!now_done);
+        if (cluster > 1) {
+          if (threadIdx.x == 0) *vote = any;
+          cl.sync();
+          int all = 0;
+          for (int q = 0; q < cluster; ++q) all |= *cl.map_shared_rank(vote, q);
+          stop = !all;
+        } else {
+          stop = !any;
+        }
+      } else if (cluster > 1) {
+        cl.sync();
+      } else {
+        __syncthreads();
+      }
+      done = now_done;
+      if (stop) break;
+    } else {
+      // Block exit (admm_pallas.py:1220-1255): on check iterations, once no
+      // problem of the block is still active. `checking` is uniform.
+      if (checking && !__syncthreads_or(!done)) break;
+    }
+  }
+  if constexpr (Cons::kHooks) {
+    // No block leaves while a cluster-mate may still read its arena.
+    if (cluster > 1) cg::this_cluster().sync();
   }
 
   if (!lane) return;
@@ -221,53 +452,204 @@ __global__ void __launch_bounds__(kMaxThreads, kMinBlocks) admm_group_kernel(
     out_res[sB + b] = res1;
     out_res[2 * sB + b] = res2;
     out_res[3 * sB + b] = res3;
+    // Converged problems froze their rho: each problem's final rho.
+    if constexpr (Rho::kAdaptive) out_res[4 * sB + b] = rh.rho;
+  }
+  if constexpr (WARM && Cons::kHooks) {
+    // The consensus pair of the last iteration this problem ran (frozen
+    // since its convergence; admm_pallas.py:1292-1296).
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (sw.state(r)) continue;
+      const size_t o = static_cast<size_t>(sw.feat[r]) * sB + b;
+      ca.zc0_out[o] = cs.zc[r];
+      ca.yc0_out[o] = cs.yc[r];
+    }
+    // The carried x/u (admm_pallas.py:1001-1003): the iterate of the last
+    // iteration this problem ran, its rollout re-run from x0 with that
+    // iteration's feedforward d (Kinf0 at step 0), as the one-thread
+    // kernel's Families::finish runs it; with no iteration run, the seeds
+    // (x0, then the carried x; the carried u).
+    auto xa = [&](int i, int k) {
+      return (static_cast<size_t>(i) * NX + k) * sB + b;
+    };
+    auto ua = [&](int i, int k) {
+      return (static_cast<size_t>(i) * NU + k) * sB + b;
+    };
+    if (iters == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int k = sw.feat[r];
+        if (sw.state(r)) {
+          for (int i = 0; i < N; ++i)
+            ca.x_out[xa(i, k)] = i == 0 ? x0r[r] : ca.x_in[xa(i, k)];
+        } else {
+          for (int i = 0; i < N - 1; ++i) ca.u_out[ua(i, k)] = ca.u_in[ua(i, k)];
+        }
+      }
+    } else {
+      float xo[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        xo[r] = x0r[r];
+        if (sw.state(r)) sw.X[sw.feat[r]] = xo[r];
+      }
+      sw.sync();
+      for (int i = 0; i < N; ++i) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          if (sw.state(r)) ca.x_out[xa(i, sw.feat[r])] = xo[r];
+        if (i == N - 1) break;
+        float xv[NX];
+        Sweep::load(xv, sw.X);
+        float a1[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          a1[r] = (i == 0 && !sw.state(r)) ? Sweep::dot(cs.k0[r], xv)
+                                           : Sweep::dot(sw.f1[r], xv);
+          if (!sw.state(r)) {
+            const float u = -a1[r] - sw.F[i * sw.PU + sw.fcol[r]];
+            ca.u_out[ua(i, sw.feat[r])] = u;
+            sw.X[NX + sw.feat[r]] = u;
+          }
+        }
+        sw.sync();
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (!sw.state(r)) continue;
+          float uv[NU];
+          Sweep::load(uv, sw.X + NX);
+          xo[r] = a1[r] + Sweep::dot(sw.bm[r], uv) + sw.fv[r];
+          sw.X[sw.feat[r]] = xo[r];
+        }
+        sw.sync();
+      }
+    }
   }
 }
 
 // Shared memory of a launch: the table (kShared) and the arena of P
 // problems, with the saved columns of a warm solve but at kSavedGlobal.
-template <int NX, int NU>
+template <int NX, int NU, int KIND>
 size_t smem_bytes(int N, int P, int place, bool warm) {
-  const int table = place == Place::kShared
-                        ? tinympc::align4(Layout(NX, NU, N).total) : 0;
-  return (table + GroupArena<NX, NU>::floats(
+  using Pol = Policies<NX, NU, KIND>;
+  const int table =
+      place == Place::kShared ? tinympc::align4(Pol::table_floats(N)) : 0;
+  return (table + Pol::Arena::floats(
                       N, P, warm && place != Place::kSavedGlobal)) *
          sizeof(float);
 }
 
-template <int NX, int NU, bool WARM>
-cudaError_t launch(const float* tables, const float* x0, float* out_x,
-                   float* out_u, int* out_iters, unsigned char* out_solved,
-                   float* out_res, const Carry& carry, int N, int B,
-                   int max_iter, int ct, float rho, float tol_pri,
-                   float tol_dua, int P, int place, const int* block_sys,
-                   int table_stride, float* saved, cudaStream_t stream) {
-  if (P < 1 || P * kGroup > kMaxThreads || kTile % P)
-    return cudaErrorInvalidValue;
-  if (place == Place::kSavedGlobal ? !WARM || !saved
-                                   : place != Place::kShared &&
-                                         place != Place::kTableGlobal)
-    return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes<NX, NU>(N, P, place, WARM);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = place == Place::kShared
-                    ? admm_group_kernel<NX, NU, WARM, Place::kShared>
-                    : admm_group_kernel<NX, NU, WARM, Place::kTableGlobal>;
-  if constexpr (WARM)   // a cold solve keeps no saved columns
-    if (place == Place::kSavedGlobal)
-      kernel = admm_group_kernel<NX, NU, WARM, Place::kSavedGlobal>;
+template <int NX, int NU, bool WARM, int KIND, int PLACE>
+cudaError_t launch_at(const dim3& grid, int P, size_t smem, int cluster,
+                      cudaStream_t stream, const float* tables,
+                      const float* x0, float* out_x, float* out_u,
+                      int* out_iters, unsigned char* out_solved,
+                      float* out_res, const Carry& carry, int N, int B,
+                      int max_iter, int ct, float rho, float tol_pri,
+                      float tol_dua, const int* block_sys, int table_stride,
+                      float* saved,
+                      const typename Policies<NX, NU, KIND>::Rho::Args& ra,
+                      const typename Policies<NX, NU, KIND>::Cons::Args& ca) {
+  auto kernel = admm_group_kernel<NX, NU, WARM, PLACE, KIND>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((B + P - 1) / P);
+  if (cluster > 1) {
+    if (cluster > 8) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return e;
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(P * kGroup);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    return cudaLaunchKernelEx(&cfg, kernel, tables, x0, out_x, out_u,
+                              out_iters, out_solved, out_res, carry, N, B,
+                              max_iter, ct, rho, tol_pri, tol_dua, P,
+                              block_sys, table_stride, saved, ra, ca);
+  }
   kernel<<<grid, P * kGroup, smem, stream>>>(
       tables, x0, out_x, out_u, out_iters, out_solved, out_res, carry, N, B,
       max_iter, ct, rho, tol_pri, tol_dua, P, block_sys, table_stride,
-      saved);
+      saved, ra, ca);
   return cudaGetLastError();
+}
+
+template <int NX, int NU, bool WARM, int KIND>
+cudaError_t launch(const float* tables, const float* x0, float* out_x,
+                   float* out_u, int* out_iters, unsigned char* out_solved,
+                   float* out_res, const Carry& carry, int N, int B,
+                   int max_iter, int ct, float rho, float tol_pri,
+                   float tol_dua, int P, int place, const int* block_sys,
+                   int table_stride, float* saved, cudaStream_t stream,
+                   const typename Policies<NX, NU, KIND>::Rho::Args& ra = {},
+                   const typename Policies<NX, NU, KIND>::Cons::Args& ca = {}) {
+  if (P < 1 || P * kGroup > kMaxThreads || kTile % P)
+    return cudaErrorInvalidValue;
+  if (place == Place::kSavedGlobal ? !WARM || !saved
+                                   : place != Place::kShared &&
+                                         place != Place::kTableGlobal)
+    return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes<NX, NU, KIND>(N, P, place, WARM);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  int cluster = 1;
+  if constexpr (KIND == kConsensus) {
+    // A scenario group lies in one block (G <= P, G dividing P) or is one
+    // cluster of G / P blocks.
+    const int G = ca.group;
+    cluster = ca.cluster;
+    if (G < 1 || (G & (G - 1)) || B % G || block_sys ||
+        (G <= P ? (P % G || cluster != 1)
+                : (G % P || cluster != G / P || cluster > kMaxCluster)))
+      return cudaErrorInvalidValue;
+  }
+  const dim3 grid((B + P - 1) / P);
+  const auto go = [&](auto place_c) {
+    constexpr int PL = decltype(place_c)::value;
+    return launch_at<NX, NU, WARM, KIND, PL>(
+        grid, P, smem, cluster, stream, tables, x0, out_x, out_u, out_iters,
+        out_solved, out_res, carry, N, B, max_iter, ct, rho, tol_pri,
+        tol_dua, block_sys, table_stride, saved, ra, ca);
+  };
+  if (place == Place::kShared)
+    return go(std::integral_constant<int, Place::kShared>());
+  if constexpr (WARM)   // a cold solve keeps no saved columns
+    if (place == Place::kSavedGlobal)
+      return go(std::integral_constant<int, Place::kSavedGlobal>());
+  return go(std::integral_constant<int, Place::kTableGlobal>());
+}
+
+// The launch of one kind, cold or warm.
+template <int KIND>
+int dispatch(int warm, const float* t, const float* x, float* ox, float* ou,
+             int* oi, unsigned char* os, float* orr, const Carry& c, int N,
+             int B, int max_iter, int ct, float rho, float tol_pri,
+             float tol_dua, int P, int place, const int* bs,
+             int table_stride, float* sv, cudaStream_t s,
+             const typename Policies<12, 4, KIND>::Rho::Args& ra = {},
+             const typename Policies<12, 4, KIND>::Cons::Args& ca = {}) {
+  return static_cast<int>(
+      warm ? launch<12, 4, true, KIND>(t, x, ox, ou, oi, os, orr, c, N, B,
+                                       max_iter, ct, rho, tol_pri, tol_dua,
+                                       P, place, bs, table_stride, sv, s, ra,
+                                       ca)
+           : launch<12, 4, false, KIND>(t, x, ox, ou, oi, os, orr, c, N, B,
+                                        max_iter, ct, rho, tol_pri, tol_dua,
+                                        P, place, bs, table_stride, sv, s,
+                                        ra, ca));
 }
 
 }  // namespace
@@ -275,32 +657,75 @@ cudaError_t launch(const float* tables, const float* x0, float* out_x,
 extern "C" int tinympc_admm_group_max_threads() { return kMaxThreads; }
 extern "C" int tinympc_admm_group_width() { return kGroup; }
 extern "C" int tinympc_admm_group_tile() { return kTile; }
-// Bytes of shared memory of a launch at (N, P, place), cold or warm, at
-// (12, 4); the wrapper holds its own geometry against it.
+extern "C" int tinympc_admm_group_max_cluster() { return kMaxCluster; }
+// Bytes of shared memory of a launch at (N, P, place), cold or warm, of
+// kind 0 (box), 1 (consensus), 2 (adaptive rho) or 3 (adaptive rho with
+// apply_c), at (12, 4); the wrapper holds its own geometry against it.
 extern "C" long long tinympc_admm_group_smem(int N, int P, int place,
-                                             int warm) {
-  return static_cast<long long>(smem_bytes<12, 4>(N, P, place, warm != 0));
+                                             int warm, int kind) {
+  const bool w = warm != 0;
+  switch (kind) {
+    case kBox: return static_cast<long long>(smem_bytes<12, 4, kBox>(N, P, place, w));
+    case kConsensus:
+      return static_cast<long long>(smem_bytes<12, 4, kConsensus>(N, P, place, w));
+    case kAdaptive:
+      return static_cast<long long>(smem_bytes<12, 4, kAdaptive>(N, P, place, w));
+    case kAdaptiveC:
+      return static_cast<long long>(smem_bytes<12, 4, kAdaptiveC>(N, P, place, w));
+  }
+  return -1;
 }
 
-// The box-only fixed-rho solve, cold (warm = 0) or warm. Returns 0 on
-// success, a cudaError_t otherwise; cudaErrorInvalidValue for an
-// (nx, nu) this file does not instantiate, a bad size or geometry or a
-// missing array. problems: P, problems a block (dividing 128, P * 16 <=
-// 128); place: a tinympc::Place, kSavedGlobal for a warm solve only, with
-// `saved` a (ceil(B / P), N, P * (nx + nu)) float buffer (else unused).
-// carry: the warm carry in (vnew_in,
-// znew_in, g_in, y_in, v_in, z_in) and out (vnew_out, znew_out, v_out,
-// z_out, g_out, y_out), lane-last (N, nx, B) and (N-1, nu, B); null on a
-// cold solve. block_sys null is the single-system solve; else tables holds
-// one packed table per system, table_stride floats apart, and the lanes of
-// each 128-lane tile k solve with table block_sys[k].
-extern "C" int tinympc_admm_group(
-    int warm, int nx, int nu, int problems, int place, int N, int B,
-    int max_iter, int check_termination, float rho, float tol_pri,
-    float tol_dua, const void* tables, const void* x0, void* out_x,
-    void* out_u, void* out_iters, void* out_solved, void* out_res,
-    const void* const* carry, const void* block_sys, int table_stride,
-    void* saved, void* stream) {
+// How many clusters of `cluster` blocks of a consensus launch at (N, P,
+// place), cold or warm, the card can hold at once
+// (cudaOccupancyMaxActiveClusters; 0 where it cannot form one), or a
+// negative cudaError_t.
+extern "C" int tinympc_admm_group_cluster_occupancy(int N, int P, int place,
+                                                    int warm, int cluster) {
+  const size_t smem = smem_bytes<12, 4, kConsensus>(N, P, place, warm != 0);
+  auto kernel =
+      warm ? (place == Place::kShared
+                  ? admm_group_kernel<12, 4, true, Place::kShared, kConsensus>
+                  : admm_group_kernel<12, 4, true, Place::kTableGlobal,
+                                      kConsensus>)
+           : (place == Place::kShared
+                  ? admm_group_kernel<12, 4, false, Place::kShared, kConsensus>
+                  : admm_group_kernel<12, 4, false, Place::kTableGlobal,
+                                      kConsensus>);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e == cudaSuccess && cluster > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 64);
+  cfg.blockDim = dim3(P * kGroup);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+namespace {
+
+// The entries' shared part: the carry, the pointers, then the launch of
+// one kind (adapt / cons select it; never both).
+int entry(int warm, int nx, int nu, int problems, int place, int N, int B,
+          int max_iter, int check_termination, float rho, float tol_pri,
+          float tol_dua, const void* tables, const void* x0, void* out_x,
+          void* out_u, void* out_iters, void* out_solved, void* out_res,
+          const void* const* carry, const void* block_sys, int table_stride,
+          void* saved, const AdaptArgs* adapt,
+          const GroupConsensusArgs* cons, void* stream) {
   if (N < 2 || B < 1 || max_iter < 0 || check_termination < 1 ||
       (block_sys && table_stride < 1))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -334,13 +759,101 @@ extern "C" int tinympc_admm_group(
   const auto s = static_cast<cudaStream_t>(stream);
   if (nx != 12 || nu != 4)   // the quadrotor of the main path
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      warm ? launch<12, 4, true>(t, x, ox, ou, oi, os, orr, c, N, B,
-                                 max_iter, check_termination, rho, tol_pri,
-                                 tol_dua, problems, place, bs, table_stride,
-                                 sv, s)
-           : launch<12, 4, false>(t, x, ox, ou, oi, os, orr, c, N, B,
-                                  max_iter, check_termination, rho, tol_pri,
-                                  tol_dua, problems, place, bs, table_stride,
-                                  sv, s));
+  if (adapt) {
+    if (!adapt->rho_out || (warm && !adapt->rho_in) ||
+        (!warm && adapt->rho_in))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return adapt->apply_c
+               ? dispatch<kAdaptiveC>(warm, t, x, ox, ou, oi, os, orr, c, N,
+                                      B, max_iter, check_termination, rho,
+                                      tol_pri, tol_dua, problems, place, bs,
+                                      table_stride, sv, s, *adapt)
+               : dispatch<kAdaptive>(warm, t, x, ox, ou, oi, os, orr, c, N,
+                                     B, max_iter, check_termination, rho,
+                                     tol_pri, tol_dua, problems, place, bs,
+                                     table_stride, sv, s, *adapt);
+  }
+  if (cons) {
+    const bool all = cons->u_in && cons->x_in && cons->yc0_in &&
+                     cons->zc0_out && cons->yc0_out && cons->x_out &&
+                     cons->u_out;
+    const bool none = !cons->u_in && !cons->x_in && !cons->yc0_in &&
+                      !cons->zc0_out && !cons->yc0_out && !cons->x_out &&
+                      !cons->u_out;
+    if (warm ? !all : !none) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<kConsensus>(warm, t, x, ox, ou, oi, os, orr, c, N, B,
+                                max_iter, check_termination, rho, tol_pri,
+                                tol_dua, problems, place, bs, table_stride,
+                                sv, s, {}, *cons);
+  }
+  return dispatch<kBox>(warm, t, x, ox, ou, oi, os, orr, c, N, B, max_iter,
+                        check_termination, rho, tol_pri, tol_dua, problems,
+                        place, bs, table_stride, sv, s);
+}
+
+}  // namespace
+
+// The box-only fixed-rho solve, cold (warm = 0) or warm. Returns 0 on
+// success, a cudaError_t otherwise; cudaErrorInvalidValue for an
+// (nx, nu) this file does not instantiate, a bad size or geometry or a
+// missing array. problems: P, problems a block (dividing 128, P * 16 <=
+// 128); place: a tinympc::Place, kSavedGlobal for a warm solve only, with
+// `saved` a (ceil(B / P), N, P * (nx + nu)) float buffer (else unused).
+// carry: the warm carry in (vnew_in,
+// znew_in, g_in, y_in, v_in, z_in) and out (vnew_out, znew_out, v_out,
+// z_out, g_out, y_out), lane-last (N, nx, B) and (N-1, nu, B); null on a
+// cold solve. block_sys null is the single-system solve; else tables holds
+// one packed table per system, table_stride floats apart, and the lanes of
+// each 128-lane tile k solve with table block_sys[k].
+extern "C" int tinympc_admm_group(
+    int warm, int nx, int nu, int problems, int place, int N, int B,
+    int max_iter, int check_termination, float rho, float tol_pri,
+    float tol_dua, const void* tables, const void* x0, void* out_x,
+    void* out_u, void* out_iters, void* out_solved, void* out_res,
+    const void* const* carry, const void* block_sys, int table_stride,
+    void* saved, void* stream) {
+  return entry(warm, nx, nu, problems, place, N, B, max_iter,
+               check_termination, rho, tol_pri, tol_dua, tables, x0, out_x,
+               out_u, out_iters, out_solved, out_res, carry, block_sys,
+               table_stride, saved, nullptr, nullptr, stream);
+}
+
+// The box-only solve at adaptive rho: tinympc_admm_group's arguments, then
+// before the stream `adapt` (admm_adaptive.cuh's AdaptArgs: settings,
+// rho_in -- the carried rho, (B,), required warm, null cold --, rho_out --
+// residual row 4 --; the scratch and rho_v unused). out_res has 5 rows;
+// the adaptive tables (and apply_c's) follow the box tables; block_sys as
+// there (the fleet).
+extern "C" int tinympc_admm_group_adaptive(
+    int warm, int nx, int nu, int problems, int place, int N, int B,
+    int max_iter, int check_termination, float rho, float tol_pri,
+    float tol_dua, const void* tables, const void* x0, void* out_x,
+    void* out_u, void* out_iters, void* out_solved, void* out_res,
+    const void* const* carry, const void* block_sys, int table_stride,
+    void* saved, const AdaptArgs* adapt, void* stream) {
+  if (!adapt) return static_cast<int>(cudaErrorInvalidValue);
+  return entry(warm, nx, nu, problems, place, N, B, max_iter,
+               check_termination, rho, tol_pri, tol_dua, tables, x0, out_x,
+               out_u, out_iters, out_solved, out_res, carry, block_sys,
+               table_stride, saved, adapt, nullptr, stream);
+}
+
+// The box-only solve under consensus: tinympc_admm_group's arguments
+// (block_sys null), then before the stream `cons` (GroupConsensusArgs,
+// admm_group.cuh): the scenario group G, a power of two dividing B, and
+// the cluster, 1 where G <= P (P divisible by G) else G / P, at most
+// tinympc_admm_group_max_cluster(); on a warm solve its carry arrays, all
+// required (null cold). The step-0 gains follow the box tables.
+extern "C" int tinympc_admm_group_consensus(
+    int warm, int nx, int nu, int problems, int place, int N, int B,
+    int max_iter, int check_termination, float rho, float tol_pri,
+    float tol_dua, const void* tables, const void* x0, void* out_x,
+    void* out_u, void* out_iters, void* out_solved, void* out_res,
+    const void* const* carry, const void* block_sys, int table_stride,
+    void* saved, const GroupConsensusArgs* cons, void* stream) {
+  if (!cons) return static_cast<int>(cudaErrorInvalidValue);
+  return entry(warm, nx, nu, problems, place, N, B, max_iter,
+               check_termination, rho, tol_pri, tol_dua, tables, x0, out_x,
+               out_u, out_iters, out_solved, out_res, carry, block_sys,
+               table_stride, saved, nullptr, cons, stream);
 }

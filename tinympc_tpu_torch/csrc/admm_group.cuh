@@ -1,14 +1,13 @@
 // One ADMM iteration of one problem spread over a group of G threads, its
 // trajectories in shared memory for the whole solve: the iteration of the
-// box-only, fixed-rho resident solve (admm_group.cu) and of the fused
-// closed loop (closed_loop_fused.cu).
+// box-only resident solve (admm_group.cu: fixed rho, consensus within the
+// batch, adaptive rho) and of the fused closed loop (closed_loop_fused.cu).
 //
 // The arithmetic is admm_sweep.cuh's backward_sweep / forward_sweep with
-// NoFamilies, FixedRho and NoConsensus, term for term: every row's dot
-// product is summed from zero in the same column order with explicit
-// fmaf, and every elementwise term rounds as there (built with
-// -fmad=false). Only who computes a row, and where its operands live,
-// changes:
+// NoFamilies, term for term: every row's dot product is summed from zero
+// in the same column order with explicit fmaf, and every elementwise term
+// rounds as there (built with -fmad=false). Only who computes a row, and
+// where its operands live, changes:
 //   * A problem has NX + NU rows: state rows 0..NX-1 and input rows
 //     NX..NX+NU-1. Thread g of the group owns the R = (NX + NU) / G rows
 //     g, g + G, g + 2G, ... and keeps that row of every matrix the sweeps
@@ -37,25 +36,56 @@
 // Both sweeps give both roles the same instruction stream (a dot product
 // of length NX, an exchange, one of length NU, an exchange); only the
 // short tails differ.
+//
+// Policies (template parameters of GroupSweep, as admm_sweep.cuh takes
+// FixedRho / NoConsensus): GroupFixedRho and GroupNoConsensus compile to
+// the box solve's code. GroupConsensus (admm_consensus.cuh's hooks) gives
+// each input row its row of Kinf0 and Quu0_inv, in registers, for step 0
+// of the sweeps, and its consensus slack zc0 and dual yc0, also in
+// registers; r[0] gains -rho_c (zc0 - yc0). The exchange of offers between
+// a scenario group's problems runs in the kernel (admm_group.cu).
+// GroupAdaptiveRho (admm_adaptive.cuh's hooks) keeps the problem's rho,
+// the guard's virtual rho and drho on every thread of the group (the same
+// values on each); each row reads its rows of the sensitivities from the
+// table (shared memory where the table is), which leaves the adaptive
+// kinds the fixed-rho budget of registers: every product the Taylor update
+// moves is the base product plus drho times the sensitivity product,
+// summed apart and added last.
+// On an adaptation iteration the forward sweep folds the OSQP residuals
+// in, as admm_stream_team.cuh's team forward does: the state rows leave
+// their new dual g[i] in the problem's g slot before the step's first
+// exchange, and after it every row folds in row i-1's terms (A^T g[i] or
+// B^T g[i], its own x / u, new slack and dual, and a state row's dynamics
+// row i-2); the terminal row's Pinf x[N-1] reads x[N-1] from the slot.
+// The four maxima reduce over the group with max_nan; no scratch array.
 #pragma once
 
+#include "admm_adaptive.cuh"
 #include "admm_sweep.cuh"
 
 namespace tinympc {
 
 // Shared-memory layout of a block's problems, in floats from the arena's
-// start (16-byte aligned): the exchange slots (P, kSlot), then the slack
-// and dual of every column side by side ((N, P * (NX + NU)) float2s: one
+// start (16-byte aligned): the exchange slots (P, kSlot) -- x, r / u and w,
+// and under adaptive rho (XSLOT floats) the g slot --, then the slack and
+// dual of every column side by side ((N, P * (NX + NU)) float2s: one
 // 8-byte access reads or writes both), the saved-slack columns when the
 // arena holds them (N, P * (NX + NU)), then the input rows' feedforward
-// (N - 1, P * NU). kernels/admm_fused.py:group_arena_floats sums the same;
-// the wrappers check it against tinympc_*_smem when they load a library.
-template <int NX, int NU>
+// (N - 1, P * NU), then under consensus (LANES floats a problem) the
+// offers (LANES, P) and the cluster's exit vote (4 floats).
+// kernels/admm_fused.py:group_arena_floats sums the same; the wrappers
+// check it against tinympc_*_smem when they load a library.
+template <int NX, int NU, int XSLOT = 0, int LANES = 0>
 struct GroupArena {
   static constexpr int kRows = NX + NU;
-  static constexpr int kSlot = ((NX + 2 * NU + 3) / 4) * 4;
-  static __host__ __device__ int floats(int N, int P, bool saved) {
+  static constexpr int kXSlot = ((NX + 2 * NU + 3) / 4) * 4;
+  static constexpr int kSlot = kXSlot + XSLOT;
+  // Floats before the consensus lane arrays.
+  static __host__ __device__ int lanes_at(int N, int P, bool saved) {
     return P * kSlot + (saved ? 3 : 2) * N * P * kRows + (N - 1) * P * NU;
+  }
+  static __host__ __device__ int floats(int N, int P, bool saved) {
+    return lanes_at(N, P, saved) + (LANES ? LANES * P + 4 : 0);
   }
   // Floats of a block's saved columns in device memory (kSavedGlobal).
   static __host__ __device__ size_t saved_floats(int N, int P) {
@@ -75,7 +105,83 @@ enum Place : int {
 
 __host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
-template <int NX, int NU, int G>
+// Fixed rho: one rho for every problem; no hook, no table.
+struct GroupFixedRho {
+  struct Args {};
+  static constexpr bool kAdaptive = false;
+  static constexpr bool kApplyC = false;
+  static constexpr int kSlotExtra = 0;
+  static __host__ __device__ int table_floats(int, int) { return 0; }
+};
+
+// No consensus: no hook, no table, no lane array.
+struct GroupNoConsensus {
+  struct Args {};
+  static constexpr bool kHooks = false;
+  static constexpr int kLaneFloats = 0;
+  static __host__ __device__ int table_floats(int, int) { return 0; }
+};
+
+// Per-launch consensus arguments of the group kernel: the scenario group
+// size G (a power of two) and the blocks of a cluster (1 when a group lies
+// in one block, else G / P), rho_c; on a warm solve the carried u (its row
+// 0 seeds the slack; the x/u handed back when no iteration runs) and x,
+// and the carried dual in, (N-1, nu, B), (N, nx, B) and (nu, B); the
+// slack and dual out, (nu, B), and the x/u of the last iteration each
+// problem ran. All pointers null on a cold solve.
+struct GroupConsensusArgs {
+  int group, cluster;
+  float rho_c;
+  const float *u_in, *x_in, *yc0_in;
+  float *zc0_out, *yc0_out, *x_out, *u_out;
+};
+
+// Scenario-tree consensus on u[0] (admm_consensus.cuh's hooks, one row a
+// thread): an input row's rows of Kinf0 and Quu0_inv (step 0's gains), its
+// consensus slack zc0 and dual yc0, and rho_c.
+template <int NX, int NU, int R>
+struct GroupConsensus {
+  using Args = GroupConsensusArgs;
+  static constexpr bool kHooks = true;
+  static constexpr int kLaneFloats = NU;   // the offers, (NU, P)
+  float k0[R][NX];
+  float q0[R][NU];
+  float zc[R], yc[R];
+  float rho_c;
+  // Kinf0 (NU, NX) and Quu0_inv (NU, NU) after the box tables.
+  static __host__ __device__ int table_floats(int nx, int nu) {
+    return nu * nx + nu * nu;
+  }
+};
+
+// Adaptive rho: the problem's rho (the carry's on a warm solve) and the
+// guard's virtual rho, drho = rho - rho0 of the iteration, and `t`, the
+// adaptive tables after the box tables, from which each owned row reads its
+// sensitivity rows -- dKinf (an input row), dKinf^T (a state row), under
+// apply_c dC1 (an input row) and dC2 (a state row) -- and a state row its
+// rows of A^T, Pinf and dPinf (the adaptation's).
+template <int NX, int NU, int R, bool APPLY_C>
+struct GroupAdaptiveRho {
+  using Args = AdaptArgs;
+  static constexpr bool kAdaptive = true;
+  static constexpr bool kApplyC = APPLY_C;
+  static constexpr int kSlotExtra = ((NX + 3) / 4) * 4;   // the g slot
+  float pdp[R];       // -dPinf^T Xref[N-1] (a state row)
+  float rho0, rho, rho_v, drho;
+  const float* t;
+  static __host__ __device__ int table_floats(int nx, int nu) {
+    return AdaptiveLayout(nx, nu, APPLY_C).total;
+  }
+};
+
+// The four maxima of the OSQP residuals of an adaptation iteration
+// (admm_adaptive.cuh's adapt), reduced over the group.
+struct AdaptMaxima {
+  float pri_res, pri_norm, dual_res, dual_norm;
+};
+
+template <int NX, int NU, int G, class Rho = GroupFixedRho,
+          class Cons = GroupNoConsensus>
 struct GroupSweep {
   static_assert((NX + NU) % G == 0, "the group's threads split the rows");
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
@@ -83,7 +189,8 @@ struct GroupSweep {
   static_assert(NX % 4 == 0 && NU % 4 == 0,
                 "the exchange reads whole float4s");
   static constexpr int R = (NX + NU) / G;   // rows a thread owns
-  using Arena = GroupArena<NX, NU>;
+  using Arena =
+      GroupArena<NX, NU, Rho::kSlotExtra, Cons::kLaneFloats>;
 
   float m1[R][NX];   // backward, length NX: AmBKt row k / B^T row j
   float m2[R][NU];   // backward, length NU: KinfT row k / Quu_inv row j
@@ -187,8 +294,20 @@ struct GroupSweep {
     return acc;
   }
 
+  // A row of a table in shared or device memory against v, from zero in
+  // column order.
+  template <int n>
+  static __device__ __forceinline__ float dotp(const float* m,
+                                               const float (&v)[n]) {
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < n; ++c) acc = fmaf(m[c], v[c], acc);
+    return acc;
+  }
+
   // -Pinf^T xN of a state row (admm_pallas.py:823): its row of PinfT
-  // against the reference's last row, from zero in column order.
+  // against the reference's last row, from zero in column order. (Under
+  // adaptive rho the same with dPinf^T gives the sensitivity.)
   __device__ __forceinline__ float pnref(int r, const float* pinft,
                                          const float* xN) const {
     float acc = 0.f;
@@ -200,8 +319,13 @@ struct GroupSweep {
   // The backward sweep (admm_sweep.cuh:backward_sweep): the state rows
   // start p from pterm = -Pinf^T Xref[N-1] - rho (vnew[N-1] - g[N-1]);
   // rows N-2 .. 0 of the linear cost from the slacks and duals, the input
-  // rows' d into F.
-  __device__ void backward(int N, float rho, const float (&pterm)[R]) const {
+  // rows' d into F. Under consensus an input row's r[0] gains
+  // -rho_c (zc0 - yc0) and d[0] takes Quu0_inv; under adaptive rho (rho
+  // the problem's) Kinf^T r and, under apply_c, AmBKt p and Quu_inv w gain
+  // their drho-scaled sensitivity products.
+  __device__ void backward(int N, float rho, const float (&pterm)[R],
+                           const Rho& rh = Rho(),
+                           const Cons& cs = Cons()) const {
 #pragma unroll
     for (int r = 0; r < R; ++r)
       if (state(r)) X[feat[r]] = pterm[r];
@@ -215,7 +339,17 @@ struct GroupSweep {
         const float2 su = SU[i * C + col[r]];
         // q = -(Xref .* Q) - rho (v - g), r = -(Uref .* R) - rho (z - y)
         lin[r] = -(ref[r][i * tstr[r]] * wt[r]) - rho * (su.x - su.y);
+        if constexpr (Cons::kHooks) {
+          if (i == 0 && !state(r))
+            lin[r] = lin[r] - cs.rho_c * (cs.zc[r] - cs.yc[r]);
+        }
         a1[r] = dot(m1[r], p);                  // AmBKt p  /  B^T p
+        if constexpr (Rho::kApplyC) {
+          if (state(r)) {
+            const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+            a1[r] = a1[r] + rh.drho * dotp(rh.t + AL.dc2 + feat[r] * NX, p);
+          }
+        }
         if (!state(r)) {
           X[NX + feat[r]] = lin[r];
           X[NX + NU + feat[r]] = a1[r] + lin[r] + add[r];   // w
@@ -226,7 +360,19 @@ struct GroupSweep {
       for (int r = 0; r < R; ++r) {
         float v[NU];
         load(v, X + NX + (state(r) ? 0 : NU));      // r  /  w
-        const float a2 = dot(m2[r], v);         // Kinf^T r  /  Quu_inv w
+        float a2;                               // Kinf^T r  /  Quu_inv w
+        if constexpr (Cons::kHooks) {
+          a2 = (i == 0 && !state(r)) ? dot(cs.q0[r], v) : dot(m2[r], v);
+        } else {
+          a2 = dot(m2[r], v);
+        }
+        if constexpr (Rho::kAdaptive) {
+          if (state(r) || Rho::kApplyC) {
+            const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+            a2 = a2 + rh.drho * dotp(rh.t + (state(r) ? AL.dkt : AL.dc1) +
+                                         feat[r] * NU, v);
+          }
+        }
         if (state(r))
           X[feat[r]] = lin[r] + a1[r] - a2 + add[r];   // p[i]
         else
@@ -243,11 +389,17 @@ struct GroupSweep {
   // compares against the saved slack, which stays (iteration 0 of a warm
   // solve or a closed-loop step); else with SAVE a check iteration saves
   // the slack it overwrites. dvgN (state rows) <- v[N-1] - g[N-1]; u0
-  // (input rows) <- the raw u[0].
+  // (input rows) <- the raw u[0]. Under consensus an input row's u[0]
+  // takes Kinf0; under adaptive rho Kinf x gains drho dKinf x, and with
+  // `adapting` the OSQP residuals of the iteration are folded in and their
+  // maxima, reduced over the group, written to *am.
   template <bool SAVE>
   __device__ Residuals forward(int N, const float (&x0)[R], float (&dvgN)[R],
                                bool checking, bool stale,
-                               float (&u0)[R]) const {
+                               float (&u0)[R], const Rho& rh = Rho(),
+                               const Cons& cs = Cons(),
+                               bool adapting = false,
+                               AdaptMaxima* am = nullptr) const {
     float xo[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -256,6 +408,51 @@ struct GroupSweep {
     }
     sync();
     float ps = 0.f, pi = 0.f, ds = 0.f, di = 0.f;
+    // Under adaptive rho: the adaptation's maxima; the step's x_i / u_i,
+    // new slack and dual of each row (vl, sl, dl); what row i's terms keep
+    // until g[i+1] is in the g slot (pa, pb, pc), and a state row's
+    // dynamics rows i-1 (ad1) and i-2 (ad2) at step i.
+    float pres = 0.f, pnorm = 0.f, dres = 0.f, dnorm = 0.f;
+    float vl[R], sl[R], dl[R], pa[R], pb[R], pc[R], ad1[R], ad2[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      vl[r] = sl[r] = dl[r] = pa[r] = pb[r] = pc[r] = ad1[r] = ad2[r] = 0.f;
+    float* const GS = X + Arena::kXSlot;   // the g slot (adaptive rho)
+    // Row j's OSQP terms (admm_adaptive.cuh's adapt), g[j+1] in the g
+    // slot; ad2 is then the dynamics row j-1.
+    auto terms = [&](int j) {
+      if constexpr (Rho::kAdaptive) {
+      const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+      float gv[NX];
+      load(gv, GS);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (state(r)) {
+          // P x = Q x on the stages; A^T g[j+1] - g[j]; the dynamics row
+          // j-1 against the slack of state row j.
+          const float atg = dotp(rh.t + AL.at + feat[r] * NX, gv);
+          const float qx = wt[r] * pa[r];
+          const float px = qx;
+          const float aty = atg - (j >= 1 ? pb[r] : 0.f);
+          dres = maxabs(dres, px + qx + aty);
+          dnorm = maxabs(maxabs(maxabs(dnorm, px), aty), qx);
+          if (j >= 1) {
+            pres = maxabs(pres, ad2[r] - pc[r]);
+            pnorm = maxabs(maxabs(pnorm, ad2[r]), pc[r]);
+          }
+        } else {
+          // R u and y + B^T g[j+1]
+          const float btg = dot(m1[r], gv);
+          const float ru = wt[r] * pa[r];
+          const float aty = pb[r] + btg;
+          dres = maxabs(dres, 2.f * ru + aty);
+          dnorm = maxabs(maxabs(dnorm, ru), aty);
+          pres = maxabs(pres, pa[r] - pc[r]);
+          pnorm = maxabs(maxabs(pnorm, pa[r]), pc[r]);
+        }
+      }
+      }
+    };
     for (int i = 0; i < N; ++i) {
       const bool last = i == N - 1;
       float a1[R];
@@ -263,7 +460,21 @@ struct GroupSweep {
         float x[NX];
         load(x, X);
 #pragma unroll
-        for (int r = 0; r < R; ++r) a1[r] = dot(f1[r], x);   // A x / Kinf x
+        for (int r = 0; r < R; ++r) {
+          // A x / Kinf x (Kinf0 at step 0 under consensus; under adaptive
+          // rho + drho dKinf x)
+          if constexpr (Cons::kHooks) {
+            a1[r] = (i == 0 && !state(r)) ? dot(cs.k0[r], x) : dot(f1[r], x);
+          } else {
+            a1[r] = dot(f1[r], x);
+          }
+          if constexpr (Rho::kAdaptive) {
+            if (!state(r)) {
+              const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+              a1[r] = a1[r] + rh.drho * dotp(rh.t + AL.dk + feat[r] * NX, x);
+            }
+          }
+        }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -296,19 +507,78 @@ struct GroupSweep {
           X[NX + feat[r]] = val;
           if (i == 0) u0[r] = val;
         }
+        if constexpr (Rho::kAdaptive) {
+          if (adapting) {
+            if (state(r)) GS[feat[r]] = dn;   // g[i], for row i-1's terms
+            vl[r] = val;
+            sl[r] = sn;
+            dl[r] = dn;
+          }
+        }
       }
       if (last) break;
       sync();
+      float axd[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        axd[r] = 0.f;
         if (!state(r)) continue;
         float u[NU];
         load(u, X + NX);
-        // x+ = (A x + B u) + f
-        xo[r] = a1[r] + dot(bm[r], u) + fv[r];
+        // x+ = (A x + B u) + f; (A x + B u) - x+ is the dynamics row of
+        // the OSQP residuals of adaptive rho (exactly 0 when f = 0)
+        const float s = a1[r] + dot(bm[r], u);
+        xo[r] = s + fv[r];
         X[feat[r]] = xo[r];
+        if constexpr (Rho::kAdaptive) axd[r] = s - xo[r];
+      }
+      if constexpr (Rho::kAdaptive) {
+        if (adapting) {
+          if (i >= 1) terms(i - 1);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            pa[r] = vl[r];
+            pb[r] = dl[r];
+            pc[r] = sl[r];
+            ad2[r] = ad1[r];
+            ad1[r] = axd[r];
+          }
+        }
       }
       sync();
+    }
+    if constexpr (Rho::kAdaptive) {
+      if (adapting) {
+        sync();   // g[N-1] in the g slot; x[N-1] is in the x slot
+        terms(N - 2);
+        float x[NX];
+        load(x, X);
+        const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          if (!state(r)) continue;
+          // Row N-1: P x the terminal Pinf telescoped by drho dPinf, no
+          // A^T g term, and the dynamics row N-2 against the slack of
+          // row N-1.
+          const float pp = dotp(rh.t + AL.pinf + feat[r] * NX, x);
+          const float dp = dotp(rh.t + AL.dp + feat[r] * NX, x);
+          const float px = pp + rh.drho * dp;
+          const float qx = wt[r] * vl[r];
+          const float aty = 0.f - dl[r];
+          dres = maxabs(dres, px + qx + aty);
+          dnorm = maxabs(maxabs(maxabs(dnorm, px), aty), qx);
+          pres = maxabs(pres, ad1[r] - sl[r]);
+          pnorm = maxabs(maxabs(pnorm, ad1[r]), sl[r]);
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) {
+          pres = max_nan(pres, __shfl_xor_sync(mask, pres, off, G));
+          pnorm = max_nan(pnorm, __shfl_xor_sync(mask, pnorm, off, G));
+          dres = max_nan(dres, __shfl_xor_sync(mask, dres, off, G));
+          dnorm = max_nan(dnorm, __shfl_xor_sync(mask, dnorm, off, G));
+        }
+        *am = {pres, pnorm, dres, dnorm};
+      }
     }
     if (checking) {
 #pragma unroll

@@ -101,6 +101,12 @@ def build(names: Iterable[str]) -> Dict[str, str]:
     return logs
 
 
+def loaded(name: str):
+    """The library of ``csrc/<name>.cu`` if this process has loaded it,
+    else None (nothing is built)."""
+    return _LOADED.get(name)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LOADED.get(name)

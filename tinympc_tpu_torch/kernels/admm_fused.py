@@ -6,22 +6,23 @@ fixed-rho problems in one launch of the hand-written CUDA kernel
 ``csrc/admm_fused.cu``; :func:`solve_fused_warm` does the same from a
 warm-start :class:`FusedCarry` and hands the next one back (the
 external-plant receding-horizon pattern). The kernels replace the TPU
-kernel ``admm_pallas._make_kernel`` for those variants. Box bounds at
-(12, 4) at fixed rho, the main path, run on ``csrc/admm_group.cu``: a
-problem a group of :data:`GROUP` threads, its trajectories in shared
-memory for the whole solve (the one-launch fleet too, a system a 128-lane
-tile). Every other problem runs an instantiation of the one-thread-a-
-problem kernel ``csrc/admm_fused.cu``: problems with second-order
-cones, hyperplanes or time-varying hyperplanes, and every problem at
-(6, 3), run on its families instantiation (a box-only one with zero family
-counts); under adaptive rho (``Settings.adaptive_rho``) box problems at
-(12, 4) run on its adaptive instantiation and every other problem on its
-families adaptive instantiation, which carry one rho per lane and adapt it
-in the kernel.
-Scenario-tree consensus (:func:`~tinympc_tpu_torch.api.with_consensus`)
-runs the consensus instantiation of the families kernel, box problems with
-zero family counts: a scenario group is ``G`` adjacent lanes of one block
-(G a power of two up to :data:`BLOCK`), whose u[0] slack is the group mean.
+kernel ``admm_pallas._make_kernel`` for those variants. Box problems at
+(12, 4) run on ``csrc/admm_group.cu``: a problem a group of :data:`GROUP`
+threads, its trajectories in shared memory for the whole solve -- at fixed
+rho, the main path (the one-launch fleet too, a system a 128-lane tile);
+under adaptive rho (``Settings.adaptive_rho``; the fleet too), each
+problem's rho carried and adapted in the kernel; and under scenario-tree
+consensus (:func:`~tinympc_tpu_torch.api.with_consensus`), a scenario
+group of ``G`` adjacent problems (G a power of two up to :data:`BLOCK`)
+exchanging its offers through one block's shared memory, or, past the
+problems of a block, through the shared memory of a thread-block cluster
+(:func:`group_route`). Every other problem runs an instantiation of the
+one-thread-a-problem kernel ``csrc/admm_fused.cu``: problems with
+second-order cones, hyperplanes or time-varying hyperplanes, and every
+problem at (6, 3), run on its families instantiation (a box-only one with
+zero family counts), under adaptive rho on its families adaptive
+instantiation, and under consensus on its consensus instantiation, as
+does a box consensus group whose cluster the card cannot form.
 ``solve_fused_warm(final=True)``, the warm solve of lane compaction, runs
 the warm instantiations as they are.
 The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
@@ -74,6 +75,13 @@ GROUP_KERNEL = "admm_group"
 GROUP = 16                           # csrc/admm_group.cu kGroup
 GROUP_MAX_THREADS = 128              # csrc/admm_group.cu kMaxThreads
 GROUP_PROBLEMS = GROUP_MAX_THREADS // GROUP
+# Blocks of a consensus launch's thread-block cluster at most
+# (csrc/admm_group.cu kMaxCluster): a scenario group of G > P problems is
+# one cluster of G / P blocks; a larger one runs csrc/admm_fused.cu.
+GROUP_MAX_CLUSTER = 16
+# What a group launch solves (csrc/admm_group.cu Kind): box at fixed rho,
+# consensus, adaptive rho without and with apply_c.
+GROUP_KINDS = {"box": 0, "consensus": 1, "adaptive": 2, "adaptive_c": 3}
 # Where a group launch keeps what its block's shared memory cannot hold
 # (csrc/admm_group.cuh Place), in the order group_geometry tries them: the
 # table (the closed loop's: and its reference) and the arena in shared
@@ -108,11 +116,19 @@ consensus_warm_launch_count = 0
 # instantiation but consensus, cold and warm.
 multi_launch_count = 0
 multi_warm_launch_count = 0
-# Launches by C entry: the box-only fixed-rho solve's (single and
-# multi-system) is tinympc_admm_group, every other instantiation's
+# Launches by C entry: the box-only solve's at (12, 4) is
+# tinympc_admm_group (fixed rho, single and multi-system),
+# tinympc_admm_group_adaptive (adaptive rho, single and multi-system) or
+# tinympc_admm_group_consensus; every other instantiation's
 # tinympc_admm_fused or tinympc_admm_fused_multi.
+GROUP_ENTRIES = {"box": "tinympc_admm_group",
+                 "adaptive": "tinympc_admm_group_adaptive",
+                 "adaptive_c": "tinympc_admm_group_adaptive",
+                 "consensus": "tinympc_admm_group_consensus"}
 entry_counts = dict.fromkeys(("tinympc_admm_group", "tinympc_admm_fused",
-                              "tinympc_admm_fused_multi"), 0)
+                              "tinympc_admm_fused_multi",
+                              "tinympc_admm_group_adaptive",
+                              "tinympc_admm_group_consensus"), 0)
 
 
 class Adaptive(NamedTuple):
@@ -226,15 +242,22 @@ def smem_bytes(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
 
 
 def group_arena_floats(N: int, P: int, saved: bool, nx: int = 12,
-                       nu: int = 4) -> int:
+                       nu: int = 4, kind: str = "box") -> int:
     """Floats of the shared-memory arena of P problems of the group kernels
-    (``GroupArena`` of csrc/admm_group.cuh): the exchange slots, the slack,
-    dual and -- with ``saved`` (a warm solve or the closed loop, but at
-    :data:`PLACE_SAVED_GLOBAL`) -- saved columns of every row, and the
-    input rows' feedforward."""
+    (``GroupArena`` of csrc/admm_group.cuh): the exchange slots (under
+    adaptive rho with a g slot each), the slack, dual and -- with ``saved``
+    (a warm solve or the closed loop, but at :data:`PLACE_SAVED_GLOBAL`) --
+    saved columns of every row, the input rows' feedforward, and under
+    consensus the offers (nu, P) and the cluster's exit vote (4 floats).
+    This is the count of the CPU path and the emulations; a launch takes
+    the loaded library's (:func:`group_geometry`'s ``count``), which
+    :func:`check_group_geometry` holds against this one."""
     slot = -(-(nx + 2 * nu) // 4) * 4
+    if kind.startswith("adaptive"):
+        slot += _align4(nx)
+    lanes = nu * P + 4 if kind == "consensus" else 0
     return P * slot + (3 if saved else 2) * N * P * (nx + nu) \
-        + (N - 1) * P * nu
+        + (N - 1) * P * nu + lanes
 
 
 def _align4(n: int) -> int:
@@ -242,7 +265,7 @@ def _align4(n: int) -> int:
 
 
 def group_smem(N: int, P: int, place: int, save: bool, table: int,
-               nx: int = 12, nu: int = 4) -> int:
+               nx: int = 12, nu: int = 4, kind: str = "box") -> int:
     """Bytes of shared memory of a group launch of P problems at ``place``:
     the ``table`` floats (the packed table; the closed loop's and its
     reference), 16-byte aligned, at :data:`PLACE_SHARED`, and the arena,
@@ -250,37 +273,100 @@ def group_smem(N: int, P: int, place: int, save: bool, table: int,
     memory (csrc/admm_group.cu and csrc/closed_loop_fused.cu smem_bytes)."""
     return 4 * ((_align4(table) if place == PLACE_SHARED else 0)
                 + group_arena_floats(
-                    N, P, save and place != PLACE_SAVED_GLOBAL, nx, nu))
+                    N, P, save and place != PLACE_SAVED_GLOBAL, nx, nu,
+                    kind))
+
+
+@functools.lru_cache(maxsize=None)
+def _group_table(N: int, nx: int, nu: int, kind: str) -> int:
+    """Floats of the packed table a group launch of ``kind`` reads: the box
+    tables, then the adaptive tables or the step-0 consensus gains."""
+    adapt = None if not kind.startswith("adaptive") else Adaptive(
+        kind == "adaptive_c", False, 0.0, 0.0, 1.0)
+    return _table_floats(nx, nu, N, NO_FAMILIES, adapt, kind == "consensus")
 
 
 def group_geometry(N: int, save: bool, table: Optional[int] = None,
-                   nx: int = 12, nu: int = 4):
+                   nx: int = 12, nu: int = 4, kind: str = "box",
+                   count=None):
     """The launch of a group kernel for horizon N: ``(P, place, smem)`` --
     problems a block (a power of two at most :data:`GROUP_PROBLEMS`, so
-    that a block lies inside one 128-lane tile of a fleet), where it keeps
-    its table and saved columns (``PLACE_*``), and the bytes of shared
-    memory (:func:`group_smem`). ``save``: a warm solve or the closed
-    loop, which keep a saved slack column a row; ``table``: the floats a
-    block copies at :data:`PLACE_SHARED`, by default the packed table of
-    csrc/admm_group.cu. The first place that fits, each with P halved as
-    far as 1: the table in shared memory beside the arena; the arena alone;
-    and, with ``save``, the arena without the saved columns (to N = 1613
-    at (12, 4), past every horizon :func:`fused_supported` takes)."""
+    that a block lies inside one 128-lane tile of a fleet and a scenario
+    group of G problems lies in one block or spans G / P whole blocks),
+    where it keeps its table and saved columns (``PLACE_*``), and the bytes
+    of shared memory. ``save``: a warm solve or the closed loop, which keep
+    a saved slack column a row; ``table``: the floats a block copies at
+    :data:`PLACE_SHARED`, by default the packed table of csrc/admm_group.cu
+    for ``kind`` (:data:`GROUP_KINDS`); ``count(N, P, place)``: the bytes
+    of a launch as the loaded library counts them (``tinympc_*_smem``),
+    else :func:`group_smem`'s sum. The first place that fits, each with P
+    halved as far as 1: the table in shared memory beside the arena; the
+    arena alone; and, with ``save``, the arena without the saved columns
+    (to N = 1613 at (12, 4), past every horizon :func:`fused_supported`
+    takes)."""
     if table is None:
-        table = _table_floats(nx, nu, N)
+        table = _group_table(N, nx, nu, kind)
+    if count is None:
+        count = lambda N, P, place: group_smem(N, P, place, save, table, nx,
+                                               nu, kind)
     places = (PLACE_SHARED, PLACE_TABLE_GLOBAL) \
         + ((PLACE_SAVED_GLOBAL,) if save else ())
     for place in places:
         P = GROUP_PROBLEMS
         while P >= 1:
-            smem = group_smem(N, P, place, save, table, nx, nu)
+            smem = count(N, P, place)
             if smem <= SMEM_LIMIT:
                 return P, place, smem
             P //= 2
     raise ValueError(
         f"at N={N} one problem's trajectories take "
-        f"{group_smem(N, 1, places[-1], save, table, nx, nu)} B of shared "
+        f"{count(N, 1, places[-1])} B of shared "
         f"memory, more than the {SMEM_LIMIT} B a block may have")
+
+
+def group_kind(nx: int, nu: int, fam: "Families", adapt, cons
+               ) -> Optional[str]:
+    """The kind of csrc/admm_group.cu launch (:data:`GROUP_KINDS`) a solve
+    of these parameters takes, or None where it runs csrc/admm_fused.cu:
+    box problems at (12, 4) at fixed rho, under adaptive rho (with or
+    without apply_c), or under consensus with a group (group 0, the
+    families kernel without the exchange, stays there)."""
+    if (nx, nu) not in KERNEL_DIMS or any(fam):
+        return None
+    if cons is not None:
+        return "consensus" if cons.group >= 1 else None
+    if adapt is not None:
+        return "adaptive_c" if adapt.apply_c else "adaptive"
+    return "box"
+
+
+def group_cluster(G: int, P: int) -> int:
+    """Blocks of the thread-block cluster a scenario group of G problems
+    spans at P problems a block: 1 when it lies in one block, else
+    G / P."""
+    return 1 if G <= P else G // P
+
+
+def group_route(N: int, nx: int, nu: int, fam: "Families", adapt, cons,
+                warm: bool, count=None, fits=None):
+    """``(kind, P, place, cluster)`` of the group launch a solve takes, or
+    None where it runs csrc/admm_fused.cu: a problem outside
+    :func:`group_kind`, or a consensus group whose thread-block cluster
+    cannot be formed at the P that fits the horizon -- more than
+    :data:`GROUP_MAX_CLUSTER` blocks (a group of 128 from N=124 warm and
+    N=171 cold, where P falls below 8), or, where ``fits(N, P, place,
+    cluster)`` is given (the loaded library's occupancy query), a cluster
+    the card cannot hold. ``count`` as :func:`group_geometry` takes it."""
+    kind = group_kind(nx, nu, fam, adapt, cons)
+    if kind is None:
+        return None
+    P, place, _ = group_geometry(N, warm, None, nx, nu, kind, count)
+    cluster = group_cluster(cons.group, P) if kind == "consensus" else 1
+    if cluster > GROUP_MAX_CLUSTER or (
+            cluster > 1 and fits is not None
+            and not fits(N, P, place, cluster)):
+        return None
+    return kind, P, place, cluster
 
 
 def group_grid(B: int, P: int) -> int:
@@ -1278,10 +1364,12 @@ def _ptr_array(tensors):
 
 
 def _instantiation(nx, nu, fam, adapt, cons) -> str:
-    """The instantiation of csrc/admm_fused.cu a solve runs (its
-    ``dispatch``): "consensus", "adaptive_families" (adaptive rho with a
-    family beyond the box, or at (6, 3)), "adaptive" (box only at (12, 4)),
-    "families" (a family beyond the box, or at (6, 3)) or "box"."""
+    """What a solve runs, the name of its launch counter: "consensus",
+    "adaptive_families" (adaptive rho with a family beyond the box, or at
+    (6, 3); csrc/admm_fused.cu), "adaptive" (box only at (12, 4);
+    csrc/admm_group.cu), "families" (a family beyond the box, or at (6, 3);
+    csrc/admm_fused.cu) or "box" (csrc/admm_group.cu). Which C entry a
+    launch takes is :func:`group_route`'s rule (``entry_counts``)."""
     families = any(fam) or (nx, nu) not in KERNEL_DIMS
     if cons is not None:
         return "consensus"
@@ -1300,10 +1388,19 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
     kernel scratch for the x/u it seeds and hands over, which its carry
     does not keep. ``block_sys`` (int32, a system for each block of
     :data:`BLOCK` lanes) makes it the multi-system launch: ``tables`` then
-    holds one packed table per system."""
-    if _instantiation(nx, nu, fam, adapt, cons) == "box":
-        return _launch_group(tables, x0, N, nx, nu, carry, max_iter, ct, rho,
-                             tol_pri, tol_dua, block_sys)
+    holds one packed table per system. A box problem at (12, 4) (fixed
+    rho, adaptive rho, consensus) launches csrc/admm_group.cu instead,
+    where :func:`group_route` takes it."""
+    kind = group_kind(nx, nu, fam, adapt, cons)
+    if kind is not None:
+        # The library first: its own counts decide the route.
+        fn = _group_fn() if kind == "box" else _group_policy_fn(kind)
+        route = group_route(N, nx, nu, fam, adapt, cons, carry is not None,
+                            *_group_probe(kind, carry is not None))
+        if route is not None:
+            return _launch_group(fn, route, tables, x0, N, nx, nu, carry,
+                                 max_iter, ct, rho, tol_pri, tol_dua,
+                                 block_sys, adapt, cons)
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     consensus = cons is not None
@@ -1394,100 +1491,203 @@ def _supported_horizons(nx: int, nu: int):
 
 
 def check_group_geometry(smem_fn, table_fn=None, nx: int = 12,
-                         nu: int = 4, kinds=(False, True)) -> None:
-    """Hold :func:`group_geometry` against a library's own count of the
-    shared memory of a launch, ``smem_fn(N, P, place, kind)``, at every
-    supported horizon and each of ``kinds`` (``save`` unless ``table_fn``
-    maps a kind to the table floats of the closed loop's launch, which
-    always saves): raise ``RuntimeError`` where they disagree, before a
-    launch fails on it."""
+                         nu: int = 4, kinds=(False, True),
+                         group_kind: str = "box") -> None:
+    """Hold :func:`group_geometry`'s own sum for a launch of ``group_kind``
+    (:data:`GROUP_KINDS`) against a library's count of its shared memory,
+    ``smem_fn(N, P, place, kind)``, at every supported horizon and each of
+    ``kinds`` (``save`` unless ``table_fn`` maps a kind to the table floats
+    of the closed loop's launch, which always saves): raise
+    ``RuntimeError`` where they disagree, before a launch fails on it or
+    the CPU path and the emulations count another arena."""
     for N in _supported_horizons(nx, nu):
         for kind in kinds:
             save = True if table_fn else kind
             table = table_fn(N, kind) if table_fn else None
-            P, place, smem = group_geometry(N, save, table, nx, nu)
+            P, place, smem = group_geometry(N, save, table, nx, nu,
+                                            group_kind)
             got = smem_fn(N, P, place, kind)
             if got != smem:
                 raise RuntimeError(
                     f"the kernel counts {got} B of shared memory at N={N}, "
-                    f"P={P}, place {place}, the wrapper {smem}: their "
-                    "arena layouts disagree")
+                    f"P={P}, place {place}, kind {group_kind}, the wrapper "
+                    f"{smem}: their arena layouts disagree")
+
+
+class _GroupConsensusArgs(ctypes.Structure):
+    """``GroupConsensusArgs`` of csrc/admm_group.cuh: the scenario group and
+    the blocks of its cluster, rho_c, the carried u, x and dual in and the
+    slack, dual and x/u out (null on a cold solve)."""
+
+    _fields_ = [("group", ctypes.c_int), ("cluster", ctypes.c_int),
+                ("rho_c", ctypes.c_float), ("u_in", _PTR), ("x_in", _PTR),
+                ("yc0_in", _PTR), ("zc0_out", _PTR), ("yc0_out", _PTR),
+                ("x_out", _PTR), ("u_out", _PTR)]
+
+
+@functools.lru_cache(maxsize=None)
+def _group_lib():
+    """The library of csrc/admm_group.cu, built and loaded on first use, its
+    block, group width, tile, largest cluster and shared memory (every
+    kind's) held against this module's."""
+    lib = _build.load(GROUP_KERNEL)
+    if (lib.tinympc_admm_group_max_threads() != GROUP_MAX_THREADS
+            or lib.tinympc_admm_group_width() != GROUP
+            or lib.tinympc_admm_group_tile() != BLOCK
+            or lib.tinympc_admm_group_max_cluster() != GROUP_MAX_CLUSTER):
+        raise RuntimeError("csrc/admm_group.cu and admm_fused disagree on "
+                           "the block size, the group, the fleet's tile or "
+                           "the largest cluster")
+    lib.tinympc_admm_group_smem.restype = ctypes.c_longlong
+    for kind, code in GROUP_KINDS.items():
+        check_group_geometry(
+            lambda N, P, place, warm, code=code: lib.tinympc_admm_group_smem(
+                N, P, place, int(warm), code), group_kind=kind)
+    return lib
+
+
+def _group_probe(kind: str, warm: bool):
+    """``(count, fits)`` for :func:`group_route` from the loaded library of
+    csrc/admm_group.cu: ``count(N, P, place)``, the bytes of shared memory
+    of a launch of ``kind`` (``tinympc_admm_group_smem``), and
+    ``fits(N, P, place, cluster)``, whether the card can hold a cluster of
+    that many blocks of a consensus launch
+    (``tinympc_admm_group_cluster_occupancy``, cudaOccupancyMaxActiveClusters
+    > 0). (None, None) where no library is loaded: the sums of
+    :func:`group_smem` and the :data:`GROUP_MAX_CLUSTER` rule alone, the
+    CPU path's and the emulations'."""
+    lib = _build.loaded(GROUP_KERNEL)
+    if lib is None:
+        return None, None
+    lib = _group_lib()
+    count = lambda N, P, place: lib.tinympc_admm_group_smem(
+        N, P, place, int(warm), GROUP_KINDS[kind])
+    fits = lambda N, P, place, cluster: _cluster_fits(lib, N, P, place,
+                                                      warm, cluster)
+    return count, fits
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_fits(lib, N: int, P: int, place: int, warm: bool,
+                  cluster: int) -> bool:
+    """Whether the card holds a cluster of ``cluster`` blocks of a consensus
+    launch at (N, P, place), asked once a shape."""
+    return lib.tinympc_admm_group_cluster_occupancy(N, P, place, int(warm),
+                                                    cluster) > 0
+
+
+# warm nx nu problems place N B max_iter ct | rho tol_pri tol_dua |
+# tables x0, 5 outputs | carry array | block systems, table stride | saved
+# columns: the arguments every entry of csrc/admm_group.cu takes first.
+_GROUP_ARGTYPES = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [_PTR] * 7
+                   + [_PTRS, _PTR, ctypes.c_int, _PTR])
 
 
 @functools.lru_cache(maxsize=None)
 def _group_fn():
-    """The C entry point of csrc/admm_group.cu, ``tinympc_admm_group``,
-    built and loaded on first use, its block, group width, tile and shared
-    memory held against this module's."""
-    lib = _build.load(GROUP_KERNEL)
-    if (lib.tinympc_admm_group_max_threads() != GROUP_MAX_THREADS
-            or lib.tinympc_admm_group_width() != GROUP
-            or lib.tinympc_admm_group_tile() != BLOCK):
-        raise RuntimeError("csrc/admm_group.cu and admm_fused disagree on "
-                           "the block size, the group or the fleet's tile")
-    lib.tinympc_admm_group_smem.restype = ctypes.c_longlong
-    check_group_geometry(lambda N, P, place, warm:
-                         lib.tinympc_admm_group_smem(N, P, place, int(warm)))
-    fn = lib.tinympc_admm_group
-    # warm nx nu problems place N B max_iter ct | rho tol_pri tol_dua |
-    # tables x0, 5 outputs | carry array | block systems, table stride |
-    # saved columns, the stream
-    fn.argtypes = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3 + [_PTR] * 7
-                   + [_PTRS, _PTR, ctypes.c_int, _PTR, _PTR])
+    """The box solve's C entry point of csrc/admm_group.cu,
+    ``tinympc_admm_group``, built and loaded on first use
+    (:func:`_group_lib`): :data:`_GROUP_ARGTYPES`, then the stream."""
+    fn = _group_lib().tinympc_admm_group
+    fn.argtypes = _GROUP_ARGTYPES + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _group_buffers(x0, N, nx, nu, warm: bool):
-    """What a launch of csrc/admm_group.cu allocates: the outputs and, warm,
-    the carry out. No trajectory scratch: its trajectories stay in shared
-    memory (but the saved columns past N = 1117, :func:`group_saved`)."""
+@functools.lru_cache(maxsize=None)
+def _group_policy_fn(kind: str):
+    """The C entry point of csrc/admm_group.cu for an adaptive-rho
+    ("adaptive", "adaptive_c") or consensus launch
+    (``tinympc_admm_group_adaptive``, ``tinympc_admm_group_consensus``):
+    :data:`_GROUP_ARGTYPES`, then its arguments (``AdaptArgs``,
+    ``GroupConsensusArgs``), then the stream."""
+    lib = _group_lib()
+    fn = getattr(lib, GROUP_ENTRIES[kind])
+    args = _GroupConsensusArgs if kind == "consensus" else _AdaptArgs
+    fn.argtypes = _GROUP_ARGTYPES + [ctypes.POINTER(args), _PTR]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _group_buffers(x0, N, nx, nu, warm: bool, adaptive: bool = False,
+                   consensus: bool = False):
+    """What a launch of csrc/admm_group.cu allocates: the outputs (under
+    adaptive rho a 5th residual row, the final rho) and, warm, the carry
+    out (under consensus with the pair zc0 / yc0 and x/u). No trajectory
+    scratch: its trajectories stay in shared memory (but the saved columns
+    past N = 1117, :func:`group_saved`)."""
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     buf = dict(out_x=torch.empty((N, B, nx), **kw),
                out_u=torch.empty((N - 1, B, nu), **kw),
                iters=torch.empty(B, dtype=torch.int32, device=dev),
                solved=torch.empty(B, dtype=torch.bool, device=dev),
-               res=torch.empty((4, B), **kw))
+               res=torch.empty((5 if adaptive else 4, B), **kw))
     if warm:
-        buf.update({f"carry_{k}": torch.empty(
-            (N, nx, B) if k in _STATE_FIELDS else (N - 1, nu, B), **kw)
-            for k in _GROUP_CARRY_OUT})
+        shapes = _carry_shapes(N, nx, nu, B, consensus=consensus)
+        buf.update({f"carry_{k}": torch.empty(shapes[k], **kw)
+                    for k in _GROUP_CARRY_OUT + (
+                        _GROUP_CONSENSUS_OUT if consensus else ())})
     return buf
 
 
-# The carry out of csrc/admm_group.cu, in its argument order.
+# The carry out of csrc/admm_group.cu, in its argument order, and under
+# consensus the fields its GroupConsensusArgs writes.
 _GROUP_CARRY_OUT = ("vnew", "znew", "v", "z", "g", "y")
+_GROUP_CONSENSUS_OUT = ("zc0", "yc0", "x", "u")
 
 
-def _launch_group(tables, x0, N, nx, nu, carry, max_iter, ct, rho, tol_pri,
-                  tol_dua, block_sys=None):
-    """Launch csrc/admm_group.cu, the box-only fixed-rho solve, on the
-    current stream of x0's device: cold when ``carry`` is None, else warm;
-    with ``block_sys`` (int32, a system for each 128-lane tile) the
-    multi-system launch. Returns ``(Solution, residuals, carry' or
-    None)``."""
+def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
+                  rho, tol_pri, tol_dua, block_sys=None,
+                  adapt: Optional[Adaptive] = None,
+                  cons: Optional[Consensus] = None):
+    """Launch csrc/admm_group.cu, the box-only solve at (12, 4), through its
+    C entry ``fn`` (:data:`GROUP_ENTRIES`) on the current stream of x0's
+    device, at ``route`` (:func:`group_route`: the kind, P, place and
+    cluster): cold when ``carry`` is None, else warm; at fixed rho, with
+    ``adapt`` at adaptive rho, with ``cons`` under consensus (its group in
+    one block or one cluster of blocks); with ``block_sys`` (int32, a
+    system for each 128-lane tile) the multi-system launch. Returns
+    ``(Solution, residuals, carry' or None)``."""
     dev, B = x0.device, x0.shape[0]
     f32 = torch.float32
     _check_arg(x0, (B, nx), f32, dev)
-    stride = _table_floats(nx, nu, N)
+    consensus = cons is not None
+    stride = _table_floats(nx, nu, N, NO_FAMILIES, adapt, consensus)
     if block_sys is not None:
+        if consensus:
+            raise ValueError("the multi-system launch takes no consensus")
         _check_arg(block_sys, (-(-B // BLOCK),), torch.int32, dev)
         if tables.numel() % stride:
             raise ValueError("stacked tables must be whole system tables")
     else:
         _check_arg(tables, (stride,), f32, dev)
     warm = carry is not None
-    P, place, _ = group_geometry(N, warm, None, nx, nu)
-    buf = _group_buffers(x0, N, nx, nu, warm)
+    fam = NO_FAMILIES
+    kind, P, place, cluster = route
+    buf = _group_buffers(x0, N, nx, nu, warm, adapt is not None, consensus)
     saved = group_saved(x0, N, P, place, nx, nu)
     ptrs = [None] * 12
     if warm:
-        for name, shape in _carry_shapes(N, nx, nu, B).items():
+        for name, shape in _carry_shapes(N, nx, nu, B, fam,
+                                         adapt is not None,
+                                         consensus).items():
             _check_arg(getattr(carry, name), shape, f32, dev)
         ptrs = [getattr(carry, k) for k in BOX_CARRY_FIELDS] + [
             buf["carry_" + k] for k in _GROUP_CARRY_OUT]
-    fn = _group_fn()
+    adapt_args = cons_args = None
+    if adapt is not None:
+        adapt_args = ctypes.byref(_AdaptArgs(
+            int(adapt.apply_c), int(adapt.clip), adapt.rho_min,
+            adapt.rho_max, adapt.rho_tol,
+            None if carry is None else carry.rho.data_ptr(),
+            buf["res"][4].data_ptr(), None, None, None, None))
+    if consensus:
+        io = [None] * 7 if not warm else [
+            carry.u.data_ptr(), carry.x.data_ptr(), carry.yc0.data_ptr()] + [
+            buf["carry_" + k].data_ptr() for k in _GROUP_CONSENSUS_OUT]
+        cons_args = ctypes.byref(_GroupConsensusArgs(cons.group, cluster,
+                                                     cons.rho_c, *io))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(int(warm), nx, nu, P, place, N, B, max_iter, ct, rho,
@@ -1496,16 +1696,22 @@ def _launch_group(tables, x0, N, nx, nu, carry, max_iter, ct, rho, tol_pri,
                                                "solved", "res")),
                  _ptr_array(ptrs),
                  None if block_sys is None else block_sys.data_ptr(), stride,
-                 None if saved is None else saved.data_ptr(), stream)
+                 None if saved is None else saved.data_ptr(),
+                 *[a for a in (adapt_args, cons_args) if a is not None],
+                 stream)
     if err != 0:
         raise RuntimeError(f"admm_group kernel launch failed: CUDA error "
                            f"{err}")
-    entry_counts["tinympc_admm_group"] += 1
+    entry_counts[GROUP_ENTRIES[kind]] += 1
     sol = Solution(iter=buf["iters"], solved=buf["solved"], x=buf["out_x"],
                    u=buf["out_u"])
-    out = None if not warm else FusedCarry(**{
-        k: buf["carry_" + k] for k in _GROUP_CARRY_OUT})
-    return sol, buf["res"], out
+    if not warm:
+        return sol, buf["res"], None
+    out = {k: buf["carry_" + k] for k in _GROUP_CARRY_OUT + (
+        _GROUP_CONSENSUS_OUT if consensus else ())}
+    if adapt is not None:
+        out["rho"] = buf["res"][4:5].clone()
+    return sol, buf["res"], FusedCarry(**out)
 
 
 def _count(kind: str, warm: bool) -> None:
