@@ -21,7 +21,10 @@ two-system adaptive fleet at N=10, cold and two warm solves), the fused
 closed loop (T=10), the streamed
 kernels cold and warm (box at N=64, and at N=256 on 256 lanes and N=1300,
 past the resident kernel's wall, on 64; the rocket's box alone at N=32, a
-box problem at (6, 3); the rocket's cones at N=32, consensus at N=10; and
+box problem at (6, 3); the rocket's cones at N=32 and, 20 iterations, at
+N=256 (phase 19's descent); the quadrotor's static and time-varying
+hyperplanes under low z ceilings at N=10 (phase 21's), and every family on
+both sides at N=16 (``_mixed``); consensus at N=10; and
 with adaptive rho the box at N=64 -- the Crazyflie tables, with and
 without apply_c, and the guard at rho 1000 with its own sensitivities --
 at N=256 on 256 lanes, at N=1300 on 64, and the rocket's box alone at
@@ -47,8 +50,9 @@ the instructions are the same, and exits non-zero when any differs.
 
     python3 chip_compare.py race             # on the GPU
 
-``race`` runs small streamed solves on lane teams bitwise against the
-one-thread kernels, and small box consensus solves whose scenario groups
+``race`` runs small streamed solves on lane teams (box problems, and
+problems with families at fixed rho) bitwise against the one-thread
+kernels, and small box consensus solves whose scenario groups
 span thread-block clusters bitwise against the one-thread consensus
 kernel (see ``race``); run it under ``compute-sanitizer --tool
 racecheck`` to have the team kernels' shared memory checked.
@@ -72,7 +76,13 @@ the rocket with its box alone at N=512, a box problem at (6, 3), x0 the
 descent's start times U[0.9, 1.2]; the launch of iteration 0 on a fresh
 state after its backward launch, every lane running) with the backward
 launch beside it, at each batch of
-``stream`` (default none), each launch in turns with the one-thread
+``stream`` (default none), and the same of the problems with families:
+phase 19's rocket with its cones at N=256 (x0 the descent's start times
+U[0.9, 1.1]; also the stale forward launch of a warm solve from the carry
+of a 20-iteration warm solve from a zero carry) at each batch of
+``stream``, and phase 21's static and time-varying planes under low
+ceilings at N=10, B=16384 (x0 = [-2, -2, 1, 0...] + 0.1 U[-1, 1]^12, the
+demo's step-0 reference window); each launch in turns with the one-thread
 launch on its own fresh state (``_KERNELS(..., team=False)``); with
 ``stream`` also phase 36's adaptive point (the quadrotor at N=2048 with the Crazyflie
 tables, B=1024, x0 ~ U[-0.3, 0.3]): the backward and the forward launch
@@ -96,7 +106,8 @@ time, the median, the mean iterations, the time a lane-iteration (the
 kernel's time over the iterations its lanes ran, summed), the card's name
 and power limit and its SM clock sampled just after. ``profile`` adds the
 device time torch.profiler records for one main-path call at each cold
-batch, by kernel. Run it in alternation (parent, change, change, parent)
+batch, by kernel, and for each streamed launch (``device_ms``: the
+kernel's own time; the events also hold the host's launch path). Run it in alternation (parent, change, change, parent)
 to compare two checkouts on one card; for the parent, unpack the parent
 commit's tree before the first edit into the ignored ``_checkout/parent``
 (``git archive HEAD | tar -x -C _checkout/parent``, the directory emptied
@@ -160,6 +171,36 @@ def _planes(tt, torch, tv, N=10):
     p = tt.with_bounds(p, enable=False)
     return tt.with_settings(p, max_iter=100, check_termination=1,
                             abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+
+
+def _mixed(tt, torch, N):
+    """Every family on both sides of the quadrotor (12, 4), with its box:
+    two state cones and an input cone, the static z ceiling and thrust-sum
+    plane, two time-varying state planes and one input plane."""
+    p = _planes(tt, torch, False, N)
+    Ax = np.zeros((N, 2, 12))
+    Ax[:, 0, 2] = 1.0
+    Ax[:, 1, :2] = 0.5
+    Au = np.ones((N - 1, 1, 4))
+    Au[:, 0, 3] = 2.0
+    p = tt.with_tv_linear_constraints(
+        p, Ax, np.stack([1.07 + 0.02 * np.arange(N), np.full(N, -1.5)], 1),
+        Au, np.full((N - 1, 1), 6.0))
+    p = tt.with_cones(p, state_cones=[(3, 3, 0.5), (6, 4, 2.0)],
+                      input_cones=[(0, 2, 0.3)])
+    return tt.with_settings(tt.with_bounds(p, x_min=-5.0, x_max=5.0,
+                                           u_min=-0.5, u_max=3.0),
+                            max_iter=30)
+
+
+def _plane_inputs(torch, B_, N, rng):
+    """Phase 21's x0 and the demo's step-0 reference window."""
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    start = np.asarray([-2.0, -2.0, 1.0] + [0.0] * 9)
+    goal = np.asarray([2.0, 2.0, 4.0] + [0.0] * 9)
+    alpha = np.arange(N)[:, None] / 49.0
+    return (torch.as_tensor(start + 0.1 * rng.uniform(-1, 1, (B_, 12)), **kw),
+            torch.as_tensor((1 - alpha) * start + alpha * goal, **kw))
 
 
 def _flat(prefix, out):
@@ -309,6 +350,12 @@ def save(path):
                 ("rocket_box", _rocket(tt, torch, 32, cones=False), x_r,
                  *descent(32)),
                 ("rocket_soc", _rocket(tt, torch, 32), x_r, *descent(32)),
+                ("rocket_soc256", tt.with_settings(_rocket(tt, torch, 256),
+                                                   max_iter=20), x_r,
+                 *descent(256)),
+                ("linear", _planes(tt, torch, False), x_p, hover(10), None),
+                ("tv", _planes(tt, torch, True), x_p, hover(10), None),
+                ("mixed", _mixed(tt, torch, 16), x_p, hover(16), None),
                 ("consensus", tree, x_g, hover(10), None)]
     tables = cf
     adaptive = ad
@@ -557,10 +604,25 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
     xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
     points = [(b, sy) for b in stream for sy in ("quadrotor", "rocket_box")]
     points += [(STREAM_ADAPT_B, "quadrotor_adaptive")] if stream else []
+    points += [(b, "rocket_soc") for b in stream]
+    points += [(16384, sy) for sy in ("linear", "tv")] if stream else []
     for B_, system in points:
         rng = np.random.default_rng(0)
-        Uref, n_ = None, N
-        if system.startswith("quadrotor"):
+        Uref, n_, carry = None, N, None
+        if system == "rocket_soc":
+            n_ = 256
+            prob = tt.with_settings(_rocket(tt, torch, n_), max_iter=20)
+            x0 = torch.as_tensor(xinit * rng.uniform(0.9, 1.1, (B_, 1)), **kw)
+            Xref = torch.as_tensor(np.linspace(xinit, np.zeros(6), n_), **kw)
+            Uref = torch.zeros((n_ - 1, 3), **kw)
+            Uref[:, 2] = 10.0
+            carry = tt.kernels.solve_fused_streamed_warm(
+                prob, Xref, Uref, x0, tt.init_carry(prob, B_))[2]
+        elif system in ("linear", "tv"):
+            n_ = 10
+            prob = _planes(tt, torch, system == "tv", n_)
+            x0, Xref = _plane_inputs(torch, B_, n_, rng)
+        elif system.startswith("quadrotor"):
             n_ = STREAM_ADAPT_N if system == "quadrotor_adaptive" else N
             prob = _quad(tt, torch, n_, max_iter=20, ct=1)
             if system == "quadrotor_adaptive":
@@ -582,22 +644,37 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
         kw_ = {k: v for k, v in params.items() if k != "max_iter"}
         rho0 = params["rho"] if params["adapt"] is not None else None
         its = (0, 5) if rho0 is not None else (0,)
+        c_t = None if carry is None else admm_stream._prepare(
+            prob, Xref, Uref, x0, carry, True)[2]
         # Each launch on a fresh state (iteration `it`, every lane
-        # running), on lane teams and, in turns, on one thread a lane.
+        # running), on lane teams and, in turns, on one thread a lane;
+        # with a carry also the stale forward launch of a warm state.
+        names = ["backward"] + [f"forward{it or ''}" for it in its]
+        names += ["forward_stale"] if c_t is not None else []
         times = {f"{name}{'' if design else '_one_thread'}": []
-                 for design in (True, False) for name in
-                 ["backward"] + [f"forward{it or ''}" for it in its]}
+                 for design in (True, False) for name in names}
+
+        def fresh(design):
+            """The launches of ``names`` on fresh states of one design."""
+            s = admm_stream._init(x0c, n_, nx, nu, None, params["fam"],
+                                  None, rho0)
+            run = admm_stream._KERNELS(tables, x0c, s, None, n_, nx, nu,
+                                       **kw_, team=design)
+            launches = [("backward", lambda: run.backward(1))]
+            launches += [(f"forward{it or ''}", lambda it=it:
+                          run.forward(it, False)) for it in its]
+            if c_t is not None:
+                sw = admm_stream._init(x0c, n_, nx, nu, c_t, params["fam"])
+                warm = admm_stream._KERNELS(tables, x0c, sw, c_t, n_, nx, nu,
+                                            **kw_, team=design)
+                warm.backward(1)
+                launches += [("forward_stale", lambda: warm.forward(0, True))]
+            return launches
+
         for rep in range(TIME_REPS + 1):
             for design in (True, False):
-                s = admm_stream._init(x0c, n_, nx, nu, None, params["fam"],
-                                      None, rho0)
-                run = admm_stream._KERNELS(tables, x0c, s, None, n_, nx, nu,
-                                           **kw_, team=design)
                 sfx = "" if design else "_one_thread"
-                launches = [("backward", lambda: run.backward(1))]
-                launches += [(f"forward{it or ''}", lambda it=it:
-                              run.forward(it, False)) for it in its]
-                for name, fn in launches:
+                for name, fn in fresh(design):
                     start = torch.cuda.Event(enable_timing=True)
                     end = torch.cuda.Event(enable_timing=True)
                     start.record()
@@ -606,12 +683,22 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
                     torch.cuda.synchronize()
                     if rep:     # the first launch of each warms up
                         times[name + sfx].append(start.elapsed_time(end))
-                del s, run
+        device = {}
+        for design in (True, False) if profile else ():
+            # The kernel's own device time (torch.profiler), without the
+            # host's launch path, which the events above also hold.
+            for name, fn in fresh(design):
+                d = _device_times(torch, fn)
+                device[name + ("" if design else "_one_thread")] = \
+                    None if d is None else sum(
+                        v for k, v in d.items() if "kernel" in k)
         rec = {"kind": "stream", "system": system, "N": n_, "B": B_,
                "ms": statistics.median(times["forward"]),
                "backward_ms": statistics.median(times["backward"])}
         rec.update({f"{k}_ms": statistics.median(v) for k, v in times.items()
                     if k not in ("forward", "backward")})
+        if profile:
+            rec["device_ms"] = device
         rec.update({"times_ms": times, "launch_counts": {
             k: v for k, v in admm_stream.launch_counts.items() if v},
             "card": card, "sm_clock_after": _smi("clocks.sm,clocks.max.sm")})
@@ -698,8 +785,11 @@ def race():
     bitwise against the same solve on one thread a lane: the quadrotor at
     fixed rho and, with the Crazyflie tables, at adaptive rho with and
     without apply_c, and the rocket's box alone at adaptive rho (a box
-    problem at (6, 3)); N=16, B=20 (a partial last team block), max_iter
-    20, ct 1, so that iterations 5, 10 and 15 adapt rho; cold, then warm
+    problem at (6, 3)); and at fixed rho the rocket with its cones, the
+    quadrotor's static and time-varying planes under low ceilings and
+    every family on both sides (``_mixed``); N=16, B=20 (a partial last
+    team block), max_iter 20, ct 1, so that iterations 5, 10 and 15 adapt
+    rho; cold, then warm
     from the carry of a warm solve from a zero carry. Prints one line a solve and exits
     non-zero when any differs. Small enough to run under
     ``compute-sanitizer --tool racecheck``, which reports the kernels'
@@ -732,7 +822,16 @@ def race():
          x_q, hover, None),
         ("rocket box adaptive", adaptive(tt.with_settings(
             _rocket(tt, torch, N, cones=False), max_iter=20),
-            adaptive_rho_min=0.05), x_r, X_r, U_r)]
+            adaptive_rho_min=0.05), x_r, X_r, U_r),
+        ("rocket SOC", tt.with_settings(_rocket(tt, torch, N), max_iter=20),
+         x_r, X_r, U_r)]
+    x_p, X_p = _plane_inputs(torch, B_, N, rng)
+    cases += [(f"planes {k}", tt.with_settings(
+        _planes(tt, torch, k == "tv", N), max_iter=20), x_p, X_p, None)
+        for k in ("linear", "tv")]
+    cases += [("mixed families", tt.with_settings(_mixed(tt, torch, N),
+                                                  max_iter=20),
+               x_p, X_p, None)]
     one_thread = functools.partial(admm_stream._KERNELS, team=False)
     bad = race_consensus()
     for name, prob, x0, Xref, Uref in cases:

@@ -63,9 +63,9 @@ calls, and holds every kernel against its plain PyTorch version:
   low-ceiling hyperplane batches; and the long-horizon set-up at N=2048,
   past the resident kernel's shared-memory wall -- through
   kernels.solve_fused_streamed(_warm); box problems, at fixed and adaptive
-  rho, on the lane-team kernels of csrc/admm_stream_team.cuh (both
-  launches), the rocket's cones on the one-thread kernels, each route
-  checked from the launch counts;
+  rho, and problems with families at fixed rho (the rocket's cones, the
+  hyperplane demos) on the lane-team kernels of csrc/admm_stream_team.cuh
+  (both launches), each route checked from the launch counts;
 * scenario-tree consensus on u[0] on the thread-group kernel
   csrc/admm_group.cu (entry tinympc_admm_group_consensus: a scenario
   group's offers through one block's shared memory, or through a
@@ -271,7 +271,7 @@ against the resident kernel on the same inputs (the same device functions;
 phases 17-21, and under consensus phases 27 and 31), and against its plain
 version at the bar, each single launch too; each team launch is held
 bitwise against the one-thread launch on the same state (team=False,
-phases 17, 18, 20, 22, 35, 36); a compacted solve is held
+phases 17-22, 35, 36); a compacted solve is held
 bitwise against one long kernel solve (kernel against kernel: cuBLAS's
 order in a plain version depends on the width) and at the bar against
 compaction on the plain versions on the CPU; a plain run of fewer than 16384 lanes takes the batch repeated to
@@ -934,8 +934,9 @@ def kernel_label(fn):
     m = re.search(r"stream_(backward|forward)_team_kernelILi(\d+)ELi(\d+)E",
                   fn)
     if m:
-        return (f"admm_stream {m[1]} team{' ' + adapt if adapt else ''} "
-                f"({m[2]}, {m[3]})")
+        fam = " families" if "TeamFamilies" in fn else ""
+        return (f"admm_stream {m[1]} team{fam}"
+                f"{' ' + adapt if adapt else ''} ({m[2]}, {m[3]})")
     m = re.search(r"dot_independent_mma_kernelILi(\d+)E", fn)
     if m:
         return f"roofline dot independent bf16 mma ({m[1]})"
@@ -1566,18 +1567,20 @@ def witness_text(lt):
 
 def team_route(prob):
     """Whether a problem's streamed launches run on lane teams
-    (csrc/admm_stream_team.cuh): a box problem, at fixed or adaptive rho,
-    without consensus."""
+    (csrc/admm_stream_team.cuh): without consensus, a box problem at fixed
+    or adaptive rho, or a problem with families at fixed rho."""
     spec = prob.spec
-    return not (spec.any_extra_family or spec.en_consensus)
+    return not spec.en_consensus and not (spec.any_extra_family
+                                          and prob.settings.adaptive_rho)
 
 
 def stream_keys(prob):
     """The launch counts of the streamed kernels a problem runs: backward,
-    forward and stale forward (on lane teams for a box problem), adaptive
-    or not."""
+    forward and stale forward (on lane teams for a box problem, adaptive or
+    not, and for families at fixed rho, ``_team_families``)."""
     sfx = "_adaptive" if prob.settings.adaptive_rho else ""
-    team = "_team" if team_route(prob) else ""
+    team = "" if not team_route(prob) else \
+        "_team_families" if prob.spec.any_extra_family else "_team"
     return (f"backward{team}{sfx}", f"forward{team}{sfx}",
             f"forward{team}{sfx}_stale")
 
@@ -1585,8 +1588,10 @@ def stream_keys(prob):
 def took_route(ast, label, prob):
     """Fail the run unless both streamed launches since the counts were
     last zeroed took the problem's route: the team entries alone for a box
-    problem (fixed or adaptive rho), the one-thread kernels alone for any
-    other (families, consensus)."""
+    problem (fixed or adaptive rho) and for families at fixed rho, the
+    family team entries (``_team_families``) for the latter; the
+    one-thread kernels alone for any other (families under adaptive rho,
+    consensus)."""
     c = ast.launch_counts
     want = "lane teams" if team_route(prob) else "one thread a lane"
     for side in ("backward", "forward"):
@@ -1596,6 +1601,11 @@ def took_route(ast, label, prob):
                     if k.startswith(side) and "_team" not in k)
         ok = (team > 0 and other == 0) if team_route(prob) else \
             (team == 0 and other > 0)
+        if team_route(prob):
+            # the family team entries for families, the box ones for a box
+            fams = sum(v for k, v in c.items()
+                       if k.startswith(side) and "_team_families" in k)
+            ok = ok and (fams == team) == prob.spec.any_extra_family
         got = {k: v for k, v in c.items() if k.startswith(side) and v}
         log(f"  {label}: {side} launches {got} (want {want})")
         fail(f"{label} {side} route", ok,
@@ -1604,14 +1614,17 @@ def took_route(ast, label, prob):
 
 # The ptxas label (kernel_label) of the instantiation each streamed row of
 # the kernels line measured: at (12, 4) the box and consensus phases
-# (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35).
+# (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35). Every
+# streamed instantiation, the family team kernels at (12, 4) of phase 21
+# too, is held to no spill when it is built.
 STREAM_PTXAS = {
     "backward_team": "admm_stream backward team (12, 4)",
     "forward_team": "admm_stream forward team (12, 4)",
     "forward_team_stale": "admm_stream forward team (12, 4)",
-    "backward": "admm_stream backward (6, 3)",
-    "forward": "admm_stream forward (6, 3)",
-    "forward_stale": "admm_stream forward stale (6, 3)",
+    "backward_team_families": "admm_stream backward team families (6, 3)",
+    "forward_team_families": "admm_stream forward team families (6, 3)",
+    "forward_team_families_stale":
+        "admm_stream forward team families (6, 3)",
     "backward_consensus": "admm_stream backward consensus (12, 4)",
     "forward_consensus": "admm_stream forward consensus (12, 4)",
     "forward_consensus_stale": "admm_stream forward stale consensus (12, 4)",
@@ -1626,8 +1639,9 @@ STREAM_PTXAS = {
 
 
 def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
-    """Each team launch of a box problem against the one-thread launch on
-    the same state (``_KERNELS(..., team=False)``), bitwise: from the state
+    """Each team launch of a box problem, or of families at fixed rho,
+    against the one-thread launch on the same state (``_KERNELS(...,
+    team=False)``), bitwise: from the state
     the team kernels reach in some iterations (3 cold, 4 under adaptive
     rho, so that the second compared forward launch adapts rho; none warm,
     whose first launch is the stale one), two iterations from copies of
@@ -1650,11 +1664,14 @@ def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
     for it in range(first):
         run.backward(1 - it % 2)
         run.forward(it, False)
-    s1 = {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+    s1 = {k: v.clone() if torch.is_tensor(v) else
+          [a if a is None else a.clone() for a in v] if isinstance(v, list)
+          else v for k, v in s.items()}
     one = ast._KERNELS(tables, x0c, s1, carry_t, N, nx, nu, **kw,
                        team=False)
     keys = [k for k in ("vnew", "znew", "g", "y", "d", "iters", "done",
-                        "res", "active", "rho", "rho_v") if s[k] is not None]
+                        "res", "active", "rho", "rho_v", "x", "u")
+            if s[k] is not None]
     same, ms = True, {}
     for it in (first, first + 1):
         stale = warm and it == 0
@@ -1663,7 +1680,9 @@ def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
                 torch, lambda: r.backward(1 - it % 2), 1)[0]
             ms[(name, it, "forward")] = cuda_ms(
                 torch, lambda: r.forward(it, stale), 1)[0]
-        same = same and all(torch.equal(s[k], s1[k]) for k in keys)
+        same = same and all(torch.equal(s[k], s1[k]) for k in keys) and all(
+            a is None or torch.equal(a, b)
+            for a, b in zip(s["fams"], s1["fams"]))
     log(f"  {label}: team launches bitwise the one-thread launches on the "
         f"same state (iterations {first} and {first + 1}, ct {kw['ct']}"
         f"{', the first stale' if warm else ''}"
@@ -1784,8 +1803,8 @@ def resident_cold(admm_fused, prob, Xref, Uref, x0):
 def streamed_phases(ctx):
     """Phases 17-22: the streamed long-horizon solve on csrc/admm_stream.cu.
     Returns the kernels-line numbers of its backward kernel, its forward
-    kernel and the forward's stale variant, on lane teams (box problems)
-    and on one thread a lane (the rocket's cones)."""
+    kernel and the forward's stale variant, on lane teams: box problems
+    and the rocket's cones (the family team kernels)."""
     torch, tt, admm_fused, ast = ctx.torch, ctx.tt, ctx.admm_fused, ctx.ast
     counters = ctx.counters
     kern = tt.kernels
@@ -1877,8 +1896,8 @@ def streamed_phases(ctx):
         bound_by=b_stale[1])
 
     # 19. bench_all.py:343-367, rocket SOC full descent; then as an
-    # external-plant sequence of 2 warm solves (the one-thread kernels and
-    # the forward's stale launch, which the families run)
+    # external-plant sequence of 2 warm solves (the family team kernels and
+    # the forward's stale launch)
     phase(f"phase 19: rocket SOC full descent, N={LH_SOC_N}, B={LH_B}, "
           f"max_iter {LH_ITER}, cold and 2 warm solves")
     prob = rocket_problem(tt, torch, LH_ITER, 1, N=LH_SOC_N)
@@ -1891,12 +1910,12 @@ def streamed_phases(ctx):
     compare(torch, f"{label} vs plain", sol_k, sol_p, res_k, res_p)
     lt, b_bwd, b_fwd = report(label, prob, Xref, Uref, x0, sol_k, launches,
                               resident=resident(prob, Xref, Uref, x0))
-    rows["backward"] = dict(launches=launches[0], err=lt["err_b"],
-                            ms=lt["bwd_ms"], plain_ms=lt["plain_bwd_ms"],
-                            bound_ms=b_bwd[0], bound_by=b_bwd[1])
-    rows["forward"] = dict(launches=launches[1], err=lt["err_f"],
-                           ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"],
-                           bound_ms=b_fwd[0], bound_by=b_fwd[1])
+    rows["backward_team_families"] = dict(
+        launches=launches[0], err=lt["err_b"], ms=lt["bwd_ms"],
+        plain_ms=lt["plain_bwd_ms"], bound_ms=b_bwd[0], bound_by=b_bwd[1])
+    rows["forward_team_families"] = dict(
+        launches=launches[1], err=lt["err_f"], ms=lt["fwd_ms"],
+        plain_ms=lt["plain_fwd_ms"], bound_ms=b_fwd[0], bound_by=b_fwd[1])
     c_k = c_r = tt.init_carry(prob, LH_B)
     x = x0
     for step in range(2):
@@ -1904,7 +1923,7 @@ def streamed_phases(ctx):
         out_k = kern.solve_fused_streamed_warm(prob, Xref, Uref, x, c_k)
         torch.cuda.synchronize()
         took_route(ast, f"{label} warm step {step}", prob)
-        stale = ast.launch_counts["forward_stale"]
+        stale = ast.launch_counts[stream_keys(prob)[2]]
         out_r = kern.solve_fused_warm(prob, Xref, Uref, x, c_r)
         same_bits(torch, f"{label} warm step {step}", out_k, out_r,
                   "solve_fused_warm")
@@ -1921,7 +1940,7 @@ def streamed_phases(ctx):
     launches = drive(f"{label} warm", prob, Xref, Uref, x_prev, c_prev)[1]
     lt, _, b_stale = report(f"{label} warm (the second solve)", prob, Xref,
                             Uref, x_prev, out_k[0], launches, carry=c_prev)
-    rows["forward_stale"] = dict(
+    rows["forward_team_families_stale"] = dict(
         launches=stale, err=max(err_w, lt["err_f"]), ms=lt["fwd_ms"],
         plain_ms=lt["plain_fwd_ms"], bound_ms=b_stale[0],
         bound_by=b_stale[1])
@@ -2555,7 +2574,7 @@ WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
                "consensus_warm_launch_count")
 STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
                 "forward_adaptive_stale", "forward_team_stale",
-                "forward_team_adaptive_stale")
+                "forward_team_adaptive_stale", "forward_team_families_stale")
 
 
 def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, entries=None,
@@ -4607,15 +4626,15 @@ def main():
              for key, src, rep in (
                  ("backward_team", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:121"),
-                 ("backward", "admm_stream.cu",
+                 ("backward_team_families", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:121"),
                  ("forward_team", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"),
                  ("forward_team_stale", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"),
-                 ("forward", "admm_stream.cu",
+                 ("forward_team_families", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"),
-                 ("forward_stale", "admm_stream.cu",
+                 ("forward_team_families_stale", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"))]
     rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
               rep, compact_rows[key])

@@ -304,7 +304,8 @@ def test_host_loop_launches_the_consensus_kernels(monkeypatch):
         "forward_adaptive": 0, "forward_adaptive_stale": 0,
         "backward_team": 0, "forward_team": 0, "forward_team_stale": 0,
         "backward_team_adaptive": 0, "forward_team_adaptive": 0,
-        "forward_team_adaptive_stale": 0}
+        "forward_team_adaptive_stale": 0, "backward_team_families": 0,
+        "forward_team_families": 0, "forward_team_families_stale": 0}
     for name in ("zc0", "yc0", "x", "u"):
         assert getattr(out, name) is not None, name
 

@@ -148,10 +148,11 @@ def test_streamed_on_cpu_returns_the_public_layout():
 
 class _Entries:
     """Stand-ins for tinympc_stream_backward / tinympc_stream_forward and
-    their team entries: they record what each launch is given and write
-    nothing; ``active`` says what the forward launch of a check iteration
-    leaves in the flag; ``stale_v`` is the address of the carried v, which
-    a team launch's dual residual reads in its stale launch."""
+    their team entries, the box pair and the families pair: they record
+    what each launch is given and write nothing; ``active`` says what the
+    forward launch of a check iteration leaves in the flag; ``stale_v`` is
+    the address of the carried v, which a team launch's dual residual
+    reads in its stale launch."""
 
     def __init__(self, active=0):
         self.calls, self.active, self.stale_v = [], active, None
@@ -205,6 +206,26 @@ class _Entries:
             ctypes.c_int.from_address(args[21]).value = self.active
         return 0
 
+    def team_families_backward(self, *args):
+        assert len(args) == 16
+        assert all(p is not None for p in args[6:14])
+        self.calls.append(("bwd", [args[4][k] for k in range(6)],
+                           [args[14][k] is not None for k in range(12)]))
+        return 0
+
+    def team_families(self, *args):
+        assert len(args) == 27
+        assert all(p is not None for p in args[10:23])
+        it, ct = args[4], args[5]
+        x_out, u_out = args[24], args[25]
+        assert (x_out is None) == (u_out is None)
+        self.calls.append(("fwd", it, args[12] == self.stale_v,
+                           x_out is not None,
+                           [args[23][k] is not None for k in range(12)]))
+        if (it + 1) % ct == 0:
+            ctypes.c_int.from_address(args[22]).value = self.active
+        return 0
+
 
 @pytest.fixture
 def entries(monkeypatch):
@@ -213,6 +234,8 @@ def entries(monkeypatch):
                         lambda: (e.backward, e.forward))
     monkeypatch.setattr(admm_stream, "_team_fns",
                         lambda: (e.team_backward, e.team))
+    monkeypatch.setattr(admm_stream, "_team_families_fns",
+                        lambda: (e.team_families_backward, e.team_families))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -232,7 +255,10 @@ def test_host_loop_launches_the_kernels(make, entries):
     and the loop stopped after the first check iteration whose flag reads
     0 (here ct 2: after iteration 1). The box problem's launches take the
     team entries (its stale launch reads the carried v), counted under
-    backward_team / forward_team / forward_team_stale."""
+    backward_team / forward_team / forward_team_stale; those of the
+    families at fixed rho the family team entries, counted under
+    backward_team_families / forward_team_families /
+    forward_team_families_stale."""
     p = make(max_iter=5, check_termination=2)
     spec = p.spec
     B = 3
@@ -252,7 +278,7 @@ def test_host_loop_launches_the_kernels(make, entries):
         ("bwd", list(fam), on), ("fwd", 1, False, False, on),
         ("bwd", list(fam), on), ("fwd", 0, True, tracked, on),
         ("bwd", list(fam), on), ("fwd", 1, False, tracked, on)]
-    team = "_team" if not any(fam) else ""
+    team = "_team" if not any(fam) else "_team_families"
     assert admm_stream.launch_counts == dict(
         dict.fromkeys(admm_stream.launch_counts, 0),
         **{f"backward{team}": 4, f"forward{team}": 3,

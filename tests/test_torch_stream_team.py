@@ -658,20 +658,25 @@ def _adaptive():
 
 
 @pytest.mark.parametrize("make,x0,suffix", [
-    (_soc, (4, 6), ""), (_consensus, (2, 4, 12), "_consensus"),
+    (_soc, (4, 6), "_team_families"), (_consensus, (2, 4, 12), "_consensus"),
     (_adaptive, (4, 12), "_adaptive")], ids=["soc", "consensus", "adaptive"])
 def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
                                                           monkeypatch):
-    """Families (at fixed or adaptive rho) and consensus: every launch on
-    the one-thread entries, counted under their own keys; the team entries
-    are never loaded."""
+    """Families under adaptive rho and consensus: every launch on the
+    one-thread entries, counted under their own keys, the box team entries
+    never loaded. Families at fixed rho (the rocket's cones) take the
+    family team entries instead, under backward_team_families /
+    forward_team_families, and never the one-thread ones."""
     calls = []
+    teams = suffix == "_team_families"
 
     def record(name):
         def entry(*args):
             calls.append(name)
-            if name == "fwd" and (args[5] + 1) % args[6] == 0:
-                ctypes.c_int.from_address(args[22]).value = 0
+            # the iteration, ct and the flag's places in each forward entry
+            at = {"fwd": (5, 6, 22), "team_fwd": (4, 5, 22)}.get(name)
+            if at and (args[at[0]] + 1) % args[at[1]] == 0:
+                ctypes.c_int.from_address(args[at[2]]).value = 0
             return 0
         return entry
 
@@ -681,6 +686,9 @@ def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
     monkeypatch.setattr(admm_stream, "_kernel_fns",
                         lambda: (record("bwd"), record("fwd")))
     monkeypatch.setattr(admm_stream, "_team_fns", no_team)
+    monkeypatch.setattr(admm_stream, "_team_families_fns",
+                        lambda: (record("team_bwd"), record("team_fwd"))
+                        if teams else no_team())
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -692,7 +700,8 @@ def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
                                                 torch.zeros(x0))
     admm_stream._loop(tables, x, None, prob.spec, admm_stream._KERNELS,
                       **params)
-    assert calls == ["bwd", "fwd", "bwd", "fwd"]
+    assert calls == (["team_bwd", "team_fwd"] if teams else
+                     ["bwd", "fwd"]) * 2
     assert admm_stream.launch_counts == dict(
         dict.fromkeys(admm_stream.launch_counts, 0),
         **{"backward" + suffix: 2, "forward" + suffix: 2})
@@ -702,11 +711,17 @@ def test_no_new_refusal(entries, monkeypatch):
     """Every box problem the streamed solve took still runs: horizons from
     2 to past the resident wall, batches that leave the last team partial
     or hold a single lane, at (12, 4) and (6, 3), all on the team entry
-    (its arithmetic stood in by a recorder here)."""
+    (its arithmetic stood in by a recorder here); and so does the rocket
+    with its cones, on the family team entry."""
     monkeypatch.setattr(admm_stream, "_team_fns", lambda: (
         entries.backward, lambda *a: (entries.calls.append(("team", a[:4])),
                                       0)[1]))
-    for make, nx in ((_quad, 12), (_rocket_box, 6)):
+    monkeypatch.setattr(admm_stream, "_team_families_fns", lambda: (
+        None, lambda *a: (entries.calls.append(("team", a[:4])), 0)[1]))
+    soc = lambda N, **kw: tt.with_cones(
+        _rocket_box(N, **kw), state_cones=[(0, 3, 0.25)],
+        input_cones=[(0, 3, 0.5)])
+    for make, nx in ((_quad, 12), (_rocket_box, 6), (soc, 6)):
         for N, batches in ((2, (1, 13, 1029)), (3, (7,)), (2048, (1, 13))):
             prob = make(N, max_iter=1, ct=2)
             assert stream_supported(prob)

@@ -557,6 +557,11 @@ def entries(monkeypatch):
                         lambda: (e.backward, e.forward))
     monkeypatch.setattr(admm_stream, "_team_fns",
                         lambda: (e.team_backward, e.team_forward))
+    # the family team entries: a recorder, failing as the box ones do
+    fam = lambda side: lambda *a: 700 if e.fail == side else (
+        e.calls.append((f"team_families_{side}",)), 0)[1]
+    monkeypatch.setattr(admm_stream, "_team_families_fns",
+                        lambda: (fam("backward"), fam("forward")))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -641,17 +646,25 @@ def test_the_one_thread_entries_on_the_same_state(entries):
 @pytest.mark.parametrize("side", ["backward", "forward"])
 def test_a_failing_team_launch_raises(side, entries):
     """A team entry that returns a CUDA error raises, naming the launch;
-    nothing falls back to the one-thread entries, and nothing is
-    counted."""
+    nothing falls back to the one-thread entries, and nothing is counted:
+    a box problem on the box team entries, the rocket with its cones on
+    the family team entries."""
     entries.fail = side
-    prob = _problem(12, "fixed", 8, max_iter=4, ct=2)
-    tables, x0c, _, params = admm_stream._prepare(prob, None, None,
-                                                  torch.zeros((5, 12)))
-    with pytest.raises(RuntimeError, match=f"team {side} launch failed"):
-        admm_stream._loop(tables, x0c, None, prob.spec,
-                          admm_stream._KERNELS, **params)
-    assert not [c for c in entries.calls if c[0] in ("backward", "forward")]
-    assert admm_stream.launch_counts[f"{side}_team"] == 0
+    soc = tt.with_cones(_problem(6, "fixed", 8, max_iter=4, ct=2),
+                        state_cones=[(0, 3, 0.25)],
+                        input_cones=[(0, 3, 0.5)])
+    for prob, nx, key in ((_problem(12, "fixed", 8, max_iter=4, ct=2), 12,
+                           f"{side}_team"),
+                          (soc, 6, f"{side}_team_families")):
+        tables, x0c, _, params = admm_stream._prepare(prob, None, None,
+                                                      torch.zeros((5, nx)))
+        with pytest.raises(RuntimeError,
+                           match=f"team {side} launch failed"):
+            admm_stream._loop(tables, x0c, None, prob.spec,
+                              admm_stream._KERNELS, **params)
+        assert not [c for c in entries.calls
+                    if c[0] in ("backward", "forward")]
+        assert admm_stream.launch_counts[key] == 0
 
 
 def test_no_new_refusal_for_the_backward(entries, monkeypatch):

@@ -24,12 +24,14 @@
 //     :573-641 (iterations, convergence every check_termination
 //     iterations, residuals). On warm solves with families or consensus
 //     it also writes the x/u trajectories the carry hands over (track_xu).
-//     Both run the problems with families or consensus;
+//     Both run the problems with consensus, and families under adaptive
+//     rho (and, with team=False in kernels/admm_stream.py, any problem);
 //   * stream_backward_team_kernel and stream_forward_team_kernel
 //     (admm_stream_team.cuh) <- the same two TPU kernels, for box problems
-//     at fixed or adaptive rho: a thread a row of each lane, bitwise the
-//     one-thread kernels' (the forward's stale launch is the same kernel
-//     given the carried v/z).
+//     at fixed or adaptive rho and for problems with families at fixed rho
+//     (the families of admm_pallas.py:283-351 as the forward's projections):
+//     a thread a row of each lane, bitwise the one-thread kernels' (the
+//     forward's stale launch is the same kernel given the carried v/z).
 // Their CONS instantiations add consensus (admm_stream.py:229-239, :496-499,
 // :553-570): the backward kernel's row 0 takes r[0] - rho_c (zc0 - yc0) and
 // the Quu0_inv gain, the forward kernel's row 0 the Kinf0 gain, and at the
@@ -103,12 +105,13 @@
 // blocks (8 of 132 SMs at B=1024) and each thread walks its rows in
 // series, each row waiting on device-memory latency and on the row
 // before's p or x: at small batches the launches are latency-bound. The
-// box launches therefore run on lane teams, their rows staged ahead
-// (admm_stream_team.cuh; the fixed-rho forward at N=512, B=4096:
-// 0.3672-0.3699 against 3.5065-3.5435 ms a launch in turns with this file's
-// one-thread kernel, chip_compare.py time, on an NVIDIA H100 80GB HBM3 at
-// 700 W; PERF.md section 6); the launches with families or consensus are
-// still one thread a lane.
+// box launches, and those of families at fixed rho, therefore run on lane
+// teams, their rows staged ahead (admm_stream_team.cuh; the box fixed-rho
+// forward at N=512, B=4096: 0.3672-0.3699 against 3.5065-3.5435 ms a launch
+// in turns with this file's one-thread kernel, chip_compare.py time, on an
+// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6); the launches with
+// consensus, or with families under adaptive rho, are still one thread a
+// lane.
 //
 // C interface (loaded with ctypes): tinympc_stream_backward,
 // tinympc_stream_forward and their team entries launch on the given
@@ -152,6 +155,8 @@ using tinympc::NoConsensus;
 using tinympc::Residuals;
 using tinympc::StreamConsensus;
 using tinympc::Tables;
+using tinympc::TeamFamilies;
+using tinympc::TeamNoFamilies;
 using tinympc::TeamShape;
 
 constexpr int kBlock = 128;
@@ -623,10 +628,10 @@ template <int NX, int NU, class Rho>
 cudaError_t backward_team(const typename Rho::Args& ra, const Backward& p,
                           int N, int B, float rho, cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  tinympc::stream_backward_team_kernel<NX, NU, Rho>
+  tinympc::stream_backward_team_kernel<NX, NU, TeamNoFamilies, Rho>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
-          rho, ra);
+          rho, ra, TeamNoFamilies::Args{});
   return cudaGetLastError();
 }
 
@@ -646,11 +651,11 @@ cudaError_t forward_team(const typename Rho::Args& ra, const Forward& p,
                          int it, int N, int B, int ct, float rho,
                          float tol_pri, float tol_dua, cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  tinympc::stream_forward_team_kernel<NX, NU, Rho>
+  tinympc::stream_forward_team_kernel<NX, NU, TeamNoFamilies, Rho>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
           p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri,
-          tol_dua, ra);
+          tol_dua, ra, TeamNoFamilies::Args{});
   return cudaGetLastError();
 }
 
@@ -663,6 +668,50 @@ cudaError_t forward_team_at(const AdaptArgs* adapt, const Forward& p, int it,
                                           tol_dua, s);
   return forward_team<NX, NU, AdaptiveRho<NX, NU, false>>(
       *adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s);
+}
+
+// The launches with families at fixed rho on lane teams (TeamFamilies):
+// the forward's cone and static hyperplane tables in dynamic shared memory,
+// past 48 KB with the static arrays only after the opt-in.
+template <int NX, int NU>
+cudaError_t backward_team_families(const FamilyArgs& fa, const Backward& p,
+                                   int N, int B, float rho,
+                                   cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  tinympc::stream_backward_team_kernel<NX, NU, TeamFamilies<NX, NU>,
+                                       FixedRho>
+      <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
+          p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
+          rho, FixedRho::Args{}, fa);
+  return cudaGetLastError();
+}
+
+// fa carries the tracked x/u of a warm solve in x_out / u_out.
+template <int NX, int NU>
+cudaError_t forward_team_families(const FamilyArgs& fa, const Forward& p,
+                                  int it, int N, int B, int ct, float rho,
+                                  float tol_pri, float tol_dua,
+                                  cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  auto kernel = tinympc::stream_forward_team_kernel<NX, NU,
+                                                    TeamFamilies<NX, NU>,
+                                                    FixedRho>;
+  const size_t smem =
+      tinympc::Families<NX, NU>::static_floats(fa, NX, NU) * sizeof(float);
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (attr.sharedSizeBytes + smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, smem, s>>>(
+      p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
+      p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri, tol_dua,
+      FixedRho::Args{}, fa);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -857,5 +906,88 @@ extern "C" int tinympc_stream_forward_team(
   if (nx == 6 && nu == 3)    // the rocket
     return static_cast<int>(forward_team_at<6, 3>(
         adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward launch of a problem with families at fixed rho (no
+// consensus) on lane teams: counts and fam as tinympc_stream_backward takes
+// them (a box problem, all counts zero, runs too), the other arguments as
+// tinympc_stream_backward_team takes them. Returns 0 or a cudaError_t;
+// cudaErrorInvalidValue for an (nx, nu) pair this file does not
+// instantiate, a bad size or a missing array.
+extern "C" int tinympc_stream_backward_team_families(
+    int nx, int nu, int N, int B, const int* counts, float rho,
+    const void* tables, const void* vprev, const void* zprev, const void* g,
+    const void* y, void* d, const void* done, void* active, void* const* fam,
+    void* stream) {
+  FamilyArgs fa;
+  bool families;
+  if (N < 2 || B < 1 || !family_args(counts, fam, &fa, &families) ||
+      !tables || !vprev || !zprev || !g || !y || !d || !done || !active)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Backward p = {static_cast<const float*>(tables),
+                      static_cast<const float*>(vprev),
+                      static_cast<const float*>(zprev),
+                      static_cast<const float*>(g),
+                      static_cast<const float*>(y),
+                      static_cast<float*>(d),
+                      static_cast<const unsigned char*>(done),
+                      static_cast<int*>(active)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return static_cast<int>(
+        backward_team_families<12, 4>(fa, p, N, B, rho, s));
+  if (nx == 6 && nu == 3)    // the rocket
+    return static_cast<int>(
+        backward_team_families<6, 3>(fa, p, N, B, rho, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward launch of iteration `it` of a problem with families at fixed
+// rho (no consensus) on lane teams: vd, zd the slacks the dual residual
+// compares against (the carried v/z in the stale launch); counts, fam and
+// x_out / u_out (the tracked trajectories of a warm solve, both or
+// neither, only with a family on) as tinympc_stream_forward takes them;
+// the other arguments as tinympc_stream_forward_team takes them. Returns 0
+// or a cudaError_t; cudaErrorInvalidValue for an (nx, nu) pair this file
+// does not instantiate, a bad size or a missing array.
+extern "C" int tinympc_stream_forward_team_families(
+    int nx, int nu, int N, int B, int it, int check_termination,
+    const int* counts, float rho, float tol_pri, float tol_dua,
+    const void* tables, const void* x0, const void* vd, const void* zd,
+    void* vcur, void* zcur, void* g, void* y, const void* d, void* iters,
+    void* done, void* res, void* active, void* const* fam, void* x_out,
+    void* u_out, void* stream) {
+  FamilyArgs fa;
+  bool families;
+  if (N < 2 || B < 1 || it < 0 || check_termination < 1 ||
+      !family_args(counts, fam, &fa, &families) || !tables || !x0 || !vd ||
+      !zd || !vcur || !zcur || !g || !y || !d || !iters || !done || !res ||
+      !active || (!x_out != !u_out) || (x_out && !families))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Forward p = {};
+  p.tables = static_cast<const float*>(tables);
+  p.x0 = static_cast<const float*>(x0);
+  p.vprev = static_cast<const float*>(vd);
+  p.zprev = static_cast<const float*>(zd);
+  p.vcur = static_cast<float*>(vcur);
+  p.zcur = static_cast<float*>(zcur);
+  p.g = static_cast<float*>(g);
+  p.y = static_cast<float*>(y);
+  p.d = static_cast<const float*>(d);
+  p.iters = static_cast<int*>(iters);
+  p.done = static_cast<unsigned char*>(done);
+  p.res = static_cast<float*>(res);
+  p.active = static_cast<int*>(active);
+  fa.x_out = static_cast<float*>(x_out);
+  fa.u_out = static_cast<float*>(u_out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int ct = check_termination;
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return static_cast<int>(forward_team_families<12, 4>(
+        fa, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  if (nx == 6 && nu == 3)    // the rocket
+    return static_cast<int>(forward_team_families<6, 3>(
+        fa, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,6 +1,7 @@
-// The streamed solve's two launches for box problems on lane teams, at
-// fixed and at adaptive rho: the kernels that the long-horizon box solves
-// run (admm_stream.cu routes problems with families or consensus to the
+// The streamed solve's two launches on lane teams: for box problems at fixed
+// and at adaptive rho, and for problems with constraint families (second-
+// order cones, hyperplanes, time-varying hyperplanes) at fixed rho
+// (admm_stream.cu routes consensus, and families under adaptive rho, to the
 // one-thread stream_backward_kernel / stream_forward_kernel).
 //
 // stream_backward_team_kernel computes what admm_sweep.cuh's backward_sweep
@@ -88,6 +89,35 @@
 // kernel given the carried v/z for the dual residual's slacks: nothing else
 // differs (stream_forward_kernel's STALE only picks those pointers).
 //
+// Families (Fam = TeamFamilies; admm_families.cuh's hooks, split by row):
+//   * Backward: each family's term of row i acts on that row alone, so the
+//     row's thread stages the family's slack and dual with its box fields
+//     and adds rho (slack - dual) to its q or r after the box term, in the
+//     order SOC, hyperplane, time-varying hyperplane (the terminal p too).
+//     No barrier is added.
+//   * Forward: a projection couples all of a lane's features of one row (a
+//     cone's norm, a hyperplane's dot, cones and hyperplanes applied in
+//     turn). Each row writes its candidate x + dual (or u + dual) of each
+//     family into the lane's candidate slot between the step's two
+//     barriers; after the second, every thread of that side reads the
+//     whole candidate, runs admm_families.cuh's project_cones /
+//     project_hyperplane on it -- the same arithmetic on the same values
+//     as the one-thread kernel, redundantly on each thread -- and keeps its
+//     own feature's slack and dual. The candidate slot of step i is written
+//     after barrier 1 of step i and read after barrier 2; the next write
+//     follows barrier 1 of step i+1, which every read of step i precedes.
+//     The terminal state row N-1 takes one exchange after the loop, between
+//     two barriers of its own. The cone and static hyperplane tables sit in
+//     dynamic shared memory, loaded once a block; each time-varying row is
+//     read from device memory as a broadcast (every thread of a side reads
+//     the same words: staged into a block-wide ring with the other fields
+//     instead, the tv forward took as long and the rocket's 11% longer,
+//     torch.profiler device times, PERF.md section 6). The own feature of
+//     a projected candidate is picked with one selp an index (select). A
+//     warm solve's tracked x/u are stored row by row, as the sweep forms
+//     them. Family residuals do not enter the termination test, as in the
+//     one-thread kernel.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_compare.py time in
 // turns with the one-thread kernel, N=512, a fresh launch; PERF.md section
 // 6): the fixed-rho forward B=1024 0.1787-0.1902 against 2.9296-2.9562 ms,
@@ -97,7 +127,10 @@
 // (PERF.md section 6).
 #pragma once
 
+#include <type_traits>
+
 #include "admm_adaptive.cuh"
+#include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
 namespace tinympc {
@@ -122,6 +155,11 @@ struct TeamShape {
   static constexpr int kBSlot =
       ((kXP + 2 * kUP) / 2) % 2 ? 2 * (kXP + 2 * kUP)
                                 : 2 * (kXP + 2 * kUP) + 4;
+  // The forward's family candidates: one x-sized part for each state-side
+  // family, then one u-sized part for each input-side family.
+  static constexpr int kCSlot = ((3 * (kXP + kUP)) / 4) % 2
+                                    ? 3 * (kXP + kUP)
+                                    : 3 * (kXP + kUP) + 4;
 };
 
 // Steps staged ahead, the fields of a staged forward step (dual, lower and
@@ -136,6 +174,12 @@ constexpr int kTeamFields = 5;
 constexpr int kTeamBackFields = 3;
 constexpr int kTeamMinBlocks = 6;
 constexpr int kTeamAdaptMinBlocks = 4;
+// The families of a side (SOC, hyperplane, time-varying hyperplane) and the
+// blocks an SM of the forward launch with families: its candidate and the
+// projections need more registers than the box forward's 85 (ptxas on an
+// H100: 122 at (12, 4), 92 at (6, 3); at 5 blocks an SM it spilled).
+constexpr int kTeamFamilies = 3;
+constexpr int kTeamFamMinBlocks = 4;
 
 __device__ __forceinline__ void stage_copy(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -153,6 +197,19 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
+// p ? a : b as one selp: written as a plain select over every index of a
+// register array, the compiler turned "c[j] where j == k" back into c[k]
+// and put the array in local memory (ptxas: a 48-byte stack frame at
+// (12, 4)).
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.s32 q, %3, 0;\n\t"
+      "selp.f32 %0, %1, %2, q;\n\t}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"(static_cast<int>(p)));
+  return r;
+}
+
 template <int n>
 __device__ __forceinline__ void load_slot(float (&v)[n], const float* s) {
 #pragma unroll
@@ -165,12 +222,176 @@ __device__ __forceinline__ void load_slot(float (&v)[n], const float* s) {
   }
 }
 
+// A box problem's team launches: no family, and hooks that do nothing.
+struct TeamNoFamilies {
+  struct Args {};
+  __device__ TeamNoFamilies(const Args&, bool, int, size_t, int, int) {}
+  __device__ __forceinline__ void stage_back(float*, int) const {}
+  __device__ __forceinline__ float terms(const float*, float q,
+                                         float) const {
+    return q;
+  }
+  __device__ __forceinline__ void stage_duals(float*, int) const {}
+  __device__ __forceinline__ void candidates(float*, float,
+                                             const float*) const {}
+  __device__ __forceinline__ void track(int, float) const {}
+  __device__ __forceinline__ void project(int, float, const float*,
+                                          const float*, const float*,
+                                          const float*) const {}
+};
+
+// The constraint families of one team thread's row: family f of the row's
+// side -- 0 the second-order cones, 1 the hyperplanes, 2 the time-varying
+// hyperplanes -- is on when its count is, with its slack and dual
+// lane-last like the box's ((N, NX, B) or (N-1, NU, B)). The staged fields
+// of a step follow the box's in the ring: the backward stages each family's
+// slack and dual (fields 3 + 2f, 4 + 2f), the forward each family's dual
+// (field 5 + f). Arguments: FamilyArgs, its counts and working arrays
+// (the streamed solve seeds them, so its carry pointers stay null) and, on
+// a warm solve, x_out / u_out, the tracked x/u (else null).
+template <int NX, int NU>
+struct TeamFamilies {
+  using Args = FamilyArgs;
+  static constexpr int kThreads = TeamShape<NX, NU>::kThreads;
+  int n[kTeamFamilies];
+  float* slk[kTeamFamilies];
+  float* dua[kTeamFamilies];
+  float* trk;
+  bool st;
+  int k;
+  size_t step;
+  // The side's table offsets: cones, hyperplane rows / b / ||a||^2, and the
+  // same of the time-varying rows.
+  int cones, al, bl, aq, tva, tvb, tvq;
+
+  __device__ TeamFamilies(const Args& f, bool st_, int k_, size_t sB, int b,
+                          int N)
+      : st(st_), k(k_) {
+    const size_t off = static_cast<size_t>(k_) * sB + b;
+    n[0] = st ? f.ncx : f.ncu;
+    n[1] = st ? f.nlx : f.nlu;
+    n[2] = st ? f.ntx : f.ntu;
+    slk[0] = (st ? f.vc : f.zc) + off;
+    slk[1] = (st ? f.vl : f.zl) + off;
+    slk[2] = (st ? f.vtv : f.ztv) + off;
+    dua[0] = (st ? f.gc : f.yc) + off;
+    dua[1] = (st ? f.gl : f.yl) + off;
+    dua[2] = (st ? f.gtv : f.ytv) + off;
+    trk = st ? f.x_out : f.u_out;
+    if (trk) trk += off;
+    step = static_cast<size_t>(st ? NX : NU) * sB;
+    const FamilyLayout L(f, NX, NU, N);
+    cones = st ? L.xcones : L.ucones;
+    al = st ? L.alx : L.alu;
+    bl = st ? L.blx : L.blu;
+    aq = st ? L.aqx : L.aqu;
+    tva = st ? L.tvax : L.tvau;
+    tvb = st ? L.tvbx : L.tvbu;
+    tvq = st ? L.tvqx : L.tvqu;
+  }
+
+  // Backward: stage row j's slack and dual of each family into the ring row
+  // r0 (&ring[stage][0][t]).
+  __device__ __forceinline__ void stage_back(float* r0, int j) const {
+    const size_t a = static_cast<size_t>(j) * step;
+#pragma unroll
+    for (int f = 0; f < kTeamFamilies; ++f) {
+      if (n[f]) {
+        stage_copy(r0 + (kTeamBackFields + 2 * f) * kThreads, slk[f] + a);
+        stage_copy(r0 + (kTeamBackFields + 2 * f + 1) * kThreads,
+                   dua[f] + a);
+      }
+    }
+  }
+  // q (or r) - rho (slack - dual) of each family, in the family order.
+  __device__ __forceinline__ float terms(const float* r0, float q,
+                                         float rho) const {
+#pragma unroll
+    for (int f = 0; f < kTeamFamilies; ++f) {
+      if (n[f])
+        q = q - rho * (r0[(kTeamBackFields + 2 * f) * kThreads] -
+                       r0[(kTeamBackFields + 2 * f + 1) * kThreads]);
+    }
+    return q;
+  }
+
+  // Forward: stage row i's dual of each family.
+  __device__ __forceinline__ void stage_duals(float* r0, int i) const {
+    const size_t a = static_cast<size_t>(i) * step;
+#pragma unroll
+    for (int f = 0; f < kTeamFamilies; ++f)
+      if (n[f]) stage_copy(r0 + (kTeamFields + f) * kThreads, dua[f] + a);
+  }
+  // This row's feature of each family's candidate, val + dual, into the
+  // lane's candidate slot cs.
+  __device__ __forceinline__ void candidates(float* cs, float val,
+                                             const float* r0) const {
+    using S = TeamShape<NX, NU>;
+    float* c = st ? cs : cs + kTeamFamilies * S::kXP;
+    const int w = st ? S::kXP : S::kUP;
+#pragma unroll
+    for (int f = 0; f < kTeamFamilies; ++f)
+      if (n[f]) c[f * w + k] = val + r0[(kTeamFields + f) * kThreads];
+  }
+  // The tracked x or u of row i.
+  __device__ __forceinline__ void track(int i, float val) const {
+    if (trk) trk[static_cast<size_t>(i) * step] = val;
+  }
+  // Row i's projection of each family from the lane's whole candidate, and
+  // this thread's feature of it: the new slack, and the dual from the one
+  // before its update. fsm: the cone and static hyperplane tables; tv: the
+  // family tables in device memory (the time-varying rows).
+  __device__ __forceinline__ void project(int i, float val, const float* cs,
+                                          const float* r0, const float* fsm,
+                                          const float* tv) const {
+    using S = TeamShape<NX, NU>;
+    const size_t a = static_cast<size_t>(i) * step;
+#pragma unroll
+    for (int f = 0; f < kTeamFamilies; ++f) {
+      if (!n[f]) continue;
+      const float sn =
+          st ? own<NX, S::kXP>(f, i, cs + f * S::kXP, fsm, tv)
+             : own<NU, S::kUP>(f, i, cs + kTeamFamilies * S::kXP +
+                                         f * S::kUP, fsm, tv);
+      const float dn0 = r0[(kTeamFields + f) * kThreads];
+      dua[f][a] = dn0 + val - sn;
+      slk[f][a] = sn;
+    }
+  }
+  // Family f's projection of row i of the candidate c (F features, FP
+  // padded), this thread's feature of the result.
+  template <int F, int FP>
+  __device__ __forceinline__ float own(int f, int i, const float* cv,
+                                       const float* fsm,
+                                       const float* tv) const {
+    float c[FP];
+    load_slot(c, cv);
+    if (f == 0) {
+      project_cones<F>(c, fsm + cones, n[0]);
+    } else if (f == 1) {
+      for (int s = 0; s < n[1]; ++s)
+        project_hyperplane<F>(c, fsm + al + s * F, fsm[bl + s],
+                              fsm[aq + s]);
+    } else {
+      for (int s = 0; s < n[2]; ++s)
+        project_hyperplane<F>(c, tv + tva + (i * n[2] + s) * F,
+                              tv[tvb + i * n[2] + s],
+                              tv[tvq + i * n[2] + s]);
+    }
+    float o = 0.f;
+#pragma unroll
+    for (int j = 0; j < F; ++j) o = select(j == k, c[j], o);
+    return o;
+  }
+};
+
 // Backward launch: d of every running lane from its previous iterate
 // (vprev / zprev, the duals g / y). Under adaptive rho (Rho =
 // AdaptiveRho<NX, NU, APPLY_C>) the lane's rho comes from ra.rho_in and the
 // products the Taylor update moves gain their drho-scaled sensitivity
-// products. Zeroes *active.
-template <int NX, int NU, class Rho>
+// products. With families (Fam = TeamFamilies, at fixed rho) each family's
+// term joins the row's linear cost after the box's. Zeroes *active.
+template <int NX, int NU, class Fam, class Rho>
 __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
                                   kTeamMinBlocks)
     stream_backward_team_kernel(
@@ -178,12 +399,17 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
         const float* __restrict__ zprev, const float* __restrict__ g,
         const float* __restrict__ y, float* __restrict__ d,
         const unsigned char* __restrict__ done, int* __restrict__ active,
-        int N, int B, float rho, typename Rho::Args ra) {
+        int N, int B, float rho, typename Rho::Args ra,
+        typename Fam::Args fp) {
   using S = TeamShape<NX, NU>;
   constexpr bool kAdapt = Rho::kAdaptive;
   constexpr bool kC = Rho::kApplyC;
+  constexpr bool kFam = !std::is_same_v<Fam, TeamNoFamilies>;
+  static_assert(!(kFam && kAdapt), "families on teams at fixed rho only");
   __shared__ __align__(16) float slots[S::kLanes * S::kBSlot];
-  __shared__ float ring[kTeamDepth][kTeamBackFields][S::kThreads];
+  __shared__ float ring[kTeamDepth][kTeamBackFields +
+                                    (kFam ? 2 * kTeamFamilies : 0)]
+                       [S::kThreads];
   __shared__ float pnref[2 * NX];
   const int t = threadIdx.x;
   const int row = t / S::kLanes, lane = t % S::kLanes;
@@ -249,6 +475,7 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const float* ref = tables + (st ? L.xref : L.uref) + k;
   const int items = st ? N : N - 1;
   const int top = st ? N - 1 : N - 2;
+  const Fam fam(fp, st, k, sB, b, N);
   // The lane's halves of p, r and w in its slot, by the step's parity.
   float* const sl = slots + lane * S::kBSlot;
   auto P = [&](int i) { return sl + (i & 1) * S::kXP; };
@@ -266,13 +493,18 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       stage_copy(&ring[s][0][t], slk + a);
       stage_copy(&ring[s][1][t], dua + a);
       stage_copy(&ring[s][2][t], ref + j * F);
+      fam.stage_back(&ring[s][0][t], j);
     }
     stage_commit();
   };
-  // The linear-cost term of item n: -(ref .* w) - rho (slack - dual).
+  // The linear-cost term of item n: -(ref .* w) - rho (slack - dual), then
+  // each family's.
   auto lin = [&](int n) {
     const int s = n % kTeamDepth;
-    return -(ring[s][2][t] * wq) - rho_l * (ring[s][0][t] - ring[s][1][t]);
+    return fam.terms(&ring[s][0][t],
+                     -(ring[s][2][t] * wq) -
+                         rho_l * (ring[s][0][t] - ring[s][1][t]),
+                     rho_l);
   };
   // d of row i from the lane's w: Quu_inv w (+ drho dC1 w under apply_c).
   auto store_d = [&](int i, const float* wv) {
@@ -300,7 +532,9 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       float pt = pnref[k];
       if constexpr (kAdapt) pt = pt + drho * pnref[NX + k];
       const int s = 0;
-      P(N - 1)[k] = pt - rho_l * (ring[s][0][t] - ring[s][1][t]);
+      P(N - 1)[k] = fam.terms(
+          &ring[s][0][t], pt - rho_l * (ring[s][0][t] - ring[s][1][t]),
+          rho_l);
     } else {
       r_own = lin(0);
       R(N - 2)[k] = r_own;
@@ -360,11 +594,17 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
 // AdaptiveRho<NX, NU, false>) the lane's rho comes from ra.rho_in, an
 // adaptation iteration (every kAdaptivePeriod-th, it > 0) moves it and the
 // virtual rho (ra.rho_v) before the termination check, and the lane's rho
-// goes to ra.rho_out; the adaptive tables follow the box tables.
-template <int NX, int NU, class Rho>
-__global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
-                                  Rho::kAdaptive ? kTeamAdaptMinBlocks
-                                                 : kTeamMinBlocks)
+// goes to ra.rho_out; the adaptive tables follow the box tables. With
+// families (Fam = TeamFamilies, at fixed rho) each row's families project
+// after the step's second barrier, from the lane's candidates; the cone and
+// static hyperplane tables take Families::static_floats floats of dynamic
+// shared memory.
+template <int NX, int NU, class Fam, class Rho>
+__global__ void __launch_bounds__(
+    TeamShape<NX, NU>::kThreads,
+    Rho::kAdaptive ? kTeamAdaptMinBlocks
+    : std::is_same_v<Fam, TeamNoFamilies> ? kTeamMinBlocks
+                                          : kTeamFamMinBlocks)
     stream_forward_team_kernel(
         const float* __restrict__ tables, const float* __restrict__ x0,
         const float* __restrict__ vd, const float* __restrict__ zd,
@@ -374,18 +614,31 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
         unsigned char* __restrict__ done, float* __restrict__ res,
         int* __restrict__ active, int it, int N, int B,
         int check_termination, float rho, float tol_pri, float tol_dua,
-        typename Rho::Args ra) {
+        typename Rho::Args ra, typename Fam::Args fp) {
   using S = TeamShape<NX, NU>;
   constexpr bool kAdapt = Rho::kAdaptive;
+  constexpr bool kFam = !std::is_same_v<Fam, TeamNoFamilies>;
+  static_assert(!(kFam && kAdapt), "families on teams at fixed rho only");
   __shared__ __align__(16) float xu[S::kLanes * S::kSlot];
-  __shared__ __align__(16) float gs[kAdapt ? S::kLanes * S::kGSlot : 4];
-  __shared__ float ring[kTeamDepth][kTeamFields][S::kThreads];
+  // Under adaptive rho the lanes' new duals g[i]; with families the lanes'
+  // candidate slots.
+  __shared__ __align__(16) float gs[kAdapt ? S::kLanes * S::kGSlot
+                                    : kFam ? S::kLanes * S::kCSlot
+                                           : 4];
+  __shared__ float ring[kTeamDepth][kTeamFields + (kFam ? kTeamFamilies : 0)]
+                       [S::kThreads];
   __shared__ float red[kAdapt ? 6 : 2][S::kThreads];
+  extern __shared__ __align__(16) float fsm[];   // the static family tables
   const int t = threadIdx.x;
   const int row = t / S::kLanes, lane = t % S::kLanes;
   const int b = blockIdx.x * S::kLanes + lane;
   const bool run = b < B && !done[b];
-  if (!__syncthreads_or(run)) return;
+  if constexpr (kFam) {
+    const int nt = Families<NX, NU>::static_floats(fp, NX, NU);
+    const float* src = tables + Layout(NX, NU, N).total;
+    for (int q = t; q < nt; q += S::kThreads) fsm[q] = src[q];
+  }
+  if (!__syncthreads_or(run)) return;   // and the family tables loaded
 
   const Layout L(NX, NU, N);
   const size_t sB = static_cast<size_t>(B);
@@ -430,6 +683,9 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const int rows = st ? N : N - 1;
   float* slot = xu + lane * S::kSlot;
   float* gslot = gs + lane * S::kGSlot;
+  float* cslot = gs + lane * S::kCSlot;
+  const Fam fam(fp, st, k, sB, b, N);
+  const float* tv = tables + L.total;   // the family tables, device memory
 
   // Stage step i's fields of this row (nothing for a done lane or past the
   // row's steps); one commit group a step, empty or not, on every thread.
@@ -442,6 +698,7 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       stage_copy(&ring[s][2][t], hi + i * F);
       if (checking) stage_copy(&ring[s][3][t], prev + a);
       if (!st) stage_copy(&ring[s][4][t], dff + a);
+      fam.stage_duals(&ring[s][0][t], i);
     }
     stage_commit();
   };
@@ -533,8 +790,12 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       }
       project(i, val, sn, dn);
       if (adapting && st) gslot[k] = dn;
+      fam.candidates(cslot, val, &ring[i % kTeamDepth][0][t]);
+      fam.track(i, val);
     }
-    __syncthreads();   // u of step i in the slots; g[i] under adaptation
+    // u of step i in the slots; g[i] under adaptation, the family
+    // candidates of step i with families
+    __syncthreads();
     if (run && st) {
       float u[S::kUP];
       load_slot(u, slot + S::kXP);
@@ -548,6 +809,8 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       slot[k] = xo;
       axd = s - xo;
     }
+    if (run)
+      fam.project(i, val, cslot, &ring[i % kTeamDepth][0][t], fsm, tv);
     if (adapting && run) {
       if (i >= 1) terms(i - 1);
       pa = val;
@@ -560,6 +823,18 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   stage_wait<0>();
   float snN = 0.f, dnN = 0.f;
   if (run && st) project(N - 1, xo, snN, dnN);
+  if constexpr (kFam) {
+    // Row N-1 of the state-side families: every thread has read step
+    // N-2's candidates before a state row writes row N-1's.
+    const float* r0 = &ring[(N - 1) % kTeamDepth][0][t];
+    __syncthreads();
+    if (run && st) {
+      fam.candidates(cslot, xo, r0);
+      fam.track(N - 1, xo);
+    }
+    __syncthreads();   // row N-1's candidates in the slots
+    if (run && st) fam.project(N - 1, xo, cslot, r0, fsm, tv);
+  }
   if (adapting) {
     // Every row's terms(N-3) of the last step has read g[N-2] from the
     // slot before a state row overwrites it with g[N-1]: a lane's rows sit

@@ -12,7 +12,8 @@ CUDA kernels in ``csrc/admm_stream.cu``: a backward sweep (the TPU kernel
 forward sweep (``admm_stream._forward_kernel``, and its ``stale`` variant
 for the first iteration of a warm solve) that rolls out, projects, updates
 the duals, accumulates the residuals and keeps each lane's bookkeeping; a
-box problem, at fixed or adaptive rho, runs both launches on lane teams
+box problem, at fixed or adaptive rho, and a problem with constraint
+families at fixed rho run both launches on lane teams
 (``csrc/admm_stream_team.cuh``, a thread a row of each lane). The
 loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
@@ -61,17 +62,21 @@ KERNEL = "admm_stream"
 
 # Launches in this process of each streamed kernel, by the name of its
 # instantiation: the one-thread backward kernel, forward kernel and its
-# stale variant (the problems with families), their consensus
-# instantiations and their adaptive ones (families with adaptive rho), and
-# the kernels on lane teams (box problems): the backward, the forward and
-# its stale launch, at fixed rho and at adaptive rho; chip_smoke.py resets
-# and reads them to show that the streamed path went through its kernels.
+# stale variant (which only ``_KERNELS(..., team=False)`` runs at fixed rho
+# without consensus), their consensus instantiations and their adaptive
+# ones (families with adaptive rho), and the kernels on lane teams: the
+# backward, the forward and its stale launch of box problems, at fixed rho
+# and at adaptive rho, and of problems with families at fixed rho;
+# chip_smoke.py resets and reads them to show that the streamed path went
+# through its kernels.
 launch_counts = dict.fromkeys(
     ("backward", "forward", "forward_stale", "backward_consensus",
      "forward_consensus", "forward_consensus_stale", "backward_adaptive",
      "forward_adaptive", "forward_adaptive_stale", "backward_team",
      "forward_team", "forward_team_stale", "backward_team_adaptive",
-     "forward_team_adaptive", "forward_team_adaptive_stale"), 0)
+     "forward_team_adaptive", "forward_team_adaptive_stale",
+     "backward_team_families", "forward_team_families",
+     "forward_team_families_stale"), 0)
 
 
 def _check(prob: TinyProblem) -> None:
@@ -537,16 +542,40 @@ def _team_fns():
     return bwd, fwd
 
 
+def _team_families_fns():
+    """The C entries of the launches on lane teams of problems with
+    families at fixed rho (csrc/admm_stream_team.cuh), built and loaded on
+    first use: (backward, forward)."""
+    lib = _build.load(KERNEL)
+    bwd = lib.tinympc_stream_backward_team_families
+    fwd = lib.tinympc_stream_forward_team_families
+    # nx nu N B | counts | rho | tables vprev zprev g y d done active |
+    # family array | the stream
+    bwd.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                         ctypes.c_float] + [_PTR] * 8 + [
+        _PTRS, _PTR]
+    # nx nu N B it ct | counts | rho tol_pri tol_dua | tables x0 vd zd vcur
+    # zcur g y d iters done res active | family array | x_out u_out | the
+    # stream
+    fwd.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_float] * 3 + [_PTR] * 13 + [_PTRS] + [_PTR] * 3
+    bwd.restype = fwd.restype = ctypes.c_int
+    return bwd, fwd
+
+
 class _KERNELS:
     """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
     :func:`_init`, on the current stream of x0's device; each adds one to
     its instantiation's entry of ``launch_counts``. A box problem (no
     family, no consensus), at fixed or adaptive rho, runs both launches on
     lane teams (``tinympc_stream_backward_team``,
-    ``tinympc_stream_forward_team``; ``team`` holds the pair); every other
-    problem runs the one-thread entries. ``team=False`` sends a box
-    problem's launches to the one-thread entries too, on the same state:
-    the in-process A/B of the two designs."""
+    ``tinympc_stream_forward_team``), and so does a problem with families
+    at fixed rho without consensus (``tinympc_stream_backward_team_families``,
+    ``tinympc_stream_forward_team_families``, counted under the keys with
+    ``_team_families``); ``team`` holds the pair, ``families`` says which.
+    Consensus, and families under adaptive rho, run the one-thread entries.
+    ``team=False`` sends every problem's launches to the one-thread entries,
+    on the same state: the in-process A/B of the two designs."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
                  tol_dua, fam, adapt=None, cons=None, team=True):
@@ -569,8 +598,12 @@ class _KERNELS:
                 s["yc0"].data_ptr(), s["offer"].data_ptr()))
             self.suffix = "_consensus"
         self.bwd, self.fwd = _kernel_fns()
-        self.team = (_team_fns() if team and cons is None and not any(fam)
-                     else None)
+        self.families = any(fam)
+        self.team = None
+        if team and cons is None and not self.families:
+            self.team = _team_fns()
+        elif team and cons is None and adapt is None:
+            self.team = _team_families_fns()
         if adapt is not None:
             # Each lane's rho is read and written in place (rho_in and
             # rho_out the same array), beside its virtual rho; the scratch
@@ -595,6 +628,19 @@ class _KERNELS:
 
     def backward(self, prev):
         s = self.s
+        if self.team is not None and self.families:
+            err = self.team[0](self.nx, self.nu, self.N, self.B, self.counts,
+                               self.rho, self.tables.data_ptr(),
+                               s["vnew"][prev].data_ptr(),
+                               s["znew"][prev].data_ptr(),
+                               *(s[k].data_ptr() for k in (
+                                   "g", "y", "d", "done", "active")),
+                               _ptr_array(s["fams"]), self.stream)
+            if err != 0:
+                raise RuntimeError(f"admm_stream team backward launch "
+                                   f"failed: CUDA error {err}")
+            launch_counts["backward_team_families"] += 1
+            return
         if self.team is not None:
             err = self.team[0](self.nx, self.nu, self.N, self.B, self.rho,
                                self.tables.data_ptr(),
@@ -647,6 +693,26 @@ class _KERNELS:
         s, cur = self.s, it % 2
         vd, zd = (self.carry.v, self.carry.z) if stale else \
             (s["vnew"][1 - cur], s["znew"][1 - cur])
+        if self.families:
+            err = self.team[1](self.nx, self.nu, self.N, self.B, it, self.ct,
+                               self.counts, self.rho, self.tol_pri,
+                               self.tol_dua, self.tables.data_ptr(),
+                               self.x0.data_ptr(), vd.data_ptr(),
+                               zd.data_ptr(), s["vnew"][cur].data_ptr(),
+                               s["znew"][cur].data_ptr(),
+                               *(s[k].data_ptr() for k in (
+                                   "g", "y", "d", "iters", "done", "res",
+                                   "active")),
+                               _ptr_array(s["fams"]),
+                               None if s["x"] is None else s["x"].data_ptr(),
+                               None if s["u"] is None else s["u"].data_ptr(),
+                               self.stream)
+            if err != 0:
+                raise RuntimeError(f"admm_stream team forward launch "
+                                   f"failed: CUDA error {err}")
+            launch_counts["forward_team_families"
+                          + ("_stale" if stale else "")] += 1
+            return
         err = self.team[1](self.nx, self.nu, self.N, self.B, it, self.ct,
                            self.rho, self.tol_pri, self.tol_dua,
                            self.tables.data_ptr(), self.x0.data_ptr(),
