@@ -24,7 +24,9 @@ past the resident kernel's wall, on 64; the rocket's box alone at N=32, a
 box problem at (6, 3); the rocket's cones at N=32 and, 20 iterations, at
 N=256 (phase 19's descent); the quadrotor's static and time-varying
 hyperplanes under low z ceilings at N=10 (phase 21's), and every family on
-both sides at N=16 (``_mixed``); consensus at N=10; and
+both sides at N=16 (``_mixed``); consensus at N=10, and -- cold and two
+warm solves -- in groups of 1, 2, 8, 16 and 128 at N=10, of 16 at N=256
+on 256 lanes, and the rocket's cones in groups of 8 at N=32; and
 with adaptive rho the box at N=64 -- the Crazyflie tables, with and
 without apply_c, and the guard at rho 1000 with its own sensitivities --
 at N=256 on 256 lanes, at N=1300 on 64, and the rocket's box alone at
@@ -51,7 +53,8 @@ the instructions are the same, and exits non-zero when any differs.
     python3 chip_compare.py race             # on the GPU
 
 ``race`` runs small streamed solves on lane teams (box problems, and
-problems with families at fixed rho) bitwise against the one-thread
+problems with families or consensus at fixed rho, the consensus groups in
+a block and across thread-block clusters) bitwise against the one-thread
 kernels, and small box consensus solves whose scenario groups
 span thread-block clusters bitwise against the one-thread consensus
 kernel (see ``race``); run it under ``compute-sanitizer --tool
@@ -82,7 +85,10 @@ U[0.9, 1.1]; also the stale forward launch of a warm solve from the carry
 of a 20-iteration warm solve from a zero carry) at each batch of
 ``stream``, and phase 21's static and time-varying planes under low
 ceilings at N=10, B=16384 (x0 = [-2, -2, 1, 0...] + 0.1 U[-1, 1]^12, the
-demo's step-0 reference window); each launch in turns with the one-thread
+demo's step-0 reference window), and consensus at rho_c 100 (the
+quadrotor at N=512 as above in groups of 8, 16 and 128 at each batch of
+``stream``, and bench_all.py:224-250's G=16 batch at N=10, B=32768, with
+its stale launch); each launch in turns with the one-thread
 launch on its own fresh state (``_KERNELS(..., team=False)``); with
 ``stream`` also phase 36's adaptive point (the quadrotor at N=2048 with the Crazyflie
 tables, B=1024, x0 ~ U[-0.3, 0.3]): the backward and the forward launch
@@ -385,6 +391,27 @@ def save(path):
         out.update(_flat(f"streamed.{name}.warm",
                          kern.solve_fused_streamed_warm(prob, Xref, Uref,
                                                         x0, c)))
+    # The streamed consensus launches at each group size (N=10), G=16 at
+    # N=256 on 256 lanes, and the rocket's cones in groups of 8 at N=32:
+    # cold and two warm solves, each warm solve's first launch stale.
+    scons = [(f"consensus_g{G}", tt.with_consensus(
+        _quad(tt, torch, 10, max_iter=200), rho_c=100.0),
+        x_q.reshape(B // G, G, 12), hover(10, 0.5), None)
+        for G in CONS_GROUPS]
+    scons += [("consensus256_g16", tt.with_consensus(
+        _quad(tt, torch, 256, max_iter=60), rho_c=100.0),
+        x_q[:256].reshape(16, 16, 12), hover(256, 0.5), None),
+        ("rocket_soc_consensus", tt.with_consensus(
+            _rocket(tt, torch, 32), rho_c=100.0), x_r.reshape(B // 8, 8, 6),
+         *descent(32))]
+    for name, prob, x0, Xref, Uref in scons:
+        out.update(_flat(f"streamed.{name}.cold", kern.solve_fused_streamed(
+            prob, Xref, Uref, x0)))
+        c = tt.init_carry(prob, x0.shape[0] * x0.shape[1])
+        for step in range(2):
+            w = kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, c)
+            out.update(_flat(f"streamed.{name}.warm{step}", w))
+            c = w[2]
     torch.save({k: v.cpu() for k, v in out.items()}, path)
     print(f"chip_compare: {len(out)} tensors saved to {path}; card "
           f"{torch.cuda.get_device_name(0)}")
@@ -606,6 +633,8 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
     points += [(STREAM_ADAPT_B, "quadrotor_adaptive")] if stream else []
     points += [(b, "rocket_soc") for b in stream]
     points += [(16384, sy) for sy in ("linear", "tv")] if stream else []
+    points += [(b, f"consensus_g{G}") for b in stream for G in (8, 16, 128)]
+    points += [(32768, "consensus_g16_n10")] if stream else []
     for B_, system in points:
         rng = np.random.default_rng(0)
         Uref, n_, carry = None, N, None
@@ -622,6 +651,30 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
             n_ = 10
             prob = _planes(tt, torch, system == "tv", n_)
             x0, Xref = _plane_inputs(torch, B_, n_, rng)
+        elif system.startswith("consensus"):
+            # N=512 in groups of 8, 16 or 128 (in a block, and clusters of
+            # 2 and 16 blocks on lane teams); and bench_all.py:224-250's
+            # G=16 batch at N=10
+            # (nominal U[-0.3, 0.3] a group plus 0.05 U[-1, 1] a lane, z
+            # 0.5), with the stale launch from the carry of a 100-iteration
+            # warm solve from a zero carry
+            G = int(system.split("_g")[1].split("_")[0])
+            short = system.endswith("_n10")
+            n_ = 10 if short else N
+            prob = tt.with_consensus(_quad(tt, torch, n_, max_iter=20),
+                                     rho_c=100.0)
+            Xref = torch.zeros((n_, 12), **kw)
+            Xref[:, 2] = 0.5 if short else 1.0
+            if short:
+                x0 = torch.as_tensor(
+                    rng.uniform(-0.3, 0.3, (B_ // G, 1, 12))
+                    + 0.05 * rng.uniform(-1, 1, (B_ // G, G, 12)), **kw)
+                carry = tt.kernels.solve_fused_streamed_warm(
+                    tt.with_settings(prob, max_iter=100), Xref, None, x0,
+                    tt.init_carry(prob, B_))[2]
+            else:
+                x0 = torch.as_tensor(rng.uniform(-0.3, 0.3, (B_, 12)),
+                                     **kw).reshape(B_ // G, G, 12)
         elif system.startswith("quadrotor"):
             n_ = STREAM_ADAPT_N if system == "quadrotor_adaptive" else N
             prob = _quad(tt, torch, n_, max_iter=20, ct=1)
@@ -657,14 +710,15 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
         def fresh(design):
             """The launches of ``names`` on fresh states of one design."""
             s = admm_stream._init(x0c, n_, nx, nu, None, params["fam"],
-                                  None, rho0)
+                                  params["cons"], rho0)
             run = admm_stream._KERNELS(tables, x0c, s, None, n_, nx, nu,
                                        **kw_, team=design)
             launches = [("backward", lambda: run.backward(1))]
             launches += [(f"forward{it or ''}", lambda it=it:
                           run.forward(it, False)) for it in its]
             if c_t is not None:
-                sw = admm_stream._init(x0c, n_, nx, nu, c_t, params["fam"])
+                sw = admm_stream._init(x0c, n_, nx, nu, c_t, params["fam"],
+                                       params["cons"])
                 warm = admm_stream._KERNELS(tables, x0c, sw, c_t, n_, nx, nu,
                                             **kw_, team=design)
                 warm.backward(1)
@@ -789,7 +843,10 @@ def race():
     quadrotor's static and time-varying planes under low ceilings and
     every family on both sides (``_mixed``); N=16, B=20 (a partial last
     team block), max_iter 20, ct 1, so that iterations 5, 10 and 15 adapt
-    rho; cold, then warm
+    rho; and consensus at rho_c 100 on the quadrotor in 8 groups of 8 (a
+    block), 4 of 16, 2 of 32 and 1 of 128 (clusters of 2, 4 and 16
+    blocks), and on the rocket's cones in 2 groups of 32 (a cluster of 2);
+    cold, then warm
     from the carry of a warm solve from a zero carry. Prints one line a solve and exits
     non-zero when any differs. Small enough to run under
     ``compute-sanitizer --tool racecheck``, which reports the kernels'
@@ -832,6 +889,15 @@ def race():
     cases += [("mixed families", tt.with_settings(_mixed(tt, torch, N),
                                                   max_iter=20),
                x_p, X_p, None)]
+    rng_c = np.random.default_rng(1)
+    x_c = torch.as_tensor(rng_c.uniform(-0.3, 0.3, (128, 12)), **kw)
+    x_rc = torch.as_tensor(xinit * rng_c.uniform(0.9, 1.2, (64, 1)), **kw)
+    cases += [(f"consensus {128 // G} x {G}", tt.with_consensus(
+        quad(), rho_c=100.0), x_c.reshape(128 // G, G, 12), hover, None)
+        for G in (8, 16, 32, 128)]
+    cases += [("rocket SOC consensus 2 x 32", tt.with_consensus(
+        tt.with_settings(_rocket(tt, torch, N), max_iter=20), rho_c=100.0),
+        x_rc.reshape(2, 32, 6), X_r, U_r)]
     one_thread = functools.partial(admm_stream._KERNELS, team=False)
     bad = race_consensus()
     for name, prob, x0, Xref, Uref in cases:
@@ -856,7 +922,8 @@ def race():
                   f"{'bitwise the one-thread solve' if same else 'DIFFERS'}"
                   f", iterations {int(team[0].iter.max())}")
             carry = tt.kernels.solve_fused_streamed_warm(
-                prob, Xref, Uref, x0, tt.init_carry(prob, B_))[2]
+                prob, Xref, Uref, x0, tt.init_carry(prob, x0.shape[0] * (
+                    x0.shape[1] if x0.dim() == 3 else 1)))[2]
     return 1 if bad else 0
 
 

@@ -63,9 +63,11 @@ calls, and holds every kernel against its plain PyTorch version:
   low-ceiling hyperplane batches; and the long-horizon set-up at N=2048,
   past the resident kernel's shared-memory wall -- through
   kernels.solve_fused_streamed(_warm); box problems, at fixed and adaptive
-  rho, and problems with families at fixed rho (the rocket's cones, the
-  hyperplane demos) on the lane-team kernels of csrc/admm_stream_team.cuh
-  (both launches), each route checked from the launch counts;
+  rho, problems with families at fixed rho (the rocket's cones, the
+  hyperplane demos) and consensus problems at fixed rho (a scenario group
+  in a block, or across a thread-block cluster) on the lane-team kernels of
+  csrc/admm_stream_team.cuh (both launches), each route checked from the
+  launch counts;
 * scenario-tree consensus on u[0] on the thread-group kernel
   csrc/admm_group.cu (entry tinympc_admm_group_consensus: a scenario
   group's offers through one block's shared memory, or through a
@@ -189,8 +191,10 @@ moved to the host):
    [100, 400]; precise_tail 200 after a budget of 100; consensus 128 x 8 on
    both backends;
 27. the streamed consensus kernels against their plain version and,
-   bitwise, the resident consensus kernel: phase 23's shapes at rho_c 100,
-   ct 1, cold then 4 warm solves;
+   bitwise, the resident consensus kernel: phase 23's shapes and groups
+   of 1 and 16 at rho_c 100, ct 1, cold then 4 warm solves, on the team
+   consensus entries; each team launch bitwise the one-thread launch on
+   the same state, cold and warm (its first launch stale);
 28. the mixed batch at B=262144 in phases [100, 400], bitwise against one
    long solve_fused, with both times and the long solve's lane, warp and
    block occupancy;
@@ -203,7 +207,8 @@ moved to the host):
    first-convergence freeze, the spread bar (its witness admm.solve on the
    same phases); the same batch through
    solve_fused_streamed beside the resident consensus kernel, and the
-   streamed consensus kernels per launch;
+   streamed consensus kernels per launch, on lane teams and on one thread
+   a lane in turns (CUDA events and torch.profiler device time);
 32. the ladder against its matched-budget control, bitwise;
 33. the families adaptive kernel against its plain versions, small
    (B=1024): the rocket SOC cold (and with apply_c) and over 5 warm
@@ -271,7 +276,7 @@ against the resident kernel on the same inputs (the same device functions;
 phases 17-21, and under consensus phases 27 and 31), and against its plain
 version at the bar, each single launch too; each team launch is held
 bitwise against the one-thread launch on the same state (team=False,
-phases 17-22, 35, 36); a compacted solve is held
+phases 17-22, 27, 35, 36); a compacted solve is held
 bitwise against one long kernel solve (kernel against kernel: cuBLAS's
 order in a plain version depends on the width) and at the bar against
 compaction on the plain versions on the CPU; a plain run of fewer than 16384 lanes takes the batch repeated to
@@ -935,6 +940,7 @@ def kernel_label(fn):
                   fn)
     if m:
         fam = " families" if "TeamFamilies" in fn else ""
+        fam += " consensus" if "TeamConsensus" in fn else ""
         return (f"admm_stream {m[1]} team{fam}"
                 f"{' ' + adapt if adapt else ''} ({m[2]}, {m[3]})")
     m = re.search(r"dot_independent_mma_kernelILi(\d+)E", fn)
@@ -1565,47 +1571,69 @@ def witness_text(lt):
             f"max|d| {w['b_cpu']:.3e}, forward {w['f_cpu']:.3e})")
 
 
-def team_route(prob):
+def team_route(prob, group=None):
     """Whether a problem's streamed launches run on lane teams
-    (csrc/admm_stream_team.cuh): without consensus, a box problem at fixed
-    or adaptive rho, or a problem with families at fixed rho."""
+    (csrc/admm_stream_team.cuh): a box problem at fixed or adaptive rho, a
+    problem with families at fixed rho, and a consensus problem at fixed
+    rho in scenario groups of ``group`` lanes whose thread-block cluster
+    the card can form (admm_stream.team_consensus_route, asking the loaded
+    library's occupancy query)."""
     spec = prob.spec
-    return not spec.en_consensus and not (spec.any_extra_family
-                                          and prob.settings.adaptive_rho)
+    if spec.en_consensus:
+        import ctypes
+        from tinympc_tpu_torch.kernels import admm_fused, admm_stream
+        fits = admm_stream._team_consensus_fns()[2]
+        counts = (ctypes.c_int * 6)(*admm_fused._families(spec))
+        return admm_stream.team_consensus_route(
+            group, spec.nx,
+            lambda c: fits(spec.nx, spec.nu, counts, c)) is not None
+    return not (spec.any_extra_family and prob.settings.adaptive_rho)
 
 
-def stream_keys(prob):
+def stream_keys(prob, group=None):
     """The launch counts of the streamed kernels a problem runs: backward,
     forward and stale forward (on lane teams for a box problem, adaptive or
-    not, and for families at fixed rho, ``_team_families``)."""
-    sfx = "_adaptive" if prob.settings.adaptive_rho else ""
-    team = "" if not team_route(prob) else \
+    not, for families at fixed rho, ``_team_families``, and for consensus
+    in groups of ``group`` lanes, ``_team_consensus``, where its cluster
+    can be formed)."""
+    sfx = "_adaptive" if prob.settings.adaptive_rho else \
+        "_consensus" if prob.spec.en_consensus else ""
+    team = "" if not team_route(prob, group) else \
+        "_team" if prob.spec.en_consensus else \
         "_team_families" if prob.spec.any_extra_family else "_team"
     return (f"backward{team}{sfx}", f"forward{team}{sfx}",
             f"forward{team}{sfx}_stale")
 
 
-def took_route(ast, label, prob):
+def took_route(ast, label, prob, group=None):
     """Fail the run unless both streamed launches since the counts were
     last zeroed took the problem's route: the team entries alone for a box
-    problem (fixed or adaptive rho) and for families at fixed rho, the
-    family team entries (``_team_families``) for the latter; the
-    one-thread kernels alone for any other (families under adaptive rho,
-    consensus)."""
+    problem (fixed or adaptive rho), for families at fixed rho and for
+    consensus in groups of ``group`` lanes whose cluster can be formed --
+    the consensus team entries (``_team_consensus``) for consensus, with or
+    without families, the family team entries (``_team_families``) for
+    families without it; the one-thread kernels alone for any other
+    (families under adaptive rho, a cluster the card cannot form)."""
     c = ast.launch_counts
-    want = "lane teams" if team_route(prob) else "one thread a lane"
+    route = team_route(prob, group)
+    want = "lane teams" if route else "one thread a lane"
+    cons = prob.spec.en_consensus
     for side in ("backward", "forward"):
         team = sum(v for k, v in c.items()
                    if k.startswith(side) and "_team" in k)
         other = sum(v for k, v in c.items()
                     if k.startswith(side) and "_team" not in k)
-        ok = (team > 0 and other == 0) if team_route(prob) else \
+        ok = (team > 0 and other == 0) if route else \
             (team == 0 and other > 0)
-        if team_route(prob):
-            # the family team entries for families, the box ones for a box
+        if route:
+            # the consensus team entries for consensus, the family ones for
+            # families without it, the box ones for a box
+            tcons = sum(v for k, v in c.items()
+                        if k.startswith(side) and "_team_consensus" in k)
             fams = sum(v for k, v in c.items()
                        if k.startswith(side) and "_team_families" in k)
-            ok = ok and (fams == team) == prob.spec.any_extra_family
+            ok = ok and (tcons == team) == cons and (fams == team) == (
+                prob.spec.any_extra_family and not cons)
         got = {k: v for k, v in c.items() if k.startswith(side) and v}
         log(f"  {label}: {side} launches {got} (want {want})")
         fail(f"{label} {side} route", ok,
@@ -1616,7 +1644,8 @@ def took_route(ast, label, prob):
 # the kernels line measured: at (12, 4) the box and consensus phases
 # (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35). Every
 # streamed instantiation, the family team kernels at (12, 4) of phase 21
-# too, is held to no spill when it is built.
+# and the consensus ones with families or at (6, 3) of phase 27 too, is
+# held to no spill when it is built.
 STREAM_PTXAS = {
     "backward_team": "admm_stream backward team (12, 4)",
     "forward_team": "admm_stream forward team (12, 4)",
@@ -1628,6 +1657,10 @@ STREAM_PTXAS = {
     "backward_consensus": "admm_stream backward consensus (12, 4)",
     "forward_consensus": "admm_stream forward consensus (12, 4)",
     "forward_consensus_stale": "admm_stream forward stale consensus (12, 4)",
+    "backward_team_consensus": "admm_stream backward team consensus (12, 4)",
+    "forward_team_consensus": "admm_stream forward team consensus (12, 4)",
+    "forward_team_consensus_stale":
+        "admm_stream forward team consensus (12, 4)",
     "backward_team_adaptive": "admm_stream backward team adaptive (12, 4)",
     "forward_team_adaptive": "admm_stream forward team adaptive (12, 4)",
     "forward_team_adaptive_stale":
@@ -1639,9 +1672,10 @@ STREAM_PTXAS = {
 
 
 def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
-    """Each team launch of a box problem, or of families at fixed rho,
-    against the one-thread launch on the same state (``_KERNELS(...,
-    team=False)``), bitwise: from the state
+    """Each team launch of a box problem, of families at fixed rho, or of
+    consensus (x0 (n_groups, G, nx); the lanes' zc0, yc0 and standing
+    offers compared too), against the one-thread launch on the same state
+    (``_KERNELS(..., team=False)``), bitwise: from the state
     the team kernels reach in some iterations (3 cold, 4 under adaptive
     rho, so that the second compared forward launch adapts rho; none warm,
     whose first launch is the stale one), two iterations from copies of
@@ -1670,8 +1704,11 @@ def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
     one = ast._KERNELS(tables, x0c, s1, carry_t, N, nx, nu, **kw,
                        team=False)
     keys = [k for k in ("vnew", "znew", "g", "y", "d", "iters", "done",
-                        "res", "active", "rho", "rho_v", "x", "u")
+                        "res", "active", "rho", "rho_v", "x", "u", "zc0",
+                        "yc0", "offer")
             if s[k] is not None]
+    if run.team is None:
+        raise AssertionError(f"{label}: the launches are not on lane teams")
     same, ms = True, {}
     for it in (first, first + 1):
         stale = warm and it == 0
@@ -1693,6 +1730,68 @@ def team_bits(ctx, label, prob, Xref, Uref, x0, carry=None):
                                               key=lambda kv: kv[0][1:])))
     fail(f"{label} team launches", same, "a team launch differs from the "
          "one-thread launch on the same state")
+
+
+def device_ms(torch, fn):
+    """Device milliseconds of the kernels one call of ``fn`` launches, by
+    torch.profiler (the kernel's own time, without the host's launch path
+    that CUDA events also hold); None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us and "kernel" in e.key:
+            total += us
+    return total / 1e3 if total else None
+
+
+def design_times(ctx, prob, Xref, Uref, x0, carry=None, reps=REPS):
+    """The backward and forward launch of iteration 0 (the forward stale
+    with a carry) on fresh states, on lane teams and on one thread a lane
+    (``team=False``) in turns: the median of ``reps`` CUDA-event times and
+    the median of 3 torch.profiler device times of each, by launch and
+    design."""
+    torch, ast = ctx.torch, ctx.ast
+    warm = carry is not None
+    tables, x0c, carry_t, params = ast._prepare(prob, Xref, Uref, x0, carry,
+                                                warm)
+    spec = prob.spec
+    N, nx, nu = spec.N, spec.nx, spec.nu
+    kw = {k: v for k, v in params.items() if k != "max_iter"}
+
+    def fresh(team):
+        s = ast._init(x0c, N, nx, nu, carry_t, params["fam"], params["cons"],
+                      None if params["adapt"] is None else params["rho"])
+        run = ast._KERNELS(tables, x0c, s, carry_t, N, nx, nu, **kw,
+                           team=team)
+        return {"backward": lambda: run.backward(1),
+                "forward": lambda: run.forward(0, warm)}
+
+    ev, dev = {}, {}
+    for rep in range(reps + 3):
+        for team in (True, False):
+            design = "team" if team else "one thread"
+            for side, fn in fresh(team).items():
+                if rep < reps:
+                    ev.setdefault((side, design), []).append(
+                        cuda_ms(torch, fn, 1)[0])
+                else:
+                    dev.setdefault((side, design), []).append(
+                        device_ms(torch, fn))
+    out = {}
+    for (side, design), t in ev.items():
+        d = [v for v in dev[(side, design)] if v is not None]
+        out.setdefault(side, {})[design] = dict(
+            ms=statistics.median(t),
+            device_ms=statistics.median(d) if d else None)
+    return out
 
 
 def team_lanes(ast, spec):
@@ -2499,11 +2598,15 @@ def warp_shares(iters, its, warp, block):
             / (its * B) for n in (1, warp, block)}
 
 
-def stream_consensus_small(torch, tt, ast, counters):
+def stream_consensus_small(ctx):
     """Phase 27: the streamed consensus kernels against their plain version
     and, bitwise, against the resident consensus kernel, cold and then 4
-    warm solves (phase 23's shapes). Returns the largest difference from
-    the plain version."""
+    warm solves (phase 23's shapes, and groups of 1 and 16), on the route
+    the group takes (the team consensus entries, in a block or across a
+    cluster); each team launch bitwise the one-thread launch on the same
+    state, cold and warm. Returns the largest difference from the plain
+    version."""
+    torch, tt, ast, counters = ctx.torch, ctx.tt, ctx.ast, ctx.counters
     kern = tt.kernels
     ref, ref_warm = (kern.solve_fused_streamed_reference,
                      kern.solve_fused_streamed_warm_reference)
@@ -2512,7 +2615,8 @@ def stream_consensus_small(torch, tt, ast, counters):
     err = 0.0
     cases = [(f"quadrotor rho_c={CONS_RHO} {ng}x{G}", (ng, G), "quad")
              for ng, G in ((CONS_SMALL_B // 8, 8), (CONS_SMALL_B // 2, 2),
-                           (8, CONS_SMALL_B // 8))]
+                           (8, CONS_SMALL_B // 8), (CONS_SMALL_B, 1),
+                           (CONS_SMALL_B // 16, 16))]
     cases.append((f"rocket SOC rho_c={CONS_RHO} {CONS_SMALL_B // 8}x8",
                   (CONS_SMALL_B // 8, 8), "rocket"))
     for label, (ng, G), kind in cases:
@@ -2531,10 +2635,17 @@ def stream_consensus_small(torch, tt, ast, counters):
         zero_counts(counters)
         cold = kern.solve_fused_streamed(prob, Xref, Uref, x)
         torch.cuda.synchronize()
-        if ast.launch_counts["forward_consensus"] < 1:
+        if ast.launch_counts[stream_keys(prob, G)[1]] < 1:
             raise AssertionError(f"{label} did not launch the streamed "
                                  "consensus kernels")
-        took_route(ast, f"{label} streamed cold", prob)
+        took_route(ast, f"{label} streamed cold", prob, G)
+        # Each team launch against the one-thread launch on the same
+        # state, cold, then warm from a carry (its first launch stale).
+        team_bits(ctx, f"{label} streamed", prob, Xref, Uref, x)
+        team_bits(ctx, f"{label} streamed warm", prob, Xref, Uref, x,
+                  kern.solve_fused_streamed_warm(
+                      tt.with_settings(prob, max_iter=20), Xref, Uref, x,
+                      tt.init_carry(prob, B))[2])
         same_bits(torch, f"{label} streamed cold", cold,
                   kern.solve_fused(prob, Xref, Uref, x), "solve_fused")
         sol_p, res_p = plain_groups(torch, ref, prob, Xref, Uref, x)
@@ -2547,7 +2658,9 @@ def stream_consensus_small(torch, tt, ast, counters):
         for step in range(1, 5):
             name = f"{label} streamed warm step {step}"
             before = agreed.clone()
+            zero_counts(counters)
             s = kern.solve_fused_streamed_warm(prob, Xref, Uref, x, c_s)
+            took_route(ast, name, prob, G)
             r = kern.solve_fused_warm(prob, Xref, Uref, x, c_r)
             sol_p, _, c_p = plain_groups(torch, ref_warm, prob, Xref, Uref, x,
                                          c_p)
@@ -2574,7 +2687,8 @@ WARM_COUNTS = ("warm_launch_count", "families_warm_launch_count",
                "consensus_warm_launch_count")
 STALE_COUNTS = ("forward_stale", "forward_consensus_stale",
                 "forward_adaptive_stale", "forward_team_stale",
-                "forward_team_adaptive_stale", "forward_team_families_stale")
+                "forward_team_adaptive_stale", "forward_team_families_stale",
+                "forward_team_consensus_stale")
 
 
 def compact_drive(ctx, label, prob, x0, Xref=None, Uref=None, entries=None,
@@ -2678,7 +2792,7 @@ def compaction_phases(ctx):
             f"{fk.solved.float().mean().item():.5f}, plain (CPU) "
             f"{plain_ms:.1f} ms")
 
-    err = stream_consensus_small(torch, tt, ast, counters)
+    err = stream_consensus_small(ctx)
 
     # 28. bench_all.py:448-452 / :497-501, the mixed batch to convergence
     B = COMPACT_B
@@ -2792,7 +2906,8 @@ def compaction_phases(ctx):
                             entries={GROUP_CONS} if be == "resident"
                             else set())
         if be == "streamed":
-            stale = ast.launch_counts["forward_consensus_stale"]
+            took_route(ast, f"G={G} streamed compaction", prob, G)
+            stale = ast.launch_counts[stream_keys(prob, G)[2]]
     same_bits(torch, f"G={G} compaction", comp["streamed"], comp["resident"],
               "the resident backend")
     # The manual loop on the card: every phase relaunches every group
@@ -2851,12 +2966,12 @@ def compaction_phases(ctx):
     zero_counts(counters)
     s_cold = kern.solve_fused_streamed(prob, Xref, None, x0)
     torch.cuda.synchronize()
-    launches = (ast.launch_counts["backward_consensus"],
-                ast.launch_counts["forward_consensus"])
+    keys = stream_keys(prob, G)
+    launches = (ast.launch_counts[keys[0]], ast.launch_counts[keys[1]])
     if min(launches) < 1 or stale < 1:
         raise AssertionError("the G=16 batch did not launch the streamed "
                              "consensus kernels")
-    took_route(ast, f"G={G} streamed solve", prob)
+    took_route(ast, f"G={G} streamed solve", prob, G)
     same_bits(torch, f"G={G} streamed solve", s_cold,
               kern.solve_fused(prob, Xref, None, x0), "solve_fused")
     t = {name: statistics.median(host_ms(torch, fn)[0] for _ in range(3))
@@ -2893,6 +3008,18 @@ def compaction_phases(ctx):
                     peak_flops, peak_bw)
     log(f"  G={G}: lanes that converged in the measured forward launch "
         f"{lt['converged']}, stale {lt_s['converged']}")
+    # Both designs per launch, in turns on fresh states: lane teams and
+    # one thread a lane (team=False), CUDA events and device time.
+    designs = design_times(ctx, prob, Xref, None, x0)
+    designs_s = design_times(ctx, prob, Xref, None, x0, c1)
+    for name, d in (("backward", designs["backward"]),
+                    ("forward", designs["forward"]),
+                    ("forward stale", designs_s["forward"])):
+        log(f"  G={G} streamed consensus {name} by design: " + "; ".join(
+            f"{k} events {v['ms']:.4f} ms, device "
+            + ("not measured" if v["device_ms"] is None
+               else f"{v['device_ms']:.4f} ms") for k, v in d.items())
+            + f"; card {card}")
     for name, ms, plain, b, e in (
             ("backward", lt["bwd_ms"], lt["plain_bwd_ms"], b_bwd,
              lt["err_b"]),
@@ -2906,15 +3033,15 @@ def compaction_phases(ctx):
         fail(f"G={G} streamed consensus {name}", e <= BAR_ATOL,
              f"one launch differs from its plain version by {e:.3e}")
     rows = {
-        "backward_consensus": dict(
+        keys[0]: dict(
             launches=launches[0], err=max(err, lt["err_b"]),
             ms=lt["bwd_ms"], plain_ms=lt["plain_bwd_ms"], bound_ms=b_bwd[0],
             bound_by=b_bwd[1]),
-        "forward_consensus": dict(
+        keys[1]: dict(
             launches=launches[1], err=max(err, lt["err_f"]),
             ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"], bound_ms=b_fwd[0],
             bound_by=b_fwd[1]),
-        "forward_consensus_stale": dict(
+        keys[2]: dict(
             launches=stale, err=max(err, lt_s["err_f"]), ms=lt_s["fwd_ms"],
             plain_ms=lt_s["plain_fwd_ms"], bound_ms=b_stale[0],
             bound_by=b_stale[1])}
@@ -4636,15 +4763,14 @@ def main():
                   "tinympc_tpu/kernels/admm_stream.py:258"),
                  ("forward_team_families_stale", "admm_stream_team.cuh",
                   "tinympc_tpu/kernels/admm_stream.py:258"))]
-    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
-              rep, compact_rows[key])
-             for key, rep in (
-                 ("backward_consensus",
-                  "tinympc_tpu/kernels/admm_stream.py:121"),
-                 ("forward_consensus",
-                  "tinympc_tpu/kernels/admm_stream.py:258"),
-                 ("forward_consensus_stale",
-                  "tinympc_tpu/kernels/admm_stream.py:258"))]
+    # The streamed consensus launches of phase 31, on the route the G=16
+    # batch took (lane teams, csrc/admm_stream_team.cuh).
+    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/"
+              + ("admm_stream_team.cuh" if "_team" in key
+                 else "admm_stream.cu"),
+              "tinympc_tpu/kernels/admm_stream.py:"
+              + ("121" if key.startswith("backward") else "258"), r)
+             for key, r in compact_rows.items()]
     rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_fam_rows[key])
              for key in ("adaptive_families", "adaptive_families_warm")]

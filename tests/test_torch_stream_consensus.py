@@ -14,6 +14,7 @@ version and, bitwise, against the resident consensus kernel."""
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import types
 
 import jax.numpy as jnp
@@ -271,7 +272,10 @@ class _Entries:
 
 
 def test_host_loop_launches_the_consensus_kernels(monkeypatch):
-    """Cold then warm through the kernel launchers on a consensus problem:
+    """Cold then warm through the one-thread kernel launchers
+    (``_KERNELS(..., team=False)``: the in-process A/B, and the route of a
+    group whose cluster cannot be formed; the team consensus entries have
+    tests/test_torch_stream_team_consensus.py) on a consensus problem:
     every launch gets the group size, rho_c and the three lane arrays, the
     warm solve tracks x/u, the consensus counters count (the others stay
     at 0), and the carry hands over zc0 / yc0 and x/u."""
@@ -287,11 +291,11 @@ def test_host_loop_launches_the_consensus_kernels(monkeypatch):
     prob = _port(_jax_problem(10, 5, rho_c=50.0, check_termination=2))
     x0 = torch.zeros((2, 4, 12))
     tables, x, _, params = admm_stream._prepare(prob, None, None, x0)
-    admm_stream._loop(tables, x, None, prob.spec, admm_stream._KERNELS,
-                      **params)
+    one = functools.partial(admm_stream._KERNELS, team=False)
+    admm_stream._loop(tables, x, None, prob.spec, one, **params)
     carry = admm_fused._carry_tensors(prob, init_carry(prob, 8), 8)
-    _, _, out = admm_stream._loop(tables, x, carry, prob.spec,
-                                  admm_stream._KERNELS, **params)
+    _, _, out = admm_stream._loop(tables, x, carry, prob.spec, one,
+                                  **params)
     cons = (4, 50.0, True)
     assert e.calls == [("bwd", cons), ("fwd", 0, False, False, cons),
                        ("bwd", cons), ("fwd", 1, False, False, cons),
@@ -305,7 +309,9 @@ def test_host_loop_launches_the_consensus_kernels(monkeypatch):
         "backward_team": 0, "forward_team": 0, "forward_team_stale": 0,
         "backward_team_adaptive": 0, "forward_team_adaptive": 0,
         "forward_team_adaptive_stale": 0, "backward_team_families": 0,
-        "forward_team_families": 0, "forward_team_families_stale": 0}
+        "forward_team_families": 0, "forward_team_families_stale": 0,
+        "backward_team_consensus": 0, "forward_team_consensus": 0,
+        "forward_team_consensus_stale": 0}
     for name in ("zc0", "yc0", "x", "u"):
         assert getattr(out, name) is not None, name
 

@@ -658,23 +658,27 @@ def _adaptive():
 
 
 @pytest.mark.parametrize("make,x0,suffix", [
-    (_soc, (4, 6), "_team_families"), (_consensus, (2, 4, 12), "_consensus"),
+    (_soc, (4, 6), "_team_families"),
+    (_consensus, (2, 4, 12), "_team_consensus"),
     (_adaptive, (4, 12), "_adaptive")], ids=["soc", "consensus", "adaptive"])
 def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
                                                           monkeypatch):
-    """Families under adaptive rho and consensus: every launch on the
-    one-thread entries, counted under their own keys, the box team entries
-    never loaded. Families at fixed rho (the rocket's cones) take the
-    family team entries instead, under backward_team_families /
-    forward_team_families, and never the one-thread ones."""
+    """Families under adaptive rho: every launch on the one-thread entries,
+    counted under their own keys, the box team entries never loaded.
+    Families at fixed rho (the rocket's cones) take the family team entries
+    instead, under backward_team_families / forward_team_families, and
+    consensus the consensus team entries, under backward_team_consensus /
+    forward_team_consensus; neither takes the one-thread ones."""
     calls = []
-    teams = suffix == "_team_families"
+    teams = suffix.startswith("_team")
+    cons = suffix == "_team_consensus"
 
     def record(name):
         def entry(*args):
             calls.append(name)
             # the iteration, ct and the flag's places in each forward entry
-            at = {"fwd": (5, 6, 22), "team_fwd": (4, 5, 22)}.get(name)
+            at = {"fwd": (5, 6, 22), "team_fwd": (4, 5, 22),
+                  "cons_fwd": (4, 5, 22)}.get(name)
             if at and (args[at[0]] + 1) % args[at[1]] == 0:
                 ctypes.c_int.from_address(args[at[2]]).value = 0
             return 0
@@ -688,7 +692,10 @@ def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
     monkeypatch.setattr(admm_stream, "_team_fns", no_team)
     monkeypatch.setattr(admm_stream, "_team_families_fns",
                         lambda: (record("team_bwd"), record("team_fwd"))
-                        if teams else no_team())
+                        if teams and not cons else no_team())
+    monkeypatch.setattr(admm_stream, "_team_consensus_fns",
+                        lambda: (record("cons_bwd"), record("cons_fwd"),
+                                 lambda *a: True) if cons else no_team())
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -700,7 +707,8 @@ def test_other_problems_keep_the_one_thread_forward_kernel(make, x0, suffix,
                                                 torch.zeros(x0))
     admm_stream._loop(tables, x, None, prob.spec, admm_stream._KERNELS,
                       **params)
-    assert calls == (["team_bwd", "team_fwd"] if teams else
+    assert calls == (["cons_bwd", "cons_fwd"] if cons else
+                     ["team_bwd", "team_fwd"] if teams else
                      ["bwd", "fwd"]) * 2
     assert admm_stream.launch_counts == dict(
         dict.fromkeys(admm_stream.launch_counts, 0),

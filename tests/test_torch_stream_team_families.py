@@ -745,6 +745,9 @@ def entries(monkeypatch):
         e.record("box_backward", None, None), e.record("box_forward", 4, 21)))
     monkeypatch.setattr(admm_stream, "_team_families_fns",
                         lambda: (e.team_backward, e.team_forward))
+    monkeypatch.setattr(admm_stream, "_team_consensus_fns", lambda: (
+        e.record("consensus_backward", None, None),
+        e.record("consensus_forward", 4, 22), lambda *a: True))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -808,18 +811,23 @@ def _consensus_families():
 
 @pytest.mark.parametrize("make,x0,suffix", [
     (_adaptive_families, (4, 12), "_adaptive"),
-    (_consensus_families, (2, 4, 12), "_consensus")],
+    (_consensus_families, (2, 4, 12), "_team_consensus")],
     ids=["adaptive", "consensus"])
 def test_adaptive_families_and_consensus_keep_the_one_thread_entries(
         make, x0, suffix, entries):
-    """Families under adaptive rho, and families with consensus: every
-    launch on the one-thread entries, under their own keys."""
+    """Families under adaptive rho: every launch on the one-thread entries,
+    under their own keys. Families with consensus take the consensus team
+    entries (tests/test_torch_stream_team_consensus.py), under
+    backward_team_consensus / forward_team_consensus, and not the family
+    team entries."""
     prob = make()
     tables, x, _, params = admm_stream._prepare(prob, None, None,
                                                 torch.zeros(x0))
     admm_stream._loop(tables, x, None, prob.spec, admm_stream._KERNELS,
                       **params)
-    assert entries.calls == [("backward",), ("forward",)] * 2
+    side = ("consensus_backward", "consensus_forward") \
+        if suffix == "_team_consensus" else ("backward", "forward")
+    assert entries.calls == [(side[0],), (side[1],)] * 2
     assert admm_stream.launch_counts == dict(
         dict.fromkeys(admm_stream.launch_counts, 0),
         **{"backward" + suffix: 2, "forward" + suffix: 2})

@@ -24,14 +24,17 @@
 //     :573-641 (iterations, convergence every check_termination
 //     iterations, residuals). On warm solves with families or consensus
 //     it also writes the x/u trajectories the carry hands over (track_xu).
-//     Both run the problems with consensus, and families under adaptive
-//     rho (and, with team=False in kernels/admm_stream.py, any problem);
+//     Both run the problems with families under adaptive rho, consensus
+//     groups whose thread-block cluster cannot be formed (and, with
+//     team=False in kernels/admm_stream.py, any problem);
 //   * stream_backward_team_kernel and stream_forward_team_kernel
 //     (admm_stream_team.cuh) <- the same two TPU kernels, for box problems
-//     at fixed or adaptive rho and for problems with families at fixed rho
-//     (the families of admm_pallas.py:283-351 as the forward's projections):
-//     a thread a row of each lane, bitwise the one-thread kernels' (the
-//     forward's stale launch is the same kernel given the carried v/z).
+//     at fixed or adaptive rho and for problems with families, consensus or
+//     both at fixed rho (the families of admm_pallas.py:283-351 as the
+//     forward's projections; consensus with TeamConsensus, a scenario group
+//     in a block or across a thread-block cluster): a thread a row of each
+//     lane, bitwise the one-thread kernels' (the forward's stale launch is
+//     the same kernel given the carried v/z).
 // Their CONS instantiations add consensus (admm_stream.py:229-239, :496-499,
 // :553-570): the backward kernel's row 0 takes r[0] - rho_c (zc0 - yc0) and
 // the Quu0_inv gain, the forward kernel's row 0 the Kinf0 gain, and at the
@@ -95,7 +98,8 @@
 //     running lane reaches the exchange's barrier, a converged one too
 //     (it puts its standing offer, the offer of its converging iteration,
 //     into shared memory); only a block whose lanes are all done returns
-//     at once.
+//     at once. (On lane teams a block holds 8 or 16 lanes, so a larger
+//     group is a thread-block cluster; admm_stream_team.cuh.)
 //
 // What bounds it on an H100: per lane and iteration the two sweeps move
 // ~104 floats a horizon row at (12, 4) (416 B: the backward reads vnew, g,
@@ -105,17 +109,19 @@
 // blocks (8 of 132 SMs at B=1024) and each thread walks its rows in
 // series, each row waiting on device-memory latency and on the row
 // before's p or x: at small batches the launches are latency-bound. The
-// box launches, and those of families at fixed rho, therefore run on lane
-// teams, their rows staged ahead (admm_stream_team.cuh; the box fixed-rho
-// forward at N=512, B=4096: 0.3672-0.3699 against 3.5065-3.5435 ms a launch
-// in turns with this file's one-thread kernel, chip_compare.py time, on an
-// NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 6); the launches with
-// consensus, or with families under adaptive rho, are still one thread a
-// lane.
+// box launches, and those of families and of consensus at fixed rho,
+// therefore run on lane teams, their rows staged ahead
+// (admm_stream_team.cuh; the box fixed-rho forward at N=512, B=4096:
+// 0.3672-0.3699 against 3.5065-3.5435 ms a launch in turns with this
+// file's one-thread kernel, chip_compare.py time, on an NVIDIA H100 80GB
+// HBM3 at 700 W; PERF.md section 6); the launches with families under
+// adaptive rho are still one thread a lane.
 //
 // C interface (loaded with ctypes): tinympc_stream_backward,
-// tinympc_stream_forward and their team entries launch on the given
-// stream, never synchronise, and return the cudaError_t of the launch.
+// tinympc_stream_forward and their team entries (box, families, consensus)
+// launch on the given stream, never synchronise, and return the
+// cudaError_t of the launch; tinympc_stream_team_cluster_occupancy tells
+// the route whether the card holds a consensus group's cluster.
 #include <type_traits>
 
 #include "admm_adaptive.cuh"
@@ -155,7 +161,10 @@ using tinympc::NoConsensus;
 using tinympc::Residuals;
 using tinympc::StreamConsensus;
 using tinympc::Tables;
+using tinympc::TeamConsensus;
+using tinympc::TeamConsensusArgs;
 using tinympc::TeamFamilies;
+using tinympc::TeamNoConsensus;
 using tinympc::TeamNoFamilies;
 using tinympc::TeamShape;
 
@@ -628,10 +637,11 @@ template <int NX, int NU, class Rho>
 cudaError_t backward_team(const typename Rho::Args& ra, const Backward& p,
                           int N, int B, float rho, cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  tinympc::stream_backward_team_kernel<NX, NU, TeamNoFamilies, Rho>
+  tinympc::stream_backward_team_kernel<NX, NU, TeamNoFamilies, Rho,
+                                       TeamNoConsensus>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
-          rho, ra, TeamNoFamilies::Args{});
+          rho, ra, TeamNoFamilies::Args{}, TeamNoConsensus::Args{});
   return cudaGetLastError();
 }
 
@@ -651,11 +661,12 @@ cudaError_t forward_team(const typename Rho::Args& ra, const Forward& p,
                          int it, int N, int B, int ct, float rho,
                          float tol_pri, float tol_dua, cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  tinympc::stream_forward_team_kernel<NX, NU, TeamNoFamilies, Rho>
+  tinympc::stream_forward_team_kernel<NX, NU, TeamNoFamilies, Rho,
+                                      TeamNoConsensus>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
           p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri,
-          tol_dua, ra, TeamNoFamilies::Args{});
+          tol_dua, ra, TeamNoFamilies::Args{}, TeamNoConsensus::Args{});
   return cudaGetLastError();
 }
 
@@ -670,6 +681,26 @@ cudaError_t forward_team_at(const AdaptArgs* adapt, const Forward& p, int it,
       *adapt, p, it, N, B, ct, rho, tol_pri, tol_dua, s);
 }
 
+// The opt-ins a forward team launch of `cluster` blocks needs: dynamic
+// shared memory past 48 KB with the static arrays, a non-portable cluster
+// size past 8 blocks.
+template <class Kernel>
+cudaError_t prepare_team(Kernel kernel, size_t smem, int cluster) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return e;
+  if (attr.sharedSizeBytes + smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  if (cluster > 8)
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
 // The launches with families at fixed rho on lane teams (TeamFamilies):
 // the forward's cone and static hyperplane tables in dynamic shared memory,
 // past 48 KB with the static arrays only after the opt-in.
@@ -679,10 +710,10 @@ cudaError_t backward_team_families(const FamilyArgs& fa, const Backward& p,
                                    cudaStream_t s) {
   using S = TeamShape<NX, NU>;
   tinympc::stream_backward_team_kernel<NX, NU, TeamFamilies<NX, NU>,
-                                       FixedRho>
+                                       FixedRho, TeamNoConsensus>
       <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, 0, s>>>(
           p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
-          rho, FixedRho::Args{}, fa);
+          rho, FixedRho::Args{}, fa, TeamNoConsensus::Args{});
   return cudaGetLastError();
 }
 
@@ -693,25 +724,149 @@ cudaError_t forward_team_families(const FamilyArgs& fa, const Forward& p,
                                   float tol_pri, float tol_dua,
                                   cudaStream_t s) {
   using S = TeamShape<NX, NU>;
-  auto kernel = tinympc::stream_forward_team_kernel<NX, NU,
-                                                    TeamFamilies<NX, NU>,
-                                                    FixedRho>;
+  auto kernel =
+      tinympc::stream_forward_team_kernel<NX, NU, TeamFamilies<NX, NU>,
+                                          FixedRho, TeamNoConsensus>;
   const size_t smem =
       tinympc::Families<NX, NU>::static_floats(fa, NX, NU) * sizeof(float);
-  cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  const cudaError_t e = prepare_team(kernel, smem, 1);
   if (e != cudaSuccess) return e;
-  if (attr.sharedSizeBytes + smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
   kernel<<<(B + S::kLanes - 1) / S::kLanes, S::kThreads, smem, s>>>(
       p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
       p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri, tol_dua,
-      FixedRho::Args{}, fa);
+      FixedRho::Args{}, fa, TeamNoConsensus::Args{});
   return cudaGetLastError();
+}
+
+// The launches with consensus at fixed rho on lane teams (TeamConsensus),
+// with families (TeamFamilies) or without (TeamNoFamilies, whose
+// instantiation needs fewer registers).
+template <int NX, int NU, bool FAM>
+using TeamFamOf =
+    std::conditional_t<FAM, TeamFamilies<NX, NU>, TeamNoFamilies>;
+
+template <int NX, int NU, bool FAM>
+typename TeamFamOf<NX, NU, FAM>::Args team_family_args(const FamilyArgs& fa) {
+  if constexpr (FAM)
+    return fa;
+  else
+    return {};
+}
+
+// The consensus arguments of a team launch at (NX, NU): the group of sc, a
+// group of G <= kLanes lanes in one block, of G > kLanes a cluster of
+// G / kLanes blocks (at most kTeamMaxCluster), the step-0 gains after the
+// family tables of the packed table, and the tracked x/u. False for a
+// cluster past kTeamMaxCluster.
+template <int NX, int NU>
+bool team_consensus_args(const StreamConsensus& sc, const FamilyArgs& fa,
+                         const float* tables, int N, float* x_out,
+                         float* u_out, TeamConsensusArgs* ca) {
+  constexpr int P = TeamShape<NX, NU>::kLanes;
+  const int G = sc.group;
+  const int cluster = G <= P ? 1 : G / P;
+  if (cluster > tinympc::kTeamMaxCluster) return false;
+  *ca = TeamConsensusArgs{
+      G, cluster, sc.rho_c,
+      tables + Layout(NX, NU, N).total +
+          Families<NX, NU>::table_floats(fa, NX, NU, N),
+      sc.zc0, sc.yc0, sc.offer, x_out, u_out};
+  return true;
+}
+
+template <int NX, int NU, bool FAM>
+cudaError_t backward_team_consensus(const FamilyArgs& fa,
+                                    const TeamConsensusArgs& ca,
+                                    const Backward& p, int N, int B,
+                                    float rho, cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  using Cons = TeamConsensus<NX, NU>;
+  tinympc::stream_backward_team_kernel<NX, NU, TeamFamOf<NX, NU, FAM>,
+                                       FixedRho, Cons>
+      <<<(B + S::kLanes - 1) / S::kLanes, S::kThreads,
+         Cons::kBackwardGains * sizeof(float), s>>>(
+          p.tables, p.vprev, p.zprev, p.g, p.y, p.d, p.done, p.active, N, B,
+          rho, FixedRho::Args{}, team_family_args<NX, NU, FAM>(fa), ca);
+  return cudaGetLastError();
+}
+
+// The forward consensus kernel at (NX, NU), and the bytes of its dynamic
+// shared memory: Kinf0, then the static family tables.
+template <int NX, int NU, bool FAM>
+auto forward_team_consensus_kernel() {
+  return tinympc::stream_forward_team_kernel<NX, NU, TeamFamOf<NX, NU, FAM>,
+                                             FixedRho, TeamConsensus<NX, NU>>;
+}
+
+template <int NX, int NU, bool FAM>
+size_t forward_team_consensus_smem(const FamilyArgs& fa) {
+  return (TeamConsensus<NX, NU>::kForwardGains +
+          (FAM ? Families<NX, NU>::static_floats(fa, NX, NU) : 0)) *
+         sizeof(float);
+}
+
+// A launch configuration of the forward consensus kernel: a cluster
+// dimension of `cluster` blocks.
+struct ClusterConfig {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  ClusterConfig(int blocks, int threads, size_t smem, int cluster,
+                cudaStream_t s) {
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = s;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <int NX, int NU, bool FAM>
+cudaError_t forward_team_consensus(const FamilyArgs& fa,
+                                   const TeamConsensusArgs& ca,
+                                   const Forward& p, int it, int N, int B,
+                                   int ct, float rho, float tol_pri,
+                                   float tol_dua, cudaStream_t s) {
+  using S = TeamShape<NX, NU>;
+  auto kernel = forward_team_consensus_kernel<NX, NU, FAM>();
+  const size_t smem = forward_team_consensus_smem<NX, NU, FAM>(fa);
+  const cudaError_t e = prepare_team(kernel, smem, ca.cluster);
+  if (e != cudaSuccess) return e;
+  const int blocks = (B + S::kLanes - 1) / S::kLanes;
+  const auto fp = team_family_args<NX, NU, FAM>(fa);
+  if (ca.cluster > 1) {
+    ClusterConfig c(blocks, S::kThreads, smem, ca.cluster, s);
+    return cudaLaunchKernelEx(&c.cfg, kernel, p.tables, p.x0, p.vprev,
+                              p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
+                              p.iters, p.done, p.res, p.active, it, N, B, ct,
+                              rho, tol_pri, tol_dua, FixedRho::Args{}, fp,
+                              ca);
+  }
+  kernel<<<blocks, S::kThreads, smem, s>>>(
+      p.tables, p.x0, p.vprev, p.zprev, p.vcur, p.zcur, p.g, p.y, p.d,
+      p.iters, p.done, p.res, p.active, it, N, B, ct, rho, tol_pri, tol_dua,
+      FixedRho::Args{}, fp, ca);
+  return cudaGetLastError();
+}
+
+// How many clusters of `cluster` blocks of the forward consensus launch at
+// (NX, NU) the card holds at once (cudaOccupancyMaxActiveClusters), or a
+// negative cudaError_t.
+template <int NX, int NU, bool FAM>
+int team_cluster_occupancy(const FamilyArgs& fa, int cluster) {
+  using S = TeamShape<NX, NU>;
+  auto kernel = forward_team_consensus_kernel<NX, NU, FAM>();
+  const size_t smem = forward_team_consensus_smem<NX, NU, FAM>(fa);
+  cudaError_t e = prepare_team(kernel, smem, cluster);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  ClusterConfig c(cluster * 64, S::kThreads, smem, cluster, nullptr);
+  int n = 0;
+  e = cudaOccupancyMaxActiveClusters(&n, kernel, &c.cfg);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 }  // namespace
@@ -989,5 +1144,158 @@ extern "C" int tinympc_stream_forward_team_families(
   if (nx == 6 && nu == 3)    // the rocket
     return static_cast<int>(forward_team_families<6, 3>(
         fa, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The blocks a consensus group's thread-block cluster may span on the team
+// launches.
+extern "C" int tinympc_stream_team_max_cluster() {
+  return tinympc::kTeamMaxCluster;
+}
+
+// How many clusters of `cluster` blocks of the forward consensus launch on
+// lane teams the card holds at once (cudaOccupancyMaxActiveClusters; 0
+// where it cannot form one), at (nx, nu) with the six family counts of
+// `counts` (as tinympc_stream_backward takes them), or a negative
+// cudaError_t (cudaErrorInvalidValue for an (nx, nu) pair this file does not
+// instantiate or a bad count).
+extern "C" int tinympc_stream_team_cluster_occupancy(int nx, int nu,
+                                                     const int* counts,
+                                                     int cluster) {
+  FamilyArgs fa = {};
+  int* n[6] = {&fa.ncx, &fa.ncu, &fa.nlx, &fa.nlu, &fa.ntx, &fa.ntu};
+  bool families = false;
+  for (int f = 0; f < 6; ++f) {
+    if (counts[f] < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    *n[f] = counts[f];
+    families = families || counts[f] > 0;
+  }
+  if (cluster < 1 || cluster > tinympc::kTeamMaxCluster)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  if (nx == 12 && nu == 4)   // the quadrotor
+    return families ? team_cluster_occupancy<12, 4, true>(fa, cluster)
+                    : team_cluster_occupancy<12, 4, false>(fa, cluster);
+  if (nx == 6 && nu == 3)    // the rocket
+    return families ? team_cluster_occupancy<6, 3, true>(fa, cluster)
+                    : team_cluster_occupancy<6, 3, false>(fa, cluster);
+  return -static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward launch of a consensus problem at fixed rho on lane teams, box
+// constraints alone or with families: counts and fam as
+// tinympc_stream_backward takes them, cons the group (a power of two up to
+// tinympc_stream_block(), dividing B) with rho_c and the lanes' zc0 / yc0
+// (read) and offer arrays, (nu, B) each, the tables' step-0 gains after the
+// family tables; the other arguments as tinympc_stream_backward_team takes
+// them. Returns 0 or a cudaError_t; cudaErrorInvalidValue for an (nx, nu)
+// pair this file does not instantiate, a bad size, a missing array, or a
+// group whose cluster would pass tinympc_stream_team_max_cluster() blocks.
+extern "C" int tinympc_stream_backward_team_consensus(
+    int nx, int nu, int N, int B, const int* counts, float rho,
+    const void* tables, const void* vprev, const void* zprev, const void* g,
+    const void* y, void* d, const void* done, void* active, void* const* fam,
+    const StreamConsensus* cons, void* stream) {
+  FamilyArgs fa;
+  StreamConsensus sc;
+  TeamConsensusArgs ca;
+  bool families;
+  const auto* tab = static_cast<const float*>(tables);
+  if (N < 2 || B < 1 || !cons || !family_args(counts, fam, &fa, &families) ||
+      !consensus_args(cons, B, &sc) || !tables || !vprev || !zprev || !g ||
+      !y || !d || !done || !active)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Backward p = {tab,
+                      static_cast<const float*>(vprev),
+                      static_cast<const float*>(zprev),
+                      static_cast<const float*>(g),
+                      static_cast<const float*>(y),
+                      static_cast<float*>(d),
+                      static_cast<const unsigned char*>(done),
+                      static_cast<int*>(active)};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (nx == 12 && nu == 4) {   // the quadrotor
+    if (!team_consensus_args<12, 4>(sc, fa, tab, N, nullptr, nullptr, &ca))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        families ? backward_team_consensus<12, 4, true>(fa, ca, p, N, B, rho, s)
+                 : backward_team_consensus<12, 4, false>(fa, ca, p, N, B, rho,
+                                                         s));
+  }
+  if (nx == 6 && nu == 3) {    // the rocket
+    if (!team_consensus_args<6, 3>(sc, fa, tab, N, nullptr, nullptr, &ca))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        families ? backward_team_consensus<6, 3, true>(fa, ca, p, N, B, rho, s)
+                 : backward_team_consensus<6, 3, false>(fa, ca, p, N, B, rho,
+                                                        s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The forward launch of iteration `it` of a consensus problem at fixed rho
+// on lane teams, box constraints alone or with families: vd, zd the slacks
+// the dual residual compares against (the carried v/z in the stale launch);
+// counts and fam as tinympc_stream_forward takes them; x_out / u_out the
+// tracked trajectories of a warm solve (both or neither); cons as
+// tinympc_stream_backward_team_consensus takes it, its zc0 and yc0 updated
+// for the running lanes and the offer for the lanes that converge in this
+// launch. A group of G lanes lies in one block (G <= the block's lanes,
+// tinympc_stream_team_lanes) or is a thread-block cluster of G / lanes
+// blocks. The other arguments as tinympc_stream_forward_team takes them.
+// Returns 0 or a cudaError_t, as the backward launch.
+extern "C" int tinympc_stream_forward_team_consensus(
+    int nx, int nu, int N, int B, int it, int check_termination,
+    const int* counts, float rho, float tol_pri, float tol_dua,
+    const void* tables, const void* x0, const void* vd, const void* zd,
+    void* vcur, void* zcur, void* g, void* y, const void* d, void* iters,
+    void* done, void* res, void* active, void* const* fam, void* x_out,
+    void* u_out, const StreamConsensus* cons, void* stream) {
+  FamilyArgs fa;
+  StreamConsensus sc;
+  TeamConsensusArgs ca;
+  bool families;
+  const auto* tab = static_cast<const float*>(tables);
+  if (N < 2 || B < 1 || it < 0 || check_termination < 1 || !cons ||
+      !family_args(counts, fam, &fa, &families) ||
+      !consensus_args(cons, B, &sc) || !tables || !x0 || !vd || !zd ||
+      !vcur || !zcur || !g || !y || !d || !iters || !done || !res ||
+      !active || (!x_out != !u_out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Forward p = {};
+  p.tables = tab;
+  p.x0 = static_cast<const float*>(x0);
+  p.vprev = static_cast<const float*>(vd);
+  p.zprev = static_cast<const float*>(zd);
+  p.vcur = static_cast<float*>(vcur);
+  p.zcur = static_cast<float*>(zcur);
+  p.g = static_cast<float*>(g);
+  p.y = static_cast<float*>(y);
+  p.d = static_cast<const float*>(d);
+  p.iters = static_cast<int*>(iters);
+  p.done = static_cast<unsigned char*>(done);
+  p.res = static_cast<float*>(res);
+  p.active = static_cast<int*>(active);
+  auto* xo = static_cast<float*>(x_out);
+  auto* uo = static_cast<float*>(u_out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int ct = check_termination;
+  if (nx == 12 && nu == 4) {   // the quadrotor
+    if (!team_consensus_args<12, 4>(sc, fa, tab, N, xo, uo, &ca))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        families ? forward_team_consensus<12, 4, true>(
+                       fa, ca, p, it, N, B, ct, rho, tol_pri, tol_dua, s)
+                 : forward_team_consensus<12, 4, false>(
+                       fa, ca, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  }
+  if (nx == 6 && nu == 3) {    // the rocket
+    if (!team_consensus_args<6, 3>(sc, fa, tab, N, xo, uo, &ca))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        families ? forward_team_consensus<6, 3, true>(
+                       fa, ca, p, it, N, B, ct, rho, tol_pri, tol_dua, s)
+                 : forward_team_consensus<6, 3, false>(
+                       fa, ca, p, it, N, B, ct, rho, tol_pri, tol_dua, s));
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }

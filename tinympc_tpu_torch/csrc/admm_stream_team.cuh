@@ -1,8 +1,10 @@
 // The streamed solve's two launches on lane teams: for box problems at fixed
 // and at adaptive rho, and for problems with constraint families (second-
-// order cones, hyperplanes, time-varying hyperplanes) at fixed rho
-// (admm_stream.cu routes consensus, and families under adaptive rho, to the
-// one-thread stream_backward_kernel / stream_forward_kernel).
+// order cones, hyperplanes, time-varying hyperplanes) and with scenario-tree
+// consensus on u[0], in any mix, at fixed rho (admm_stream.cu routes
+// families under adaptive rho, and a consensus group whose thread-block
+// cluster cannot be formed, to the one-thread stream_backward_kernel /
+// stream_forward_kernel).
 //
 // stream_backward_team_kernel computes what admm_sweep.cuh's backward_sweep
 // computes with NoFamilies and NoConsensus (admm_stream.py:121-253): the
@@ -118,6 +120,51 @@
 //     them. Family residuals do not enter the termination test, as in the
 //     one-thread kernel.
 //
+// Consensus (Cons = TeamConsensus; admm_consensus.cuh's rule, the one-thread
+// kernels' CONS instantiations, admm_stream.py:229-239, :496-499,
+// :553-570):
+//   * Backward: only row 0 changes. The input rows form r[0] - rho_c (zc0 -
+//     yc0) from the lane's (NU, B) arrays (read once, before the loop), the
+//     state rows read that r[0] from the slot for Kinf^T r as before, and
+//     d[0] takes the Quu0_inv row, which sits in dynamic shared memory. No
+//     barrier is added and no lane reads another's.
+//   * Forward: at step 0 the input rows form u[0] with Kinf0's row (dynamic
+//     shared memory, ahead of the static family tables) and park it in the
+//     block's offer slot (NU, kLanes); at the end of the launch each input
+//     row of a running lane puts its offer u[0] + yc0 there, a done lane's
+//     its standing offer (read from device memory), a lane past the batch
+//     zero (B is a multiple of G, so no group reads it). After a barrier
+//     each running input row sums its group's G offers in lane order from
+//     zero and divides by G (div_rn), as admm_consensus.cuh does, moves yc0
+//     by u[0] - zc0, stores zc0 and yc0, and leaves |u[0] - zc0| for row
+//     0's thread, which folds the lane's NU of them with max_nan into the
+//     convergence gate and, when the lane converges, stores its offer from
+//     the slot: that offer then stands. A warm solve's x/u are tracked row
+//     by row, as the sweep forms them.
+//   * Where the group lives: G <= kLanes, in the block, the barriers
+//     __syncthreads. G > kLanes: a thread-block cluster of G / kLanes
+//     blocks (cudaLaunchKernelEx; past 8 blocks a non-portable size), the
+//     mates' offers read through distributed shared memory in cluster-rank
+//     order (the lane order), the barriers cluster barriers. Under a
+//     cluster a block whose lanes are all done does not return at once: the
+//     blocks vote, and the cluster returns only when none of its lanes
+//     runs; a block that is done while its mates run skips the sweep (no
+//     steps) and serves its standing offers.
+//   * Order of a cluster launch, per block: (V) the vote slot written, a
+//     cluster barrier, every mate's vote read; if no lane of the cluster
+//     runs, a second cluster barrier (no block leaves while a mate reads its
+//     vote) and return. (S) The sweep: each step's slot writes and reads
+//     between the step's two block barriers, as without consensus; the
+//     offer slot is written only by its own input row (u[0] at step 0, read
+//     back by the same thread at the end). (A) The offers written, then a
+//     cluster barrier: every mate's offers are in place. (R) The mates'
+//     offers read through distributed shared memory; the new zc0 / yc0
+//     stored; |u[0] - zc0| into the block's reduction row. (E) A cluster
+//     barrier: no block leaves, and no offer slot is touched again, while a
+//     mate may still read it; it also orders the reduction rows for row 0's
+//     thread. Nothing writes the vote or the offer slot after (A) in a
+//     launch, and the next launch starts afresh.
+//
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_compare.py time in
 // turns with the one-thread kernel, N=512, a fresh launch; PERF.md section
 // 6): the fixed-rho forward B=1024 0.1787-0.1902 against 2.9296-2.9562 ms,
@@ -127,6 +174,7 @@
 // (PERF.md section 6).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "admm_adaptive.cuh"
@@ -180,6 +228,9 @@ constexpr int kTeamAdaptMinBlocks = 4;
 // H100: 122 at (12, 4), 92 at (6, 3); at 5 blocks an SM it spilled).
 constexpr int kTeamFamilies = 3;
 constexpr int kTeamFamMinBlocks = 4;
+// Blocks of a consensus group's cluster at most: past 8 a non-portable
+// cluster size, which an H100 takes to 16 (a group of 128 at (12, 4)).
+constexpr int kTeamMaxCluster = 16;
 
 __device__ __forceinline__ void stage_copy(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -385,13 +436,48 @@ struct TeamFamilies {
   }
 };
 
+// A team launch's consensus arguments (admm_stream.cu fills them from its
+// StreamConsensus): the group size G and the blocks of a group's cluster (1
+// where G <= kLanes), rho_c, the step-0 gains Kinf0 (NU, NX) then Quu0_inv
+// (NU, NU) in the packed table (device memory), each lane's slack zc0, dual
+// yc0 and standing offer, (NU, B) each, and on a warm solve the tracked x/u
+// (else null).
+struct TeamConsensusArgs {
+  int group, cluster;
+  float rho_c;
+  const float* gains;
+  float *zc0, *yc0, *offer, *x_out, *u_out;
+};
+
+// No consensus: the kernels' consensus code compiles away.
+struct TeamNoConsensus {
+  struct Args {};
+  static constexpr bool kOn = false;
+  static constexpr int kForwardGains = 0;   // floats of dynamic shared memory
+  static constexpr int kBackwardGains = 0;
+};
+
+// Consensus on u[0]: the gains each launch keeps in dynamic shared memory
+// (the forward's Kinf0, padded to whole float4s ahead of the static family
+// tables; the backward's Quu0_inv), and the kernels' consensus code.
+template <int NX, int NU>
+struct TeamConsensus {
+  using Args = TeamConsensusArgs;
+  static constexpr bool kOn = true;
+  static constexpr int kForwardGains = (NU * NX + 3) / 4 * 4;
+  static constexpr int kBackwardGains = NU * NU;
+};
+
 // Backward launch: d of every running lane from its previous iterate
 // (vprev / zprev, the duals g / y). Under adaptive rho (Rho =
 // AdaptiveRho<NX, NU, APPLY_C>) the lane's rho comes from ra.rho_in and the
 // products the Taylor update moves gain their drho-scaled sensitivity
 // products. With families (Fam = TeamFamilies, at fixed rho) each family's
-// term joins the row's linear cost after the box's. Zeroes *active.
-template <int NX, int NU, class Fam, class Rho>
+// term joins the row's linear cost after the box's. Under consensus (Cons =
+// TeamConsensus, at fixed rho) r[0] takes -rho_c (zc0 - yc0) after the
+// families' terms and d[0] the Quu0_inv gain, which takes
+// Cons::kBackwardGains floats of dynamic shared memory. Zeroes *active.
+template <int NX, int NU, class Fam, class Rho, class Cons>
 __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
                                   kTeamMinBlocks)
     stream_backward_team_kernel(
@@ -400,17 +486,20 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
         const float* __restrict__ y, float* __restrict__ d,
         const unsigned char* __restrict__ done, int* __restrict__ active,
         int N, int B, float rho, typename Rho::Args ra,
-        typename Fam::Args fp) {
+        typename Fam::Args fp, typename Cons::Args ca) {
   using S = TeamShape<NX, NU>;
   constexpr bool kAdapt = Rho::kAdaptive;
   constexpr bool kC = Rho::kApplyC;
   constexpr bool kFam = !std::is_same_v<Fam, TeamNoFamilies>;
+  constexpr bool kCons = Cons::kOn;
   static_assert(!(kFam && kAdapt), "families on teams at fixed rho only");
+  static_assert(!(kCons && kAdapt), "consensus at fixed rho only");
   __shared__ __align__(16) float slots[S::kLanes * S::kBSlot];
   __shared__ float ring[kTeamDepth][kTeamBackFields +
                                     (kFam ? 2 * kTeamFamilies : 0)]
                        [S::kThreads];
   __shared__ float pnref[2 * NX];
+  extern __shared__ float q0s[];   // Quu0_inv under consensus
   const int t = threadIdx.x;
   const int row = t / S::kLanes, lane = t % S::kLanes;
   const int b = blockIdx.x * S::kLanes + lane;
@@ -419,6 +508,10 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const AdaptiveLayout AL(NX, NU, kC);
   const float* at = tables + L.total;   // the adaptive tables (no family's)
   if (blockIdx.x == 0 && t == 0) *active = 0;
+  if constexpr (kCons) {
+    for (int q = t; q < NU * NU; q += S::kThreads)
+      q0s[q] = ca.gains[NU * NX + q];
+  }
   // Terminal reference term -Pinf^T Xref[N-1] (admm_stream.py:926), and
   // under adaptive rho its sensitivity -dPinf^T Xref[N-1], summed as the
   // one-thread kernel's prologue sums them.
@@ -476,6 +569,11 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
   const int items = st ? N : N - 1;
   const int top = st ? N - 1 : N - 2;
   const Fam fam(fp, st, k, sB, b, N);
+  // Under consensus an input row's prox term of r[0], rho_c (zc0 - yc0).
+  float cterm = 0.f;
+  if constexpr (kCons) {
+    if (run && !st) cterm = ca.rho_c * (ca.zc0[off] - ca.yc0[off]);
+  }
   // The lane's halves of p, r and w in its slot, by the step's parity.
   float* const sl = slots + lane * S::kBSlot;
   auto P = [&](int i) { return sl + (i & 1) * S::kXP; };
@@ -537,6 +635,7 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
           rho_l);
     } else {
       r_own = lin(0);
+      if (kCons && N == 2) r_own = r_own - cterm;
       R(N - 2)[k] = r_own;
     }
   }
@@ -579,12 +678,25 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
       if (i + 1 <= N - 2) store_d(i + 1, W(i + 1));
       if (i >= 1) {
         r_own = lin(n);
+        if (kCons && i == 1) r_own = r_own - cterm;
         R(i - 1)[k] = r_own;
       }
     }
   }
   __syncthreads();   // w[0] in the slots
-  if (run && !st) store_d(0, W(0));
+  if (run && !st) {
+    if constexpr (kCons) {
+      // d[0] = Quu0_inv w[0]
+      float w[S::kUP];
+      load_slot(w, W(0));
+      float acc = 0.f;
+#pragma unroll
+      for (int c = 0; c < NU; ++c) acc = fmaf(q0s[k * NU + c], w[c], acc);
+      d[off] = acc;
+    } else {
+      store_d(0, W(0));
+    }
+  }
 }
 
 // Forward launch of iteration `it`: the new slacks into vcur/zcur, the
@@ -598,8 +710,12 @@ __global__ void __launch_bounds__(TeamShape<NX, NU>::kThreads,
 // families (Fam = TeamFamilies, at fixed rho) each row's families project
 // after the step's second barrier, from the lane's candidates; the cone and
 // static hyperplane tables take Families::static_floats floats of dynamic
-// shared memory.
-template <int NX, int NU, class Fam, class Rho>
+// shared memory. Under consensus (Cons = TeamConsensus, at fixed rho) row 0
+// rolls out with Kinf0 (Cons::kForwardGains floats of dynamic shared memory
+// ahead of the family tables), and the launch ends with the group exchange,
+// in the block or across the cluster of ca.cluster blocks, whose residual
+// gates convergence; a warm solve's x/u go to ca.x_out / ca.u_out.
+template <int NX, int NU, class Fam, class Rho, class Cons>
 __global__ void __launch_bounds__(
     TeamShape<NX, NU>::kThreads,
     Rho::kAdaptive ? kTeamAdaptMinBlocks
@@ -614,11 +730,14 @@ __global__ void __launch_bounds__(
         unsigned char* __restrict__ done, float* __restrict__ res,
         int* __restrict__ active, int it, int N, int B,
         int check_termination, float rho, float tol_pri, float tol_dua,
-        typename Rho::Args ra, typename Fam::Args fp) {
+        typename Rho::Args ra, typename Fam::Args fp,
+        typename Cons::Args ca) {
   using S = TeamShape<NX, NU>;
   constexpr bool kAdapt = Rho::kAdaptive;
   constexpr bool kFam = !std::is_same_v<Fam, TeamNoFamilies>;
+  constexpr bool kCons = Cons::kOn;
   static_assert(!(kFam && kAdapt), "families on teams at fixed rho only");
+  static_assert(!(kCons && kAdapt), "consensus at fixed rho only");
   __shared__ __align__(16) float xu[S::kLanes * S::kSlot];
   // Under adaptive rho the lanes' new duals g[i]; with families the lanes'
   // candidate slots.
@@ -627,8 +746,14 @@ __global__ void __launch_bounds__(
                                            : 4];
   __shared__ float ring[kTeamDepth][kTeamFields + (kFam ? kTeamFamilies : 0)]
                        [S::kThreads];
-  __shared__ float red[kAdapt ? 6 : 2][S::kThreads];
-  extern __shared__ __align__(16) float fsm[];   // the static family tables
+  __shared__ float red[kAdapt ? 6 : kCons ? 3 : 2][S::kThreads];
+  // Under consensus the lanes' offers (NU, kLanes), and the block's vote.
+  __shared__ __align__(16) float offers[kCons ? NU * S::kLanes : 4];
+  __shared__ int vote;
+  // Dynamic shared memory: Kinf0 under consensus, then the static family
+  // tables.
+  extern __shared__ __align__(16) float dsm[];
+  float* const fsm = dsm + Cons::kForwardGains;
   const int t = threadIdx.x;
   const int row = t / S::kLanes, lane = t % S::kLanes;
   const int b = blockIdx.x * S::kLanes + lane;
@@ -638,7 +763,34 @@ __global__ void __launch_bounds__(
     const float* src = tables + Layout(NX, NU, N).total;
     for (int q = t; q < nt; q += S::kThreads) fsm[q] = src[q];
   }
-  if (!__syncthreads_or(run)) return;   // and the family tables loaded
+  if constexpr (kCons) {
+    for (int q = t; q < NU * NX; q += S::kThreads) dsm[q] = ca.gains[q];
+  }
+  // Whether a lane of the block runs; the tables loaded.
+  const int any = __syncthreads_or(run);
+  if constexpr (kCons) {
+    if (ca.cluster > 1) {
+      // (V) The cluster's vote: it returns only when none of its lanes runs.
+      cooperative_groups::cluster_group cl =
+          cooperative_groups::this_cluster();
+      if (t == 0) vote = any;
+      cl.sync();
+      int all = 0;
+      for (int q = 0; q < ca.cluster; ++q)
+        all |= *cl.map_shared_rank(&vote, q);
+      if (!all) {
+        cl.sync();   // no block leaves while a mate reads its vote
+        return;
+      }
+    } else if (!any) {
+      return;
+    }
+  } else if (!any) {
+    return;
+  }
+  // A block whose lanes are all done, in a cluster that runs, skips the
+  // sweep and only serves its standing offers.
+  const int steps = (!kCons || any) ? N - 1 : 0;
 
   const Layout L(NX, NU, N);
   const size_t sB = static_cast<size_t>(B);
@@ -684,6 +836,7 @@ __global__ void __launch_bounds__(
   float* slot = xu + lane * S::kSlot;
   float* gslot = gs + lane * S::kGSlot;
   float* cslot = gs + lane * S::kCSlot;
+  float* const oslot = offers + k * S::kLanes + lane;   // an input row's
   const Fam fam(fp, st, k, sB, b, N);
   const float* tv = tables + L.total;   // the family tables, device memory
 
@@ -756,6 +909,14 @@ __global__ void __launch_bounds__(
     }
   };
 
+  // Under consensus a warm solve's x or u of step i, as the sweep forms it.
+  auto track = [&](int i, float val) {
+    if constexpr (kCons) {
+      float* out = st ? ca.x_out : ca.u_out;
+      if (out) out[static_cast<size_t>(i) * step + off] = val;
+    }
+  };
+
   float xo = 0.f;   // a state row's x at the current step
   if (run && st) {
     xo = x0[static_cast<size_t>(b) * NX + k];
@@ -764,7 +925,7 @@ __global__ void __launch_bounds__(
 #pragma unroll 1
   for (int i = 0; i < kTeamDepth - 1; ++i) issue(i);
 #pragma unroll 1
-  for (int i = 0; i < N - 1; ++i) {
+  for (int i = 0; i < steps; ++i) {
     __syncthreads();   // x of step i in the slots
     issue(i + kTeamDepth - 1);
     stage_wait<kTeamDepth - 1>();   // step i's fields have landed
@@ -777,7 +938,8 @@ __global__ void __launch_bounds__(
       if (st) {
         val = xo;
       } else {
-        // u = -(Kinf x + drho dKinf x) - d as an exact subtract
+        // u = -(Kinf x + drho dKinf x) - d as an exact subtract; under
+        // consensus row 0 with Kinf0
         float kx = a1;
         if constexpr (kAdapt) {
           float s = 0.f;
@@ -785,13 +947,22 @@ __global__ void __launch_bounds__(
           for (int c = 0; c < NX; ++c) s = fmaf(dk[c], x[c], s);
           kx = a1 + drho * s;
         }
+        if constexpr (kCons) {
+          if (i == 0) {
+            kx = 0.f;
+#pragma unroll
+            for (int c = 0; c < NX; ++c) kx = fmaf(dsm[k * NX + c], x[c], kx);
+          }
+        }
         val = -kx - ring[i % kTeamDepth][4][t];
         slot[S::kXP + k] = val;
+        if (kCons && i == 0) *oslot = val;   // u[0], until the exchange
       }
       project(i, val, sn, dn);
       if (adapting && st) gslot[k] = dn;
       fam.candidates(cslot, val, &ring[i % kTeamDepth][0][t]);
       fam.track(i, val);
+      track(i, val);
     }
     // u of step i in the slots; g[i] under adaptation, the family
     // candidates of step i with families
@@ -835,6 +1006,7 @@ __global__ void __launch_bounds__(
     __syncthreads();   // row N-1's candidates in the slots
     if (run && st) fam.project(N - 1, xo, cslot, r0, fsm, tv);
   }
+  if (run && st) track(N - 1, xo);
   if (adapting) {
     // Every row's terms(N-3) of the last step has read g[N-2] from the
     // slot before a state row overwrites it with g[N-1]: a lane's rows sit
@@ -866,11 +1038,66 @@ __global__ void __launch_bounds__(
     }
   }
 
+  if constexpr (kCons) {
+    // The exchange (admm_stream.py:553-570, admm_consensus.cuh's rule): a
+    // running lane offers u[0] + yc0, a done lane its standing offer, a
+    // lane past the batch zero.
+    float u0 = 0.f;
+    if (!st) {
+      const size_t o = static_cast<size_t>(k) * sB + b;
+      if (run) {
+        u0 = *oslot;
+        *oslot = u0 + ca.yc0[o];
+      } else {
+        *oslot = b < B ? ca.offer[o] : 0.f;
+      }
+    }
+    if (checking) {
+      red[0][t] = pr;
+      red[1][t] = du;
+    }
+    // (A) every offer of the group in place
+    if (ca.cluster > 1)
+      cooperative_groups::this_cluster().sync();
+    else
+      __syncthreads();
+    float cres = 0.f;
+    if (run && !st) {
+      // (R) the group's offers in lane order, summed from zero
+      const int G = ca.group;
+      float sum = 0.f;
+      if (ca.cluster > 1) {
+        cooperative_groups::cluster_group cl =
+            cooperative_groups::this_cluster();
+        for (int q = 0; q < ca.cluster; ++q) {
+          const float* o = cl.map_shared_rank(offers + k * S::kLanes, q);
+#pragma unroll
+          for (int j = 0; j < S::kLanes; ++j) sum = sum + o[j];
+        }
+      } else {
+        const float* o = offers + k * S::kLanes + (lane & ~(G - 1));
+        for (int j = 0; j < G; ++j) sum = sum + o[j];
+      }
+      const float z = div_rn(sum, static_cast<float>(G));
+      const size_t o = static_cast<size_t>(k) * sB + b;
+      const float yc = ca.yc0[o];
+      ca.yc0[o] = yc + u0 - z;
+      ca.zc0[o] = z;
+      cres = fabsf(u0 - z);
+    }
+    red[2][t] = cres;
+    // (E) no block leaves while a mate may read its offers; the reduction
+    // rows in place for row 0's thread
+    if (ca.cluster > 1)
+      cooperative_groups::this_cluster().sync();
+    else if (checking)
+      __syncthreads();
+  }
   // Bookkeeping (admm_stream.py:576-641), by row 0's thread: under adaptive
   // rho the new rho first; iterations on every iteration, residuals (dual
   // rows scaled by the lane's rho) and convergence on check iterations, the
   // team's maxima reduced first.
-  if (checking || adapting) {
+  if (!kCons && (checking || adapting)) {
     red[0][t] = pr;
     red[1][t] = du;
     if constexpr (kAdapt) {
@@ -914,10 +1141,28 @@ __global__ void __launch_bounds__(
   res[sB + b] = pi;
   res[2 * sB + b] = r2;
   res[3 * sB + b] = r3;
-  if ((ps < tol_pri) && (pi < tol_pri) && (r2 < tol_dua) && (r3 < tol_dua))
+  bool ok =
+      (ps < tol_pri) && (pi < tol_pri) && (r2 < tol_dua) && (r3 < tol_dua);
+  if constexpr (kCons) {
+    // the consensus residual max|u[0] - zc0| joins the gate
+    float c = 0.f;
+#pragma unroll
+    for (int r = NX; r < S::kRows; ++r)
+      c = max_nan(c, red[2][r * S::kLanes + lane]);
+    ok = ok && c < tol_pri;
+  }
+  if (ok) {
     done[b] = 1;
-  else
+    if constexpr (kCons) {
+      // the offer of the converging iteration, which then stands
+#pragma unroll
+      for (int q = 0; q < NU; ++q)
+        ca.offer[static_cast<size_t>(q) * sB + b] =
+            offers[q * S::kLanes + lane];
+    }
+  } else {
     *active = 1;
+  }
 }
 
 }  // namespace tinympc

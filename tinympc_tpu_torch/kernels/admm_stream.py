@@ -13,8 +13,10 @@ forward sweep (``admm_stream._forward_kernel``, and its ``stale`` variant
 for the first iteration of a warm solve) that rolls out, projects, updates
 the duals, accumulates the residuals and keeps each lane's bookkeeping; a
 box problem, at fixed or adaptive rho, and a problem with constraint
-families at fixed rho run both launches on lane teams
-(``csrc/admm_stream_team.cuh``, a thread a row of each lane). The
+families, with scenario-tree consensus or both at fixed rho run both
+launches on lane teams (``csrc/admm_stream_team.cuh``, a thread a row of
+each lane; a consensus group exchanges its offers in a block's shared
+memory or across a thread-block cluster). The
 loop around the launches runs here, on the host; it reads one flag from the
 card after each check iteration and stops once every lane has converged.
 
@@ -28,7 +30,10 @@ may hand to the other). Consensus runs the kernels' consensus
 instantiations: r[0]'s prox term and the Quu0_inv gain in the backward
 launch, the Kinf0 gain and the group exchange at the end of the forward
 launch; each lane's slack, dual and standing offer stay on the card between
-launches. Adaptive rho runs their adaptive instantiations: each lane's rho
+launches. On lane teams a group of G lanes lies in one block when G is at
+most the block's lanes, else it is a thread-block cluster of G / lanes
+blocks; a cluster past :data:`TEAM_MAX_CLUSTER` blocks, or one the card
+cannot hold, takes the one-thread consensus kernels by route. Adaptive rho runs their adaptive instantiations: each lane's rho
 and the guard's virtual rho stay on the card between launches, the backward
 launch telescopes the products the Taylor update moves, and the forward
 launch adapts rho every 5th iteration of a running lane before its
@@ -63,12 +68,13 @@ KERNEL = "admm_stream"
 # Launches in this process of each streamed kernel, by the name of its
 # instantiation: the one-thread backward kernel, forward kernel and its
 # stale variant (which only ``_KERNELS(..., team=False)`` runs at fixed rho
-# without consensus), their consensus instantiations and their adaptive
-# ones (families with adaptive rho), and the kernels on lane teams: the
+# without consensus), their consensus instantiations (``team=False``, and
+# the groups whose cluster cannot be formed) and their adaptive ones
+# (families with adaptive rho), and the kernels on lane teams: the
 # backward, the forward and its stale launch of box problems, at fixed rho
-# and at adaptive rho, and of problems with families at fixed rho;
-# chip_smoke.py resets and reads them to show that the streamed path went
-# through its kernels.
+# and at adaptive rho, of problems with families at fixed rho, and of
+# consensus problems (with or without families); chip_smoke.py resets and
+# reads them to show that the streamed path went through its kernels.
 launch_counts = dict.fromkeys(
     ("backward", "forward", "forward_stale", "backward_consensus",
      "forward_consensus", "forward_consensus_stale", "backward_adaptive",
@@ -76,7 +82,39 @@ launch_counts = dict.fromkeys(
      "forward_team", "forward_team_stale", "backward_team_adaptive",
      "forward_team_adaptive", "forward_team_adaptive_stale",
      "backward_team_families", "forward_team_families",
-     "forward_team_families_stale"), 0)
+     "forward_team_families_stale", "backward_team_consensus",
+     "forward_team_consensus", "forward_team_consensus_stale"), 0)
+
+# Blocks a consensus group's thread-block cluster may span on the team
+# launches (csrc/admm_stream_team.cuh kTeamMaxCluster; past 8 a
+# non-portable size, which an H100 takes to 16).
+TEAM_MAX_CLUSTER = 16
+
+
+def team_lanes(nx: int) -> int:
+    """The lanes a block of the team launches holds (``TeamShape::kLanes``
+    of csrc/admm_stream_team.cuh): the fewest, 8 or more, for which the
+    state rows fill whole warps."""
+    return 8 if 8 * nx % 32 == 0 else 16 if 16 * nx % 32 == 0 else 32
+
+
+def team_cluster(group: int, lanes: int) -> int:
+    """Blocks of a consensus group's cluster on the team launches: 1 where
+    the group lies in one block of ``lanes`` lanes, else group / lanes."""
+    return 1 if group <= lanes else group // lanes
+
+
+def team_consensus_route(group: int, nx: int, fits=None) -> Optional[int]:
+    """The cluster a consensus group of ``group`` lanes takes on lane teams
+    at ``nx`` (1: in one block), or None where it takes the one-thread
+    consensus kernels: a cluster past :data:`TEAM_MAX_CLUSTER` blocks, or,
+    where ``fits(cluster)`` is given (the loaded library's occupancy
+    query), one the card cannot hold."""
+    cluster = team_cluster(group, team_lanes(nx))
+    if cluster > TEAM_MAX_CLUSTER or (
+            cluster > 1 and fits is not None and not fits(cluster)):
+        return None
+    return cluster
 
 
 def _check(prob: TinyProblem) -> None:
@@ -563,6 +601,49 @@ def _team_families_fns():
     return bwd, fwd
 
 
+def _team_consensus_fns():
+    """The C entries of the launches on lane teams of consensus problems at
+    fixed rho, with or without families (csrc/admm_stream_team.cuh), built
+    and loaded on first use: (backward, forward, fits), ``fits(nx, nu,
+    counts, cluster)`` whether the card holds a cluster of that many blocks
+    of the forward launch (raises on a failed query). The library's lanes
+    and largest cluster are held against :func:`team_lanes` and
+    :data:`TEAM_MAX_CLUSTER` when it is loaded."""
+    lib = _build.load(KERNEL)
+    if lib.tinympc_stream_team_max_cluster() != TEAM_MAX_CLUSTER or any(
+            lib.tinympc_stream_team_lanes(nx, nu) != team_lanes(nx)
+            for nx, nu in admm_fused.FAMILY_KERNEL_DIMS):
+        raise RuntimeError("csrc/admm_stream.cu and kernels/admm_stream.py "
+                           "disagree on the team lanes or clusters")
+    bwd = lib.tinympc_stream_backward_team_consensus
+    fwd = lib.tinympc_stream_forward_team_consensus
+    occ = lib.tinympc_stream_team_cluster_occupancy
+    cons = ctypes.POINTER(_StreamConsensus)
+    # nx nu N B | counts | rho | tables vprev zprev g y d done active |
+    # family array | consensus arguments | the stream
+    bwd.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int),
+                                         ctypes.c_float] + [_PTR] * 8 + [
+        _PTRS, cons, _PTR]
+    # nx nu N B it ct | counts | rho tol_pri tol_dua | tables x0 vd zd vcur
+    # zcur g y d iters done res active | family array | x_out u_out |
+    # consensus arguments | the stream
+    fwd.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] + [
+        ctypes.c_float] * 3 + [_PTR] * 13 + [_PTRS] + [_PTR] * 2 + [cons,
+                                                                   _PTR]
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                    ctypes.c_int]
+    bwd.restype = fwd.restype = occ.restype = ctypes.c_int
+
+    def fits(nx, nu, counts, cluster):
+        n = occ(nx, nu, counts, cluster)
+        if n < 0:
+            raise RuntimeError(f"admm_stream cluster occupancy query "
+                               f"failed: CUDA error {-n}")
+        return n > 0
+
+    return bwd, fwd, fits
+
+
 class _KERNELS:
     """Launches of csrc/admm_stream.cu on the working arrays ``s`` of
     :func:`_init`, on the current stream of x0's device; each adds one to
@@ -572,10 +653,17 @@ class _KERNELS:
     ``tinympc_stream_forward_team``), and so does a problem with families
     at fixed rho without consensus (``tinympc_stream_backward_team_families``,
     ``tinympc_stream_forward_team_families``, counted under the keys with
-    ``_team_families``); ``team`` holds the pair, ``families`` says which.
-    Consensus, and families under adaptive rho, run the one-thread entries.
-    ``team=False`` sends every problem's launches to the one-thread entries,
-    on the same state: the in-process A/B of the two designs."""
+    ``_team_families``) and a consensus problem, with families or not
+    (``tinympc_stream_backward_team_consensus``,
+    ``tinympc_stream_forward_team_consensus``, counted under the keys with
+    ``_team_consensus``; ``cluster`` the blocks of a group's cluster, 1 in
+    a block) unless its group's cluster cannot be formed
+    (:func:`team_consensus_route`); ``team`` holds the pair, ``kind`` says
+    which (``"box"``, ``"families"``, ``"consensus"``). Families under
+    adaptive rho, and the consensus groups the route turns away, run the
+    one-thread entries. ``team=False`` sends every problem's launches to the
+    one-thread entries, on the same state: the in-process A/B of the two
+    designs."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
                  tol_dua, fam, adapt=None, cons=None, team=True):
@@ -599,11 +687,17 @@ class _KERNELS:
             self.suffix = "_consensus"
         self.bwd, self.fwd = _kernel_fns()
         self.families = any(fam)
-        self.team = None
-        if team and cons is None and not self.families:
-            self.team = _team_fns()
-        elif team and cons is None and adapt is None:
-            self.team = _team_families_fns()
+        self.team, self.kind, self.cluster = None, None, None
+        if team and cons is not None:
+            bwd, fwd, fits = _team_consensus_fns()
+            self.cluster = team_consensus_route(
+                cons.group, nx, lambda c: fits(nx, nu, self.counts, c))
+            if self.cluster is not None:
+                self.team, self.kind = (bwd, fwd), "consensus"
+        elif team and not self.families:
+            self.team, self.kind = _team_fns(), "box"
+        elif team and adapt is None:
+            self.team, self.kind = _team_families_fns(), "families"
         if adapt is not None:
             # Each lane's rho is read and written in place (rho_in and
             # rho_out the same array), beside its virtual rho; the scratch
@@ -628,7 +722,20 @@ class _KERNELS:
 
     def backward(self, prev):
         s = self.s
-        if self.team is not None and self.families:
+        if self.kind == "consensus":
+            err = self.team[0](self.nx, self.nu, self.N, self.B, self.counts,
+                               self.rho, self.tables.data_ptr(),
+                               s["vnew"][prev].data_ptr(),
+                               s["znew"][prev].data_ptr(),
+                               *(s[k].data_ptr() for k in (
+                                   "g", "y", "d", "done", "active")),
+                               _ptr_array(s["fams"]), self.cons, self.stream)
+            if err != 0:
+                raise RuntimeError(f"admm_stream team consensus backward "
+                                   f"launch failed: CUDA error {err}")
+            launch_counts["backward_team_consensus"] += 1
+            return
+        if self.kind == "families":
             err = self.team[0](self.nx, self.nu, self.N, self.B, self.counts,
                                self.rho, self.tables.data_ptr(),
                                s["vnew"][prev].data_ptr(),
@@ -693,7 +800,27 @@ class _KERNELS:
         s, cur = self.s, it % 2
         vd, zd = (self.carry.v, self.carry.z) if stale else \
             (s["vnew"][1 - cur], s["znew"][1 - cur])
-        if self.families:
+        if self.kind == "consensus":
+            err = self.team[1](self.nx, self.nu, self.N, self.B, it, self.ct,
+                               self.counts, self.rho, self.tol_pri,
+                               self.tol_dua, self.tables.data_ptr(),
+                               self.x0.data_ptr(), vd.data_ptr(),
+                               zd.data_ptr(), s["vnew"][cur].data_ptr(),
+                               s["znew"][cur].data_ptr(),
+                               *(s[k].data_ptr() for k in (
+                                   "g", "y", "d", "iters", "done", "res",
+                                   "active")),
+                               _ptr_array(s["fams"]),
+                               None if s["x"] is None else s["x"].data_ptr(),
+                               None if s["u"] is None else s["u"].data_ptr(),
+                               self.cons, self.stream)
+            if err != 0:
+                raise RuntimeError(f"admm_stream team consensus forward "
+                                   f"launch failed: CUDA error {err}")
+            launch_counts["forward_team_consensus"
+                          + ("_stale" if stale else "")] += 1
+            return
+        if self.kind == "families":
             err = self.team[1](self.nx, self.nu, self.N, self.B, it, self.ct,
                                self.counts, self.rho, self.tol_pri,
                                self.tol_dua, self.tables.data_ptr(),
