@@ -11,7 +11,13 @@ kernel cold and warm (the quadrotor at 20 Hz, N=20), a fleet of two
 quadrotor variants cold and over two warm solves (N=10, random
 assignments; the multi-system launch), the families kernel
 cold and warm (the rocket's cones at N=10; the quadrotor's static and
-time-varying hyperplanes under low z ceilings), the families kernel with
+time-varying hyperplanes under low z ceilings; every family on both sides
+at N=16, and at N=420 on 64 lanes, where the group kernel keeps its table
+and a warm solve's saved columns in device memory; the rocket's cones at
+N=700 on 64 lanes), the families adaptive kernel (the rocket's cones at
+N=10 with and without apply_c, adaptive_rho_min 0.05), a box problem at
+(6, 3) (the rocket's box alone at N=10, fixed and adaptive rho; all of
+these cold and two warm solves), the families kernel with
 consensus (128 groups of 8), the resident box consensus kernel (the
 quadrotor at N=10, rho_c 100, groups of 1, 2, 8, 16 and 128: cold, two
 warm solves and a final=True solve), the resident box adaptive kernel
@@ -42,7 +48,9 @@ exits non-zero when any differs. Two packages cannot share a process: run
     python3 chip_compare.py diff A.json B.json
 
 ``build`` compiles the resident solve's and the closed loop's sources
-afresh (csrc/admm_group.cu where the checkout has it, csrc/admm_fused.cu,
+afresh (csrc/admm_group.cu where the checkout has it -- with its families
+kinds, "admm_group families[ adaptive[ apply_c]] cold|warm (nx, nu)[
+place]", where the checkout has them --, csrc/admm_fused.cu,
 csrc/closed_loop_fused.cu) and writes, for each of their kernels by
 chip_smoke.py's label, the ptxas registers, stack and spills
 and a hash of its SASS (cuobjdump -sass, addresses and encodings
@@ -55,15 +63,18 @@ the instructions are the same, and exits non-zero when any differs.
 ``race`` runs small streamed solves on lane teams (box problems, and
 problems with families or consensus at fixed rho, the consensus groups in
 a block and across thread-block clusters) bitwise against the one-thread
-kernels, and small box consensus solves whose scenario groups
+kernels, small box consensus solves whose scenario groups
 span thread-block clusters bitwise against the one-thread consensus
-kernel (see ``race``); run it under ``compute-sanitizer --tool
-racecheck`` to have the team kernels' shared memory checked.
+kernel, and small resident solves with families (and at (6, 3)) on the
+thread-group kernel bitwise against csrc/admm_fused.cu (see ``race``);
+run it under ``compute-sanitizer --tool racecheck`` to have the team and
+group kernels' shared memory checked.
 
     python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
                                  [loop=B,B,...] [stream=B,B,...] [dot]
                                  [cons[=tree,g16]] [adapt[=hard,warm]]
-                                 [profile]
+                                 [fam[=soc,soc_warm,linear,tv,adaptive,
+                                      adaptive_warm]] [profile]
 
 ``time`` times the main path's kernel (bench.py's batch: the quadrotor at
 20 Hz, N=20, box +-5 / +-0.5, hover, x0 ~ U[-0.5, 0.5] from
@@ -106,8 +117,14 @@ the adaptive solves: ``hard``, bench_all.py:401-447's hard batch (N=20,
 rho0 5, B=32768, x0 ~ U[-0.5, 0.5], z 1, max_iter 500, ct 1, the
 sensitivities from compute_sensitivities), and ``warm``, the sixth solve
 of phase 16's adaptive external-plant sequence (N=10, B=16384, hover +
-U[-0.3, 0.3], max_iter 100, ct 1, five solves before it): ``TIME_REPS``
-launches on CUDA events after one to warm up. It prints one JSON line a configuration with every
+U[-0.3, 0.3], max_iter 100, ct 1, five solves before it); with ``fam``
+the resident launches of the families of chip_smoke.py phases 10-12 and
+34 (B=16384, N=10, max_iter 100, ct 1): ``soc``, the rocket's cones cold;
+``soc_warm``, its sixth solve of the external-plant sequence; ``linear``
+and ``tv``, the hyperplane demos cold; ``adaptive``, the rocket's cones at
+adaptive rho cold, and ``adaptive_warm``, its sixth solve (each with its
+torch.profiler device time): ``TIME_REPS`` launches on CUDA events after
+one to warm up. It prints one JSON line a configuration with every
 time, the median, the mean iterations, the time a lane-iteration (the
 kernel's time over the iterations its lanes ran, summed), the card's name
 and power limit and its SM clock sampled just after. ``profile`` adds the
@@ -256,6 +273,39 @@ def save(path):
         out.update(_flat(f"{name}.cold",
                          kern.solve_fused(prob, Xref, Uref, x0)))
         c = tt.init_carry(prob, B)
+        for step in range(2):
+            w = kern.solve_fused_warm(prob, Xref, Uref, x0, c)
+            out.update(_flat(f"{name}.warm{step}", w))
+            c = w[2]
+    # The families (and a box problem at (6, 3)) on the resident kernel:
+    # every family at N=16 and, on 64 lanes, at N=420 (table and a warm
+    # solve's saved columns in device memory) and the rocket's cones at
+    # N=700; the rocket's cones and box alone at adaptive rho, the box at
+    # fixed rho; cold and two warm solves each.
+    rt = tt.with_settings(_rocket(tt, torch, 10), adaptive_rho=True)
+    rtab = (rt.cache.dKinf_drho, rt.cache.dPinf_drho, rt.cache.dC1_drho,
+            rt.cache.dC2_drho)
+    rocket_ad = lambda cones, **k: tt.with_settings(
+        tt.with_sensitivities(_rocket(tt, torch, 10, cones=cones), rtab),
+        adaptive_rho=True, adaptive_rho_min=0.05, **k)
+    resident = [
+        ("mixed", _mixed(tt, torch, 16), x_p, hover(16), None),
+        ("mixed420", tt.with_settings(_mixed(tt, torch, 420), max_iter=12,
+                                      check_termination=3),
+         x_p[:64].contiguous(), hover(420), None),
+        ("rocket_soc700", tt.with_settings(_rocket(tt, torch, 700),
+                                           max_iter=12, check_termination=3),
+         x_r[:64].contiguous(), *descent(700)),
+        ("adaptive_rocket_soc", rocket_ad(True), x_r, *descent(10)),
+        ("adaptive_rocket_soc_apply_c", rocket_ad(
+            True, adaptive_rho_apply_c=True), x_r, *descent(10)),
+        ("rocket_box", _rocket(tt, torch, 10, cones=False), x_r,
+         *descent(10)),
+        ("adaptive_rocket_box", rocket_ad(False), x_r, *descent(10))]
+    for name, prob, x0, Xref, Uref in resident:
+        out.update(_flat(f"{name}.cold",
+                         kern.solve_fused(prob, Xref, Uref, x0)))
+        c = tt.init_carry(prob, x0.shape[0])
         for step in range(2):
             w = kern.solve_fused_warm(prob, Xref, Uref, x0, c)
             out.update(_flat(f"{name}.warm{step}", w))
@@ -562,8 +612,65 @@ def time_resident(torch, tt, cons=(), adapt=()):
                                     if v})
 
 
+FAM_TIMES = ("soc", "soc_warm", "linear", "tv", "adaptive", "adaptive_warm")
+
+
+def time_families(torch, tt, names, profile=False):
+    """The resident launches of the families of chip_smoke.py phases 10-12
+    and 34 (its problems and inputs; ``FAM_TIMES`` of the module
+    docstring), each timed on its own inputs through admm_fused's kernel
+    entry, with the C entries it took and, with ``profile``, its
+    torch.profiler device time."""
+    import types
+    import chip_smoke as cs
+    from tinympc_tpu_torch.kernels import admm_fused as af
+    cs.DEVICE = DEVICE
+    card = _smi("name,power.limit")
+    B_, N = cs.FAM_B, cs.FAM_N
+    ctx = types.SimpleNamespace(tt=tt, torch=torch)
+    sens = None
+    for name in names:
+        if name in ("linear", "tv"):
+            prob = cs.quad_plane_problem(tt, torch, name == "tv", 100, 1)
+            x0, Xref, Uref = cs.quad_plane_inputs(torch, B_)
+        else:
+            x0, Xref, Uref = cs.rocket_inputs(torch, B_)
+            prob = cs.rocket_problem(tt, torch, 100, 1)
+            if name.startswith("adaptive"):
+                if sens is None:
+                    sens = cs.sensitivity_tables(tt.with_settings(
+                        prob, adaptive_rho=True))
+                prob = cs.adaptive_rocket(ctx, 100, 1, sens)
+        spec = prob.spec
+        x, carry = x0, None
+        if name.endswith("warm"):
+            # The sixth solve of phase 11's (phase 34's) external plant.
+            c = tt.init_carry(prob, B_)
+            for _ in range(5):
+                sol, _, c = tt.kernels.solve_fused_warm(prob, Xref, Uref, x,
+                                                        c)
+                x = x @ prob.A.T + sol.u[0] @ prob.B.T + prob.f
+            carry = af._carry_tensors(prob, c, B_)
+        tables, xc, params = af._prepare(prob, Xref, Uref, x)
+        if carry is None:
+            run = lambda: af._solve_kernel(tables, xc, N, spec.nx, spec.nu,
+                                           **params)
+        else:
+            run = lambda: af._solve_kernel_warm(tables, xc, carry, N,
+                                                spec.nx, spec.nu, **params)
+        af.entry_counts.update(dict.fromkeys(af.entry_counts, 0))
+        run()
+        torch.cuda.synchronize()
+        extra = dict(entry_counts={k: v for k, v in af.entry_counts.items()
+                                   if v})
+        if profile:
+            extra["profiler_device_ms"] = _device_times(torch, run)
+        _timed_record(torch, f"families_{name}", run, lambda o: o[0].iter,
+                      B_, card, **extra)
+
+
 def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
-                 stream=(), dot=False, cons=(), adapt=()):
+                 stream=(), dot=False, cons=(), adapt=(), fam=()):
     import torch
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch.kernels import admm_fused, admm_stream, \
@@ -572,6 +679,7 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
     kw = dict(dtype=torch.float32, device=DEVICE)
     card = _smi("name,power.limit")
     time_resident(torch, tt, cons, adapt)
+    time_families(torch, tt, fam, profile)
     for B_ in cold:
         prob = _quad(tt, torch, 20, ct=25)
         x0 = torch.as_tensor(np.random.default_rng(0).uniform(
@@ -834,6 +942,88 @@ def race_consensus():
     return bad
 
 
+def race_families():
+    """Small resident solves on the thread-group kernel's families kinds --
+    the rocket's cones, its box alone at fixed and adaptive rho (a box
+    problem at (6, 3)), its cones at adaptive rho with apply_c, the
+    quadrotor's static and time-varying planes under low ceilings and
+    every family on both sides -- at N=12, B=20 (a partial last block),
+    max_iter 20, ct 1, cold and then two warm solves, each bitwise against
+    the same solve on csrc/admm_fused.cu (taken by giving the route rule
+    no group launch). Returns the number of solves that differ."""
+    import contextlib
+    import torch
+    import tinympc_tpu_torch as tt
+    from tinympc_tpu_torch.kernels import admm_fused as af
+    N, B_ = 12, 20
+    rng = np.random.default_rng(2)
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
+    x_r = torch.as_tensor(xinit * rng.uniform(0.9, 1.2, (B_, 1)), **kw)
+    U_r = torch.zeros((N - 1, 3), **kw)
+    U_r[:, 2] = 10.0
+    X_r = torch.as_tensor(np.linspace(xinit, np.zeros(6), N), **kw)
+    x_p, X_p = _plane_inputs(torch, B_, N, rng)
+    rocket = lambda cones=True: tt.with_settings(
+        _rocket(tt, torch, N, cones=cones), max_iter=20)
+    r = tt.with_settings(rocket(), adaptive_rho=True)
+    tabs = (r.cache.dKinf_drho, r.cache.dPinf_drho, r.cache.dC1_drho,
+            r.cache.dC2_drho)
+    adaptive = lambda p, **k: tt.with_settings(
+        tt.with_sensitivities(p, tabs), adaptive_rho=True,
+        adaptive_rho_min=0.05, **k)
+    cases = [("rocket SOC", rocket(), x_r, X_r, U_r),
+             ("rocket box", rocket(False), x_r, X_r, U_r),
+             ("rocket box adaptive", adaptive(rocket(False)), x_r, X_r, U_r),
+             ("rocket SOC adaptive apply_c", adaptive(
+                 rocket(), adaptive_rho_apply_c=True), x_r, X_r, U_r)]
+    cases += [(f"planes {k}", tt.with_settings(
+        _planes(tt, torch, k == "tv", N), max_iter=20), x_p, X_p, None)
+        for k in ("linear", "tv")]
+    cases += [("mixed families", tt.with_settings(_mixed(tt, torch, N),
+                                                  max_iter=20),
+               x_p, X_p, None)]
+
+    @contextlib.contextmanager
+    def one_thread():
+        route = af.group_route
+        af.group_route = lambda *a, **k: None
+        try:
+            yield
+        finally:
+            af.group_route = route
+
+    bad = 0
+    for name, prob, x0, Xref, Uref in cases:
+        c_g = c_o = None
+        for step in range(3):
+            af.entry_counts.update(dict.fromkeys(af.entry_counts, 0))
+            if step == 0:
+                a = tt.kernels.solve_fused(prob, Xref, Uref, x0)
+                with one_thread():
+                    b = tt.kernels.solve_fused(prob, Xref, Uref, x0)
+            else:
+                c_g = c_g or tt.init_carry(prob, B_)
+                c_o = c_o or tt.init_carry(prob, B_)
+                a = tt.kernels.solve_fused_warm(prob, Xref, Uref, x0, c_g)
+                with one_thread():
+                    b = tt.kernels.solve_fused_warm(prob, Xref, Uref, x0,
+                                                    c_o)
+                c_g, c_o = a[2], b[2]
+            fa, fb = _flat("t", a), _flat("t", b)
+            same = fa.keys() == fb.keys() and all(
+                torch.equal(fa[k], fb[k]) for k in fa)
+            entries = {k: v for k, v in af.entry_counts.items() if v}
+            same = same and entries == {"tinympc_admm_group_families": 1,
+                                        "tinympc_admm_fused": 1}
+            bad += not same
+            print(f"race: {name} {'cold' if step == 0 else f'warm {step}'}"
+                  f": entries {entries}, "
+                  f"{'bitwise the one-thread solve' if same else 'DIFFERS'}"
+                  f", iterations {int(a[0].iter.max())}", flush=True)
+    return bad
+
+
 def race():
     """Small streamed solves whose launches run on lane teams, each
     bitwise against the same solve on one thread a lane: the quadrotor at
@@ -899,7 +1089,7 @@ def race():
         tt.with_settings(_rocket(tt, torch, N), max_iter=20), rho_c=100.0),
         x_rc.reshape(2, 32, 6), X_r, U_r)]
     one_thread = functools.partial(admm_stream._KERNELS, team=False)
-    bad = race_consensus()
+    bad = race_consensus() + race_families()
     for name, prob, x0, Xref, Uref in cases:
         carry = None
         for kind in ("cold", "warm"):
@@ -1017,7 +1207,7 @@ if __name__ == "__main__":
         # cold defaults to the main path's batch unless only another
         # kind is asked for
         only = any(k in opts for k in ("warm", "loop", "stream", "dot",
-                                       "cons", "adapt"))
+                                       "cons", "adapt", "fam"))
         names = lambda key, every: () if key not in opts else every \
             if opts[key] == "1" else tuple(opts[key].split(","))
         time_kernels(batches("cold", () if only else (TIME_B,)),
@@ -1025,7 +1215,8 @@ if __name__ == "__main__":
                      "profile" in opts, batches("warm", ()),
                      batches("stream", ()), "dot" in opts,
                      names("cons", ("tree", "g16")),
-                     names("adapt", ("hard", "warm")))
+                     names("adapt", ("hard", "warm")),
+                     names("fam", FAM_TIMES))
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "race":
         sys.exit(race())

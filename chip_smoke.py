@@ -24,8 +24,10 @@ calls, and holds every kernel against its plain PyTorch version:
   5 warm solves through kernels.solve_fused_warm (csrc/admm_group.cu,
   warm), the plant stepped with the applied input plus 0.01 N(0,1)
   actuator noise from the seeded generator;
-* the constraint families on the families kernel (csrc/admm_fused.cu with
-  csrc/admm_families.cuh): bench_all.py:199-222's "rocket SOC cold solve
+* the constraint families on the thread-group kernel's families kinds
+  (csrc/admm_group.cu, entry tinympc_admm_group_families; admm_group.cuh's
+  GroupFamilies with csrc/admm_families.cuh's projections):
+  bench_all.py:199-222's "rocket SOC cold solve
   (fused)" -- rocket_landing_20hz (nx=6, nu=3), N=10, box x in
   [-5,-5,-0.5,-10,-10,-20]..[5,5,100,10,10,20] and u in [-10, 105], state
   cone (0, 3, mu 0.25) and input cone (0, 3, mu 0.5), max_iter 100, ct 1,
@@ -88,7 +90,7 @@ calls, and holds every kernel against its plain PyTorch version:
 * lane compaction to convergence (kernels.make_compact_solver: phases of
   warm solve_fused_warm(final=True) on the resident kernels -- box
   problems at (12, 4) on csrc/admm_group.cu, fixed or adaptive rho or
-  consensus, the rest on csrc/admm_fused.cu --, or of
+  consensus, and the families (the rocket's cones) there too --, or of
   solve_fused_streamed_warm on csrc/admm_stream.cu, with the live lanes
   regathered between phases) and the consensus instantiations of the
   streamed kernels: bench_all.py:448-452 / :497-501's mixed batch -- the
@@ -104,7 +106,7 @@ calls, and holds every kernel against its plain PyTorch version:
   (max_iter 1000 in phases [100, 400, 500]). The sources' "high" runs at
   "highest" here, so the ladder's tail changes only the budget;
 * adaptive rho with the constraint families and at the rocket's (6, 3), on
-  the families adaptive instantiation of csrc/admm_fused.cu: phase 10's
+  the families adaptive kinds of csrc/admm_group.cu: phase 10's
   rocket SOC batch (B=16384) with adaptive_rho=True -- the rocket's
   sensitivities from compute_sensitivities, adaptive_rho_min lowered to
   0.05 so that its rho of 1 can move -- cold and as phase 11's
@@ -157,7 +159,9 @@ moved to the host):
 9. families kernels against their plain versions, small: cold and warm,
    (nx, nu) = (6, 3) (the rocket's cones) and (12, 4) (the quadrotor's
    hyperplanes, with z ceilings low enough that the state planes bite),
-   B=1000, ct 1 and 5; warm as sequences of 4 solves;
+   B=1000, ct 1 and 5; warm as sequences of 4 solves; phases 9-12 and
+   33-34 each held to the thread-group kernel's families entry
+   (tinympc_admm_group_families);
 10. the rocket SOC cold batch at B=16384;
 11. the rocket SOC external-plant sequence at B=16384, 5 warm solves;
 12. the hyperplane demos as cold batches at B=16384, static and tv; then
@@ -213,8 +217,14 @@ moved to the host):
 33. the families adaptive kernel against its plain versions, small
    (B=1024): the rocket SOC cold (and with apply_c) and over 5 warm
    solves, the box-only rocket with the guard (tol 3) and at fixed rho
-   (which runs the families kernel with zero counts), and the quadrotor
+   (which runs the families kinds with zero counts), and the quadrotor
    hyperplanes, static and time-varying, under phase 9's low ceilings;
+   then the rocket SOC cold (with and without apply_c, and at fixed rho)
+   and its 5 adaptive warm solves on the one-thread kernel of
+   csrc/admm_fused.cu (the route pinned to no
+   group launch; the families' multi-system launch and the horizons past
+   the cutoff take it), at the same bars and bitwise the group entry's
+   solves;
 34. the rocket SOC batch with adaptive rho at B=16384, cold and 5 warm
    solves, beside fixed rho on the same inputs;
 35. the streamed adaptive kernels against their plain versions and,
@@ -244,7 +254,17 @@ moved to the host):
    horizons choose, through the entry points at the bar against the plain
    version: a cold solve at N=700 (the table in device memory), warm
    solves at N=1100 and N=1150 (past N=1117 the saved columns in device
-   memory too), closed loops at N=700 and N=1150 (T=2);
+   memory too), closed loops at N=700 and N=1150 (T=2); then the
+   families kinds: the rocket's cones and every family on both sides of
+   the quadrotor, cold and 2 warm solves, at every place and P (the
+   wrappers' and 1), bitwise the wrappers' launch; and the cutoff of the
+   every-family problem by the library's own counts (FAMILY_CUTOFF), a
+   solve there on the group kernel bitwise the one-thread kernel's and
+   one a step past it on csrc/admm_fused.cu, both cold and warm against
+   the plain versions on the card and on the CPU at the bars of the plain
+   version's own spread between the two (the every-family problem is
+   float32-sensitive: a 1-ulp change of x0 moves its 12-iteration
+   solution by ~1e-2 in the plain version itself);
 42. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
@@ -970,7 +990,8 @@ def kernel_label(fn):
              "2": " saved columns in device memory"}
     # ... and its KIND (csrc/admm_group.cu Kind)
     kinds = {"0": "box", "1": "consensus", "2": "adaptive",
-             "3": "adaptive apply_c"}
+             "3": "adaptive apply_c", "4": "families",
+             "5": "families adaptive", "6": "families adaptive apply_c"}
     m = re.search(r"admm_group_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d)E"
                   r"Li(\d)E", fn)
     if m:
@@ -1047,7 +1068,8 @@ def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B, Uref=None):
     bar of the plain version's own spread between the two (its counts,
     solved fraction and values; never looser than the default bar); final
     rho within RHO_RTOL on the lanes whose counts agree. (A fixed-rho batch
-    is held the same way, without the rho row.)"""
+    is held the same way, without the rho row.) Returns the kernel's
+    solution and residuals."""
     prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                         "cpu")
     cpu = lambda a: None if a is None else a.cpu()
@@ -1074,6 +1096,7 @@ def adaptive_small(torch, tt, convert, label, prob, x0, Xref, B, Uref=None):
     log(f"  {label}: lanes whose rho moved {moved:.5f}, mean iters "
         f"{sol_k.iter.float().mean().item():.4f}, solved frac "
         f"{sol_k.solved.float().mean().item():.5f}")
+    return sol_k, res_k
 
 
 def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
@@ -1086,17 +1109,19 @@ def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
     ``carry_spread`` the carry is held against the plain version on the CPU
     to that spread too: its scaled duals grow as 1/rho, so where rho falls
     far below 1 their rounding passes the absolute bar while x and u meet
-    it."""
+    it. Returns the kernel's (solution, residuals, carry) of each step."""
     prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                         "cpu")
     cpu = lambda a: None if a is None else a.cpu()
     c_k, c_p, c_c = (tt.init_carry(prob, B), tt.init_carry(prob, B),
                      tt.init_carry(prob_c, B))
+    outs = []
     agreed = {o: torch.ones(B, dtype=torch.bool)
               for o in ("plain(cpu)", "plain(gpu)")}
     for step in range(steps):
         sol_k, res_k, c_k = tt.kernels.solve_fused_warm(prob, Xref, Uref, x,
                                                         c_k)
+        outs.append((sol_k, res_k, c_k))
         sol_p, res_p, c_p = tt.kernels.solve_fused_warm_reference(
             prob, Xref, Uref, x, c_p)
         sol_c, res_c, c_c = tt.kernels.solve_fused_warm_reference(
@@ -1123,6 +1148,7 @@ def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
             compare_rho(f"{name} vs {other}", c_kc.rho[0], c_o.rho[0],
                         agreed[other])
         x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+    return outs
 
 
 def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
@@ -2740,9 +2766,9 @@ def compaction_phases(ctx):
     x_rock, Xr, Ur = rocket_inputs(torch, B)
     x_tree, Xt = tree_inputs(torch, B // 8, 8, 0.5)
     tables = tt.systems.crazyflie_sensitivity_tables()
-    # Each case with the resident C entries its phases take: box (fixed
-    # and adaptive rho, consensus) at (12, 4) the thread-group kernel's,
-    # the rocket's cones the one-thread kernel's, the streamed backend
+    # Each case with the resident C entries its phases take: the
+    # thread-group kernel's (box at fixed and adaptive rho and consensus at
+    # (12, 4); the rocket's cones, its families kind), the streamed backend
     # none.
     box = {"tinympc_admm_group"}
     small = [
@@ -2753,7 +2779,7 @@ def compaction_phases(ctx):
         ("box ct 25 chunk [100, 400]", lambda: problem(tt, torch, 500, 25),
          x_mixed, None, None, dict(chunk=COMPACT_CHUNK), box),
         ("rocket SOC chunk 20", lambda: rocket_problem(tt, torch, 100, 1),
-         x_rock, Xr, Ur, dict(chunk=20), {FUSED}),
+         x_rock, Xr, Ur, dict(chunk=20), {GROUP_FAM}),
         ("adaptive rho chunk [100, 400]", lambda: adaptive_problem(
             tt, torch, 5.0, N_HORIZON, 500, 1, tables=tables), x_hard, z1,
          None, dict(chunk=COMPACT_CHUNK, backend="resident"), {GROUP_ADAPT}),
@@ -3097,9 +3123,11 @@ def timed_setup(ctx, label, make):
 
 def adaptive_family_phases(ctx):
     """Phases 33-34: adaptive rho with the constraint families (and every
-    problem at (6, 3)) on the families adaptive instantiation of
-    csrc/admm_fused.cu. Returns the kernels-line numbers of the rocket SOC
-    cold batch and of its warm sequence."""
+    problem at (6, 3)) on the families adaptive kinds of
+    csrc/admm_group.cu (entry tinympc_admm_group_families), and phase 33's
+    rocket cones on the one-thread kernel of csrc/admm_fused.cu as well.
+    Returns the kernels-line numbers of the rocket SOC cold batch and of
+    its warm sequence."""
     torch, tt, convert, admm_fused = (ctx.torch, ctx.tt, ctx.convert,
                                       ctx.admm_fused)
     kern = tt.kernels
@@ -3132,6 +3160,8 @@ def adaptive_family_phases(ctx):
          Ur),
         ("rocket SOC adaptive apply_c", adaptive_rocket(
             ctx, 100, 1, t, apply_c=True), x_r, Xr, Ur),
+        ("rocket SOC fixed rho", rocket_problem(tt, torch, 100, 1), x_r, Xr,
+         Ur),
         ("rocket box adaptive guard tol 3", adaptive_rocket(
             ctx, 100, 1, t, cones=False, tol=3.0), x_r, Xr, Ur),
         ("rocket box fixed rho", rocket_problem(tt, torch, 100, 1,
@@ -3140,17 +3170,47 @@ def adaptive_family_phases(ctx):
          x_q, Xq, None),
         ("quadrotor tv low ceilings adaptive", plane_problem("tv"), x_q,
          Xq, None)]
+    group_outs = {}
     for label, prob, x0, Xref, Uref in cases:
         zero_counts(ctx.counters)
-        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
-                       Xref, B, Uref)
+        group_outs[label] = adaptive_small(
+            torch, tt, convert, f"{label} cold B={B}", prob, x0, Xref, B,
+            Uref)
         key = ("adaptive_families_launch_count"
                if prob.settings.adaptive_rho else "families_launch_count")
         fail(label, getattr(admm_fused, key) >= 1,
              f"the kernel's {key} stayed 0")
-    adaptive_warm_small(torch, tt, convert, "rocket SOC adaptive warm",
-                        cases[0][1], x_r, Xr, B, Ur, steps=5,
-                        carry_spread=True)
+        took_entries(admm_fused, label, {GROUP_FAM})
+    zero_entries(admm_fused)
+    group_warm = adaptive_warm_small(
+        torch, tt, convert, "rocket SOC adaptive warm", cases[0][1], x_r, Xr,
+        B, Ur, steps=5, carry_spread=True)
+    took_entries(admm_fused, "rocket SOC adaptive warm", {GROUP_FAM})
+    # The one-thread families kernel (csrc/admm_fused.cu), which the
+    # families' multi-system launch and the horizons past the group
+    # kernel's cutoff take: the rocket's cones at adaptive rho (with and
+    # without apply_c) and at fixed rho with the route giving no group
+    # launch, at the same bars against the plain versions, and bitwise
+    # the group entry's solves on the same inputs.
+    for label, prob, x0, Xref, Uref in cases[:3]:
+        name = f"{label} one-thread kernel"
+        zero_entries(admm_fused)
+        with pinned(admm_fused, "group_route", None):
+            got = adaptive_small(torch, tt, convert, f"{name} cold B={B}",
+                                 prob, x0, Xref, B, Uref)
+        took_entries(admm_fused, name, {FUSED: 1})
+        same_bits(torch, name, got, group_outs[label],
+                  "the group entry's solve")
+    zero_entries(admm_fused)
+    with pinned(admm_fused, "group_route", None):
+        got = adaptive_warm_small(
+            torch, tt, convert, "rocket SOC adaptive warm one-thread kernel",
+            cases[0][1], x_r, Xr, B, Ur, steps=5, carry_spread=True)
+    took_entries(admm_fused, "rocket SOC adaptive warm one-thread kernel",
+                 {FUSED: 5})
+    for step, (g, w) in enumerate(zip(got, group_warm)):
+        same_bits(torch, f"rocket SOC adaptive warm one-thread kernel step "
+                  f"{step}", g, w, "the group entry's solve")
 
     # 34. the rocket SOC batch at full width with adaptive rho, beside
     # fixed rho on the same inputs: cold, then phase 11's external plant
@@ -3167,6 +3227,8 @@ def adaptive_family_phases(ctx):
     if launches < 1:
         raise AssertionError("the adaptive rocket batch did not launch the "
                              "families adaptive kernel")
+    took_entries(admm_fused, "rocket SOC adaptive cold",
+                 {GROUP_FAM: launches})
     if sol_k.x.shape != (FAM_N, B, 6) or res_k.shape != (5, B):
         raise AssertionError(f"bad output shapes {sol_k.x.shape} "
                              f"{res_k.shape}")
@@ -3233,9 +3295,9 @@ def adaptive_family_phases(ctx):
            ms, times, call_ms, plain_ms, err, launches, (sol_tf, ms_f))
     # The source's settings: adaptive_rho_min's default of 1 pins the
     # rocket's rho of 1, so the adaptive kernel runs with drho = 0.
-    pinned = tt.with_settings(tt.with_sensitivities(prob_f, t),
-                              adaptive_rho=True)
-    sol_pin, ms_pin, times_pin = time_solve(pinned, x0)[:3]
+    at_floor = tt.with_settings(tt.with_sensitivities(prob_f, t),
+                                adaptive_rho=True)
+    sol_pin, ms_pin, times_pin = time_solve(at_floor, x0)[:3]
     same = all(torch.equal(getattr(sol_pin, k), getattr(sol_tf, k))
                for k in ("x", "u", "iter", "solved"))
     mean_pin = sol_pin.iter.float().mean().item()
@@ -3263,6 +3325,8 @@ def adaptive_family_phases(ctx):
     if warm_launches < 5:
         raise AssertionError("the adaptive rocket sequence did not launch "
                              "the warm families adaptive kernel")
+    took_entries(admm_fused, "rocket SOC adaptive sequence",
+                 {GROUP_FAM: warm_launches})
     c_p = tt.init_carry(prob_a, B)
     agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
     err_w = 0.0
@@ -3336,9 +3400,9 @@ def adaptive_stream_phases(ctx):
         same_bits(torch, label, (sol_k, res_k),
                   kern.solve_fused(prob, Xref, Uref, x0), "solve_fused")
         # The resident adaptive kernel it is held to: the thread-group
-        # kernel's for box problems at (12, 4), else the one-thread one.
+        # kernel's, its families kinds at (6, 3).
         took_entries(admm_fused, f"{label} resident", {
-            FUSED if prob.spec.nx == 6 else GROUP_ADAPT: 1})
+            GROUP_FAM if prob.spec.nx == 6 else GROUP_ADAPT: 1})
         sol_p, res_p = plain_wide(torch, ref, prob, Xref, Uref, x0)
         compare(torch, f"{label} vs plain", sol_k, sol_p, res_k[:4],
                 res_p[:4])
@@ -3981,12 +4045,59 @@ def pinned(module, name, geometry):
         setattr(module, name, keep)
 
 
+def every_family_problem(tt, torch, N, max_iter, ct):
+    """Every family on both sides of the 50 Hz quadrotor (12, 4), with its
+    box: two state cones and an input cone, the static z ceiling and
+    thrust-sum plane, two time-varying state planes and one input plane
+    (chip_compare.py's ``_mixed``)."""
+    s = tt.systems.quadrotor_50hz()
+    p = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=N,
+                 dtype=torch.float32, device=DEVICE)
+    Ax = np.zeros((1, 12))
+    Ax[0, 2] = 1.0
+    p = tt.with_linear_constraints(p, Ax, [1.24], np.ones((1, 4)), [6.0])
+    Ax = np.zeros((N, 2, 12))
+    Ax[:, 0, 2] = 1.0
+    Ax[:, 1, :2] = 0.5
+    Au = np.ones((N - 1, 1, 4))
+    Au[:, 0, 3] = 2.0
+    p = tt.with_tv_linear_constraints(
+        p, Ax, np.stack([1.07 + 0.02 * np.arange(N), np.full(N, -1.5)], 1),
+        Au, np.full((N - 1, 1), 6.0))
+    p = tt.with_cones(p, state_cones=[(3, 3, 0.5), (6, 4, 2.0)],
+                      input_cones=[(0, 2, 0.3)])
+    p = tt.with_bounds(p, x_min=-5.0, x_max=5.0, u_min=-0.5, u_max=3.0)
+    return tt.with_settings(p, max_iter=max_iter, check_termination=ct,
+                            abs_pri_tol=1e-3, abs_dua_tol=1e-3)
+
+
+def every_family_inputs(torch, B, N):
+    """x0 = [-2, -2, 1, 0...] + 0.1 U[-1, 1]^12 (default_rng(0)); Xref the
+    demo's window toward the goal over N steps."""
+    start, goal = np.asarray(QUAD_START), np.asarray(QUAD_GOAL)
+    x0 = start + 0.1 * np.random.default_rng(0).uniform(-1, 1, (B, 12))
+    alpha = np.minimum(np.arange(N)[:, None] / 49.0, 1.0)
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return (torch.as_tensor(x0, **kw),
+            torch.as_tensor((1 - alpha) * start + alpha * goal, **kw))
+
+
+# The last horizon at which the every-family problem (three families on
+# each side at (12, 4)) runs on the thread-group kernel: one problem's
+# family columns fill a block's shared memory past it
+# (admm_fused.group_route).
+FAMILY_CUTOFF = 440
+
+
 def group_places_phase(ctx):
     """Phase 41: every place of the group kernels (csrc/admm_group.cuh
     Place) and smaller blocks, bitwise the place the wrappers choose, at
     the horizons of the main path's neighbourhood; then the long horizons
     that choose the other places, at the bar against the plain version.
-    Each launch is held to the place it was meant to take."""
+    Each launch is held to the place it was meant to take. Then the same
+    for the families kinds (the rocket's cones at (6, 3) and every family
+    at (12, 4), cold and warm), and their horizon cutoff: the last horizon
+    on the group kernel and the next on csrc/admm_fused.cu."""
     torch, tt, af = ctx.torch, ctx.tt, ctx.admm_fused
     from tinympc_tpu_torch.kernels import closed_loop_kernel as clk
     phase("phase 41: the group kernels' places, pinned at N=64 and N=10, "
@@ -4003,7 +4114,8 @@ def group_places_phase(ctx):
                 pinned(clk, "loop_geometry", geom):
             out = run()
         torch.cuda.synchronize()
-        n = af.entry_counts["tinympc_admm_group"] + clk.launch_count
+        n = af.entry_counts["tinympc_admm_group"] + clk.launch_count \
+            + af.entry_counts[GROUP_FAM]
         fail("pinned launch", n >= 1, f"no group launch at {geom}")
         return out
 
@@ -4092,6 +4204,122 @@ def group_places_phase(ctx):
                 prob, Xref, x0, T, shift_warm=True)
             fail(label, clk.launch_count == 1, "no closed-loop launch")
             compare_loop(torch, label, out_k, out_p)
+    group_families_places(ctx, launches_at, places)
+
+
+def group_families_places(ctx, launches_at, places, B=1000):
+    """Phase 41's families: the rocket's cones at (6, 3) and every family
+    at (12, 4), cold and two warm solves at every place and P (the
+    wrappers' and 1), bitwise the wrappers' launch (``launches_at`` pins
+    one); then the every-family problem's cutoff by the library's own
+    counts (FAMILY_CUTOFF), a solve there on the group kernel bitwise the
+    one-thread kernel's, and one a step past it on csrc/admm_fused.cu,
+    each held against the plain versions, cold and warm, at the bars of
+    their own spread."""
+    torch, tt, af = ctx.torch, ctx.tt, ctx.admm_fused
+    x_r, X_r, U_r = rocket_inputs(torch, B)
+    x_m, X_m = every_family_inputs(torch, B, FAM_N)
+    for name, prob, x0, Xref, Uref in (
+            ("rocket SOC", rocket_problem(tt, torch, 100, 1), x_r, X_r, U_r),
+            ("every family", every_family_problem(tt, torch, FAM_N, 100,
+                                                  1), x_m, X_m, None)):
+        spec = prob.spec
+        fam = af._families(spec)
+
+        def run(warm, prob=prob, x0=x0, Xref=Xref, Uref=Uref):
+            if not warm:
+                return [tt.kernels.solve_fused(prob, Xref, Uref, x0)]
+            c, outs = tt.init_carry(prob, B), []
+            for _ in range(2):
+                out = tt.kernels.solve_fused_warm(prob, Xref, Uref, x0, c)
+                outs.append(out)
+                c = out[2]
+            return outs
+
+        table = af._group_table(spec.N, spec.nx, spec.nu, "families", fam)
+        for save in (False, True):
+            zero_entries(af)
+            want = run(save)
+            took_entries(af, f"{name} {'warm' if save else 'cold'}",
+                         {GROUP_FAM: len(want)})
+            base = af.group_geometry(spec.N, save, None, spec.nx, spec.nu,
+                                     "families", fam=fam)
+            log(f"  {name} {'warm' if save else 'cold'}: the wrappers "
+                f"launch P={base[0]} at {places[base[1]]}")
+            for place in places:
+                if place == af.PLACE_SAVED_GLOBAL and not save:
+                    continue
+                for P in (base[0], 1):
+                    geom = (P, place, af.group_smem(
+                        spec.N, P, place, save, table, spec.nx, spec.nu,
+                        "families", fam))
+                    got = launches_at(geom, lambda: run(save))
+                    for k, (g, w) in enumerate(zip(got, want)):
+                        same_bits(torch, f"{name} {'warm' if save else 'cold'}"
+                                  f" P={P} {places[place]} solve {k}", g, w,
+                                  "the wrappers' launch")
+    # The cutoff of the every-family problem, by the library's own counts.
+    fam = af._families(every_family_problem(tt, torch, 12, 1, 1).spec)
+    probe = af._group_probe("families", True, fam, 12, 4)
+    cut = next(N for N in range(2, 2000) if af.group_route(
+        N + 1, 12, 4, fam, None, None, True, *probe) is None)
+    fail("families cutoff", cut == FAMILY_CUTOFF, f"the group kernel takes "
+         f"the every-family problem to N={cut}, expected {FAMILY_CUTOFF}")
+    # On both sides of the cutoff, cold and warm, the solves are held
+    # against the plain versions on the card and on the CPU, at the bars
+    # of the plain version's own spread between the two: the every-family
+    # problem does not converge, and a 1-ulp change of x0 moves the plain
+    # version's own 12-iteration solution by ~1e-2. At the cutoff the
+    # group kernel's solve is also bitwise the one-thread kernel's (taken
+    # by giving the route rule no group launch); a step past it the
+    # wrappers take the one-thread kernel themselves.
+    B = 64
+    everyone = torch.ones(B, dtype=torch.bool)
+    for N, entry in ((cut, GROUP_FAM), (cut + 1, FUSED)):
+        prob = every_family_problem(tt, torch, N, 12, 3)
+        prob_c = ctx.convert.problem_from_numpy(
+            ctx.convert.problem_to_numpy(prob), "cpu")
+        x0, Xref = every_family_inputs(torch, B, N)
+        label = f"every family N={N}"
+        run = lambda: [tt.kernels.solve_fused(prob, Xref, None, x0),
+                       tt.kernels.solve_fused_warm(prob, Xref, None, x0,
+                                                   tt.init_carry(prob, B))]
+        zero_entries(af)
+        got = run()
+        took_entries(af, label, {entry: 2})
+        plain = [tt.kernels.solve_fused_reference(prob, Xref, None, x0),
+                 tt.kernels.solve_fused_warm_reference(
+                     prob, Xref, None, x0, tt.init_carry(prob, B))]
+        cpu = [tt.kernels.solve_fused_reference(prob_c, Xref.cpu(), None,
+                                                x0.cpu()),
+               tt.kernels.solve_fused_warm_reference(
+                   prob_c, Xref.cpu(), None, x0.cpu(),
+                   tt.init_carry(prob_c, B))]
+        for k, kind in enumerate(("cold", "warm")):
+            name = f"{label} {kind}"
+            c_p, c_c = (plain[k][2], cpu[k][2]) if k else (None, None)
+            share, solved_tol, atol = spread_bars(name, *plain_spread(
+                torch, plain[k][0], cpu[k][0], everyone, c_p, c_c)[:3], B)
+            sol_k = on_cpu(got[k][0])
+            for other, sol_o, c_o in (
+                    ("plain(cpu)", cpu[k][0], c_c),
+                    ("plain(gpu)", on_cpu(plain[k][0]),
+                     None if c_p is None else on_cpu(c_p))):
+                agreed = sol_k.iter == sol_o.iter
+                compare(torch, f"{name} vs {other}", sol_k, sol_o,
+                        atol=atol, lanes=agreed, solved_tol=solved_tol,
+                        share=share)
+                if k:
+                    compare_carry(torch, f"{name} vs {other}",
+                                  on_cpu(got[k][2]), c_o, agreed, atol=atol)
+        if entry == GROUP_FAM:
+            with pinned(af, "group_route", None):
+                want = run()
+            for k, (g, w) in enumerate(zip(got, want)):
+                same_bits(torch, f"{label} {('cold', 'warm')[k]}", g, w,
+                          "the one-thread kernel's")
+        log(f"  {label}: on {entry}, mean iters "
+            f"{got[0][0].iter.float().mean().item():.4f}")
 
 
 def zero_counts(kernels):
@@ -4123,6 +4351,7 @@ def zero_entries(admm_fused):
 
 GROUP_CONS = "tinympc_admm_group_consensus"
 GROUP_ADAPT = "tinympc_admm_group_adaptive"
+GROUP_FAM = "tinympc_admm_group_families"
 FUSED = "tinympc_admm_fused"
 
 
@@ -4489,12 +4718,14 @@ def main():
         prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                             "cpu")
         x0, Xref, Uref = make_inputs(torch, B)
+        zero_entries(admm_fused)
         sol_k, res_k = tt.kernels.solve_fused(prob, Xref, Uref, x0)
         sol_p, res_p = tt.kernels.solve_fused_reference(prob, Xref, Uref, x0)
         sol_c, _ = tt.kernels.solve_fused_reference(prob_c, cpu(Xref),
                                                     cpu(Uref), cpu(x0))
         torch.cuda.synchronize()
         name = f"{label} cold B={B} ct={ct}"
+        took_entries(admm_fused, name, {GROUP_FAM: 1})
         # The bar against the plain version on the CPU, on the lanes
         # whose counts agree; against the plain version on the card
         # (cuBLAS's summation order), the bar of its own spread from the
@@ -4527,6 +4758,7 @@ def main():
         agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
         agreed_c, agreed_kc = everyone, everyone.clone()
         x = x0
+        zero_entries(admm_fused)
         for step in range(4):
             sol_k, _, c_k = tt.kernels.solve_fused_warm(prob, Xref, Uref, x,
                                                         c_k)
@@ -4554,6 +4786,8 @@ def main():
                     solved_tol=solved_tol, share=share, among=before)
             compare_carry(torch, name, c_k, c_p, agreed, atol=atol)
             x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+        took_entries(admm_fused, f"{label} warm B={B} ct={ct}",
+                     {GROUP_FAM: 4})
 
     def time_cold(prob, Xref, Uref, x0, sol_k):
         """Kernel ms (CUDA events, median of REPS), the solve_fused call on
@@ -4576,8 +4810,9 @@ def main():
 
     def full_width_cold(label, prob, Xref, Uref, x0):
         """Drive a families cold batch through kernels.solve_fused with the
-        counts at 0, check it, hold it against the plain version and time
-        it. Returns the kernels-line numbers."""
+        counts at 0, check it (on the thread-group kernel's families
+        entry), hold it against the plain version and time it. Returns the
+        kernels-line numbers."""
         spec = prob.spec
         zero_counts(counters)
         sol_k, res_k = tt.kernels.solve_fused(prob, Xref, Uref, x0)
@@ -4586,6 +4821,7 @@ def main():
         if launches < 1:
             raise AssertionError(f"{label} did not launch the families "
                                  "kernel")
+        took_entries(admm_fused, label, {GROUP_FAM: launches})
         B = x0.shape[0]
         if sol_k.x.shape != (spec.N, B, spec.nx) or \
                 sol_k.u.shape != (spec.N - 1, B, spec.nu):
@@ -4637,6 +4873,8 @@ def main():
     if fam_warm_launches < 5:
         raise AssertionError("the rocket SOC sequence did not launch the "
                              "warm families kernel")
+    took_entries(admm_fused, "rocket SOC sequence",
+                 {GROUP_FAM: fam_warm_launches})
     c_p = tt.init_carry(prob, FAM_B)
     agreed = torch.ones(FAM_B, dtype=torch.bool, device=DEVICE)
     err_fw = 0.0
@@ -4734,8 +4972,8 @@ def main():
             ("closed_loop_fused",
              "tinympc_tpu_torch/csrc/closed_loop_fused.cu",
              "tinympc_tpu/kernels/closed_loop_pallas.py:63", serve)]
-    rows += [(f"admm_fused_families_{key}",
-              "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows += [(f"admm_group_families_{key}",
+              "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fam_rows[key])
              for key in ("soc", "soc_warm", "linear", "tv")]
     rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
@@ -4771,7 +5009,7 @@ def main():
               "tinympc_tpu/kernels/admm_stream.py:"
               + ("121" if key.startswith("backward") else "258"), r)
              for key, r in compact_rows.items()]
-    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+    rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", adapt_fam_rows[key])
              for key in ("adaptive_families", "adaptive_families_warm")]
     rows += [(f"admm_stream_{key}", f"tinympc_tpu_torch/csrc/{src}", rep,

@@ -225,21 +225,27 @@ def test_plain_float64_meets_the_parity_bar_of_admm_solve(case):
 
 def test_box_rocket_runs_a_families_instantiation(monkeypatch):
     """The launch glue of the box-only rocket at (6, 3), against a stand-in
-    for the C entry point: fixed and adaptive rho run a families
-    instantiation with zero counts (counted as such), and a warm solve
-    hands the kernel scratch x/u, in and out, that its carry does not
-    keep."""
+    for the C entry point of csrc/admm_group.cu,
+    tinympc_admm_group_families: fixed and adaptive rho run its families
+    kinds with zero counts (counted as families instantiations), and a
+    warm solve hands it no x/u, which its carry does not keep; no launch
+    reaches csrc/admm_fused.cu."""
     seen = []
 
     def entry(*args):
-        assert len(args) == 28
-        counts = [args[7][k] for k in range(6)]
-        fam = [args[24][k] for k in range(22)]
-        seen.append((bool(args[0]), counts, args[25] is not None,
-                     [p is not None for p in fam[18:]]))
+        assert len(args) == 26
+        a = args[23]._obj
+        counts = [getattr(a, n) for n in admm_fused.Families._fields]
+        seen.append((bool(args[0]), counts, args[24] is not None,
+                     [getattr(a, k) is not None
+                      for k in ("x_in", "u_in", "x_out", "u_out")]))
         return 0
 
-    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    def fused(*args):
+        raise AssertionError("a launch reached csrc/admm_fused.cu")
+
+    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda multi=False: fused)
+    monkeypatch.setattr(admm_fused, "_group_policy_fn", lambda kind: entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:
@@ -261,9 +267,9 @@ def test_box_rocket_runs_a_families_instantiation(monkeypatch):
         assert out.x is None and out.u is None
     zero = [0] * 6
     assert seen == [(False, zero, False, [False] * 4),
-                    (True, zero, False, [True] * 4),
+                    (True, zero, False, [False] * 4),
                     (False, zero, True, [False] * 4),
-                    (True, zero, True, [True] * 4)]
+                    (True, zero, True, [False] * 4)]
     counts = {k: getattr(admm_fused, k) for k in names}
     assert counts == {k: int(k in ("families_launch_count",
                                    "families_warm_launch_count",

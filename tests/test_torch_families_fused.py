@@ -346,13 +346,15 @@ def test_hyperplane_norms_are_packed_once():
 
 @pytest.mark.parametrize("case", ["box", "soc", "tv"])
 def test_launch_passes_each_family_its_arrays(case, monkeypatch):
-    """The launch glue, against a stand-in for the C entry point of
-    csrc/admm_fused.cu: one entry for every solve, the family counts, a
-    slack and a dual for each family that is on and null for the others,
-    the carry on a warm solve only, and the new carry with exactly the
-    problem's fields. All zero counts at (12, 4) select the box-only
-    solve's own entry, tinympc_admm_group (csrc/admm_group.cu), which takes
-    the carry and no family arrays."""
+    """The launch glue, against stand-ins for the C entry points of
+    csrc/admm_group.cu: a problem with families takes
+    tinympc_admm_group_families, with the family counts, the carried dual
+    in and out of each family that is on (null for the others) and x/u in
+    and out on a warm solve only, the box carry on a warm solve only, and
+    the new carry with exactly the problem's fields. All zero counts at
+    (12, 4) select the box-only solve's own entry, tinympc_admm_group,
+    which takes the carry and no family arrays. No launch reaches
+    csrc/admm_fused.cu."""
     if case == "box":
         s = tt.systems.quadrotor_20hz()
         pt = tt.with_bounds(tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"],
@@ -363,21 +365,21 @@ def test_launch_passes_each_family_its_arrays(case, monkeypatch):
     seen = []
 
     def entry(*args):
-        assert len(args) == 28
-        assert args[25] is None            # fixed rho: no adaptive arguments
-        assert args[26] is None            # no consensus arguments
-        warm, nx, nu, n, B = args[:5]
-        counts = [args[7][k] for k in range(6)]
-        carry = [args[23][k] for k in range(10)]
-        fam = [args[24][k] for k in range(22)]
-        for f, c in enumerate(counts):
-            on = c > 0
-            assert (fam[2 * f] is not None) == on
-            assert (fam[2 * f + 1] is not None) == on
-            assert (fam[12 + f] is not None) == (on and bool(warm))
+        assert len(args) == 26
+        assert args[24] is None            # fixed rho: no adaptive arguments
+        assert args[20] is None            # one system
+        warm = args[0]
+        a = args[23]._obj
+        counts = [getattr(a, n) for n in admm_fused.Families._fields]
+        for f, (c, d) in enumerate(zip(counts, admm_fused._FAMILY_DUALS)):
+            on = c > 0 and bool(warm)
+            assert (getattr(a, d + "_in") is not None) == on
+            assert (getattr(a, d + "_out") is not None) == on
         xu = bool(warm) and any(counts)
-        assert all((p is not None) == xu for p in fam[18:22])
-        assert all((p is not None) == bool(warm) for p in carry)
+        assert all((getattr(a, k) is not None) == xu
+                   for k in ("x_in", "u_in", "x_out", "u_out"))
+        assert all((args[19][k] is not None) == bool(warm)
+                   for k in range(12))
         seen.append((warm, counts))
         return 0
 
@@ -389,8 +391,12 @@ def test_launch_passes_each_family_its_arrays(case, monkeypatch):
         seen.append((warm, [0] * 6))
         return 0
 
-    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda: entry)
+    def fused(*args):
+        raise AssertionError("a launch reached csrc/admm_fused.cu")
+
+    monkeypatch.setattr(admm_fused, "_kernel_fn", lambda multi=False: fused)
     monkeypatch.setattr(admm_fused, "_group_fn", lambda: group_entry)
+    monkeypatch.setattr(admm_fused, "_group_policy_fn", lambda kind: entry)
     monkeypatch.setattr(torch.cuda, "device",
                         lambda d: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda d=None:

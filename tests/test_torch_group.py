@@ -222,7 +222,7 @@ def test_cold_launch_glue_matches_the_plain_solve(B, ct, no_device,
     assert admm_fused.entry_counts == dict(
         tinympc_admm_group=1, tinympc_admm_fused=0,
         tinympc_admm_fused_multi=0, tinympc_admm_group_adaptive=0,
-        tinympc_admm_group_consensus=0)
+        tinympc_admm_group_consensus=0, tinympc_admm_group_families=0)
 
 
 def test_warm_launch_glue_hands_the_carry_back(no_device, monkeypatch):

@@ -163,7 +163,7 @@ def test_adaptive_arena_and_route():
     """The adaptive arena adds a g slot (nx floats) to each problem's
     exchange slot; the table adds the adaptive tables (and apply_c's). Box
     problems at (12, 4) take the group launch at every horizon the fused
-    solve takes; a family or (6, 3) keeps csrc/admm_fused.cu."""
+    solve takes; a family or (6, 3) takes the families adaptive kinds."""
     for N_, P, saved in ((10, 8, False), (20, 8, True), (1150, 1, False)):
         for kind in ("adaptive", "adaptive_c"):
             assert group_arena_floats(N_, P, saved, kind=kind) == \
@@ -185,8 +185,9 @@ def test_adaptive_arena_and_route():
             _, _, smem = group_geometry(N_, warm, kind="adaptive")
             assert smem <= admm_fused.SMEM_LIMIT and BLOCK % P == 0
     assert group_route(20, 12, 4, admm_fused.Families(ncx=1), ad, None,
-                       False) is None
-    assert group_route(20, 6, 3, fam, ad, None, False) is None
+                       False) == ("families_adaptive", 8, PLACE_SHARED, 1)
+    assert group_route(20, 6, 3, fam, adc, None, True) == (
+        "families_adaptive_c", 16, PLACE_SHARED, 1)
 
 
 # ------------------------------------------------------------ launch glue
@@ -318,10 +319,25 @@ def test_adaptive_fleet_takes_the_group_entry(entry):
 
 
 def test_adaptive_with_a_family_or_at_6_3_keeps_the_one_thread_entry(
-        entry):
+        entry, monkeypatch):
     """Adaptive rho with a state hyperplane at (12, 4) and the rocket's box
-    at (6, 3) launch the families adaptive kernel on tinympc_admm_fused
-    (its nx and family counts recorded), never the group entry."""
+    at (6, 3): one system's launch takes csrc/admm_group.cu's
+    tinympc_admm_group_families (its nx and family counts recorded), while
+    their multi-system launch, a fleet of two systems, keeps the one-thread
+    kernel's tinympc_admm_fused_multi; neither reaches the box adaptive
+    entry."""
+    calls = []
+
+    def families(*args):
+        a = args[23]._obj
+        calls.append(("group", args[1], [getattr(a, n) for n in
+                                         admm_fused.Families._fields],
+                      args[24] is not None))
+        return 0
+
+    monkeypatch.setattr(admm_fused, "_group_policy_fn", lambda kind:
+                        families if kind in admm_fused.FAMILY_KINDS
+                        else entry)
     lin = tt.with_linear_constraints(quad("adaptive"), np.eye(12)[2:3],
                                      [2.0])
     s = tt.systems.rocket_landing_20hz()
@@ -337,6 +353,14 @@ def test_adaptive_with_a_family_or_at_6_3_keeps_the_one_thread_entry(
             prob, None, None, torch.zeros((3, spec.nx)))
         admm_fused._solve_kernel(tables, x0c, spec.N, spec.nx, spec.nu,
                                  **params)
+        tables, x0c, bk, _, params = admm_fused._prepare_multi(
+            [prob, prob], torch.zeros((4, spec.nx)), None, None)
+        admm_fused._solve_systems_kernel(tables, x0c, bk, spec.N, spec.nx,
+                                         spec.nu, **params)
+    assert calls == [("group", 12, [0, 0, 1, 0, 0, 0], True),
+                     ("group", 6, [0] * 6, True)]
     assert entry.calls == [("fused", 12, [0, 0, 1, 0, 0, 0]),
                            ("fused", 6, [0] * 6)]
     assert admm_fused.entry_counts["tinympc_admm_group_adaptive"] == 0
+    assert admm_fused.entry_counts["tinympc_admm_group_families"] == 2
+    assert admm_fused.entry_counts["tinympc_admm_fused_multi"] == 2

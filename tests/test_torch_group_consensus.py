@@ -51,6 +51,7 @@ from tinympc_tpu.kernels import solve_fused_warm as jax_solve_fused_warm
 from tinympc_tpu.kernels import init_carry as jax_init_carry
 
 import tinympc_tpu_torch as tt
+from tinympc_tpu_torch.admm import apply_cones, apply_hyperplanes
 from tinympc_tpu_torch.convert import problem_from_numpy, problem_to_numpy
 from tinympc_tpu_torch.kernels import admm_fused, init_carry
 from tinympc_tpu_torch.kernels.admm_fused import (
@@ -97,7 +98,10 @@ def dot(mat, vec):
 
 
 def group_reduce(a):
-    """max_nan of each problem's threads (B, rows): the shuffle tree."""
+    """max_nan of each problem's threads (B, rows): the shuffle tree, the
+    idle threads of a group (past the rows, at (6, 3)) holding zeros."""
+    width = 1 << (a.shape[1] - 1).bit_length()
+    a = torch.cat([a, torch.zeros((a.shape[0], width - a.shape[1]))], 1)
     while a.shape[1] > 1:
         h = a.shape[1] // 2
         a = max_nan(a[:, :h], a[:, h:])
@@ -146,19 +150,104 @@ class Rows:
         return torch.where(self.st, self.t[name_x][i][self.kx], ux)
 
 
+def align4(n):
+    return -(-n // 4) * 4
+
+
+class Slot:
+    """A problem's exchange slot (GroupArena): x at 0, r / u at align4(nx),
+    w after align4(nu) more, each part padded to whole float4s (at (6, 3)
+    x takes 8 floats, r and w 4 each); the vectors of the matvecs pass
+    through it."""
+
+    def __init__(self, n, nx, nu):
+        self.uo = align4(nx)
+        self.wo = self.uo + align4(nu)
+        self.buf = torch.full((n, self.wo + align4(nu)), float("nan"))
+        self.nx, self.nu = nx, nu
+
+    def put(self, off, v):
+        self.buf[:, off:off + v.shape[1]] = v
+        return self.buf[:, off:off + v.shape[1]].clone()
+
+
+class FamilyArena:
+    """The family columns of every block (GroupArena's, after the
+    feedforward): family f of the state side keeps row k's (slack, dual)
+    of step i at f N P nx + i P nx + p nx + k, of the input side at
+    fx N P nx + f (N - 1) P nu + i P nu + p nu + k (p the problem's place
+    in its block, fx the state families that are on); read and written
+    through problem indices."""
+
+    def __init__(self, B, N, P, nx, nu, fam):
+        self.fx, self.fu = admm_fused._sides(fam)
+        self.N, self.P, self.nx, self.nu = N, P, nx, nu
+        self.buf = torch.zeros((-(-B // P), self.fx * N * P * nx
+                                + self.fu * (N - 1) * P * nu, 2))
+
+    def _where(self, idx, state, f):
+        N, P, nx, nu = self.N, self.P, self.nx, self.nu
+        steps, F = (N, nx) if state else (N - 1, nu)
+        start = f * N * P * nx if state else \
+            self.fx * N * P * nx + f * (N - 1) * P * nu
+        i = torch.arange(steps)[None, :, None]
+        k = torch.arange(F)[None, None, :]
+        pos = start + i * P * F + (idx % P)[:, None, None] * F + k
+        return (idx // P)[:, None, None].expand_as(pos), pos
+
+    def get(self, idx, state, f):
+        """(n, steps, F, 2): the (slack, dual) of the problems ``idx``."""
+        return self.buf[self._where(idx, state, f)]
+
+    def put(self, idx, state, f, val):
+        self.buf[self._where(idx, state, f)] = val
+
+
+def _family_sides(t, fam, nx, nu, N):
+    """Each side's families that are on, in order (SOC, hyperplane,
+    time-varying hyperplane): (carry name, projection of step i's (n, F)
+    candidate), the state side then the input side."""
+    def cones(table):
+        geometry = [(int(a), int(b)) for a, b in table[:, :2].tolist()]
+        return lambda i, z: apply_cones(z, geometry, table[:, 2])
+
+    def planes(A, b, asq):
+        return lambda i, z: apply_hyperplanes(z, list(zip(A, b, asq)))
+
+    def tv(A, b, asq):
+        return lambda i, z: apply_hyperplanes(z, list(zip(A[i], b[i],
+                                                          asq[i])))
+
+    make = (lambda: cones(t["xcones"]), lambda: cones(t["ucones"]),
+            lambda: planes(t["Alin_x"], t["blin_x"], t["asq_x"]),
+            lambda: planes(t["Alin_u"], t["blin_u"], t["asq_u"]),
+            lambda: tv(t["tv_Alin_x"], t["tv_blin_x"], t["tv_asq_x"]),
+            lambda: tv(t["tv_Alin_u"], t["tv_blin_u"], t["tv_asq_u"]))
+    sides = ([], [])
+    for k, (n, name) in enumerate(zip(fam, admm_fused._FAMILY_DUALS)):
+        if n:
+            sides[k % 2].append((name, make[k]()))
+    return sides
+
+
 def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 tol_dua, carry=None, fam=admm_fused.NO_FAMILIES, adapt=None,
-                cons=None, P=8, place=PLACE_SHARED):
-    """The kernel of csrc/admm_group.cu (fixed rho, ``cons`` or ``adapt``)
-    on every problem of x0 (B, nx), P problems a block; returns what the
-    plain version returns, ``(Solution, residuals, carry' or None)``."""
-    assert not any(fam)
+                cons=None, P=8, place=PLACE_SHARED, G=None):
+    """The kernel of csrc/admm_group.cu (fixed rho, ``cons`` or ``adapt``;
+    the families of ``fam``, at (12, 4) or (6, 3)) on every problem of x0
+    (B, nx), P problems a block, a group of G threads a problem (the
+    kernel's width at (nx, nu) by default: the step-parallel projection's
+    stride); returns what the plain version returns, ``(Solution,
+    residuals, carry' or None)``."""
     t = admm_fused._unpack_tables(tables, nx, nu, N, fam, adapt,
                                   cons is not None)
     B, rows = x0.shape[0], nx + nu
+    G = G or admm_fused.GROUP_WIDTHS[(nx, nu)]
     warm = carry is not None
     rw = Rows(t, nx, nu, N, adapt, cons)
     st = rw.st
+    xfam, ufam = _family_sides(t, fam, nx, nu, N)
+    FA = FamilyArena(B, N, P, nx, nu, fam)
     # The arena of every problem: slack and dual (one copy) of each row
     # and step, the input rows' d; the saved column in the arena, or at
     # PLACE_SAVED_GLOBAL in a device-memory buffer (blocks, N, P * rows),
@@ -193,6 +282,19 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
         v0[:, :N - 1, nx:] = carry.z.permute(2, 0, 1)
         set_v(every, v0)
     x0r = x0.clone()
+    # Family seeds: state slacks from x0 in row 0, then the carried x (zeros
+    # cold); input slacks from the carried u; the duals from the carry.
+    for side, fams_ in ((True, xfam), (False, ufam)):
+        for f, (name, _) in enumerate(fams_):
+            steps, F_ = (N, nx) if side else (N - 1, nu)
+            seed = torch.zeros((B, steps, F_, 2))
+            if warm:
+                seed[..., 0] = (carry.x if side else carry.u).permute(2, 0,
+                                                                      1)
+                seed[..., 1] = getattr(carry, name).permute(2, 0, 1)
+            if side:
+                seed[:, 0, :, 0] = x0r
+            FA.put(every, side, f, seed)
     dvgN = S[:, N - 1, :nx] - D[:, N - 1, :nx]
     # -Pinf^T Xref[N-1] (and its sensitivity), row by row from zero.
     xN = t["Xref"][N - 1][None, :].expand(1, nx)
@@ -201,6 +303,7 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
     iters = torch.zeros(B, dtype=torch.int32)
     res = torch.zeros((4, B))
     u0 = torch.zeros((B, nu))
+    drho_last = torch.zeros(B)           # drho of each one's last iteration
     if adapt is not None:
         pdp = -dot(t["dPT"], xN)[0]
         rho_l = torch.full((B,), rho) if not warm else carry.rho[0].clone()
@@ -234,13 +337,25 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 rb = rho_l[idx][:, None]
                 dr = rb - rho
                 pt = (pnref[None, :] + dr * pdp[None, :]) - rb * dvgN[idx]
+                drho_last[idx] = dr[:, 0]
+            fx_ = [FA.get(idx, True, f) for f in range(len(xfam))]
+            fu_ = [FA.get(idx, False, f) for f in range(len(ufam))]
+            for c in fx_:                  # the families' terminal terms
+                pt = pt - rb * (c[:, N - 1, :, 0] - c[:, N - 1, :, 1])
             adapting = adapt is not None and it > 0 \
                 and it % ADAPTIVE_RHO_PERIOD == 0
             # ---- backward: p through the x slot, r and w after it
             p = pt
+            slot = Slot(n, nx, nu)
             for i in range(N - 2, -1, -1):
+                p = slot.put(0, p)
                 ref = rw.per_step("Xref", "Uref", i)
                 lin = -(ref * rw.wt)[None, :] - rb * (s_[:, i] - d_[:, i])
+                for cs_, lo_ in ((fx_, 0), (fu_, nx)):
+                    for c in cs_:
+                        hi_ = lo_ + c.shape[2]
+                        lin = torch.cat([lin[:, :lo_], lin[:, lo_:hi_] - rb * (
+                            c[:, i, :, 0] - c[:, i, :, 1]), lin[:, hi_:]], 1)
                 if cons is not None and i == 0:
                     lin = torch.cat([lin[:, :nx], lin[:, nx:] - cons.rho_c
                                      * (zc[idx] - yc[idx])], 1)
@@ -248,8 +363,8 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 if adapt is not None and adapt.apply_c:
                     a1 = torch.cat([a1[:, :nx] + dr * dot(rw.s12[:nx], p),
                                     a1[:, nx:]], 1)
-                r_ = lin[:, nx:]
-                w = a1[:, nx:] + lin[:, nx:] + rw.add[nx:]
+                r_ = slot.put(slot.uo, lin[:, nx:])
+                w = slot.put(slot.wo, a1[:, nx:] + lin[:, nx:] + rw.add[nx:])
                 kr = dot(rw.m2[:nx], r_)
                 q0 = rw.q0[nx:] if cons is not None and i == 0 \
                     else rw.m2[nx:]
@@ -270,6 +385,7 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
             ad1 = torch.zeros((n, nx))
             ad2 = ad1.clone()
             stale = warm and it == 0
+            vals = []                      # each step's x[i] / u[i]
             for i in range(N):
                 last = i == N - 1
                 if not last:
@@ -285,6 +401,7 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 else:
                     val = torch.cat([xo, torch.zeros((n, nu))], 1)
                 cols = slice(0, rows) if not last else slice(0, nx)
+                vals.append(val)
                 du = d_[:, i, cols]
                 old = s_[:, i, cols].clone()
                 lo = rw.per_step("xmin", "umin", i)[cols]
@@ -338,6 +455,26 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
                 r_new, v_new = _rho_update(adapt, *mm, rho_l[idx],
                                            rho_v[idx])
                 rho_l[idx], rho_v[idx] = r_new, v_new
+            # The projections, step-parallel: thread g of the group projects
+            # steps g, g + G, ..., each side's whole candidate from the kept
+            # x[i] / u[i], family 0 last (its slack holds them).
+            for side, fams_, cs_ in ((True, xfam, fx_), (False, ufam,
+                                                          fu_)):
+                if not fams_:
+                    continue
+                lo_, F_ = (0, nx) if side else (nx, nu)
+                for i in range(N if side else N - 1):
+                    cs_[0][:, i, :, 0] = vals[i][:, lo_:lo_ + F_]
+                for g in range(G):
+                    for i in range(g, N if side else N - 1, G):
+                        v = cs_[0][:, i, :, 0].clone()
+                        for f in range(len(fams_) - 1, -1, -1):
+                            dual = cs_[f][:, i, :, 1].clone()
+                            z = fams_[f][1](i, v + dual)
+                            cs_[f][:, i, :, 0] = z
+                            cs_[f][:, i, :, 1] = dual + v - z
+                for f in range(len(fams_)):
+                    FA.put(idx, side, f, cs_[f])
             S[idx], D[idx], F[idx] = s_, d_, f_
             set_v(idx, v_)
             u0[idx] = u0n
@@ -390,9 +527,11 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
     out = dict(vnew=lane(S[:, :, :nx]), znew=lane(S[:, :N - 1, nx:]),
                g=lane(D[:, :, :nx]), y=lane(D[:, :N - 1, nx:]),
                v=lane(sv[:, :, :nx]), z=lane(sv[:, :N - 1, nx:]))
-    if cons is not None:
+    if cons is not None or xfam or ufam:
         # The x/u of the last iteration each problem ran: its rollout
-        # re-run from x0 with that iteration's d (Kinf0 at step 0).
+        # re-run from x0 with that iteration's d (Kinf0 at step 0 under
+        # consensus; under adaptive rho + drho dKinf x, drho of that
+        # iteration, the rho it started with).
         xs = torch.zeros((N, nx, B))
         us = torch.zeros((N - 1, nu, B))
         x = x0r
@@ -401,17 +540,25 @@ def group_solve(tables, x0, N, nx, nu, *, max_iter, ct, rho, tol_pri,
             if i == N - 1:
                 break
             f1 = rw.f1.clone()
-            if i == 0:
+            if cons is not None and i == 0:
                 f1[nx:] = rw.k0[nx:]
             a1 = dot(f1, x)
-            u = -a1[:, nx:] - F[:, i]
+            ku = a1[:, nx:]
+            if adapt is not None:
+                ku = ku + drho_last[:, None] * dot(rw.s12[nx:], x)
+            u = -ku - F[:, i]
             us[i] = u.T
             x = a1[:, :nx] + dot(rw.bm[:nx], u) + rw.fv[:nx]
         ran = iters > 0
         xin = torch.cat([x0r.T[None], carry.x[1:]])
         out.update(x=torch.where(ran, xs, xin), u=torch.where(ran, us,
-                                                            carry.u),
-                   zc0=zc.T.contiguous(), yc0=yc.T.contiguous())
+                                                            carry.u))
+    if cons is not None:
+        out.update(zc0=zc.T.contiguous(), yc0=yc.T.contiguous())
+    for side, fams_ in ((True, xfam), (False, ufam)):
+        for f, (name, _) in enumerate(fams_):
+            out[name] = FA.get(every, side, f)[..., 1].permute(
+                1, 2, 0).contiguous()
     if adapt is not None:
         out.update(rho=rho_l[None].clone())
     return sol, res, FusedCarry(**out)

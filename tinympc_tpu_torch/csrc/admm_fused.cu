@@ -3,10 +3,15 @@
 // hyperplanes; admm_families.cuh) and scenario-tree consensus on u[0]
 // (admm_consensus.cuh) at fixed rho; or with any of those families
 // (consensus aside), and every problem at (6, 3), at adaptive rho
-// (admm_adaptive.cuh). Box-only problems at (12, 4) -- at fixed rho (the
-// main path), at adaptive rho and under consensus -- run admm_group.cu;
-// consensus reaches this file for them only for group 0 (no exchange) or a
-// scenario group whose thread-block cluster cannot be formed there.
+// (admm_adaptive.cuh). One system's launches of the families and of
+// (6, 3), at fixed and adaptive rho, run admm_group.cu's thread groups
+// (its families kinds), as do box-only problems at (12, 4) -- at fixed rho
+// (the main path), at adaptive rho and under consensus. This file takes
+// consensus with a family or at (6, 3), consensus group 0 (no exchange)
+// or a box scenario group whose thread-block cluster cannot be formed
+// there, the multi-system launch of the families or at (6, 3), and a
+// families horizon whose columns do not fit one problem a block there
+// (kernels/admm_fused.py:group_route).
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
@@ -60,8 +65,9 @@
 // slower on an H100).
 //
 // Design (one thread a problem; the box-only solves at (12, 4) -- fixed
-// rho, adaptive rho, consensus -- moved to admm_group.cu's thread groups,
-// these instantiations are queued to follow, ROADMAP.md Queue 2):
+// rho, adaptive rho, consensus -- and one system's families and (6, 3)
+// solves at fixed and adaptive rho moved to admm_group.cu's thread groups;
+// what stays here is listed in ROADMAP.md):
 //   * One thread per problem; 128 threads a block; threads past B count as
 //     converged from the start. A converged lane stops computing and keeps
 //     its iterates, so what a lane returns does not depend on the block it

@@ -1,16 +1,20 @@
 // One ADMM iteration of one problem spread over a group of G threads, its
 // trajectories in shared memory for the whole solve: the iteration of the
-// box-only resident solve (admm_group.cu: fixed rho, consensus within the
-// batch, adaptive rho) and of the fused closed loop (closed_loop_fused.cu).
+// resident solve (admm_group.cu: box at fixed rho, consensus within the
+// batch, adaptive rho; the constraint families beyond the box at fixed and
+// adaptive rho) and of the fused closed loop (closed_loop_fused.cu).
 //
-// The arithmetic is admm_sweep.cuh's backward_sweep / forward_sweep with
-// NoFamilies, term for term: every row's dot product is summed from zero
+// The arithmetic is admm_sweep.cuh's backward_sweep / forward_sweep (with
+// admm_families.cuh's hooks), term for term: every row's dot product is
+// summed from zero
 // in the same column order with explicit fmaf, and every elementwise term
 // rounds as there (built with -fmad=false). Only who computes a row, and
 // where its operands live, changes:
 //   * A problem has NX + NU rows: state rows 0..NX-1 and input rows
-//     NX..NX+NU-1. Thread g of the group owns the R = (NX + NU) / G rows
-//     g, g + G, g + 2G, ... and keeps that row of every matrix the sweeps
+//     NX..NX+NU-1. Thread g of the group owns the R = ceil((NX + NU) / G)
+//     rows g, g + G, g + 2G, ... (rows past NX + NU are idle: at (6, 3) a
+//     group of 8, thread 0 owning rows 0 and 8, the others' second row
+//     idle) and keeps that row of every matrix the sweeps
 //     multiply in registers: a state row k holds row k of AmBKt (Mback),
 //     KinfT, A (Mfwd) and B; an input row j row j of B^T (Mback), Quu_inv
 //     and Kinf (Mfwd).
@@ -27,7 +31,8 @@
 //     the same layout, a block's slice each (Place below).
 //   * The vector a matvec multiplies (p and r, w in the backward sweep; x
 //     and u in the forward sweep) passes through the problem's exchange
-//     slot in shared memory: each owner writes its entry, the group meets
+//     slot in shared memory, each part padded to whole float4s (x at 0, r /
+//     u at align4(NX), w after align4(NU) more): each owner writes its entry, the group meets
 //     at __syncwarp (a group lies inside one warp), and every thread reads
 //     the whole vector back (broadcast) for its own rows' dot products.
 //   * The four residual maxima of a check iteration are each thread's
@@ -58,34 +63,61 @@
 // B^T g[i], its own x / u, new slack and dual, and a state row's dynamics
 // row i-2); the terminal row's Pinf x[N-1] reads x[N-1] from the slot.
 // The four maxima reduce over the group with max_nan; no scratch array.
+// GroupFamilies (admm_families.cuh's hooks) gives each family that is on a
+// (slack, dual) column pair a row of its side and step in the arena. Each
+// row subtracts its families' rho (slack - dual) from its linear cost after
+// the box's (SOC, hyperplane, time-varying hyperplane; the terminal state
+// row too). The projections are off the sweeps' chain (nothing of the
+// rollout or the residuals reads a family's slack): the forward sweep
+// leaves each row's x[i] or u[i] in the slack of its side's first family,
+// which the backward sweep has already read, and after the sweep thread t
+// of the group projects steps t, t + G, ...: each side's whole candidate
+// (x + dual, from the dual before its update) with admm_families.cuh's
+// projections in feature order, then every feature's slack and dual.
 #pragma once
 
 #include "admm_adaptive.cuh"
+#include "admm_families.cuh"
 #include "admm_sweep.cuh"
 
 namespace tinympc {
 
+__host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
+
 // Shared-memory layout of a block's problems, in floats from the arena's
 // start (16-byte aligned): the exchange slots (P, kSlot) -- x, r / u and w,
-// and under adaptive rho (XSLOT floats) the g slot --, then the slack and
-// dual of every column side by side ((N, P * (NX + NU)) float2s: one
-// 8-byte access reads or writes both), the saved-slack columns when the
-// arena holds them (N, P * (NX + NU)), then the input rows' feedforward
-// (N - 1, P * NU), then under consensus (LANES floats a problem) the
-// offers (LANES, P) and the cluster's exit vote (4 floats).
+// each padded to whole float4s, and under adaptive rho (XSLOT floats) the
+// g slot --, then the slack and dual of every column side by side ((N,
+// P * (NX + NU)) float2s: one 8-byte access reads or writes both), the
+// saved-slack columns when the arena holds them (N, P * (NX + NU)), then
+// the input rows' feedforward (N - 1, P * NU), then under consensus
+// (LANES floats a problem) the offers (LANES, P) and the cluster's exit
+// vote (4 floats); then, from a 16-byte boundary, the (slack, dual)
+// float2 columns of the families that are on: fx state families (N,
+// P * NX) each, then fu input families (N - 1, P * NU) each.
 // kernels/admm_fused.py:group_arena_floats sums the same; the wrappers
 // check it against tinympc_*_smem when they load a library.
 template <int NX, int NU, int XSLOT = 0, int LANES = 0>
 struct GroupArena {
   static constexpr int kRows = NX + NU;
-  static constexpr int kXSlot = ((NX + 2 * NU + 3) / 4) * 4;
+  static constexpr int kUO = align4(NX);              // r / u in the slot
+  static constexpr int kWO = kUO + align4(NU);        // w in the slot
+  static constexpr int kXSlot = kWO + align4(NU);
   static constexpr int kSlot = kXSlot + XSLOT;
   // Floats before the consensus lane arrays.
   static __host__ __device__ int lanes_at(int N, int P, bool saved) {
     return P * kSlot + (saved ? 3 : 2) * N * P * kRows + (N - 1) * P * NU;
   }
-  static __host__ __device__ int floats(int N, int P, bool saved) {
-    return lanes_at(N, P, saved) + (LANES ? LANES * P + 4 : 0);
+  // Floats before the family columns.
+  static __host__ __device__ int fams_at(int N, int P, bool saved) {
+    return align4(lanes_at(N, P, saved) + (LANES ? LANES * P + 4 : 0));
+  }
+  static __host__ __device__ int floats(int N, int P, bool saved, int fx = 0,
+                                        int fu = 0) {
+    if (!fx && !fu)
+      return lanes_at(N, P, saved) + (LANES ? LANES * P + 4 : 0);
+    return fams_at(N, P, saved) +
+           2 * P * (N * NX * fx + (N - 1) * NU * fu);
   }
   // Floats of a block's saved columns in device memory (kSavedGlobal).
   static __host__ __device__ size_t saved_floats(int N, int P) {
@@ -102,8 +134,6 @@ enum Place : int {
   kSavedGlobal = 2,   // the arena but the saved columns, which sit in a
                       // device-memory buffer; the table in device memory
 };
-
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 // Fixed rho: one rho for every problem; no hook, no table.
 struct GroupFixedRho {
@@ -156,21 +186,214 @@ struct GroupConsensus {
 
 // Adaptive rho: the problem's rho (the carry's on a warm solve) and the
 // guard's virtual rho, drho = rho - rho0 of the iteration, and `t`, the
-// adaptive tables after the box tables, from which each owned row reads its
-// sensitivity rows -- dKinf (an input row), dKinf^T (a state row), under
-// apply_c dC1 (an input row) and dC2 (a state row) -- and a state row its
-// rows of A^T, Pinf and dPinf (the adaptation's).
+// adaptive tables after the box tables (and the family tables), from which
+// each owned row reads its sensitivity rows -- dKinf (an input row),
+// dKinf^T (a state row), under apply_c dC1 (an input row) and dC2 (a state
+// row) -- and a state row its rows of A^T, Pinf and dPinf (the
+// adaptation's).
 template <int NX, int NU, int R, bool APPLY_C>
 struct GroupAdaptiveRho {
   using Args = AdaptArgs;
   static constexpr bool kAdaptive = true;
   static constexpr bool kApplyC = APPLY_C;
-  static constexpr int kSlotExtra = ((NX + 3) / 4) * 4;   // the g slot
+  static constexpr int kSlotExtra = align4(NX);   // the g slot
   float pdp[R];       // -dPinf^T Xref[N-1] (a state row)
   float rho0, rho, rho_v, drho;
   const float* t;
   static __host__ __device__ int table_floats(int nx, int nu) {
     return AdaptiveLayout(nx, nu, APPLY_C).total;
+  }
+};
+
+// Per-launch family arguments of the group kernel: the six family sizes
+// (state and input cones, hyperplanes, time-varying hyperplanes; 0 for a
+// family that is off); on a warm solve the carried duals of the families
+// that are on, (N, nx, B) or (N-1, nu, B), and the carried x and u, whose
+// rows seed the slacks; the duals out and the x/u of the last iteration
+// each problem ran. Pointers of families that are off, and all of a cold
+// solve, are null; x/u are null too where no family is on (a box-only
+// problem at (6, 3)).
+struct GroupFamilyArgs {
+  int ncx, ncu, nlx, nlu, ntx, ntu;
+  const float *gc_in, *yc_in, *gl_in, *yl_in, *gtv_in, *ytv_in;
+  const float *x_in, *u_in;
+  float *gc_out, *yc_out, *gl_out, *yl_out, *gtv_out, *ytv_out;
+  float *x_out, *u_out;
+};
+
+__host__ __device__ inline FamilyLayout family_layout(
+    const GroupFamilyArgs& a, int nx, int nu, int N) {
+  FamilyArgs f = {};
+  f.ncx = a.ncx;
+  f.ncu = a.ncu;
+  f.nlx = a.nlx;
+  f.nlu = a.nlu;
+  f.ntx = a.ntx;
+  f.ntu = a.ntu;
+  return FamilyLayout(f, nx, nu, N);
+}
+
+// No families: no hook, no table, no column.
+struct GroupNoFamilies {
+  struct Args {};
+  static constexpr bool kOn = false;
+};
+
+// The families beyond the box (admm_families.cuh's hooks). Family f of a
+// side (in the order SOC, hyperplane, time-varying hyperplane, counting
+// only those that are on) keeps row k's (slack, dual) of step i at
+// xs[f * N * P * NX + i * P * NX + k] (a state row) or us[f * (N - 1) *
+// P * NU + i * P * NU + k] (an input row), where xs and us are problem
+// p's first state and input columns after the feedforward (from a 16-byte
+// boundary). Each owned row keeps only its own column of its side's first
+// family at step 0; the counts and strides are read from the launch's
+// arguments where they are needed, so that the families add two registers
+// a row to the sweeps.
+template <int NX, int NU, int R>
+struct GroupFamilies {
+  using Args = GroupFamilyArgs;
+  static constexpr bool kOn = true;
+  float2* col[R];   // owned row r's column, side's family 0, step 0
+  static __host__ __device__ int table_floats(const Args& a, int nx, int nu,
+                                              int N) {
+    return family_layout(a, nx, nu, N).total;
+  }
+  static __host__ __device__ int state_sides(const Args& a) {
+    return (a.ncx > 0) + (a.nlx > 0) + (a.ntx > 0);
+  }
+  static __host__ __device__ int input_sides(const Args& a) {
+    return (a.ncu > 0) + (a.nlu > 0) + (a.ntu > 0);
+  }
+  // The first family column of the block: the feedforward's end, F +
+  // (N - 1) P NU, rounded up to 16 bytes (the arena starts on 16 bytes).
+  static __device__ __forceinline__ float2* base(const float* F, int N,
+                                                 int P) {
+    const size_t a = reinterpret_cast<size_t>(F + (N - 1) * P * NU);
+    return reinterpret_cast<float2*>((a + 15) & ~size_t(15));
+  }
+  // Problem p's first state column and first input column.
+  static __device__ __forceinline__ float2* xs(float2* b, int p) {
+    return b + p * NX;
+  }
+  static __device__ __forceinline__ float2* us(const Args& a, float2* b,
+                                               int N, int P, int p) {
+    return b + state_sides(a) * N * P * NX + p * NU;
+  }
+  // A side's families, step stride and family stride.
+  static __device__ __forceinline__ int sides(const Args& a, bool st) {
+    return st ? state_sides(a) : input_sides(a);
+  }
+  static __device__ __forceinline__ int step(bool st, int P) {
+    return st ? P * NX : P * NU;
+  }
+  static __device__ __forceinline__ int gap(bool st, int N, int P) {
+    return st ? N * P * NX : (N - 1) * P * NU;
+  }
+
+  // Owned row r (state or input, feature k) of problem p.
+  __device__ __forceinline__ void init(int r, const Args& a, const float* F,
+                                       int N, int P, int p, bool st, int k) {
+    float2* b = base(F, N, P);
+    col[r] = (st ? xs(b, p) : us(a, b, N, P, p)) + k;
+  }
+
+  // Family f of row r's side at step i.
+  __device__ __forceinline__ float2& at(int r, bool st, int i, int f,
+                                        int N, int P) const {
+    return col[r][i * step(st, P) + f * gap(st, N, P)];
+  }
+
+  // The row's linear-cost terms after the box's: acc - rho (slack - dual)
+  // of each family of its side, in order (admm_families.cuh's q_terms /
+  // r_terms / p_terminal).
+  __device__ __forceinline__ float terms(int r, bool st, int i, float acc,
+                                         float rho, const Args& a, int N,
+                                         int P) const {
+    const int n = sides(a, st);
+    const float2* c = col[r] + i * step(st, P);
+    const int gs = gap(st, N, P);
+    for (int f = 0; f < n; ++f) {
+      const float2 v = c[f * gs];
+      acc = acc - rho * (v.x - v.y);
+    }
+    return acc;
+  }
+
+  // The row's x[i] / u[i] into the slack of its side's first family, whose
+  // slack the backward sweep of this iteration has read.
+  __device__ __forceinline__ void keep(int r, bool st, int i, float val,
+                                       const Args& a, int P) const {
+    if (sides(a, st))
+      reinterpret_cast<float*>(col[r] + i * step(st, P))[0] = val;
+  }
+
+  // One family of a side at a step: its candidate x + dual from the kept
+  // x[i] / u[i] (`c`, family 0's slacks) and the dual before the update,
+  // projected by `proj`, then the slack and the dual written back
+  // (admm_families.cuh's state_row / input_row and store).
+  template <int F, class Proj>
+  static __device__ __forceinline__ void one(const float2* c, float2* s,
+                                             Proj proj) {
+    float z[F];
+#pragma unroll
+    for (int k = 0; k < F; ++k) z[k] = c[k].x + s[k].y;
+    proj(z);
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      const float v = c[k].x, d = s[k].y;
+      s[k] = make_float2(z[k], d + v - z[k]);
+    }
+  }
+
+  // One side of step i, each family that is on from the same kept x[i] /
+  // u[i]; family 0 last, since its slack holds them. The tables: cones,
+  // hyperplane rows, b, ||a||^2; the time-varying ones at step i.
+  template <int F>
+  static __device__ __forceinline__ void side(
+      float2* c, int gs, int nc, int nl, int nt, const float* cones,
+      const float* al, const float* bl, const float* aq, const float* tva,
+      const float* tvb, const float* tvq) {
+    int f = (nc > 0) + (nl > 0) + (nt > 0);
+    if (nt)
+      one<F>(c, c + --f * gs, [&](float (&z)[F]) {
+        for (int q = 0; q < nt; ++q)
+          project_hyperplane<F>(z, tva + q * F, tvb[q], tvq[q]);
+      });
+    if (nl)
+      one<F>(c, c + --f * gs, [&](float (&z)[F]) {
+        for (int q = 0; q < nl; ++q)
+          project_hyperplane<F>(z, al + q * F, bl[q], aq[q]);
+      });
+    if (nc)
+      one<F>(c, c + --f * gs, [&](float (&z)[F]) {
+        project_cones<F>(z, cones, nc);
+      });
+  }
+
+  // The projections of an iteration, after its forward sweep: thread g of
+  // problem p's group (G threads) takes steps g, g + G, ...; `ft` the
+  // family tables (FamilyLayout's, after the box tables), F the block's
+  // feedforward.
+  static __device__ void project(const Args& a, const float* ft,
+                                 const float* F, int N, int P, int p, int g,
+                                 int G) {
+    const FamilyLayout L = family_layout(a, NX, NU, N);
+    float2* b = base(F, N, P);
+    float2* x = xs(b, p);
+    float2* u = us(a, b, N, P, p);
+    const bool fx = state_sides(a) > 0, fu = input_sides(a) > 0;
+    for (int i = g; i < N; i += G) {
+      if (fx)
+        side<NX>(x + i * P * NX, N * P * NX, a.ncx, a.nlx, a.ntx,
+                 ft + L.xcones, ft + L.alx, ft + L.blx, ft + L.aqx,
+                 ft + L.tvax + i * a.ntx * NX, ft + L.tvbx + i * a.ntx,
+                 ft + L.tvqx + i * a.ntx);
+      if (fu && i < N - 1)
+        side<NU>(u + i * P * NU, (N - 1) * P * NU, a.ncu, a.nlu, a.ntu,
+                 ft + L.ucones, ft + L.alu, ft + L.blu, ft + L.aqu,
+                 ft + L.tvau + i * a.ntu * NU, ft + L.tvbu + i * a.ntu,
+                 ft + L.tvqu + i * a.ntu);
+    }
   }
 };
 
@@ -181,14 +404,13 @@ struct AdaptMaxima {
 };
 
 template <int NX, int NU, int G, class Rho = GroupFixedRho,
-          class Cons = GroupNoConsensus>
+          class Cons = GroupNoConsensus, class Fam = GroupNoFamilies>
 struct GroupSweep {
-  static_assert((NX + NU) % G == 0, "the group's threads split the rows");
   static_assert(G >= 1 && G <= 32 && (G & (G - 1)) == 0,
                 "a group is a power of two inside one warp");
-  static_assert(NX % 4 == 0 && NU % 4 == 0,
-                "the exchange reads whole float4s");
-  static constexpr int R = (NX + NU) / G;   // rows a thread owns
+  static constexpr int kRows = NX + NU;
+  static constexpr int R = (kRows + G - 1) / G;   // rows a thread owns
+  static constexpr int kNX4 = align4(NX), kNU4 = align4(NU);
   using Arena =
       GroupArena<NX, NU, Rho::kSlotExtra, Cons::kLaneFloats>;
 
@@ -200,6 +422,7 @@ struct GroupSweep {
   float fv[R];       // f[k]
   float wt[R];       // Qd[k] / Rd[j]
   bool st[R];        // a state row
+  bool on[R];        // a row of the problem (else idle)
   int feat[R];       // k or j
   int tstr[R];       // NX or NU: the table stride of a step
   int col[R];        // column of the slack / dual / saved columns
@@ -209,7 +432,7 @@ struct GroupSweep {
   const float* hi[R];    // xmax / umax
   float2* SU;        // (slack, dual) of each row and step
   float *V, *F, *X;
-  int C, PU;
+  int C, PU, NP;     // columns, feedforward columns, problems a block
   unsigned mask;     // the group's lanes in its warp
 
   // Thread g of problem p (of P in the block, G threads each) reading the
@@ -222,6 +445,7 @@ struct GroupSweep {
                         float* saved = nullptr) {
     C = P * Arena::kRows;
     PU = P * NU;
+    NP = P;
     X = arena + p * Arena::kSlot;
     SU = reinterpret_cast<float2*>(arena + P * Arena::kSlot);
     V = saved_in_arena ? arena + P * Arena::kSlot + 2 * N * C : saved;
@@ -231,11 +455,15 @@ struct GroupSweep {
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int row = g + r * G;
+      on[r] = row < kRows;
       st[r] = row < NX;
-      const int k = st[r] ? row : row - NX;
+      // An idle row reads input row 0's tables and is skipped everywhere.
+      const int k = st[r] ? row : on[r] ? row - NX : 0;
       feat[r] = k;
       tstr[r] = st[r] ? NX : NU;
-      col[r] = r * (P * G) + p * G + g;
+      // Rows split exactly: thread after thread, row r of every thread
+      // after row r - 1's; else each problem's rows side by side.
+      col[r] = kRows == R * G ? r * (P * G) + p * G + g : p * kRows + row;
       fcol[r] = p * NU + k;
       const int mrow = st[r] ? NU + k : k;   // row of [B^T; AmBKt], [Kinf; A]
 #pragma unroll
@@ -257,6 +485,13 @@ struct GroupSweep {
     }
   }
 
+  // Whether owned row r is a row of the problem: known at compile time
+  // where every thread's row r is ((r + 1) G <= NX + NU).
+  __device__ __forceinline__ bool active(int r) const {
+    if ((r + 1) * G <= kRows) return true;
+    return on[r];
+  }
+
   // Whether owned row r is a state row: known at compile time where every
   // thread's row r has the same role ((r + 1) G <= NX, or r G >= NX; the
   // loops over r are unrolled), so such rows take no branch on it.
@@ -273,8 +508,10 @@ struct GroupSweep {
     return state(r) ? N : N - 1;
   }
 
+  // n floats (a multiple of 4) of the slot at s.
   template <int n>
   static __device__ __forceinline__ void load(float (&v)[n], const float* s) {
+    static_assert(n % 4 == 0, "whole float4s");
 #pragma unroll
     for (int q = 0; q < n / 4; ++q) {
       const float4 t = reinterpret_cast<const float4*>(s)[q];
@@ -285,20 +522,24 @@ struct GroupSweep {
     }
   }
 
-  template <int n>
+  // The n entries of a matrix row against the first n of v, from zero in
+  // column order.
+  template <int n, int nv>
   static __device__ __forceinline__ float dot(const float (&m)[n],
-                                              const float (&v)[n]) {
+                                              const float (&v)[nv]) {
+    static_assert(nv >= n, "the vector holds the row's columns");
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < n; ++c) acc = fmaf(m[c], v[c], acc);
     return acc;
   }
 
-  // A row of a table in shared or device memory against v, from zero in
-  // column order.
-  template <int n>
+  // A row of n columns of a table in shared or device memory against v,
+  // from zero in column order.
+  template <int n, int nv>
   static __device__ __forceinline__ float dotp(const float* m,
-                                               const float (&v)[n]) {
+                                               const float (&v)[nv]) {
+    static_assert(nv >= n, "the vector holds the row's columns");
     float acc = 0.f;
 #pragma unroll
     for (int c = 0; c < n; ++c) acc = fmaf(m[c], v[c], acc);
@@ -317,28 +558,34 @@ struct GroupSweep {
   }
 
   // The backward sweep (admm_sweep.cuh:backward_sweep): the state rows
-  // start p from pterm = -Pinf^T Xref[N-1] - rho (vnew[N-1] - g[N-1]);
-  // rows N-2 .. 0 of the linear cost from the slacks and duals, the input
+  // start p from pterm = -Pinf^T Xref[N-1] - rho (vnew[N-1] - g[N-1]) (and
+  // the families' terminal terms); rows N-2 .. 0 of the linear cost from
+  // the slacks and duals, the families' terms after the box's, the input
   // rows' d into F. Under consensus an input row's r[0] gains
   // -rho_c (zc0 - yc0) and d[0] takes Quu0_inv; under adaptive rho (rho
   // the problem's) Kinf^T r and, under apply_c, AmBKt p and Quu_inv w gain
   // their drho-scaled sensitivity products.
   __device__ void backward(int N, float rho, const float (&pterm)[R],
                            const Rho& rh = Rho(),
-                           const Cons& cs = Cons()) const {
+                           const Cons& cs = Cons(),
+                           const Fam& fm = Fam(),
+                           const typename Fam::Args& fa = {}) const {
 #pragma unroll
     for (int r = 0; r < R; ++r)
       if (state(r)) X[feat[r]] = pterm[r];
     sync();
     for (int i = N - 2; i >= 0; --i) {
-      float p[NX];
+      float p[kNX4];
       load(p, X);
       float lin[R], a1[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        if (!active(r)) continue;
         const float2 su = SU[i * C + col[r]];
         // q = -(Xref .* Q) - rho (v - g), r = -(Uref .* R) - rho (z - y)
         lin[r] = -(ref[r][i * tstr[r]] * wt[r]) - rho * (su.x - su.y);
+        if constexpr (Fam::kOn)
+          lin[r] = fm.terms(r, state(r), i, lin[r], rho, fa, N, NP);
         if constexpr (Cons::kHooks) {
           if (i == 0 && !state(r))
             lin[r] = lin[r] - cs.rho_c * (cs.zc[r] - cs.yc[r]);
@@ -347,19 +594,21 @@ struct GroupSweep {
         if constexpr (Rho::kApplyC) {
           if (state(r)) {
             const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
-            a1[r] = a1[r] + rh.drho * dotp(rh.t + AL.dc2 + feat[r] * NX, p);
+            a1[r] = a1[r] +
+                    rh.drho * dotp<NX>(rh.t + AL.dc2 + feat[r] * NX, p);
           }
         }
         if (!state(r)) {
-          X[NX + feat[r]] = lin[r];
-          X[NX + NU + feat[r]] = a1[r] + lin[r] + add[r];   // w
+          X[Arena::kUO + feat[r]] = lin[r];
+          X[Arena::kWO + feat[r]] = a1[r] + lin[r] + add[r];   // w
         }
       }
       sync();
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        float v[NU];
-        load(v, X + NX + (state(r) ? 0 : NU));      // r  /  w
+        if (!active(r)) continue;
+        float v[kNU4];
+        load(v, X + (state(r) ? Arena::kUO : Arena::kWO));   // r  /  w
         float a2;                               // Kinf^T r  /  Quu_inv w
         if constexpr (Cons::kHooks) {
           a2 = (i == 0 && !state(r)) ? dot(cs.q0[r], v) : dot(m2[r], v);
@@ -369,8 +618,8 @@ struct GroupSweep {
         if constexpr (Rho::kAdaptive) {
           if (state(r) || Rho::kApplyC) {
             const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
-            a2 = a2 + rh.drho * dotp(rh.t + (state(r) ? AL.dkt : AL.dc1) +
-                                         feat[r] * NU, v);
+            a2 = a2 + rh.drho * dotp<NU>(rh.t + (state(r) ? AL.dkt : AL.dc1) +
+                                             feat[r] * NU, v);
           }
         }
         if (state(r))
@@ -392,14 +641,18 @@ struct GroupSweep {
   // (input rows) <- the raw u[0]. Under consensus an input row's u[0]
   // takes Kinf0; under adaptive rho Kinf x gains drho dKinf x, and with
   // `adapting` the OSQP residuals of the iteration are folded in and their
-  // maxima, reduced over the group, written to *am.
+  // maxima, reduced over the group, written to *am. With families (fm, the
+  // launch's family arguments fa) each row keeps its x[i] / u[i] for the
+  // projections (GroupFamilies::keep).
   template <bool SAVE>
   __device__ Residuals forward(int N, const float (&x0)[R], float (&dvgN)[R],
                                bool checking, bool stale,
                                float (&u0)[R], const Rho& rh = Rho(),
                                const Cons& cs = Cons(),
                                bool adapting = false,
-                               AdaptMaxima* am = nullptr) const {
+                               AdaptMaxima* am = nullptr,
+                               const Fam& fm = Fam(),
+                               const typename Fam::Args& fa = {}) const {
     float xo[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
@@ -423,14 +676,15 @@ struct GroupSweep {
     auto terms = [&](int j) {
       if constexpr (Rho::kAdaptive) {
       const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
-      float gv[NX];
+      float gv[kNX4];
       load(gv, GS);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        if (!active(r)) continue;
         if (state(r)) {
           // P x = Q x on the stages; A^T g[j+1] - g[j]; the dynamics row
           // j-1 against the slack of state row j.
-          const float atg = dotp(rh.t + AL.at + feat[r] * NX, gv);
+          const float atg = dotp<NX>(rh.t + AL.at + feat[r] * NX, gv);
           const float qx = wt[r] * pa[r];
           const float px = qx;
           const float aty = atg - (j >= 1 ? pb[r] : 0.f);
@@ -457,7 +711,7 @@ struct GroupSweep {
       const bool last = i == N - 1;
       float a1[R];
       if (!last) {
-        float x[NX];
+        float x[kNX4];
         load(x, X);
 #pragma unroll
         for (int r = 0; r < R; ++r) {
@@ -471,13 +725,14 @@ struct GroupSweep {
           if constexpr (Rho::kAdaptive) {
             if (!state(r)) {
               const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
-              a1[r] = a1[r] + rh.drho * dotp(rh.t + AL.dk + feat[r] * NX, x);
+              a1[r] = a1[r] + rh.drho * dotp<NX>(rh.t + AL.dk + feat[r] * NX, x);
             }
           }
         }
       }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
+        if (!active(r)) continue;
         if (!state(r) && last) continue;
         // u = -Kinf x - d as an exact subtract
         const float val = state(r) ? xo[r] : -a1[r] - F[i * PU + fcol[r]];
@@ -489,6 +744,7 @@ struct GroupSweep {
         const float sn = clamp_nan(val + du, lo[r][o], hi[r][o]);
         const float dn = du + val - sn;
         SU[a] = make_float2(sn, dn);
+        if constexpr (Fam::kOn) fm.keep(r, state(r), i, val, fa, NP);
         if (checking) {
           const float prev = (SAVE && stale) ? V[a] : old;
           if (SAVE && !stale) V[a] = old;
@@ -504,7 +760,7 @@ struct GroupSweep {
         if (state(r)) {
           if (last) dvgN[r] = sn - dn;
         } else {
-          X[NX + feat[r]] = val;
+          X[Arena::kUO + feat[r]] = val;
           if (i == 0) u0[r] = val;
         }
         if constexpr (Rho::kAdaptive) {
@@ -523,8 +779,8 @@ struct GroupSweep {
       for (int r = 0; r < R; ++r) {
         axd[r] = 0.f;
         if (!state(r)) continue;
-        float u[NU];
-        load(u, X + NX);
+        float u[kNU4];
+        load(u, X + Arena::kUO);
         // x+ = (A x + B u) + f; (A x + B u) - x+ is the dynamics row of
         // the OSQP residuals of adaptive rho (exactly 0 when f = 0)
         const float s = a1[r] + dot(bm[r], u);
@@ -551,7 +807,7 @@ struct GroupSweep {
       if (adapting) {
         sync();   // g[N-1] in the g slot; x[N-1] is in the x slot
         terms(N - 2);
-        float x[NX];
+        float x[kNX4];
         load(x, X);
         const AdaptiveLayout AL(NX, NU, Rho::kApplyC);
 #pragma unroll
@@ -560,8 +816,8 @@ struct GroupSweep {
           // Row N-1: P x the terminal Pinf telescoped by drho dPinf, no
           // A^T g term, and the dynamics row N-2 against the slack of
           // row N-1.
-          const float pp = dotp(rh.t + AL.pinf + feat[r] * NX, x);
-          const float dp = dotp(rh.t + AL.dp + feat[r] * NX, x);
+          const float pp = dotp<NX>(rh.t + AL.pinf + feat[r] * NX, x);
+          const float dp = dotp<NX>(rh.t + AL.dp + feat[r] * NX, x);
           const float px = pp + rh.drho * dp;
           const float qx = wt[r] * vl[r];
           const float aty = 0.f - dl[r];

@@ -1,30 +1,32 @@
 """Fused batched ADMM solve on the GPU (counterpart of
 ``tinympc_tpu.kernels.admm_pallas``).
 
-:func:`solve_fused` runs the whole ADMM loop of a batch of cold-started,
-fixed-rho problems in one launch of the hand-written CUDA kernel
-``csrc/admm_fused.cu``; :func:`solve_fused_warm` does the same from a
+:func:`solve_fused` runs the whole ADMM loop of a batch of cold-started
+problems in one launch of a hand-written CUDA kernel (``csrc/admm_group.cu``
+or ``csrc/admm_fused.cu``); :func:`solve_fused_warm` does the same from a
 warm-start :class:`FusedCarry` and hands the next one back (the
 external-plant receding-horizon pattern). The kernels replace the TPU
-kernel ``admm_pallas._make_kernel`` for those variants. Box problems at
-(12, 4) run on ``csrc/admm_group.cu``: a problem a group of :data:`GROUP`
-threads, its trajectories in shared memory for the whole solve -- at fixed
-rho, the main path (the one-launch fleet too, a system a 128-lane tile);
-under adaptive rho (``Settings.adaptive_rho``; the fleet too), each
-problem's rho carried and adapted in the kernel; and under scenario-tree
-consensus (:func:`~tinympc_tpu_torch.api.with_consensus`), a scenario
-group of ``G`` adjacent problems (G a power of two up to :data:`BLOCK`)
-exchanging its offers through one block's shared memory, or, past the
-problems of a block, through the shared memory of a thread-block cluster
-(:func:`group_route`). Every other problem runs an instantiation of the
-one-thread-a-problem kernel ``csrc/admm_fused.cu``: problems with
-second-order cones, hyperplanes or time-varying hyperplanes, and every
-problem at (6, 3), run on its families instantiation (a box-only one with
-zero family counts), under adaptive rho on its families adaptive
-instantiation, and under consensus on its consensus instantiation, as
-does a box consensus group whose cluster the card cannot form.
-``solve_fused_warm(final=True)``, the warm solve of lane compaction, runs
-the warm instantiations as they are.
+kernel ``admm_pallas._make_kernel`` for those variants. They run on
+``csrc/admm_group.cu``: a problem a group of threads (:func:`group_width`:
+16 at (12, 4), 8 at (6, 3)), its trajectories in shared memory for the
+whole solve -- box problems at (12, 4) at fixed rho, the main path (the
+one-launch fleet too, a system a 128-lane tile); under adaptive rho
+(``Settings.adaptive_rho``; the fleet too), each problem's rho carried and
+adapted in the kernel; under scenario-tree consensus
+(:func:`~tinympc_tpu_torch.api.with_consensus`), a scenario group of ``G``
+adjacent problems (G a power of two up to :data:`BLOCK`) exchanging its
+offers through one block's shared memory, or, past the problems of a
+block, through the shared memory of a thread-block cluster; and problems
+with second-order cones, hyperplanes or time-varying hyperplanes, in any
+mix, and every problem at (6, 3) (a box-only one with zero family
+counts), at fixed and adaptive rho, each family's slacks and duals in
+shared memory too (:func:`group_route`). The one-thread-a-problem kernel
+``csrc/admm_fused.cu`` runs the rest: consensus with a family or at
+(6, 3), group 0, a box consensus group whose cluster the card cannot
+form, the multi-system launch with a family or at (6, 3), and a families
+horizon too long for one problem's columns in a block's shared memory
+(:func:`group_route` returns None). ``solve_fused_warm(final=True)``, the
+warm solve of lane compaction, runs the warm instantiations as they are.
 The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
 :data:`FAMILY_KERNEL_DIMS` (the families and consensus) and
 :data:`ADAPTIVE_KERNEL_DIMS` (adaptive rho, every family). On CPU tensors
@@ -49,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 from dataclasses import dataclass
 from typing import Dict, NamedTuple, Optional, Tuple
 
@@ -72,7 +75,11 @@ BLOCK = 128
 # the shared memory a block may have holds fewer; group_geometry). The
 # closed loop (csrc/closed_loop_fused.cu) shares both.
 GROUP_KERNEL = "admm_group"
-GROUP = 16                           # csrc/admm_group.cu kGroup
+# Threads a problem of csrc/admm_group.cu at each (nx, nu) it instantiates
+# (kGroupOf; a loaded library's tinympc_admm_group_width_at is held to it):
+# at (6, 3) 8 threads for 9 rows, thread 0 owning rows 0 and 8.
+GROUP_WIDTHS = {(12, 4): 16, (6, 3): 8}
+GROUP = GROUP_WIDTHS[(12, 4)]
 GROUP_MAX_THREADS = 128              # csrc/admm_group.cu kMaxThreads
 GROUP_PROBLEMS = GROUP_MAX_THREADS // GROUP
 # Blocks of a consensus launch's thread-block cluster at most
@@ -80,8 +87,12 @@ GROUP_PROBLEMS = GROUP_MAX_THREADS // GROUP
 # one cluster of G / P blocks; a larger one runs csrc/admm_fused.cu.
 GROUP_MAX_CLUSTER = 16
 # What a group launch solves (csrc/admm_group.cu Kind): box at fixed rho,
-# consensus, adaptive rho without and with apply_c.
-GROUP_KINDS = {"box": 0, "consensus": 1, "adaptive": 2, "adaptive_c": 3}
+# consensus, adaptive rho without and with apply_c; the families (any mix,
+# zero counts at (6, 3)) at fixed rho, adaptive rho and with apply_c.
+GROUP_KINDS = {"box": 0, "consensus": 1, "adaptive": 2, "adaptive_c": 3,
+               "families": 4, "families_adaptive": 5,
+               "families_adaptive_c": 6}
+FAMILY_KINDS = ("families", "families_adaptive", "families_adaptive_c")
 # Where a group launch keeps what its block's shared memory cannot hold
 # (csrc/admm_group.cuh Place), in the order group_geometry tries them: the
 # table (the closed loop's: and its reference) and the arena in shared
@@ -119,16 +130,21 @@ multi_warm_launch_count = 0
 # Launches by C entry: the box-only solve's at (12, 4) is
 # tinympc_admm_group (fixed rho, single and multi-system),
 # tinympc_admm_group_adaptive (adaptive rho, single and multi-system) or
-# tinympc_admm_group_consensus; every other instantiation's
-# tinympc_admm_fused or tinympc_admm_fused_multi.
+# tinympc_admm_group_consensus; the families' and (6, 3)'s at fixed and
+# adaptive rho tinympc_admm_group_families (group_route); every other
+# launch's tinympc_admm_fused or tinympc_admm_fused_multi.
 GROUP_ENTRIES = {"box": "tinympc_admm_group",
                  "adaptive": "tinympc_admm_group_adaptive",
                  "adaptive_c": "tinympc_admm_group_adaptive",
-                 "consensus": "tinympc_admm_group_consensus"}
+                 "consensus": "tinympc_admm_group_consensus",
+                 "families": "tinympc_admm_group_families",
+                 "families_adaptive": "tinympc_admm_group_families",
+                 "families_adaptive_c": "tinympc_admm_group_families"}
 entry_counts = dict.fromkeys(("tinympc_admm_group", "tinympc_admm_fused",
                               "tinympc_admm_fused_multi",
                               "tinympc_admm_group_adaptive",
-                              "tinympc_admm_group_consensus"), 0)
+                              "tinympc_admm_group_consensus",
+                              "tinympc_admm_group_families"), 0)
 
 
 class Adaptive(NamedTuple):
@@ -235,29 +251,53 @@ def smem_bytes(nx: int, nu: int, N: int, fam: Families = NO_FAMILIES,
     sensitivity under adaptive rho; under consensus also each lane's
     slack, dual and exchanged u[0] + dual, (nu, BLOCK) each
     (admm_fused.cu:launch)."""
-    floats = sum(int(np.prod(shape)) for _, shape in _table_layout(
+    floats = sum(math.prod(shape) for _, shape in _table_layout(
         nx, nu, N, fam, adapt, consensus))
     lanes = 3 * nu * BLOCK if consensus else 0
     return 4 * (floats + nx * (1 if adapt is None else 2) + lanes)
 
 
 def group_arena_floats(N: int, P: int, saved: bool, nx: int = 12,
-                       nu: int = 4, kind: str = "box") -> int:
+                       nu: int = 4, kind: str = "box",
+                       fam: "Families" = None) -> int:
     """Floats of the shared-memory arena of P problems of the group kernels
-    (``GroupArena`` of csrc/admm_group.cuh): the exchange slots (under
-    adaptive rho with a g slot each), the slack, dual and -- with ``saved``
-    (a warm solve or the closed loop, but at :data:`PLACE_SAVED_GLOBAL`) --
-    saved columns of every row, the input rows' feedforward, and under
-    consensus the offers (nu, P) and the cluster's exit vote (4 floats).
-    This is the count of the CPU path and the emulations; a launch takes
-    the loaded library's (:func:`group_geometry`'s ``count``), which
-    :func:`check_group_geometry` holds against this one."""
-    slot = -(-(nx + 2 * nu) // 4) * 4
-    if kind.startswith("adaptive"):
+    (``GroupArena`` of csrc/admm_group.cuh): the exchange slots (x, r / u
+    and w, each padded to whole float4s; under adaptive rho with a g slot
+    each), the slack, dual and -- with ``saved`` (a warm solve or the
+    closed loop, but at :data:`PLACE_SAVED_GLOBAL`) -- saved columns of
+    every row, the input rows' feedforward, under consensus the offers
+    (nu, P) and the cluster's exit vote (4 floats), and for the families
+    kinds, from a 16-byte boundary, a (slack, dual) column pair a row of
+    each family of ``fam`` that is on: (N, P * nx) pairs a state family,
+    (N - 1, P * nu) an input family. This is the count of the CPU path and
+    the emulations; a launch takes the loaded library's
+    (:func:`group_geometry`'s ``count``), which :func:`check_group_geometry`
+    holds against this one."""
+    slot = _align4(nx) + 2 * _align4(nu)
+    if "adaptive" in kind:
         slot += _align4(nx)
     lanes = nu * P + 4 if kind == "consensus" else 0
-    return P * slot + (3 if saved else 2) * N * P * (nx + nu) \
+    base = P * slot + (3 if saved else 2) * N * P * (nx + nu) \
         + (N - 1) * P * nu + lanes
+    fx, fu = _sides(fam)
+    if kind not in FAMILY_KINDS or not (fx or fu):
+        return base
+    return _align4(base) + 2 * P * (N * nx * fx + (N - 1) * nu * fu)
+
+
+def _sides(fam: Optional["Families"]) -> Tuple[int, int]:
+    """The families of ``fam`` that are on: (state side, input side)."""
+    if fam is None:
+        return 0, 0
+    return ((fam.ncx > 0) + (fam.nlx > 0) + (fam.ntx > 0),
+            (fam.ncu > 0) + (fam.nlu > 0) + (fam.ntu > 0))
+
+
+def group_width(nx: int, nu: int) -> int:
+    """Threads a problem of csrc/admm_group.cu at (nx, nu)
+    (:data:`GROUP_WIDTHS`, which :func:`_group_lib` holds the library
+    to)."""
+    return GROUP_WIDTHS[(nx, nu)]
 
 
 def _align4(n: int) -> int:
@@ -265,7 +305,8 @@ def _align4(n: int) -> int:
 
 
 def group_smem(N: int, P: int, place: int, save: bool, table: int,
-               nx: int = 12, nu: int = 4, kind: str = "box") -> int:
+               nx: int = 12, nu: int = 4, kind: str = "box",
+               fam: "Families" = None) -> int:
     """Bytes of shared memory of a group launch of P problems at ``place``:
     the ``table`` floats (the packed table; the closed loop's and its
     reference), 16-byte aligned, at :data:`PLACE_SHARED`, and the arena,
@@ -274,21 +315,25 @@ def group_smem(N: int, P: int, place: int, save: bool, table: int,
     return 4 * ((_align4(table) if place == PLACE_SHARED else 0)
                 + group_arena_floats(
                     N, P, save and place != PLACE_SAVED_GLOBAL, nx, nu,
-                    kind))
+                    kind, fam))
 
 
 @functools.lru_cache(maxsize=None)
-def _group_table(N: int, nx: int, nu: int, kind: str) -> int:
+def _group_table(N: int, nx: int, nu: int, kind: str,
+                 fam: "Families" = None) -> int:
     """Floats of the packed table a group launch of ``kind`` reads: the box
-    tables, then the adaptive tables or the step-0 consensus gains."""
-    adapt = None if not kind.startswith("adaptive") else Adaptive(
-        kind == "adaptive_c", False, 0.0, 0.0, 1.0)
-    return _table_floats(nx, nu, N, NO_FAMILIES, adapt, kind == "consensus")
+    tables, then the family tables of ``fam`` (the families kinds), then
+    the adaptive tables or the step-0 consensus gains."""
+    adapt = None if "adaptive" not in kind else Adaptive(
+        kind.endswith("_c"), False, 0.0, 0.0, 1.0)
+    if kind not in FAMILY_KINDS or fam is None:
+        fam = NO_FAMILIES
+    return _table_floats(nx, nu, N, fam, adapt, kind == "consensus")
 
 
 def group_geometry(N: int, save: bool, table: Optional[int] = None,
                    nx: int = 12, nu: int = 4, kind: str = "box",
-                   count=None):
+                   count=None, fam: "Families" = None):
     """The launch of a group kernel for horizon N: ``(P, place, smem)`` --
     problems a block (a power of two at most :data:`GROUP_PROBLEMS`, so
     that a block lies inside one 128-lane tile of a fleet and a scenario
@@ -297,22 +342,25 @@ def group_geometry(N: int, save: bool, table: Optional[int] = None,
     of shared memory. ``save``: a warm solve or the closed loop, which keep
     a saved slack column a row; ``table``: the floats a block copies at
     :data:`PLACE_SHARED`, by default the packed table of csrc/admm_group.cu
-    for ``kind`` (:data:`GROUP_KINDS`); ``count(N, P, place)``: the bytes
-    of a launch as the loaded library counts them (``tinympc_*_smem``),
-    else :func:`group_smem`'s sum. The first place that fits, each with P
-    halved as far as 1: the table in shared memory beside the arena; the
-    arena alone; and, with ``save``, the arena without the saved columns
-    (to N = 1613 at (12, 4), past every horizon :func:`fused_supported`
-    takes)."""
+    for ``kind`` (:data:`GROUP_KINDS`; the families kinds with the family
+    tables and columns of ``fam``); ``count(N, P, place)``: the bytes of a
+    launch as the loaded library counts them (``tinympc_*_smem``), else
+    :func:`group_smem`'s sum. P starts at the problems a block of 128
+    threads holds (:func:`group_width`). The first place that fits, each
+    with P halved as far as 1: the table in shared memory beside the
+    arena; the arena alone; and, with ``save``, the arena without the
+    saved columns (to N = 1613 for the box at (12, 4), past every horizon
+    :func:`fused_supported` takes). Raises ``ValueError`` where none fits
+    (the families past :func:`group_route`'s cutoff)."""
     if table is None:
-        table = _group_table(N, nx, nu, kind)
+        table = _group_table(N, nx, nu, kind, fam)
     if count is None:
         count = lambda N, P, place: group_smem(N, P, place, save, table, nx,
-                                               nu, kind)
+                                               nu, kind, fam)
     places = (PLACE_SHARED, PLACE_TABLE_GLOBAL) \
         + ((PLACE_SAVED_GLOBAL,) if save else ())
     for place in places:
-        P = GROUP_PROBLEMS
+        P = GROUP_MAX_THREADS // group_width(nx, nu)
         while P >= 1:
             smem = count(N, P, place)
             if smem <= SMEM_LIMIT:
@@ -330,14 +378,19 @@ def group_kind(nx: int, nu: int, fam: "Families", adapt, cons
     of these parameters takes, or None where it runs csrc/admm_fused.cu:
     box problems at (12, 4) at fixed rho, under adaptive rho (with or
     without apply_c), or under consensus with a group (group 0, the
-    families kernel without the exchange, stays there)."""
-    if (nx, nu) not in KERNEL_DIMS or any(fam):
+    families kernel without the exchange, stays there); problems with a
+    family, and every problem at (6, 3), at fixed or adaptive rho (the
+    families kinds). Consensus with a family or at (6, 3) stays there."""
+    if (nx, nu) not in FAMILY_KERNEL_DIMS:
         return None
+    families = any(fam) or (nx, nu) not in KERNEL_DIMS
     if cons is not None:
-        return "consensus" if cons.group >= 1 else None
-    if adapt is not None:
-        return "adaptive_c" if adapt.apply_c else "adaptive"
-    return "box"
+        return "consensus" if cons.group >= 1 and not families else None
+    rho = ("adaptive_c" if adapt.apply_c else "adaptive") \
+        if adapt is not None else None
+    if families:
+        return "families" if rho is None else "families_" + rho
+    return rho or "box"
 
 
 def group_cluster(G: int, P: int) -> int:
@@ -348,19 +401,30 @@ def group_cluster(G: int, P: int) -> int:
 
 
 def group_route(N: int, nx: int, nu: int, fam: "Families", adapt, cons,
-                warm: bool, count=None, fits=None):
+                warm: bool, count=None, fits=None, multi: bool = False):
     """``(kind, P, place, cluster)`` of the group launch a solve takes, or
     None where it runs csrc/admm_fused.cu: a problem outside
-    :func:`group_kind`, or a consensus group whose thread-block cluster
+    :func:`group_kind`, a consensus group whose thread-block cluster
     cannot be formed at the P that fits the horizon -- more than
     :data:`GROUP_MAX_CLUSTER` blocks (a group of 128 from N=124 warm and
     N=171 cold, where P falls below 8), or, where ``fits(N, P, place,
     cluster)`` is given (the loaded library's occupancy query), a cluster
-    the card cannot hold. ``count`` as :func:`group_geometry` takes it."""
+    the card cannot hold --, a multi-system launch (``multi``) of a
+    families kind, or a families horizon whose arena does not fit one
+    problem a block (:func:`group_geometry`; at (12, 4) past N=968 with
+    one family on, past N=440 with all six, cold or warm, the warm solve's
+    saved columns then in device memory; at (6, 3) past N=774 with all
+    six). ``count`` as
+    :func:`group_geometry` takes it."""
     kind = group_kind(nx, nu, fam, adapt, cons)
-    if kind is None:
+    if kind is None or (multi and kind in FAMILY_KINDS):
         return None
-    P, place, _ = group_geometry(N, warm, None, nx, nu, kind, count)
+    try:
+        P, place, _ = group_geometry(N, warm, None, nx, nu, kind, count, fam)
+    except ValueError:
+        if kind not in FAMILY_KINDS:
+            raise
+        return None
     cluster = group_cluster(cons.group, P) if kind == "consensus" else 1
     if cluster > GROUP_MAX_CLUSTER or (
             cluster > 1 and fits is not None
@@ -1323,8 +1387,8 @@ def _check_arg(t: torch.Tensor, shape, dtype, device) -> torch.Tensor:
 def _table_floats(nx, nu, N, fam=NO_FAMILIES, adapt=None,
                   consensus=False) -> int:
     """Floats of one packed table (:func:`_table_layout`)."""
-    return sum(int(np.prod(s)) for _, s in _table_layout(nx, nu, N, fam,
-                                                         adapt, consensus))
+    return sum(math.prod(s) for _, s in _table_layout(nx, nu, N, fam, adapt,
+                                                      consensus))
 
 
 def _launch_buffers(tables, x0, N, nx, nu, fam=NO_FAMILIES, adapt=None,
@@ -1366,10 +1430,10 @@ def _ptr_array(tensors):
 def _instantiation(nx, nu, fam, adapt, cons) -> str:
     """What a solve runs, the name of its launch counter: "consensus",
     "adaptive_families" (adaptive rho with a family beyond the box, or at
-    (6, 3); csrc/admm_fused.cu), "adaptive" (box only at (12, 4);
-    csrc/admm_group.cu), "families" (a family beyond the box, or at (6, 3);
-    csrc/admm_fused.cu) or "box" (csrc/admm_group.cu). Which C entry a
-    launch takes is :func:`group_route`'s rule (``entry_counts``)."""
+    (6, 3)), "adaptive" (box only at (12, 4)), "families" (a family beyond
+    the box, or at (6, 3)) or "box". Which C entry a launch takes --
+    csrc/admm_group.cu's or csrc/admm_fused.cu's -- is :func:`group_route`'s
+    rule (``entry_counts``)."""
     families = any(fam) or (nx, nu) not in KERNEL_DIMS
     if cons is not None:
         return "consensus"
@@ -1388,19 +1452,23 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
     kernel scratch for the x/u it seeds and hands over, which its carry
     does not keep. ``block_sys`` (int32, a system for each block of
     :data:`BLOCK` lanes) makes it the multi-system launch: ``tables`` then
-    holds one packed table per system. A box problem at (12, 4) (fixed
-    rho, adaptive rho, consensus) launches csrc/admm_group.cu instead,
-    where :func:`group_route` takes it."""
+    holds one packed table per system. A solve :func:`group_route` takes
+    (box at (12, 4): fixed rho, adaptive rho, consensus; the families and
+    (6, 3) at fixed and adaptive rho, one system) launches
+    csrc/admm_group.cu instead."""
     kind = group_kind(nx, nu, fam, adapt, cons)
-    if kind is not None:
+    multi = block_sys is not None
+    if kind is not None and not (multi and kind in FAMILY_KINDS):
         # The library first: its own counts decide the route.
         fn = _group_fn() if kind == "box" else _group_policy_fn(kind)
         route = group_route(N, nx, nu, fam, adapt, cons, carry is not None,
-                            *_group_probe(kind, carry is not None))
+                            *_group_probe(kind, carry is not None, fam, nx,
+                                          nu),
+                            multi=multi)
         if route is not None:
             return _launch_group(fn, route, tables, x0, N, nx, nu, carry,
                                  max_iter, ct, rho, tol_pri, tol_dua,
-                                 block_sys, adapt, cons)
+                                 block_sys, adapt, cons, fam)
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     consensus = cons is not None
@@ -1492,20 +1560,28 @@ def _supported_horizons(nx: int, nu: int):
 
 def check_group_geometry(smem_fn, table_fn=None, nx: int = 12,
                          nu: int = 4, kinds=(False, True),
-                         group_kind: str = "box") -> None:
+                         group_kind: str = "box", fam=None,
+                         horizons=None) -> None:
     """Hold :func:`group_geometry`'s own sum for a launch of ``group_kind``
-    (:data:`GROUP_KINDS`) against a library's count of its shared memory,
-    ``smem_fn(N, P, place, kind)``, at every supported horizon and each of
-    ``kinds`` (``save`` unless ``table_fn`` maps a kind to the table floats
-    of the closed loop's launch, which always saves): raise
-    ``RuntimeError`` where they disagree, before a launch fails on it or
-    the CPU path and the emulations count another arena."""
-    for N in _supported_horizons(nx, nu):
+    (:data:`GROUP_KINDS`; the families kinds with the families ``fam``)
+    against a library's count of its shared memory,
+    ``smem_fn(N, P, place, kind)``, at every supported horizon (or those
+    of ``horizons``) that a launch takes and each of ``kinds`` (``save``
+    unless ``table_fn`` maps a kind to the table floats of the closed
+    loop's launch, which always saves): raise ``RuntimeError`` where they
+    disagree, before a launch fails on it or the CPU path and the
+    emulations count another arena."""
+    for N in horizons or _supported_horizons(nx, nu):
         for kind in kinds:
             save = True if table_fn else kind
             table = table_fn(N, kind) if table_fn else None
-            P, place, smem = group_geometry(N, save, table, nx, nu,
-                                            group_kind)
+            try:
+                P, place, smem = group_geometry(N, save, table, nx, nu,
+                                                group_kind, fam=fam)
+            except ValueError:
+                if group_kind not in FAMILY_KINDS:
+                    raise
+                continue            # past the cutoff: no group launch
             got = smem_fn(N, P, place, kind)
             if got != smem:
                 raise RuntimeError(
@@ -1525,33 +1601,97 @@ class _GroupConsensusArgs(ctypes.Structure):
                 ("x_out", _PTR), ("u_out", _PTR)]
 
 
+# Family mixes whose arenas a loaded library's counts are held against:
+# each family alone, all six, and the rocket's cones.
+_CHECKED_FAMILIES = (Families(ncx=1), Families(ncu=2), Families(nlx=2),
+                     Families(nlu=1), Families(ntx=1), Families(ntu=3),
+                     Families(1, 1, 1, 1, 1, 1), Families(ncx=1, ncu=1))
+
+
+def _counts(fam: Families):
+    return (ctypes.c_int * 6)(*fam)
+
+
+def _steps(f, lo: int, hi: int) -> list:
+    """The N in (lo, hi] with f(N) != f(N - 1), for an f of N that never
+    returns to a value it left (a launch's geometry as N grows)."""
+    if f(lo) == f(hi):
+        return []
+    if hi == lo + 1:
+        return [hi]
+    mid = (lo + hi) // 2
+    return _steps(f, lo, mid) + _steps(f, mid, hi)
+
+
+def family_horizons(nx: int, nu: int, kind: str, fam: Families) -> list:
+    """The horizons at which :func:`check_group_geometry` holds a library's
+    count of a families launch: the first few, and a few on each side of
+    every horizon where :func:`group_geometry`'s P or place changes, cold
+    or warm, or the group launch ends (the cutoff of :func:`group_route`),
+    up to the last N the one-thread kernel takes. Between two of them each
+    count is one affine sum of N but for the 16-byte rounding, whose four
+    phases the few cover."""
+    adapt = None if "adaptive" not in kind else Adaptive(
+        kind.endswith("_c"), False, 0.0, 0.0, 1.0)
+    fits = lambda N: smem_bytes(nx, nu, N, fam, adapt) <= SMEM_LIMIT
+    top = (_steps(fits, 2, 4096) or [4097])[0] - 1
+    edges = {2}
+    for save in (False, True):
+        @functools.lru_cache(maxsize=None)
+        def place(N, save=save):
+            try:
+                return group_geometry(N, save, None, nx, nu, kind, fam=fam)[:2]
+            except ValueError:
+                return None
+        edges.update(_steps(place, 2, top))
+    return sorted({N + d for N in edges | {top} for d in range(-3, 4)
+                   if 2 <= N + d <= top})
+
+
 @functools.lru_cache(maxsize=None)
 def _group_lib():
     """The library of csrc/admm_group.cu, built and loaded on first use, its
-    block, group width, tile, largest cluster and shared memory (every
-    kind's) held against this module's."""
+    block, group widths, tile, largest cluster and shared memory (every
+    kind's; the families kinds' for each of a few family mixes at every
+    (nx, nu), at :func:`family_horizons`) held against this module's."""
     lib = _build.load(GROUP_KERNEL)
     if (lib.tinympc_admm_group_max_threads() != GROUP_MAX_THREADS
-            or lib.tinympc_admm_group_width() != GROUP
             or lib.tinympc_admm_group_tile() != BLOCK
-            or lib.tinympc_admm_group_max_cluster() != GROUP_MAX_CLUSTER):
+            or lib.tinympc_admm_group_max_cluster() != GROUP_MAX_CLUSTER
+            or any(lib.tinympc_admm_group_width_at(*d) != GROUP_WIDTHS[d]
+                   for d in FAMILY_KERNEL_DIMS)):
         raise RuntimeError("csrc/admm_group.cu and admm_fused disagree on "
-                           "the block size, the group, the fleet's tile or "
-                           "the largest cluster")
+                           "the block size, the group widths, the fleet's "
+                           "tile or the largest cluster")
     lib.tinympc_admm_group_smem.restype = ctypes.c_longlong
+    lib.tinympc_admm_group_families_smem.restype = ctypes.c_longlong
     for kind, code in GROUP_KINDS.items():
+        if kind in FAMILY_KINDS:
+            continue
         check_group_geometry(
             lambda N, P, place, warm, code=code: lib.tinympc_admm_group_smem(
                 N, P, place, int(warm), code), group_kind=kind)
+    for kind in FAMILY_KINDS:
+        for nx, nu in FAMILY_KERNEL_DIMS:
+            for fam in _CHECKED_FAMILIES + (NO_FAMILIES,):
+                check_group_geometry(
+                    lambda N, P, place, warm, nx=nx, nu=nu, fam=fam, kind=kind:
+                    lib.tinympc_admm_group_families_smem(
+                        nx, nu, N, P, place, int(warm), GROUP_KINDS[kind],
+                        _counts(fam)), nx=nx, nu=nu, group_kind=kind,
+                    fam=fam, horizons=family_horizons(nx, nu, kind, fam))
     return lib
 
 
-def _group_probe(kind: str, warm: bool):
+def _group_probe(kind: str, warm: bool, fam: Families = NO_FAMILIES,
+                 nx: int = 12, nu: int = 4):
     """``(count, fits)`` for :func:`group_route` from the loaded library of
     csrc/admm_group.cu: ``count(N, P, place)``, the bytes of shared memory
-    of a launch of ``kind`` (``tinympc_admm_group_smem``), and
-    ``fits(N, P, place, cluster)``, whether the card can hold a cluster of
-    that many blocks of a consensus launch
+    of a launch of ``kind`` (``tinympc_admm_group_smem``; the families
+    kinds' ``tinympc_admm_group_families_smem`` with the counts of
+    ``fam`` at (nx, nu)), and ``fits(N, P, place, cluster)``, whether the
+    card can hold
+    a cluster of that many blocks of a consensus launch
     (``tinympc_admm_group_cluster_occupancy``, cudaOccupancyMaxActiveClusters
     > 0). (None, None) where no library is loaded: the sums of
     :func:`group_smem` and the :data:`GROUP_MAX_CLUSTER` rule alone, the
@@ -1560,6 +1700,10 @@ def _group_probe(kind: str, warm: bool):
     if lib is None:
         return None, None
     lib = _group_lib()
+    if kind in FAMILY_KINDS:
+        counts = _counts(fam)
+        return (lambda N, P, place: lib.tinympc_admm_group_families_smem(
+            nx, nu, N, P, place, int(warm), GROUP_KINDS[kind], counts)), None
     count = lambda N, P, place: lib.tinympc_admm_group_smem(
         N, P, place, int(warm), GROUP_KINDS[kind])
     fits = lambda N, P, place, cluster: _cluster_fits(lib, N, P, place,
@@ -1594,28 +1738,49 @@ def _group_fn():
     return fn
 
 
+class _GroupFamilyArgs(ctypes.Structure):
+    """``GroupFamilyArgs`` of csrc/admm_group.cuh: the six family counts;
+    the carried duals of the families that are on and x/u in, the duals
+    and x/u out (null on a cold solve, for a family that is off, and x/u
+    where no family is on)."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in Families._fields]
+                + [(f"{d}_in", _PTR) for d in _FAMILY_DUALS]
+                + [("x_in", _PTR), ("u_in", _PTR)]
+                + [(f"{d}_out", _PTR) for d in _FAMILY_DUALS]
+                + [("x_out", _PTR), ("u_out", _PTR)])
+
+
 @functools.lru_cache(maxsize=None)
 def _group_policy_fn(kind: str):
     """The C entry point of csrc/admm_group.cu for an adaptive-rho
-    ("adaptive", "adaptive_c") or consensus launch
-    (``tinympc_admm_group_adaptive``, ``tinympc_admm_group_consensus``):
-    :data:`_GROUP_ARGTYPES`, then its arguments (``AdaptArgs``,
-    ``GroupConsensusArgs``), then the stream."""
+    ("adaptive", "adaptive_c"), consensus or families launch
+    (``tinympc_admm_group_adaptive``, ``tinympc_admm_group_consensus``,
+    ``tinympc_admm_group_families``): :data:`_GROUP_ARGTYPES`, then its
+    arguments (``AdaptArgs``; ``GroupConsensusArgs``;
+    ``GroupFamilyArgs`` and ``AdaptArgs``, null at fixed rho), then the
+    stream."""
     lib = _group_lib()
     fn = getattr(lib, GROUP_ENTRIES[kind])
-    args = _GroupConsensusArgs if kind == "consensus" else _AdaptArgs
-    fn.argtypes = _GROUP_ARGTYPES + [ctypes.POINTER(args), _PTR]
+    if kind in FAMILY_KINDS:
+        args = [ctypes.POINTER(_GroupFamilyArgs),
+                ctypes.POINTER(_AdaptArgs)]
+    else:
+        args = [ctypes.POINTER(_GroupConsensusArgs if kind == "consensus"
+                               else _AdaptArgs)]
+    fn.argtypes = _GROUP_ARGTYPES + args + [_PTR]
     fn.restype = ctypes.c_int
     return fn
 
 
 def _group_buffers(x0, N, nx, nu, warm: bool, adaptive: bool = False,
-                   consensus: bool = False):
+                   consensus: bool = False, fam: Families = NO_FAMILIES):
     """What a launch of csrc/admm_group.cu allocates: the outputs (under
     adaptive rho a 5th residual row, the final rho) and, warm, the carry
-    out (under consensus with the pair zc0 / yc0 and x/u). No trajectory
-    scratch: its trajectories stay in shared memory (but the saved columns
-    past N = 1117, :func:`group_saved`)."""
+    out (under consensus with the pair zc0 / yc0 and x/u; with families
+    each family's dual and x/u). No trajectory scratch: its trajectories
+    stay in shared memory (but the saved columns past N = 1117,
+    :func:`group_saved`)."""
     dev, B = x0.device, x0.shape[0]
     kw = dict(dtype=torch.float32, device=dev)
     buf = dict(out_x=torch.empty((N, B, nx), **kw),
@@ -1624,10 +1789,10 @@ def _group_buffers(x0, N, nx, nu, warm: bool, adaptive: bool = False,
                solved=torch.empty(B, dtype=torch.bool, device=dev),
                res=torch.empty((5 if adaptive else 4, B), **kw))
     if warm:
-        shapes = _carry_shapes(N, nx, nu, B, consensus=consensus)
+        shapes = _carry_shapes(N, nx, nu, B, fam, consensus=consensus)
         buf.update({f"carry_{k}": torch.empty(shapes[k], **kw)
-                    for k in _GROUP_CARRY_OUT + (
-                        _GROUP_CONSENSUS_OUT if consensus else ())})
+                    for k in _GROUP_CARRY_OUT + _group_extra_out(fam,
+                                                                 consensus)})
     return buf
 
 
@@ -1637,23 +1802,39 @@ _GROUP_CARRY_OUT = ("vnew", "znew", "v", "z", "g", "y")
 _GROUP_CONSENSUS_OUT = ("zc0", "yc0", "x", "u")
 
 
+def _group_extra_out(fam: Families, consensus: bool) -> Tuple[str, ...]:
+    """The carry fields a warm group launch writes past the box's: the
+    consensus pair and x/u, or each family's dual and, with any family on,
+    x/u."""
+    if consensus:
+        return _GROUP_CONSENSUS_OUT
+    duals = tuple(d for d, n in zip(_FAMILY_DUALS, fam) if n)
+    return duals + (("x", "u") if duals else ())
+
+
 def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
                   rho, tol_pri, tol_dua, block_sys=None,
                   adapt: Optional[Adaptive] = None,
-                  cons: Optional[Consensus] = None):
-    """Launch csrc/admm_group.cu, the box-only solve at (12, 4), through its
-    C entry ``fn`` (:data:`GROUP_ENTRIES`) on the current stream of x0's
-    device, at ``route`` (:func:`group_route`: the kind, P, place and
-    cluster): cold when ``carry`` is None, else warm; at fixed rho, with
-    ``adapt`` at adaptive rho, with ``cons`` under consensus (its group in
-    one block or one cluster of blocks); with ``block_sys`` (int32, a
-    system for each 128-lane tile) the multi-system launch. Returns
-    ``(Solution, residuals, carry' or None)``."""
+                  cons: Optional[Consensus] = None,
+                  fam: Families = NO_FAMILIES):
+    """Launch csrc/admm_group.cu through its C entry ``fn``
+    (:data:`GROUP_ENTRIES`) on the current stream of x0's device, at
+    ``route`` (:func:`group_route`: the kind, P, place and cluster): cold
+    when ``carry`` is None, else warm; at fixed rho, with ``adapt`` at
+    adaptive rho, with ``cons`` under consensus (its group in one block or
+    one cluster of blocks), with the families ``fam`` (the families kinds:
+    any family, and every problem at (6, 3)); with ``block_sys`` (int32, a
+    system for each 128-lane tile) the multi-system launch of a box
+    problem. Returns ``(Solution, residuals, carry' or None)``."""
     dev, B = x0.device, x0.shape[0]
     f32 = torch.float32
     _check_arg(x0, (B, nx), f32, dev)
     consensus = cons is not None
-    stride = _table_floats(nx, nu, N, NO_FAMILIES, adapt, consensus)
+    kind, P, place, cluster = route
+    families = kind in FAMILY_KINDS
+    if not families:
+        fam = NO_FAMILIES
+    stride = _table_floats(nx, nu, N, fam, adapt, consensus)
     if block_sys is not None:
         if consensus:
             raise ValueError("the multi-system launch takes no consensus")
@@ -1663,9 +1844,8 @@ def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
     else:
         _check_arg(tables, (stride,), f32, dev)
     warm = carry is not None
-    fam = NO_FAMILIES
-    kind, P, place, cluster = route
-    buf = _group_buffers(x0, N, nx, nu, warm, adapt is not None, consensus)
+    buf = _group_buffers(x0, N, nx, nu, warm, adapt is not None, consensus,
+                         fam)
     saved = group_saved(x0, N, P, place, nx, nu)
     ptrs = [None] * 12
     if warm:
@@ -1675,7 +1855,7 @@ def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
             _check_arg(getattr(carry, name), shape, f32, dev)
         ptrs = [getattr(carry, k) for k in BOX_CARRY_FIELDS] + [
             buf["carry_" + k] for k in _GROUP_CARRY_OUT]
-    adapt_args = cons_args = None
+    adapt_args = cons_args = fam_args = None
     if adapt is not None:
         adapt_args = ctypes.byref(_AdaptArgs(
             int(adapt.apply_c), int(adapt.clip), adapt.rho_min,
@@ -1688,6 +1868,16 @@ def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
             buf["carry_" + k].data_ptr() for k in _GROUP_CONSENSUS_OUT]
         cons_args = ctypes.byref(_GroupConsensusArgs(cons.group, cluster,
                                                      cons.rho_c, *io))
+    if families:
+        ptr = lambda t: None if t is None else t.data_ptr()
+        on = any(fam) and warm
+        src = lambda k: getattr(carry, k) if warm else None
+        dst = lambda k: buf.get("carry_" + k)
+        fam_args = ctypes.byref(_GroupFamilyArgs(
+            *fam, *(ptr(src(d)) for d in _FAMILY_DUALS),
+            ptr(src("x") if on else None), ptr(src("u") if on else None),
+            *(ptr(dst(d)) for d in _FAMILY_DUALS),
+            ptr(dst("x")), ptr(dst("u"))))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(int(warm), nx, nu, P, place, N, B, max_iter, ct, rho,
@@ -1697,7 +1887,8 @@ def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
                  _ptr_array(ptrs),
                  None if block_sys is None else block_sys.data_ptr(), stride,
                  None if saved is None else saved.data_ptr(),
-                 *[a for a in (adapt_args, cons_args) if a is not None],
+                 *([fam_args, adapt_args] if families else
+                   [a for a in (adapt_args, cons_args) if a is not None]),
                  stream)
     if err != 0:
         raise RuntimeError(f"admm_group kernel launch failed: CUDA error "
@@ -1707,8 +1898,8 @@ def _launch_group(fn, route, tables, x0, N, nx, nu, carry, max_iter, ct,
                    u=buf["out_u"])
     if not warm:
         return sol, buf["res"], None
-    out = {k: buf["carry_" + k] for k in _GROUP_CARRY_OUT + (
-        _GROUP_CONSENSUS_OUT if consensus else ())}
+    out = {k: buf["carry_" + k] for k in _GROUP_CARRY_OUT
+           + _group_extra_out(fam, consensus)}
     if adapt is not None:
         out["rho"] = buf["res"][4:5].clone()
     return sol, buf["res"], FusedCarry(**out)

@@ -167,8 +167,8 @@ def check_supported_spec(spec: ProblemSpec,
             raise ValueError(
                 "consensus over a named mesh axis (consensus_axis_name="
                 f"{settings.consensus_axis_name!r}) is not ported yet: it "
-                "waits for the multi-GPU shard.py (ROADMAP.md, Queue 1 "
-                "item 6); groups on the last batch axis are")
+                "waits for the multi-GPU shard.py (see ROADMAP.md); groups "
+                "on the last batch axis are")
 
 
 @dataclass(frozen=True)
