@@ -39,10 +39,15 @@ at N=256 on 256 lanes, at N=1300 on 64, and the rocket's box alone at
 N=32), and, at B=64, the long horizons where the thread-group kernels
 keep their table and saved columns in device memory (box cold at N=700,
 two warm solves at N=1100 and at N=1150, closed loops at N=700 and
-N=1150 with T=2), and writes every output and carry field. ``diff``
-prints, for each entry, whether the two files hold the same bits, and
-exits non-zero when any differs. Two packages cannot share a process: run
-``save`` once per checkout.
+N=1150 with T=2), the one-thread kernels' own pairs (cartpole (4, 1) at
+N=10 -- box, adaptive rho with apply_c, consensus in groups of 8, a state
+hyperplane, a fleet of two variants --, cold and two warm solves, and
+streamed at N=64; the degenerate (2, 2), (2, 1), (3, 3), (1, 1) at N=10,
+cold and warm), and writes every output and carry field. ``diff`` prints,
+for each entry both files hold, whether they hold the same bits, and
+names the entries only one holds (a newer checkout's additions); it exits
+non-zero when a common entry differs. Two packages cannot share a
+process: run ``save`` once per checkout.
 
     python3 chip_compare.py build OUT.json   # in each checkout, on the GPU
     python3 chip_compare.py diff A.json B.json
@@ -214,6 +219,32 @@ def _mixed(tt, torch, N):
     return tt.with_settings(tt.with_bounds(p, x_min=-5.0, x_max=5.0,
                                            u_min=-0.5, u_max=3.0),
                             max_iter=30)
+
+
+def _cartpole(tt, torch, N, A=None):
+    """bench_all.py:128-131's cartpole, box +-5 / +-0.5, max_iter 100, ct
+    1; ``A`` replaces the system's."""
+    s = tt.systems.cartpole()
+    prob = tt.setup(s["A"] if A is None else A, s["B"], s["Qdiag"],
+                    s["Rdiag"], rho=s["rho"], N=N, f=s["f"],
+                    dtype=torch.float32, device=DEVICE)
+    prob = tt.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5,
+                          u_max=0.5)
+    return tt.with_settings(prob, max_iter=100, check_termination=1)
+
+
+def _degenerate(tt, torch, nx, nu, N=10):
+    """tests/test_degenerate_dims.py:29-41's random stable system (seed
+    nx * 100 + nu), box x in [-3, 3] and u in [-2, 2], max_iter 50."""
+    g = np.random.default_rng(nx * 100 + nu)
+    A = g.uniform(-1.0, 1.0, (nx, nx))
+    A *= 0.9 / max(np.abs(np.linalg.eigvals(A)).max(), 1e-9)
+    Bm = g.uniform(-1.0, 1.0, (nx, nu))
+    prob = tt.setup(A, Bm, g.uniform(1.0, 5.0, nx), g.uniform(0.1, 1.0, nu),
+                    rho=1.0, N=N, dtype=torch.float32, device=DEVICE)
+    prob = tt.with_bounds(prob, x_min=-3.0, x_max=3.0, u_min=-2.0,
+                          u_max=2.0)
+    return tt.with_settings(prob, max_iter=50)
 
 
 def _plane_inputs(torch, B_, N, rng):
@@ -462,6 +493,57 @@ def save(path):
             w = kern.solve_fused_streamed_warm(prob, Xref, Uref, x0, c)
             out.update(_flat(f"streamed.{name}.warm{step}", w))
             c = w[2]
+    # The one-thread kernels' own pairs: cartpole (4, 1) at N=10 -- box,
+    # adaptive rho (apply_c, adaptive_rho_min 0.05), consensus in groups of
+    # 8, a state hyperplane, a fleet of two variants -- resident, cold and
+    # two warm solves, and streamed at N=64, cold and warm; the degenerate
+    # (2, 2), (2, 1), (3, 3), (1, 1) resident at N=10, cold and warm.
+    cart = _cartpole(tt, torch, 10)
+    x_c = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, 4)), **kw)
+    Xc = torch.zeros((10, 4), **kw)
+    Xc[:, 2] = 1.0
+    one_thread = [
+        ("cartpole", cart, x_c),
+        ("cartpole_adaptive", tt.with_settings(
+            cart, adaptive_rho=True, adaptive_rho_min=0.05,
+            adaptive_rho_apply_c=True), x_c),
+        ("cartpole_consensus", tt.with_consensus(cart, rho_c=20.0),
+         x_c.reshape(B // 8, 8, 4)),
+        ("cartpole_plane", tt.with_linear_constraints(
+            cart, [[1.0, 0.0, 0.0, 0.0]], [0.2]), x_c)]
+    for name, prob, x0 in one_thread:
+        out.update(_flat(f"{name}.cold", kern.solve_fused(prob, Xc, None,
+                                                          x0)))
+        c = tt.init_carry(prob, B)
+        for step in range(2):
+            w = kern.solve_fused_warm(prob, Xc, None, x0, c)
+            out.update(_flat(f"{name}.warm{step}", w))
+            c = w[2]
+    s_c = tt.systems.cartpole()
+    cfleet = [_cartpole(tt, torch, 10, A=s_c["A"] * (1 + 0.004 * i))
+              for i in range(2)]
+    out.update(_flat("cartpole_fleet.cold", kern.make_fleet_solver(cfleet)(
+        assign, x_c, Xref=Xc)))
+    c = tt.init_carry(cfleet[0], B)
+    for step in range(2):
+        w = kern.make_fleet_solver(cfleet, warm=True)(assign, x_c, c,
+                                                       Xref=Xc)
+        out.update(_flat(f"cartpole_fleet.warm{step}", w))
+        c = w[2]
+    Xs = torch.zeros((64, 4), **kw)
+    Xs[:, 2] = 1.0
+    cs = _cartpole(tt, torch, 64)
+    out.update(_flat("streamed.cartpole.cold", kern.solve_fused_streamed(
+        cs, Xs, None, x_c)))
+    out.update(_flat("streamed.cartpole.warm", kern.solve_fused_streamed_warm(
+        cs, Xs, None, x_c, tt.init_carry(cs, B))))
+    for nx, nu in ((2, 2), (2, 1), (3, 3), (1, 1)):
+        prob = _degenerate(tt, torch, nx, nu)
+        x0 = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, nx)), **kw)
+        out.update(_flat(f"dims{nx}{nu}.cold", kern.solve_fused(
+            prob, None, None, x0)))
+        out.update(_flat(f"dims{nx}{nu}.warm", kern.solve_fused_warm(
+            prob, None, None, x0, tt.init_carry(prob, B))))
     torch.save({k: v.cpu() for k, v in out.items()}, path)
     print(f"chip_compare: {len(out)} tensors saved to {path}; card "
           f"{torch.cuda.get_device_name(0)}")
@@ -1182,13 +1264,15 @@ def diff(a_path, b_path):
     import torch
     a, b = torch.load(a_path), torch.load(b_path)
     bad = 0
-    for k in sorted(set(a) | set(b)):
-        same = k in a and k in b and a[k].shape == b[k].shape and \
-            torch.equal(a[k], b[k])
+    for k in sorted(set(a) & set(b)):
+        same = a[k].shape == b[k].shape and torch.equal(a[k], b[k])
         bad += not same
         print(f"{k}: {'same bits' if same else 'DIFFERS'}")
-    print(f"chip_compare: {len(set(a) | set(b)) - bad} entries bitwise "
-          f"equal, {bad} differ")
+    for k in sorted(set(a) ^ set(b)):
+        print(f"{k}: only in {a_path if k in a else b_path}")
+    print(f"chip_compare: {len(set(a) & set(b)) - bad} of "
+          f"{len(set(a) & set(b))} common entries bitwise equal, {bad} "
+          f"differ, {len(set(a) ^ set(b))} in one file only")
     return 1 if bad else 0
 
 

@@ -132,7 +132,20 @@ calls, and holds every kernel against its plain PyTorch version:
   examples/serving_fleet.py:100-113's 4 variants (1 + 0.004 (i - 2), hover
   reference, ct 25) as a warm fleet of 16384 lanes with random
   assignments, x0 = hover + U[-0.3, 0.3]^12, 5 external-plant solves,
-  each plant stepped with its own system.
+  each plant stepped with its own system;
+* the one-thread kernels at the pairs that have no thread-group kind or
+  lane team (kernels.admm_fused.THREAD_KERNEL_DIMS): bench_all.py:128-142's
+  cartpole row -- systems.cartpole (nx=4, nu=1), N=10, box +-5 / +-0.5,
+  Xref[:, 2] = 1, B=32768 with x0 ~ U[-0.5, 0.5]^4 (default_rng(0)),
+  max_iter 100, ct 1 -- through setup -> with_bounds -> with_settings ->
+  kernels.solve_fused (csrc/admm_fused.cu, tinympc_admm_fused: the families
+  instantiation with zero counts), then as an external-plant sequence of 5
+  warm solves at B=16384 (x+ = A x + B u0); the degenerate pairs (2, 2),
+  (2, 1), (3, 3), (1, 1) of tests/test_degenerate_dims.py (its random
+  stable systems) at its N and at N=10, small; and cartpole's other kinds
+  at B=1024 (adaptive rho, consensus, a hyperplane, a fleet through
+  tinympc_admm_fused_multi, compaction, and the streamed solve at N=256 on
+  the one-thread entries of csrc/admm_stream.cu).
 
 Phases, each of which raises on failure (phase 13 also times
 compute_sensitivities' fixed point run on the card, as it ran before it
@@ -265,7 +278,24 @@ moved to the host):
    version's own spread between the two (the every-family problem is
    float32-sensitive: a 1-ulp change of x0 moves its 12-iteration
    solution by ~1e-2 in the plain version itself);
-42. the kernels line, then the device line last.
+42. the cartpole cold batch at B=32768 on csrc/admm_fused.cu: against its
+   plain version, timed (CUDA events, torch.profiler device time), solved
+   fraction, mean iterations, the bound;
+43. its external-plant sequence at B=16384, 5 warm solves, against the
+   plain version, the sixth solve timed;
+44. the one-thread kernel at cartpole and each degenerate pair (at
+   tests/test_degenerate_dims.py's N and at N=10) against its plain
+   versions on the card and the CPU: B=1000 and 1024, ct 1 and 25, cold,
+   and 6 warm solves at B=1000;
+45. cartpole's kinds at B=1024: adaptive rho with and without apply_c
+   (cold and 5 warm), consensus 128 x 8 at rho_c 20 (cold and 2 warm, the
+   spread bar), a state hyperplane x[0] <= 0.2 (cold and 3 warm), a fleet
+   of 4 variants (cold and 2 warm, bitwise the per-bucket launches),
+   compaction in phases [100, 400] (bitwise one long solve_fused), and the
+   streamed solve at N=256 on the one-thread entries (bitwise the resident
+   kernel, cold and 3 warm solves; each launch timed and held to its plain
+   version); every launch checked by entry_counts / launch_counts;
+46. the kernels line, then the device line last.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -412,6 +442,19 @@ WARM_FLEET_SYS, WARM_FLEET_B = 4, 16384
 # Lanes of the elementwise probe's stream: its two arrays resident in L2
 # (10.5 MB at the quadrotor's N=20, F=16), and from device memory (84 MB).
 STREAM_LANES = (4096, 32768)
+# The one-thread kernels' own pairs (admm_fused.THREAD_KERNEL_DIMS):
+# bench_all.py:128-142's cartpole row (N=10, B=32768, max_iter 100, ct 1)
+# and its external-plant sequence at B=16384; the degenerate pairs of
+# tests/test_degenerate_dims.py:23-26 at its N and at N=10, small; and
+# cartpole's other kinds at B=1024: consensus at tests/test_diff.py:171's
+# rho_c, a state hyperplane x[0] <= CART_PLANE on the cart position, a
+# fleet of CART_FLEET_SYS variants, compaction, the streamed solve at
+# CART_STREAM_N.
+CART_N, CART_B, CART_PLANT_B = 10, 32768, 16384
+DEGENERATE = ((2, 2, 3), (2, 1, 3), (3, 3, 4), (1, 1, 3))
+DIMS_SMALL_B = (1000, 1024)
+CART_KIND_B, CART_RHO_C, CART_PLANE = 1024, 20.0, 0.2
+CART_FLEET_SYS, CART_STREAM_N = 4, 256
 
 
 def log(msg):
@@ -1109,7 +1152,8 @@ def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
     ``carry_spread`` the carry is held against the plain version on the CPU
     to that spread too: its scaled duals grow as 1/rho, so where rho falls
     far below 1 their rounding passes the absolute bar while x and u meet
-    it. Returns the kernel's (solution, residuals, carry) of each step."""
+    it. A fixed-rho sequence is held the same way, without the rho. Returns
+    the kernel's (solution, residuals, carry) of each step."""
     prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
                                         "cpu")
     cpu = lambda a: None if a is None else a.cpu()
@@ -1145,8 +1189,9 @@ def adaptive_warm_small(torch, tt, convert, label, prob, x, Xref, B,
                           agreed[other],
                           atol=atol if carry_spread else bars.get(
                               "atol", BAR_ATOL))
-            compare_rho(f"{name} vs {other}", c_kc.rho[0], c_o.rho[0],
-                        agreed[other])
+            if c_kc.rho is not None:
+                compare_rho(f"{name} vs {other}", c_kc.rho[0], c_o.rho[0],
+                            agreed[other])
         x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
     return outs
 
@@ -1603,11 +1648,14 @@ def team_route(prob, group=None):
     problem with families at fixed rho, and a consensus problem at fixed
     rho in scenario groups of ``group`` lanes whose thread-block cluster
     the card can form (admm_stream.team_consensus_route, asking the loaded
-    library's occupancy query)."""
+    library's occupancy query); never at a pair without team entries
+    (admm_fused.THREAD_KERNEL_DIMS: cartpole and the degenerate pairs)."""
+    from tinympc_tpu_torch.kernels import admm_fused, admm_stream
     spec = prob.spec
+    if (spec.nx, spec.nu) in admm_fused.THREAD_KERNEL_DIMS:
+        return False
     if spec.en_consensus:
         import ctypes
-        from tinympc_tpu_torch.kernels import admm_fused, admm_stream
         fits = admm_stream._team_consensus_fns()[2]
         counts = (ctypes.c_int * 6)(*admm_fused._families(spec))
         return admm_stream.team_consensus_route(
@@ -1668,7 +1716,8 @@ def took_route(ast, label, prob, group=None):
 
 # The ptxas label (kernel_label) of the instantiation each streamed row of
 # the kernels line measured: at (12, 4) the box and consensus phases
-# (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35). Every
+# (17, 18, 31, 35, 36), at (6, 3) the rocket's cones (19, 35), at (4, 1)
+# cartpole's one-thread launches (45). Every
 # streamed instantiation, the family team kernels at (12, 4) of phase 21
 # and the consensus ones with families or at (6, 3) of phase 27 too, is
 # held to no spill when it is built.
@@ -1694,6 +1743,9 @@ STREAM_PTXAS = {
     "backward_adaptive": "admm_stream backward adaptive (6, 3)",
     "forward_adaptive": "admm_stream forward adaptive (6, 3)",
     "forward_adaptive_stale": "admm_stream forward stale adaptive (6, 3)",
+    "backward_4x1": "admm_stream backward (4, 1)",
+    "forward_4x1": "admm_stream forward (4, 1)",
+    "forward_stale_4x1": "admm_stream forward stale (4, 1)",
 }
 
 
@@ -2260,6 +2312,109 @@ def plain_groups(torch, fn, prob, Xref, Uref, x0, carry=None):
     return (sol, res[:, :ng]) + extra
 
 
+def consensus_sequence(torch, tt, convert, admm_fused, label, ct, prob, x0,
+                       Xref, Uref, entry):
+    """One consensus case of the small comparisons: a cold solve and
+    CONS_SMALL_WARM warm solves of an external plant stepped with the
+    kernel's u0, x0 (n_groups, G, nx). Each solve is held to the bar
+    against the plain version on the CPU and on the card (on the groups
+    whose counts agree, at every step so far), with the bars of the plain
+    version's own spread between the two where they sit on float32 ties;
+    every launch on the C entry ``entry``; each solve's solved groups to
+    the spread bar (hold_spread). Returns each step's largest difference
+    from the plain version on the card."""
+    kern = tt.kernels
+    cpu = lambda a: None if a is None else a.cpu()
+    ng, G = x0.shape[:2]
+    B = ng * G
+    errs = {}
+    zero_entries(admm_fused)
+    prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
+                                        "cpu")
+    everyone = torch.ones(B, dtype=torch.bool)
+    agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    agreed_c = everyone.clone()
+    c_k = c_p = c_c = None
+    x = x0
+    states, spreads = [], []
+    for step in range(1 + CONS_SMALL_WARM):
+        warm = step > 0
+        name = (f"{label} {'warm' if warm else 'cold'} ct={ct}"
+                + (f" step {step}" if warm else ""))
+        if warm and c_k is None:
+            # A fresh sequence: the warm solves start from zero carries.
+            c_k, c_p = tt.init_carry(prob, B), tt.init_carry(prob, B)
+            c_c = tt.init_carry(prob_c, B)
+            agreed.fill_(True)
+            agreed_c.fill_(True)
+        if not warm:
+            sol_k, res_k = kern.solve_fused(prob, Xref, Uref, x)
+            sol_p, res_p = plain_groups(torch, kern.solve_fused_reference,
+                                        prob, Xref, Uref, x)
+            sol_c, _ = kern.solve_fused_reference(prob_c, cpu(Xref),
+                                                  cpu(Uref), cpu(x))
+        else:
+            sol_k, res_k, c_k = kern.solve_fused_warm(prob, Xref, Uref, x,
+                                                      c_k)
+            sol_p, res_p, c_p = plain_groups(
+                torch, kern.solve_fused_warm_reference, prob, Xref, Uref,
+                x, c_p)
+            sol_c, _, c_c = kern.solve_fused_warm_reference(
+                prob_c, cpu(Xref), cpu(Uref), cpu(x), c_c)
+        torch.cuda.synchronize()
+        states.append(x)
+        spreads.append((name, spread_stats(sol_k,
+                                           prob.settings.abs_pri_tol)))
+        fk, fp, fc = lanes(sol_k), lanes(sol_p), lanes(sol_c)
+        fkc = on_cpu(fk)
+        before_c = agreed_c.clone()
+        agreed_c &= group_agree(fkc.iter, fc.iter, G)
+        compare(torch, f"{name} vs plain(cpu)", fkc, fc, lanes=agreed_c,
+                among=before_c)
+        share_c, dsf_c, dval_c, _ = plain_spread(
+            torch, fp, fc, before_c,
+            *((c_p, c_c) if warm else ()))
+        share, solved_tol, atol = spread_bars(name, share_c, dsf_c,
+                                              dval_c, B)
+        before = agreed.clone()
+        agreed &= group_agree(fk.iter, fp.iter, G)
+        errs[step] = compare(
+            torch, name, fk, fp, res_k.reshape(4, -1),
+            res_p.reshape(4, -1), atol=atol, lanes=agreed,
+            solved_tol=solved_tol, share=share, among=before)
+        if warm:
+            # The CPU's float32 torch.sqrt is not always correctly
+            # rounded (ROADMAP.md, Queue 3), which the rocket's duals
+            # carry from solve to solve: the carry is held to the plain
+            # version's own spread there.
+            compare_carry(torch, f"{name} vs plain(cpu)", on_cpu(c_k),
+                          c_c, agreed_c, atol=atol)
+            compare_carry(torch, name, c_k, c_p, agreed, atol=atol)
+        xf = x.reshape(B, -1)
+        x = (xf @ prob.A.T + fk.u[0] @ prob.B.T + prob.f).reshape(
+            ng, G, -1)
+    took_entries(admm_fused, f"{label} ct={ct}",
+                 {entry: 1 + CONS_SMALL_WARM})
+    # The spread bar, with admm.solve's witness where it is missed: a
+    # cold solve, then a warm sequence of its own on the same states.
+    witness = {}
+
+    def admm_solves():
+        if not witness:
+            witness[0] = tt.solve(prob, tt.init_state(prob, (ng, G)),
+                                  Xref, Uref, states[0])[0]
+            st = tt.init_state(prob, (ng, G))
+            for k in range(1, len(states)):
+                witness[k], st, _ = tt.solve(prob, st, Xref, Uref,
+                                             states[k])
+        return witness
+
+    for k, (name, stats) in enumerate(spreads):
+        hold_spread(name, stats, prob.settings.abs_pri_tol,
+                    lambda k=k: admm_solves()[k])
+    return errs
+
+
 def consensus_phases(torch, tt, convert, admm_fused, counters, card,
                      peak_flops, peak_bw):
     """Phases 23-25: box consensus at (12, 4) on the thread-group kernel
@@ -2269,7 +2424,6 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     kernel's cold and warm launches and of the families consensus
     kernel."""
     kern = tt.kernels
-    cpu = lambda a: None if a is None else a.cpu()
     rows = {}
 
     phase(f"phase 23: consensus kernel vs plain versions, B={CONS_SMALL_B}")
@@ -2298,9 +2452,6 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
     for label, ct, make, (ng, G), kind in small:
         B = ng * G
         prob = make(100, ct)
-        zero_entries(admm_fused)
-        prob_c = convert.problem_from_numpy(convert.problem_to_numpy(prob),
-                                            "cpu")
         if kind == "quad":
             x0, Xref = inputs(torch, B, N=CONS_N, spread=0.3)
             Xref = Xref.clone()
@@ -2309,90 +2460,9 @@ def consensus_phases(torch, tt, convert, admm_fused, counters, card,
         else:
             x0, Xref, Uref = rocket_inputs(torch, B)
         x0 = x0.reshape(ng, G, -1)
-        everyone = torch.ones(B, dtype=torch.bool)
-        agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
-        agreed_c = everyone.clone()
-        c_k = c_p = c_c = None
-        x = x0
-        states, spreads = [], []
-        for step in range(1 + CONS_SMALL_WARM):
-            warm = step > 0
-            name = (f"{label} {'warm' if warm else 'cold'} ct={ct}"
-                    + (f" step {step}" if warm else ""))
-            if warm and c_k is None:
-                # A fresh sequence: the warm solves start from zero carries.
-                c_k, c_p = tt.init_carry(prob, B), tt.init_carry(prob, B)
-                c_c = tt.init_carry(prob_c, B)
-                agreed.fill_(True)
-                agreed_c.fill_(True)
-            if not warm:
-                sol_k, res_k = kern.solve_fused(prob, Xref, Uref, x)
-                sol_p, res_p = plain_groups(torch, kern.solve_fused_reference,
-                                            prob, Xref, Uref, x)
-                sol_c, _ = kern.solve_fused_reference(prob_c, cpu(Xref),
-                                                      cpu(Uref), cpu(x))
-            else:
-                sol_k, res_k, c_k = kern.solve_fused_warm(prob, Xref, Uref, x,
-                                                          c_k)
-                sol_p, res_p, c_p = plain_groups(
-                    torch, kern.solve_fused_warm_reference, prob, Xref, Uref,
-                    x, c_p)
-                sol_c, _, c_c = kern.solve_fused_warm_reference(
-                    prob_c, cpu(Xref), cpu(Uref), cpu(x), c_c)
-            torch.cuda.synchronize()
-            states.append(x)
-            spreads.append((name, spread_stats(sol_k,
-                                               prob.settings.abs_pri_tol)))
-            fk, fp, fc = lanes(sol_k), lanes(sol_p), lanes(sol_c)
-            fkc = on_cpu(fk)
-            before_c = agreed_c.clone()
-            agreed_c &= group_agree(fkc.iter, fc.iter, G)
-            compare(torch, f"{name} vs plain(cpu)", fkc, fc, lanes=agreed_c,
-                    among=before_c)
-            share_c, dsf_c, dval_c, _ = plain_spread(
-                torch, fp, fc, before_c,
-                *((c_p, c_c) if warm else ()))
-            share, solved_tol, atol = spread_bars(name, share_c, dsf_c,
-                                                  dval_c, B)
-            before = agreed.clone()
-            agreed &= group_agree(fk.iter, fp.iter, G)
-            errs[(kind, ct, step)] = compare(
-                torch, name, fk, fp, res_k.reshape(4, -1),
-                res_p.reshape(4, -1), atol=atol, lanes=agreed,
-                solved_tol=solved_tol, share=share, among=before)
-            if warm:
-                # The CPU's float32 torch.sqrt is not always correctly
-                # rounded (ROADMAP.md, Queue 3), which the rocket's duals
-                # carry from solve to solve: the carry is held to the plain
-                # version's own spread there.
-                compare_carry(torch, f"{name} vs plain(cpu)", on_cpu(c_k),
-                              c_c, agreed_c, atol=atol)
-                compare_carry(torch, name, c_k, c_p, agreed, atol=atol)
-            xf = x.reshape(B, -1)
-            x = (xf @ prob.A.T + fk.u[0] @ prob.B.T + prob.f).reshape(
-                ng, G, -1)
-        # Box consensus at (12, 4) runs the thread-group kernel's consensus
-        # entry (a group of 128 across a cluster of 16 blocks); with the
-        # rocket's cones the one-thread families consensus kernel.
-        took_entries(admm_fused, f"{label} ct={ct}", {
-            GROUP_CONS if kind == "quad" else FUSED: 1 + CONS_SMALL_WARM})
-        # The spread bar, with admm.solve's witness where it is missed: a
-        # cold solve, then a warm sequence of its own on the same states.
-        witness = {}
-
-        def admm_solves():
-            if not witness:
-                witness[0] = tt.solve(prob, tt.init_state(prob, (ng, G)),
-                                      Xref, Uref, states[0])[0]
-                st = tt.init_state(prob, (ng, G))
-                for k in range(1, len(states)):
-                    witness[k], st, _ = tt.solve(prob, st, Xref, Uref,
-                                                 states[k])
-            return witness
-
-        for k, (name, stats) in enumerate(spreads):
-            hold_spread(name, stats, prob.settings.abs_pri_tol,
-                        lambda k=k: admm_solves()[k])
+        errs.update({(kind, ct, step): e for step, e in consensus_sequence(
+            torch, tt, convert, admm_fused, label, ct, prob, x0, Xref, Uref,
+            GROUP_CONS if kind == "quad" else FUSED).items()})
 
     # The one-thread families consensus kernel (csrc/admm_fused.cu), which
     # consensus with a family beyond the box runs: the rocket's cones,
@@ -4368,6 +4438,384 @@ def took_group(admm_fused, label, launches):
     log(f"  {label}: launches by entry {e}")
 
 
+def cartpole_problem(tt, torch, max_iter, ct, N=CART_N, A=None,
+                     device=None):
+    """bench_all.py:128-131's cartpole (nx=4, nu=1): N=10, box +-5 on x and
+    +-0.5 on u, through the user's entry points; ``A`` replaces the
+    system's (a fleet's variant)."""
+    s = tt.systems.cartpole()
+    prob = tt.setup(s["A"] if A is None else A, s["B"], s["Qdiag"],
+                    s["Rdiag"], rho=s["rho"], N=N, f=s["f"],
+                    dtype=torch.float32, device=device or DEVICE)
+    prob = tt.with_bounds(prob, x_min=-5.0, x_max=5.0, u_min=-0.5,
+                          u_max=0.5)
+    return tt.with_settings(prob, max_iter=max_iter, check_termination=ct)
+
+
+def cartpole_inputs(torch, B, N=CART_N):
+    """x0 ~ U[-0.5, 0.5]^4 from default_rng(0) and Xref[:, 2] = 1
+    (bench_all.py:132-133)."""
+    x0 = np.random.default_rng(0).uniform(-0.5, 0.5, (B, 4))
+    Xref = np.zeros((N, 4))
+    Xref[:, 2] = 1.0
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
+
+
+def degenerate_problem(tt, torch, nx, nu, N, ct):
+    """tests/test_degenerate_dims.py:29-41's random stable system (seed
+    nx * 100 + nu, its fused test's; A at spectral radius 0.9), box x in
+    [-3, 3] and u in [-2, 2], rho 1, max_iter 50."""
+    rng = np.random.default_rng(nx * 100 + nu)
+    A = rng.uniform(-1.0, 1.0, (nx, nx))
+    A *= 0.9 / max(np.abs(np.linalg.eigvals(A)).max(), 1e-9)
+    B = rng.uniform(-1.0, 1.0, (nx, nu))
+    Q, R = rng.uniform(1.0, 5.0, nx), rng.uniform(0.1, 1.0, nu)
+    prob = tt.setup(A, B, Q, R, rho=1.0, N=N, dtype=torch.float32,
+                    device=DEVICE)
+    prob = tt.with_bounds(prob, x_min=-3.0, x_max=3.0, u_min=-2.0,
+                          u_max=2.0)
+    return tt.with_settings(prob, max_iter=50, check_termination=ct)
+
+
+def degenerate_inputs(torch, B, nx, N):
+    """x0 ~ U[-0.5, 0.5]^nx from default_rng(0), a zero reference."""
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    x0 = np.random.default_rng(0).uniform(-0.5, 0.5, (B, nx))
+    return torch.as_tensor(x0, **kw), torch.zeros((N, nx), **kw)
+
+
+def resident_times(ctx, run, call):
+    """CUDA-event ms (median of REPS) of ``run``, one launch on checked
+    inputs; its device ms, as text: torch.profiler's (the median of the 3
+    samples that record any), or where none does, CUDA events around REPS
+    launches queued back to back, over REPS (the host's launch path then
+    overlaps the kernels instead of standing between the events); and the
+    host clock's ms of ``call``, the entry point's whole call."""
+    torch = ctx.torch
+    run()                                               # warm-up
+    ms, times = cuda_ms(torch, run, REPS)
+    dev = [d for d in (device_ms(torch, run) for _ in range(3))
+           if d is not None]
+    if dev:
+        dev = f"{statistics.median(dev):.4f} ms (torch.profiler)"
+    else:
+        queued = cuda_ms(torch, lambda: [run() for _ in range(REPS)], 3)[0]
+        dev = (f"{queued / REPS:.4f} ms (torch.profiler recorded none; "
+               f"events around {REPS} queued launches)")
+    call_ms = statistics.median(host_ms(torch, call)[0]
+                                for _ in range(REPS))
+    return ms, times, dev, call_ms
+
+
+def cartpole_phases(ctx):
+    """Phases 42-43: bench_all.py:128-142's cartpole batch at full width
+    on csrc/admm_fused.cu (tinympc_admm_fused; at (4, 1) the families
+    instantiation with zero counts, one thread a problem), then its
+    external-plant sequence. Returns the kernels-line numbers of both."""
+    torch, tt, af, card = ctx.torch, ctx.tt, ctx.admm_fused, ctx.card
+    kern = tt.kernels
+    rows = {}
+    phase(f"phase 42: cartpole cold batch, B={CART_B}, N={CART_N}, "
+          f"max_iter 100, ct 1")
+    t0 = time.perf_counter()
+    prob = cartpole_problem(tt, torch, 100, 1)
+    setup_ms = 1e3 * (time.perf_counter() - t0)
+    x0, Xref = cartpole_inputs(torch, CART_B)
+    zero_counts(ctx.counters)
+    sol_k, res_k = kern.solve_fused(prob, Xref, None, x0)
+    torch.cuda.synchronize()
+    launches = af.families_launch_count
+    if launches < 1:
+        raise AssertionError("the cartpole batch did not launch the kernel")
+    took_entries(af, "cartpole cold", {FUSED: launches})
+    if sol_k.x.shape != (CART_N, CART_B, 4) or \
+            sol_k.u.shape != (CART_N - 1, CART_B, 1):
+        raise AssertionError(f"bad output shapes {sol_k.x.shape} "
+                             f"{sol_k.u.shape}")
+    plain_ms, (sol_p, res_p) = host_ms(
+        torch, lambda: kern.solve_fused_reference(prob, Xref, None, x0))
+    # At check_termination 1 the lanes whose counts agree are held, as
+    # phase 4 holds the main path's ct 1 regime.
+    err = compare(torch, "cartpole cold ct=1", sol_k, sol_p, res_k, res_p,
+                  lanes="same_iters")
+    tables, x0c, params = af._prepare(prob, Xref, None, x0)
+    ms, times, dev, call_ms = resident_times(
+        ctx, lambda: af._solve_kernel(tables, x0c, CART_N, 4, 1, **params),
+        lambda: kern.solve_fused(prob, Xref, None, x0))
+    iter_sum = int(sol_k.iter.sum().item())
+    ops, nbytes = fused_work(CART_N, 4, 1, CART_B, iter_sum)
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  cartpole cold ct=1: kernel {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}), device {dev}, solve_fused "
+        f"call {call_ms:.4f} ms on the host clock (kernel share "
+        f"{ms / call_ms:.4f}), {CART_B / (ms / 1e3):.1f} solves/s, mean "
+        f"iters {iter_sum / CART_B:.4f}, solved frac "
+        f"{sol_k.solved.float().mean().item():.5f}, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), plain "
+        f"{plain_ms:.1f} ms, launches {launches}; set-up {setup_ms:.1f} ms; "
+        f"card {card}")
+    rows["cartpole"] = dict(launches=launches, err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by)
+
+    # 43. the same problem as an external plant, x+ = A x + B u0
+    B = CART_PLANT_B
+    phase(f"phase 43: cartpole external-plant sequence, B={B}, 5 warm "
+          f"solves")
+    x, Xref = cartpole_inputs(torch, B)
+    c_k = tt.init_carry(prob, B)
+    zero_counts(ctx.counters)
+    states, sols = [], []
+    for _ in range(5):
+        sol, _, c_k = kern.solve_fused_warm(prob, Xref, None, x, c_k)
+        states.append(x)
+        sols.append(sol)
+        x = x @ prob.A.T + sol.u[0] @ prob.B.T + prob.f
+    torch.cuda.synchronize()
+    warm_launches = af.families_warm_launch_count
+    if warm_launches < 5:
+        raise AssertionError("the cartpole sequence did not launch the warm "
+                             "kernel")
+    took_entries(af, "cartpole sequence", {FUSED: warm_launches})
+    c_p = tt.init_carry(prob, B)
+    agreed = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    err_w = 0.0
+    for step, (x_s, sol) in enumerate(zip(states, sols)):
+        plain_w_ms, (sol_p, _, c_p) = host_ms(
+            torch, lambda: kern.solve_fused_warm_reference(prob, Xref, None,
+                                                           x_s, c_p))
+        agreed &= sol.iter == sol_p.iter
+        err_w = max(err_w, compare(torch, f"cartpole warm step {step}", sol,
+                                   sol_p, lanes=agreed, solved_tol=2 / B))
+        log(f"  step {step}: mean iters {sol.iter.float().mean().item():.4f}"
+            f", solved frac {sol.solved.float().mean().item():.5f}")
+    err_w = max(err_w, compare_carry(torch, "cartpole after 5 steps", c_k,
+                                     c_p, agreed))
+    tables, xc, params = af._prepare(prob, Xref, None, x)
+    carry = af._carry_tensors(prob, c_k, B)
+    run = lambda: af._solve_kernel_warm(tables, xc, carry, CART_N, 4, 1,
+                                        **params)
+    sol_w = run()[0]
+    ms, times, dev, call_ms = resident_times(
+        ctx, run, lambda: kern.solve_fused_warm(prob, Xref, None, x, c_k))
+    iter_sum = int(sol_w.iter.sum().item())
+    ops, nbytes = fused_work(CART_N, 4, 1, B, iter_sum,
+                             lane_carry_floats(c_k))
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  cartpole solve_fused_warm (the sixth solve): kernel {ms:.4f} ms "
+        f"(reps {[round(t, 4) for t in times]}), device {dev}, whole call "
+        f"{call_ms:.4f} ms on the host clock (kernel share "
+        f"{ms / call_ms:.4f}), mean iters {iter_sum / B:.4f}, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), plain {plain_w_ms:.1f} ms, warm "
+        f"launches {warm_launches}; card {card}")
+    rows["cartpole_warm"] = dict(launches=warm_launches, err=err_w, ms=ms,
+                                 plain_ms=plain_w_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+    return rows
+
+
+def dims_small_phase(ctx):
+    """Phase 44: the one-thread kernel at every new pair against its plain
+    versions, small: cartpole at N=10 and the degenerate pairs at
+    tests/test_degenerate_dims.py's N and at N=10, B=1000 (ragged) and
+    1024, ct 1 and 25, cold; and a 6-solve external-plant sequence at
+    B=1000. Every launch on tinympc_admm_fused."""
+    torch, tt, af, convert = ctx.torch, ctx.tt, ctx.admm_fused, ctx.convert
+    phase(f"phase 44: the one-thread kernel at cartpole and the degenerate "
+          f"pairs vs plain versions, B={DIMS_SMALL_B}, ct 1 and 25, cold "
+          f"and 6 warm solves")
+    cases = [("cartpole N=10", lambda ct: cartpole_problem(tt, torch, 100,
+                                                          ct),
+              lambda B: cartpole_inputs(torch, B))]
+    for nx, nu, N in DEGENERATE:
+        for n in (N, 10):
+            cases.append((
+                f"random ({nx}, {nu}) N={n}",
+                lambda ct, nx=nx, nu=nu, n=n: degenerate_problem(
+                    tt, torch, nx, nu, n, ct),
+                lambda B, nx=nx, n=n: degenerate_inputs(torch, B, nx, n)))
+    for label, make, make_inputs in cases:
+        for ct in (1, 25):
+            prob = make(ct)
+            for B in DIMS_SMALL_B:
+                x0, Xref = make_inputs(B)
+                name = f"{label} cold B={B} ct={ct}"
+                zero_entries(af)
+                adaptive_small(torch, tt, convert, name, prob, x0, Xref, B)
+                took_entries(af, name, {FUSED: 1})
+            B = DIMS_SMALL_B[0]
+            x0, Xref = make_inputs(B)
+            name = f"{label} warm ct={ct}"
+            zero_entries(af)
+            adaptive_warm_small(torch, tt, convert, name, prob, x0, Xref, B,
+                                steps=6)
+            took_entries(af, name, {FUSED: 6})
+
+
+def cartpole_kinds_phase(ctx):
+    """Phase 45: cartpole's other kinds on the one-thread kernels, B=1024:
+    adaptive rho (and apply_c), cold and 5 warm solves; consensus 128 x 8;
+    a state hyperplane; a fleet of CART_FLEET_SYS variants; compaction;
+    the streamed solve at N=CART_STREAM_N. Returns the kernels-line numbers
+    of the streamed launches (backward, forward, stale forward)."""
+    torch, tt, af, ast, convert = (ctx.torch, ctx.tt, ctx.admm_fused,
+                                   ctx.ast, ctx.convert)
+    kern = tt.kernels
+    B = CART_KIND_B
+    phase(f"phase 45: cartpole kinds, B={B}: adaptive rho, consensus, a "
+          f"hyperplane, a fleet, compaction, the streamed solve at "
+          f"N={CART_STREAM_N}")
+    x0, Xref = cartpole_inputs(torch, B)
+    # Adaptive rho: cartpole's rho of 1 sits on adaptive_rho_min's default,
+    # so the floor is lowered, as for the rocket.
+    for apply_c in (False, True):
+        label = f"cartpole adaptive{' apply_c' if apply_c else ''}"
+        prob = tt.with_settings(cartpole_problem(tt, torch, 100, 1),
+                                adaptive_rho=True,
+                                adaptive_rho_min=ROCKET_RHO_MIN,
+                                adaptive_rho_apply_c=apply_c)
+        zero_counts(ctx.counters)
+        adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
+                       Xref, B)
+        # rho falls toward the lowered floor, so the carry's scaled duals
+        # grow as 1 / rho and are held to the plain version's own spread,
+        # as phase 33 holds the rocket's.
+        adaptive_warm_small(torch, tt, convert, f"{label} warm", prob, x0,
+                            Xref, B, steps=5, carry_spread=True)
+        took_entries(af, label, {FUSED: 6})
+        fail(label, af.adaptive_families_launch_count == 1
+             and af.adaptive_families_warm_launch_count == 5,
+             "not on the families adaptive instantiations")
+
+    # Consensus, 128 groups of 8, cold and CONS_SMALL_WARM warm solves.
+    prob = tt.with_consensus(cartpole_problem(tt, torch, 100, 1),
+                             rho_c=CART_RHO_C)
+    consensus_sequence(torch, tt, convert, af,
+                       f"cartpole rho_c={CART_RHO_C} {B // 8}x8", 1, prob,
+                       x0.reshape(B // 8, 8, 4), Xref, None, FUSED)
+
+    # A state hyperplane on the cart position, cold and 3 warm solves.
+    label = f"cartpole x[0] <= {CART_PLANE}"
+    prob = tt.with_linear_constraints(cartpole_problem(tt, torch, 100, 1),
+                                      [[1.0, 0.0, 0.0, 0.0]], [CART_PLANE])
+    zero_counts(ctx.counters)
+    adaptive_small(torch, tt, convert, f"{label} cold B={B}", prob, x0,
+                   Xref, B)
+    outs = adaptive_warm_small(torch, tt, convert, f"{label} warm", prob,
+                               x0, Xref, B, steps=3)
+    took_entries(af, label, {FUSED: 4})
+    binds = (outs[0][2].gl.abs().amax(dim=(0, 1)) > 0).float().mean().item()
+    log(f"  {label}: the plane binds on {binds:.5f} of lanes after the "
+        f"first warm solve")
+
+    # A fleet of variants, A off the diagonal scaled by 1 + 0.004 (i - 2)
+    # (examples/serving_fleet.py:100-113's spread), random assignments:
+    # cold and 2 warm solves, one multi-system launch each, bitwise the
+    # per-bucket launches.
+    n = CART_FLEET_SYS
+    s = tt.systems.cartpole()
+    probs = [cartpole_problem(tt, torch, 100, 1, A=s["A"] * np.where(
+        np.eye(4) == 1, 1.0, 1 + 0.004 * (i - n // 2))) for i in range(n)]
+    assign = np.random.default_rng(0).integers(0, n, B)
+    idxs = [torch.as_tensor(np.flatnonzero(assign == k), device=DEVICE)
+            for k in range(n)]
+    zero_counts(ctx.counters)
+    cold = tt.make_fleet_solver(probs)(assign, x0, Xref)
+    parts = [(idx, kern.solve_fused(p, Xref, None, x0[idx]))
+             for p, idx in zip(probs, idxs)]
+    torch.cuda.synchronize()
+    same_bits(torch, "cartpole fleet cold", cold,
+              merge_buckets(af, B, parts), "per-bucket solve_fused launches")
+    solve = tt.make_fleet_solver(probs, warm=True)
+    carry, carries, x = tt.init_carry(probs[0], B), [
+        tt.init_carry(p, idx.numel()) for p, idx in zip(probs, idxs)], x0
+    for step in range(2):
+        out = solve(assign, x, carry, Xref)
+        parts = []
+        for k, (p, idx) in enumerate(zip(probs, idxs)):
+            w = kern.solve_fused_warm(p, Xref, None, x[idx], carries[k])
+            carries[k] = w[2]
+            parts.append((idx, w))
+        torch.cuda.synchronize()
+        same_bits(torch, f"cartpole fleet warm step {step}", out,
+                  merge_buckets(af, B, parts),
+                  "per-bucket solve_fused_warm launches")
+        carry = out[2]
+        nxt = torch.empty_like(x)
+        for p, idx in zip(probs, idxs):
+            nxt[idx] = x[idx] @ p.A.T + out[0].u[0][idx] @ p.B.T
+        x = nxt
+    took_entries(af, "cartpole fleet", {
+        "tinympc_admm_fused_multi": 3, FUSED: n + 2 * n})
+    fail("cartpole fleet", af.multi_launch_count == 1
+         and af.multi_warm_launch_count == 2, "not one multi-system launch "
+         "a solve")
+
+    # Compaction to convergence in phases [100, 400], bitwise one long
+    # solve_fused; "auto" takes the resident kernel.
+    label = "cartpole compaction [100, 400]"
+    prob = cartpole_problem(tt, torch, 500, 1)
+    fail(label, ctx.compact._backend(prob, "auto") == "resident",
+         "auto does not take the resident kernel")
+    (sol_c, res_c), phases = compact_drive(ctx, label, prob, x0, Xref,
+                                           entries={FUSED},
+                                           chunk=COMPACT_CHUNK)
+    same_bits(torch, label, (sol_c, res_c),
+              kern.solve_fused(prob, Xref, None, x0), "one long solve_fused")
+    log(f"  {label}: {phases} phases, mean iters "
+        f"{sol_c.iter.float().mean().item():.4f}, solved frac "
+        f"{sol_c.solved.float().mean().item():.5f}")
+
+    # The streamed solve at N=CART_STREAM_N on the one-thread entries,
+    # bitwise the resident kernel on the same inputs: cold, then 3 warm
+    # solves of a plant, each bitwise solve_fused_warm.
+    N = CART_STREAM_N
+    label = f"cartpole streamed N={N}"
+    prob = cartpole_problem(tt, torch, 100, 1, N=N)
+    xs, Xs = cartpole_inputs(torch, B, N)
+    (sol_k, res_k), launches = stream_drive(ctx, label, prob, Xs, None, xs)
+    same_bits(torch, label, (sol_k, res_k),
+              kern.solve_fused(prob, Xs, None, xs), "solve_fused")
+    lt, b_bwd, b_fwd = stream_report(
+        ctx, label, prob, Xs, None, xs, sol_k, launches,
+        resident=resident_cold(af, prob, Xs, None, xs))
+    rows = {"backward_4x1": dict(launches=launches[0], err=lt["err_b"],
+                                 ms=lt["bwd_ms"], plain_ms=lt["plain_bwd_ms"],
+                                 bound_ms=b_bwd[0], bound_by=b_bwd[1]),
+            "forward_4x1": dict(launches=launches[1], err=lt["err_f"],
+                                ms=lt["fwd_ms"], plain_ms=lt["plain_fwd_ms"],
+                                bound_ms=b_fwd[0], bound_by=b_fwd[1])}
+    c_k, c_r, x = tt.init_carry(prob, B), tt.init_carry(prob, B), xs
+    zero_counts(ctx.counters)
+    states, carries = [], [c_k]
+    for step in range(3):
+        sol_k, res_k, c_k = kern.solve_fused_streamed_warm(prob, Xs, None, x,
+                                                            c_k)
+        sol_r, res_r, c_r = kern.solve_fused_warm(prob, Xs, None, x, c_r)
+        same_bits(torch, f"{label} warm step {step}", (sol_k, res_k, c_k),
+                  (sol_r, res_r, c_r), "solve_fused_warm")
+        states.append(x)
+        carries.append(c_k)
+        x = x @ prob.A.T + sol_k.u[0] @ prob.B.T + prob.f
+    torch.cuda.synchronize()
+    stale = ast.launch_counts["forward_stale"]
+    fail(f"{label} warm", stale == 3, f"{stale} stale forward launches, 3 "
+         f"expected")
+    took_route(ast, f"{label} warm", prob)
+    # The third solve again, for its launches and times.
+    name = f"{label} warm (the third solve)"
+    launches3 = stream_drive(ctx, name, prob, Xs, None, states[-1],
+                             carries[-2])[1]
+    lt, _, b_stale = stream_report(ctx, name, prob, Xs, None, states[-1],
+                                   sol_k, launches3, carry=carries[-2])
+    rows["forward_stale_4x1"] = dict(
+        launches=stale, err=lt["err_f"], ms=lt["fwd_ms"],
+        plain_ms=lt["plain_fwd_ms"], bound_ms=b_stale[0],
+        bound_by=b_stale[1])
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4952,6 +5400,9 @@ def main():
     fleet_rows = {"multi": cold_fleet_phase(ctx),
                   "multi_warm": warm_fleet_phase(ctx)}
     group_places_phase(ctx)
+    cart_rows = cartpole_phases(ctx)
+    dims_small_phase(ctx)
+    cart_stream_rows = cartpole_kinds_phase(ctx)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -4959,8 +5410,8 @@ def main():
             log(f"  {f}")
         return 1
 
-    # 42. kernels line, then the device line last
-    phase("phase 42: kernels line")
+    # 46. kernels line, then the device line last
+    phase("phase 46: kernels line")
     main_run, serve = regimes[(100, 25)], loops[(100, False)]
     rows = [("admm_group", "tinympc_tpu_torch/csrc/admm_group.cu",
              "tinympc_tpu/kernels/admm_pallas.py:387", main_run),
@@ -5035,6 +5486,16 @@ def main():
     rows += [(f"admm_group_{key}", "tinympc_tpu_torch/csrc/admm_group.cu",
               "tinympc_tpu/kernels/admm_pallas.py:387", fleet_rows[key])
              for key in ("multi", "multi_warm")]
+    # The one-thread kernels at cartpole's (4, 1): the resident solve of
+    # phases 42-43 and the streamed launches of phase 45.
+    rows += [(f"admm_fused_{key}", "tinympc_tpu_torch/csrc/admm_fused.cu",
+              "tinympc_tpu/kernels/admm_pallas.py:387", cart_rows[key])
+             for key in ("cartpole", "cartpole_warm")]
+    rows += [(f"admm_stream_{key}", "tinympc_tpu_torch/csrc/admm_stream.cu",
+              "tinympc_tpu/kernels/admm_stream.py:"
+              + ("121" if key.startswith("backward") else "258"),
+              cart_stream_rows[key])
+             for key in ("backward_4x1", "forward_4x1", "forward_stale_4x1")]
     # Each streamed row's ptxas line: the instantiation it measured spills
     # nothing.
     spills = 0

@@ -272,15 +272,15 @@ def test_adaptive_outside_the_kernel_is_refused():
     for good in (cones, rocket, tt.with_cones(rocket,
                                               input_cones=[(0, 3, 0.5)])):
         assert fused_supported(good)
-    s = tt.systems.cartpole()
-    cart = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
-                    N=N, device="cpu")
-    cart = tt.with_settings(tt.with_sensitivities(
-        cart, [np.zeros((1, 4)), np.zeros((4, 4)), np.zeros((1, 1)),
-               np.zeros((4, 4))]), adaptive_rho=True)
-    assert not fused_supported(cart)
+    s = tt.systems.synthetic(5, 2)       # (nx, nu) = (5, 2): not built
+    odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                   N=N, device="cpu")
+    odd = tt.with_settings(tt.with_sensitivities(
+        odd, [np.zeros((2, 5)), np.zeros((5, 5)), np.zeros((2, 2)),
+              np.zeros((5, 5))]), adaptive_rho=True)
+    assert not fused_supported(odd)
     with pytest.raises(ValueError, match="ROADMAP"):
-        solve_fused(cart, None, None, torch.zeros((2, 4)))
+        solve_fused(odd, None, None, torch.zeros((2, 5)))
     bare = pt.replace(cache=dataclasses.replace(
         pt.cache, dKinf_drho=None, dPinf_drho=None, dC1_drho=None,
         dC2_drho=None))

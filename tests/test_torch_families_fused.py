@@ -422,7 +422,7 @@ def test_fused_supported_and_checks_for_the_families():
     missing table and a carry whose fields do not match are refused."""
     soc, lin = _port(_jax_problem("soc", 5)), _port(_jax_problem("linear", 5))
     assert fused_supported(soc) and fused_supported(lin)
-    s = tt.systems.cartpole()
+    s = tt.systems.synthetic(5, 2)       # (nx, nu) = (5, 2): not built
     odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=5,
                    device="cpu")
     bad = [

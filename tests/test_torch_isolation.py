@@ -109,9 +109,9 @@ def test_solve_fused_rejects_specs_outside_the_slice():
     p = _quad()
     assert fused_supported(p)
     consensus = p.replace(spec=dataclasses.replace(p.spec, en_consensus=True))
-    s = tt.systems.cartpole()
+    s = tt.systems.synthetic(5, 2)
     odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
-                   N=5, device="cpu")      # (nx, nu) = (4, 1): not built
+                   N=5, device="cpu")      # (nx, nu) = (5, 2): not built
     for bad in (consensus, odd):
         assert not fused_supported(bad)
         with pytest.raises(ValueError):

@@ -328,12 +328,12 @@ def test_every_family_is_stream_supported_with_adaptive_rho():
     assert not stream_supported(bare)
     with pytest.raises(ValueError, match="sensitivities"):
         solve_fused_streamed(bare, None, None, torch.zeros((2, 6)))
-    s = tt.systems.cartpole()
-    cart = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
-                    N=N, device="cpu")
-    cart = tt.with_settings(tt.with_sensitivities(
-        cart, [np.zeros((1, 4)), np.zeros((4, 4)), np.zeros((1, 1)),
-               np.zeros((4, 4))]), adaptive_rho=True)
-    assert not stream_supported(cart)
+    s = tt.systems.synthetic(5, 2)       # (nx, nu) = (5, 2): not built
+    odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"],
+                   N=N, device="cpu")
+    odd = tt.with_settings(tt.with_sensitivities(
+        odd, [np.zeros((2, 5)), np.zeros((5, 5)), np.zeros((2, 2)),
+              np.zeros((5, 5))]), adaptive_rho=True)
+    assert not stream_supported(odd)
     with pytest.raises(ValueError, match="ROADMAP"):
-        solve_fused_streamed(cart, None, None, torch.zeros((2, 4)))
+        solve_fused_streamed(odd, None, None, torch.zeros((2, 5)))

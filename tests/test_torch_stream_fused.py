@@ -77,9 +77,9 @@ def test_streamed_refuses_consensus_and_other_sizes():
     uninstantiated (nx, nu) and a carry of another problem are refused."""
     p = _quad()
     consensus = p.replace(spec=dataclasses.replace(p.spec, en_consensus=True))
-    s = tt.systems.cartpole()
+    s = tt.systems.synthetic(5, 2)
     odd = tt.setup(s["A"], s["B"], s["Qdiag"], s["Rdiag"], rho=s["rho"], N=5,
-                   device="cpu")          # (nx, nu) = (4, 1): not built
+                   device="cpu")          # (nx, nu) = (5, 2): not built
     with pytest.raises(ValueError, match="with_consensus"):
         solve_fused_streamed(consensus, None, None, torch.zeros((2, 12)))
     with pytest.raises(ValueError, match="power of two"):
@@ -87,7 +87,7 @@ def test_streamed_refuses_consensus_and_other_sizes():
                              torch.zeros((1, 256, 12)))
     assert stream_supported(tt.with_consensus(p))
     with pytest.raises(ValueError, match="instantiations"):
-        solve_fused_streamed(odd, None, None, torch.zeros((2, 4)))
+        solve_fused_streamed(odd, None, None, torch.zeros((2, 5)))
     assert not stream_supported(consensus) and not stream_supported(odd)
     with pytest.raises(ValueError, match="carry"):
         solve_fused_streamed_warm(p, None, None, torch.zeros((2, 12)))

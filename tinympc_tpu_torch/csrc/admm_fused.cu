@@ -2,16 +2,18 @@
 // families beyond the box (second-order cones, hyperplanes, time-varying
 // hyperplanes; admm_families.cuh) and scenario-tree consensus on u[0]
 // (admm_consensus.cuh) at fixed rho; or with any of those families
-// (consensus aside), and every problem at (6, 3), at adaptive rho
+// (consensus aside), and every problem off (12, 4), at adaptive rho
 // (admm_adaptive.cuh). One system's launches of the families and of
 // (6, 3), at fixed and adaptive rho, run admm_group.cu's thread groups
 // (its families kinds), as do box-only problems at (12, 4) -- at fixed rho
 // (the main path), at adaptive rho and under consensus. This file takes
 // consensus with a family or at (6, 3), consensus group 0 (no exchange)
 // or a box scenario group whose thread-block cluster cannot be formed
-// there, the multi-system launch of the families or at (6, 3), and a
+// there, the multi-system launch of the families or at (6, 3), a
 // families horizon whose columns do not fit one problem a block there
-// (kernels/admm_fused.py:group_route).
+// (kernels/admm_fused.py:group_route), and every launch at cartpole's
+// (4, 1) and the degenerate pairs (2, 2), (2, 1), (3, 3) and (1, 1),
+// which have no thread-group kind.
 //
 // Replaces those variants of the TPU kernel
 // tinympc_tpu/kernels/admm_pallas.py:_make_kernel (launched by _fused_call):
@@ -21,16 +23,17 @@
 // termination every check_termination iterations, and a per-block exit
 // once every lane of the block has converged.
 //
-// Instantiations: the families kernel for (12, 4) and (6, 3),
-// the rocket (at (6, 3) a box-only problem runs it with zero family
-// counts); the families adaptive-rho kernel for (12, 4) with the families
-// and for every problem at (6, 3), with and without apply_c: the families
-// kernel with the rho hooks filled in, its tables the family tables and
-// then the adaptive ones; the family hooks scale their linear-cost terms
-// by the lane's rho; each lane's rho and the guard's virtual rho in
-// registers, the adaptation every 5th iteration as a second pass over the
-// rows of that iteration (admm_adaptive.cuh), the final rho out, and on a
-// warm solve the carried rho in. The families kernel is the template with the family hooks
+// Instantiations: the families kernel for (12, 4), (6, 3) (the rocket),
+// (4, 1) (cartpole), (2, 2), (2, 1), (3, 3) and (1, 1) (off (12, 4) a
+// box-only problem runs it with zero family counts); the families
+// adaptive-rho kernel for (12, 4) with the families and for every problem
+// off (12, 4), with and without apply_c: the families kernel with the rho
+// hooks filled in, its tables the family tables and then the adaptive
+// ones; the family hooks scale their linear-cost terms by the lane's rho;
+// each lane's rho and the guard's virtual rho in registers, the adaptation
+// every 5th iteration as a second pass over the rows of that iteration
+// (admm_adaptive.cuh), the final rho out, and on a warm solve the carried
+// rho in. The families kernel is the template with the family hooks
 // filled in: each family's slack and dual arrays sit beside the box's in
 // device memory, its tables follow the box tables in shared memory, and
 // termination still reads the box family's residuals only, as the
@@ -105,7 +108,7 @@
 // too few threads to hide latency.
 //
 // C interface (loaded with ctypes): tinympc_admm_fused, one entry for the
-// cold and the warm solve, adaptive with the families or at (6, 3), and
+// cold and the warm solve, adaptive with the families or off (12, 4), and
 // tinympc_admm_fused_multi, the same with the multi-system launch's two
 // arguments, return the cudaError_t of the launch; they launch on the
 // given stream and never synchronise.
@@ -451,9 +454,9 @@ bool bad_size(const Buffers& p) {
 }
 
 // The families kernel, with consensus when its group is not 0; under
-// `adapt`, the families adaptive-rho kernel. At (6, 3) every problem runs a
-// families instantiation, a box-only one with zero family counts; at
-// (12, 4) a box-only problem at fixed or adaptive rho runs admm_group.cu
+// `adapt`, the families adaptive-rho kernel. Off (12, 4) every problem
+// runs a families instantiation, a box-only one with zero family counts;
+// at (12, 4) a box-only problem at fixed or adaptive rho runs admm_group.cu
 // and is refused here. cudaErrorInvalidValue for an (nx, nu) pair or a
 // combination that is not instantiated.
 template <bool WARM, int NX, int NU>
@@ -486,6 +489,18 @@ int dispatch(int nx, int nu, bool families, const AdaptArgs* adapt,
   }
   if (nx == 6 && nu == 3)      // the rocket
     return dispatch_families<WARM, 6, 3>(adapt, p, carry, fa, ca, s);
+  // Cartpole and the degenerate pairs of tests/test_degenerate_dims.py:
+  // this kernel alone, no thread-group kind.
+  if (nx == 4 && nu == 1)      // cartpole
+    return dispatch_families<WARM, 4, 1>(adapt, p, carry, fa, ca, s);
+  if (nx == 2 && nu == 2)
+    return dispatch_families<WARM, 2, 2>(adapt, p, carry, fa, ca, s);
+  if (nx == 2 && nu == 1)
+    return dispatch_families<WARM, 2, 1>(adapt, p, carry, fa, ca, s);
+  if (nx == 3 && nu == 3)
+    return dispatch_families<WARM, 3, 3>(adapt, p, carry, fa, ca, s);
+  if (nx == 1 && nu == 1)
+    return dispatch_families<WARM, 1, 1>(adapt, p, carry, fa, ca, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -540,7 +555,7 @@ extern "C" int tinympc_admm_fused_check_rounding(int n, const void* a,
 // slack and dual of each family (vc gc zc yc vl gl zl yl vtv gtv ztv ytv;
 // null for a family that is off), then the warm carry in (gc yc gl yl gtv
 // ytv x u) and the carried x/u out (null on a cold or box-only solve; on
-// a warm solve at (6, 3), which runs a families instantiation, x/u in and
+// a warm solve off (12, 4), which runs a families instantiation, x/u in and
 // out are required, a box-only problem's as scratch).
 // adapt: null at fixed rho; else the adaptive-rho arguments
 // (admm_adaptive.cuh: settings, rho_in -- the carried rho, required on a
@@ -646,9 +661,9 @@ extern "C" int tinympc_admm_fused_multi(
   }
   for (int k = 0; k < 10; ++k)
     if (!carry[k]) return static_cast<int>(cudaErrorInvalidValue);
-  // A families instantiation (every problem at (6, 3)) seeds from the
+  // A families instantiation (every problem off (12, 4)) seeds from the
   // carried x/u and hands them over.
-  if ((families || (nx == 6 && nu == 3)) &&
+  if ((families || !(nx == 12 && nu == 4)) &&
       (!fa.x_in || !fa.u_in || !fa.x_out || !fa.u_out))
     return static_cast<int>(cudaErrorInvalidValue);
   return dispatch<true>(nx, nu, families, adapt, p, carry_from(carry), fa,

@@ -5,10 +5,13 @@
 // fixed rho with or without scenario-tree consensus on u[0]
 // (admm_consensus.cuh), or with adaptive rho (admm_adaptive.cuh), cold or
 // warm. The host loop (kernels/admm_stream.py) launches them. One
-// instantiation serves every mix of families at each (nx, nu), (12, 4) and
-// (6, 3): a family that is off has count 0, and its hooks do nothing. (A
-// box-only instantiation, without the hooks, spilled 752 B in its backward
-// kernel at the 128-register cap, and spilled without the cap too.)
+// instantiation serves every mix of families at each (nx, nu): a family
+// that is off has count 0, and its hooks do nothing. (A box-only
+// instantiation, without the hooks, spilled 752 B in its backward kernel
+// at the 128-register cap, and spilled without the cap too.) The pairs are
+// (12, 4) and (6, 3), and on the one-thread kernels alone cartpole's
+// (4, 1) and the degenerate (2, 2), (2, 1), (3, 3) and (1, 1); the team
+// entries take (12, 4) and (6, 3) only.
 // Consensus is an instantiation of its own (CONS), not a run-time flag: in
 // the resident families kernel such a flag cost the other problems ~12%.
 //
@@ -625,6 +628,22 @@ int forward_dispatch(int nx, int nu, const FamilyArgs& fa,
   if (nx == 6 && nu == 3)    // the rocket
     return forward_at<6, 3, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
                                    tol_pri, tol_dua, s);
+  // Cartpole and the degenerate pairs: these one-thread kernels only.
+  if (nx == 4 && nu == 1)    // cartpole
+    return forward_at<4, 1, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
+  if (nx == 2 && nu == 2)
+    return forward_at<2, 2, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
+  if (nx == 2 && nu == 1)
+    return forward_at<2, 1, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
+  if (nx == 3 && nu == 3)
+    return forward_at<3, 3, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
+  if (nx == 1 && nu == 1)
+    return forward_at<1, 1, STALE>(fa, sc, adapt, p, it, N, B, ct, rho,
+                                   tol_pri, tol_dua, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -926,6 +945,17 @@ extern "C" int tinympc_stream_backward(int nx, int nu, int N, int B,
     return backward_at<12, 4>(fa, sc, adapt, p, N, B, rho, s);
   if (nx == 6 && nu == 3)    // the rocket
     return backward_at<6, 3>(fa, sc, adapt, p, N, B, rho, s);
+  // Cartpole and the degenerate pairs: these one-thread kernels only.
+  if (nx == 4 && nu == 1)    // cartpole
+    return backward_at<4, 1>(fa, sc, adapt, p, N, B, rho, s);
+  if (nx == 2 && nu == 2)
+    return backward_at<2, 2>(fa, sc, adapt, p, N, B, rho, s);
+  if (nx == 2 && nu == 1)
+    return backward_at<2, 1>(fa, sc, adapt, p, N, B, rho, s);
+  if (nx == 3 && nu == 3)
+    return backward_at<3, 3>(fa, sc, adapt, p, N, B, rho, s);
+  if (nx == 1 && nu == 1)
+    return backward_at<1, 1>(fa, sc, adapt, p, N, B, rho, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

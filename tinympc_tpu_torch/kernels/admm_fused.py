@@ -23,16 +23,20 @@ counts), at fixed and adaptive rho, each family's slacks and duals in
 shared memory too (:func:`group_route`). The one-thread-a-problem kernel
 ``csrc/admm_fused.cu`` runs the rest: consensus with a family or at
 (6, 3), group 0, a box consensus group whose cluster the card cannot
-form, the multi-system launch with a family or at (6, 3), and a families
+form, the multi-system launch with a family or at (6, 3), a families
 horizon too long for one problem's columns in a block's shared memory
-(:func:`group_route` returns None). ``solve_fused_warm(final=True)``, the
-warm solve of lane compaction, runs the warm instantiations as they are.
-The instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
+(:func:`group_route` returns None), and every solve at cartpole's (4, 1)
+and the degenerate pairs (2, 2), (2, 1), (3, 3) and (1, 1), which have
+no thread-group kind. ``solve_fused_warm(final=True)``, the warm solve of
+lane compaction, runs the warm instantiations as they are. The
+instantiated (nx, nu) pairs are :data:`KERNEL_DIMS` (box only),
 :data:`FAMILY_KERNEL_DIMS` (the families and consensus) and
-:data:`ADAPTIVE_KERNEL_DIMS` (adaptive rho, every family). On CPU tensors
-the wrappers run the kernel's plain PyTorch versions,
-:func:`solve_fused_reference` and :func:`solve_fused_warm_reference`,
-instead; on CUDA tensors they launch the kernel or raise.
+:data:`ADAPTIVE_KERNEL_DIMS` (adaptive rho, every family) on the group
+kernel, and :data:`THREAD_KERNEL_DIMS` (every kind) on the one-thread
+kernel alone. On CPU tensors the wrappers run the kernel's plain PyTorch
+versions, :func:`solve_fused_reference` and
+:func:`solve_fused_warm_reference`, instead; on CUDA tensors they launch
+the kernel or raise.
 
 The public layout is the JAX package's: x0s is (B, nx), Xref (N, nx), Uref
 (N-1, nu); the result is ``(Solution, residuals)`` with ``Solution.x`` (N, B,
@@ -103,6 +107,12 @@ PLACE_SHARED, PLACE_TABLE_GLOBAL, PLACE_SAVED_GLOBAL = 0, 1, 2
 KERNEL_DIMS = ((12, 4),)             # (nx, nu) of the box-only kernel
 FAMILY_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of the families kernel
 ADAPTIVE_KERNEL_DIMS = ((12, 4), (6, 3))   # (nx, nu) of adaptive rho
+# (nx, nu) that only the one-thread kernels instantiate (csrc/admm_fused.cu
+# and the one-thread entries of csrc/admm_stream.cu): cartpole and the
+# degenerate pairs of the JAX package's tests, every kind the families
+# kernel serves (a box-only problem with zero counts), no thread-group
+# kind, no lane team and no closed loop.
+THREAD_KERNEL_DIMS = ((4, 1), (2, 2), (2, 1), (3, 3), (1, 1))
 F32_MAX = float(np.finfo(np.float32).max)
 # Shared memory a block may have on Hopper (cudaFuncSetAttribute refuses
 # more); the kernel keeps its whole packed table there.
@@ -380,7 +390,8 @@ def group_kind(nx: int, nu: int, fam: "Families", adapt, cons
     without apply_c), or under consensus with a group (group 0, the
     families kernel without the exchange, stays there); problems with a
     family, and every problem at (6, 3), at fixed or adaptive rho (the
-    families kinds). Consensus with a family or at (6, 3) stays there."""
+    families kinds). Consensus with a family or at (6, 3) stays there, as
+    does every solve at :data:`THREAD_KERNEL_DIMS`."""
     if (nx, nu) not in FAMILY_KERNEL_DIMS:
         return None
     families = any(fam) or (nx, nu) not in KERNEL_DIMS
@@ -464,9 +475,9 @@ def _check_problem(prob: TinyProblem) -> None:
         raise ValueError("en_consensus requires the step-0 consensus gains; "
                          "configure the problem via with_consensus(...)")
     # Every family mix runs at each of these (nx, nu): a box-only problem
-    # at (6, 3) runs a families instantiation with zero counts.
-    dims = ADAPTIVE_KERNEL_DIMS if prob.settings.adaptive_rho \
-        else FAMILY_KERNEL_DIMS
+    # off (12, 4) runs a families instantiation with zero counts.
+    dims = (ADAPTIVE_KERNEL_DIMS if prob.settings.adaptive_rho
+            else FAMILY_KERNEL_DIMS) + THREAD_KERNEL_DIMS
     if (spec.nx, spec.nu) not in dims:
         raise ValueError(
             f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of the kernel's "
@@ -1429,9 +1440,9 @@ def _ptr_array(tensors):
 
 def _instantiation(nx, nu, fam, adapt, cons) -> str:
     """What a solve runs, the name of its launch counter: "consensus",
-    "adaptive_families" (adaptive rho with a family beyond the box, or at
-    (6, 3)), "adaptive" (box only at (12, 4)), "families" (a family beyond
-    the box, or at (6, 3)) or "box". Which C entry a launch takes --
+    "adaptive_families" (adaptive rho with a family beyond the box, or off
+    (12, 4)), "adaptive" (box only at (12, 4)), "families" (a family beyond
+    the box, or off (12, 4)) or "box". Which C entry a launch takes --
     csrc/admm_group.cu's or csrc/admm_fused.cu's -- is :func:`group_route`'s
     rule (``entry_counts``)."""
     families = any(fam) or (nx, nu) not in KERNEL_DIMS
@@ -1448,7 +1459,7 @@ def _launch(tables, x0, N, nx, nu, fam, adapt, cons, carry, max_iter, ct,
     when ``carry`` is None, else warm, on the instantiation
     :func:`_instantiation` names. Returns the outputs and scratch, and the
     new carry of a warm solve (its duals are the kernel's dual buffers). A
-    warm box-only solve on a families instantiation (at (6, 3)) hands the
+    warm box-only solve on a families instantiation (off (12, 4)) hands the
     kernel scratch for the x/u it seeds and hands over, which its carry
     does not keep. ``block_sys`` (int32, a system for each block of
     :data:`BLOCK` lanes) makes it the multi-system launch: ``tables`` then

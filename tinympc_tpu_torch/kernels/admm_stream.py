@@ -24,9 +24,10 @@ Scope: box, second-order cone, hyperplane and time-varying hyperplane
 constraints in any mix, at fixed rho with or without scenario-tree
 consensus on u[0] (x0s (n_groups, G, nx), G a power of two up to 128, as
 the resident solve takes it), or with adaptive rho, at the (nx, nu) the
-resident kernels are instantiated for; cold and warm (the
-:class:`~.admm_fused.FusedCarry` of the resident solve, which either solve
-may hand to the other). Consensus runs the kernels' consensus
+resident kernels are instantiated for (one thread a lane at
+``admm_fused.THREAD_KERNEL_DIMS``, which have no lane teams); cold and
+warm (the :class:`~.admm_fused.FusedCarry` of the resident solve, which
+either solve may hand to the other). Consensus runs the kernels' consensus
 instantiations: r[0]'s prox term and the Quu0_inv gain in the backward
 launch, the Kinf0 gain and the group exchange at the end of the forward
 launch; each lane's slack, dual and standing offer stay on the card between
@@ -660,10 +661,11 @@ class _KERNELS:
     a block) unless its group's cluster cannot be formed
     (:func:`team_consensus_route`); ``team`` holds the pair, ``kind`` says
     which (``"box"``, ``"families"``, ``"consensus"``). Families under
-    adaptive rho, and the consensus groups the route turns away, run the
-    one-thread entries. ``team=False`` sends every problem's launches to the
-    one-thread entries, on the same state: the in-process A/B of the two
-    designs."""
+    adaptive rho, the consensus groups the route turns away, and every
+    problem at ``admm_fused.THREAD_KERNEL_DIMS`` (which have no team
+    entries) run the one-thread entries. ``team=False`` sends every
+    problem's launches to the one-thread entries, on the same state: the
+    in-process A/B of the two designs."""
 
     def __init__(self, tables, x0, s, carry, N, nx, nu, *, rho, ct, tol_pri,
                  tol_dua, fam, adapt=None, cons=None, team=True):
@@ -688,6 +690,7 @@ class _KERNELS:
         self.bwd, self.fwd = _kernel_fns()
         self.families = any(fam)
         self.team, self.kind, self.cluster = None, None, None
+        team = team and (nx, nu) not in admm_fused.THREAD_KERNEL_DIMS
         if team and cons is not None:
             bwd, fwd, fits = _team_consensus_fns()
             self.cluster = team_consensus_route(

@@ -53,7 +53,10 @@ def _check_loop(prob: TinyProblem) -> None:
     if (spec.nx, spec.nu) not in KERNEL_DIMS:
         raise ValueError(f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of "
                          f"the closed-loop kernel's instantiations "
-                         f"{KERNEL_DIMS}")
+                         f"{KERNEL_DIMS}; other sizes are not ported yet "
+                         "(ROADMAP.md, Queue 2 item 1c); use "
+                         "tinympc_tpu_torch.closed_loop (or solve_fused_warm "
+                         "in a host loop)")
 
 
 def closed_loop_fused_supported(prob: TinyProblem) -> bool:

@@ -145,8 +145,9 @@ def probe_times(nx: int, nu: int, N: int, B: int, device="cuda") -> dict:
 def solve_time(sysd: dict, nx: int, nu: int, N: int, B: int, ct: int,
                device="cuda"):
     """Milliseconds of one fused solve of fixed work at the config, and its
-    mean iterations; None where the kernel has no (nx, nu)
-    instantiation."""
+    mean iterations; None where the thread-group kernel has no (nx, nu)
+    instantiation (ROADMAP Queue 2 item 1c: (32, 8) waits for the group
+    design; the one-thread kernel's pairs are not timed here)."""
     dims = set(admm_fused.KERNEL_DIMS) | set(admm_fused.FAMILY_KERNEL_DIMS)
     if (nx, nu) not in dims:
         return None
