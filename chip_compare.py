@@ -43,7 +43,9 @@ N=1150 with T=2), the one-thread kernels' own pairs (cartpole (4, 1) at
 N=10 -- box, adaptive rho with apply_c, consensus in groups of 8, a state
 hyperplane, a fleet of two variants --, cold and two warm solves, and
 streamed at N=64; the degenerate (2, 2), (2, 1), (3, 3), (1, 1) at N=10,
-cold and warm), and writes every output and carry field. ``diff`` prints,
+cold and warm), the closed loop on one thread a plant at T=20 (the
+rocket's sliding loop with its box alone, cartpole with shift_warm, (2, 1)
+with reset_duals), and writes every output and carry field. ``diff`` prints,
 for each entry both files hold, whether they hold the same bits, and
 names the entries only one holds (a newer checkout's additions); it exits
 non-zero when a common entry differs. Two packages cannot share a
@@ -56,7 +58,8 @@ process: run ``save`` once per checkout.
 afresh (csrc/admm_group.cu where the checkout has it -- with its families
 kinds, "admm_group families[ adaptive[ apply_c]] cold|warm (nx, nu)[
 place]", where the checkout has them --, csrc/admm_fused.cu,
-csrc/closed_loop_fused.cu) and writes, for each of their kernels by
+csrc/closed_loop_fused.cu, and csrc/closed_loop_thread.cu where the
+checkout has it) and writes, for each of their kernels by
 chip_smoke.py's label, the ptxas registers, stack and spills
 and a hash of its SASS (cuobjdump -sass, addresses and encodings
 dropped; the instructions themselves in OUT.json.sass); ``diff`` of two
@@ -78,6 +81,7 @@ group kernels' shared memory checked.
     python3 chip_compare.py time [cold=B,B,...] [warm=B,B,...]
                                  [loop=B,B,...] [stream=B,B,...] [dot]
                                  [cons[=tree,g16]] [adapt[=hard,warm]]
+                                 [tloop=B,B,...]
                                  [fam[=soc,soc_warm,linear,tv,adaptive,
                                       adaptive_warm]] [profile]
 
@@ -128,10 +132,14 @@ the resident launches of the families of chip_smoke.py phases 10-12 and
 ``soc_warm``, its sixth solve of the external-plant sequence; ``linear``
 and ``tv``, the hyperplane demos cold; ``adaptive``, the rocket's cones at
 adaptive rho cold, and ``adaptive_warm``, its sixth solve (each with its
-torch.profiler device time): ``TIME_REPS`` launches on CUDA events after
-one to warm up. It prints one JSON line a configuration with every
-time, the median, the mean iterations, the time a lane-iteration (the
-kernel's time over the iterations its lanes ran, summed), the card's name
+torch.profiler device time); with ``tloop`` the closed loop on one thread
+a plant at each batch: chip_smoke.py phase 47's rocket loop (T=90, ct 1),
+phase 48's cartpole loop (T=50, ct 5) and the (12, 4) instance on the
+serving loop of ``loop`` (the A/B of the two designs): ``TIME_REPS``
+launches on CUDA events after one to warm up. It prints one JSON line a
+configuration with every time, the median, the mean iterations, the time
+a lane-iteration (the kernel's time over the iterations its lanes ran,
+summed), the card's name
 and power limit and its SM clock sampled just after. ``profile`` adds the
 device time torch.profiler records for one main-path call at each cold
 batch, by kernel, and for each streamed launch (``device_ms``: the
@@ -245,6 +253,28 @@ def _degenerate(tt, torch, nx, nu, N=10):
     prob = tt.with_bounds(prob, x_min=-3.0, x_max=3.0, u_min=-2.0,
                           u_max=2.0)
     return tt.with_settings(prob, max_iter=50)
+
+
+def _thread_loops(tt, torch, rng, x_r, B_=B, T=20):
+    """The one-thread closed loops of ``save``: (name, problem, reference,
+    x0, Uref, options) of the rocket (x0 ``x_r``), cartpole and (2, 1)."""
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
+    k = np.arange(T + 9)[:, None]
+    xtot = torch.as_tensor(xinit + (0.0 - xinit) * k / 99.0, **kw)
+    U = torch.zeros((9, 3), **kw)
+    U[:, 2] = 10.0
+    Xc = torch.zeros((10, 4), **kw)
+    Xc[:, 0] = 1.0
+    x_c = torch.as_tensor(np.asarray([0.5, 0.0, 0.0, 0.0])
+                          + rng.uniform(-0.3, 0.3, (B_, 4)), **kw)
+    x_d = torch.as_tensor(rng.uniform(-0.5, 0.5, (B_, 2)), **kw)
+    return [("rocket", _rocket(tt, torch, 10, cones=False), xtot, x_r, U, {}),
+            ("cartpole", tt.with_settings(_cartpole(tt, torch, 10),
+                                          check_termination=5), Xc, x_c,
+             None, dict(shift_warm=True)),
+            ("dims21", _degenerate(tt, torch, 2, 1), torch.zeros((10, 2), **kw),
+             x_d, None, dict(reset_duals=True))]
 
 
 def _plane_inputs(torch, B_, N, rng):
@@ -544,6 +574,14 @@ def save(path):
             prob, None, None, x0)))
         out.update(_flat(f"dims{nx}{nu}.warm", kern.solve_fused_warm(
             prob, None, None, x0, tt.init_carry(prob, B))))
+    # The closed loop on one thread a plant (csrc/closed_loop_thread.cu),
+    # T=20: the rocket's sliding loop (its box alone, ct 1, Uref[:, 2] =
+    # 10), cartpole's regulation to x = 1 with shift_warm (ct 5) and (2, 1)
+    # with reset_duals (ct 1).
+    for name, prob, xtot, x0, U, opts in _thread_loops(tt, torch, rng, x_r):
+        loop = kern.closed_loop_fused(prob, xtot, x0, 20, U, **opts)
+        out.update({f"closed_loop_thread.{name}.{k}": v for k, v in zip(
+            ("xs", "us", "iters", "solved"), loop)})
     torch.save({k: v.cpu() for k, v in out.items()}, path)
     print(f"chip_compare: {len(out)} tensors saved to {path}; card "
           f"{torch.cuda.get_device_name(0)}")
@@ -751,8 +789,57 @@ def time_families(torch, tt, names, profile=False):
                       B_, card, **extra)
 
 
+def time_thread_loops(torch, tt, batches, card):
+    """The one-thread closed loop (csrc/closed_loop_thread.cu) at each
+    batch of ``tloop``: chip_smoke.py phase 47's rocket loop (T=90,
+    ct 1), phase 48's cartpole loop (T=50, ct 5), and the pinned (12, 4)
+    instance on the serving loop of ``loop``."""
+    from tinympc_tpu_torch.kernels import closed_loop_kernel as cl
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    xinit = np.asarray([4, 2, 20, -3, 2, -4.5])
+    for B_ in batches:
+        rng = np.random.default_rng(0)
+        k = np.arange(90 + 9)[:, None]
+        U = torch.zeros((9, 3), **kw)
+        U[:, 2] = 10.0
+        Xc = torch.zeros((10, 4), **kw)
+        Xc[:, 0] = 1.0
+        Xq = torch.zeros((10, 12), **kw)
+        Xq[:, 2] = 1.0
+        loops = [
+            ("rocket", _rocket(tt, torch, 10, cones=False),
+             torch.as_tensor(xinit + (0.0 - xinit) * k / 99.0, **kw),
+             torch.as_tensor(xinit * rng.uniform(0.9, 1.2, (B_, 1)), **kw),
+             U, 90),
+            ("cartpole", tt.with_settings(_cartpole(tt, torch, 10),
+                                          check_termination=5), Xc,
+             torch.as_tensor(np.asarray([0.5, 0.0, 0.0, 0.0]) + np.random
+                             .default_rng(0).uniform(-0.3, 0.3, (B_, 4)),
+                             **kw), None, 50),
+            ("quadrotor", _quad(tt, torch, 10, ct=5), Xq,
+             torch.as_tensor(np.random.default_rng(0).uniform(
+                 -0.3, 0.3, (B_, 12)), **kw), None, 50)]
+        for system, prob, xref, x0, Uref, T in loops:
+            tables, xtot, x0c, T, params = cl._prepare_loop(prob, xref, x0, T,
+                                                            Uref)
+            spec = prob.spec
+            run = lambda: cl._loop_thread_kernel(
+                tables, xtot, x0c, T, spec.N, spec.nx, spec.nu,
+                reset_duals=False, shift_warm=False, **params)
+            lane_iters = int(run()[2].sum().item())
+            ms, times = _timed(torch, run, TIME_REPS)
+            print(json.dumps({
+                "kind": "closed_loop_thread", "system": system, "B": B_,
+                "T": T, "ms": ms, "times_ms": times,
+                "mean_iters": lane_iters / (B_ * T),
+                "us_per_lane_iter": 1e3 * ms / lane_iters, "card": card,
+                "sm_clock_after": _smi("clocks.sm,clocks.max.sm")}),
+                flush=True)
+
+
 def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
-                 stream=(), dot=False, cons=(), adapt=(), fam=()):
+                 stream=(), dot=False, cons=(), adapt=(), fam=(),
+                 tloop=()):
     import torch
     import tinympc_tpu_torch as tt
     from tinympc_tpu_torch.kernels import admm_fused, admm_stream, \
@@ -762,6 +849,7 @@ def time_kernels(cold=(TIME_B,), loop=(), profile=False, warm=(),
     card = _smi("name,power.limit")
     time_resident(torch, tt, cons, adapt)
     time_families(torch, tt, fam, profile)
+    time_thread_loops(torch, tt, tloop, card)
     for B_ in cold:
         prob = _quad(tt, torch, 20, ct=25)
         x0 = torch.as_tensor(np.random.default_rng(0).uniform(
@@ -1202,7 +1290,8 @@ def race():
 def build_report(path):
     import chip_smoke
     from tinympc_tpu_torch.kernels import _build
-    names = [n for n in ("admm_group", "admm_fused", "closed_loop_fused")
+    names = [n for n in ("admm_group", "admm_fused", "closed_loop_fused",
+                         "closed_loop_thread")
              if (_build.CSRC_DIR / f"{n}.cu").exists()]
     for n in names:
         if _build.library_path(n).exists():
@@ -1291,7 +1380,7 @@ if __name__ == "__main__":
         # cold defaults to the main path's batch unless only another
         # kind is asked for
         only = any(k in opts for k in ("warm", "loop", "stream", "dot",
-                                       "cons", "adapt", "fam"))
+                                       "cons", "adapt", "fam", "tloop"))
         names = lambda key, every: () if key not in opts else every \
             if opts[key] == "1" else tuple(opts[key].split(","))
         time_kernels(batches("cold", () if only else (TIME_B,)),
@@ -1300,7 +1389,7 @@ if __name__ == "__main__":
                      batches("stream", ()), "dot" in opts,
                      names("cons", ("tree", "g16")),
                      names("adapt", ("hard", "warm")),
-                     names("fam", FAM_TIMES))
+                     names("fam", FAM_TIMES), batches("tloop", ()))
         sys.exit(0)
     if len(sys.argv) == 2 and sys.argv[1] == "race":
         sys.exit(race())

@@ -145,11 +145,21 @@ calls, and holds every kernel against its plain PyTorch version:
   stable systems) at its N and at N=10, small; and cartpole's other kinds
   at B=1024 (adaptive rho, consensus, a hyperplane, a fleet through
   tinympc_admm_fused_multi, compaction, and the streamed solve at N=256 on
-  the one-thread entries of csrc/admm_stream.cu).
+  the one-thread entries of csrc/admm_stream.cu);
+* the fused closed loop on one thread a plant (csrc/closed_loop_thread.cu,
+  closed_loop_kernel.THREAD_LOOP_DIMS): examples/scenarios.py:181-225's
+  rocket landing (rocket_landing_mpc.cpp) -- its box alone, the cones
+  configured but off, max_iter 100, ct 1, abs_pri_tol 2e-3 -- at B=16384
+  with x0 = xinit U[0.9, 1.2] per lane (default_rng(0)), T=90 steps along
+  its sliding reference xinit (1 - k / 99), Uref[:, 2] = 10; :38-57's
+  cartpole regulation to x = 1 (cartpole_example.cpp) under
+  bench_all.py:128-142's box at B=16384, x0 = [0.5, 0, 0, 0] +
+  U[-0.3, 0.3]^4, T=50, max_iter 100, ct 5, then bench_all.py:601-610's
+  max_iter=500 regime with shift_warm off and on; every pair small; and the
+  kernel's (12, 4) instance, pinned, on the serving loop beside the
+  thread-group loop.
 
-Phases, each of which raises on failure (phase 13 also times
-compute_sensitivities' fixed point run on the card, as it ran before it
-moved to the host):
+Phases, each of which raises on failure:
 
 1. card: name and power limit (nvidia-smi); TF32 off;
 2. build: compile every csrc/*.cu for sm_90a, one nvcc each, together
@@ -295,7 +305,20 @@ moved to the host):
    streamed solve at N=256 on the one-thread entries (bitwise the resident
    kernel, cold and 3 warm solves; each launch timed and held to its plain
    version); every launch checked by entry_counts / launch_counts;
-46. the kernels line, then the device line last.
+46. the kernels line, then the device line last, after phases 47-50:
+47. the rocket's serving loop on the one-thread closed loop at B=16384,
+   T=90, against its plain version on the card (bitwise or not, at the
+   bar), timed beside its bound; every instantiation of
+   csrc/closed_loop_thread.cu present in ptxas and spill-free;
+48. cartpole's serving loop at B=16384, T=50, the same; then its max_iter
+   500 regimes, shift_warm off and on, timed, each held to its plain
+   version on its first 3 steps;
+49. the one-thread closed loop against its plain version, B=1000, T=10,
+   N=10: each degenerate pair fixed (ct 5), with reset_duals (ct 1) and
+   with shift_warm (ct 5); the rocket with reset_duals and shift_warm,
+   cartpole with reset_duals; each launch counted on the thread kernel;
+50. the one-thread closed loop pinned at (12, 4) on phase 7's serving
+   loop, bitwise the thread-group loop, both timed in turns.
 
 Every comparison prints its numbers; a missed bar fails the run at its end.
 Bar of kernel against plain version (float32; the kernels sum each matrix
@@ -455,6 +478,16 @@ DEGENERATE = ((2, 2, 3), (2, 1, 3), (3, 3, 4), (1, 1, 3))
 DIMS_SMALL_B = (1000, 1024)
 CART_KIND_B, CART_RHO_C, CART_PLANE = 1024, 20.0, 0.2
 CART_FLEET_SYS, CART_STREAM_N = 4, 256
+# The fused closed loop on one thread a plant (csrc/closed_loop_thread.cu,
+# closed_loop_kernel.THREAD_LOOP_DIMS): examples/scenarios.py:181-225's
+# rocket landing -- its box alone, the cones configured but off -- as a
+# serving loop of T=90 steps along its NTOTAL=100-row sliding reference at
+# ct 1; :38-57's cartpole regulation to x = 1 under bench_all.py:128-142's
+# box at T=50, ct 5, then phase 7's max_iter 500 regimes; both at
+# B=SERVE_B; every pair small at B=1000, T=10.
+ROCKET_LOOP_T, ROCKET_NTOTAL = 90, 100
+CART_LOOP_T, LOOP_PREFIX_T = 50, 3
+LOOP_SMALL_B, LOOP_SMALL_T = 1000, 10
 
 
 def log(msg):
@@ -719,7 +752,7 @@ def compare_loop(torch, label, out_k, out_p, share=BAR_ITER_SHARE):
 
 
 def rounding_floor(torch, tt, label, max_iter, ct, xref, x0, T, opts, out_k,
-                   out_p):
+                   out_p, prob_c=None, prob64=None, Uref=None):
     """Witnesses for a closed loop whose iteration counts sit on float32
     ties: the same plain version on the CPU (every matrix product summed in
     another order) and the port's closed_loop (admm.solve) in float64 on
@@ -727,14 +760,19 @@ def rounding_floor(torch, tt, label, max_iter, ct, xref, x0, T, opts, out_k,
     loop on as many (step, lane) counts as the plain version does, less
     WITNESS_SLACK. Returns the count bar of the kernel against the plain
     version: 99%, or the plain version's agreement with itself across the
-    two orders less WITNESS_SLACK where that is lower."""
-    prob_c = problem(tt, torch, max_iter, ct, N=SERVE_N, device="cpu")
+    two orders less WITNESS_SLACK where that is lower. The problems
+    default to the serving loop's quadrotor at ``max_iter`` and ``ct``."""
+    if prob_c is None:
+        prob_c = problem(tt, torch, max_iter, ct, N=SERVE_N, device="cpu")
+    if prob64 is None:
+        prob64 = problem(tt, torch, max_iter, ct, N=SERVE_N,
+                         dtype=torch.float64)
     out_c = tt.kernels.closed_loop_fused_reference(
-        prob_c, xref.cpu(), x0.cpu(), T, **opts)
-    prob64 = problem(tt, torch, max_iter, ct, N=SERVE_N,
-                     dtype=torch.float64)
+        prob_c, xref.cpu(), x0.cpu(), T,
+        None if Uref is None else Uref.cpu(), **opts)
     out_64 = tt.closed_loop(prob64, tt.init_state(prob64, (x0.shape[0],)),
-                            x0.double(), xref.double(), T, **opts)
+                            x0.double(), xref.double(), T,
+                            None if Uref is None else Uref.double(), **opts)
     it_k, it_p, it_c, it_64 = (o[2].cpu() for o in (out_k, out_p, out_c,
                                                      out_64))
     same = lambda a, b: (a == b).float().mean().item()
@@ -1044,6 +1082,9 @@ def kernel_label(fn):
     m = re.search(r"closed_loop_group_kernelILi(\d+)ELi(\d+)ELi(\d)E", fn)
     if m:
         return f"closed_loop_fused ({m[1]}, {m[2]}){place[m[3]]}"
+    m = re.search(r"closed_loop_thread_kernelILi(\d+)ELi(\d+)E", fn)
+    if m:
+        return f"closed_loop_thread ({m[1]}, {m[2]})"
     return fn
 
 
@@ -1224,24 +1265,11 @@ def adaptive_phases(torch, tt, convert, admm_fused, counters, card,
     t0 = time.perf_counter()
     t5_host = tt.riccati.compute_sensitivities(*args)
     host5_ms = 1e3 * (time.perf_counter() - t0)
-    # The fixed point on the card, as compute_sensitivities ran it before
-    # it moved to the host: a few dozen small launches and a host read a
-    # step.
-    t0 = time.perf_counter()
-    t5_card = tt.riccati.sensitivity_tangents(
-        *(a.to(DEVICE) for a in args[:5]), args[5])
-    torch.cuda.synchronize()
-    card5_ms = 1e3 * (time.perf_counter() - t0)
-    drift = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
-                for a, b in zip(t5_card, t5_host))
     same = all(torch.equal(a.cpu(), b) for a, b in zip(t5, t5_host))
     log(f"  setup with compute_sensitivities (on the host, the tables "
         f"moved to the card; set-up): rho 5 {sens5_ms:.1f} ms, rho "
         f"{MISTUNED_RHO} {sens85_ms:.1f} ms; compute_sensitivities alone, "
-        f"rho 5: {host5_ms:.1f} ms, tables bitwise with_settings': {same}; "
-        f"its fixed point run on the card instead (sensitivity_tangents): "
-        f"{card5_ms:.1f} ms, tables within {drift:.3e} (relative to each "
-        f"table's max) of the host's")
+        f"rho 5: {host5_ms:.1f} ms, tables bitwise with_settings': {same}")
     B = ADAPT_SMALL_B
     x0, Xref = inputs(torch, B)
     zero_entries(admm_fused)
@@ -4816,6 +4844,234 @@ def cartpole_kinds_phase(ctx):
     return rows
 
 
+def rocket_loop_inputs(torch, B, T=ROCKET_LOOP_T, N=FAM_N):
+    """examples/scenarios.py:181-225's loop: x0 = xinit U[0.9, 1.2] per
+    lane (default_rng(0)), the sliding reference xinit + (0 - xinit) k /
+    (NTOTAL - 1) for k = 0 .. T + N - 2, Uref[:, 2] = 10."""
+    xinit = np.asarray(ROCKET_XINIT)
+    x0 = xinit * np.random.default_rng(0).uniform(0.9, 1.2, (B, 1))
+    k = np.arange(T + N - 1)[:, None]
+    xtot = xinit + (0.0 - xinit) * k / (ROCKET_NTOTAL - 1)
+    Uref = np.zeros((N - 1, 3))
+    Uref[:, 2] = 10.0
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return tuple(torch.as_tensor(a, **kw) for a in (x0, xtot, Uref))
+
+
+def cartpole_loop_inputs(torch, B, N=CART_N):
+    """examples/scenarios.py:38-57's regulation: x0 = [0.5, 0, 0, 0] +
+    U[-0.3, 0.3]^4 (default_rng(0)), the reference x = 1 held."""
+    x0 = np.asarray([0.5, 0.0, 0.0, 0.0]) \
+        + np.random.default_rng(0).uniform(-0.3, 0.3, (B, 4))
+    Xref = np.zeros((N, 4))
+    Xref[:, 0] = 1.0
+    kw = dict(dtype=torch.float32, device=DEVICE)
+    return torch.as_tensor(x0, **kw), torch.as_tensor(Xref, **kw)
+
+
+def took_loop(cl, label, thread):
+    """Fail the run unless the closed-loop launches since the counts were
+    last zeroed took the one-thread loop (csrc/closed_loop_thread.cu)
+    ``thread`` times and the thread-group loop no time."""
+    got = dict(cl.launch_counts)
+    want = {cl.KERNEL: 0, cl.THREAD_KERNEL: thread}
+    fail(f"{label} kernel", got == want and cl.launch_count == thread,
+         f"launches by kernel {got}, expected {want}")
+    log(f"  {label}: launches by kernel {got}")
+
+
+def thread_loop_check(ctx, label, prob, xtot, x0, T, Uref=None,
+                      plain_T=None, **opts):
+    """One closed loop through closed_loop_fused on the one-thread kernel,
+    held to its plain version on the card: the launch counted on that
+    kernel, the shapes, compare_loop's bar (where fewer than 99% of the
+    counts agree, the count bar of rounding_floor's witnesses), and
+    whether the two are bitwise. With ``plain_T`` the plain version runs
+    the first ``plain_T`` steps only and is held to the kernel's first
+    ``plain_T`` (a step depends on the steps before it alone). Returns the
+    kernel's output, the plain version's ms and the error."""
+    torch, tt, cl, convert = ctx.torch, ctx.tt, ctx.cl, ctx.convert
+    spec = prob.spec
+    B = x0.shape[0]
+    zero_counts(ctx.counters)
+    out_k = tt.kernels.closed_loop_fused(prob, xtot, x0, T, Uref, **opts)
+    torch.cuda.synchronize()
+    took_loop(cl, label, 1)
+    if out_k[0].shape != (T, B, spec.nx) or out_k[1].shape != (T, B,
+                                                               spec.nu):
+        raise AssertionError(f"{label}: bad output shapes {out_k[0].shape} "
+                             f"{out_k[1].shape}")
+    full_k = out_k
+    if plain_T is not None:
+        T, xtot, out_k = plain_T, xtot[:plain_T + spec.N - 1], tuple(
+            o[:plain_T] for o in out_k)
+        label = f"{label} (first {T} steps)"
+    plain_ms, out_p = host_ms(
+        torch, lambda: tt.kernels.closed_loop_fused_reference(
+            prob, xtot, x0, T, Uref, **opts))
+    bitwise = all(torch.equal(a, b) for a, b in zip(out_k, out_p))
+    log(f"  {label}: bitwise the plain version on the card: {bitwise}")
+    share = BAR_ITER_SHARE
+    if (out_k[2] == out_p[2]).float().mean().item() < share:
+        np_prob = convert.problem_to_numpy(prob)
+        prob_c = convert.problem_from_numpy(np_prob, "cpu")
+        prob64 = convert.problem_from_numpy(np_prob, DEVICE, torch.float64)
+        share = rounding_floor(torch, tt, label, None, 1, xtot, x0, T, opts,
+                               out_k, out_p, prob_c=prob_c, prob64=prob64,
+                               Uref=Uref)
+    return full_k, plain_ms, compare_loop(torch, label, out_k, out_p, share)
+
+
+def thread_loop_row(ctx, label, prob, xtot, x0, T, Uref=None, plain_T=None,
+                    **opts):
+    """A full-width serving loop on the one-thread kernel: checked by
+    :func:`thread_loop_check`, then timed (CUDA events, torch.profiler
+    device time, the entry point's whole call on the host clock) beside
+    its bound. Returns the kernels-line numbers."""
+    torch, tt, cl = ctx.torch, ctx.tt, ctx.cl
+    spec = prob.spec
+    N, nx, nu, B = spec.N, spec.nx, spec.nu, x0.shape[0]
+    out_k, plain_ms, err = thread_loop_check(ctx, label, prob, xtot, x0, T,
+                                             Uref, plain_T, **opts)
+    tables, xt, x0c, T_, params = cl._prepare_loop(prob, xtot, x0, T, Uref)
+    launch = dict(reset_duals=False, shift_warm=False, **params)
+    launch.update(opts)
+    ms, times, dev, call_ms = resident_times(
+        ctx, lambda: cl._loop_thread_kernel(tables, xt, x0c, T_, N, nx, nu,
+                                            **launch),
+        lambda: tt.kernels.closed_loop_fused(prob, xtot, x0, T, Uref,
+                                             **opts))
+    iter_sum = int(out_k[2].sum().item())
+    ops, nbytes = loop_work(N, nx, nu, B, T, iter_sum)
+    bound_ms, bound_by = bound(ops, nbytes, ctx.peak_flops, ctx.peak_bw)
+    log(f"  {label}: kernel {ms:.4f} ms (reps "
+        f"{[round(t, 4) for t in times]}), device {dev}, "
+        f"{B * T / (ms / 1e3):.1f} MPC steps/s, mean iters per step "
+        f"{iter_sum / (B * T):.4f}, solved frac "
+        f"{out_k[3].float().mean().item():.5f}, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {ops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB), plain "
+        f"{plain_ms:.1f} ms{'' if plain_T is None else f' ({plain_T} steps)'}"
+        f", closed_loop_fused call {call_ms:.4f} ms (kernel share "
+        f"{ms / call_ms:.4f}), launches 1; card {ctx.card}")
+    return dict(launches=1, err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def thread_loop_phases(ctx):
+    """Phases 47-50: the fused closed loop on one thread a plant
+    (csrc/closed_loop_thread.cu) -- the rocket's and cartpole's serving
+    loops at full width, the degenerate pairs small, and the pinned
+    (12, 4) instance bitwise the thread-group loop on phase 7's serving
+    loop. Returns the kernels-line numbers of the two serving loops."""
+    torch, tt, cl = ctx.torch, ctx.tt, ctx.cl
+    rows = {}
+    B = SERVE_B
+    phase(f"phase 47: the rocket's serving loop on the one-thread closed "
+          f"loop, B={B}, T={ROCKET_LOOP_T}, N={FAM_N}, ct 1")
+    # Every instantiation compiled spill-free (the build phase fails any
+    # closed-loop kernel that spills; here each must also be present).
+    for nx, nu in cl.THREAD_LOOP_DIMS + cl.KERNEL_DIMS:
+        label = f"closed_loop_thread ({nx}, {nu})"
+        e = ctx.ptxas.get(label, {})
+        log(f"  ptxas {label}: {e.get('regs')} registers, {e.get('stack')} "
+            f"bytes stack frame, {e.get('spill_st')} / {e.get('spill_ld')} "
+            f"bytes spill stores / loads")
+        fail(f"ptxas {label}", bool(e) and e.get("stack") == 0
+             and e.get("spill_st") == 0 and e.get("spill_ld") == 0,
+             "missing, or the kernel spills or uses local memory")
+    prob = rocket_problem(tt, torch, 100, 1, cones=False)
+    x0, xtot, Uref = rocket_loop_inputs(torch, B)
+    rows["rocket"] = thread_loop_row(ctx, "rocket loop", prob, xtot, x0,
+                                     ROCKET_LOOP_T, Uref)
+
+    phase(f"phase 48: cartpole's serving loop on the one-thread closed "
+          f"loop, B={B}, T={CART_LOOP_T}, N={CART_N}, ct 5; then max_iter "
+          f"500, shift_warm off and on (their plain versions on the first "
+          f"{LOOP_PREFIX_T} steps)")
+    x0, Xref = cartpole_loop_inputs(torch, B)
+    # At max_iter 500 a quarter of the (step, lane) pairs never converge,
+    # so every step of the plain version runs all 500 iterations (~70 s
+    # for the 50 steps); it is held to the kernel's first steps.
+    for mi, shift, plain_T in ((100, False, None), (500, False, LOOP_PREFIX_T),
+                               (500, True, LOOP_PREFIX_T)):
+        prob = cartpole_problem(tt, torch, mi, 5)
+        label = f"cartpole loop max_iter={mi} shift_warm={shift}"
+        r = thread_loop_row(ctx, label, prob, Xref, x0, CART_LOOP_T,
+                            plain_T=plain_T, shift_warm=shift)
+        if mi == 100:
+            rows["cartpole"] = r
+
+    phase(f"phase 49: the one-thread closed loop at the degenerate pairs "
+          f"(fixed, reset_duals, shift_warm), the rocket (reset_duals, "
+          f"shift_warm) and cartpole (reset_duals) vs plain version, "
+          f"B={LOOP_SMALL_B}, T={LOOP_SMALL_T}, N=10")
+    T = LOOP_SMALL_T
+    fixed, reset, shift = ((5, {}), (1, dict(reset_duals=True)),
+                           (5, dict(shift_warm=True)))
+    cases = []
+    for nx, nu, _ in DEGENERATE:
+        x0, Xref = degenerate_inputs(torch, LOOP_SMALL_B, nx, 10)
+        cases.append((f"random ({nx}, {nu}) N=10",
+                      lambda ct, nx=nx, nu=nu: degenerate_problem(
+                          tt, torch, nx, nu, 10, ct), Xref, x0, None,
+                      (fixed, reset, shift)))
+    # The full-width loops ran the rocket fixed and cartpole fixed and
+    # shifted; here the other options, on a ragged batch.
+    x0, xtot, Uref = rocket_loop_inputs(torch, LOOP_SMALL_B, T)
+    cases.append(("rocket", lambda ct: rocket_problem(tt, torch, 100, ct,
+                                                      cones=False),
+                  xtot, x0, Uref, (reset, shift)))
+    x0, Xref = cartpole_loop_inputs(torch, LOOP_SMALL_B)
+    cases.append(("cartpole", lambda ct: cartpole_problem(tt, torch, 100,
+                                                          ct), Xref, x0,
+                  None, (reset,)))
+    for name, make, xtot, x0, Uref, options in cases:
+        for ct, opts in options:
+            label = f"{name} ct={ct}" + "".join(f" {k}" for k in opts)
+            thread_loop_check(ctx, label, make(ct), xtot, x0, T, Uref,
+                              **opts)
+
+    phase(f"phase 50: the one-thread closed loop pinned at (12, 4), phase "
+          f"7's serving loop, B={SERVE_B}, T={SERVE_T}: bitwise the "
+          f"thread-group loop, both timed in turns")
+    prob = problem(tt, torch, 100, 5, N=SERVE_N)
+    x0, Xref = inputs(torch, SERVE_B, N=SERVE_N, spread=0.3)
+    zero_counts(ctx.counters)
+    out_g = tt.kernels.closed_loop_fused(prob, Xref, x0, SERVE_T)
+    torch.cuda.synchronize()
+    fail("serving loop group kernel", cl.launch_counts == {
+        cl.KERNEL: 1, cl.THREAD_KERNEL: 0}, f"launches by kernel "
+        f"{cl.launch_counts}")
+    zero_counts(ctx.counters)
+    out_t = cl._closed_loop_fused(prob, Xref, x0, SERVE_T, thread=True)
+    torch.cuda.synchronize()
+    took_loop(cl, "serving loop pinned to the one-thread loop", 1)
+    same = [torch.equal(a, b) for a, b in zip(out_t, out_g)]
+    log(f"  serving loop: one-thread loop bitwise the thread-group loop "
+        f"(xs, us, iters, solved): {same}")
+    fail("serving loop pinned (12, 4)", all(same), "the one-thread loop is "
+         "not bitwise the thread-group loop")
+    tables, xt, x0c, T_, params = cl._prepare_loop(prob, Xref, x0, SERVE_T,
+                                                   None)
+    runs = {
+        "group": lambda: cl._loop_kernel(tables, xt, x0c, T_, SERVE_N, 12,
+                                         4, reset_duals=False,
+                                         shift_warm=False, **params),
+        "thread": lambda: cl._loop_thread_kernel(
+            tables, xt, x0c, T_, SERVE_N, 12, 4, reset_duals=False,
+            shift_warm=False, **params)}
+    for run in runs.values():
+        run()                                           # warm-up
+    got = {k: [] for k in runs}
+    for k in ("group", "thread", "thread", "group"):
+        got[k].append(cuda_ms(torch, runs[k], REPS)[0])
+    log(f"  serving loop (12, 4) in turns (group, thread, thread, group): "
+        f"thread-group loop {[round(t, 4) for t in got['group']]} ms, "
+        f"one-thread loop {[round(t, 4) for t in got['thread']]} ms; card "
+        f"{ctx.card}")
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4836,6 +5092,7 @@ def main():
                 (admm_fused, "families_launch_count"),
                 (admm_fused, "families_warm_launch_count"),
                 (closed_loop_kernel, "launch_count"),
+                (closed_loop_kernel, "launch_counts"),
                 (admm_fused, "adaptive_launch_count"),
                 (admm_fused, "adaptive_warm_launch_count"),
                 (admm_fused, "adaptive_families_launch_count"),
@@ -4861,7 +5118,8 @@ def main():
         ast=admm_stream, compact=compact, counters=counters, card=card,
         peak_flops=peak_flops, peak_bw=peak_bw, peak_bf16=peak_bf16,
         ptxas={}, tables={}, rocket_tables=None, rf=roofline,
-        tool=roofline_tool, build=_build, main_iter_us=None)
+        tool=roofline_tool, build=_build, main_iter_us=None,
+        cl=closed_loop_kernel)
 
     # 2. build: every source, one nvcc each, started together
     t0 = time.perf_counter()
@@ -4870,6 +5128,7 @@ def main():
     admm_fused._kernel_fn()
     admm_fused._kernel_fn(multi=True)
     closed_loop_kernel._kernel_fn()
+    closed_loop_kernel._thread_kernel_fn()
     admm_stream._kernel_fns()
     roofline._fns()
     log(f"build: {time.perf_counter() - t0:.1f} s (set-up), "
@@ -5403,6 +5662,7 @@ def main():
     cart_rows = cartpole_phases(ctx)
     dims_small_phase(ctx)
     cart_stream_rows = cartpole_kinds_phase(ctx)
+    loop_rows = thread_loop_phases(ctx)
 
     if FAILURES:
         phase(f"{len(FAILURES)} comparison(s) missed their bar:")
@@ -5496,6 +5756,12 @@ def main():
               + ("121" if key.startswith("backward") else "258"),
               cart_stream_rows[key])
              for key in ("backward_4x1", "forward_4x1", "forward_stale_4x1")]
+    # The one-thread closed loop at the rocket's (6, 3) and cartpole's
+    # (4, 1): the serving loops of phases 47-48.
+    rows += [(f"closed_loop_thread_{key}",
+              "tinympc_tpu_torch/csrc/closed_loop_thread.cu",
+              "tinympc_tpu/kernels/closed_loop_pallas.py:63", loop_rows[key])
+             for key in ("rocket", "cartpole")]
     # Each streamed row's ptxas line: the instantiation it measured spills
     # nothing.
     spills = 0

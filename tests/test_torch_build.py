@@ -26,12 +26,15 @@ def test_package_ships_its_kernel_sources():
     """Every kernel the wrappers load has its source and the shared header
     in the package: the fused solve includes admm_sweep.cuh, the box solve
     and the closed loop the thread-group sweep admm_group.cuh, which
-    includes admm_sweep.cuh; the fused solve also includes the families'
-    and the adaptive-rho headers."""
+    includes admm_sweep.cuh, the one-thread closed loop admm_sweep.cuh;
+    the fused solve also includes the families' and the adaptive-rho
+    headers."""
     from tinympc_tpu_torch.kernels import admm_fused, closed_loop_kernel
     for name, header in ((admm_fused.KERNEL, "admm_sweep.cuh"),
                          (admm_fused.GROUP_KERNEL, "admm_group.cuh"),
-                         (closed_loop_kernel.KERNEL, "admm_group.cuh")):
+                         (closed_loop_kernel.KERNEL, "admm_group.cuh"),
+                         (closed_loop_kernel.THREAD_KERNEL,
+                          "admm_sweep.cuh")):
         src = (_build.CSRC_DIR / f"{name}.cu").read_text()
         assert f'#include "{header}"' in src
         assert name in _build.SOURCES

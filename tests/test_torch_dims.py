@@ -472,23 +472,25 @@ def _synthetic(nx, nu, **settings):
 
 def test_refusals_name_the_roadmap_item():
     """(32, 8) and a pair off the list, at fixed and adaptive rho, are
-    refused by the resident and streamed solves with the list and the
-    ROADMAP item that will add them; the closed loop refuses cartpole the
-    same way. Nothing falls back to the plain version."""
+    refused by the resident and streamed solves and by the closed loop,
+    with the lists and the ROADMAP item that will add them; the closed loop
+    takes cartpole (on the one-thread loop). Nothing falls back to the
+    plain version."""
     for nx, nu in ((32, 8), (5, 2)):
         for p in (_synthetic(nx, nu), _synthetic(nx, nu, adaptive_rho=True)):
             assert not fused_supported(p) and not stream_supported(p)
+            assert not tt.kernels.closed_loop_fused_supported(p)
             x0 = torch.zeros((2, nx))
             for solve in (solve_fused, solve_fused_streamed):
                 with pytest.raises(ValueError, match=r"\(4, 1\).*Queue 2 "
                                    r"item 1c"):
                     solve(p, None, None, x0)
-    cart = _port(_cartpole())
-    assert not tt.kernels.closed_loop_fused_supported(cart)
-    with pytest.raises(ValueError, match=r"\(nx, nu\) = \(4, 1\).*Queue 2 "
-                       r"item 1c"):
-        tt.kernels.closed_loop_fused(cart, torch.zeros((10, 4)),
-                                     torch.zeros((2, 4)), 3)
+        with pytest.raises(ValueError, match=rf"\(nx, nu\) = \({nx}, {nu}\)"
+                           r".*\(4, 1\).*Queue 2 item 1c"):
+            tt.kernels.closed_loop_fused(_synthetic(nx, nu),
+                                         torch.zeros((10, nx)),
+                                         torch.zeros((2, nx)), 3)
+    assert tt.kernels.closed_loop_fused_supported(_port(_cartpole()))
 
 
 # --------------------------------------------------------------- golden

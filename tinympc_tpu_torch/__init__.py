@@ -23,7 +23,8 @@ Constraint families: box bounds (``with_bounds``), second-order cones
 (``with_cones``), hyperplanes (``with_linear_constraints``) and time-varying
 hyperplanes (``with_tv_linear_constraints``, ``tv_from_stacked``), in the
 plain solve and in the cold and warm fused kernel; the fused closed loop
-takes box bounds only, as the JAX one does.
+takes box bounds only, as the JAX one does, at (12, 4), (6, 3), (4, 1),
+(2, 2), (2, 1), (3, 3) and (1, 1).
 
 Scenario-tree consensus: ``with_consensus(prob, rho_c=...)`` drives the
 first input of every problem in a group (the last batch axis) to a common

@@ -37,10 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # The kernel sources, csrc/<name>.cu: the resident box-only fixed-rho solve
 # (a problem a thread group), the resident solve's other instantiations,
-# the fused closed loop, the streamed long-horizon solve and the roofline
-# probes.
-SOURCES = ("admm_group", "admm_fused", "closed_loop_fused", "admm_stream",
-           "roofline")
+# the fused closed loop on thread groups and on one thread a plant, the
+# streamed long-horizon solve and the roofline probes.
+SOURCES = ("admm_group", "admm_fused", "closed_loop_fused",
+           "closed_loop_thread", "admm_stream", "roofline")
 
 # Loaded libraries of this process, by source name.
 _LOADED: Dict[str, ctypes.CDLL] = {}

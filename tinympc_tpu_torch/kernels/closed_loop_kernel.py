@@ -4,10 +4,14 @@
 :func:`closed_loop_fused` runs ``n_steps`` receding-horizon MPC steps for a
 batch of plants -- warm-started box solve at fixed rho, apply u[0], step the
 plant ``x+ = A x + B u0 + f``, slide the reference window -- in one launch
-of the hand-written CUDA kernel ``csrc/closed_loop_fused.cu`` (it replaces
-the TPU kernel ``closed_loop_pallas._kernel``). On CPU tensors it runs the
-kernel's plain PyTorch version, :func:`closed_loop_fused_reference`,
-instead; on CUDA tensors it launches the kernel or raises.
+of a hand-written CUDA kernel (each replaces the TPU kernel
+``closed_loop_pallas._kernel``): at (12, 4) ``csrc/closed_loop_fused.cu``, a
+plant a group of 16 threads (:data:`KERNEL_DIMS`); at the rocket's (6, 3),
+cartpole's (4, 1) and the degenerate (2, 2), (2, 1), (3, 3), (1, 1)
+``csrc/closed_loop_thread.cu``, one thread a plant
+(:data:`THREAD_LOOP_DIMS`). On CPU tensors it runs the kernels' plain
+PyTorch version, :func:`closed_loop_fused_reference`, instead; on CUDA
+tensors it launches the kernel or raises.
 
 Layout as in the JAX package: x0s (B, nx); Xref_total (N, nx) or at least
 (n_steps + N - 1, nx); results xs (T, B, nx), us (T, B, nu), iters (T, B)
@@ -30,10 +34,18 @@ from .admm_fused import (GROUP, GROUP_MAX_THREADS, _check, _check_arg,
 KERNEL = "closed_loop_fused"
 KERNEL_DIMS = ((12, 4),)             # (nx, nu) csrc/closed_loop_fused.cu
 #                                      instantiates
+# The one-thread-a-plant loop, csrc/closed_loop_thread.cu: the (nx, nu) it
+# serves (it also instantiates (12, 4), which only the private pin of
+# _closed_loop_fused reaches: the A/B of the two designs), and its block.
+THREAD_KERNEL = "closed_loop_thread"
+THREAD_LOOP_DIMS = ((6, 3), (4, 1), (2, 2), (2, 1), (3, 3), (1, 1))
+THREAD_BLOCK = 32                    # threads (= plants) a block
 
-# Launches of the CUDA kernel in this process; chip_smoke.py resets and
-# reads it to show that the serving path went through the kernel.
+# Launches of the CUDA kernels in this process, both kernels together and
+# by source; chip_smoke.py resets and reads them to show that the serving
+# path went through the kernel its pair takes.
 launch_count = 0
+launch_counts = {KERNEL: 0, THREAD_KERNEL: 0}
 
 
 def _check_loop(prob: TinyProblem) -> None:
@@ -48,21 +60,24 @@ def _check_loop(prob: TinyProblem) -> None:
                          "closed loop does (ROADMAP.md); use "
                          "tinympc_tpu_torch.closed_loop (or solve_fused_warm "
                          "in a host loop)")
-    _check(prob)
     spec = prob.spec
-    if (spec.nx, spec.nu) not in KERNEL_DIMS:
+    if (spec.nx, spec.nu) not in KERNEL_DIMS + THREAD_LOOP_DIMS:
         raise ValueError(f"(nx, nu) = ({spec.nx}, {spec.nu}) is not one of "
-                         f"the closed-loop kernel's instantiations "
-                         f"{KERNEL_DIMS}; other sizes are not ported yet "
-                         "(ROADMAP.md, Queue 2 item 1c); use "
-                         "tinympc_tpu_torch.closed_loop (or solve_fused_warm "
-                         "in a host loop)")
+                         f"the closed-loop kernels' instantiations: "
+                         f"{KERNEL_DIMS} on thread groups, "
+                         f"{THREAD_LOOP_DIMS} on one thread a plant; other "
+                         "sizes are not ported yet (ROADMAP.md, Queue 2 "
+                         "item 1c); use tinympc_tpu_torch.closed_loop (or "
+                         "solve_fused_warm in a host loop)")
+    _check(prob)
 
 
 def closed_loop_fused_supported(prob: TinyProblem) -> bool:
     """True if :func:`closed_loop_fused` handles this problem: box
     constraints only, fixed rho, ``matmul_precision="highest"``, no coarse
-    schedule, and an (nx, nu) pair the kernel is instantiated for."""
+    schedule, tables that fit a block's shared memory, and an (nx, nu)
+    pair a kernel is instantiated for: (12, 4) (thread groups), (6, 3),
+    (4, 1), (2, 2), (2, 1), (3, 3) or (1, 1) (one thread a plant)."""
     try:
         _check_loop(prob)
     except ValueError:
@@ -105,7 +120,10 @@ def closed_loop_fused(prob: TinyProblem, Xref_total, x0s, n_steps: int,
                       Uref=None, *, reset_duals: bool = False,
                       shift_warm: bool = False):
     """Run ``n_steps`` receding-horizon MPC steps for a batch of plants in
-    one launch of the fused closed-loop kernel.
+    one launch of a fused closed-loop kernel: at (12, 4) the thread-group
+    loop (csrc/closed_loop_fused.cu), at (6, 3), (4, 1), (2, 2), (2, 1),
+    (3, 3) and (1, 1) the one-thread-a-plant loop
+    (csrc/closed_loop_thread.cu).
 
     Args:
       Xref_total: (n_steps + N - 1, nx) sliding reference (step k tracks
@@ -121,15 +139,27 @@ def closed_loop_fused(prob: TinyProblem, Xref_total, x0s, n_steps: int,
     (n_steps, B). Raises ``ValueError`` for a problem outside
     :func:`closed_loop_fused_supported`, a short ``Xref_total`` or
     ``max_iter`` 0."""
+    return _closed_loop_fused(prob, Xref_total, x0s, n_steps, Uref,
+                              reset_duals=reset_duals, shift_warm=shift_warm)
+
+
+def _closed_loop_fused(prob: TinyProblem, Xref_total, x0s, n_steps: int,
+                       Uref=None, *, reset_duals: bool = False,
+                       shift_warm: bool = False, thread: bool = False):
+    """:func:`closed_loop_fused`; ``thread=True`` pins the one-thread loop,
+    which then also runs (12, 4) (the A/B against the group loop)."""
     tables, xtot, x0, T, params = _prepare_loop(prob, Xref_total, x0s,
                                                 n_steps, Uref)
-    args = (tables, xtot, x0, T, prob.spec.N, prob.spec.nx, prob.spec.nu)
+    nx, nu = prob.spec.nx, prob.spec.nu
+    args = (tables, xtot, x0, T, prob.spec.N, nx, nu)
     opts = dict(params, reset_duals=bool(reset_duals),
                 shift_warm=bool(shift_warm))
     if x0.device.type == "cpu":
         return _loop_plain(*args, **opts)
     if x0.device.type == "cuda":
-        return _loop_kernel(*args, **opts)
+        thread = thread or (nx, nu) not in KERNEL_DIMS
+        return (_loop_thread_kernel if thread else _loop_kernel)(*args,
+                                                                 **opts)
     raise ValueError(f"closed_loop_fused runs on cuda or cpu, not "
                      f"{x0.device}")
 
@@ -138,7 +168,7 @@ def closed_loop_fused_reference(prob: TinyProblem, Xref_total, x0s,
                                 n_steps: int, Uref=None, *,
                                 reset_duals: bool = False,
                                 shift_warm: bool = False):
-    """The kernel's plain PyTorch version, on the problem's device: each
+    """The kernels' plain PyTorch version, on the problem's device: each
     step is the warm fused solve's plain version with the kernel's load,
     freeze and carry rules, then the plant step. Returns what
     :func:`closed_loop_fused` returns."""
@@ -255,4 +285,68 @@ def _loop_kernel(tables, xtot, x0, T, N, nx, nu, *, max_iter, ct, rho,
         raise RuntimeError(f"closed_loop_fused kernel launch failed: CUDA "
                            f"error {err}")
     launch_count += 1
+    launch_counts[KERNEL] += 1
+    return xs, us, iters, solved
+
+
+@functools.lru_cache(maxsize=None)
+def _thread_kernel_fn():
+    """The C entry point of csrc/closed_loop_thread.cu, built and loaded on
+    first use, its block and its pairs held against the wrapper's."""
+    lib = _build.load(THREAD_KERNEL)
+    if lib.tinympc_closed_loop_thread_block() != THREAD_BLOCK:
+        raise RuntimeError("csrc/closed_loop_thread.cu and "
+                           "closed_loop_kernel.THREAD_BLOCK disagree on the "
+                           "block size")
+    missing = [d for d in THREAD_LOOP_DIMS + KERNEL_DIMS
+               if not lib.tinympc_closed_loop_thread_has(*d)]
+    if missing:
+        raise RuntimeError(f"csrc/closed_loop_thread.cu does not instantiate "
+                           f"{missing}")
+    fn = lib.tinympc_closed_loop_thread_box
+    # nx nu N B T max_iter ct | rho tol_pri tol_dua | reset shift |
+    # tables xref x0, 7 scratch arrays, 4 outputs, the stream
+    fn.argtypes = ([ctypes.c_int] * 7 + [ctypes.c_float] * 3
+                   + [ctypes.c_int] * 2 + [_PTR] * 15)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _loop_thread_kernel(tables, xtot, x0, T, N, nx, nu, *, max_iter, ct, rho,
+                        tol_pri, tol_dua, reset_duals, shift_warm):
+    """Launch csrc/closed_loop_thread.cu on the current stream of x0's
+    device. The outputs and the lane-last trajectories each plant keeps in
+    device memory are allocated here; the kernel initialises the scratch it
+    reads."""
+    global launch_count
+    dev, B = x0.device, x0.shape[0]
+    f32 = torch.float32
+    _check_arg(x0, (B, nx), f32, dev)
+    _check_arg(xtot, (T + N - 1, nx), f32, dev)
+    _check_arg(tables, (_table_slice("umax", nx, nu, N).stop,), f32, dev)
+    kw = dict(dtype=f32, device=dev)
+    scratch = [torch.empty((2, N, nx, B), **kw),      # vnew halves
+               torch.empty((2, N - 1, nu, B), **kw),  # znew halves
+               torch.empty((N, nx, B), **kw),         # g
+               torch.empty((N - 1, nu, B), **kw),     # y
+               torch.empty((N, nx, B), **kw),         # vstale
+               torch.empty((N - 1, nu, B), **kw),     # zstale
+               torch.empty((N - 1, nu, B), **kw)]     # d
+    xs = torch.empty((T, B, nx), **kw)
+    us = torch.empty((T, B, nu), **kw)
+    iters = torch.empty((T, B), dtype=torch.int32, device=dev)
+    solved = torch.empty((T, B), dtype=torch.bool, device=dev)
+    fn = _thread_kernel_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(nx, nu, N, B, T, max_iter, ct, rho, tol_pri, tol_dua,
+                 int(reset_duals), int(shift_warm), tables.data_ptr(),
+                 xtot.data_ptr(), x0.data_ptr(),
+                 *(a.data_ptr() for a in scratch), xs.data_ptr(),
+                 us.data_ptr(), iters.data_ptr(), solved.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"closed_loop_thread kernel launch failed: CUDA "
+                           f"error {err}")
+    launch_count += 1
+    launch_counts[THREAD_KERNEL] += 1
     return xs, us, iters, solved
